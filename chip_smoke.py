@@ -1,0 +1,533 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (an H100 for the numbers it prints). In order it
+
+1. prints the card's name and power limit and builds the four LSCD CUDA
+   kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one
+   process per source, all at once);
+2. kernel phase: holds each kernel against its plain PyTorch version on
+   the card — small shapes over the three tile geometries, empty tiles,
+   ragged N, bias, every epilogue, S=1 and a ragged S, the split-K S=1
+   bit-match — then at the OPT-30B projection shapes (sparsity 0.8,
+   bf16) at decode N=8 and prefill N=1024, where it times each kernel,
+   its plain version and ``torch.matmul`` on the decoded dense weight
+   with CUDA events;
+3. slice phase: serves 8 requests (128-token prompts from the seed, 32
+   greedy new tokens) through ``repro_torch.launch.serve`` at OPT-30B
+   width with the layer count cut to 4, reads the kernels' launch counts
+   (all four must have launched), holds the first decode step's logits
+   against the same model run through the plain versions, and profiles
+   one prefill and a few decode steps for the device's busy share;
+4. prints the kernels' JSON line, the card line, and last
+   ``{"ok": true, "device": {...}}``; the full summary goes to
+   ``chiprun_out/chip_smoke.json``.
+
+Any failure raises and exits non-zero. The plain versions run with
+``torch.backends.cuda.matmul.allow_tf32 = False`` (full f32 matmuls).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SEED = 0
+SPARSITY = 0.8
+F32_TOL = dict(rtol=1e-5, atol=1e-5)   # f32 sums in another order
+# bf16: one bf16 ulp (2^-7 relative), plus 1e-3 of the largest output for
+# the f32 sum itself. The tensor cores add each mma's products into the
+# f32 accumulator with truncation, so a sum over K drifts by up to about
+# (K / 16) * 2^-23 of its magnitude (2e-4 at K = 28672), and the plain
+# version's sum drifts on its own; an output near zero carries that drift.
+BF16_TOL = dict(rtol=8e-3, atol=1e-5, atol_of_max=1e-3)
+LOGITS_TOL = 3e-2                      # bf16 model logits
+SOURCES = {
+    "lscd_spmm": "src/repro/kernels/spmm.py:204",
+    "lscd_spmm_grouped": "src/repro/kernels/spmm.py:348",
+    "lscd_spmm_splitk": "src/repro/kernels/spmm.py:497",
+    "lscd_spmm_splitk_grouped": "src/repro/kernels/spmm.py:641",
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+def sparse_weight(torch, pruning, tiled_csl, gen, m, k, *, m_tb=128,
+                  k_tb=128, empty_tile=False):
+    w = torch.randn((m, k), generator=gen, device="cuda")
+    if empty_tile:
+        w[:m_tb, :k_tb] = 0.0
+    return tiled_csl.encode(pruning.prune(w, SPARSITY), m_tb=m_tb, k_tb=k_tb)
+
+
+def close(torch, got, want, tol, what):
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} "
+          f"!= {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    err = (g - w).abs()
+    atol = tol["atol"] + tol.get("atol_of_max", 0.0) * float(w.abs().max())
+    over = err - (atol + tol["rtol"] * w.abs())
+    if bool((over > 0).any()):
+        i = int(over.argmax())
+        raise SmokeFailure(
+            f"{what}: {int((over > 0).sum())} elements off, max abs err "
+            f"{float(err.max()):.3e}; worst: got {float(g.flatten()[i])!r} "
+            f"want {float(w.flatten()[i])!r} (atol {atol:.3e})")
+    return float(err.max())
+
+
+def cuda_ms(torch, fn, reps: int, flush) -> float:
+    """Mean device time of one call of ``fn``: each of ``reps`` calls is
+    timed alone with CUDA events after ``flush`` (1 GiB) is rewritten. The
+    decode loop streams every layer's weights, so a launch finds its words
+    cold in the 50 MB L2; the write also keeps the card busy while the host
+    enqueues the call, so host time stays out of the reading."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+# ---------------------------------------------------------------------------
+# kernel phase
+# ---------------------------------------------------------------------------
+
+def small_checks(torch, mods) -> int:
+    """Every kernel against its plain version at small shapes."""
+    tiled_csl, pruning, ops, ref, spmm, contracts = (mods[n] for n in (
+        "tiled_csl", "pruning", "ops", "ref", "spmm", "contracts"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    m, k = 256, 384                              # Kt = 3 (k_tb 128)
+    n_checks = 0
+    for m_tb, k_tb in ((128, 128), (64, 128), (128, 64)):
+        ts = [sparse_weight(torch, pruning, tiled_csl, gen, m, k, m_tb=m_tb,
+                            k_tb=k_tb, empty_tile=True) for _ in range(3)]
+        g2, g3 = tiled_csl.group_stack(ts[:2]), tiled_csl.group_stack(ts)
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            for n in (1, 7, 16, 130):
+                b = (0.1 * torch.randn((k, n), generator=gen,
+                                       device="cuda")).to(dtype)
+                bias = torch.randn((m,), generator=gen, device="cuda")
+                bias3 = torch.randn((3, m), generator=gen, device="cuda")
+                for epi in ("none", "silu", "gelu", "relu"):
+                    for bs in (None, bias):
+                        for s in (1, 2):
+                            got = ops.spmm(ts[0], b, backend="cuda",
+                                           split_k=s, epilogue=epi, bias=bs)
+                            want = ref.spmm_splitk_ref(
+                                ts[0], b, s, out_dtype=dtype, epilogue=epi,
+                                bias=bs)
+                            close(torch, got, want, tol,
+                                  f"spmm S={s} {epi} {m_tb}x{k_tb} n={n}")
+                            n_checks += 1
+                    for s in (1, 3):
+                        got = ops.spmm_grouped(g3, b, backend="cuda",
+                                               split_k=s, epilogue=epi,
+                                               bias=bias3)
+                        want = ref.spmm_splitk_grouped_ref(
+                            g3, b, s, out_dtype=dtype, epilogue=epi,
+                            bias=bias3)
+                        close(torch, got, want, tol,
+                              f"grouped G=3 S={s} {epi} n={n}")
+                        n_checks += 1
+                for epi in ("silu_mul", "gelu_mul"):
+                    for s in (1, 2):
+                        got = ops.spmm_grouped(g2, b, backend="cuda",
+                                               split_k=s, epilogue=epi,
+                                               bias=bias3[:2])
+                        want = ref.spmm_splitk_grouped_ref(
+                            g2, b, s, out_dtype=dtype, epilogue=epi,
+                            bias=bias3[:2])
+                        close(torch, got, want, tol,
+                              f"grouped G=2 S={s} {epi} n={n}")
+                        n_checks += 1
+            # every N tile the kernels are built for, pinned
+            for n_tb in (8, 16, 32, 64, 128):
+                b = (0.1 * torch.randn((k, 2 * n_tb), generator=gen,
+                                       device="cuda")).to(dtype)
+                got = spmm.lscd_spmm(ts[1], b, n_tb=n_tb, epilogue="gelu",
+                                     bias=bias)
+                close(torch, got, ref.spmm_ref(ts[1], b, out_dtype=dtype,
+                                               epilogue="gelu", bias=bias),
+                      tol, f"lscd_spmm n_tb={n_tb}")
+                n_checks += 1
+                for g, epi in ((g2, "silu_mul"), (g3, "gelu")):
+                    if contracts.check_launch(m, k, 2 * n_tb, m_tb=m_tb,
+                                              k_tb=k_tb, n_tb=n_tb, split_k=1,
+                                              group=g.group):
+                        continue                # too many accumulators
+                    gb = bias3[:g.group]
+                    got = spmm.lscd_spmm_grouped(g, b, n_tb=n_tb,
+                                                 epilogue=epi, bias=gb)
+                    close(torch, got, ref.spmm_grouped_ref(
+                        g, b, out_dtype=dtype, epilogue=epi, bias=gb),
+                        tol, f"lscd_spmm_grouped G={g.group} n_tb={n_tb}")
+                    n_checks += 1
+            # split_k == 1 is bit-identical to the single-pass kernels
+            b = (0.1 * torch.randn((k, 8), generator=gen,
+                                   device="cuda")).to(dtype)
+            one = spmm.lscd_spmm(ts[2], b, n_tb=8, epilogue="gelu", bias=bias)
+            s1 = spmm.lscd_spmm_splitk(ts[2], b, n_tb=8, split_k=1,
+                                       epilogue="gelu", bias=bias)
+            check(torch.equal(one, s1), "split-K S=1 != single pass")
+            one = spmm.lscd_spmm_grouped(g2, b, n_tb=8, epilogue="silu_mul",
+                                         bias=bias3[:2])
+            s1 = spmm.lscd_spmm_splitk_grouped(g2, b, n_tb=8, split_k=1,
+                                               epilogue="silu_mul",
+                                               bias=bias3[:2])
+            check(torch.equal(one, s1), "grouped split-K S=1 != single pass")
+            n_checks += 2
+    # an all-empty weight gives exactly the bias
+    z = tiled_csl.encode(torch.zeros((128, 256), device="cuda"))
+    b = torch.randn((256, 8), generator=gen, device="cuda")
+    bias = torch.randn((128,), generator=gen, device="cuda")
+    got = ops.spmm(z, b, backend="cuda", epilogue="none", bias=bias)
+    check(torch.equal(got, bias[:, None].expand(128, 8)), "empty weight")
+    torch.cuda.synchronize()
+    return n_checks + 1
+
+
+# Where the main path launches each kernel: the single-pass kernels at
+# prefill (N = 8 requests x 128 prompt tokens), the split-K pair at decode
+# (N = 8). These cells fill the kernels' JSON line.
+MAIN_PATH_CELLS = {"lscd_spmm": ("up", 1024),
+                   "lscd_spmm_grouped": ("wqkv", 1024),
+                   "lscd_spmm_splitk": ("down", 8),
+                   "lscd_spmm_splitk_grouped": ("wqkv", 8)}
+
+
+def opt_shapes(torch, mods, flush):
+    """Every kernel at the OPT-30B projection shapes (sparsity 0.8, bf16),
+    on the schedule ``select`` picks: at decode N = 8 the single-pass
+    kernels (S = 1) and the split-K pair (the selected S, at least 2); at
+    prefill N = 1024 the single-pass kernels. Each is held against its
+    plain version and timed beside it and beside ``torch.matmul`` on the
+    decoded dense bf16 weight."""
+    tiled_csl, pruning, ref, spmm, schedule, roofline = (
+        mods[x] for x in ("tiled_csl", "pruning", "ref", "spmm",
+                          "schedule", "roofline"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    d, f = 7168, 28672
+    shapes = {
+        "wqkv": dict(m=d, k=d, g=3, epi="none", bias=True),
+        "wo": dict(m=d, k=d, g=1, epi="none", bias=False),
+        "up": dict(m=f, k=d, g=1, epi="gelu", bias=True),
+        "down": dict(m=d, k=f, g=1, epi="none", bias=True),
+    }
+    rows = []
+    for name, s in shapes.items():
+        ws = [sparse_weight(torch, pruning, tiled_csl, gen, s["m"], s["k"])
+              for _ in range(s["g"])]
+        grouped = s["g"] > 1
+        t = tiled_csl.group_stack(ws) if grouped else ws[0]
+        bias = None
+        if s["bias"]:
+            shape = (s["g"], s["m"]) if grouped else (s["m"],)
+            bias = 0.1 * torch.randn(shape, generator=gen, device="cuda")
+        plain_fn = ref.spmm_grouped_ref if grouped else ref.spmm_ref
+        single = spmm.lscd_spmm_grouped if grouped else spmm.lscd_spmm
+        split = (spmm.lscd_spmm_splitk_grouped if grouped
+                 else spmm.lscd_spmm_splitk)
+        nnz_real = int(t.nnz.sum())
+        for n in (8, 1024):
+            b = (0.1 * torch.randn((s["k"], n), generator=gen,
+                                   device="cuda")).to(torch.bfloat16)
+            sel = schedule.select(s["m"], s["k"], n, m_tb=128, k_tb=128,
+                                  max_nnz=t.max_nnz, group=s["g"])
+
+            def plain():
+                return plain_fn(t, b, out_dtype=b.dtype, epilogue=s["epi"],
+                                bias=bias)
+            want = plain()
+            dense = tiled_csl.decode(t).to(torch.bfloat16)
+            bound_s, bound_by = roofline.lscd_bound_s(
+                4.0 * nnz_real, 4.0 * t.nnz.numel(), 2.0 * b.numel(),
+                2.0 * want.numel() + (4.0 * bias.numel() if bias is not None
+                                      else 0.0), 2.0 * nnz_real * n)
+            plain_ms = cuda_ms(torch, plain, 3, flush)
+            library_ms = cuda_ms(torch, lambda: torch.matmul(dense, b), 20,
+                                 flush)
+            del dense
+            runs = [(single, 1)]
+            if n == 8:
+                runs.append((split, max(sel.split_k, 2)))
+            for kern, sk in runs:
+                kw = dict(n_tb=sel.n_tb, epilogue=s["epi"], bias=bias)
+                if kern is split:
+                    kw["split_k"] = sk
+
+                def fn():
+                    return kern(t, b, **kw)
+                err = close(torch, fn(), want, BF16_TOL,
+                            f"{kern.__name__} at {name} {s['m']}x{s['k']} "
+                            f"N={n}")
+                ms = cuda_ms(torch, fn, 20, flush)
+                rows.append(dict(
+                    shape=name, m=s["m"], k=s["k"], n=n, group=s["g"],
+                    kernel=kern.__name__, n_tb=sel.n_tb, split_k=sk, ms=ms,
+                    plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=bound_s * 1e3, bound_by=bound_by,
+                    max_abs_err=err, selected=dataclasses.asdict(sel),
+                    words_mib=t.words.numel() * 4 / 2 ** 20))
+                print(f"  {name:5s} N={n:<5d}{kern.__name__:25s} "
+                      f"n_tb={sel.n_tb:<3d} S={sk:<2d} {ms:8.3f} ms (bound "
+                      f"{bound_s * 1e3:.3f} ms by {bound_by}, plain "
+                      f"{plain_ms:.3f} ms, torch.matmul {library_ms:.3f} ms, "
+                      f"max err {err:.2e}; select -> S={sel.split_k})",
+                      flush=True)
+            del want
+        del t, ws
+        torch.cuda.empty_cache()
+    best = {k: next(r for r in rows if r["kernel"] == k and r["shape"] == sh
+                    and r["n"] == n)
+            for k, (sh, n) in MAIN_PATH_CELLS.items()}
+    return rows, best
+
+
+# ---------------------------------------------------------------------------
+# slice phase
+# ---------------------------------------------------------------------------
+
+def slice_phase(torch, mods):
+    configs, serve, spmm, engine, ops = (mods[x] for x in (
+        "configs", "serve", "spmm", "engine", "ops"))
+    full = configs.get("opt_30b")
+    cfg = dataclasses.replace(full, n_layers=4)
+    print(f"slice: {cfg.name} at full width (d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, {cfg.n_heads} heads, vocab {cfg.vocab}); n_layers cut "
+          f"{full.n_layers} -> {cfg.n_layers}; sparsity {SPARSITY}, 8 "
+          f"requests x 128-token prompts, 32 greedy new tokens", flush=True)
+    params, built = serve.build(cfg, seed=SEED, sparsity=SPARSITY,
+                                device="cuda")
+    print(f"slice: encode {built['encode_s']:.3f} s, {built['n_tiled_csl']} "
+          f"Tiled-CSL weights, {built['sparse_bytes'] / 2 ** 20:.1f} MiB "
+          f"sparse vs {built['dense_bytes'] / 2 ** 20:.1f} MiB dense bf16 "
+          f"({built['sparse_bytes'] / built['dense_bytes']:.4f}x)", flush=True)
+    ops.SCHEDULES.clear()
+    spmm.reset_launch_counts()
+    rep = serve.run(cfg, requests=8, prompt_len=128, max_new=32, seed=SEED,
+                    params=params)
+    counts = spmm.launch_counts()
+    tokens = rep["tokens"]
+    check(tuple(tokens.shape) == (8, 160), f"tokens shape {tokens.shape}")
+    check(int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab,
+          "token ids outside the vocab")
+    print(f"slice: prefill {rep['prefill_s'] * 1e3:.3f} ms, decode "
+          f"{rep['decode_ms_per_step']:.3f} ms/step over "
+          f"{rep['decode_steps']} steps, {rep['tokens_per_s']:.2f} tok/s",
+          flush=True)
+    for key, sched in sorted(rep["schedules"].items()):
+        print(f"slice: schedule {key} -> {dataclasses.asdict(sched)}")
+    print(f"slice: launches {json.dumps(counts)}", flush=True)
+    missing = [k for k, v in counts.items() if v == 0]
+    check(not missing, f"kernels never launched on the main path: {missing}")
+
+    # First decode step against the same model through the plain versions.
+    prompts = serve.make_prompts(cfg, 8, 128, SEED, "cuda")
+    steps = {}
+    with torch.inference_mode():
+        for backend in ("cuda", "torch"):
+            last, cache = engine.prefill(params, prompts, cfg, 160,
+                                         backend=backend)
+            tok = engine.sample(last)[:, None]
+            logits, _ = engine.serve_step(params, cache, tok, 128, cfg,
+                                          backend=backend)
+            steps[backend] = (tok, logits.float())
+            del cache
+    check(torch.equal(steps["cuda"][0], steps["torch"][0]),
+          "first token differs between kernels and plain versions")
+    err = close(torch, steps["cuda"][1], steps["torch"][1],
+                dict(rtol=LOGITS_TOL, atol=LOGITS_TOL),
+                "first decode-step logits vs plain")
+    print(f"slice: first decode-step logits vs plain max abs err {err:.3e}",
+          flush=True)
+    return rep, counts, built, profile_steps(torch, engine, params, cfg,
+                                             prompts)
+
+
+def _device_summary(torch, prof, wall_s: float, steps: int) -> dict:
+    """Per-step device busy time from a profiler window: the sum of the
+    device activities' durations (one stream, so they do not overlap),
+    overall, for the LSCD kernels, and for the ten largest names."""
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("(")[0].split("<")[0][:60]
+            us, n = per_name.get(name, (0.0, 0))
+            per_name[name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_us = sum(us for us, _ in per_name.values())
+    return dict(
+        steps=steps, wall_ms_per_step=wall_s * 1e3 / steps,
+        busy_ms_per_step=busy_us / steps / 1e3,
+        lscd_ms_per_step=sum(us for name, (us, _) in per_name.items()
+                             if "lscd" in name) / steps / 1e3,
+        busy_share=busy_us / (wall_s * 1e6) if per_name else None,
+        top=sorted(((us / steps / 1e3, n // steps, name)
+                    for name, (us, n) in per_name.items()), reverse=True)[:10])
+
+
+def profile_steps(torch, engine, params, cfg, prompts, steps: int = 4):
+    """Where the time goes: ``torch.profiler`` over one warm prefill and
+    over ``steps`` greedy decode steps at batch 8. The profiler adds host
+    time to every op, so the busy share it gives is a lower bound for the
+    unprofiled loop."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    s = prompts.shape[1]
+    out = {}
+    with torch.inference_mode():
+        engine.prefill(params, prompts, cfg, s + steps + 1)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            last, cache = engine.prefill(params, prompts, cfg, s + steps + 1)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        out["prefill"] = _device_summary(torch, prof, wall_s, 1)
+        tok = engine.sample(last)[:, None]
+        logits, cache = engine.serve_step(params, cache, tok, s, cfg)
+        tok = engine.sample(logits)[:, None]
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                logits, cache = engine.serve_step(params, cache, tok,
+                                                  s + 1 + i, cfg)
+                tok = engine.sample(logits)[:, None]
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        out["decode"] = _device_summary(torch, prof, wall_s, steps)
+    for phase, r in out.items():
+        if r["busy_share"] is None:
+            print(f"profile: {phase}: the profiler saw no device activity; "
+                  "the busy share is not measured", flush=True)
+            continue
+        print(f"profile: {phase}: {r['wall_ms_per_step']:.3f} ms/step wall "
+              f"under torch.profiler, device busy {r['busy_ms_per_step']:.3f}"
+              f" ms/step ({100 * r['busy_share']:.1f}%), LSCD kernels "
+              f"{r['lscd_ms_per_step']:.3f} ms/step", flush=True)
+        for ms, n, name in r["top"]:
+            print(f"profile:   {phase} {ms:8.3f} ms/step {n:4d}/step  {name}")
+    return out
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    try:
+        from repro_torch import configs
+        from repro_torch.analysis import contracts
+        from repro_torch.core import pruning, roofline, tiled_csl
+        from repro_torch.kernels import build, ops, ref, schedule, spmm
+        from repro_torch.launch import serve
+        from repro_torch.serving import engine
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 2
+    mods = dict(configs=configs, contracts=contracts, pruning=pruning,
+                roofline=roofline, tiled_csl=tiled_csl, build=build, ops=ops,
+                ref=ref, schedule=schedule, spmm=spmm, serve=serve,
+                engine=engine)
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"build: four kernels in {time.perf_counter() - t0:.2f} s "
+          f"(nvcc, sm_90a)", flush=True)
+    for name in build.SOURCES:
+        log = build.build_dir() / f"{name}.log"
+        if log.exists():
+            lines = [ln for ln in log.read_text().splitlines()
+                     if "spill" in ln and not ln.strip().startswith(
+                         "0 bytes stack frame, 0 bytes spill stores")]
+            spills = [ln for ln in lines if " 0 bytes spill stores" not in ln]
+            print(f"build: {name}: {len(spills)} ptxas entries with spills")
+
+    n = small_checks(torch, mods)
+    print(f"kernels: {n} small-shape checks against the plain versions "
+          f"passed (incl. split-K S=1 bit-match)", flush=True)
+    flush = torch.empty(2 ** 28, dtype=torch.int32, device="cuda")
+    rows, best = opt_shapes(torch, mods, flush)
+    del flush
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    rep, counts, built, prof = slice_phase(torch, mods)
+
+    kernels = []
+    for name in spmm.KERNELS:
+        r = best[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=SOURCES[name], launches=counts[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"]))
+    summary = dict(card=card, rows=rows, kernels=kernels, slice=dict(
+        prefill_ms=rep["prefill_s"] * 1e3,
+        decode_ms_per_step=rep["decode_ms_per_step"],
+        tokens_per_s=rep["tokens_per_s"], encode_s=built["encode_s"],
+        sparse_bytes=built["sparse_bytes"], dense_bytes=built["dense_bytes"],
+        launches=counts), profile=prof)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

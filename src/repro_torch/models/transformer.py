@@ -1,0 +1,142 @@
+"""Model assembly for the dense family: init, cache and forward.
+
+The port's counterpart of ``repro.models.transformer`` for ``family ==
+"dense"``: a pre-norm decoder of attention + MLP blocks, its layers a
+Python list walked in order (the reference's ``lax.scan`` stack). Two
+modes share the block code:
+
+  prefill — full sequence; writes the cache when one is given
+  decode  — one token per row + cache (the paper's skinny-MatMul regime)
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention, layers, nn
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, Any]
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.attn_kind != "gqa" or cfg.n_codebooks \
+            or cfg.n_routed_experts or cfg.layer_pattern is not None \
+            or cfg.local_window is not None or cfg.mrope_sections is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the dense GQA family only")
+
+
+def _init_norm(cfg: ModelConfig, device, dtype):
+    return (layers.init_rmsnorm(cfg.d_model, device, dtype)
+            if cfg.norm_kind == "rmsnorm"
+            else layers.init_layernorm(cfg.d_model, device, dtype))
+
+
+def _norm(cfg: ModelConfig, p, x):
+    return (layers.rmsnorm(p, x) if cfg.norm_kind == "rmsnorm"
+            else layers.layernorm(p, x))
+
+
+def init_block(gen, cfg: ModelConfig, device, dtype=torch.float32) -> Params:
+    p: Params = {"pre_norm": _init_norm(cfg, device, dtype),
+                 "attn": attention.init_attention(gen, cfg, device, dtype),
+                 "mlp_norm": _init_norm(cfg, device, dtype)}
+    if cfg.mlp_kind == "swiglu":
+        p["mlp"] = layers.init_swiglu_mlp(gen, cfg.d_model, cfg.d_ff, device,
+                                          dtype)
+    else:
+        p["mlp"] = layers.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff, device,
+                                        dtype, bias=cfg.mlp_bias)
+    return p
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
+               dtype=torch.float32) -> Params:
+    """Random params from ``seed`` on ``device`` (default ``"cuda"``)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params: Params = {
+        "embed": layers.init_embed(gen, cfg.vocab, cfg.d_model, dev, dtype),
+        "layers": [init_block(gen, cfg, dev, dtype)
+                   for _ in range(cfg.n_layers)],
+        "final_norm": _init_norm(cfg, dev, dtype),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": nn.dense_init(
+            gen, cfg.vocab, cfg.d_model, dev, dtype)}
+    return params
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: DeviceLike = None,
+               dtype=torch.bfloat16) -> List[dict]:
+    """Per-layer K/V caches ``[batch, max_len, n_kv, head_dim]``."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    return [attention.init_cache(cfg, batch, max_len, dev, dtype)
+            for _ in range(cfg.n_layers)]
+
+
+def _mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, backend: str):
+    if cfg.mlp_kind == "swiglu":
+        return layers.swiglu_mlp(p, x, d_ff=cfg.d_ff, d_model=cfg.d_model,
+                                 backend=backend)
+    return layers.gelu_mlp(p, x, d_ff=cfg.d_ff, d_model=cfg.d_model,
+                           backend=backend)
+
+
+def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
+                positions=None, cache=None, pos=None,
+                backend: str = "auto") -> Tuple[torch.Tensor, Optional[dict]]:
+    """Residual attention + MLP block. Returns (x, cache)."""
+    h = _norm(cfg, p["pre_norm"], x)
+    if mode == "decode":
+        a, cache = attention.attention_decode(p["attn"], h, cache, pos, cfg,
+                                              backend=backend)
+    else:
+        a, cache = attention.attention(p["attn"], h, positions, cfg,
+                                       cache=cache, backend=backend)
+    x = x + a
+    x = x + _mlp_apply(p["mlp"], _norm(cfg, p["mlp_norm"], x), cfg, backend)
+    return x, cache
+
+
+def forward(params: Params, inputs: Dict[str, torch.Tensor],
+            cfg: ModelConfig, *, mode: str, cache: Any = None,
+            pos: Optional[int] = None, backend: str = "auto"
+            ) -> Tuple[torch.Tensor, Any]:
+    """Run the stack. Returns (logits [B, S, vocab], cache).
+
+    inputs: {"tokens": [B, S]} (optional "positions": [B, S]).
+    decode: S == 1 and ``pos`` is the absolute position of every row.
+    """
+    _check_family(cfg)
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "decode" and (cache is None or pos is None):
+        raise ValueError("decode needs a cache and pos")
+    compute_dtype = getattr(torch, cfg.dtype)
+    tokens = inputs["tokens"]
+    x = layers.embed(params["embed"], tokens, compute_dtype)
+    B, S = tokens.shape
+    positions = inputs.get("positions")
+    if positions is None and mode != "decode":
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    for i, p in enumerate(params["layers"]):
+        cache_l = cache[i] if cache is not None else None
+        x, cache_l = block_apply(p, x, cfg, mode=mode, positions=positions,
+                                 cache=cache_l, pos=pos, backend=backend)
+    x = _norm(cfg, params["final_norm"], x)
+    if cfg.tie_embeddings:
+        logits = layers.logits_head(None, params["embed"], x, vocab=cfg.vocab,
+                                    backend=backend)
+    else:
+        logits = layers.logits_head(params["lm_head"], None, x,
+                                    vocab=cfg.vocab, backend=backend)
+    return logits, cache

@@ -1,0 +1,236 @@
+"""The port's plain SpMM versions and CPU ops against the reference.
+
+Seeded numpy inputs go through ``repro.kernels.ref`` / ``repro.kernels.ops``
+(``backend="xla"``) and through ``repro_torch.kernels.ref`` /
+``repro_torch.kernels.ops`` on the CPU. Tolerance: f32 ``rtol=atol=1e-5``
+(both are f32 matmuls, summed in different orders); a bf16 output may
+differ by one bf16 ulp where an f32 sum lands near a rounding boundary.
+The schedule and launch-contract checks are plain Python and run here too.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import tiled_csl as ref_csl
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as ref_ref
+from repro_torch.analysis import contracts
+from repro_torch.core import tiled_csl
+from repro_torch.kernels import ops, ref, schedule, spmm
+
+UNARY = ["none", "silu", "gelu", "relu"]
+TOL = dict(rtol=1e-5, atol=1e-5)
+PAD = 4096
+
+
+def _pair(rng, m=256, k=384, sparsity=0.8, groups=None, m_tb=128, k_tb=128):
+    """(reference TiledCSL, port TiledCSL) of the same seeded matrices.
+
+    One pad quantum for every test keeps the reference's array shapes, and
+    so its compiled ops, the same across tests."""
+    enc = dict(m_tb=m_tb, k_tb=k_tb, pad_quantum=PAD)
+    def mat():
+        a = rng.standard_normal((m, k)).astype(np.float32)
+        a[rng.random((m, k)) < sparsity] = 0.0
+        a[:m_tb, :k_tb] = 0.0                       # an empty tile
+        return a
+    if groups is None:
+        a = mat()
+        return (ref_csl.encode(a, **enc),
+                tiled_csl.encode(torch.from_numpy(a), **enc))
+    mats = [mat() for _ in range(groups)]
+    return (ref_csl.encode_group(mats, **enc),
+            tiled_csl.encode_group([torch.from_numpy(a) for a in mats], **enc))
+
+
+def _inputs(rng, k, n, bias_shape):
+    # B scaled so accumulators are O(1): products of binary epilogues then
+    # stay on the scale the 1e-5 tolerance is stated for.
+    b = (0.1 * rng.standard_normal((k, n))).astype(np.float32)
+    bias = (rng.standard_normal(bias_shape).astype(np.float32)
+            if bias_shape else None)
+    return b, bias
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("n", [1, 7, 16])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("epilogue", UNARY)
+def test_spmm_matches_reference(epilogue, with_bias, n):
+    rng = np.random.default_rng(hash((epilogue, with_bias, n)) % 2 ** 31)
+    rt, pt = _pair(rng)
+    b, bias = _inputs(rng, 384, n, (256,) if with_bias else None)
+    want = np.asarray(ref_ref.spmm_ref(rt, _j(b), epilogue=epilogue,
+                                       bias=_j(bias)))
+    got = ref.spmm_ref(pt, _t(b), epilogue=epilogue, bias=_t(bias))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    want_ops = np.asarray(ref_ops.spmm(rt, _j(b), backend="xla",
+                                       epilogue=epilogue, bias=_j(bias)))
+    got_ops = ops.spmm(pt, _t(b), epilogue=epilogue, bias=_t(bias))
+    assert got_ops.shape == (256, n)
+    np.testing.assert_allclose(got_ops.numpy(), want_ops, **TOL)
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("groups,epilogue", [(2, e) for e in UNARY]
+                         + [(3, e) for e in UNARY]
+                         + [(2, "silu_mul"), (2, "gelu_mul")])
+def test_grouped_matches_reference(groups, epilogue, with_bias):
+    rng = np.random.default_rng(hash((groups, epilogue, with_bias)) % 2 ** 31)
+    rt, pt = _pair(rng, groups=groups)
+    b, bias = _inputs(rng, 384, 7, (groups, 256) if with_bias else None)
+    want = np.asarray(ref_ref.spmm_grouped_ref(rt, _j(b), epilogue=epilogue,
+                                               bias=_j(bias)))
+    got = ref.spmm_grouped_ref(pt, _t(b), epilogue=epilogue, bias=_t(bias))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    want_ops = np.asarray(ref_ops.spmm_grouped(
+        rt, _j(b), backend="xla", epilogue=epilogue, bias=_j(bias)))
+    got_ops = ops.spmm_grouped(pt, _t(b), epilogue=epilogue, bias=_t(bias))
+    np.testing.assert_allclose(got_ops.numpy(), want_ops, **TOL)
+
+
+@pytest.mark.parametrize("n", [1, 7, 16])
+@pytest.mark.parametrize("split_k", [1, 2, 3])
+def test_splitk_matches_reference(split_k, n):
+    """Kt = 3: S=2 leaves a ragged last slice, S=3 one tile per slice."""
+    rng = np.random.default_rng(100 + 10 * split_k + n)
+    rt, pt = _pair(rng)
+    b, bias = _inputs(rng, 384, n, (256,))
+    want = np.asarray(ref_ref.spmm_splitk_ref(rt, _j(b), split_k,
+                                              epilogue="gelu", bias=_j(bias)))
+    got = ref.spmm_splitk_ref(pt, _t(b), split_k, epilogue="gelu",
+                              bias=_t(bias))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("split_k", [1, 2, 3])
+@pytest.mark.parametrize("groups,epilogue", [(3, "none"), (2, "relu"),
+                                             (2, "silu_mul"),
+                                             (2, "gelu_mul")])
+def test_splitk_grouped_matches_reference(groups, epilogue, split_k):
+    rng = np.random.default_rng(hash((groups, epilogue, split_k)) % 2 ** 31)
+    rt, pt = _pair(rng, groups=groups, m_tb=64)
+    b, bias = _inputs(rng, 384, 16, (groups, 256))
+    want = np.asarray(ref_ref.spmm_splitk_grouped_ref(
+        rt, _j(b), split_k, epilogue=epilogue, bias=_j(bias)))
+    got = ref.spmm_splitk_grouped_ref(pt, _t(b), split_k, epilogue=epilogue,
+                                      bias=_t(bias))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("geom", [(64, 128), (128, 64)])
+def test_tile_geometries_match_reference(geom):
+    rng = np.random.default_rng(7 + geom[0])
+    rt, pt = _pair(rng, m_tb=geom[0], k_tb=geom[1])
+    b, bias = _inputs(rng, 384, 16, (256,))
+    want = np.asarray(ref_ref.spmm_ref(rt, _j(b), epilogue="silu",
+                                       bias=_j(bias)))
+    got = ops.spmm(pt, _t(b), epilogue="silu", bias=_t(bias))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def _bf16_ulp_close(got: torch.Tensor, want: np.ndarray):
+    g = got.to(torch.float32).numpy()
+    w = torch.from_numpy(want.copy()).to(torch.bfloat16).to(torch.float32).numpy()
+    ulp = np.abs(w) * 2.0 ** -7 + 1e-30
+    assert np.all(np.abs(g - w) <= ulp), np.max(np.abs(g - w) / ulp)
+
+
+def test_bf16_output_within_one_ulp():
+    rng = np.random.default_rng(11)
+    rt, pt = _pair(rng, groups=2)
+    b, bias = _inputs(rng, 384, 7, (2, 256))
+    bb = torch.from_numpy(b).to(torch.bfloat16)
+    want = np.asarray(ref_ref.spmm_grouped_ref(
+        rt, jnp.asarray(bb.to(torch.float32).numpy()), epilogue="silu_mul",
+        bias=_j(bias)))
+    got = ops.spmm_grouped(pt, bb, epilogue="silu_mul", bias=_t(bias))
+    assert got.dtype == torch.bfloat16
+    _bf16_ulp_close(got, want)
+
+
+def test_epilogue_registry():
+    assert spmm.epilogue_kind("gelu") == "unary"
+    assert spmm.epilogue_kind("silu_mul", groups=2) == "binary"
+    with pytest.raises(ValueError, match="exactly 2"):
+        spmm.epilogue_kind("silu_mul", groups=3)
+    with pytest.raises(ValueError, match="unknown epilogue"):
+        spmm.epilogue_kind("swish")
+    x = torch.linspace(-4, 4, 17)
+    np.testing.assert_allclose(
+        spmm.apply_epilogue("gelu", x).numpy(),
+        np.asarray(jnp.asarray(x.numpy()) * 0.5 * (1 + jnp.tanh(
+            0.7978845608028654 * (jnp.asarray(x.numpy())
+                                  + 0.044715 * jnp.asarray(x.numpy()) ** 3)))),
+        rtol=1e-6, atol=1e-6)
+    assert set(spmm.EPILOGUE_CODES) == set(spmm._EPILOGUES) | set(
+        spmm._BINARY_EPILOGUES)
+
+
+def test_spmm_diff_grads():
+    rng = np.random.default_rng(5)
+    _, pt = _pair(rng)
+    b = torch.from_numpy(rng.standard_normal((384, 4)).astype(np.float32))
+    b.requires_grad_(True)
+    bias = torch.zeros(256, requires_grad=True)
+    y = ops.spmm_diff(pt, b, bias=bias)
+    g = torch.from_numpy(rng.standard_normal((256, 4)).astype(np.float32))
+    y.backward(g)
+    a = tiled_csl.decode(pt)
+    np.testing.assert_allclose(b.grad.numpy(), (a.T @ g).numpy(), **TOL)
+    np.testing.assert_allclose(bias.grad.numpy(), g.sum(1).numpy(), **TOL)
+    with pytest.raises(ValueError, match="fused"):
+        ops.spmm_diff(pt, b, epilogue="gelu")
+
+
+def test_unknown_backend_raises():
+    _, pt = _pair(np.random.default_rng(0))
+    with pytest.raises(ValueError, match="unknown backend"):
+        ops.spmm(pt, torch.zeros(384, 2), backend="xla")
+
+
+# ---- schedule and launch contracts (plain Python) -------------------------
+
+OPT = {"wqkv": (7168, 7168, 3), "wo": (7168, 7168, 1),
+       "up": (28672, 7168, 1), "down": (7168, 28672, 1)}
+
+
+@pytest.mark.parametrize("name", sorted(OPT))
+def test_schedule_decode_splits_prefill_does_not(name):
+    m, k, g = OPT[name]
+    mnz = 3456                         # 0.8 sparsity, padded per tile
+    dec = schedule.select(m, k, 8, m_tb=128, k_tb=128, max_nnz=mnz, group=g)
+    pre = schedule.select(m, k, 1024, m_tb=128, k_tb=128, max_nnz=mnz,
+                          group=g)
+    assert dec.split_k > 1 and dec.n_tb == 8
+    assert pre.split_k == 1
+    for s in (dec, pre):
+        assert not contracts.check_launch(m, k, 8, m_tb=s.m_tb, k_tb=s.k_tb,
+                                          n_tb=s.n_tb, split_k=s.split_k,
+                                          group=g)
+
+
+def test_launch_contract_rules():
+    ok = dict(m_tb=128, k_tb=128, n_tb=128, split_k=1)
+    assert not contracts.check_launch(256, 256, 128, group=1, **ok)
+    assert contracts.check_launch(256, 256, 128, group=3, **ok)  # registers
+    assert contracts.check_launch(256, 256, 8, m_tb=128, k_tb=128, n_tb=24,
+                                  split_k=1)
+    assert contracts.check_launch(256, 256, 8, m_tb=128, k_tb=128, n_tb=8,
+                                  split_k=3)                      # > Kt
+    assert contracts.check_launch(256, 1024, 8, m_tb=256, k_tb=256, n_tb=8,
+                                  split_k=1)                      # KC-LOC
+    assert contracts.smem_bytes(128, 128, 128) <= \
+        contracts.SMEM_BYTES_PER_BLOCK
+    with pytest.raises(contracts.ScheduleContractError):
+        schedule.select(256, 256, 8, m_tb=128, k_tb=128, max_nnz=3456, n_tb=8,
+                        split_k=5)
