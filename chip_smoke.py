@@ -5,20 +5,24 @@
 
 Needs one CUDA card (an H100 for the numbers it prints). In order it
 
-1. prints the card's name and power limit and builds the four LSCD CUDA
-   kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one
-   process per source, all at once);
+1. prints the card's name and power limit and builds the five CUDA
+   kernels (four LSCD SpMM kernels and the dense GEMM baseline) from
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per
+   source, all at once);
 2. kernel phase: holds each kernel against its plain PyTorch version on
    the card — small shapes over the three tile geometries, empty tiles,
    ragged N, bias, every epilogue, S=1 and a ragged S, the split-K S=1
-   bit-match — then at the OPT-30B projection shapes (sparsity 0.8,
-   bf16) at decode N=8 and prefill N=1024, where it times each kernel,
-   its plain version and ``torch.matmul`` on the decoded dense weight
-   with CUDA events;
+   bit-match at every N tile, ``dense_gemm`` over f32/bf16 inputs and
+   outputs and against ``lscd_spmm`` on the same matrix — then at the
+   OPT-30B projection shapes (sparsity 0.8, bf16) at decode N=8 and
+   prefill N=1024, where it times each kernel, its plain version,
+   ``dense_gemm`` on the decoded weight and ``torch.matmul`` on it with
+   CUDA events, and prints one comparison row per shape and N (the
+   paper's kernel-level comparison);
 3. slice phase: serves 8 requests (128-token prompts from the seed, 32
    greedy new tokens) through ``repro_torch.launch.serve`` at OPT-30B
    width with the layer count cut to 4, reads the kernels' launch counts
-   (all four must have launched), holds the first decode step's logits
+   (all four LSCD kernels must have launched), holds the first decode step's logits
    against the same model run through the plain versions, and profiles
    one prefill and a few decode steps for the device's busy share;
 4. prints the kernels' JSON line, the card line, and last
@@ -54,6 +58,7 @@ SOURCES = {
     "lscd_spmm_grouped": "src/repro/kernels/spmm.py:348",
     "lscd_spmm_splitk": "src/repro/kernels/spmm.py:497",
     "lscd_spmm_splitk_grouped": "src/repro/kernels/spmm.py:641",
+    "dense_gemm": "src/repro/kernels/gemm.py:46",
 }
 
 
@@ -130,8 +135,8 @@ def cuda_ms(torch, fn, reps: int, flush) -> float:
 
 def small_checks(torch, mods) -> int:
     """Every kernel against its plain version at small shapes."""
-    tiled_csl, pruning, ops, ref, spmm, contracts = (mods[n] for n in (
-        "tiled_csl", "pruning", "ops", "ref", "spmm", "contracts"))
+    tiled_csl, pruning, ops, ref, spmm, contracts, gemm = (mods[n] for n in (
+        "tiled_csl", "pruning", "ops", "ref", "spmm", "contracts", "gemm"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     m, k = 256, 384                              # Kt = 3 (k_tb 128)
@@ -190,9 +195,11 @@ def small_checks(torch, mods) -> int:
                       tol, f"lscd_spmm n_tb={n_tb}")
                 n_checks += 1
                 for g, epi in ((g2, "silu_mul"), (g3, "gelu")):
-                    if contracts.check_launch(m, k, 2 * n_tb, m_tb=m_tb,
-                                              k_tb=k_tb, n_tb=n_tb, split_k=1,
-                                              group=g.group):
+                    if contracts.check_launch(
+                            m, k, 2 * n_tb, m_tb=m_tb, k_tb=k_tb, n_tb=n_tb,
+                            split_k=1, group=g.group,
+                            binary=epi.endswith("_mul"),
+                            b_dtype_bytes=b.element_size()):
                         continue                # too many accumulators
                     gb = bias3[:g.group]
                     got = spmm.lscd_spmm_grouped(g, b, n_tb=n_tb,
@@ -201,37 +208,95 @@ def small_checks(torch, mods) -> int:
                         g, b, out_dtype=dtype, epilogue=epi, bias=gb),
                         tol, f"lscd_spmm_grouped G={g.group} n_tb={n_tb}")
                     n_checks += 1
-            # split_k == 1 is bit-identical to the single-pass kernels
-            b = (0.1 * torch.randn((k, 8), generator=gen,
-                                   device="cuda")).to(dtype)
-            one = spmm.lscd_spmm(ts[2], b, n_tb=8, epilogue="gelu", bias=bias)
-            s1 = spmm.lscd_spmm_splitk(ts[2], b, n_tb=8, split_k=1,
-                                       epilogue="gelu", bias=bias)
-            check(torch.equal(one, s1), "split-K S=1 != single pass")
-            one = spmm.lscd_spmm_grouped(g2, b, n_tb=8, epilogue="silu_mul",
-                                         bias=bias3[:2])
-            s1 = spmm.lscd_spmm_splitk_grouped(g2, b, n_tb=8, split_k=1,
-                                               epilogue="silu_mul",
-                                               bias=bias3[:2])
-            check(torch.equal(one, s1), "grouped split-K S=1 != single pass")
-            n_checks += 2
+            # split_k == 1 is bit-identical to the single-pass kernels, on
+            # both bodies (n_tb <= 32: first body; >= 64 bf16: pipelined)
+            for n_tb in (8, 64, 128):
+                b = (0.1 * torch.randn((k, n_tb), generator=gen,
+                                       device="cuda")).to(dtype)
+                one = spmm.lscd_spmm(ts[2], b, n_tb=n_tb, epilogue="gelu",
+                                     bias=bias)
+                s1 = spmm.lscd_spmm_splitk(ts[2], b, n_tb=n_tb, split_k=1,
+                                           epilogue="gelu", bias=bias)
+                check(torch.equal(one, s1),
+                      f"split-K S=1 != single pass, n_tb={n_tb}")
+                n_checks += 1
+                for g, epi in ((g3, "silu"), (g2, "silu_mul")):
+                    if contracts.check_launch(
+                            m, k, n_tb, m_tb=m_tb, k_tb=k_tb, n_tb=n_tb,
+                            split_k=1, group=g.group,
+                            binary=epi.endswith("_mul"),
+                            b_dtype_bytes=b.element_size()):
+                        continue                # too many accumulators
+                    gb = bias3[:g.group]
+                    one = spmm.lscd_spmm_grouped(g, b, n_tb=n_tb,
+                                                 epilogue=epi, bias=gb)
+                    s1 = spmm.lscd_spmm_splitk_grouped(g, b, n_tb=n_tb,
+                                                       split_k=1,
+                                                       epilogue=epi, bias=gb)
+                    check(torch.equal(one, s1), f"grouped G={g.group} "
+                          f"split-K S=1 != single pass, n_tb={n_tb}")
+                    n_checks += 1
     # an all-empty weight gives exactly the bias
     z = tiled_csl.encode(torch.zeros((128, 256), device="cuda"))
     b = torch.randn((256, 8), generator=gen, device="cuda")
     bias = torch.randn((128,), generator=gen, device="cuda")
     got = ops.spmm(z, b, backend="cuda", epilogue="none", bias=bias)
     check(torch.equal(got, bias[:, None].expand(128, 8)), "empty weight")
+    bb = torch.randn((256, 128), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    got = spmm.lscd_spmm(z, bb, n_tb=128, bias=bias)
+    check(torch.equal(got, bias.to(torch.bfloat16)[:, None].expand(128, 128)),
+          "empty weight, pipelined body")
     torch.cuda.synchronize()
-    return n_checks + 1
+    return n_checks + 2 + gemm_checks(torch, mods, gen)
+
+
+def gemm_checks(torch, mods, gen) -> int:
+    """``dense_gemm`` against its plain version over three geometries,
+    f32 and bf16 inputs, f32 and bf16 outputs; and on ``decode(t)``
+    against ``lscd_spmm`` on ``t`` (the same pruned matrix)."""
+    tiled_csl, pruning, spmm, gemm = (mods[n] for n in (
+        "tiled_csl", "pruning", "spmm", "gemm"))
+    n_checks = 0
+    for m_tb, k_tb, n_tb in ((128, 128, 128), (64, 128, 64), (128, 64, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.randn((256, 384), generator=gen, device="cuda").to(dtype)
+            b = torch.randn((384, 256), generator=gen, device="cuda").to(dtype)
+            for out_dtype in (torch.float32, torch.bfloat16):
+                got = gemm.dense_gemm(a, b, m_tb=m_tb, k_tb=k_tb, n_tb=n_tb,
+                                      out_dtype=out_dtype)
+                want = gemm.dense_gemm_ref(a, b, out_dtype=out_dtype)
+                exact = dtype == out_dtype == torch.float32
+                close(torch, got, want,
+                      dict(rtol=1e-5, atol=1e-4) if exact else BF16_TOL,
+                      f"dense_gemm {m_tb}x{k_tb}x{n_tb} {dtype} -> "
+                      f"{out_dtype}")
+                n_checks += 1
+    for dtype, tol in ((torch.float32, dict(rtol=1e-5, atol=1e-4)),
+                       (torch.bfloat16, BF16_TOL)):
+        t = sparse_weight(torch, pruning, tiled_csl, gen, 256, 384,
+                          empty_tile=True)
+        b = (0.1 * torch.randn((384, 128), generator=gen,
+                               device="cuda")).to(dtype)
+        dense = gemm.dense_gemm(tiled_csl.decode(t).to(dtype), b,
+                                out_dtype=dtype)
+        close(torch, spmm.lscd_spmm(t, b, n_tb=128), dense, tol,
+              f"lscd_spmm vs dense_gemm on the same matrix, {dtype}")
+        n_checks += 1
+    torch.cuda.synchronize()
+    return n_checks
 
 
 # Where the main path launches each kernel: the single-pass kernels at
 # prefill (N = 8 requests x 128 prompt tokens), the split-K pair at decode
 # (N = 8). These cells fill the kernels' JSON line.
+# dense_gemm's path is the kernel-level comparison itself (no serving path
+# calls it), at up, N = 1024.
 MAIN_PATH_CELLS = {"lscd_spmm": ("up", 1024),
                    "lscd_spmm_grouped": ("wqkv", 1024),
                    "lscd_spmm_splitk": ("down", 8),
-                   "lscd_spmm_splitk_grouped": ("wqkv", 8)}
+                   "lscd_spmm_splitk_grouped": ("wqkv", 8),
+                   "dense_gemm": ("up", 1024)}
 
 
 def opt_shapes(torch, mods, flush):
@@ -240,10 +305,14 @@ def opt_shapes(torch, mods, flush):
     kernels (S = 1) and the split-K pair (the selected S, at least 2); at
     prefill N = 1024 the single-pass kernels. Each is held against its
     plain version and timed beside it and beside ``torch.matmul`` on the
-    decoded dense bf16 weight."""
-    tiled_csl, pruning, ref, spmm, schedule, roofline = (
+    decoded dense bf16 weight. ``dense_gemm`` runs on the same decoded
+    weight (B padded to its 64-column tile at N = 8), held against its
+    plain version; its launch count covers its timed runs, the
+    comparison that is its path. Returns the rows, the main-path cells
+    and the comparison rows (one per shape and N)."""
+    tiled_csl, pruning, ref, spmm, schedule, roofline, gemm = (
         mods[x] for x in ("tiled_csl", "pruning", "ref", "spmm",
-                          "schedule", "roofline"))
+                          "schedule", "roofline", "gemm"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
     d, f = 7168, 28672
@@ -253,7 +322,8 @@ def opt_shapes(torch, mods, flush):
         "up": dict(m=f, k=d, g=1, epi="gelu", bias=True),
         "down": dict(m=d, k=f, g=1, epi="none", bias=True),
     }
-    rows = []
+    rows, compare = [], []
+    gemm_launches = 0
     for name, s in shapes.items():
         ws = [sparse_weight(torch, pruning, tiled_csl, gen, s["m"], s["k"])
               for _ in range(s["g"])]
@@ -286,6 +356,12 @@ def opt_shapes(torch, mods, flush):
             plain_ms = cuda_ms(torch, plain, 3, flush)
             library_ms = cuda_ms(torch, lambda: torch.matmul(dense, b), 20,
                                  flush)
+            gemm_row = dense_gemm_row(torch, gemm, roofline, dense, b, flush)
+            gemm_launches += gemm_row.pop("launches")
+            gemm_row.update(shape=name, m=s["m"], k=s["k"], n=n,
+                            group=s["g"], kernel="dense_gemm",
+                            library_ms=library_ms)
+            rows.append(gemm_row)
             del dense
             runs = [(single, 1)]
             if n == 8:
@@ -314,13 +390,58 @@ def opt_shapes(torch, mods, flush):
                       f"{plain_ms:.3f} ms, torch.matmul {library_ms:.3f} ms, "
                       f"max err {err:.2e}; select -> S={sel.split_k})",
                       flush=True)
+            lscd_ms = min(r["ms"] for r in rows if r["shape"] == name
+                          and r["n"] == n and r["kernel"] != "dense_gemm")
+            dense_flops = 2.0 * s["g"] * s["m"] * s["k"] * n
+            compare.append(dict(
+                shape=name, n=n, lscd_ms=lscd_ms, dense_gemm_ms=gemm_row["ms"],
+                matmul_ms=library_ms, bound_ms=bound_s * 1e3,
+                dense_floor_ms=dense_flops / roofline.PEAK_FLOPS_BF16 * 1e3))
+            c = compare[-1]
+            print(f"  compare {name:5s} N={n:<5d} LSCD {c['lscd_ms']:.3f} ms, "
+                  f"dense_gemm {c['dense_gemm_ms']:.3f} ms (LSCD - dense "
+                  f"{c['lscd_ms'] - c['dense_gemm_ms']:+.3f}), torch.matmul "
+                  f"{library_ms:.3f} ms, bound {c['bound_ms']:.3f} ms, dense "
+                  f"floor {c['dense_floor_ms']:.3f} ms", flush=True)
             del want
         del t, ws
         torch.cuda.empty_cache()
     best = {k: next(r for r in rows if r["kernel"] == k and r["shape"] == sh
                     and r["n"] == n)
             for k, (sh, n) in MAIN_PATH_CELLS.items()}
-    return rows, best
+    return rows, best, compare, gemm_launches
+
+
+def dense_gemm_row(torch, gemm, roofline, dense, b, flush) -> dict:
+    """``dense_gemm`` (bf16 in and out, 128x128 tiles, 64 at a skinny N) on
+    the decoded weight, held against its plain version and timed. The
+    launch count is reset just before the timed runs and read after."""
+    a = dense.reshape(-1, dense.shape[-1])            # [G*M, K]
+    n = b.shape[1]
+    n_tb = 128 if n % 128 == 0 else 64
+    bp = torch.nn.functional.pad(b, (0, -n % n_tb)).contiguous()
+
+    def fn():
+        return gemm.dense_gemm(a, bp, n_tb=n_tb, out_dtype=torch.bfloat16)
+
+    def plain():
+        return gemm.dense_gemm_ref(a, bp, out_dtype=torch.bfloat16)
+    err = close(torch, fn(), plain(), BF16_TOL,
+                f"dense_gemm {tuple(a.shape)} x {tuple(bp.shape)}")
+    plain_ms = cuda_ms(torch, plain, 3, flush)
+    gemm.reset_launch_counts()
+    ms = cuda_ms(torch, fn, 20, flush)
+    launches = gemm.launch_counts()["dense_gemm"]
+    m, k = a.shape
+    bound_s, bound_by = roofline.lscd_bound_s(
+        2.0 * m * k, 0.0, 2.0 * bp.numel(), 2.0 * m * bp.shape[1],
+        2.0 * m * k * bp.shape[1])
+    print(f"  dense_gemm {m}x{k} N={bp.shape[1]:<5d} n_tb={n_tb:<3d} "
+          f"{ms:8.3f} ms (bound {bound_s * 1e3:.3f} ms by {bound_by}, plain "
+          f"{plain_ms:.3f} ms, max err {err:.2e})", flush=True)
+    return dict(n_tb=n_tb, split_k=1, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_s * 1e3, bound_by=bound_by, max_abs_err=err,
+                launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -464,7 +585,7 @@ def main() -> int:
         from repro_torch import configs
         from repro_torch.analysis import contracts
         from repro_torch.core import pruning, roofline, tiled_csl
-        from repro_torch.kernels import build, ops, ref, schedule, spmm
+        from repro_torch.kernels import build, gemm, ops, ref, schedule, spmm
         from repro_torch.launch import serve
         from repro_torch.serving import engine
     except ImportError as e:
@@ -473,7 +594,7 @@ def main() -> int:
         return 2
     mods = dict(configs=configs, contracts=contracts, pruning=pruning,
                 roofline=roofline, tiled_csl=tiled_csl, build=build, ops=ops,
-                ref=ref, schedule=schedule, spmm=spmm, serve=serve,
+                ref=ref, schedule=schedule, spmm=spmm, gemm=gemm, serve=serve,
                 engine=engine)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -483,7 +604,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
     build.build_all()
-    print(f"build: four kernels in {time.perf_counter() - t0:.2f} s "
+    print(f"build: {len(build.SOURCES)} kernel sources in "
+          f"{time.perf_counter() - t0:.2f} s "
           f"(nvcc, sm_90a)", flush=True)
     for name in build.SOURCES:
         log = build.build_dir() / f"{name}.log"
@@ -498,27 +620,30 @@ def main() -> int:
     print(f"kernels: {n} small-shape checks against the plain versions "
           f"passed (incl. split-K S=1 bit-match)", flush=True)
     flush = torch.empty(2 ** 28, dtype=torch.int32, device="cuda")
-    rows, best = opt_shapes(torch, mods, flush)
+    rows, best, compare, gemm_launches = opt_shapes(torch, mods, flush)
     del flush
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     rep, counts, built, prof = slice_phase(torch, mods)
 
     kernels = []
-    for name in spmm.KERNELS:
+    launches = dict(counts, dense_gemm=gemm_launches)
+    for name in spmm.KERNELS + ("dense_gemm",):
         r = best[name]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces=SOURCES[name], launches=counts[name],
+            replaces=SOURCES[name], launches=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
-    summary = dict(card=card, rows=rows, kernels=kernels, slice=dict(
+    slice_summary = dict(
         prefill_ms=rep["prefill_s"] * 1e3,
         decode_ms_per_step=rep["decode_ms_per_step"],
         tokens_per_s=rep["tokens_per_s"], encode_s=built["encode_s"],
         sparse_bytes=built["sparse_bytes"], dense_bytes=built["dense_bytes"],
-        launches=counts), profile=prof)
+        launches=counts)
+    summary = dict(card=card, rows=rows, compare=compare, kernels=kernels,
+                   slice=slice_summary, profile=prof)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({"kernels": kernels}))

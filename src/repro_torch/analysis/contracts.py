@@ -11,6 +11,16 @@ KC-LAUNCH  what the CUDA kernels in ``kernels/csrc`` accept: ``m_tb`` in
            memory footprint within the H100's 227 KB per block (in place
            of the TPU's VMEM budget), and at most
            ``MAX_ACC_PER_THREAD`` f32 accumulators per thread.
+
+The LSCD kernels have two bodies, chosen by shape (:func:`pipelined`):
+bf16 B with ``n_tb >= 64`` runs the pipelined mainloop
+(``csrc/hopper_pipe.cuh``), where a block holds one weight, or the pair
+of a binary epilogue, in two consumer warpgroups' wgmma accumulators
+(:func:`pipe_acc_per_thread`), and walks at most ``MAX_PIPE_STEPS`` (K
+tile, weight) steps. Every other launch runs the first body, where a block holds all G
+weights. The dense GEMM baseline (``csrc/dense_gemm.cu``) takes
+``n_tb`` in ``GEMM_N_TB_OPTIONS`` and dims that tile evenly
+(:func:`check_gemm`, the counterpart of the JAX kernel's KC-VMEM check).
 """
 
 from __future__ import annotations
@@ -26,7 +36,9 @@ SMEM_BYTES_PER_BLOCK = 232448
 #: Threads per block of every LSCD kernel (csrc/lscd_common.cuh).
 THREADS = 256
 
-#: f32 accumulators a thread may hold: G * m_tb * n_tb / THREADS.
+#: f32 accumulators a thread may hold: G * m_tb * n_tb / THREADS in the
+#: first body; :func:`pipe_acc_per_thread` in the pipelined one, where
+#: only the consumer warpgroups hold them.
 MAX_ACC_PER_THREAD = 64
 
 #: Tile sizes the kernels are instantiated for.
@@ -34,6 +46,16 @@ M_TB_OPTIONS = (64, 128)
 K_TB_OPTIONS = (64, 128)
 N_TB_OPTIONS = (8, 16, 32, 64, 128)
 GROUP_OPTIONS = (1, 2, 3)
+
+#: Smallest N tile of the pipelined body (bf16 only).
+PIPE_MIN_N_TB = 64
+#: Ring slots, live-step list entries and shared-memory alignment (the
+#: 128-byte swizzle's 1 KB period) of the pipelined body.
+PIPE_STAGES = 3
+MAX_PIPE_STEPS = 2048
+PIPE_SMEM_ALIGN = 1024
+#: N tiles of the dense GEMM baseline.
+GEMM_N_TB_OPTIONS = (64, 128)
 
 
 class ScheduleContractError(ValueError):
@@ -54,17 +76,55 @@ def require_tile_loc(m_tb: int, k_tb: int) -> None:
             f"{MAX_TILE_ELEMS}")
 
 
-def smem_bytes(m_tb: int, k_tb: int, n_tb: int) -> int:
-    """Dynamic shared memory of one block, the larger of the kernels' two
-    layouts: f32 A and B tiles for f32 inputs (A rows padded by one word),
-    bf16 A and transposed B tiles for bf16 ones (rows padded by 8)."""
-    return max(4 * (m_tb * (k_tb + 1) + k_tb * n_tb),
-               2 * (m_tb + n_tb) * (k_tb + 8))
+def pipelined(n_tb: int, b_dtype_bytes: int = 2) -> bool:
+    """Whether a launch runs the pipelined body (bf16 B, wide N tile)."""
+    return b_dtype_bytes == 2 and n_tb >= PIPE_MIN_N_TB
+
+
+def pipe_ring_bytes(m_tb: int, k_tb: int, n_tb: int) -> int:
+    """The pipelined body's ring, PIPE_STAGES bf16 A and B tiles, and the
+    slack that aligns it."""
+    return PIPE_SMEM_ALIGN + PIPE_STAGES * 2 * (m_tb * k_tb + k_tb * n_tb)
+
+
+def pipe_acc_per_thread(m_tb: int, n_tb: int, weights: int = 1) -> int:
+    """f32 accumulators a consumer thread holds in the pipelined body: two
+    consumer warpgroups split the tile into 64-row, then 64-column parts
+    (one multiplies a 64 x 64 tile), and a wgmma of N columns keeps N / 2
+    per thread and weight."""
+    wg_m = m_tb // 64
+    wg_n = min(2 // wg_m, n_tb // 64)
+    return weights * (n_tb // wg_n) // 2
+
+
+def smem_bytes(m_tb: int, k_tb: int, n_tb: int,
+               b_dtype_bytes: int = 2) -> int:
+    """Dynamic shared memory of one LSCD block. Pipelined: the ring plus
+    the live-step list (4 bytes a step). First body: f32 A and B tiles
+    for f32 inputs (A rows padded by one word), bf16 A and transposed B
+    tiles for bf16 ones (rows padded by 8)."""
+    if pipelined(n_tb, b_dtype_bytes):
+        return pipe_ring_bytes(m_tb, k_tb, n_tb) + 4 * MAX_PIPE_STEPS
+    if b_dtype_bytes == 4:
+        return 4 * (m_tb * (k_tb + 1) + k_tb * n_tb)
+    return 2 * (m_tb + n_tb) * (k_tb + 8)
+
+
+def block_groups(group: int, n_tb: int, b_dtype_bytes: int = 2,
+                 binary: bool = False) -> int:
+    """Weights one block accumulates: all G in the first body; one, or
+    the pair of a binary epilogue, in the pipelined body."""
+    if pipelined(n_tb, b_dtype_bytes):
+        return 2 if binary else 1
+    return group
 
 
 def check_launch(m: int, k: int, n: int, *, m_tb: int, k_tb: int, n_tb: int,
-                 split_k: int, group: int = 1) -> List[str]:
-    """Problems with one launch (empty == the kernels take it)."""
+                 split_k: int, group: int = 1, binary: bool = False,
+                 b_dtype_bytes: int = 2) -> List[str]:
+    """Problems with one launch (empty == the kernels take it).
+    ``binary``: a silu_mul/gelu_mul epilogue combining a G=2 pair;
+    ``b_dtype_bytes``: 2 for bf16 B and C, 4 for f32."""
     out: List[str] = []
     if not tile_loc_ok(m_tb, k_tb):
         out.append(f"KC-LOC: tile ({m_tb},{k_tb}) exceeds {MAX_TILE_ELEMS} "
@@ -79,24 +139,73 @@ def check_launch(m: int, k: int, n: int, *, m_tb: int, k_tb: int, n_tb: int,
         out.append(f"KC-LAUNCH: n_tb={n_tb} not in {N_TB_OPTIONS}")
     if group not in GROUP_OPTIONS:
         out.append(f"KC-LAUNCH: group size {group} not in {GROUP_OPTIONS}")
+    if binary and group != 2:
+        out.append(f"KC-LAUNCH: a binary epilogue needs group 2, got {group}")
+    if b_dtype_bytes not in (2, 4):
+        out.append(f"KC-LAUNCH: B of {b_dtype_bytes}-byte elements; the "
+                   "kernels take bf16 (2) and f32 (4)")
     kt = -(-k // k_tb) if k_tb >= 1 else 0
     if split_k < 1 or (kt and split_k > kt):
         out.append(f"KC-LAUNCH: split_k={split_k} outside [1, Kt={kt}]")
     if not out:
-        smem = smem_bytes(m_tb, k_tb, n_tb)
+        smem = smem_bytes(m_tb, k_tb, n_tb, b_dtype_bytes)
         if smem > SMEM_BYTES_PER_BLOCK:
             out.append(f"KC-LAUNCH: {smem} B of shared memory exceeds the "
                        f"{SMEM_BYTES_PER_BLOCK} B a block may use")
-        acc = group * m_tb * n_tb // THREADS
+        gb = block_groups(group, n_tb, b_dtype_bytes, binary)
+        acc = (pipe_acc_per_thread(m_tb, n_tb, gb)
+               if pipelined(n_tb, b_dtype_bytes)
+               else gb * m_tb * n_tb // THREADS)
         if acc > MAX_ACC_PER_THREAD:
             out.append(f"KC-LAUNCH: {acc} accumulators per thread exceed "
-                       f"{MAX_ACC_PER_THREAD} (group={group}, m_tb={m_tb}, "
-                       f"n_tb={n_tb})")
+                       f"{MAX_ACC_PER_THREAD} ({gb} weights per block, "
+                       f"m_tb={m_tb}, n_tb={n_tb})")
+        if pipelined(n_tb, b_dtype_bytes):
+            steps = -(-kt // split_k) * gb
+            if steps > MAX_PIPE_STEPS:
+                out.append(f"KC-LAUNCH: {steps} (K tile, weight) steps per "
+                           f"block exceed the {MAX_PIPE_STEPS} of the "
+                           "pipelined body's step list")
     return out
 
 
 def require_launch(m: int, k: int, n: int, **kw) -> None:
     """Raise :class:`ScheduleContractError` if the launch is invalid."""
     found = check_launch(m, k, n, **kw)
+    if found:
+        raise ScheduleContractError("; ".join(found))
+
+
+def gemm_smem_bytes(m_tb: int, k_tb: int, n_tb: int,
+                    dtype_bytes: int = 2) -> int:
+    """Dynamic shared memory of one dense GEMM block: the pipelined ring
+    for bf16, the f32 A and B tiles for f32."""
+    if dtype_bytes == 2:
+        return pipe_ring_bytes(m_tb, k_tb, n_tb)
+    return 4 * (m_tb * (k_tb + 1) + k_tb * n_tb)
+
+
+def check_gemm(m: int, k: int, n: int, *, m_tb: int, k_tb: int, n_tb: int,
+               dtype_bytes: int = 2) -> List[str]:
+    """Problems with one dense GEMM launch (empty == the kernel takes it)."""
+    out: List[str] = []
+    if (m_tb not in M_TB_OPTIONS or k_tb not in K_TB_OPTIONS
+            or n_tb not in GEMM_N_TB_OPTIONS):
+        out.append(f"KC-LAUNCH: dense_gemm tile ({m_tb},{k_tb},{n_tb}) not "
+                   f"in {M_TB_OPTIONS}x{K_TB_OPTIONS}x{GEMM_N_TB_OPTIONS}")
+    elif m % m_tb or k % k_tb or n % n_tb:
+        out.append(f"KC-LAUNCH: dense_gemm shape {(m, k, n)} not tile-aligned "
+                   f"to ({m_tb},{k_tb},{n_tb})")
+    elif gemm_smem_bytes(m_tb, k_tb, n_tb, dtype_bytes) > SMEM_BYTES_PER_BLOCK:
+        out.append(f"KC-LAUNCH: dense_gemm tile ({m_tb},{k_tb},{n_tb}) needs "
+                   f"{gemm_smem_bytes(m_tb, k_tb, n_tb, dtype_bytes)} B of "
+                   f"shared memory, more than {SMEM_BYTES_PER_BLOCK} B")
+    return out
+
+
+def require_gemm(m: int, k: int, n: int, **kw) -> None:
+    """Raise :class:`ScheduleContractError` (a ``ValueError``) if the dense
+    GEMM launch is invalid."""
+    found = check_gemm(m, k, n, **kw)
     if found:
         raise ScheduleContractError("; ".join(found))

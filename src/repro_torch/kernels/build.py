@@ -1,4 +1,4 @@
-"""Build and load the LSCD CUDA kernels (``csrc/*.cu``) with ``nvcc``.
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) with ``nvcc``.
 
 Each source compiles on its own into a shared library with a plain C
 interface, loaded with ``ctypes``. All sources are compiled together in
@@ -21,7 +21,7 @@ from typing import Dict
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("lscd_spmm", "lscd_spmm_grouped", "lscd_spmm_splitk",
-           "lscd_spmm_splitk_grouped")
+           "lscd_spmm_splitk_grouped", "dense_gemm")
 _REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -57,12 +57,22 @@ def _lib_path(name: str) -> pathlib.Path:
     return build_dir() / f"{name}_{h.hexdigest()[:12]}.so"
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signature of each source's ``<name>_launch``; every one returns a CUDA
+# error code.
+_LSCD_ARGS = ([_P] * 6     # words, nnz, b, bias, partials, out
+              + [_I] * 11  # groups, m, k, n, m_tb, k_tb, n_tb, max_nnz,
+                           # split_k, dtype, epilogue
+              + [_P])      # stream
+ARGTYPES = {name: _LSCD_ARGS for name in SOURCES if name.startswith("lscd")}
+ARGTYPES["dense_gemm"] = ([_P] * 3     # a, b, out
+                          + [_I] * 7   # m, k, n, m_tb, k_tb, n_tb, dtype
+                          + [_P])      # stream
+
+
 def _bind(lib: ctypes.CDLL, name: str) -> None:
     fn = getattr(lib, f"{name}_launch")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    # words, nnz, b, bias, partials, out, groups, m, k, n, m_tb, k_tb, n_tb,
-    # max_nnz, split_k, dtype, epilogue, stream
-    fn.argtypes = [p] * 6 + [i] * 11 + [p]
+    fn.argtypes = ARGTYPES[name]
     fn.restype = ctypes.c_int
 
 

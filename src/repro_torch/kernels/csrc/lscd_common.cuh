@@ -5,38 +5,47 @@
 // (bits 31..16) and a 16-bit intra-tile location row * k_tb + col (bits
 // 15..0), padded with zero words to max_nnz; nnz[g][mt][kt] holds the count.
 //
-// One block of THREADS threads owns one (m tile, n tile[, K slice]). For each
-// K tile whose words are not all empty it
-//   1. stages the B tile in shared memory, once for all G weights of a group
-//      (B is read once per block and K tile);
-//   2. per weight g: zeroes a dense A tile in shared memory and stores the
-//      tile's first nnz words into it. Only the first nnz words are read, so
-//      a padding word, (+0.0 | loc 0), never overwrites element (0, 0);
-//   3. runs the dense product of the two tiles into per-thread f32 register
-//      accumulators acc[G][...]:
-//        bf16 B: tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32 (MmaTile);
-//        f32 B:  CUDA-core f32 FMAs, so f32 inputs keep full f32 (FmaTile).
-// The single-pass kernel flushes bias + epilogue + one cast; the split-K
-// kernel writes f32 partials [S, G, M, N] and a reduce kernel sums the S
-// slices in slice order (no atomics), then applies the same flush. Both call
-// the same accumulate() and flush_value(), so split_k == 1 is bit-identical
-// to the single-pass kernel.
+// Two bodies, chosen by shape (the same rule for the single-pass and the
+// split-K kernels, so split_k == 1 bit-matches the single-pass kernel at
+// every n_tb; analysis/contracts.py states it):
+//
+// * bf16 B with n_tb >= 64 (prefill): the pipelined wgmma mainloop of
+//   hopper_pipe.cuh, one (weight or binary pair, m tile, n tile[, K
+//   slice]) per block, n tiles fastest in the grid so that the blocks
+//   sharing a weight tile's words run together and find them in L2.
+// * n_tb <= 32 (decode) and every f32 launch: the first body, below. One
+//   block of THREADS threads owns one (m tile, n tile[, K slice]) for all
+//   G weights. For each K tile whose words are not all empty it
+//     1. stages the B tile in shared memory, once for all G weights;
+//     2. per weight g: zeroes a dense A tile in shared memory and stores
+//        the tile's first nnz words into it. Only the first nnz words are
+//        read, so a padding word, (+0.0 | loc 0), never overwrites (0, 0);
+//     3. runs the dense product of the two tiles into per-thread f32
+//        register accumulators acc[G][...]:
+//          bf16 B: tensor cores, mma.sync m16n8k16 -> f32 (MmaTile);
+//          f32 B:  CUDA-core f32 FMAs, so f32 inputs keep full f32.
+// The single-pass kernels flush bias + epilogue + one cast; the split-K
+// kernels write f32 partials [S, G, M, N] and a reduce kernel sums the S
+// slices in slice order (no atomics), then applies the same flush_value().
 //
 // What bounds it on an H100: at decode (N <= 64) the weight words are
 // nearly all the bytes moved (4 bytes per kept weight), so the bound is the
 // words' bytes over 3.35 TB/s; at prefill N the useful bf16 operations,
-// 2 * nnz * N, over 989 TFLOP/s. This version has no cp.async/TMA
-// pipelining: it keeps loads in flight by running several blocks on each SM
-// and by letting the schedule split K (kernels/schedule.py) when M tiles
-// alone cannot fill the 132 SMs. Tensor cores keep the dense product of
-// the rebuilt tile short next to the word stream. What it does not hide is
-// each block's walk over its K tiles: every tile costs a few dependent
-// global reads, a full-tile zeroing and three barriers in sequence.
+// 2 * nnz * N, over 989 TFLOP/s. The first body has no cp.async
+// pipelining: it keeps loads in flight by running several blocks on each
+// SM and by letting the schedule split K (kernels/schedule.py). What it does
+// not hide is each block's walk over its K tiles: every tile costs a few
+// dependent global reads, a full-tile zeroing and three barriers in
+// sequence. The decode kernels' redesign is the next step (ROADMAP.md).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper_pipe.cuh"
 
 namespace lscd {
 
@@ -386,14 +395,114 @@ int launch_tile(const Args& a) {
   }
 }
 
+// The pipelined body (hopper_pipe.cuh). GB weights per block: 2 for a
+// binary epilogue, which combines the pair at the flush; else 1, with the
+// weight in the grid (z = slice * G / GB + weight).
+template <bool SPLIT, int G, int GB, int M_TB, int K_TB, int N_TB>
+__global__ void __launch_bounds__(hpipe::THREADS, 1)
+    lscd_pipe_kernel(const Args a) {
+  using Gm = hpipe::Geom<M_TB, K_TB, N_TB>;
+  extern __shared__ __align__(128) unsigned char pipe_smem[];
+  unsigned char* base = hpipe::aligned_smem(pipe_smem);
+  uint16_t* ring = reinterpret_cast<uint16_t*>(base);
+  uint32_t* list = reinterpret_cast<uint32_t*>(base + Gm::RING_BYTES);
+  constexpr int GZ = G / GB;
+  const int ni = blockIdx.x, mi = blockIdx.y;
+  const int s = blockIdx.z / GZ, g0 = (blockIdx.z % GZ) * GB;
+  hpipe::Operands op;
+  op.words = a.words;
+  op.a = nullptr;
+  op.b = static_cast<const uint16_t*>(a.b);
+  op.k = a.k; op.n = a.n; op.max_nnz = a.max_nnz;
+  op.mt_count = a.m / M_TB; op.kt_count = a.k / K_TB; op.g0 = g0;
+  int kt_begin = 0, kt_end = op.kt_count;
+  if (SPLIT) {
+    const int chunk = (op.kt_count + a.split_k - 1) / a.split_k;
+    kt_begin = min(s * chunk, op.kt_count);  // the ragged last slice is short
+    kt_end = min(kt_begin + chunk, op.kt_count);
+  }
+  const int steps =
+      hpipe::live_steps<GB>(list, a.nnz, op, mi, kt_begin, kt_end);
+  float acc[GB][Gm::ACC];
+  hpipe::mainloop<GB, M_TB, K_TB, N_TB, false>(acc, op, mi, ni, kt_begin,
+                                              steps, list, ring);
+  if (!Gm::multiplies()) return;  // a 64 x 64 tile keeps one warpgroup
+  Args f = a;  // this block's weights: the outputs and biases of g0 on
+  if (GB == 1) {
+    f.out = static_cast<__nv_bfloat16*>(a.out) + (size_t)g0 * a.m * a.n;
+    if (a.bias != nullptr) f.bias = a.bias + (size_t)g0 * a.m;
+  }
+#pragma unroll
+  for (int e = 0; e < Gm::ACC; ++e) {
+    int r, c;
+    Gm::coord(e, r, c);
+    const int row = mi * M_TB + r, col = ni * N_TB + c;
+    if constexpr (SPLIT) {
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+        a.partials[(((size_t)s * G + g0 + g) * a.m + row) * a.n + col] =
+            acc[g][e];
+    } else {
+      flush_value<GB, __nv_bfloat16>(f, row, col,
+                                     [&](int g) { return acc[g][e]; });
+    }
+  }
+}
+
+template <bool SPLIT, int G, int GB, int M_TB, int K_TB, int N_TB>
+int launch_pipe(const Args& a) {
+  using Gm = hpipe::Geom<M_TB, K_TB, N_TB>;
+  if constexpr (GB * Gm::ACC > hpipe::MAX_ACC) {
+    return (int)cudaErrorInvalidValue;  // refused by analysis/contracts.py
+  } else {
+    const int kt_count = a.k / K_TB;
+    const int slices = SPLIT ? a.split_k : 1;
+    if ((kt_count + slices - 1) / slices * GB > hpipe::MAX_STEPS)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem = Gm::SMEM_BYTES;
+    auto kern = lscd_pipe_kernel<SPLIT, G, GB, M_TB, K_TB, N_TB>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid(a.n / N_TB, a.m / M_TB, slices * (G / GB));
+    kern<<<grid, hpipe::THREADS, smem, a.stream>>>(a);
+    e = cudaGetLastError();
+    if constexpr (SPLIT) {
+      if (e != cudaSuccess) return (int)e;
+      const size_t total = (size_t)a.m * a.n;
+      const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
+      splitk_reduce_kernel<G, __nv_bfloat16>
+          <<<blocks, THREADS, 0, a.stream>>>(a);
+      e = cudaGetLastError();
+    }
+    return (int)e;
+  }
+}
+
+template <bool SPLIT, int G, int M_TB, int N_TB>
+int launch_pipe_k(const Args& a) {
+  constexpr int PAIR = G == 2 ? 2 : 1;  // a binary epilogue's block weights
+  const bool pair = G == 2 && a.epilogue >= EPI_SILU_MUL;
+  if (a.k_tb == 64)
+    return pair ? launch_pipe<SPLIT, G, PAIR, M_TB, 64, N_TB>(a)
+                : launch_pipe<SPLIT, G, 1, M_TB, 64, N_TB>(a);
+  return pair ? launch_pipe<SPLIT, G, PAIR, M_TB, 128, N_TB>(a)
+              : launch_pipe<SPLIT, G, 1, M_TB, 128, N_TB>(a);
+}
+
 template <bool SPLIT, int G, int M_TB, typename T>
 int launch_n(const Args& a) {
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   switch (a.n_tb) {
     case 8: return launch_tile<SPLIT, G, M_TB, 8, T>(a);
     case 16: return launch_tile<SPLIT, G, M_TB, 16, T>(a);
     case 32: return launch_tile<SPLIT, G, M_TB, 32, T>(a);
-    case 64: return launch_tile<SPLIT, G, M_TB, 64, T>(a);
-    case 128: return launch_tile<SPLIT, G, M_TB, 128, T>(a);
+    case 64:
+      if constexpr (BF16) return launch_pipe_k<SPLIT, G, M_TB, 64>(a);
+      else return launch_tile<SPLIT, G, M_TB, 64, T>(a);
+    case 128:
+      if constexpr (BF16) return launch_pipe_k<SPLIT, G, M_TB, 128>(a);
+      else return launch_tile<SPLIT, G, M_TB, 128, T>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }

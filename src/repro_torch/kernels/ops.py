@@ -44,12 +44,14 @@ def resolve_backend(backend: str, b: torch.Tensor) -> str:
 
 
 def _pick(kind: str, t: tiled_csl.TiledCSL, b: torch.Tensor,
-          n_tb: Optional[int], split_k: Optional[int]) -> schedule_mod.Schedule:
+          n_tb: Optional[int], split_k: Optional[int],
+          binary: bool = False) -> schedule_mod.Schedule:
     m, k = t.shape
     n = b.shape[1]
     sched = schedule_mod.select(
         m, k, n, m_tb=t.m_tb, k_tb=t.k_tb, max_nnz=t.max_nnz, n_tb=n_tb,
-        split_k=split_k, group=t.group or 1, b_dtype_bytes=b.element_size())
+        split_k=split_k, group=t.group or 1, b_dtype_bytes=b.element_size(),
+        binary=binary)
     SCHEDULES[(kind, m, k, n, t.group or 1)] = sched
     return sched
 
@@ -101,7 +103,8 @@ def spmm_grouped(t: tiled_csl.TiledCSL, b: torch.Tensor, *, out_dtype=None,
         return ref_mod.spmm_grouped_ref(t, b, out_dtype=out_dtype,
                                         epilogue=epilogue, bias=bias)
     n = b.shape[1]
-    sched = _pick("spmm_grouped", t, b, n_tb, split_k)
+    sched = _pick("spmm_grouped", t, b, n_tb, split_k,
+                  binary=kind == "binary")
     bp = _pad_n(b, sched.n_tb)
     if sched.split_k == 1:
         out = spmm_mod.lscd_spmm_grouped(

@@ -50,16 +50,19 @@ def candidates(m: int, k: int, n: int, *, m_tb: int, k_tb: int,
 @functools.lru_cache(maxsize=4096)
 def select(m: int, k: int, n: int, *, m_tb: int, k_tb: int, max_nnz: int,
            n_tb: Optional[int] = None, split_k: Optional[int] = None,
-           group: int = 1, b_dtype_bytes: int = 2) -> Schedule:
+           group: int = 1, b_dtype_bytes: int = 2,
+           binary: bool = False) -> Schedule:
     """Pick the launch for one SpMM shape: least ``effective_s``, ties to
     fewer bytes, then smaller split, then larger N tile. Pinned fields are
-    kept; a pinned launch the kernels do not take raises."""
+    kept; a pinned launch the kernels do not take raises. ``binary``: a
+    silu_mul/gelu_mul epilogue, which keeps the G=2 pair in one block."""
     best, best_key, rejected = None, None, []
     for cand in candidates(m, k, n, m_tb=m_tb, k_tb=k_tb, n_tb=n_tb,
                            split_k=split_k):
         bad = contracts.check_launch(m, k, n, m_tb=cand.m_tb, k_tb=cand.k_tb,
                                      n_tb=cand.n_tb, split_k=cand.split_k,
-                                     group=group)
+                                     group=group, binary=binary,
+                                     b_dtype_bytes=b_dtype_bytes)
         if bad:
             rejected.extend(bad)
             continue

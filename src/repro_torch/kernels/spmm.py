@@ -100,7 +100,8 @@ def launch_counts() -> Dict[str, int]:
 # ---------------------------------------------------------------------------
 
 def _check(t, b: torch.Tensor, n_tb: int, split_k: int, out_dtype,
-           bias: Optional[torch.Tensor], groups: int) -> Optional[torch.Tensor]:
+           bias: Optional[torch.Tensor], groups: int,
+           epilogue: str) -> Optional[torch.Tensor]:
     """Raise on anything the kernels do not take; returns the f32 bias."""
     for name, x in (("words", t.words), ("nnz", t.nnz), ("B", b)):
         if not x.is_cuda:
@@ -126,8 +127,12 @@ def _check(t, b: torch.Tensor, n_tb: int, split_k: int, out_dtype,
     if tuple(t.nnz.shape) != lead + (mt, kt) or \
             tuple(t.words.shape[:-1]) != lead + (mt, kt):
         raise ValueError("words/nnz shapes do not match the tile grid")
+    binary = epilogue in _BINARY_EPILOGUES
     contracts.require_launch(m, k, n, m_tb=t.m_tb, k_tb=t.k_tb, n_tb=n_tb,
-                             split_k=split_k, group=groups)
+                             split_k=split_k, group=groups, binary=binary,
+                             b_dtype_bytes=b.element_size())
+    if contracts.pipelined(n_tb, b.element_size()) and b.data_ptr() % 16:
+        raise ValueError("B must be 16-byte aligned for the pipelined body")
     if bias is None:
         return None
     if bias.device != b.device:
@@ -141,7 +146,7 @@ def _check(t, b: torch.Tensor, n_tb: int, split_k: int, out_dtype,
 def _launch(name: str, t, b, *, n_tb: int, split_k: int, out_dtype,
             epilogue: str, bias, groups: int, out_shape) -> torch.Tensor:
     from repro_torch.kernels import build   # builds with nvcc at first use
-    bias = _check(t, b, n_tb, split_k, out_dtype, bias, groups)
+    bias = _check(t, b, n_tb, split_k, out_dtype, bias, groups, epilogue)
     m, k = t.shape
     n = b.shape[1]
     out = torch.empty(out_shape, dtype=out_dtype, device=b.device)

@@ -222,7 +222,8 @@ def test_schedule_decode_splits_prefill_does_not(name):
 def test_launch_contract_rules():
     ok = dict(m_tb=128, k_tb=128, n_tb=128, split_k=1)
     assert not contracts.check_launch(256, 256, 128, group=1, **ok)
-    assert contracts.check_launch(256, 256, 128, group=3, **ok)  # registers
+    assert contracts.check_launch(256, 256, 128, group=3, b_dtype_bytes=4,
+                                  **ok)                           # registers
     assert contracts.check_launch(256, 256, 8, m_tb=128, k_tb=128, n_tb=24,
                                   split_k=1)
     assert contracts.check_launch(256, 256, 8, m_tb=128, k_tb=128, n_tb=8,
@@ -234,3 +235,63 @@ def test_launch_contract_rules():
     with pytest.raises(contracts.ScheduleContractError):
         schedule.select(256, 256, 8, m_tb=128, k_tb=128, max_nnz=3456, n_tb=8,
                         split_k=5)
+
+
+def test_pipelined_body_contract():
+    """bf16 with n_tb >= 64 runs the pipelined body: one weight per block
+    (G=3 at 128x128 fits), the binary pair in one block (only up to 64
+    accumulators per thread), a bounded live-step list."""
+    ok = dict(m_tb=128, k_tb=128, split_k=1)
+    assert contracts.pipelined(64) and contracts.pipelined(128)
+    assert not contracts.pipelined(32)
+    assert not contracts.pipelined(128, b_dtype_bytes=4)
+    assert not contracts.check_launch(256, 256, 128, n_tb=128, group=3, **ok)
+    assert contracts.check_launch(256, 256, 128, n_tb=128, group=2,
+                                  binary=True, **ok)
+    assert not contracts.check_launch(256, 256, 128, n_tb=64, group=2,
+                                      binary=True, **ok)
+    assert not contracts.check_launch(256, 256, 128, n_tb=32, group=3,
+                                      **ok)                  # first body
+    assert contracts.check_launch(256, 256, 128, n_tb=128, group=3,
+                                  binary=True, **ok)
+    # Kt = 2049 single-pass steps overflow the list; S = 2 halves them.
+    k = 2049 * 64
+    bad = contracts.check_launch(128, k, 128, m_tb=128, k_tb=64, n_tb=128,
+                                 split_k=1)
+    assert any("steps" in p for p in bad)
+    assert not contracts.check_launch(128, k, 128, m_tb=128, k_tb=64,
+                                      n_tb=128, split_k=2)
+
+
+@pytest.mark.parametrize("geom", [(m, k, n) for m in (64, 128)
+                                  for k in (64, 128)
+                                  for n in contracts.N_TB_OPTIONS])
+@pytest.mark.parametrize("b_dtype_bytes", [2, 4])
+def test_smem_within_block_budget(geom, b_dtype_bytes):
+    assert contracts.smem_bytes(*geom, b_dtype_bytes) <= \
+        contracts.SMEM_BYTES_PER_BLOCK
+
+
+@pytest.mark.parametrize("name", sorted(OPT))
+def test_schedule_prefill_takes_wide_tiles(name):
+    """At prefill the pipelined body's wide N tile is admissible for
+    every projection, the grouped q/k/v included."""
+    m, k, g = OPT[name]
+    pre = schedule.select(m, k, 1024, m_tb=128, k_tb=128, max_nnz=3456,
+                          group=g)
+    assert pre.n_tb >= contracts.PIPE_MIN_N_TB and pre.split_k == 1
+    f32 = schedule.select(m, k, 1024, m_tb=128, k_tb=128, max_nnz=3456,
+                          group=g, b_dtype_bytes=4)
+    assert not contracts.check_launch(m, k, 1024, m_tb=128, k_tb=128,
+                                      n_tb=f32.n_tb, split_k=f32.split_k,
+                                      group=g, b_dtype_bytes=4)
+
+
+def test_schedule_binary_pair_fits_registers():
+    sel = schedule.select(5632, 2048, 1024, m_tb=128, k_tb=128, max_nnz=3456,
+                          group=2, binary=True)
+    assert not contracts.check_launch(5632, 2048, 1024, m_tb=128, k_tb=128,
+                                      n_tb=sel.n_tb, split_k=sel.split_k,
+                                      group=2, binary=True)
+    assert contracts.pipe_acc_per_thread(128, sel.n_tb, 2) <= \
+        contracts.MAX_ACC_PER_THREAD
