@@ -15,10 +15,13 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    bit-match at every N tile, ``dense_gemm`` over f32/bf16 inputs and
    outputs and against ``lscd_spmm`` on the same matrix — then at the
    OPT-30B projection shapes (sparsity 0.8, bf16) at decode N=8 and
-   prefill N=1024, where it times each kernel, its plain version,
+   prefill N=1024 (and N=16, 32 for down and wqkv, the decode body's
+   range), where it times each kernel, its plain version,
    ``dense_gemm`` on the decoded weight and ``torch.matmul`` on it with
    CUDA events, and prints one comparison row per shape and N (the
-   paper's kernel-level comparison);
+   paper's kernel-level comparison) and the body each launch runs; at
+   N=8 it sweeps the split S over 1, 2, 4, 8, 16 with ``select``'s pick
+   marked, and, for down and wqkv, the decode body's ring depth;
 3. slice phase: serves 8 requests (128-token prompts from the seed, 32
    greedy new tokens) through ``repro_torch.launch.serve`` at OPT-30B
    width with the layer count cut to 4, reads the kernels' launch counts
@@ -38,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -82,6 +86,26 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+
+BODIES = {"lscd_decode_kernel": "decode", "lscd_pipe_kernel": "pipelined",
+          "lscd_kernel": "first", "gemm": "dense_gemm"}
+
+
+def spilling_kernels(log: str) -> dict:
+    """Count, per body, the kernels whose ``ptxas -v`` report in a build
+    log shows spill stores or loads."""
+    counts, kernel = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            kernel = next((b for key, b in BODIES.items() if key in ln),
+                          "other")
+        elif "spill stores" in ln and kernel is not None:
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", ln)
+            spilled = bool(found) and found.groups() != ("0", "0")
+            counts[kernel] = counts.get(kernel, 0) + int(spilled)
+            kernel = None
+    return counts
 
 def sparse_weight(torch, pruning, tiled_csl, gen, m, k, *, m_tb=128,
                   k_tb=128, empty_tile=False):
@@ -291,7 +315,9 @@ def gemm_checks(torch, mods, gen) -> int:
 # prefill (N = 8 requests x 128 prompt tokens), the split-K pair at decode
 # (N = 8). These cells fill the kernels' JSON line.
 # dense_gemm's path is the kernel-level comparison itself (no serving path
-# calls it), at up, N = 1024.
+# calls it), at up, N = 1024. The decode body's range (n_tb up to 32) is
+# timed also at N = 16 and 32 on these shapes.
+DECODE_WIDE_SHAPES = ("down", "wqkv")
 MAIN_PATH_CELLS = {"lscd_spmm": ("up", 1024),
                    "lscd_spmm_grouped": ("wqkv", 1024),
                    "lscd_spmm_splitk": ("down", 8),
@@ -310,9 +336,9 @@ def opt_shapes(torch, mods, flush):
     plain version; its launch count covers its timed runs, the
     comparison that is its path. Returns the rows, the main-path cells
     and the comparison rows (one per shape and N)."""
-    tiled_csl, pruning, ref, spmm, schedule, roofline, gemm = (
+    tiled_csl, pruning, ref, spmm, schedule, roofline, gemm, contracts = (
         mods[x] for x in ("tiled_csl", "pruning", "ref", "spmm",
-                          "schedule", "roofline", "gemm"))
+                          "schedule", "roofline", "gemm", "contracts"))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 1)
     d, f = 7168, 28672
@@ -322,7 +348,7 @@ def opt_shapes(torch, mods, flush):
         "up": dict(m=f, k=d, g=1, epi="gelu", bias=True),
         "down": dict(m=d, k=f, g=1, epi="none", bias=True),
     }
-    rows, compare = [], []
+    rows, compare, sweep, rings = [], [], [], []
     gemm_launches = 0
     for name, s in shapes.items():
         ws = [sparse_weight(torch, pruning, tiled_csl, gen, s["m"], s["k"])
@@ -338,7 +364,9 @@ def opt_shapes(torch, mods, flush):
         split = (spmm.lscd_spmm_splitk_grouped if grouped
                  else spmm.lscd_spmm_splitk)
         nnz_real = int(t.nnz.sum())
-        for n in (8, 1024):
+        for n in (8, 16, 32, 1024):
+            if n in (16, 32) and name not in DECODE_WIDE_SHAPES:
+                continue
             b = (0.1 * torch.randn((s["k"], n), generator=gen,
                                    device="cuda")).to(torch.bfloat16)
             sel = schedule.select(s["m"], s["k"], n, m_tb=128, k_tb=128,
@@ -364,9 +392,11 @@ def opt_shapes(torch, mods, flush):
             rows.append(gemm_row)
             del dense
             runs = [(single, 1)]
-            if n == 8:
+            if n <= 32:
                 runs.append((split, max(sel.split_k, 2)))
-            for kern, sk in runs:
+            body = contracts.body(sel.n_tb)
+
+            def timed(kern, sk):
                 kw = dict(n_tb=sel.n_tb, epilogue=s["epi"], bias=bias)
                 if kern is split:
                     kw["split_k"] = sk
@@ -375,21 +405,48 @@ def opt_shapes(torch, mods, flush):
                     return kern(t, b, **kw)
                 err = close(torch, fn(), want, BF16_TOL,
                             f"{kern.__name__} at {name} {s['m']}x{s['k']} "
-                            f"N={n}")
-                ms = cuda_ms(torch, fn, 20, flush)
+                            f"N={n} S={sk}")
+                return err, cuda_ms(torch, fn, 20, flush)
+
+            for kern, sk in runs:
+                err, ms = timed(kern, sk)
                 rows.append(dict(
                     shape=name, m=s["m"], k=s["k"], n=n, group=s["g"],
                     kernel=kern.__name__, n_tb=sel.n_tb, split_k=sk, ms=ms,
                     plain_ms=plain_ms, library_ms=library_ms,
                     bound_ms=bound_s * 1e3, bound_by=bound_by,
                     max_abs_err=err, selected=dataclasses.asdict(sel),
-                    words_mib=t.words.numel() * 4 / 2 ** 20))
+                    body=body, words_mib=t.words.numel() * 4 / 2 ** 20))
                 print(f"  {name:5s} N={n:<5d}{kern.__name__:25s} "
                       f"n_tb={sel.n_tb:<3d} S={sk:<2d} {ms:8.3f} ms (bound "
                       f"{bound_s * 1e3:.3f} ms by {bound_by}, plain "
                       f"{plain_ms:.3f} ms, torch.matmul {library_ms:.3f} ms, "
-                      f"max err {err:.2e}; select -> S={sel.split_k})",
-                      flush=True)
+                      f"max err {err:.2e}; select -> S={sel.split_k}; "
+                      f"{body} body)", flush=True)
+            if n == 8:                   # the S sweep: S = 1 is single pass
+                for sk in schedule.SPLIT_LADDER:
+                    err, ms = timed(single if sk == 1 else split, sk)
+                    sweep.append(dict(shape=name, n=n, n_tb=sel.n_tb,
+                                      split_k=sk, ms=ms, max_abs_err=err,
+                                      bound_ms=bound_s * 1e3,
+                                      selected=sk == sel.split_k))
+                best_ms = min(r["ms"] for r in sweep if r["shape"] == name)
+                for r in (r for r in sweep if r["shape"] == name):
+                    r["vs_best"] = r["ms"] / best_ms
+                    print(f"  sweep {name:5s} N=8 n_tb={r['n_tb']:<3d} "
+                          f"S={r['split_k']:<2d} {r['ms']:8.3f} ms "
+                          f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound, "
+                          f"{r['ms'] / best_ms:.3f}x best)"
+                          f"{'  <- select' if r['selected'] else ''}",
+                          flush=True)
+                pick = next(r for r in sweep if r["shape"] == name
+                            and r["selected"])
+                print(f"  sweep {name:5s} N=8 select's S={pick['split_k']} "
+                      f"is {'within' if pick['vs_best'] <= 1.05 else 'over'}"
+                      f" 5% of the best S", flush=True)
+            if n == 8 and name in DECODE_WIDE_SHAPES:
+                rings.extend(ring_sweep(contracts, t, sel, name,
+                                        lambda: timed(split, sel.split_k)))
             lscd_ms = min(r["ms"] for r in rows if r["shape"] == name
                           and r["n"] == n and r["kernel"] != "dense_gemm")
             dense_flops = 2.0 * s["g"] * s["m"] * s["k"] * n
@@ -409,7 +466,40 @@ def opt_shapes(torch, mods, flush):
     best = {k: next(r for r in rows if r["kernel"] == k and r["shape"] == sh
                     and r["n"] == n)
             for k, (sh, n) in MAIN_PATH_CELLS.items()}
-    return rows, best, compare, gemm_launches
+    return rows, best, compare, sweep, rings, gemm_launches
+
+
+def ring_sweep(contracts, t, sel, name, timed) -> list:
+    """The split-K kernel at ``sel`` with the decode body's ring forced to
+    each depth a block fits (the wrapper reads the depth from
+    ``contracts.decode_ring_depth``): deeper rings keep more copies in
+    flight but fewer blocks on an SM. Returns one row per depth."""
+    kt = t.grid[1]
+    steps = -(-kt // sel.split_k)
+    rule = contracts.decode_ring_depth
+    chosen = rule(t.m_tb, t.k_tb, sel.n_tb, t.max_nnz, steps)
+    rows = []
+    try:
+        for depth in range(1, contracts.DECODE_MAX_RING + 1):
+            smem = contracts.decode_smem_bytes(t.m_tb, t.k_tb, sel.n_tb,
+                                               t.max_nnz, depth, steps)
+            if smem > contracts.SMEM_BYTES_PER_BLOCK:
+                break
+            contracts.decode_ring_depth = lambda *a, _d=depth: _d
+            err, ms = timed()
+            rows.append(dict(shape=name, n=8, split_k=sel.split_k,
+                             depth=depth, smem=smem, ms=ms, max_abs_err=err,
+                             resident=contracts.decode_resident(
+                                 t.m_tb, t.k_tb, sel.n_tb, t.max_nnz, depth,
+                                 steps), chosen=depth == chosen))
+            r = rows[-1]
+            print(f"  ring {name:5s} N=8 S={sel.split_k:<2d} depth {depth}: "
+                  f"{ms:8.3f} ms, {smem} B of shared memory, "
+                  f"{r['resident']} blocks per SM"
+                  f"{'  <- rule' if r['chosen'] else ''}", flush=True)
+    finally:
+        contracts.decode_ring_depth = rule
+    return rows
 
 
 def dense_gemm_row(torch, gemm, roofline, dense, b, flush) -> dict:
@@ -477,7 +567,8 @@ def slice_phase(torch, mods):
           f"{rep['decode_steps']} steps, {rep['tokens_per_s']:.2f} tok/s",
           flush=True)
     for key, sched in sorted(rep["schedules"].items()):
-        print(f"slice: schedule {key} -> {dataclasses.asdict(sched)}")
+        print(f"slice: schedule {key} -> {dataclasses.asdict(sched)}, "
+              f"{mods['contracts'].body(sched.n_tb)} body")
     print(f"slice: launches {json.dumps(counts)}", flush=True)
     missing = [k for k, v in counts.items() if v == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
@@ -610,17 +701,15 @@ def main() -> int:
     for name in build.SOURCES:
         log = build.build_dir() / f"{name}.log"
         if log.exists():
-            lines = [ln for ln in log.read_text().splitlines()
-                     if "spill" in ln and not ln.strip().startswith(
-                         "0 bytes stack frame, 0 bytes spill stores")]
-            spills = [ln for ln in lines if " 0 bytes spill stores" not in ln]
-            print(f"build: {name}: {len(spills)} ptxas entries with spills")
+            print(f"build: {name}: kernels with spills by body "
+                  f"{json.dumps(spilling_kernels(log.read_text()))}")
 
     n = small_checks(torch, mods)
     print(f"kernels: {n} small-shape checks against the plain versions "
           f"passed (incl. split-K S=1 bit-match)", flush=True)
     flush = torch.empty(2 ** 28, dtype=torch.int32, device="cuda")
-    rows, best, compare, gemm_launches = opt_shapes(torch, mods, flush)
+    rows, best, compare, sweep, rings, gemm_launches = opt_shapes(
+        torch, mods, flush)
     del flush
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     rep, counts, built, prof = slice_phase(torch, mods)
@@ -642,8 +731,9 @@ def main() -> int:
         tokens_per_s=rep["tokens_per_s"], encode_s=built["encode_s"],
         sparse_bytes=built["sparse_bytes"], dense_bytes=built["dense_bytes"],
         launches=counts)
-    summary = dict(card=card, rows=rows, compare=compare, kernels=kernels,
-                   slice=slice_summary, profile=prof)
+    summary = dict(card=card, rows=rows, compare=compare, sweep=sweep,
+                   rings=rings, kernels=kernels, slice=slice_summary,
+                   profile=prof)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({"kernels": kernels}))

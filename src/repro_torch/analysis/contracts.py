@@ -12,20 +12,26 @@ KC-LAUNCH  what the CUDA kernels in ``kernels/csrc`` accept: ``m_tb`` in
            of the TPU's VMEM budget), and at most
            ``MAX_ACC_PER_THREAD`` f32 accumulators per thread.
 
-The LSCD kernels have two bodies, chosen by shape (:func:`pipelined`):
-bf16 B with ``n_tb >= 64`` runs the pipelined mainloop
-(``csrc/hopper_pipe.cuh``), where a block holds one weight, or the pair
-of a binary epilogue, in two consumer warpgroups' wgmma accumulators
-(:func:`pipe_acc_per_thread`), and walks at most ``MAX_PIPE_STEPS`` (K
-tile, weight) steps. Every other launch runs the first body, where a block holds all G
-weights. The dense GEMM baseline (``csrc/dense_gemm.cu``) takes
+The LSCD kernels have three bodies, chosen by dtype and N tile: bf16 B
+with ``n_tb <= DECODE_MAX_N_TB`` runs the decode body
+(``csrc/lscd_decode.cuh``, :func:`decode_body`), whose shared memory
+holds one dense A tile and a ring of word slots sized at launch from
+``max_nnz`` (:func:`decode_ring_depth`, :func:`decode_smem_bytes`); bf16
+B with ``n_tb >= 64`` runs the pipelined mainloop
+(``csrc/hopper_pipe.cuh``, :func:`pipelined`), where two consumer
+warpgroups hold the wgmma accumulators (:func:`pipe_acc_per_thread`).
+In both bf16 bodies a block holds one weight, or the pair of a binary
+epilogue, and walks at most ``MAX_PIPE_STEPS`` (K tile, weight) steps.
+f32 launches run the first body, where a block holds all G weights.
+:func:`launch_resident` is the occupancy the schedule's cost model
+reads. The dense GEMM baseline (``csrc/dense_gemm.cu``) takes
 ``n_tb`` in ``GEMM_N_TB_OPTIONS`` and dims that tile evenly
 (:func:`check_gemm`, the counterpart of the JAX kernel's KC-VMEM check).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 #: 16-bit intra-tile location capacity of the packed Tiled-CSL word.
 MAX_TILE_ELEMS = 65536
@@ -33,12 +39,11 @@ MAX_TILE_ELEMS = 65536
 #: Shared memory one block may use on an H100 (232,448 bytes).
 SMEM_BYTES_PER_BLOCK = 232448
 
-#: Threads per block of every LSCD kernel (csrc/lscd_common.cuh).
+#: Threads per block of the first body and the split-K reduce
+#: (csrc/lscd_common.cuh).
 THREADS = 256
 
-#: f32 accumulators a thread may hold: G * m_tb * n_tb / THREADS in the
-#: first body; :func:`pipe_acc_per_thread` in the pipelined one, where
-#: only the consumer warpgroups hold them.
+#: f32 accumulators a thread may hold (:func:`acc_per_thread`).
 MAX_ACC_PER_THREAD = 64
 
 #: Tile sizes the kernels are instantiated for.
@@ -56,6 +61,24 @@ MAX_PIPE_STEPS = 2048
 PIPE_SMEM_ALIGN = 1024
 #: N tiles of the dense GEMM baseline.
 GEMM_N_TB_OPTIONS = (64, 128)
+
+#: Shared memory of one SM on an H100 (228 KB), the part the runtime keeps
+#: per resident block, and the threads an SM holds.
+SM_SMEM_BYTES = 233472
+SMEM_RESERVED_PER_BLOCK = 1024
+SM_THREADS = 2048
+#: Threads per block of the pipelined body (four warpgroups).
+PIPE_THREADS = 512
+
+#: The decode body (bf16, n_tb <= 32): threads per block, static shared
+#: memory (the live-step counts per warp, as ptxas reports it), the blocks
+#: per SM its launch bounds leave registers for (``Geom::MIN_BLOCKS``) and
+#: the deepest ring it takes.
+DECODE_MAX_N_TB = 32
+DECODE_THREADS = 256
+DECODE_STATIC_SMEM = 128
+DECODE_REG_BLOCKS = {8: 4, 16: 4, 32: 2}
+DECODE_MAX_RING = 4
 
 
 class ScheduleContractError(ValueError):
@@ -81,6 +104,18 @@ def pipelined(n_tb: int, b_dtype_bytes: int = 2) -> bool:
     return b_dtype_bytes == 2 and n_tb >= PIPE_MIN_N_TB
 
 
+def decode_body(n_tb: int, b_dtype_bytes: int = 2) -> bool:
+    """Whether a launch runs the decode body (bf16 B, n_tb <= 32)."""
+    return b_dtype_bytes == 2 and n_tb <= DECODE_MAX_N_TB
+
+
+def body(n_tb: int, b_dtype_bytes: int = 2) -> str:
+    """The body a launch runs: "decode", "pipelined" or "first" (f32)."""
+    if decode_body(n_tb, b_dtype_bytes):
+        return "decode"
+    return "pipelined" if pipelined(n_tb, b_dtype_bytes) else "first"
+
+
 def pipe_ring_bytes(m_tb: int, k_tb: int, n_tb: int) -> int:
     """The pipelined body's ring, PIPE_STAGES bf16 A and B tiles, and the
     slack that aligns it."""
@@ -97,34 +132,99 @@ def pipe_acc_per_thread(m_tb: int, n_tb: int, weights: int = 1) -> int:
     return weights * (n_tb // wg_n) // 2
 
 
-def smem_bytes(m_tb: int, k_tb: int, n_tb: int,
-               b_dtype_bytes: int = 2) -> int:
-    """Dynamic shared memory of one LSCD block. Pipelined: the ring plus
-    the live-step list (4 bytes a step). First body: f32 A and B tiles
-    for f32 inputs (A rows padded by one word), bf16 A and transposed B
-    tiles for bf16 ones (rows padded by 8)."""
+def decode_smem_bytes(m_tb: int, k_tb: int, n_tb: int, max_nnz: int,
+                      depth: int, steps: int) -> int:
+    """Shared memory of one decode-body block (``ldec::Layout``): one bf16
+    A tile, ``depth + 1`` B slots, ``depth`` word slots of ``max_nnz``
+    words with an 8-byte mbarrier each, the live-step list (4 bytes a
+    step) and the static per-warp counts. A dense tile (``max_nnz ==
+    m_tb * k_tb``) needs 64 KB a word slot at 128 x 128."""
+    return (2 * m_tb * k_tb + 2 * (depth + 1) * k_tb * n_tb
+            + depth * (4 * max_nnz + 8) + 4 * steps + DECODE_STATIC_SMEM)
+
+
+def resident_blocks(smem: int, threads: int) -> int:
+    """Blocks of ``smem`` bytes and ``threads`` threads one SM holds at once
+    by shared memory and threads."""
+    return min(SM_SMEM_BYTES // (smem + SMEM_RESERVED_PER_BLOCK),
+               SM_THREADS // threads)
+
+
+def decode_resident(m_tb: int, k_tb: int, n_tb: int, max_nnz: int,
+                    depth: int, steps: int) -> int:
+    """Decode-body blocks an SM holds with a ``depth``-slot ring: shared
+    memory, threads and the registers the launch bounds leave."""
+    smem = decode_smem_bytes(m_tb, k_tb, n_tb, max_nnz, depth, steps)
+    return min(resident_blocks(smem, DECODE_THREADS),
+               DECODE_REG_BLOCKS[n_tb])
+
+
+def decode_ring_depth(m_tb: int, k_tb: int, n_tb: int, max_nnz: int,
+                      steps: int) -> int:
+    """Word slots of the decode body's ring: the deepest ring, up to
+    ``DECODE_MAX_RING``, that keeps as many blocks on an SM as one slot
+    does (one slot and four blocks at 0.8 sparsity and n_tb <= 16; one slot
+    and two blocks for a dense tile). Resident blocks hide more than depth
+    does (PERF.md, PR 13). 0 if not even one slot fits a block."""
+    fits = [d for d in range(1, DECODE_MAX_RING + 1)
+            if decode_smem_bytes(m_tb, k_tb, n_tb, max_nnz, d, steps)
+            <= SMEM_BYTES_PER_BLOCK]
+    if not fits:
+        return 0
+    most = decode_resident(m_tb, k_tb, n_tb, max_nnz, 1, steps)
+    return max(d for d in fits
+               if decode_resident(m_tb, k_tb, n_tb, max_nnz, d, steps) == most)
+
+
+def smem_bytes(m_tb: int, k_tb: int, n_tb: int, b_dtype_bytes: int = 2,
+               max_nnz: Optional[int] = None,
+               steps: int = MAX_PIPE_STEPS) -> int:
+    """Dynamic shared memory of one LSCD block. Decode body: its ring at
+    the depth :func:`decode_ring_depth` picks for ``max_nnz`` (a dense
+    tile where it is not given) and ``steps``. Pipelined: the ring plus
+    the live-step list (4 bytes a step). First body: f32 A and B tiles (A
+    rows padded by one word)."""
+    if decode_body(n_tb, b_dtype_bytes):
+        mnz = m_tb * k_tb if max_nnz is None else max_nnz
+        depth = max(1, decode_ring_depth(m_tb, k_tb, n_tb, mnz, steps))
+        return decode_smem_bytes(m_tb, k_tb, n_tb, mnz, depth, steps)
     if pipelined(n_tb, b_dtype_bytes):
         return pipe_ring_bytes(m_tb, k_tb, n_tb) + 4 * MAX_PIPE_STEPS
-    if b_dtype_bytes == 4:
-        return 4 * (m_tb * (k_tb + 1) + k_tb * n_tb)
-    return 2 * (m_tb + n_tb) * (k_tb + 8)
+    return 4 * (m_tb * (k_tb + 1) + k_tb * n_tb)
 
 
 def block_groups(group: int, n_tb: int, b_dtype_bytes: int = 2,
                  binary: bool = False) -> int:
-    """Weights one block accumulates: all G in the first body; one, or
-    the pair of a binary epilogue, in the pipelined body."""
-    if pipelined(n_tb, b_dtype_bytes):
+    """Weights one block accumulates: all G in the first body (f32); one,
+    or the pair of a binary epilogue, in the bf16 bodies."""
+    if b_dtype_bytes == 2:
         return 2 if binary else 1
     return group
 
 
+def acc_per_thread(m_tb: int, n_tb: int, weights: int,
+                   b_dtype_bytes: int = 2) -> int:
+    """f32 accumulators a thread holds: 4 per n8 tile and weight in the
+    decode body (a warp owns a 16-row strip and all N_TB columns);
+    :func:`pipe_acc_per_thread` in the pipelined one; the block's share of
+    the tile in the first body."""
+    if decode_body(n_tb, b_dtype_bytes):
+        return weights * 4 * (n_tb // 8)
+    if pipelined(n_tb, b_dtype_bytes):
+        return pipe_acc_per_thread(m_tb, n_tb, weights)
+    return weights * m_tb * n_tb // THREADS
+
+
 def check_launch(m: int, k: int, n: int, *, m_tb: int, k_tb: int, n_tb: int,
                  split_k: int, group: int = 1, binary: bool = False,
-                 b_dtype_bytes: int = 2) -> List[str]:
+                 b_dtype_bytes: int = 2,
+                 max_nnz: Optional[int] = None) -> List[str]:
     """Problems with one launch (empty == the kernels take it).
     ``binary``: a silu_mul/gelu_mul epilogue combining a G=2 pair;
-    ``b_dtype_bytes``: 2 for bf16 B and C, 4 for f32."""
+    ``b_dtype_bytes``: 2 for bf16 B and C, 4 for f32; ``max_nnz``: the
+    encoding's word slots per tile (the decode body copies whole 16-byte
+    chunks of them and sizes its ring from them; a dense tile if not
+    given)."""
     out: List[str] = []
     if not tile_loc_ok(m_tb, k_tb):
         out.append(f"KC-LOC: tile ({m_tb},{k_tb}) exceeds {MAX_TILE_ELEMS} "
@@ -147,26 +247,47 @@ def check_launch(m: int, k: int, n: int, *, m_tb: int, k_tb: int, n_tb: int,
     kt = -(-k // k_tb) if k_tb >= 1 else 0
     if split_k < 1 or (kt and split_k > kt):
         out.append(f"KC-LAUNCH: split_k={split_k} outside [1, Kt={kt}]")
+    decode = decode_body(n_tb, b_dtype_bytes)
+    if decode and max_nnz is not None and (max_nnz < 1 or max_nnz % 4):
+        out.append(f"KC-LAUNCH: max_nnz={max_nnz} is not a positive multiple "
+                   "of 4; the decode body copies 16-byte chunks of words")
     if not out:
-        smem = smem_bytes(m_tb, k_tb, n_tb, b_dtype_bytes)
+        gb = block_groups(group, n_tb, b_dtype_bytes, binary)
+        steps = -(-kt // split_k) * gb
+        smem = smem_bytes(m_tb, k_tb, n_tb, b_dtype_bytes, max_nnz, steps)
         if smem > SMEM_BYTES_PER_BLOCK:
             out.append(f"KC-LAUNCH: {smem} B of shared memory exceeds the "
                        f"{SMEM_BYTES_PER_BLOCK} B a block may use")
-        gb = block_groups(group, n_tb, b_dtype_bytes, binary)
-        acc = (pipe_acc_per_thread(m_tb, n_tb, gb)
-               if pipelined(n_tb, b_dtype_bytes)
-               else gb * m_tb * n_tb // THREADS)
+        acc = acc_per_thread(m_tb, n_tb, gb, b_dtype_bytes)
         if acc > MAX_ACC_PER_THREAD:
             out.append(f"KC-LAUNCH: {acc} accumulators per thread exceed "
                        f"{MAX_ACC_PER_THREAD} ({gb} weights per block, "
                        f"m_tb={m_tb}, n_tb={n_tb})")
-        if pipelined(n_tb, b_dtype_bytes):
-            steps = -(-kt // split_k) * gb
-            if steps > MAX_PIPE_STEPS:
-                out.append(f"KC-LAUNCH: {steps} (K tile, weight) steps per "
-                           f"block exceed the {MAX_PIPE_STEPS} of the "
-                           "pipelined body's step list")
+        if b_dtype_bytes == 2 and steps > MAX_PIPE_STEPS:
+            out.append(f"KC-LAUNCH: {steps} (K tile, weight) steps per "
+                       f"block exceed the {MAX_PIPE_STEPS} of the bf16 "
+                       "bodies' step list")
     return out
+
+
+def launch_resident(k: int, *, m_tb: int, k_tb: int, n_tb: int,
+                    split_k: int, group: int = 1, binary: bool = False,
+                    b_dtype_bytes: int = 2,
+                    max_nnz: Optional[int] = None) -> int:
+    """Blocks of one launch that an SM holds at once (the schedule's
+    occupancy term): the decode body's from its ring
+    (:func:`decode_resident`), the other bodies' from shared memory and
+    threads."""
+    kt = -(-k // k_tb)
+    steps = -(-kt // split_k) * block_groups(group, n_tb, b_dtype_bytes,
+                                             binary)
+    if decode_body(n_tb, b_dtype_bytes):
+        mnz = m_tb * k_tb if max_nnz is None else max_nnz
+        depth = decode_ring_depth(m_tb, k_tb, n_tb, mnz, steps)
+        return decode_resident(m_tb, k_tb, n_tb, mnz, max(depth, 1), steps)
+    threads = PIPE_THREADS if pipelined(n_tb, b_dtype_bytes) else THREADS
+    return resident_blocks(smem_bytes(m_tb, k_tb, n_tb, b_dtype_bytes),
+                           threads)
 
 
 def require_launch(m: int, k: int, n: int, **kw) -> None:

@@ -15,12 +15,11 @@ PEAK_FLOPS_BF16 = 989e12      # tensor cores, dense
 HBM_BW = 3.35e12              # bytes/s
 N_SMS = 132
 
-# Independent (m, n, s) blocks a launch needs before the card stops being
-# latency-bound: two resident blocks on each SM. Below this the achieved
-# bandwidth is modelled as scaling with the block count — the skinny
-# decode failure mode split-K exists to fix.
-BLOCKS_PER_SM = 2
-LATENCY_HIDING_TILES = BLOCKS_PER_SM * N_SMS
+# Rounds of resident blocks a launch needs on every SM before it stops
+# losing time to SMs that run out of blocks early: decode blocks walk few
+# K tiles each, and two rounds let the blocks that finish first be
+# replaced (measured on an H100: PERF.md, PR 13).
+LAUNCH_ROUNDS = 2
 
 
 @dataclasses.dataclass
@@ -42,10 +41,16 @@ class SplitKTerms:
 
 def lscd_splitk_terms(m: int, k: int, n: int, *, m_tb: int, k_tb: int,
                       n_tb: int, split_k: int, max_nnz: int, group: int = 1,
-                      b_dtype_bytes: int = 2) -> SplitKTerms:
+                      b_dtype_bytes: int = 2, block_groups: int = 1,
+                      resident: int = 1) -> SplitKTerms:
     """What the grid moves: A words (``max_nnz`` per tile, padding
     included) once per N tile, B once per M tile, C once, and the f32
-    partials written and read once when ``split_k > 1``."""
+    partials written and read once when ``split_k > 1``. Utilization: the
+    launch's blocks (weights ``block_groups`` to a block) over
+    ``LAUNCH_ROUNDS`` rounds of the ``resident`` blocks each SM holds at
+    once; below that the achieved bandwidth is modelled as scaling with
+    the block count, the skinny-decode failure mode split-K exists to
+    fix."""
     if split_k < 1:
         raise ValueError(f"split_k must be >= 1, got {split_k}")
     mt = -(-m // m_tb)
@@ -57,7 +62,8 @@ def lscd_splitk_terms(m: int, k: int, n: int, *, m_tb: int, k_tb: int,
     c_bytes = float(group) * b_dtype_bytes * m * n_pad
     partials = 8.0 * group * split_k * m * n_pad if split_k > 1 else 0.0
     bytes_ = nt * a_once + mt * b_once + c_bytes + partials
-    util = min(1.0, mt * nt * split_k / float(LATENCY_HIDING_TILES))
+    blocks = mt * nt * split_k * (group // block_groups)
+    util = min(1.0, blocks / float(LAUNCH_ROUNDS * resident * N_SMS))
     return SplitKTerms(flops=float(group) * 2.0 * m * k * n_pad,
                        hbm_bytes=bytes_, utilization=util)
 

@@ -61,8 +61,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signature of each source's ``<name>_launch``; every one returns a CUDA
 # error code.
 _LSCD_ARGS = ([_P] * 6     # words, nnz, b, bias, partials, out
-              + [_I] * 11  # groups, m, k, n, m_tb, k_tb, n_tb, max_nnz,
-                           # split_k, dtype, epilogue
+              + [_I] * 12  # groups, m, k, n, m_tb, k_tb, n_tb, max_nnz,
+                           # split_k, dtype, epilogue, ring
               + [_P])      # stream
 ARGTYPES = {name: _LSCD_ARGS for name in SOURCES if name.startswith("lscd")}
 ARGTYPES["dense_gemm"] = ([_P] * 3     # a, b, out

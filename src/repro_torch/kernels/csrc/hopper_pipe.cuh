@@ -286,16 +286,17 @@ constexpr int ENTRY_BITS = 11;
 static_assert(MAX_STEPS <= (1 << ENTRY_BITS), "entry field");
 
 // Compacts the live (K tile, weight) steps of [kt_begin, kt_end), in order,
-// into list; returns their number (the same in every thread).
-template <int GB>
+// into list; returns their number (the same in every thread). NTHREADS is
+// the block's size.
+template <int GB, int NTHREADS = THREADS>
 __device__ int live_steps(uint32_t* list, const int32_t* __restrict__ nnz,
                           const Operands& op, int mi, int kt_begin,
                           int kt_end) {
-  __shared__ int warp_live[THREADS / 32];
+  __shared__ int warp_live[NTHREADS / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int entries = (kt_end - kt_begin) * GB;
   int total = 0;
-  for (int base = 0; base < entries; base += THREADS) {
+  for (int base = 0; base < entries; base += NTHREADS) {
     const int e = base + threadIdx.x;
     int cnt = 0;
     if (e < entries) {
@@ -308,7 +309,7 @@ __device__ int live_steps(uint32_t* list, const int32_t* __restrict__ nnz,
     __syncthreads();
     int off = total, round = 0;
 #pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) {
+    for (int w = 0; w < NTHREADS / 32; ++w) {
       off += w < warp ? warp_live[w] : 0;
       round += warp_live[w];
     }

@@ -5,38 +5,29 @@
 // (bits 31..16) and a 16-bit intra-tile location row * k_tb + col (bits
 // 15..0), padded with zero words to max_nnz; nnz[g][mt][kt] holds the count.
 //
-// Two bodies, chosen by shape (the same rule for the single-pass and the
-// split-K kernels, so split_k == 1 bit-matches the single-pass kernel at
-// every n_tb; analysis/contracts.py states it):
+// Three bodies, chosen by dtype and N tile (the same rule for the
+// single-pass and the split-K kernels, so split_k == 1 bit-matches the
+// single-pass kernel at every n_tb; analysis/contracts.py states it):
 //
+// * bf16 B with n_tb <= 32 (decode): the decode body of lscd_decode.cuh,
+//   bounded by the words' bytes: words and B copied by cp.async.bulk into
+//   shared-memory slots ahead of their use, a live-step list, one dense A
+//   tile rebuilt per step, mma.sync m16n8k16, four blocks per SM.
 // * bf16 B with n_tb >= 64 (prefill): the pipelined wgmma mainloop of
-//   hopper_pipe.cuh, one (weight or binary pair, m tile, n tile[, K
+//   hopper_pipe.cuh, bounded by the tensor cores.
+//   Both bf16 bodies run one (weight or binary pair, m tile, n tile[, K
 //   slice]) per block, n tiles fastest in the grid so that the blocks
 //   sharing a weight tile's words run together and find them in L2.
-// * n_tb <= 32 (decode) and every f32 launch: the first body, below. One
-//   block of THREADS threads owns one (m tile, n tile[, K slice]) for all
-//   G weights. For each K tile whose words are not all empty it
-//     1. stages the B tile in shared memory, once for all G weights;
-//     2. per weight g: zeroes a dense A tile in shared memory and stores
-//        the tile's first nnz words into it. Only the first nnz words are
-//        read, so a padding word, (+0.0 | loc 0), never overwrites (0, 0);
-//     3. runs the dense product of the two tiles into per-thread f32
-//        register accumulators acc[G][...]:
-//          bf16 B: tensor cores, mma.sync m16n8k16 -> f32 (MmaTile);
-//          f32 B:  CUDA-core f32 FMAs, so f32 inputs keep full f32.
+// * f32 B (the tests' and the plain-version checks' full-f32 path): the
+//   first body, below. One block of THREADS threads owns one (m tile,
+//   n tile[, K slice]) for all G weights; for each K tile with words it
+//   stages the B tile, then per weight zeroes a dense f32 A tile, stores
+//   the tile's first nnz words into it (a padding word, (+0.0 | loc 0),
+//   never overwrites (0, 0)) and runs CUDA-core f32 FMAs into per-thread
+//   accumulators acc[G][...].
 // The single-pass kernels flush bias + epilogue + one cast; the split-K
 // kernels write f32 partials [S, G, M, N] and a reduce kernel sums the S
 // slices in slice order (no atomics), then applies the same flush_value().
-//
-// What bounds it on an H100: at decode (N <= 64) the weight words are
-// nearly all the bytes moved (4 bytes per kept weight), so the bound is the
-// words' bytes over 3.35 TB/s; at prefill N the useful bf16 operations,
-// 2 * nnz * N, over 989 TFLOP/s. The first body has no cp.async
-// pipelining: it keeps loads in flight by running several blocks on each
-// SM and by letting the schedule split K (kernels/schedule.py). What it does
-// not hide is each block's walk over its K tiles: every tile costs a few
-// dependent global reads, a full-tile zeroing and three barriers in
-// sequence. The decode kernels' redesign is the next step (ROADMAP.md).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -46,6 +37,7 @@
 #include <type_traits>
 
 #include "hopper_pipe.cuh"
+#include "lscd_decode.cuh"
 
 namespace lscd {
 
@@ -107,7 +99,6 @@ __device__ __forceinline__ void zero_smem(void* p, int bytes) {
 // padded by one word against bank conflicts.
 template <int M_TB, int N_TB>
 struct FmaTile {
-  using Elem = float;
   static constexpr int P = M_TB * N_TB / THREADS;
   static constexpr int TN = cmin(cmin(N_TB, P), 8);
   static constexpr int TM = P / TN;
@@ -159,88 +150,6 @@ struct FmaTile {
   }
 };
 
-// bf16 B and C: tensor cores, mma.sync.m16n8k16 (bf16 x bf16 -> f32; a
-// bf16 product is exact in f32). Warp w owns the 16-row strip w % STRIPS
-// and the 8-column n tiles ng, ng + WN, ... with ng = w / STRIPS. A is kept
-// row-major and B transposed ([n][k]) as bf16, rows padded by 8 elements so
-// each fragment load of a warp hits 32 distinct banks.
-template <int M_TB, int N_TB>
-struct MmaTile {
-  using Elem = uint16_t;  // bf16 bits
-  static constexpr int STRIPS = M_TB / 16;
-  static constexpr int WN = WARPS / STRIPS;
-  static constexpr int NT = N_TB / 8;
-  static constexpr int TPW = (NT + WN - 1) / WN;
-  static constexpr int ACC = 4 * TPW;
-  static_assert(STRIPS * WN == WARPS, "warp layout");
-  static_assert(NT * 8 == N_TB, "N tile is a multiple of 8");
-
-  __host__ __device__ static int lda(int k_tb) { return k_tb + 8; }
-  __host__ __device__ static int a_bytes(int k_tb) {
-    return 2 * M_TB * lda(k_tb);
-  }
-  __host__ static size_t smem(int k_tb) {
-    return (size_t)a_bytes(k_tb) + 2 * (size_t)N_TB * lda(k_tb);
-  }
-  __device__ static void put_a(uint16_t* a_s, int idx, uint32_t w) {
-    a_s[idx] = (uint16_t)(w >> 16);
-  }
-  __device__ static void stage_b(uint16_t* b_s, const __nv_bfloat16* bt,
-                                 int n, int k_tb) {
-    const int ld = lda(k_tb);
-    const uint16_t* src = reinterpret_cast<const uint16_t*>(bt);
-    for (int i = threadIdx.x; i < k_tb * N_TB; i += THREADS) {
-      const int kk = i / N_TB, nn = i % N_TB;
-      b_s[nn * ld + kk] = src[(size_t)kk * n + nn];
-    }
-  }
-  __device__ static uint32_t ld32(const uint16_t* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  __device__ static void compute(float (&acc)[ACC], const uint16_t* a_s,
-                                 const uint16_t* b_s, int k_tb) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int gid = lane >> 2, tig = lane & 3;
-    const int ng = warp / STRIPS, ld = lda(k_tb);
-    const uint16_t* a = a_s + ((warp % STRIPS) * 16 + gid) * ld + tig * 2;
-    for (int kk = 0; kk < k_tb; kk += 16) {
-      const uint32_t a0 = ld32(a + kk), a1 = ld32(a + 8 * ld + kk);
-      const uint32_t a2 = ld32(a + kk + 8), a3 = ld32(a + 8 * ld + kk + 8);
-#pragma unroll
-      for (int q = 0; q < TPW; ++q) {
-        const int j = ng + q * WN;
-        if (j >= NT) break;
-        const uint16_t* b = b_s + (j * 8 + gid) * ld + tig * 2 + kk;
-        const uint32_t b0 = ld32(b), b1 = ld32(b + 8);
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-            "{%0, %1, %2, %3};\n"
-            : "+f"(acc[4 * q]), "+f"(acc[4 * q + 1]), "+f"(acc[4 * q + 2]),
-              "+f"(acc[4 * q + 3])
-            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-      }
-    }
-  }
-  // Accumulator 4q + c is fragment element c of n tile ng + q * WN: rows
-  // gid (c < 2) and gid + 8, columns 2 * tig + (c & 1).
-  __device__ static bool coord(int e, int& row, int& col) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int j = warp / STRIPS + (e >> 2) * WN;
-    row = (warp % STRIPS) * 16 + (lane >> 2) + ((e & 3) >> 1) * 8;
-    col = j * 8 + (lane & 3) * 2 + (e & 1);
-    return j < NT;
-  }
-};
-
-template <typename T, int M_TB, int N_TB> struct TileOf;
-template <int M_TB, int N_TB> struct TileOf<float, M_TB, N_TB> {
-  using type = FmaTile<M_TB, N_TB>;
-};
-template <int M_TB, int N_TB> struct TileOf<__nv_bfloat16, M_TB, N_TB> {
-  using type = MmaTile<M_TB, N_TB>;
-};
-
 struct Args {
   const uint32_t* words;  // [G, Mt, Kt, max_nnz]
   const int32_t* nnz;     // [G, Mt, Kt]
@@ -249,15 +158,18 @@ struct Args {
   float* partials;        // [S, G, M, N] (split-K only)
   void* out;              // [G, M, N], or [M, N] for binary epilogues
   int groups, m, k, n, m_tb, k_tb, n_tb, max_nnz, split_k, dtype, epilogue;
+  int ring;               // word slots of the decode body's ring
   cudaStream_t stream;
 };
 
-// The K tiles [kt_begin, kt_end) of one (m tile, n tile) for all G weights.
-template <int G, int M_TB, int N_TB, typename Tile, typename T>
+// The first body: the K tiles [kt_begin, kt_end) of one (m tile, n tile)
+// for all G weights, f32.
+template <int G, int M_TB, int N_TB>
 __device__ __forceinline__ void accumulate(
-    float (&acc)[G][Tile::ACC], const Args& a, const T* __restrict__ b,
-    int mi, int ni, int kt_begin, int kt_end, typename Tile::Elem* a_s,
-    typename Tile::Elem* b_s) {
+    float (&acc)[G][FmaTile<M_TB, N_TB>::ACC], const Args& a,
+    const float* __restrict__ b, int mi, int ni, int kt_begin, int kt_end,
+    float* a_s, float* b_s) {
+  using Tile = FmaTile<M_TB, N_TB>;
   const int k_tb = a.k_tb, ld = Tile::lda(k_tb);
   const int mt_count = a.m / M_TB, kt_count = a.k / k_tb;
 #pragma unroll
@@ -321,14 +233,13 @@ __device__ __forceinline__ void flush_value(const Args& a, int row, int col,
   }
 }
 
-template <bool SPLIT, int G, int M_TB, int N_TB, typename T>
+template <bool SPLIT, int G, int M_TB, int N_TB>
 __global__ void __launch_bounds__(THREADS)
     lscd_kernel(const Args a) {
-  using Tile = typename TileOf<T, M_TB, N_TB>::type;
-  using Elem = typename Tile::Elem;
+  using Tile = FmaTile<M_TB, N_TB>;
   extern __shared__ __align__(16) unsigned char smem[];
-  Elem* a_s = reinterpret_cast<Elem*>(smem);
-  Elem* b_s = reinterpret_cast<Elem*>(smem + Tile::a_bytes(a.k_tb));
+  float* a_s = reinterpret_cast<float*>(smem);
+  float* b_s = reinterpret_cast<float*>(smem + Tile::a_bytes(a.k_tb));
   const int mi = blockIdx.x, ni = blockIdx.y, s = blockIdx.z;
   const int kt_count = a.k / a.k_tb;
   int kt_begin = 0, kt_end = kt_count;
@@ -338,19 +249,19 @@ __global__ void __launch_bounds__(THREADS)
     kt_end = min(kt_begin + chunk, kt_count);
   }
   float acc[G][Tile::ACC];
-  accumulate<G, M_TB, N_TB, Tile, T>(acc, a, static_cast<const T*>(a.b), mi,
-                                     ni, kt_begin, kt_end, a_s, b_s);
+  accumulate<G, M_TB, N_TB>(acc, a, static_cast<const float*>(a.b), mi, ni,
+                            kt_begin, kt_end, a_s, b_s);
 #pragma unroll
   for (int e = 0; e < Tile::ACC; ++e) {
     int r, c;
-    if (!Tile::coord(e, r, c)) continue;
+    Tile::coord(e, r, c);
     const int row = mi * M_TB + r, col = ni * N_TB + c;
     if constexpr (SPLIT) {
 #pragma unroll
       for (int g = 0; g < G; ++g)
         a.partials[(((size_t)s * G + g) * a.m + row) * a.n + col] = acc[g][e];
     } else {
-      flush_value<G, T>(a, row, col, [&](int g) { return acc[g][e]; });
+      flush_value<G, float>(a, row, col, [&](int g) { return acc[g][e]; });
     }
   }
 }
@@ -370,34 +281,140 @@ __global__ void __launch_bounds__(THREADS) splitk_reduce_kernel(const Args a) {
   });
 }
 
-template <bool SPLIT, int G, int M_TB, int N_TB, typename T>
+// After a split-K partials launch that returned e: the reduce.
+template <bool SPLIT, int G, typename T>
+int then_reduce(const Args& a, cudaError_t e) {
+  if constexpr (SPLIT) {
+    if (e != cudaSuccess) return (int)e;
+    const size_t total = (size_t)a.m * a.n;
+    const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
+    splitk_reduce_kernel<G, T><<<blocks, THREADS, 0, a.stream>>>(a);
+    e = cudaGetLastError();
+  }
+  return (int)e;
+}
+
+template <bool SPLIT, int G, int M_TB, int N_TB>
 int launch_tile(const Args& a) {
   if constexpr (G * M_TB * N_TB / THREADS > MAX_ACC) {
     return (int)cudaErrorInvalidValue;  // refused by analysis/contracts.py
   } else {
-    using Tile = typename TileOf<T, M_TB, N_TB>::type;
-    const size_t smem = Tile::smem(a.k_tb);
-    auto kern = lscd_kernel<SPLIT, G, M_TB, N_TB, T>;
+    const size_t smem = FmaTile<M_TB, N_TB>::smem(a.k_tb);
+    auto kern = lscd_kernel<SPLIT, G, M_TB, N_TB>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     dim3 grid(a.m / M_TB, a.n / N_TB, SPLIT ? a.split_k : 1);
     kern<<<grid, THREADS, smem, a.stream>>>(a);
-    e = cudaGetLastError();
-    if constexpr (SPLIT) {
-      if (e != cudaSuccess) return (int)e;
-      const size_t total = (size_t)a.m * a.n;
-      const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-      splitk_reduce_kernel<G, T><<<blocks, THREADS, 0, a.stream>>>(a);
-      e = cudaGetLastError();
-    }
-    return (int)e;
+    return then_reduce<SPLIT, G, float>(a, cudaGetLastError());
   }
 }
 
-// The pipelined body (hopper_pipe.cuh). GB weights per block: 2 for a
-// binary epilogue, which combines the pair at the flush; else 1, with the
-// weight in the grid (z = slice * G / GB + weight).
+// A bf16 body's block: its K tiles, and the weights g0 .. g0 + GB - 1 it
+// accumulates. GB is 2 for a binary epilogue, which combines the pair at
+// the flush; else 1, with the weight in the grid (z = slice * G / GB +
+// weight) and n tiles fastest.
+template <bool SPLIT, int G, int GB>
+struct BlockWork {
+  int ni, mi, s, g0, kt_begin, kt_end;
+  __device__ BlockWork(const Args& a, int kt_count) {
+    constexpr int GZ = G / GB;
+    ni = blockIdx.x;
+    mi = blockIdx.y;
+    s = blockIdx.z / GZ;
+    g0 = (blockIdx.z % GZ) * GB;
+    kt_begin = 0;
+    kt_end = kt_count;
+    if (SPLIT) {
+      const int chunk = (kt_count + a.split_k - 1) / a.split_k;
+      kt_begin = min(s * chunk, kt_count);  // the ragged last slice is short
+      kt_end = min(kt_begin + chunk, kt_count);
+    }
+  }
+};
+
+// Writes a bf16 body's accumulators (tile-local coordinates from Gm):
+// f32 partials of weights g0 .. g0 + GB - 1, or bias + epilogue + one cast.
+template <bool SPLIT, int G, int GB, class Gm, int M_TB, int N_TB, int ACC>
+__device__ __forceinline__ void flush_bf16(const Args& a,
+                                           const BlockWork<SPLIT, G, GB>& w,
+                                           float (&acc)[GB][ACC]) {
+  Args f = a;  // this block's weights: the outputs and biases of g0 on
+  if (GB == 1) {
+    f.out = static_cast<__nv_bfloat16*>(a.out) + (size_t)w.g0 * a.m * a.n;
+    if (a.bias != nullptr) f.bias = a.bias + (size_t)w.g0 * a.m;
+  }
+#pragma unroll
+  for (int e = 0; e < ACC; ++e) {
+    int r, c;
+    Gm::coord(e, r, c);
+    const int row = w.mi * M_TB + r, col = w.ni * N_TB + c;
+    if constexpr (SPLIT) {
+#pragma unroll
+      for (int g = 0; g < GB; ++g)
+        a.partials[(((size_t)w.s * G + w.g0 + g) * a.m + row) * a.n + col] =
+            acc[g][e];
+    } else {
+      flush_value<GB, __nv_bfloat16>(f, row, col,
+                                     [&](int g) { return acc[g][e]; });
+    }
+  }
+}
+
+__device__ __forceinline__ hpipe::Operands operands(const Args& a, int m_tb,
+                                                   int k_tb, int g0) {
+  hpipe::Operands op;
+  op.words = a.words;
+  op.a = nullptr;
+  op.b = static_cast<const uint16_t*>(a.b);
+  op.k = a.k; op.n = a.n; op.max_nnz = a.max_nnz;
+  op.mt_count = a.m / m_tb; op.kt_count = a.k / k_tb; op.g0 = g0;
+  return op;
+}
+
+// The decode body (lscd_decode.cuh). Shared memory: the A tile, the B and
+// word slots, their mbarriers, then the live-step list.
+template <bool SPLIT, int G, int GB, int M_TB, int K_TB, int N_TB>
+__global__ void __launch_bounds__(ldec::THREADS,
+                                  ldec::Geom<M_TB, K_TB, N_TB>::MIN_BLOCKS)
+    lscd_decode_kernel(const Args a) {
+  using Gm = ldec::Geom<M_TB, K_TB, N_TB>;
+  extern __shared__ __align__(128) unsigned char dec_smem[];
+  const BlockWork<SPLIT, G, GB> w(a, a.k / K_TB);
+  const ldec::Layout<M_TB, K_TB, N_TB> lay(a.max_nnz, a.ring, 0);
+  ldec::init_ring(reinterpret_cast<uint64_t*>(dec_smem + lay.bars), a.ring);
+  uint32_t* list = reinterpret_cast<uint32_t*>(dec_smem + lay.list);
+  const hpipe::Operands op = operands(a, M_TB, K_TB, w.g0);
+  // live_steps' barriers also publish the ring's mbarriers
+  const int steps = hpipe::live_steps<GB, ldec::THREADS>(
+      list, a.nnz, op, w.mi, w.kt_begin, w.kt_end);
+  float acc[GB][Gm::ACC];
+  ldec::mainloop<GB, M_TB, K_TB, N_TB>(acc, op, w.mi, w.ni, w.kt_begin, steps,
+                                       a.ring, list, dec_smem);
+  if (!Gm::multiplies()) return;  // m_tb = 64: warps 4..7 hold no outputs
+  flush_bf16<SPLIT, G, GB, Gm, M_TB, N_TB>(a, w, acc);
+}
+
+template <bool SPLIT, int G, int GB, int M_TB, int K_TB, int N_TB>
+int launch_decode(const Args& a) {
+  const int kt_count = a.k / K_TB;
+  const int slices = SPLIT ? a.split_k : 1;
+  const int steps = (kt_count + slices - 1) / slices * GB;
+  if (steps > hpipe::MAX_STEPS || a.ring < 1 || a.max_nnz % 4 ||
+      a.n % 8)
+    return (int)cudaErrorInvalidValue;  // refused by analysis/contracts.py
+  const size_t smem =
+      ldec::Layout<M_TB, K_TB, N_TB>(a.max_nnz, a.ring, steps).total;
+  auto kern = lscd_decode_kernel<SPLIT, G, GB, M_TB, K_TB, N_TB>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(a.n / N_TB, a.m / M_TB, slices * (G / GB));
+  kern<<<grid, ldec::THREADS, smem, a.stream>>>(a);
+  return then_reduce<SPLIT, G, __nv_bfloat16>(a, cudaGetLastError());
+}
+
+// The pipelined body (hopper_pipe.cuh).
 template <bool SPLIT, int G, int GB, int M_TB, int K_TB, int N_TB>
 __global__ void __launch_bounds__(hpipe::THREADS, 1)
     lscd_pipe_kernel(const Args a) {
@@ -406,47 +423,15 @@ __global__ void __launch_bounds__(hpipe::THREADS, 1)
   unsigned char* base = hpipe::aligned_smem(pipe_smem);
   uint16_t* ring = reinterpret_cast<uint16_t*>(base);
   uint32_t* list = reinterpret_cast<uint32_t*>(base + Gm::RING_BYTES);
-  constexpr int GZ = G / GB;
-  const int ni = blockIdx.x, mi = blockIdx.y;
-  const int s = blockIdx.z / GZ, g0 = (blockIdx.z % GZ) * GB;
-  hpipe::Operands op;
-  op.words = a.words;
-  op.a = nullptr;
-  op.b = static_cast<const uint16_t*>(a.b);
-  op.k = a.k; op.n = a.n; op.max_nnz = a.max_nnz;
-  op.mt_count = a.m / M_TB; op.kt_count = a.k / K_TB; op.g0 = g0;
-  int kt_begin = 0, kt_end = op.kt_count;
-  if (SPLIT) {
-    const int chunk = (op.kt_count + a.split_k - 1) / a.split_k;
-    kt_begin = min(s * chunk, op.kt_count);  // the ragged last slice is short
-    kt_end = min(kt_begin + chunk, op.kt_count);
-  }
+  const BlockWork<SPLIT, G, GB> w(a, a.k / K_TB);
+  const hpipe::Operands op = operands(a, M_TB, K_TB, w.g0);
   const int steps =
-      hpipe::live_steps<GB>(list, a.nnz, op, mi, kt_begin, kt_end);
+      hpipe::live_steps<GB>(list, a.nnz, op, w.mi, w.kt_begin, w.kt_end);
   float acc[GB][Gm::ACC];
-  hpipe::mainloop<GB, M_TB, K_TB, N_TB, false>(acc, op, mi, ni, kt_begin,
-                                              steps, list, ring);
+  hpipe::mainloop<GB, M_TB, K_TB, N_TB, false>(acc, op, w.mi, w.ni,
+                                              w.kt_begin, steps, list, ring);
   if (!Gm::multiplies()) return;  // a 64 x 64 tile keeps one warpgroup
-  Args f = a;  // this block's weights: the outputs and biases of g0 on
-  if (GB == 1) {
-    f.out = static_cast<__nv_bfloat16*>(a.out) + (size_t)g0 * a.m * a.n;
-    if (a.bias != nullptr) f.bias = a.bias + (size_t)g0 * a.m;
-  }
-#pragma unroll
-  for (int e = 0; e < Gm::ACC; ++e) {
-    int r, c;
-    Gm::coord(e, r, c);
-    const int row = mi * M_TB + r, col = ni * N_TB + c;
-    if constexpr (SPLIT) {
-#pragma unroll
-      for (int g = 0; g < GB; ++g)
-        a.partials[(((size_t)s * G + g0 + g) * a.m + row) * a.n + col] =
-            acc[g][e];
-    } else {
-      flush_value<GB, __nv_bfloat16>(f, row, col,
-                                     [&](int g) { return acc[g][e]; });
-    }
-  }
+  flush_bf16<SPLIT, G, GB, Gm, M_TB, N_TB>(a, w, acc);
 }
 
 template <bool SPLIT, int G, int GB, int M_TB, int K_TB, int N_TB>
@@ -466,43 +451,46 @@ int launch_pipe(const Args& a) {
     if (e != cudaSuccess) return (int)e;
     dim3 grid(a.n / N_TB, a.m / M_TB, slices * (G / GB));
     kern<<<grid, hpipe::THREADS, smem, a.stream>>>(a);
-    e = cudaGetLastError();
-    if constexpr (SPLIT) {
-      if (e != cudaSuccess) return (int)e;
-      const size_t total = (size_t)a.m * a.n;
-      const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-      splitk_reduce_kernel<G, __nv_bfloat16>
-          <<<blocks, THREADS, 0, a.stream>>>(a);
-      e = cudaGetLastError();
-    }
-    return (int)e;
+    return then_reduce<SPLIT, G, __nv_bfloat16>(a, cudaGetLastError());
   }
 }
 
+// A bf16 body at one (m_tb, n_tb): k_tb and the block's weights picked.
+template <bool SPLIT, int G, int GB, int M_TB, int K_TB, int N_TB>
+int launch_bf16(const Args& a) {
+  if constexpr (N_TB <= 32)
+    return launch_decode<SPLIT, G, GB, M_TB, K_TB, N_TB>(a);
+  else
+    return launch_pipe<SPLIT, G, GB, M_TB, K_TB, N_TB>(a);
+}
+
 template <bool SPLIT, int G, int M_TB, int N_TB>
-int launch_pipe_k(const Args& a) {
+int launch_bf16_k(const Args& a) {
   constexpr int PAIR = G == 2 ? 2 : 1;  // a binary epilogue's block weights
   const bool pair = G == 2 && a.epilogue >= EPI_SILU_MUL;
   if (a.k_tb == 64)
-    return pair ? launch_pipe<SPLIT, G, PAIR, M_TB, 64, N_TB>(a)
-                : launch_pipe<SPLIT, G, 1, M_TB, 64, N_TB>(a);
-  return pair ? launch_pipe<SPLIT, G, PAIR, M_TB, 128, N_TB>(a)
-              : launch_pipe<SPLIT, G, 1, M_TB, 128, N_TB>(a);
+    return pair ? launch_bf16<SPLIT, G, PAIR, M_TB, 64, N_TB>(a)
+                : launch_bf16<SPLIT, G, 1, M_TB, 64, N_TB>(a);
+  return pair ? launch_bf16<SPLIT, G, PAIR, M_TB, 128, N_TB>(a)
+              : launch_bf16<SPLIT, G, 1, M_TB, 128, N_TB>(a);
+}
+
+template <bool SPLIT, int G, int M_TB, int N_TB, typename T>
+int launch_body(const Args& a) {
+  if constexpr (std::is_same<T, float>::value)
+    return launch_tile<SPLIT, G, M_TB, N_TB>(a);
+  else
+    return launch_bf16_k<SPLIT, G, M_TB, N_TB>(a);
 }
 
 template <bool SPLIT, int G, int M_TB, typename T>
 int launch_n(const Args& a) {
-  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   switch (a.n_tb) {
-    case 8: return launch_tile<SPLIT, G, M_TB, 8, T>(a);
-    case 16: return launch_tile<SPLIT, G, M_TB, 16, T>(a);
-    case 32: return launch_tile<SPLIT, G, M_TB, 32, T>(a);
-    case 64:
-      if constexpr (BF16) return launch_pipe_k<SPLIT, G, M_TB, 64>(a);
-      else return launch_tile<SPLIT, G, M_TB, 64, T>(a);
-    case 128:
-      if constexpr (BF16) return launch_pipe_k<SPLIT, G, M_TB, 128>(a);
-      else return launch_tile<SPLIT, G, M_TB, 128, T>(a);
+    case 8: return launch_body<SPLIT, G, M_TB, 8, T>(a);
+    case 16: return launch_body<SPLIT, G, M_TB, 16, T>(a);
+    case 32: return launch_body<SPLIT, G, M_TB, 32, T>(a);
+    case 64: return launch_body<SPLIT, G, M_TB, 64, T>(a);
+    case 128: return launch_body<SPLIT, G, M_TB, 128, T>(a);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -549,7 +537,7 @@ int launch(const Args& a) {
                       const void* bias, void* partials, void* out,           \
                       int groups, int m, int k, int n, int m_tb, int k_tb,   \
                       int n_tb, int max_nnz, int split_k, int dtype,         \
-                      int epilogue, void* stream) {                          \
+                      int epilogue, int ring, void* stream) {                \
     lscd::Args a;                                                            \
     a.words = static_cast<const uint32_t*>(words);                           \
     a.nnz = static_cast<const int32_t*>(nnz);                                \
@@ -560,6 +548,7 @@ int launch(const Args& a) {
     a.groups = groups; a.m = m; a.k = k; a.n = n;                            \
     a.m_tb = m_tb; a.k_tb = k_tb; a.n_tb = n_tb; a.max_nnz = max_nnz;        \
     a.split_k = split_k; a.dtype = dtype; a.epilogue = epilogue;             \
+    a.ring = ring;                                                           \
     a.stream = static_cast<cudaStream_t>(stream);                            \
     return lscd::launch<SPLIT, GROUPED>(a);                                  \
   }

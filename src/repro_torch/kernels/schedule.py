@@ -10,7 +10,13 @@ at prefill. Candidates are scored with ``core.roofline.lscd_splitk_terms``
 (H100 constants) after the launch contract (``analysis.contracts``) has
 dropped those the kernels do not take; the N ladder keeps every tile the
 kernels are built for. The words moved come from the encoding's own
-``max_nnz``. The JAX package's measured autotune cache is not ported yet.
+``max_nnz``; the occupancy term is the launch's own resident blocks per
+SM (``contracts.launch_resident``: four decode-body blocks at 0.8
+sparsity), so a decode launch splits K until its blocks fill two rounds
+of every SM's resident slots. On an H100 that picks S within 5% of the
+fastest of S in {1, 2, 4, 8, 16} at the four OPT-30B decode shapes
+(PERF.md, PR 13).
+The JAX package's measured autotune cache is not ported yet.
 """
 
 from __future__ import annotations
@@ -66,10 +72,15 @@ def select(m: int, k: int, n: int, *, m_tb: int, k_tb: int, max_nnz: int,
         if bad:
             rejected.extend(bad)
             continue
+        shape = dict(m_tb=cand.m_tb, k_tb=cand.k_tb, n_tb=cand.n_tb,
+                     split_k=cand.split_k, group=group,
+                     b_dtype_bytes=b_dtype_bytes)
         t = roofline.lscd_splitk_terms(
-            m, k, n, m_tb=cand.m_tb, k_tb=cand.k_tb, n_tb=cand.n_tb,
-            split_k=cand.split_k, max_nnz=max_nnz, group=group,
-            b_dtype_bytes=b_dtype_bytes)
+            m, k, n, max_nnz=max_nnz, **shape,
+            block_groups=contracts.block_groups(
+                group, cand.n_tb, b_dtype_bytes, binary),
+            resident=contracts.launch_resident(k, **shape, binary=binary,
+                                               max_nnz=max_nnz))
         key = (t.effective_s, t.hbm_bytes, cand.split_k, -cand.n_tb)
         if best_key is None or key < best_key:
             best, best_key = cand, key

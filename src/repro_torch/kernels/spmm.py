@@ -130,9 +130,13 @@ def _check(t, b: torch.Tensor, n_tb: int, split_k: int, out_dtype,
     binary = epilogue in _BINARY_EPILOGUES
     contracts.require_launch(m, k, n, m_tb=t.m_tb, k_tb=t.k_tb, n_tb=n_tb,
                              split_k=split_k, group=groups, binary=binary,
-                             b_dtype_bytes=b.element_size())
-    if contracts.pipelined(n_tb, b.element_size()) and b.data_ptr() % 16:
-        raise ValueError("B must be 16-byte aligned for the pipelined body")
+                             b_dtype_bytes=b.element_size(),
+                             max_nnz=t.max_nnz)
+    body = contracts.body(n_tb, b.element_size())
+    if body != "first" and b.data_ptr() % 16:
+        raise ValueError(f"B must be 16-byte aligned for the {body} body")
+    if body == "decode" and t.words.data_ptr() % 16:
+        raise ValueError("words must be 16-byte aligned for the decode body")
     if bias is None:
         return None
     if bias.device != b.device:
@@ -141,6 +145,18 @@ def _check(t, b: torch.Tensor, n_tb: int, split_k: int, out_dtype,
     if tuple(bias.shape) != want:
         raise ValueError(f"bias shape {tuple(bias.shape)} != {want}")
     return bias.to(torch.float32).contiguous()
+
+
+def ring_depth(t, n_tb: int, split_k: int, groups: int, epilogue: str,
+               b_dtype_bytes: int = 2) -> int:
+    """Word slots of the decode body's ring for this launch (0 for the
+    other bodies)."""
+    if not contracts.decode_body(n_tb, b_dtype_bytes):
+        return 0
+    gb = contracts.block_groups(groups, n_tb, b_dtype_bytes,
+                                epilogue in _BINARY_EPILOGUES)
+    steps = -(-t.grid[1] // split_k) * gb
+    return contracts.decode_ring_depth(t.m_tb, t.k_tb, n_tb, t.max_nnz, steps)
 
 
 def _launch(name: str, t, b, *, n_tb: int, split_k: int, out_dtype,
@@ -161,7 +177,9 @@ def _launch(name: str, t, b, *, n_tb: int, split_k: int, out_dtype,
             None if partials is None else partials.data_ptr(),
             out.data_ptr(), groups, m, k, n, t.m_tb, t.k_tb, n_tb,
             t.max_nnz, split_k, _DTYPE_CODES[b.dtype],
-            EPILOGUE_CODES[epilogue], stream)
+            EPILOGUE_CODES[epilogue],
+            ring_depth(t, n_tb, split_k, groups, epilogue, b.element_size()),
+            stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
     LAUNCHES[name] += 1

@@ -234,3 +234,112 @@ def test_dense_gemm_equals_spmm_on_same_matrix(cuda):
                             out_dtype=torch.bfloat16)
     sparse = spmm.lscd_spmm(t, b, n_tb=128)
     _assert_close(sparse, dense)
+
+
+# ---- the decode body (bf16, n_tb <= 32) -----------------------------------
+
+DECODE_N_TB = [8, 16, 32]
+
+
+def _decode_weights(dev, groups, m_tb, k_tb, dense_tile):
+    """``groups`` pruned 256 x 8-K-tile weights, with: an empty tile in the
+    middle of the second K half (m tile 1, K tile 5); K tiles 2 and 3 empty
+    in every row, so at S = 4 the second K slice has no live step; and,
+    with ``dense_tile``, one fully dense tile (max_nnz = m_tb * k_tb)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    k = 8 * k_tb
+    ts = []
+    for _ in range(groups):
+        w = pruning.prune(torch.randn((256, k), generator=gen, device=dev),
+                          0.8)
+        w[m_tb:2 * m_tb, 5 * k_tb:6 * k_tb] = 0.0
+        w[:, 2 * k_tb:4 * k_tb] = 0.0
+        if dense_tile:
+            w[:m_tb, 6 * k_tb:7 * k_tb] = 1.0 + torch.rand(
+                (m_tb, k_tb), generator=gen, device=dev)
+        ts.append(tiled_csl.encode(w, m_tb=m_tb, k_tb=k_tb))
+    return ts, gen
+
+
+def _decode_b(gen, dev, k, n):
+    return (0.1 * torch.randn((k, n), generator=gen,
+                              device=dev)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("dense_tile", [False, True])
+@pytest.mark.parametrize("n_cols", [1, 2])          # N = n_cols * n_tb
+@pytest.mark.parametrize("n_tb", DECODE_N_TB)
+@pytest.mark.parametrize("geom", GEOMS)
+def test_decode_body_splitk_matches_plain(cuda, geom, n_tb, n_cols,
+                                          dense_tile):
+    """Ragged nnz (not a multiple of 4), an empty tile mid-slice, a K slice
+    with no live step (S = 4), a dense tile; B one N tile wide (one copy)
+    or two (a copy per row)."""
+    (t,), gen = _decode_weights(cuda, 1, *geom, dense_tile)
+    assert bool((t.nnz % 4 != 0).any())
+    assert t.max_nnz == (geom[0] * geom[1] if dense_tile else t.max_nnz)
+    b = _decode_b(gen, cuda, t.shape[1], n_cols * n_tb)
+    bias = torch.randn((256,), generator=gen, device=cuda)
+    for s in (1, 2, 4):
+        got = spmm.lscd_spmm_splitk(t, b, n_tb=n_tb, split_k=s,
+                                    epilogue="gelu", bias=bias)
+        _assert_close(got, ref.spmm_splitk_ref(
+            t, b, s, out_dtype=torch.bfloat16, epilogue="gelu", bias=bias))
+
+
+@pytest.mark.parametrize("dense_tile", [False, True])
+@pytest.mark.parametrize("n_tb", DECODE_N_TB)
+@pytest.mark.parametrize("geom", GEOMS)
+def test_decode_body_grouped_matches_plain(cuda, geom, n_tb, dense_tile):
+    """G=3 unary (the weight in the grid) and G=2 silu_mul (the pair in one
+    block), single pass and split-K."""
+    ts, gen = _decode_weights(cuda, 3, *geom, dense_tile)
+    b = _decode_b(gen, cuda, ts[0].shape[1], 2 * n_tb)
+    bias = torch.randn((3, 256), generator=gen, device=cuda)
+    for g, epi in ((tiled_csl.group_stack(ts), "gelu"),
+                   (tiled_csl.group_stack(ts[:2]), "silu_mul")):
+        gb = bias[:g.group]
+        got = spmm.lscd_spmm_grouped(g, b, n_tb=n_tb, epilogue=epi, bias=gb)
+        _assert_close(got, ref.spmm_grouped_ref(
+            g, b, out_dtype=torch.bfloat16, epilogue=epi, bias=gb))
+        for s in (2, 4):
+            got = spmm.lscd_spmm_splitk_grouped(g, b, n_tb=n_tb, split_k=s,
+                                                epilogue=epi, bias=gb)
+            _assert_close(got, ref.spmm_splitk_grouped_ref(
+                g, b, s, out_dtype=torch.bfloat16, epilogue=epi, bias=gb))
+
+
+@pytest.mark.parametrize("dense_tile", [False, True])
+@pytest.mark.parametrize("n_tb", DECODE_N_TB)
+@pytest.mark.parametrize("geom", GEOMS)
+def test_decode_body_s1_bitmatches_single_pass(cuda, geom, n_tb, dense_tile):
+    ts, gen = _decode_weights(cuda, 3, *geom, dense_tile)
+    b = _decode_b(gen, cuda, ts[0].shape[1], n_tb)
+    bias = torch.randn((3, 256), generator=gen, device=cuda)
+    one = spmm.lscd_spmm(ts[0], b, n_tb=n_tb, epilogue="gelu", bias=bias[0])
+    s1 = spmm.lscd_spmm_splitk(ts[0], b, n_tb=n_tb, split_k=1,
+                               epilogue="gelu", bias=bias[0])
+    assert torch.equal(one, s1)
+    for g, epi in ((tiled_csl.group_stack(ts), "silu"),
+                   (tiled_csl.group_stack(ts[:2]), "silu_mul")):
+        gb = bias[:g.group]
+        one = spmm.lscd_spmm_grouped(g, b, n_tb=n_tb, epilogue=epi, bias=gb)
+        s1 = spmm.lscd_spmm_splitk_grouped(g, b, n_tb=n_tb, split_k=1,
+                                           epilogue=epi, bias=gb)
+        assert torch.equal(one, s1)
+
+
+def test_decode_body_refuses_unaligned_words(cuda):
+    """The decode body copies whole 16-byte chunks of a tile's words: an
+    encoding whose max_nnz is not a multiple of 4 is refused before any
+    launch, and nothing falls back."""
+    w = pruning.prune(torch.randn((128, 256), device=cuda), 0.8)
+    t = tiled_csl.encode(w, pad_quantum=1)
+    t = tiled_csl.pad_max_nnz(t, t.max_nnz + (1 if t.max_nnz % 4 == 0
+                                              else 0))
+    b = _decode_b(torch.Generator(device=cuda), cuda, 256, 8)
+    before = spmm.launch_counts()["lscd_spmm_splitk"]
+    with pytest.raises(contracts.ScheduleContractError, match="max_nnz"):
+        spmm.lscd_spmm_splitk(t, b, n_tb=8, split_k=2)
+    assert spmm.launch_counts()["lscd_spmm_splitk"] == before

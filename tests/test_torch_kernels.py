@@ -204,6 +204,11 @@ OPT = {"wqkv": (7168, 7168, 3), "wo": (7168, 7168, 1),
        "up": (28672, 7168, 1), "down": (7168, 28672, 1)}
 
 
+# The split the cost model picks at N = 8: the fastest of S in {1, 2, 4,
+# 8, 16} on an H100, or within 5% of it (up: S = 4 measured 2% faster).
+DECODE_SPLIT = {"wqkv": 8, "wo": 16, "up": 8, "down": 16}
+
+
 @pytest.mark.parametrize("name", sorted(OPT))
 def test_schedule_decode_splits_prefill_does_not(name):
     m, k, g = OPT[name]
@@ -211,7 +216,7 @@ def test_schedule_decode_splits_prefill_does_not(name):
     dec = schedule.select(m, k, 8, m_tb=128, k_tb=128, max_nnz=mnz, group=g)
     pre = schedule.select(m, k, 1024, m_tb=128, k_tb=128, max_nnz=mnz,
                           group=g)
-    assert dec.split_k > 1 and dec.n_tb == 8
+    assert dec.split_k == DECODE_SPLIT[name] and dec.n_tb == 8
     assert pre.split_k == 1
     for s in (dec, pre):
         assert not contracts.check_launch(m, k, 8, m_tb=s.m_tb, k_tb=s.k_tb,
@@ -295,3 +300,112 @@ def test_schedule_binary_pair_fits_registers():
                                       group=2, binary=True)
     assert contracts.pipe_acc_per_thread(128, sel.n_tb, 2) <= \
         contracts.MAX_ACC_PER_THREAD
+
+
+# ---- the decode body's shared memory, ring and occupancy -----------------
+
+@pytest.mark.parametrize("n_tb", [8, 16, 32])
+@pytest.mark.parametrize("geom", [(m, k) for m in contracts.M_TB_OPTIONS
+                                  for k in contracts.K_TB_OPTIONS])
+def test_decode_ring_fits_every_max_nnz(geom, n_tb):
+    """Every max_nnz an encoding can have, up to a dense tile, gets a ring
+    of at least one slot whose footprint fits the 227 KB a block may use,
+    with the longest step list and the shortest."""
+    m_tb, k_tb = geom
+    for mnz in range(128, m_tb * k_tb + 1, 128):
+        for steps in (1, contracts.MAX_PIPE_STEPS):
+            depth = contracts.decode_ring_depth(m_tb, k_tb, n_tb, mnz, steps)
+            assert 1 <= depth <= contracts.DECODE_MAX_RING
+            smem = contracts.decode_smem_bytes(m_tb, k_tb, n_tb, mnz, depth,
+                                               steps)
+            assert smem <= contracts.SMEM_BYTES_PER_BLOCK
+            assert contracts.smem_bytes(m_tb, k_tb, n_tb, 2, mnz,
+                                        steps) == smem
+            # the rule takes the deepest ring that keeps the most blocks
+            most = contracts.decode_resident(m_tb, k_tb, n_tb, mnz, 1, steps)
+            assert contracts.decode_resident(m_tb, k_tb, n_tb, mnz, depth,
+                                             steps) == most
+            deeper = contracts.decode_smem_bytes(m_tb, k_tb, n_tb, mnz,
+                                                 depth + 1, steps)
+            assert (depth == contracts.DECODE_MAX_RING
+                    or deeper > contracts.SMEM_BYTES_PER_BLOCK
+                    or contracts.decode_resident(m_tb, k_tb, n_tb, mnz,
+                                                 depth + 1, steps) < most)
+
+
+def test_decode_footprint_and_occupancy():
+    """At 0.8 sparsity (max_nnz 3584 at 128 x 128) one word slot keeps four
+    blocks on an SM; a dense tile's 64 KB slot keeps two; an n_tb = 32
+    block is held to two by its registers, so it takes a deeper ring."""
+    steps = 14
+    assert contracts.decode_smem_bytes(128, 128, 8, 3584, 1, steps) == (
+        2 * 128 * 128 + 2 * 2 * 128 * 8 + 4 * 3584 + 8 + 4 * steps
+        + contracts.DECODE_STATIC_SMEM)
+    assert contracts.decode_ring_depth(128, 128, 8, 3584, steps) == 1
+    assert contracts.decode_resident(128, 128, 8, 3584, 1, steps) == 4
+    assert contracts.decode_resident(128, 128, 8, 3584, 2, steps) == 3
+    dense = 128 * 128
+    assert contracts.decode_ring_depth(128, 128, 8, dense, steps) == 1
+    assert contracts.decode_resident(128, 128, 8, dense, 1, steps) == 2
+    assert contracts.decode_ring_depth(128, 128, 32, 3584, steps) == 3
+    assert contracts.decode_resident(128, 128, 32, 3584, 3, steps) == 2
+    kw = dict(m_tb=128, k_tb=128, max_nnz=3584)
+    assert contracts.launch_resident(28672, n_tb=8, split_k=16, **kw) == 4
+    assert contracts.launch_resident(28672, n_tb=128, split_k=1, **kw) == 1
+
+
+def test_decode_body_contract():
+    """bf16 at n_tb <= 32 runs the decode body: max_nnz a multiple of 4
+    (16-byte word copies), the weight in the grid (or the binary pair in a
+    block), at most MAX_PIPE_STEPS steps; f32 keeps the first body."""
+    assert contracts.body(8) == contracts.body(32) == "decode"
+    assert contracts.body(64) == "pipelined"
+    assert contracts.body(8, b_dtype_bytes=4) == "first"
+    ok = dict(m_tb=128, k_tb=128, n_tb=8, split_k=1)
+    assert not contracts.check_launch(256, 256, 8, max_nnz=3584, **ok)
+    bad = contracts.check_launch(256, 256, 8, max_nnz=3583, **ok)
+    assert any("max_nnz" in p for p in bad)
+    assert not contracts.check_launch(256, 256, 8, max_nnz=3583,
+                                      b_dtype_bytes=4, **ok)
+    assert contracts.block_groups(3, 8) == 1
+    assert contracts.block_groups(2, 8, binary=True) == 2
+    assert contracts.block_groups(3, 8, b_dtype_bytes=4) == 3
+    assert contracts.acc_per_thread(128, 32, 2) == 32
+    k = 2049 * 64
+    bad = contracts.check_launch(128, k, 8, m_tb=128, k_tb=64, n_tb=8,
+                                 split_k=1)
+    assert any("steps" in p for p in bad)
+    assert not contracts.check_launch(128, k, 8, m_tb=128, k_tb=64, n_tb=8,
+                                      split_k=2)
+
+
+def test_wrapper_ring_depth():
+    """The wrapper passes the contract's ring depth to the decode body and
+    0 to the other bodies."""
+    _, pt = _pair(np.random.default_rng(1))          # Kt = 3, max_nnz 4096
+    assert spmm.ring_depth(pt, 8, 1, 1, "none") == \
+        contracts.decode_ring_depth(128, 128, 8, pt.max_nnz, 3)
+    assert spmm.ring_depth(pt, 16, 2, 1, "none") == \
+        contracts.decode_ring_depth(128, 128, 16, pt.max_nnz, 2)
+    assert spmm.ring_depth(pt, 8, 1, 2, "silu_mul") == \
+        contracts.decode_ring_depth(128, 128, 8, pt.max_nnz, 6)
+    assert spmm.ring_depth(pt, 64, 1, 1, "none") == 0
+    assert spmm.ring_depth(pt, 8, 1, 1, "none", b_dtype_bytes=4) == 0
+
+
+@pytest.mark.parametrize("resident", [1, 2, 4])
+def test_roofline_occupancy_term(resident):
+    """Utilization is the launch's blocks over LAUNCH_ROUNDS rounds of the
+    resident blocks on every SM; weights in the grid count as blocks."""
+    from repro_torch.core import roofline
+    full = roofline.LAUNCH_ROUNDS * resident * roofline.N_SMS
+    kw = dict(m_tb=128, k_tb=128, n_tb=8, max_nnz=3584, resident=resident)
+    t = roofline.lscd_splitk_terms(7168, 28672, 8, split_k=1, **kw)
+    assert t.utilization == pytest.approx(56 / full)
+    t = roofline.lscd_splitk_terms(7168, 7168, 8, split_k=2, group=3, **kw)
+    assert t.utilization == pytest.approx(min(1.0, 56 * 2 * 3 / full))
+    t = roofline.lscd_splitk_terms(7168, 7168, 8, split_k=2, group=2,
+                                   block_groups=2, **kw)
+    assert t.utilization == pytest.approx(min(1.0, 56 * 2 / full))
+    t = roofline.lscd_splitk_terms(28672, 7168, 8, split_k=16, **kw)
+    assert t.utilization == 1.0
