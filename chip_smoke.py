@@ -8,7 +8,9 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
 1. prints the card's name and power limit and builds the five CUDA
    kernels (four LSCD SpMM kernels and the dense GEMM baseline) from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per
-   source, all at once);
+   source, all at once), and fails if ``ptxas`` reports a spill, a
+   serialized ``wgmma`` (C7518) or an ignored ``setmaxnreg`` (C7508) in
+   a body that runs ``wgmma``; it prints each body's counts;
 2. kernel phase: holds each kernel against its plain PyTorch version on
    the card — small shapes over the three tile geometries, empty tiles,
    ragged N, bias, every epilogue, S=1 and a ragged S, the split-K S=1
@@ -17,8 +19,10 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    OPT-30B projection shapes (sparsity 0.8, bf16) at decode N=8 and
    prefill N=1024 (and N=16, 32 for down and wqkv, the decode body's
    range), where it times each kernel, its plain version,
-   ``dense_gemm`` on the decoded weight and ``torch.matmul`` on it with
-   CUDA events, and prints one comparison row per shape and N (the
+   ``dense_gemm`` on the decoded weight (at N = 1024 twice: at n_tb =
+   128, the LSCD kernels' tile, and at 256, its own widest, each with its
+   share of the bound) and ``torch.matmul`` on it with CUDA events, and
+   prints one comparison row per shape and N (the
    paper's kernel-level comparison) and the body each launch runs; at
    N=8 it sweeps the split S over 1, 2, 4, 8, 16 with ``select``'s pick
    marked, and, for down and wqkv, the decode body's ring depth;
@@ -91,21 +95,41 @@ BODIES = {"lscd_decode_kernel": "decode", "lscd_pipe_kernel": "pipelined",
           "lscd_kernel": "first", "gemm": "dense_gemm"}
 
 
-def spilling_kernels(log: str) -> dict:
-    """Count, per body, the kernels whose ``ptxas -v`` report in a build
-    log shows spill stores or loads."""
+# ptxas warnings that cost the wgmma bodies their speed: wgmma serialized
+# (C7518), setmaxnreg ignored (C7508).
+PTXAS_WARNINGS = ("C7518", "C7508")
+# Bodies that run wgmma: a spill or a warning in one of them (or in a
+# kernel of no known body) fails the build phase.
+WGMMA_BODIES = ("pipelined", "dense_gemm", "other")
+
+
+def ptxas_report(log: str) -> dict:
+    """Per body, from a build log's ``ptxas -v`` report: the kernels whose
+    spill stores or loads are not zero, and the count of each warning in
+    ``PTXAS_WARNINGS``, given to the body its line names (else to the kernel
+    being compiled, else to "other")."""
+    def body_of(line, default):
+        return next((b for key, b in BODIES.items() if key in line), default)
+
     counts, kernel = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            kernel = next((b for key, b in BODIES.items() if key in ln),
-                          "other")
+            kernel = body_of(ln, "other")
+            counts.setdefault(kernel, dict.fromkeys(
+                ("spills",) + PTXAS_WARNINGS, 0))
+        code = next((c for c in PTXAS_WARNINGS if c in ln), None)
+        if code is not None:
+            body = body_of(ln, kernel or "other")
+            c = counts.setdefault(body, dict.fromkeys(
+                ("spills",) + PTXAS_WARNINGS, 0))
+            c[code] += 1
         elif "spill stores" in ln and kernel is not None:
             found = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", ln)
-            spilled = bool(found) and found.groups() != ("0", "0")
-            counts[kernel] = counts.get(kernel, 0) + int(spilled)
-            kernel = None
+            counts[kernel]["spills"] += int(
+                bool(found) and found.groups() != ("0", "0"))
     return counts
+
 
 def sparse_weight(torch, pruning, tiled_csl, gen, m, k, *, m_tb=128,
                   k_tb=128, empty_tile=False):
@@ -384,12 +408,19 @@ def opt_shapes(torch, mods, flush):
             plain_ms = cuda_ms(torch, plain, 3, flush)
             library_ms = cuda_ms(torch, lambda: torch.matmul(dense, b), 20,
                                  flush)
-            gemm_row = dense_gemm_row(torch, gemm, roofline, dense, b, flush)
-            gemm_launches += gemm_row.pop("launches")
-            gemm_row.update(shape=name, m=s["m"], k=s["k"], n=n,
-                            group=s["g"], kernel="dense_gemm",
-                            library_ms=library_ms)
-            rows.append(gemm_row)
+            # dense_gemm at the LSCD kernels' N tile (the Load-as-Sparse
+            # comparison) and, at prefill N, at its own widest tile
+            gemm_rows = []
+            for n_tb in ((128, 256) if n % 256 == 0 else (64,)):
+                r = dense_gemm_row(torch, gemm, roofline, dense, b, flush,
+                                   n_tb, library_ms)
+                gemm_launches += r.pop("launches")
+                r.update(shape=name, m=s["m"], k=s["k"], n=n, group=s["g"],
+                         kernel="dense_gemm", library_ms=library_ms)
+                gemm_rows.append(r)
+            rows.extend(gemm_rows)
+            gemm_row = gemm_rows[0]
+            gemm_best = min(gemm_rows, key=lambda r: r["ms"])
             del dense
             runs = [(single, 1)]
             if n <= 32:
@@ -452,19 +483,26 @@ def opt_shapes(torch, mods, flush):
             dense_flops = 2.0 * s["g"] * s["m"] * s["k"] * n
             compare.append(dict(
                 shape=name, n=n, lscd_ms=lscd_ms, dense_gemm_ms=gemm_row["ms"],
+                dense_gemm_n_tb=gemm_row["n_tb"],
+                dense_gemm_best_ms=gemm_best["ms"],
+                dense_gemm_best_n_tb=gemm_best["n_tb"],
                 matmul_ms=library_ms, bound_ms=bound_s * 1e3,
                 dense_floor_ms=dense_flops / roofline.PEAK_FLOPS_BF16 * 1e3))
             c = compare[-1]
             print(f"  compare {name:5s} N={n:<5d} LSCD {c['lscd_ms']:.3f} ms, "
-                  f"dense_gemm {c['dense_gemm_ms']:.3f} ms (LSCD - dense "
-                  f"{c['lscd_ms'] - c['dense_gemm_ms']:+.3f}), torch.matmul "
-                  f"{library_ms:.3f} ms, bound {c['bound_ms']:.3f} ms, dense "
-                  f"floor {c['dense_floor_ms']:.3f} ms", flush=True)
+                  f"dense_gemm {c['dense_gemm_ms']:.3f} ms at n_tb="
+                  f"{gemm_row['n_tb']} (LSCD - dense "
+                  f"{c['lscd_ms'] - c['dense_gemm_ms']:+.3f}), best "
+                  f"{gemm_best['ms']:.3f} ms at n_tb={gemm_best['n_tb']} "
+                  f"({gemm_best['ms'] / library_ms:.2f}x torch.matmul), "
+                  f"torch.matmul {library_ms:.3f} ms, bound "
+                  f"{c['bound_ms']:.3f} ms, dense floor "
+                  f"{c['dense_floor_ms']:.3f} ms", flush=True)
             del want
         del t, ws
         torch.cuda.empty_cache()
-    best = {k: next(r for r in rows if r["kernel"] == k and r["shape"] == sh
-                    and r["n"] == n)
+    best = {k: min((r for r in rows if r["kernel"] == k and r["shape"] == sh
+                    and r["n"] == n), key=lambda r: r["ms"])
             for k, (sh, n) in MAIN_PATH_CELLS.items()}
     return rows, best, compare, sweep, rings, gemm_launches
 
@@ -502,13 +540,15 @@ def ring_sweep(contracts, t, sel, name, timed) -> list:
     return rows
 
 
-def dense_gemm_row(torch, gemm, roofline, dense, b, flush) -> dict:
-    """``dense_gemm`` (bf16 in and out, 128x128 tiles, 64 at a skinny N) on
-    the decoded weight, held against its plain version and timed. The
-    launch count is reset just before the timed runs and read after."""
+def dense_gemm_row(torch, gemm, roofline, dense, b, flush, n_tb,
+                   library_ms) -> dict:
+    """``dense_gemm`` (bf16 in and out, 128-row tiles of ``n_tb`` columns,
+    B padded to them) on the decoded weight, held against its plain version
+    and timed, with its share of the bound and its ratio to
+    ``torch.matmul`` (``library_ms``). The launch count is reset just
+    before the timed runs and read after."""
     a = dense.reshape(-1, dense.shape[-1])            # [G*M, K]
     n = b.shape[1]
-    n_tb = 128 if n % 128 == 0 else 64
     bp = torch.nn.functional.pad(b, (0, -n % n_tb)).contiguous()
 
     def fn():
@@ -526,12 +566,14 @@ def dense_gemm_row(torch, gemm, roofline, dense, b, flush) -> dict:
     bound_s, bound_by = roofline.lscd_bound_s(
         2.0 * m * k, 0.0, 2.0 * bp.numel(), 2.0 * m * bp.shape[1],
         2.0 * m * k * bp.shape[1])
+    share = bound_s * 1e3 / ms
     print(f"  dense_gemm {m}x{k} N={bp.shape[1]:<5d} n_tb={n_tb:<3d} "
-          f"{ms:8.3f} ms (bound {bound_s * 1e3:.3f} ms by {bound_by}, plain "
+          f"{ms:8.3f} ms ({100 * share:.1f}% of the bound {bound_s * 1e3:.3f}"
+          f" ms by {bound_by}; {ms / library_ms:.2f}x torch.matmul; plain "
           f"{plain_ms:.3f} ms, max err {err:.2e})", flush=True)
     return dict(n_tb=n_tb, split_k=1, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_s * 1e3, bound_by=bound_by, max_abs_err=err,
-                launches=launches)
+                bound_ms=bound_s * 1e3, bound_by=bound_by, share_of_bound=share,
+                max_abs_err=err, launches=launches)
 
 
 # ---------------------------------------------------------------------------
@@ -698,11 +740,17 @@ def main() -> int:
     print(f"build: {len(build.SOURCES)} kernel sources in "
           f"{time.perf_counter() - t0:.2f} s "
           f"(nvcc, sm_90a)", flush=True)
+    ptxas = {}
     for name in build.SOURCES:
         log = build.build_dir() / f"{name}.log"
         if log.exists():
-            print(f"build: {name}: kernels with spills by body "
-                  f"{json.dumps(spilling_kernels(log.read_text()))}")
+            ptxas[name] = ptxas_report(log.read_text())
+            print(f"build: {name}: by body, kernels with spills and ptxas "
+                  f"warnings {json.dumps(ptxas[name])}")
+    bad = {f"{name}/{body}": {c: n for c, n in r.items() if n}
+           for name, report in ptxas.items() for body, r in report.items()
+           if body in WGMMA_BODIES and any(r.values())}
+    check(not bad, f"ptxas spills or warns in a wgmma body: {bad}")
 
     n = small_checks(torch, mods)
     print(f"kernels: {n} small-shape checks against the plain versions "
@@ -731,9 +779,9 @@ def main() -> int:
         tokens_per_s=rep["tokens_per_s"], encode_s=built["encode_s"],
         sparse_bytes=built["sparse_bytes"], dense_bytes=built["dense_bytes"],
         launches=counts)
-    summary = dict(card=card, rows=rows, compare=compare, sweep=sweep,
-                   rings=rings, kernels=kernels, slice=slice_summary,
-                   profile=prof)
+    summary = dict(card=card, ptxas=ptxas, rows=rows, compare=compare,
+                   sweep=sweep, rings=rings, kernels=kernels,
+                   slice=slice_summary, profile=prof)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({"kernels": kernels}))

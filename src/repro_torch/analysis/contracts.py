@@ -25,8 +25,12 @@ epilogue, and walks at most ``MAX_PIPE_STEPS`` (K tile, weight) steps.
 f32 launches run the first body, where a block holds all G weights.
 :func:`launch_resident` is the occupancy the schedule's cost model
 reads. The dense GEMM baseline (``csrc/dense_gemm.cu``) takes
-``n_tb`` in ``GEMM_N_TB_OPTIONS`` and dims that tile evenly
-(:func:`check_gemm`, the counterpart of the JAX kernel's KC-VMEM check).
+``n_tb`` in ``GEMM_N_TB_OPTIONS`` and dims that tile evenly; its bf16
+kernel runs the pipelined mainloop with A by TMA, a ring of
+``GEMM_K_STAGE``-deep stages as deep as shared memory allows
+(:func:`gemm_stages`) and up to ``GEMM_MAX_ACC`` accumulators a consumer
+thread (:func:`check_gemm`, the counterpart of the JAX kernel's KC-VMEM
+check).
 """
 
 from __future__ import annotations
@@ -55,19 +59,30 @@ GROUP_OPTIONS = (1, 2, 3)
 #: Smallest N tile of the pipelined body (bf16 only).
 PIPE_MIN_N_TB = 64
 #: Ring slots, live-step list entries and shared-memory alignment (the
-#: 128-byte swizzle's 1 KB period) of the pipelined body.
+#: 128-byte swizzle's 1 KB period) of the pipelined body; each slot has a
+#: full and an empty mbarrier of 8 bytes.
 PIPE_STAGES = 3
 MAX_PIPE_STEPS = 2048
 PIPE_SMEM_ALIGN = 1024
+PIPE_BAR_BYTES = 16
 #: N tiles of the dense GEMM baseline.
-GEMM_N_TB_OPTIONS = (64, 128)
+GEMM_N_TB_OPTIONS = (64, 128, 256)
+#: The dense GEMM's bf16 ring: stages 64 deep in K, at most 8 of them,
+#: beside 32 KB that stage the epilogue's TMA stores; its consumer threads
+#: hold up to 128 f32 accumulators (setmaxnreg gives them 232 registers);
+#: its f32 tile, on CUDA cores, at most MAX_ACC_PER_THREAD.
+GEMM_K_STAGE = 64
+GEMM_MAX_STAGES = 8
+GEMM_EPI_BYTES = 32768
+GEMM_MAX_ACC = 128
 
 #: Shared memory of one SM on an H100 (228 KB), the part the runtime keeps
 #: per resident block, and the threads an SM holds.
 SM_SMEM_BYTES = 233472
 SMEM_RESERVED_PER_BLOCK = 1024
 SM_THREADS = 2048
-#: Threads per block of the pipelined body (four warpgroups).
+#: Threads per block of the pipelined LSCD body (four warpgroups; the
+#: dense GEMM's block has three, since TMA brings its A).
 PIPE_THREADS = 512
 
 #: The decode body (bf16, n_tb <= 32): threads per block, static shared
@@ -189,7 +204,8 @@ def smem_bytes(m_tb: int, k_tb: int, n_tb: int, b_dtype_bytes: int = 2,
         depth = max(1, decode_ring_depth(m_tb, k_tb, n_tb, mnz, steps))
         return decode_smem_bytes(m_tb, k_tb, n_tb, mnz, depth, steps)
     if pipelined(n_tb, b_dtype_bytes):
-        return pipe_ring_bytes(m_tb, k_tb, n_tb) + 4 * MAX_PIPE_STEPS
+        return (pipe_ring_bytes(m_tb, k_tb, n_tb)
+                + PIPE_BAR_BYTES * PIPE_STAGES + 4 * MAX_PIPE_STEPS)
     return 4 * (m_tb * (k_tb + 1) + k_tb * n_tb)
 
 
@@ -297,13 +313,36 @@ def require_launch(m: int, k: int, n: int, **kw) -> None:
         raise ScheduleContractError("; ".join(found))
 
 
+def gemm_stages(m_tb: int, n_tb: int) -> int:
+    """Stages of the dense GEMM's bf16 ring (``hpipe::DenseRing``): as
+    many ``GEMM_K_STAGE``-deep stages, each an A and a B tile and two
+    mbarriers, as one block's shared memory holds after the alignment
+    slack and the epilogue's staging, at most ``GEMM_MAX_STAGES``: 4 at
+    128 x 256, 6 at 128 x 128."""
+    stage = 2 * GEMM_K_STAGE * (m_tb + n_tb) + PIPE_BAR_BYTES
+    return min(GEMM_MAX_STAGES, (SMEM_BYTES_PER_BLOCK - PIPE_SMEM_ALIGN
+                                 - GEMM_EPI_BYTES) // stage)
+
+
 def gemm_smem_bytes(m_tb: int, k_tb: int, n_tb: int,
                     dtype_bytes: int = 2) -> int:
-    """Dynamic shared memory of one dense GEMM block: the pipelined ring
-    for bf16, the f32 A and B tiles for f32."""
+    """Dynamic shared memory of one dense GEMM block: the bf16 ring
+    (:func:`gemm_stages`, whatever ``k_tb``) and the epilogue's staging,
+    or the f32 A and B tiles."""
     if dtype_bytes == 2:
-        return pipe_ring_bytes(m_tb, k_tb, n_tb)
+        stages = gemm_stages(m_tb, n_tb)
+        return (PIPE_SMEM_ALIGN + GEMM_EPI_BYTES
+                + stages * (2 * GEMM_K_STAGE * (m_tb + n_tb) + PIPE_BAR_BYTES))
     return 4 * (m_tb * (k_tb + 1) + k_tb * n_tb)
+
+
+def gemm_acc_per_thread(m_tb: int, n_tb: int, dtype_bytes: int = 2) -> int:
+    """f32 accumulators a dense GEMM thread holds: a consumer's wgmma part
+    for bf16 (:func:`pipe_acc_per_thread`; 128 at 128 x 256), the block's
+    share of the tile on CUDA cores for f32."""
+    if dtype_bytes == 2:
+        return pipe_acc_per_thread(m_tb, n_tb)
+    return m_tb * n_tb // THREADS
 
 
 def check_gemm(m: int, k: int, n: int, *, m_tb: int, k_tb: int, n_tb: int,
@@ -314,13 +353,21 @@ def check_gemm(m: int, k: int, n: int, *, m_tb: int, k_tb: int, n_tb: int,
             or n_tb not in GEMM_N_TB_OPTIONS):
         out.append(f"KC-LAUNCH: dense_gemm tile ({m_tb},{k_tb},{n_tb}) not "
                    f"in {M_TB_OPTIONS}x{K_TB_OPTIONS}x{GEMM_N_TB_OPTIONS}")
-    elif m % m_tb or k % k_tb or n % n_tb:
+        return out
+    if m % m_tb or k % k_tb or n % n_tb:
         out.append(f"KC-LAUNCH: dense_gemm shape {(m, k, n)} not tile-aligned "
                    f"to ({m_tb},{k_tb},{n_tb})")
-    elif gemm_smem_bytes(m_tb, k_tb, n_tb, dtype_bytes) > SMEM_BYTES_PER_BLOCK:
+    smem = gemm_smem_bytes(m_tb, k_tb, n_tb, dtype_bytes)
+    if smem > SMEM_BYTES_PER_BLOCK:
         out.append(f"KC-LAUNCH: dense_gemm tile ({m_tb},{k_tb},{n_tb}) needs "
-                   f"{gemm_smem_bytes(m_tb, k_tb, n_tb, dtype_bytes)} B of "
-                   f"shared memory, more than {SMEM_BYTES_PER_BLOCK} B")
+                   f"{smem} B of shared memory, more than "
+                   f"{SMEM_BYTES_PER_BLOCK} B")
+    acc = gemm_acc_per_thread(m_tb, n_tb, dtype_bytes)
+    most = GEMM_MAX_ACC if dtype_bytes == 2 else MAX_ACC_PER_THREAD
+    if acc > most:
+        out.append(f"KC-LAUNCH: dense_gemm tile ({m_tb},{k_tb},{n_tb}) holds "
+                   f"{acc} accumulators a thread for {dtype_bytes}-byte "
+                   f"inputs, more than {most}")
     return out
 
 

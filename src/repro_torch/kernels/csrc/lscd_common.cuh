@@ -365,7 +365,6 @@ __device__ __forceinline__ hpipe::Operands operands(const Args& a, int m_tb,
                                                    int k_tb, int g0) {
   hpipe::Operands op;
   op.words = a.words;
-  op.a = nullptr;
   op.b = static_cast<const uint16_t*>(a.b);
   op.k = a.k; op.n = a.n; op.max_nnz = a.max_nnz;
   op.mt_count = a.m / m_tb; op.kt_count = a.k / k_tb; op.g0 = g0;
@@ -414,24 +413,35 @@ int launch_decode(const Args& a) {
   return then_reduce<SPLIT, G, __nv_bfloat16>(a, cudaGetLastError());
 }
 
-// The pipelined body (hopper_pipe.cuh).
+// The pipelined body (hopper_pipe.cuh), sparse A source. Shared memory:
+// the ring, its mbarriers, then the live-step list.
 template <bool SPLIT, int G, int GB, int M_TB, int K_TB, int N_TB>
-__global__ void __launch_bounds__(hpipe::THREADS, 1)
-    lscd_pipe_kernel(const Args a) {
+__global__ void __launch_bounds__(hpipe::Source<false>::THREADS, 1)
+    lscd_pipe_kernel(const Args a, const __grid_constant__ CUtensorMap map_b) {
   using Gm = hpipe::Geom<M_TB, K_TB, N_TB>;
+  using L = hpipe::SparseLayout<M_TB, K_TB, N_TB>;
   extern __shared__ __align__(128) unsigned char pipe_smem[];
   unsigned char* base = hpipe::aligned_smem(pipe_smem);
   uint16_t* ring = reinterpret_cast<uint16_t*>(base);
-  uint32_t* list = reinterpret_cast<uint32_t*>(base + Gm::RING_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::RING_BYTES);
+  uint64_t* empty = full + hpipe::STAGES;
+  uint32_t* list =
+      reinterpret_cast<uint32_t*>(base + L::RING_BYTES + L::BAR_BYTES);
+  hpipe::init_ring<Gm>(full, empty, hpipe::STAGES, 1 + hpipe::PRODUCERS);
   const BlockWork<SPLIT, G, GB> w(a, a.k / K_TB);
   const hpipe::Operands op = operands(a, M_TB, K_TB, w.g0);
-  const int steps =
-      hpipe::live_steps<GB>(list, a.nnz, op, w.mi, w.kt_begin, w.kt_end);
-  float acc[GB][Gm::ACC];
-  hpipe::mainloop<GB, M_TB, K_TB, N_TB, false>(acc, op, w.mi, w.ni,
-                                              w.kt_begin, steps, list, ring);
-  if (!Gm::multiplies()) return;  // a 64 x 64 tile keeps one warpgroup
-  flush_bf16<SPLIT, G, GB, Gm, M_TB, N_TB>(a, w, acc);
+  // live_steps' barriers also publish the ring's mbarriers
+  const int steps = hpipe::live_steps<GB, hpipe::Source<false>::THREADS>(
+      list, a.nnz, op, w.mi, w.kt_begin, w.kt_end);
+  if (threadIdx.x >= hpipe::CONSUMERS) {
+    hpipe::sparse_producer<GB, M_TB, K_TB, N_TB>(
+        op, &map_b, w.mi, w.ni, w.kt_begin, steps, list, ring, full, empty);
+  } else if (Gm::multiplies()) {  // a 64 x 64 tile keeps one warpgroup
+    float acc[GB][Gm::ACC];
+    hpipe::sparse_consumer<GB, M_TB, K_TB, N_TB>(acc, steps, list, ring,
+                                                 full, empty);
+    flush_bf16<SPLIT, G, GB, Gm, M_TB, N_TB>(a, w, acc);
+  }
 }
 
 template <bool SPLIT, int G, int GB, int M_TB, int K_TB, int N_TB>
@@ -444,13 +454,16 @@ int launch_pipe(const Args& a) {
     const int slices = SPLIT ? a.split_k : 1;
     if ((kt_count + slices - 1) / slices * GB > hpipe::MAX_STEPS)
       return (int)cudaErrorInvalidValue;
-    const size_t smem = Gm::SMEM_BYTES;
+    CUtensorMap map_b;
+    const int rc = hpipe::make_map(&map_b, a.b, a.k, a.n, K_TB);
+    if (rc != 0) return rc;
+    const size_t smem = hpipe::SparseLayout<M_TB, K_TB, N_TB>::SMEM_BYTES;
     auto kern = lscd_pipe_kernel<SPLIT, G, GB, M_TB, K_TB, N_TB>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     dim3 grid(a.n / N_TB, a.m / M_TB, slices * (G / GB));
-    kern<<<grid, hpipe::THREADS, smem, a.stream>>>(a);
+    kern<<<grid, hpipe::Source<false>::THREADS, smem, a.stream>>>(a, map_b);
     return then_reduce<SPLIT, G, __nv_bfloat16>(a, cudaGetLastError());
   }
 }

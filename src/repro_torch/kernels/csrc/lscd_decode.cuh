@@ -58,44 +58,12 @@ namespace ldec {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-// A copy that never lands (a fault) traps after about two seconds of
-// waiting instead of hanging the card.
-constexpr long long WAIT_LIMIT_CYCLES = 1ll << 32;
-
+// The mbarrier helpers of hopper_pipe.cuh (a wait that never completes
+// traps after about two seconds instead of hanging the card).
+using hpipe::mbar_expect_tx;
+using hpipe::mbar_init;
+using hpipe::mbar_wait;
 using hpipe::smem_u32;
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > WAIT_LIMIT_CYCLES) __trap();
-  }
-}
 
 // cp.async.bulk: `bytes` (a multiple of 16) from global to shared memory,
 // both 16-byte aligned, completing on `bar`.

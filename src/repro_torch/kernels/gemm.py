@@ -3,10 +3,13 @@
 The port's counterpart of ``repro.kernels.gemm``. :func:`dense_gemm`
 computes ``C[M, N] = A[M, K] @ B[K, N]`` with an f32 accumulator and one
 cast to ``out_dtype`` (f32 by default, as in JAX). Its CUDA kernel
-(``csrc/dense_gemm.cu``) runs the LSCD kernels' pipelined mainloop with A
-read dense, at the same tiles, so an LSCD time minus this kernel's time
-is the Load-as-Sparse cost. bf16 inputs run on tensor cores, f32 inputs
-on CUDA-core FMAs (full f32). No serving path calls it.
+(``csrc/dense_gemm.cu``) runs the LSCD kernels' pipelined mainloop
+(``csrc/hopper_pipe.cuh``) with A read dense by TMA, so an LSCD time
+minus this kernel's time at the same tiles is the Load-as-Sparse cost.
+bf16 inputs run on tensor cores (a persistent grid; ``n_tb=256`` gives
+the kernel's widest tile, 128 x 256), f32 inputs on CUDA-core FMAs (full
+f32). No serving path calls it. A launch the card refuses, or a tensor
+map that cannot be encoded, raises.
 
 Dispatch as ``ops.spmm``: ``backend="auto"`` launches the kernel for CUDA
 tensors and takes the plain version, :func:`dense_gemm_ref`, for CPU

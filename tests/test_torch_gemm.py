@@ -75,6 +75,25 @@ def test_dense_gemm_geometries_match_reference(geom):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("geom,dtype", [((128, 128, 256), "bf16"),
+                                        ((64, 64, 256), "bf16"),
+                                        ((64, 128, 256), "f32")])
+def test_dense_gemm_n256_matches_reference(geom, dtype):
+    """The 256-column tile of the Hopper kernel, as the JAX kernel takes
+    any n_tb that divides N."""
+    m_tb, k_tb, n_tb = geom
+    a, b = _ab(31 + m_tb, n=512)
+    jdt, tdt = DTYPES[dtype]
+    want = ref_gemm.dense_gemm(jnp.asarray(a, jdt), jnp.asarray(b, jdt),
+                               m_tb=m_tb, k_tb=k_tb, n_tb=n_tb,
+                               interpret=True)
+    got = gemm.dense_gemm(torch.from_numpy(a).to(tdt),
+                          torch.from_numpy(b).to(tdt), m_tb=m_tb, k_tb=k_tb,
+                          n_tb=n_tb, backend="torch")
+    assert got.shape == (256, 512)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_sparse_equals_dense_on_same_matrix():
     """LSCD SpMM and the dense baseline agree on one pruned matrix: the
     kernel-level comparison the paper's dense bars rest on."""
@@ -133,3 +152,41 @@ def test_dense_gemm_source_carries_its_note():
     text = re.sub(r"\s*\n//\s*", " ", text)
     assert "Replaces the TPU kernel repro/kernels/gemm.py:dense_gemm" in text
     assert "Bound on an H100" in text
+
+
+def test_gemm_contract_n256():
+    """128 x 256 x 64 stages: 16 KB of A and 32 KB of B, four of them with
+    their two mbarriers each, beside 32 KB of epilogue staging; 128
+    accumulators a consumer thread."""
+    assert contracts.gemm_stages(128, 256) == 4
+    assert contracts.gemm_smem_bytes(128, 128, 256) == (
+        contracts.PIPE_SMEM_ALIGN + 32768 + 4 * (16384 + 32768 + 16))
+    assert contracts.gemm_stages(128, 128) == 6
+    assert contracts.gemm_acc_per_thread(128, 256) == 128 == \
+        contracts.GEMM_MAX_ACC
+    assert contracts.gemm_acc_per_thread(64, 256) == 64
+    assert not contracts.check_gemm(256, 384, 512, m_tb=128, k_tb=128,
+                                    n_tb=256)
+    assert not contracts.check_gemm(256, 384, 512, m_tb=64, k_tb=64,
+                                    n_tb=256, dtype_bytes=4)
+    # the f32 CUDA-core tile would hold 128 accumulators a thread
+    found = contracts.check_gemm(256, 384, 512, m_tb=128, k_tb=128,
+                                 n_tb=256, dtype_bytes=4)
+    assert found and "accumulators" in found[0]
+    assert contracts.check_gemm(256, 384, 512, m_tb=128, k_tb=128, n_tb=512)
+    assert contracts.check_gemm(256, 384, 384, m_tb=128, k_tb=128, n_tb=256)
+    for m_tb in contracts.M_TB_OPTIONS:
+        for n_tb in contracts.GEMM_N_TB_OPTIONS:
+            assert contracts.gemm_stages(m_tb, n_tb) >= 4
+            assert contracts.gemm_acc_per_thread(m_tb, n_tb) <= \
+                contracts.GEMM_MAX_ACC
+
+
+def test_dense_gemm_refuses_f32_n256_at_128_rows():
+    a = torch.zeros(128, 128)
+    with pytest.raises(ValueError, match="accumulators"):
+        gemm.dense_gemm(a, torch.zeros(128, 256), n_tb=256)
+    got = gemm.dense_gemm(a.to(torch.bfloat16),
+                          torch.zeros(128, 256, dtype=torch.bfloat16),
+                          n_tb=256)
+    assert got.shape == (128, 256)

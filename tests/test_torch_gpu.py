@@ -226,6 +226,74 @@ def test_dense_gemm_matches_plain(cuda, geom, dtype, out_dtype):
                                    atol=atol)
 
 
+def _gemm_close(got, want):
+    atol = 1e-5 + 1e-3 * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", [(128, 128, 256), (64, 64, 256),
+                                  (128, 64, 256)])
+def test_dense_gemm_n256_matches_plain(cuda, geom, out_dtype):
+    """The 128 x 256 tile (m64n256 wgmma, setmaxnreg) and its 64-row
+    variant, bf16 inputs, f32 and bf16 outputs."""
+    m_tb, k_tb, n_tb = geom
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    a = torch.randn((256, 384), generator=gen, device=cuda).bfloat16()
+    b = torch.randn((384, 512), generator=gen, device=cuda).bfloat16()
+    got = gemm.dense_gemm(a, b, m_tb=m_tb, k_tb=k_tb, n_tb=n_tb,
+                          out_dtype=out_dtype)
+    assert got.dtype == out_dtype
+    _gemm_close(got, gemm.dense_gemm_ref(a, b, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("n_tb", [128, 256])
+def test_dense_gemm_persistent_walk(cuda, n_tb):
+    """More output tiles than the card has SMs: each persistent block walks
+    several tiles, its ring carried from one to the next."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6)
+    a = torch.randn((2048, 1024), generator=gen, device=cuda).bfloat16()
+    b = torch.randn((1024, 2048), generator=gen, device=cuda).bfloat16()
+    tiles = (2048 // 128) * (2048 // n_tb)
+    if n_tb == 128:
+        assert tiles > torch.cuda.get_device_properties(
+            cuda).multi_processor_count
+    got = gemm.dense_gemm(a, b, n_tb=n_tb, out_dtype=torch.bfloat16)
+    _gemm_close(got, gemm.dense_gemm_ref(a, b, out_dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("n_tb", [128, 256])
+@pytest.mark.parametrize("k", [64, 576])
+def test_dense_gemm_k_edges(cuda, k, n_tb):
+    """K of a single 64-deep stage, and K = 9 stages, a multiple of neither
+    ring depth (4 at n_tb = 256, 7 at 128), over several tiles a block."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    a = torch.randn((4096, k), generator=gen, device=cuda).bfloat16()
+    b = torch.randn((k, 1024), generator=gen, device=cuda).bfloat16()
+    got = gemm.dense_gemm(a, b, k_tb=64, n_tb=n_tb)
+    _gemm_close(got, gemm.dense_gemm_ref(a, b))
+
+
+def test_dense_gemm_refuses_unaligned_b(cuda):
+    """A tensor map needs a 16-byte aligned base: the wrapper raises."""
+    a = torch.zeros((128, 128), device=cuda, dtype=torch.bfloat16)
+    b = torch.zeros((128 * 256 + 8,), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        gemm.dense_gemm(a, b[1:1 + 128 * 256].view(128, 256), n_tb=256)
+    # the C entry itself: the tensor map's encode fails, the launch returns
+    # its error and never runs
+    from repro_torch.kernels import build
+    out = torch.empty((128, 256), device=cuda)
+    rc = build.entry("dense_gemm")(
+        a.data_ptr(), b.data_ptr() + 2, out.data_ptr(), 128, 128, 256, 128,
+        128, 256, 1, torch.cuda.current_stream(cuda).cuda_stream)
+    assert rc != 0
+
+
 def test_dense_gemm_equals_spmm_on_same_matrix(cuda):
     (t,), gen = _weights(cuda, 1, 128, 128)
     b = (0.1 * torch.randn((384, 128), generator=gen,
