@@ -32,9 +32,27 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    (all four LSCD kernels must have launched), holds the first decode step's logits
    against the same model run through the plain versions, and profiles
    one prefill and a few decode steps for the device's busy share;
-4. prints the kernels' JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``; the full summary goes to
-   ``chiprun_out/chip_smoke.json``.
+4. serving phase: continuous batching through
+   ``repro_torch.serving.api.StreamingServer`` on the same model (16
+   slots, max_len 512, 32 requests of 32-384 prompt tokens from the
+   seed, 64 greedy new tokens each): the closed loop with the dense cache
+   and the decode step as a CUDA graph, again with the graph off, and with
+   the paged cache (streams must be identical across the three, and all
+   four LSCD kernels must launch, graph replays counted); an open-loop
+   Poisson replay (``serving.loadgen``, 0.125 requests per step) on the
+   paged server; the first decode step's logits of 4 requests against
+   the same server on the plain versions; one profiled graphed and
+   eager decode step; and every launch configuration the serving runs
+   made (kernel, weight, N, N tile, split S, epilogue: the split-K pair
+   at decode and wherever ``select`` splits a prefill) held against its
+   plain version on the same weight. It prints tokens/s, decode ms/step
+   with the graph on and off, TTFT/TPOT p50/p99, the prefill shapes, the
+   launches of prefill and of decode, peak blocks and the device's busy
+   share;
+5. prints the kernels' JSON line (launches of the slice and the serving
+   runs, the serving ones also by prefill and decode), the card line,
+   and last ``{"ok": true, "device": {...}}``; the
+   full summary goes to ``chiprun_out/chip_smoke.json``.
 
 Any failure raises and exits non-zero. The plain versions run with
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (full f32 matmuls).
@@ -622,7 +640,7 @@ def slice_phase(torch, mods):
         for backend in ("cuda", "torch"):
             last, cache = engine.prefill(params, prompts, cfg, 160,
                                          backend=backend)
-            tok = engine.sample(last)[:, None]
+            tok = torch.argmax(last, dim=-1)[:, None]
             logits, _ = engine.serve_step(params, cache, tok, 128, cfg,
                                           backend=backend)
             steps[backend] = (tok, logits.float())
@@ -635,7 +653,356 @@ def slice_phase(torch, mods):
     print(f"slice: first decode-step logits vs plain max abs err {err:.3e}",
           flush=True)
     return rep, counts, built, profile_steps(torch, engine, params, cfg,
-                                             prompts)
+                                             prompts), params, cfg
+
+
+# ---------------------------------------------------------------------------
+# serving phase
+# ---------------------------------------------------------------------------
+
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_REQUESTS, SERVE_NEW = 16, 512, 32, 64
+SERVE_PROMPT = (32, 385)                # uniform prompt lengths, half-open
+SERVE_RATE = 0.125                      # requests per engine step (open loop)
+
+
+def _serve_config(mods, *, paged: bool, backend: str = "auto"):
+    cfgmod = mods["serve_config"]
+    return cfgmod.ServeConfig(
+        scheduler=cfgmod.SchedulerConfig(
+            n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, min_bucket=8,
+            admit_k=4),
+        cache_kind="paged" if paged else "dense", block_size=16,
+        backend=backend)
+
+
+class LaunchProbe:
+    """While entered, records every distinct launch configuration of the
+    four LSCD wrappers: kernel, weight shape and group, N (padded to the
+    N tile), N tile, split S, epilogue, bias, dtypes, and the stepper call
+    that made it (``phase``, set by :func:`_instrument`). It keeps the
+    first weight and bias seen for each, so ``_check_served_launches``
+    can hold the kernel against its plain version at exactly the
+    configurations the serving path ran. The wrappers are wrapped, not
+    changed (``ops`` looks them up at each call); a graph replay launches
+    what its capture recorded, and the capture goes through the wrapper."""
+
+    def __init__(self, spmm):
+        self.spmm, self.phase, self.seen, self._orig = spmm, None, {}, {}
+
+    def __enter__(self):
+        for name in self.spmm.KERNELS:
+            self._orig[name] = getattr(self.spmm, name)
+            setattr(self.spmm, name, self._wrap(name, self._orig[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.spmm, name, fn)
+
+    def _wrap(self, name, fn):
+        def probed(t, b, **kw):
+            bias = kw.get("bias")
+            key = (name, tuple(t.shape), t.group or 1, int(b.shape[1]),
+                   kw["n_tb"], kw.get("split_k", 1),
+                   kw.get("epilogue", "none"), bias is not None,
+                   b.dtype, kw.get("out_dtype") or b.dtype,
+                   self.phase)
+            self.seen.setdefault(key, (t, bias))
+            return fn(t, b, **kw)
+        return probed
+
+
+def _instrument(stepper, spmm, probe=None) -> dict:
+    """Wrap ``stepper.prefill`` and ``stepper.decode``: record each decode
+    call's host time (it ends in a device synchronise: the tokens come
+    back to the host), add each call's LSCD launches (graph replays
+    counted) to its phase's tally, and tell ``probe`` which phase is
+    launching."""
+    out = dict(decode_s=[], launches={"prefill": dict.fromkeys(
+        spmm.KERNELS, 0), "decode": dict.fromkeys(spmm.KERNELS, 0)})
+
+    def wrap(phase, inner):
+        def call(*args):
+            if probe is not None:
+                probe.phase = phase
+            before = spmm.launch_counts()
+            t0 = time.perf_counter()
+            res = inner(*args)
+            if phase == "decode":
+                out["decode_s"].append(time.perf_counter() - t0)
+            after = spmm.launch_counts()
+            for k in after:
+                out["launches"][phase][k] += after[k] - before[k]
+            return res
+        return call
+    stepper.prefill = wrap("prefill", stepper.prefill)
+    stepper.decode = wrap("decode", stepper.decode)
+    return out
+
+
+def _check_served_launches(torch, mods, seen, cfg) -> list:
+    """Each launch configuration the probe saw on the serving path, held
+    against the kernel's plain version (the split-K pair against the
+    split-K reference, which sums the same slices) on the same weight and
+    bias and a fresh B on the card of the recorded shape and dtype."""
+    ref, spmm = mods["ref"], mods["spmm"]
+    d, f = cfg.d_model, cfg.d_ff
+    names = {((d, d), 3): "wqkv", ((d, d), 1): "wo", ((f, d), 1): "up",
+             ((d, f), 1): "down"}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    rows = []
+    for key in sorted(seen, key=lambda k: (str(k[-1]), k[3], k[:3])):
+        name, (m, k), g, n, n_tb, sk, epi, _, b_dtype, out_dtype, phase = key
+        t, bias = seen[key]
+        b = (0.1 * torch.randn((k, n), generator=gen, device="cuda")).to(
+            b_dtype)
+        kw = dict(out_dtype=out_dtype, epilogue=epi, bias=bias)
+        grouped = name.endswith("grouped")
+        if "splitk" in name:
+            got = getattr(spmm, name)(t, b, n_tb=n_tb, split_k=sk, **kw)
+            want = (ref.spmm_splitk_grouped_ref if grouped
+                    else ref.spmm_splitk_ref)(t, b, sk, **kw)
+        else:
+            got = getattr(spmm, name)(t, b, n_tb=n_tb, **kw)
+            want = (ref.spmm_grouped_ref if grouped
+                    else ref.spmm_ref)(t, b, **kw)
+        shape = names.get(((m, k), g), f"{m}x{k} G={g}")
+        tol = BF16_TOL if b_dtype == torch.bfloat16 else F32_TOL
+        err = close(torch, got, want, tol, f"serving path: {name} at "
+                    f"{shape} N={n} n_tb={n_tb} S={sk} {epi} ({phase})")
+        rows.append(dict(kernel=name, shape=shape, m=m, k=k, group=g, n=n,
+                         n_tb=n_tb, split_k=sk, epilogue=epi, phase=phase,
+                         max_abs_err=err))
+        print(f"serving: checked {phase:7s} {name:25s} {shape:5s} N={n:<5d}"
+              f" n_tb={n_tb:<3d} S={sk:<2d} {epi:5s} max err {err:.2e}",
+              flush=True)
+        del b, got, want
+    torch.cuda.synchronize()
+    return rows
+
+
+def _closed_loop(torch, mods, params, cfg, prompts, probe, *, paged, graph):
+    """Drain ``prompts`` (64 greedy new tokens each) through one
+    ``StreamingServer``. Returns the server and its measurements."""
+    api, scheduler = mods["api"], mods["scheduler"]
+    server = api.StreamingServer(params, cfg,
+                                 config=_serve_config(mods, paged=paged),
+                                 graph=graph)
+    inst = _instrument(server.batcher.stepper, mods["spmm"], probe)
+    times = inst["decode_s"]
+    for i, p in enumerate(prompts):
+        server.submit(api.GenerationRequest(p, SERVE_NEW,
+                                            session_id=f"r{i}"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    responses = server.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = server.metrics
+    streams = {r.session_id: r.tokens for r in responses}
+    steady = sorted(times[1:])          # the first call captures the graph
+    out = dict(
+        paged=paged, graph=graph, wall_s=wall, completed=len(responses),
+        tokens=sum(len(t) for t in streams.values()),
+        tokens_per_s=sum(len(t) for t in streams.values()) / wall,
+        decode_steps=len(times), first_decode_ms=times[0] * 1e3,
+        decode_ms_per_step=sum(steady) / len(steady) * 1e3,
+        decode_ms_median=steady[len(steady) // 2] * 1e3,
+        prefill_shapes=sorted(server.batcher.stepper.prefill_shapes),
+        bucket_admits=dict(m.bucket_admits),
+        prefill_admissions=m.prefill_calls,
+        launches_by_phase={p: dict(c) for p, c in inst["launches"].items()},
+        peak_blocks_in_use=m.peak_blocks_in_use,
+        n_blocks=server.batcher.pool.n_blocks if paged else None,
+        admit_time_s=m.admit_time_s, decode_time_s=m.decode_time_s,
+        ttft=scheduler.latency_summary([r.ttft_s for r in responses]),
+        tpot=scheduler.latency_summary([r.tpot_s for r in responses
+                                        if r.tpot_s is not None]),
+        graph_launches=server.batcher.stepper.graph_launches)
+    check(out["completed"] == len(prompts), f"closed loop {paged=} {graph=}: "
+          f"{out['completed']} of {len(prompts)} requests finished")
+    check(all(len(t) == SERVE_NEW for t in streams.values()),
+          "a request finished short of its 64 tokens")
+    check(all(0 <= x < cfg.vocab for t in streams.values() for x in t),
+          "token ids outside the vocab")
+    print(f"serving: {'paged' if paged else 'dense'} cache, graph "
+          f"{'on ' if graph else 'off'}: {out['tokens']} tokens in "
+          f"{wall:.3f} s ({out['tokens_per_s']:.1f} tok/s), decode "
+          f"{out['decode_ms_per_step']:.3f} ms/step (median "
+          f"{out['decode_ms_median']:.3f}, first {out['first_decode_ms']:.1f}"
+          f" ms) over {len(times)} steps; TTFT p50/p99 "
+          f"{out['ttft']['p50'] * 1e3:.1f}/{out['ttft']['p99'] * 1e3:.1f} ms,"
+          f" TPOT p50/p99 {out['tpot']['p50'] * 1e3:.2f}/"
+          f"{out['tpot']['p99'] * 1e3:.2f} ms; admit {m.admit_time_s:.3f} s,"
+          f" decode {m.decode_time_s:.3f} s"
+          + (f"; peak blocks {m.peak_blocks_in_use}/{out['n_blocks']}"
+             if paged else "")
+          + f"; prefill shapes (rows, bucket) {out['prefill_shapes']}",
+          flush=True)
+    return server, streams, out
+
+
+def _first_step_logits(torch, mods, params, cfg, prompts):
+    """The first decode step's logits of 4 requests through the kernels
+    against the same server on the plain versions (``backend="torch"``,
+    eager): the admitted first tokens equal, the logits within
+    ``LOGITS_TOL``."""
+    api = mods["api"]
+    got = {}
+    for backend in ("auto", "torch"):
+        server = api.StreamingServer(
+            params, cfg, config=_serve_config(mods, paged=False,
+                                              backend=backend),
+            graph=backend == "auto")
+        for i, p in enumerate(prompts[:4]):
+            server.submit(api.GenerationRequest(p, SERVE_NEW,
+                                                session_id=f"r{i}"))
+        server.step()                   # admits all four, decodes once
+        b = server.batcher
+        slots = b.sched.active_slot_ids()
+        check(len(slots) == 4, f"{len(slots)} of 4 requests active")
+        first = [b.slots[s].generated[0] for s in slots]
+        got[backend] = (first, b.stepper.last_logits[slots].float())
+        del server
+    check(got["auto"][0] == got["torch"][0],
+          "first tokens differ between the kernels and the plain versions")
+    return close(torch, got["auto"][1], got["torch"][1],
+                 dict(rtol=LOGITS_TOL, atol=LOGITS_TOL),
+                 "serving: first decode-step logits vs plain")
+
+
+def _profile_decode(torch, stepper, steps: int = 4) -> dict:
+    """``torch.profiler`` over ``steps`` decode calls of a drained
+    server's stepper (every slot idle at position 0: the same fixed-shape
+    step)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    n = stepper.n_slots
+    zeros = np.zeros(n, np.int64)
+    tables = (np.zeros((n, stepper.max_blocks), np.int64) if stepper.paged
+              else None)
+    stepper.decode(zeros, zeros, tables, None, None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            stepper.decode(zeros, zeros, tables, None, None)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    return _device_summary(torch, prof, wall_s, steps)
+
+
+def serving_phase(torch, mods, params, cfg):
+    """Continuous batching through ``StreamingServer`` at OPT-30B width:
+    the closed loop three times (dense graph on, dense graph off, paged
+    graph on), an open-loop Poisson replay on the paged server, the first
+    decode step against the plain versions, and one profiled graphed and
+    eager decode step. Returns the phase's summary and the kernels'
+    launches on the serving path (the dense graphed run)."""
+    import numpy as np
+    spmm, loadgen, scheduler = (mods[x] for x in ("spmm", "loadgen",
+                                                  "scheduler"))
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(*SERVE_PROMPT, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int64)
+               for n in lengths]
+    print(f"serving: {cfg.name}, {cfg.n_layers} layers, {SERVE_SLOTS} slots,"
+          f" max_len {SERVE_MAX_LEN}, admit_k 4, block 16; {SERVE_REQUESTS} "
+          f"requests, prompts {int(lengths.min())}-{int(lengths.max())} "
+          f"tokens, {SERVE_NEW} greedy new tokens each", flush=True)
+    probe = LaunchProbe(spmm)
+    with probe:
+        spmm.reset_launch_counts()
+        dense_g, streams_g, run_g = _closed_loop(
+            torch, mods, params, cfg, prompts, probe, paged=False, graph=True)
+        counts = spmm.launch_counts()
+        by_phase = run_g["launches_by_phase"]
+        print(f"serving: launches {json.dumps(counts)} (graph replays "
+              f"counted; one replay launches "
+              f"{json.dumps(run_g['graph_launches'])}); "
+              f"{run_g['prefill_admissions']} prefill admissions "
+              f"{json.dumps(run_g['bucket_admits'])} (bucket: admissions) "
+              f"launch {json.dumps(by_phase['prefill'])}, "
+              f"{run_g['decode_steps']} decode steps launch "
+              f"{json.dumps(by_phase['decode'])}", flush=True)
+        missing = [k for k, v in counts.items() if v == 0]
+        check(not missing, f"kernels never launched on the serving path: "
+              f"{missing}")
+        check(all(by_phase["prefill"][k] + by_phase["decode"][k] == counts[k]
+                  for k in counts), "serving launches outside prefill and "
+              "decode calls")
+        dense_e, streams_e, run_e = _closed_loop(
+            torch, mods, params, cfg, prompts, probe, paged=False,
+            graph=False)
+        check(streams_g == streams_e, "graph-on and graph-off streams differ")
+        paged_g, streams_p, run_p = _closed_loop(
+            torch, mods, params, cfg, prompts, probe, paged=True, graph=True)
+        check(streams_p == streams_g, "dense and paged streams differ")
+    print("serving: streams identical graph on vs off and dense vs paged",
+          flush=True)
+    profile = {"graph": _profile_decode(torch, dense_g.batcher.stepper),
+               "eager": _profile_decode(torch, dense_e.batcher.stepper)}
+    for kind, r in profile.items():
+        if r["busy_share"] is None:
+            print(f"serving: profile {kind}: no device activity seen; the "
+                  "busy share is not measured", flush=True)
+            continue
+        print(f"serving: profile {kind} decode step: "
+              f"{r['wall_ms_per_step']:.3f} ms/step wall under "
+              f"torch.profiler, device busy {r['busy_ms_per_step']:.3f} "
+              f"ms/step ({100 * r['busy_share']:.1f}%), LSCD kernels "
+              f"{r['lscd_ms_per_step']:.3f} ms/step", flush=True)
+    del dense_g, dense_e
+    torch.cuda.empty_cache()
+
+    # open loop: Poisson arrivals on the paged server
+    trace = loadgen.make_trace(
+        seed=SEED, n_requests=SERVE_REQUESTS, rate=SERVE_RATE,
+        vocab=cfg.vocab, tenants=[loadgen.TenantSpec(
+            "serve", prefix_len=0, suffix_len=SERVE_PROMPT,
+            max_new=(SERVE_NEW, SERVE_NEW + 1))])
+    server = mods["api"].StreamingServer(
+        params, cfg, config=_serve_config(mods, paged=True))
+    _instrument(server.batcher.stepper, spmm, probe)
+    with probe:
+        res = loadgen.replay(server, trace, loadgen.StepClock(dt=1.0))
+    torch.cuda.synchronize()
+    check(len(res.responses) == SERVE_REQUESTS and not res.shed
+          and not res.rejected, f"open loop: {len(res.responses)} finished, "
+          f"{len(res.shed)} shed, {len(res.rejected)} rejected")
+    check(all(len(r.tokens) == SERVE_NEW for r in res.responses),
+          "open loop: a request finished short of its 64 tokens")
+    ttft = scheduler.latency_summary(res.wall_ttft_s)
+    tpot = scheduler.latency_summary(res.wall_tpot_s)
+    n_tok = sum(len(r.tokens) for r in res.responses)
+    open_loop = dict(
+        rate=SERVE_RATE, steps=res.steps, wall_s=res.wall_s,
+        tokens_per_s=n_tok / res.wall_s, ttft=ttft, tpot=tpot,
+        peak_blocks_in_use=server.metrics.peak_blocks_in_use,
+        fingerprint=loadgen.trace_fingerprint(trace))
+    print(f"serving: open loop, {SERVE_RATE} requests/step on the paged "
+          f"server: {res.steps} steps in {res.wall_s:.3f} s "
+          f"({open_loop['tokens_per_s']:.1f} tok/s), TTFT p50/p99 "
+          f"{ttft['p50'] * 1e3:.1f}/{ttft['p99'] * 1e3:.1f} ms, TPOT "
+          f"p50/p99 {tpot['p50'] * 1e3:.2f}/{tpot['p99'] * 1e3:.2f} ms, peak "
+          f"blocks {open_loop['peak_blocks_in_use']}", flush=True)
+    del server, paged_g
+    torch.cuda.empty_cache()
+
+    err = _first_step_logits(torch, mods, params, cfg, prompts)
+    print(f"serving: first decode-step logits vs plain max abs err "
+          f"{err:.3e}", flush=True)
+    checked = _check_served_launches(torch, mods, probe.seen, cfg)
+    print(f"serving: {len(checked)} launch configurations of the serving "
+          f"path held against the plain versions", flush=True)
+    summary = dict(closed_loop={"dense_graph": run_g, "dense_eager": run_e,
+                                "paged_graph": run_p},
+                   open_loop=open_loop, logits_max_abs_err=err,
+                   profile=profile, launches=counts,
+                   launches_by_phase=by_phase, checked_launches=checked)
+    return summary, by_phase
 
 
 def _device_summary(torch, prof, wall_s: float, steps: int) -> dict:
@@ -677,16 +1044,16 @@ def profile_steps(torch, engine, params, cfg, prompts, steps: int = 4):
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
         out["prefill"] = _device_summary(torch, prof, wall_s, 1)
-        tok = engine.sample(last)[:, None]
+        tok = torch.argmax(last, dim=-1)[:, None]
         logits, cache = engine.serve_step(params, cache, tok, s, cfg)
-        tok = engine.sample(logits)[:, None]
+        tok = torch.argmax(logits, dim=-1)[:, None]
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for i in range(steps):
                 logits, cache = engine.serve_step(params, cache, tok,
                                                   s + 1 + i, cfg)
-                tok = engine.sample(logits)[:, None]
+                tok = torch.argmax(logits, dim=-1)[:, None]
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
         out["decode"] = _device_summary(torch, prof, wall_s, steps)
@@ -720,7 +1087,8 @@ def main() -> int:
         from repro_torch.core import pruning, roofline, tiled_csl
         from repro_torch.kernels import build, gemm, ops, ref, schedule, spmm
         from repro_torch.launch import serve
-        from repro_torch.serving import engine
+        from repro_torch.serving import api, engine, loadgen, scheduler
+        from repro_torch.serving import config as serve_config
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -728,7 +1096,8 @@ def main() -> int:
     mods = dict(configs=configs, contracts=contracts, pruning=pruning,
                 roofline=roofline, tiled_csl=tiled_csl, build=build, ops=ops,
                 ref=ref, schedule=schedule, spmm=spmm, gemm=gemm, serve=serve,
-                engine=engine)
+                engine=engine, api=api, loadgen=loadgen, scheduler=scheduler,
+                serve_config=serve_config)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -760,16 +1129,27 @@ def main() -> int:
         torch, mods, flush)
     del flush
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    rep, counts, built, prof = slice_phase(torch, mods)
+    rep, counts, built, prof, params, cfg = slice_phase(torch, mods)
+    t0 = time.perf_counter()
+    serving, serve_phases = serving_phase(torch, mods, params, cfg)
+    serving["phase_s"] = time.perf_counter() - t0
+    print(f"serving: phase took {serving['phase_s']:.1f} s", flush=True)
 
     kernels = []
-    launches = dict(counts, dense_gemm=gemm_launches)
+    serve_counts = {k: serve_phases["prefill"][k] + serve_phases["decode"][k]
+                    for k in spmm.KERNELS}
+    launches = {k: counts[k] + serve_counts[k] for k in spmm.KERNELS}
+    launches["dense_gemm"] = gemm_launches
     for name in spmm.KERNELS + ("dense_gemm",):
         r = best[name]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
             replaces=SOURCES[name], launches=launches[name],
+            launches_slice=counts.get(name, 0),
+            launches_serving=serve_counts.get(name, 0),
+            launches_serving_prefill=serve_phases["prefill"].get(name, 0),
+            launches_serving_decode=serve_phases["decode"].get(name, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
@@ -781,7 +1161,7 @@ def main() -> int:
         launches=counts)
     summary = dict(card=card, ptxas=ptxas, rows=rows, compare=compare,
                    sweep=sweep, rings=rings, kernels=kernels,
-                   slice=slice_summary, profile=prof)
+                   slice=slice_summary, profile=prof, serving=serving)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,18 @@
-"""GQA attention with RoPE and a dense KV cache.
+"""GQA attention with RoPE and a dense or paged KV cache.
 
-The port's counterpart of the dense-cache path of
-``repro.models.attention``: ``_project_qkv``, ``attention`` (prefill)
-and ``attention_decode``. Projections go through ``sparse_linear`` (dense
-or Tiled-CSL weights); the score and weighted-sum einsums stay plain
-PyTorch, as the reference leaves them to XLA. K/V are stored in bf16.
-The cache is updated in place.
+The port's counterpart of the GQA path of ``repro.models.attention``:
+``_project_qkv``, ``attention`` (prefill), ``attention_decode`` (dense
+cache, one position per row) and ``attention_decode_paged`` (a block pool
+read through per-request block tables). Projections go through
+``sparse_linear`` (dense or Tiled-CSL weights); the score and
+weighted-sum einsums stay plain PyTorch, as the reference leaves them to
+XLA. K/V are stored in bf16.
+
+Where the reference returns a new cache, the port writes the one it was
+given in place (``index_put_``) and returns it: the serving stepper
+allocates its cache once and a captured CUDA graph holds those tensors'
+addresses. Nothing on the decode path reads a device value on the host,
+so the step can be captured.
 """
 
 from __future__ import annotations
@@ -42,6 +49,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     return {"k": torch.zeros((batch, max_len, kv, hd), dtype=dtype,
                              device=device),
             "v": torch.zeros((batch, max_len, kv, hd), dtype=dtype,
+                             device=device)}
+
+
+def init_paged_cache(cfg: ModelConfig, n_physical: int, block: int, device,
+                     dtype=torch.bfloat16) -> dict:
+    """Block-pool K/V: ``[n_physical, block, n_kv, head_dim]``. Requests
+    map onto the pool through per-request block tables; physical block 0
+    is the reserved trash block (``serving.paged_cache``)."""
+    kv, hd = cfg.n_kv, cfg.head_dim
+    return {"k": torch.zeros((n_physical, block, kv, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((n_physical, block, kv, hd), dtype=dtype,
                              device=device)}
 
 
@@ -89,10 +108,7 @@ def _gqa_out(weights, v):
 
 def _attend(q, k, v, valid) -> torch.Tensor:
     """Masked softmax attention; ``valid`` broadcasts to [B, S, T]."""
-    scores = _gqa_scores(q, k)
-    scores = torch.where(valid[:, None, None], scores,
-                         torch.tensor(NEG_INF, dtype=scores.dtype,
-                                      device=scores.device))
+    scores = _gqa_scores(q, k).masked_fill(~valid[:, None, None], NEG_INF)
     return _gqa_out(torch.softmax(scores, dim=-1), v)
 
 
@@ -126,22 +142,90 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     return y, cache
 
 
-def attention_decode(params: dict, x: torch.Tensor, cache: dict, pos: int,
+def _pos_vector(pos, batch: int, device) -> torch.Tensor:
+    """``pos`` (an int, or a [B] tensor of per-row positions) as [B]
+    int64."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int64).reshape(batch)
+    return torch.full((batch,), int(pos), dtype=torch.int64, device=device)
+
+
+def write_decode_token(buf: torch.Tensor, new: torch.Tensor,
+                       slot_vec: torch.Tensor) -> torch.Tensor:
+    """``buf[b, slot_vec[b]] = new[b, 0]`` in place. ``buf`` is
+    [B, T, ...], ``new`` [B, 1, ...]."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    buf.index_put_((rows, slot_vec), new[:, 0].to(buf.dtype))
+    return buf
+
+
+def write_decode_token_paged(pool: torch.Tensor, new: torch.Tensor,
+                             phys: torch.Tensor,
+                             off: torch.Tensor) -> torch.Tensor:
+    """Paged decode write ``pool[phys[b], off[b]] = new[b, 0]`` in place.
+    The scheduler's copy-on-write rule keeps every (phys, off) of a live
+    row private to it; idle rows all write the trash block."""
+    pool.index_put_((phys, off), new[:, 0].to(pool.dtype))
+    return pool
+
+
+def _masked_decode_attend(q, ck, cv, pos_vec) -> torch.Tensor:
+    """Scores, validity mask and weighted sum for one-token decode over a
+    [B, T, KV, D] key/value sequence (the dense cache, or a block-table
+    gather, whose T is whole blocks): column t is valid iff t <= pos, and
+    masked columns get exact softmax zeros."""
+    T = ck.shape[1]
+    valid = torch.arange(T, device=q.device)[None, :] <= pos_vec[:, None]
+    return _attend(q, ck, cv, valid[:, None, :])
+
+
+def _decode_qkv(params, x, pos_vec, cfg: ModelConfig, backend: str):
+    q, k, v = _project_qkv(params, x, cfg, backend)
+    positions = pos_vec[:, None]
+    return (rope.apply_rope(q, positions, cfg.rope_theta),
+            rope.apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def attention_decode(params: dict, x: torch.Tensor, cache: dict, pos,
                      cfg: ModelConfig, *, backend: str = "auto"
                      ) -> Tuple[torch.Tensor, dict]:
-    """Single-token decode at absolute position ``pos`` (same for every
-    row): writes K/V at ``pos`` and attends over positions [0, pos]."""
+    """Single-token decode against the dense cache. ``pos`` is the
+    absolute position of every row (an int) or of each row (a [B]
+    tensor: continuous batching decodes every slot at its own position).
+    Writes K/V at ``pos`` and attends over positions [0, pos]."""
+    pos_vec = _pos_vector(pos, x.shape[0], x.device)
+    q, k, v = _decode_qkv(params, x, pos_vec, cfg, backend)
+    write_decode_token(cache["k"], k, pos_vec)
+    write_decode_token(cache["v"], v, pos_vec)
+    o = _masked_decode_attend(q, cache["k"], cache["v"], pos_vec)
+    y = sparse_linear.linear(params["wo"]["w"], o.to(x.dtype),
+                             declared_out=cfg.d_model, backend=backend)
+    return y, cache
+
+
+def attention_decode_paged(params: dict, x: torch.Tensor, cache: dict,
+                           block_tables: torch.Tensor, pos,
+                           cfg: ModelConfig, *, backend: str = "auto"
+                           ) -> Tuple[torch.Tensor, dict]:
+    """Single-token decode against a paged block pool. Cache leaves are
+    ``[n_physical, block, kv, hd]``; ``block_tables`` is
+    [B, blocks_per_seq] physical block ids (padding entries name the trash
+    block and are masked); ``pos`` is per row. Each row's K/V is gathered
+    through its table into [B, blocks_per_seq * block, ...], position
+    order being gather order."""
     B = x.shape[0]
-    positions = torch.full((B, 1), int(pos), dtype=torch.int64,
-                           device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, backend)
-    q = rope.apply_rope(q, positions, cfg.rope_theta)
-    k = rope.apply_rope(k, positions, cfg.rope_theta)
-    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
-    T = cache["k"].shape[1]
-    valid = (torch.arange(T, device=x.device) <= pos)[None, None, :]
-    o = _attend(q, cache["k"], cache["v"], valid.expand(B, 1, T))
+    pos_vec = _pos_vector(pos, B, x.device)
+    q, k, v = _decode_qkv(params, x, pos_vec, cfg, backend)
+    blk = cache["k"].shape[1]
+    logical = torch.div(pos_vec, blk, rounding_mode="floor")
+    phys = torch.gather(block_tables, 1, logical[:, None])[:, 0]
+    off = pos_vec - logical * blk
+    write_decode_token_paged(cache["k"], k, phys, off)
+    write_decode_token_paged(cache["v"], v, phys, off)
+    kv_heads, hd = cache["k"].shape[-2], cache["k"].shape[-1]
+    kg = cache["k"][block_tables].reshape(B, -1, kv_heads, hd)
+    vg = cache["v"][block_tables].reshape(B, -1, kv_heads, hd)
+    o = _masked_decode_attend(q, kg, vg, pos_vec)
     y = sparse_linear.linear(params["wo"]["w"], o.to(x.dtype),
                              declared_out=cfg.d_model, backend=backend)
     return y, cache

@@ -6,12 +6,18 @@ Python list walked in order (the reference's ``lax.scan`` stack). Two
 modes share the block code:
 
   prefill — full sequence; writes the cache when one is given
-  decode  — one token per row + cache (the paper's skinny-MatMul regime)
+  decode  — one token per row + cache (the paper's skinny-MatMul regime),
+            each row at its own position, against the dense cache or a
+            paged block pool
+
+The serving cache helpers (``scatter_cache_slots``,
+``scatter_cache_pages``, ``copy_cache_block``) write the cache they are
+given in place, where the reference returns a new one.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -83,6 +89,74 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             for _ in range(cfg.n_layers)]
 
 
+def init_paged_cache(cfg: ModelConfig, n_physical: int, block: int, *,
+                     device: DeviceLike = None,
+                     dtype=torch.bfloat16) -> List[dict]:
+    """Block-pool serving cache: per-layer leaves ``[n_physical, block,
+    n_kv, head_dim]``. ``n_physical`` includes the reserved trash block 0
+    (``serving.paged_cache.BlockPool.physical_blocks``)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    return [attention.init_paged_cache(cfg, n_physical, block, dev, dtype)
+            for _ in range(cfg.n_layers)]
+
+
+def paged_blocks_per_seq(cfg: ModelConfig, max_len: int, block: int) -> int:
+    """Static per-request block-table width: the blocks ``max_len``
+    positions need."""
+    return -(-max_len // block)
+
+
+def _leaves(cache: List[dict]):
+    return [layer[name] for layer in cache for name in sorted(layer)]
+
+
+def scatter_cache_slots(cfg: ModelConfig, full: List[dict],
+                        part: List[dict], slots: torch.Tensor) -> List[dict]:
+    """Write a ``k``-request scratch cache (``init_cache(cfg, k, S)``)
+    into rows ``slots [k]`` of the serving cache, positions [0, S), in
+    place. Duplicate slots are allowed iff their rows carry identical
+    data (admission pads its group to a static size this way)."""
+    for f, p in zip(_leaves(full), _leaves(part)):
+        f[slots, :p.shape[1]] = p.to(f.dtype)
+    return full
+
+
+def scatter_cache_pages(cfg: ModelConfig, full: List[dict],
+                        part: List[dict],
+                        flat_blocks: torch.Tensor) -> List[dict]:
+    """Write a ``k``-request scratch cache into pool blocks of the paged
+    serving cache, in place: each [k, S, ...] leaf is padded to whole
+    blocks, cut into [k * nblk, block, ...] and stored at physical rows
+    ``flat_blocks [k * nblk]``. Entries may repeat only where the written
+    data is identical (admission group padding, recomputed shared-prefix
+    content) or where they name the trash block (bucket padding past a
+    prompt's own blocks), whose contents are never read unmasked."""
+    for f, p in zip(_leaves(full), _leaves(part)):
+        block = f.shape[1]
+        k, S = p.shape[0], p.shape[1]
+        nblk = -(-S // block)
+        if nblk * block != S:
+            p = torch.nn.functional.pad(
+                p, (0, 0) * (p.dim() - 2) + (0, nblk * block - S))
+        if flat_blocks.shape[0] != k * nblk:
+            raise ValueError(
+                f"block map covers {flat_blocks.shape[0]} chunks, scratch "
+                f"leaf has {k}x{nblk}")
+        f[flat_blocks] = p.reshape((k * nblk, block) + tuple(p.shape[2:])
+                                   ).to(f.dtype)
+    return full
+
+
+def copy_cache_block(cfg: ModelConfig, cache: List[dict], src: int,
+                     dst: int) -> List[dict]:
+    """Copy one physical pool block in every cache leaf (copy-on-write),
+    in place."""
+    for f in _leaves(cache):
+        f[dst].copy_(f[src])
+    return cache
+
+
 def _mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, backend: str):
     if cfg.mlp_kind == "swiglu":
         return layers.swiglu_mlp(p, x, d_ff=cfg.d_ff, d_model=cfg.d_model,
@@ -92,11 +166,14 @@ def _mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, backend: str):
 
 
 def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-                positions=None, cache=None, pos=None,
+                positions=None, cache=None, pos=None, block_tables=None,
                 backend: str = "auto") -> Tuple[torch.Tensor, Optional[dict]]:
     """Residual attention + MLP block. Returns (x, cache)."""
     h = _norm(cfg, p["pre_norm"], x)
-    if mode == "decode":
+    if mode == "decode" and block_tables is not None:
+        a, cache = attention.attention_decode_paged(
+            p["attn"], h, cache, block_tables, pos, cfg, backend=backend)
+    elif mode == "decode":
         a, cache = attention.attention_decode(p["attn"], h, cache, pos, cfg,
                                               backend=backend)
     else:
@@ -109,12 +186,17 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
 
 def forward(params: Params, inputs: Dict[str, torch.Tensor],
             cfg: ModelConfig, *, mode: str, cache: Any = None,
-            pos: Optional[int] = None, backend: str = "auto"
-            ) -> Tuple[torch.Tensor, Any]:
+            pos: Union[int, torch.Tensor, None] = None,
+            block_tables: Optional[torch.Tensor] = None,
+            backend: str = "auto") -> Tuple[torch.Tensor, Any]:
     """Run the stack. Returns (logits [B, S, vocab], cache).
 
     inputs: {"tokens": [B, S]} (optional "positions": [B, S]).
-    decode: S == 1 and ``pos`` is the absolute position of every row.
+    decode: S == 1 and ``pos`` is the absolute position of every row (an
+    int) or of each row (a [B] tensor).
+    paged decode: ``cache`` is a block pool (``init_paged_cache``) and
+    ``block_tables [B, blocks_per_seq]`` maps each row's logical blocks to
+    physical ones; one table per request serves every layer.
     """
     _check_family(cfg)
     if mode not in ("prefill", "decode"):
@@ -131,7 +213,8 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
     for i, p in enumerate(params["layers"]):
         cache_l = cache[i] if cache is not None else None
         x, cache_l = block_apply(p, x, cfg, mode=mode, positions=positions,
-                                 cache=cache_l, pos=pos, backend=backend)
+                                 cache=cache_l, pos=pos,
+                                 block_tables=block_tables, backend=backend)
     x = _norm(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
         logits = layers.logits_head(None, params["embed"], x, vocab=cfg.vocab,

@@ -1,0 +1,9 @@
+"""Observability plane of the port: tracing and metrics.
+
+Copies of the reference's ``obs.trace`` and ``obs.metrics``, both stdlib
+and numpy only: the host-side scheduler imports them.
+"""
+
+from repro_torch.obs.trace import TraceRecord, Tracer, get_tracer
+
+__all__ = ["TraceRecord", "Tracer", "get_tracer"]

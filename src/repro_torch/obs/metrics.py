@@ -1,0 +1,336 @@
+"""Metrics registry: named/unit-ed/help-texted instruments over host state.
+
+Two halves:
+
+* :class:`Reservoir` — a bounded, deterministically-seeded latency sample
+  store (Vitter's Algorithm R).  Replaces the unbounded
+  ``SchedulerMetrics.ttft_s``/``tpot_s`` lists: a long-running server keeps
+  at most ``capacity`` floats per series, and under the virtual clock the
+  retained set is a pure function of (sample stream, seed), so loadgen
+  replays of the same trace fingerprint report identical p50/p99.
+
+* :class:`MetricsRegistry` — counter/gauge/histogram instruments registered
+  with name, unit, and help text.  Instruments are *pull-style*: each binds
+  a callable that reads live host state (usually a ``SchedulerMetrics``
+  field), so the serving hot path keeps mutating plain dataclass fields at
+  zero added cost and the registry is pure read-side.  Snapshot to JSON,
+  render Prometheus text exposition (``launch/serve.py --metrics-port``),
+  or format a one-line operator digest.
+
+Naming convention (DESIGN §15): ``repro_<plane>_<what>[_<unit-suffix>]``;
+counters end in ``_total``, latency summaries expose ``quantile`` labels.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import random
+import threading
+import zlib
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+
+__all__ = [
+    "Reservoir", "Instrument", "MetricsRegistry",
+    "register_scheduler_metrics", "start_http_server",
+]
+
+
+def _seed_int(key: str) -> int:
+    # crc32 keeps the seed stable across processes/pythonhashseed
+    return zlib.crc32(key.encode("utf-8")) & 0xFFFFFFFF
+
+
+class Reservoir:
+    """Bounded uniform sample of a float stream (Algorithm R).
+
+    Duck-types the list surface the scheduler already uses (``append``,
+    ``len``, indexing, iteration) so it drops into
+    ``SchedulerMetrics.ttft_s`` without touching call sites.  ``reseed``
+    resets the RNG *and* the samples: ``loadgen.replay`` calls it with the
+    trace fingerprint before a run, which is what makes replayed
+    percentiles deterministic (and independent of whatever ran before on
+    the same server object).
+    """
+
+    __slots__ = ("capacity", "count", "_samples", "_rng")
+
+    def __init__(self, capacity: int = 2048, seed: str = "") -> None:
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        self.count = 0                       # total observed (incl. evicted)
+        self._samples: List[float] = []
+        self._rng = random.Random(_seed_int(seed))
+
+    def reseed(self, key: str) -> None:
+        """Reset to empty with an RNG derived from ``key``."""
+        self.count = 0
+        self._samples = []
+        self._rng = random.Random(_seed_int(key))
+
+    def append(self, x: float) -> None:
+        self.count += 1
+        if len(self._samples) < self.capacity:
+            self._samples.append(float(x))
+            return
+        j = self._rng.randrange(self.count)
+        if j < self.capacity:
+            self._samples[j] = float(x)
+
+    # -- list duck-typing (latency_summary does np.asarray + truthiness) ----
+    def __len__(self) -> int:
+        return len(self._samples)
+
+    def __getitem__(self, i):
+        return self._samples[i]
+
+    def __iter__(self):
+        return iter(self._samples)
+
+    def __deepcopy__(self, memo):
+        # dataclasses.asdict deep-copies non-dataclass fields; hand back a
+        # detached clone without copying RNG state (snapshots are read-only)
+        r = Reservoir(self.capacity)
+        r.count = self.count
+        r._samples = list(self._samples)
+        return r
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+_KINDS = ("counter", "gauge", "histogram")
+
+
+@dataclasses.dataclass
+class Instrument:
+    """One registered metric: pull-style read via ``fn``."""
+
+    name: str
+    kind: str                               # counter | gauge | histogram
+    unit: str                               # "1", "s", "tokens", "blocks", ...
+    help: str
+    fn: Callable[[], Any]
+
+    def read(self) -> Any:
+        return self.fn()
+
+
+class MetricsRegistry:
+    """Ordered name -> Instrument map with JSON / Prometheus / digest views."""
+
+    def __init__(self) -> None:
+        self._instruments: Dict[str, Instrument] = {}
+
+    def register(self, name: str, kind: str, unit: str, help_text: str,
+                 fn: Callable[[], Any]) -> Instrument:
+        if kind not in _KINDS:
+            raise ValueError(f"unknown instrument kind {kind!r}")
+        if name in self._instruments:
+            raise ValueError(f"duplicate metric {name!r}")
+        inst = Instrument(name, kind, unit, help_text, fn)
+        self._instruments[name] = inst
+        return inst
+
+    def counter(self, name: str, unit: str, help_text: str,
+                fn: Callable[[], Any]) -> Instrument:
+        return self.register(name, "counter", unit, help_text, fn)
+
+    def gauge(self, name: str, unit: str, help_text: str,
+              fn: Callable[[], Any]) -> Instrument:
+        return self.register(name, "gauge", unit, help_text, fn)
+
+    def histogram(self, name: str, unit: str, help_text: str,
+                  fn: Callable[[], Sequence[float]]) -> Instrument:
+        """``fn`` returns the current sample set (e.g. a Reservoir)."""
+        return self.register(name, "histogram", unit, help_text, fn)
+
+    def names(self) -> List[str]:
+        return list(self._instruments)
+
+    # -- views --------------------------------------------------------------
+    def snapshot(self) -> Dict[str, Any]:
+        """JSON-able {name: value} (histograms summarize to quantiles)."""
+        out: Dict[str, Any] = {}
+        for inst in self._instruments.values():
+            if inst.kind == "histogram":
+                out[inst.name] = _quantiles(inst.read())
+            else:
+                out[inst.name] = inst.read()
+        return out
+
+    def to_json(self, **dump_kwargs: Any) -> str:
+        return json.dumps(self.snapshot(), **dump_kwargs)
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition format (version 0.0.4)."""
+        lines: List[str] = []
+        for inst in self._instruments.values():
+            ptype = "summary" if inst.kind == "histogram" else inst.kind
+            lines.append(f"# HELP {inst.name} {inst.help} [unit: {inst.unit}]")
+            lines.append(f"# TYPE {inst.name} {ptype}")
+            if inst.kind == "histogram":
+                q = _quantiles(inst.read())
+                for tag, key in (("0.5", "p50"), ("0.9", "p90"),
+                                 ("0.99", "p99")):
+                    v = q[key]
+                    if v is not None:
+                        lines.append(
+                            f'{inst.name}{{quantile="{tag}"}} {v:.9g}')
+                lines.append(f"{inst.name}_count {q['n']}")
+            else:
+                v = inst.read()
+                lines.append(f"{inst.name} {_fmt_value(v)}")
+        return "\n".join(lines) + "\n"
+
+    def digest(self, keys: Optional[Sequence[str]] = None) -> str:
+        """One-line operator digest: ``k=v`` pairs, short names."""
+        snap = self.snapshot()
+        picked = keys if keys is not None else list(snap)
+        parts = []
+        for name in picked:
+            v = snap.get(name)
+            short = name
+            for prefix in ("repro_scheduler_", "repro_pool_", "repro_spec_",
+                           "repro_fault_", "repro_bp_", "repro_"):
+                if short.startswith(prefix):
+                    short = short[len(prefix):]
+                    break
+            if isinstance(v, dict):                  # histogram quantiles
+                p50, p99 = v.get("p50"), v.get("p99")
+                parts.append(f"{short}_p50={_fmt_value(p50)}"
+                             f" {short}_p99={_fmt_value(p99)}")
+            else:
+                parts.append(f"{short}={_fmt_value(v)}")
+        return " ".join(parts)
+
+
+def _quantiles(samples: Sequence[float]) -> Dict[str, Any]:
+    if samples is None or len(samples) == 0:
+        return {"n": 0, "mean": None, "p50": None, "p90": None, "p99": None}
+    a = np.asarray(samples, np.float64)
+    return {
+        "n": int(a.size),
+        "mean": float(a.mean()),
+        "p50": float(np.percentile(a, 50)),
+        "p90": float(np.percentile(a, 90)),
+        "p99": float(np.percentile(a, 99)),
+    }
+
+
+def _fmt_value(v: Any) -> str:
+    if v is None:
+        return "nan"
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, float):
+        return f"{v:.6g}"
+    return str(v)
+
+
+# ---------------------------------------------------------------------------
+# serving bindings: one place that names every SchedulerMetrics field
+# ---------------------------------------------------------------------------
+
+# (field, kind, unit, help) — the registry view over the dataclass.  Fields
+# added to SchedulerMetrics in later PRs should be registered here too;
+# test_obs pins that every registered field exists on the dataclass.
+_SCHED_FIELDS = [
+    ("steps", "counter", "1", "Engine steps executed"),
+    ("admitted", "counter", "1", "Requests admitted to a slot"),
+    ("completed", "counter", "1", "Requests finished with EOS/max_new"),
+    ("cancelled", "counter", "1", "Requests cancelled by the client"),
+    ("preemptions", "counter", "1", "Slot preemptions (KV pressure)"),
+    ("quarantined", "counter", "1", "Slots quarantined after poisoned step"),
+    ("deadline_expired", "counter", "1", "Requests failed on deadline"),
+    ("step_retries", "counter", "1", "Transient step faults retried"),
+    ("prefill_tokens", "counter", "tokens", "Real prompt tokens prefilled"),
+    ("padded_prefill_tokens", "counter", "tokens",
+     "Prompt tokens incl. bucket padding"),
+    ("decode_tokens", "counter", "tokens", "Tokens produced by decode"),
+    ("prefill_calls", "counter", "1", "Prefill launches"),
+    ("queue_wait_steps", "counter", "steps",
+     "Total steps requests spent queued"),
+    ("degradation_level", "gauge", "1", "Current degradation ladder rung"),
+    ("degradation_transitions", "counter", "1",
+     "Degradation ladder rung changes"),
+]
+
+
+def register_scheduler_metrics(reg: MetricsRegistry,
+                               metrics_fn: Callable[[], Any],
+                               prefix: str = "repro_scheduler_",
+                               ) -> MetricsRegistry:
+    """Bind the serving metrics surface into ``reg`` (pull-style).
+
+    ``metrics_fn`` returns the live ``SchedulerMetrics`` (a callable so a
+    restore() that swaps the batcher does not strand the registry).
+    """
+    def _field(name):
+        return lambda: getattr(metrics_fn(), name, 0)
+
+    for field, kind, unit, help_text in _SCHED_FIELDS:
+        reg.register(prefix + field + ("_total" if kind == "counter" else ""),
+                     kind, unit, help_text, _field(field))
+    reg.gauge(prefix + "occupancy", "1", "Active slots / total slots",
+              lambda: metrics_fn().occupancy)
+    reg.histogram(prefix + "ttft_s", "s",
+                  "Time to first token (virtual clock under replay)",
+                  lambda: metrics_fn().ttft_s)
+    reg.histogram(prefix + "tpot_s", "s",
+                  "Time per output token (virtual clock under replay)",
+                  lambda: metrics_fn().tpot_s)
+    return reg
+
+
+DIGEST_KEYS = (
+    "repro_scheduler_steps_total",
+    "repro_scheduler_admitted_total",
+    "repro_scheduler_completed_total",
+    "repro_scheduler_occupancy",
+    "repro_scheduler_preemptions_total",
+    "repro_scheduler_degradation_level",
+    "repro_scheduler_ttft_s",
+    "repro_scheduler_tpot_s",
+)
+
+
+# ---------------------------------------------------------------------------
+# Prometheus-style HTTP exposition (stdlib only)
+# ---------------------------------------------------------------------------
+
+def start_http_server(registry: MetricsRegistry, port: int,
+                      host: str = "127.0.0.1"):
+    """Serve ``/metrics`` (text exposition) and ``/metrics.json`` on a
+    daemon thread.  Returns the server; call ``.shutdown()`` when done."""
+    import http.server
+
+    class _Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):                                    # noqa: N802
+            if self.path.startswith("/metrics.json"):
+                body = registry.to_json(indent=2).encode()
+                ctype = "application/json"
+            elif self.path.startswith("/metrics"):
+                body = registry.render_prometheus().encode()
+                ctype = "text/plain; version=0.0.4"
+            else:
+                self.send_error(404)
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):                           # quiet
+            pass
+
+    server = http.server.ThreadingHTTPServer((host, port), _Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True,
+                              name="repro-metrics")
+    thread.start()
+    return server

@@ -1,0 +1,1562 @@
+"""Scheduling-policy core of the serving stack (DESIGN.md §13).
+
+This module is the *state machine* half of what used to be the monolithic
+``serving/batching.py``: admission (bucketed FIFO groups, block-availability
+gating), preemption (youngest-first requeue on pool exhaustion), speculative
+window staging, cancellation, and termination — pure host-side logic over
+the request pool and decode slots. It imports numpy and the block pool only:
+**no torch, no device work**. Every device interaction is expressed as data —
+an :class:`AdmissionPlan` to prefill, a list of ``(src, dst)`` block copies
+to apply, a :class:`VerifyBatch` to score — executed by the device layer
+(`serving/step.py`) and fed back through ``commit_*`` calls. The thin
+`serving.batching.ContinuousBatcher` facade wires the two together.
+
+Request lifecycle (DESIGN.md §13 state machine)::
+
+    submit -> QUEUED -(plan/commit_admission)-> ACTIVE -(commit_decode /
+    commit_verify)-> ... -> FINISHED(stop | max_new_tokens | max_len)
+    ACTIVE -(pool exhaustion)-> QUEUED (preempted; resume tokens carried)
+    QUEUED | ACTIVE -(cancel)-> FINISHED(cancelled)   # state fully released
+    QUEUED | ACTIVE -(deadline budget exceeded)-> FINISHED(deadline)
+    ACTIVE -(non-finite logits detected)-> FINISHED(quarantined)
+
+Cancellation is legal in every live state: a queued request goes stale in
+the FIFO (purged lazily, O(1) amortized), an active one releases its slot
+and block table immediately, and a preempted one is just the queued case —
+the pool's ref-count invariants hold after every path (asserted by
+`tests/test_serving_api.py`).
+
+Failure containment (DESIGN.md §14): per-request TTFT / total-latency
+deadlines expire through :meth:`Scheduler.expire_deadlines` at the step
+boundary; a slot whose logits fail the device layer's non-finite scan is
+*quarantined* — its session alone fails and its blocks free, the rest of
+the batch commits untouched. Sustained pressure or repeated faults walk
+the graceful-degradation ladder (:class:`DegradationState`: shrink
+speculation, then admission, then shed at submit), with hysteresis so one
+bad step doesn't flap the server. :meth:`export_state` /
+:meth:`restore_state` round-trip the whole scheduler (queue, slots,
+per-request progress) as plain JSON at a step boundary — restored requests
+re-enter as preempted entries, so recompute-resume regenerates bitwise
+streams.
+
+Wall-clock latency: the scheduler stamps ``submit_t`` / ``first_token_t`` /
+``finish_t`` on every request from an injectable ``clock`` (defaults to
+``time.monotonic``; `serving/loadgen.py` injects a virtual step clock for
+deterministic replay) and folds finished requests' TTFT (submit to first
+generated token) and TPOT (mean inter-token time after the first) into
+:class:`SchedulerMetrics` percentile summaries.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
+                    Tuple)
+
+import numpy as np
+
+from repro_torch.obs.metrics import Reservoir
+from repro_torch.obs.trace import Tracer, get_tracer
+from repro_torch.serving import paged_cache
+from repro_torch.serving.config import SLOSpec
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray              # [S] token ids
+    max_new_tokens: int
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    pending: bool = True            # still queued (not yet taken for admission)
+    finish_reason: str = ""         # "stop" | "max_new_tokens" | "max_len"
+                                    # | "cancelled" | "deadline" | "quarantined"
+    # latency budgets on the scheduler clock (None = unbounded): TTFT
+    # (submit -> first token) and total (submit -> finish); exceeding one
+    # fails the request with finish_reason="deadline" at the step boundary
+    ttft_deadline_s: Optional[float] = None
+    deadline_s: Optional[float] = None
+    # service-level objective (DESIGN.md §16): soft TTFT/TPOT targets drive
+    # EDF chunk ordering + attainment accounting; its hard-deadline fields
+    # are the canonical source of the two budget fields above
+    slo: Optional[SLOSpec] = None
+    submit_step: int = 0            # engine step at submit (queue-wait metric)
+    admit_step: int = -1
+    # wall-clock lifecycle stamps (scheduler clock; -1.0 = not yet reached)
+    submit_t: float = -1.0
+    first_token_t: float = -1.0
+    finish_t: float = -1.0
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        """Submit-to-first-token latency, None before the first token."""
+        if self.first_token_t < 0:
+            return None
+        return self.first_token_t - self.submit_t
+
+    @property
+    def tpot_s(self) -> Optional[float]:
+        """Mean time per output token after the first (needs >= 2 tokens
+        and a finish stamp)."""
+        if self.finish_t < 0 or self.first_token_t < 0 \
+                or len(self.generated) < 2:
+            return None
+        return ((self.finish_t - self.first_token_t)
+                / (len(self.generated) - 1))
+
+
+def latency_summary(samples: Sequence[float]) -> Dict[str, Any]:
+    """p50/p90/p99/mean summary of a latency sample list (seconds)."""
+    if not samples:
+        return {"n": 0, "mean": None, "p50": None, "p90": None, "p99": None}
+    a = np.asarray(samples, np.float64)
+    return {
+        "n": int(a.size),
+        "mean": float(a.mean()),
+        "p50": float(np.percentile(a, 50)),
+        "p90": float(np.percentile(a, 90)),
+        "p99": float(np.percentile(a, 99)),
+    }
+
+
+@dataclasses.dataclass
+class SchedulerMetrics:
+    """Counters the serving loop maintains; all host-side, no device sync."""
+
+    steps: int = 0
+    admitted: int = 0
+    completed: int = 0
+    eos_terminated: int = 0
+    truncated: int = 0
+    cancelled: int = 0               # session-API cancellations (any state)
+    prefill_calls: int = 0
+    prefill_tokens: int = 0          # real prompt tokens
+    padded_prefill_tokens: int = 0   # incl. bucket padding + group padding
+    decode_tokens: int = 0
+    queue_wait_steps: int = 0        # summed over admitted requests
+    active_slot_steps: int = 0       # occupancy numerator
+    slot_steps: int = 0              # n_slots * steps
+    admit_time_s: float = 0.0
+    decode_time_s: float = 0.0
+    bucket_admits: Dict[int, int] = dataclasses.field(default_factory=dict)
+    # paged-cache counters (all zero under cache_kind="dense")
+    prefix_hit_tokens: int = 0       # prompt tokens served by shared blocks
+    preemptions: int = 0             # pool-exhaustion preempt-and-requeue
+    cow_copies: int = 0              # copy-on-write block copies
+    blocks_in_use: int = 0           # gauge: pool blocks held right now
+    peak_blocks_in_use: int = 0      # high-water mark of the pool
+    peak_active_slots: int = 0       # max concurrently-decoding requests
+    # speculative-decoding counters (zero when spec_k == 0)
+    drafted: int = 0                 # draft tokens submitted to verify
+    accepted: int = 0                # draft tokens accepted by the target
+    # chunked-prefill counters (DESIGN.md §16; zero under bucketed admission)
+    chunk_tokens: int = 0            # prompt tokens prefilled via chunks
+    mixed_steps: int = 0             # mixed prefill+decode launches
+    # per-launch device cost proxy: query positions computed per launch
+    # (prefill k*bucket, decode n_slots, verify/mixed n_slots*W) — feeds
+    # loadgen.CostClock so virtual latency charges bucket padding honestly
+    compute_positions: int = 0
+    # per-class (SLOSpec.tenant) soft-target attainment, recorded at finish:
+    # {"ttft_ok": n, "ttft_miss": n, "tpot_ok": n, "tpot_miss": n}
+    slo_attainment: Dict[str, Dict[str, int]] = dataclasses.field(
+        default_factory=dict)
+    # fault-tolerance counters (DESIGN.md §14)
+    quarantined: int = 0             # sessions failed on non-finite logits
+    deadline_expired: int = 0        # sessions failed on a latency budget
+    step_retries: int = 0            # transient launch failures retried
+    drafter_errors: int = 0          # drafter faults degraded to plain decode
+    storms: int = 0                  # pool-exhaustion storms applied
+    seized_blocks: int = 0           # gauge: blocks a storm holds right now
+    degradation_level: int = 0       # gauge: current ladder level (0=normal)
+    peak_degradation_level: int = 0
+    degraded_steps: int = 0          # steps spent at level > 0
+    degradation_sheds: int = 0       # submits shed by the ladder's top rung
+    degradation_transitions: int = 0  # ladder rung changes (either direction)
+    # wall-clock latency samples of *finished* requests (scheduler clock;
+    # cancelled/deadline/quarantined requests are excluded — their tail is
+    # not a served latency). Bounded reservoirs, not lists: a long-running
+    # server keeps at most Reservoir.capacity floats per series, and
+    # ``loadgen.replay`` reseeds them from the trace fingerprint so replay
+    # percentiles are deterministic (obs/metrics.py).
+    ttft_s: Reservoir = dataclasses.field(default_factory=Reservoir)
+    tpot_s: Reservoir = dataclasses.field(default_factory=Reservoir)
+
+    def seed_latency(self, key: str) -> None:
+        """Reset + reseed the latency reservoirs (trace fingerprint)."""
+        self.ttft_s.reseed("ttft:" + key)
+        self.tpot_s.reseed("tpot:" + key)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of prefilled prompt tokens backed by shared blocks."""
+        return self.prefix_hit_tokens / max(self.prefill_tokens, 1)
+
+    @property
+    def accept_rate(self) -> float:
+        """Fraction of drafted tokens the target model accepted."""
+        return self.accepted / max(self.drafted, 1)
+
+    @property
+    def tokens_per_step(self) -> float:
+        """Decode tokens emitted per active slot-step — the speculative
+        win's currency: exactly 1.0 for plain decode, 1 + accepted drafts
+        per slot-step with verification."""
+        return self.decode_tokens / max(self.active_slot_steps, 1)
+
+    @property
+    def occupancy(self) -> float:
+        return self.active_slot_steps / max(self.slot_steps, 1)
+
+    @property
+    def prefill_padding_overhead(self) -> float:
+        """Fraction of prefilled tokens that were bucket/group padding.
+
+        0.0 before any prefill has happened (not the 100% overhead the
+        ``max(·, 1)`` denominator guard used to report)."""
+        if self.padded_prefill_tokens == 0:
+            return 0.0
+        return 1.0 - self.prefill_tokens / self.padded_prefill_tokens
+
+    @property
+    def mean_queue_wait_steps(self) -> float:
+        return self.queue_wait_steps / max(self.admitted, 1)
+
+    def as_dict(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d["occupancy"] = self.occupancy
+        d["prefill_padding_overhead"] = self.prefill_padding_overhead
+        d["mean_queue_wait_steps"] = self.mean_queue_wait_steps
+        d["prefix_hit_rate"] = self.prefix_hit_rate
+        d["accept_rate"] = self.accept_rate
+        d["tokens_per_step"] = self.tokens_per_step
+        # raw sample lists fold into percentile summaries (JSON-lean)
+        d["ttft"] = latency_summary(d.pop("ttft_s"))
+        d["tpot"] = latency_summary(d.pop("tpot_s"))
+        return d
+
+
+@dataclasses.dataclass(frozen=True)
+class DegradationPolicy:
+    """Knobs of the graceful-degradation ladder (DESIGN.md §14).
+
+    The ladder escalates one level after ``escalate_after`` consecutive
+    pressured steps and recovers one level after ``recover_after`` calm
+    steps (hysteresis: escalation is fast, recovery is slow, so a flapping
+    signal cannot oscillate the server every step). Levels:
+
+    0 normal · 1 spec_k halved · 2 speculation off · 3 admission serialized
+    (admit_k -> 1) · 4 shed new submissions (the session API's
+    :class:`~repro_torch.serving.api.Backpressure` path).
+
+    ``fault_hi`` recent faults (detected NaNs, retried launches, storms,
+    drafter errors) within ``fault_window`` steps always count as pressure;
+    pool/queue *load* pressure participates only when ``pressure=True`` —
+    closed-loop benches legitimately run deep queues and full pools, so
+    load-based degradation is an open-loop serving opt-in.
+    """
+
+    fault_window: int = 8
+    fault_hi: int = 2
+    pressure: bool = False
+    pool_hi: float = 0.95            # blocks_in_use / n_blocks threshold
+    queue_hi_factor: float = 2.0     # queue_depth >= factor * n_slots
+    escalate_after: int = 2
+    recover_after: int = 8
+    max_level: int = 4
+
+
+@dataclasses.dataclass
+class DegradationState:
+    """Where the server sits on the ladder right now (surfaced through
+    ``SchedulerMetrics.degradation_level`` and the chaos bench report)."""
+
+    level: int = 0
+    since_step: int = 0              # step of the last level change
+    pressure_streak: int = 0
+    calm_streak: int = 0
+
+    def as_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class AdmissionPlan:
+    """One prefill launch, fully resolved by the scheduler: the device layer
+    runs it verbatim and hands the sampled first tokens back to
+    :meth:`Scheduler.commit_admission`."""
+
+    group: List[Request]            # the real admitted requests
+    slots: List[int]                # target slot per group member
+    bucket: int                     # padded prompt length (compile shape)
+    tokens: np.ndarray              # [k, bucket] right-padded resume tokens
+    lens: np.ndarray                # [k] true token counts
+    targets: np.ndarray             # [k] slot ids (dense) | [k, nblk] block
+                                    # map (paged); rows past the group
+                                    # duplicate the last real row
+    uids: np.ndarray                # [k] uint32 sampling-key folds
+    counts: np.ndarray              # [k] uint32 token indices
+
+
+@dataclasses.dataclass
+class VerifyBatch:
+    """One speculative verify launch over every active slot."""
+
+    tokens: np.ndarray              # [n_slots, spec_k + 1] window columns
+    draft_lens: np.ndarray          # [n_slots] real drafts per slot
+    uids: np.ndarray                # [n_slots] uint32
+    counts: np.ndarray              # [n_slots] uint32
+
+
+@dataclasses.dataclass
+class MixedStepPlan:
+    """One mixed prefill-chunk + decode launch (DESIGN.md §16): every slot
+    rides a single [n_slots, chunk_size] window — a prefill-chunk slot
+    contributes its next ``chunks[s]`` resume tokens, a decode slot its
+    committed last token in column 0, an idle slot all padding."""
+
+    tokens: np.ndarray              # [n_slots, chunk_size] window columns
+    n_tokens: np.ndarray            # [n_slots] real columns (0 = idle)
+    uids: np.ndarray                # [n_slots] uint32 sampling-key folds
+    counts: np.ndarray              # [n_slots] uint32 token indices
+    decode_slots: List[int]         # slots taking a plain decode position
+    chunks: Dict[int, int]          # prefilling slot -> chunk tokens granted
+
+
+class Scheduler:
+    """Pure admission/preemption/termination state machine (DESIGN.md §13).
+
+    Owns the request queue, the per-bucket FIFO index, the slot table, the
+    per-slot position/last-token vectors, the paged block pool, and the
+    metrics. Produces plans and consumes device results; never touches a
+    device array. Construction parameters are plain data — the facade
+    (`serving.batching.ContinuousBatcher`) derives them from the model
+    config once.
+    """
+
+    def __init__(self, *, n_slots: int, max_len: int,
+                 stop_ids: Sequence[int] = (),
+                 admit_k: int = 4,
+                 buckets: Optional[Tuple[int, ...]] = None,
+                 ring_len: Optional[int] = None,
+                 paged: bool = False, block_size: int = 16,
+                 n_blocks: Optional[int] = None,
+                 max_blocks: int = 0, reserve_blocks: int = 1,
+                 prefix_sharing: bool = True,
+                 request_history: int = 1024,
+                 spec_k: int = 0, drafter=None,
+                 sampled: bool = False,
+                 chunked: bool = False, chunk_size: int = 16,
+                 chunk_budget: int = 32,
+                 clock: Optional[Callable[[], float]] = None,
+                 degradation: Optional[DegradationPolicy] = None,
+                 tracer: Optional[Tracer] = None):
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.stop_ids = frozenset(int(t) for t in stop_ids)
+        self.admit_k = admit_k
+        self.buckets = buckets
+        self.ring_len = ring_len
+        self.paged = paged
+        self.spec_k = spec_k
+        self.drafter = drafter
+        # chunked prefill (DESIGN.md §16): prompts stream into their slot
+        # chunk_size positions at a time through the mixed step, at most
+        # chunk_budget prefill positions granted per step across all slots
+        self.chunked = chunked
+        self.chunk_size = chunk_size
+        self.chunk_budget = chunk_budget
+        if chunked:
+            assert paged and spec_k == 0 and ring_len is None, \
+                "chunked prefill requires paged KV, no speculation, no ring"
+        # per-slot chunked-prefill cursor goal: 0 = not prefilling, else the
+        # resume length this slot must reach before its first token samples
+        # (the cursor itself is ``pos[s]``)
+        self.chunk_goal = np.zeros(n_slots, np.int64)
+        # per-tenant granted chunk tokens — the EDF tie-breaking fairness
+        # deficit counter (lighter tenants win ties)
+        self._tenant_tokens: Dict[str, int] = {}
+        self.sampled = sampled
+        self.clock = clock if clock is not None else time.monotonic
+        # Structured tracing (DESIGN §15): defaults to the process-wide
+        # tracer, which is OFF by default — every emission site below is
+        # guarded by ``tr.enabled`` so a quiet server pays one flag check.
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self._slot_admit_t = [0.0] * n_slots   # slot-residency span starts
+        # -- fault tolerance (DESIGN.md §14) --------------------------------
+        self.degradation_policy = degradation or DegradationPolicy()
+        self.degradation = DegradationState()
+        self._fault_steps: Deque[int] = deque()   # recent-fault step window
+        self._seized: List[List[Any]] = []        # [release_step, [blocks]]
+        self._terminal_t: Deque[float] = deque(maxlen=32)  # drain-rate taps
+        self._live_deadlines = 0                  # live reqs with any budget
+        self.inject_drafter_fault = False         # chaos hook (faults.py)
+        self.last_drafter_error: Optional[Exception] = None
+        # FIFO arrival order (head-of-line fairness) + per-bucket index so a
+        # same-bucket admission group is O(group), not a full-queue rebuild.
+        # Entries admitted or cancelled go stale in ``queue``/``_by_bucket``
+        # and are lazily purged from the heads (O(1) amortized).
+        self.queue: Deque[Request] = deque()
+        self._by_bucket: Dict[int, Deque[Request]] = {}
+        # uid -> Request for introspection; finished entries are evicted
+        # beyond ``request_history`` so a long-running server stays bounded.
+        self.requests: Dict[int, Request] = {}
+        self._done_uids: Deque[int] = deque()
+        self._request_history = request_history
+        self.slots: List[Optional[Request]] = [None] * n_slots
+        self.pos = np.zeros(n_slots, np.int32)      # per-slot next position
+        self.last_token = np.zeros(n_slots, np.int64)
+        self.metrics = SchedulerMetrics()
+        self.pool: Optional[paged_cache.BlockPool] = None
+        # CoW copies queued by the current prepare/stage pass, as
+        # (slot, src, dst); preempting a slot prunes its entries so the
+        # device layer never copies into a reallocated block.
+        self._pending_copies: List[Tuple[int, int, int]] = []
+        if paged:
+            assert n_blocks is not None and max_blocks > 0
+            self.block_size = block_size
+            self.max_blocks = max_blocks
+            self.reserve_blocks = max(0, reserve_blocks)
+            # Ring blocks are overwritten cyclically — content is not a pure
+            # function of the token prefix, so sharing is causal-only.
+            self.pool = paged_cache.BlockPool(
+                n_blocks, block_size,
+                prefix_sharing=prefix_sharing and ring_len is None)
+            self.tables: List[Optional[paged_cache.BlockTable]] = \
+                [None] * n_slots
+            self.table_arr = np.full((n_slots, max_blocks),
+                                     paged_cache.TRASH_BLOCK, np.int32)
+        else:
+            self.tables = [None] * n_slots
+            self.table_arr = None
+
+    # -- introspection ------------------------------------------------------
+    @property
+    def busy(self) -> bool:
+        """Anything queued (live) or decoding right now."""
+        self._purge_stale()
+        return bool(self.queue) or any(r is not None for r in self.slots)
+
+    @property
+    def queue_depth(self) -> int:
+        """Live (pending, uncancelled) queued requests — the backpressure
+        signal the session API gates submissions on."""
+        return sum(1 for r in self.queue if r.pending and not r.done)
+
+    def active_slot_ids(self) -> List[int]:
+        return [s for s in range(self.n_slots) if self.slots[s] is not None]
+
+    # -- submit / cancel ----------------------------------------------------
+    def validate_request(self, prompt: np.ndarray,
+                         max_new_tokens: int) -> np.ndarray:
+        """Everything a request must satisfy to be *runnable*, checked
+        before any state exists; raises ValueError otherwise. Returns the
+        normalized prompt. The session API calls this ahead of its
+        backpressure gate, so a never-completable request is rejected
+        outright instead of shed with a retryable signal (retrying it could
+        never succeed)."""
+        prompt = np.asarray(prompt)
+        if prompt.ndim != 1 or prompt.size == 0:
+            raise ValueError(f"prompt must be a non-empty 1-D token array, "
+                             f"got shape {prompt.shape}")
+        if prompt.size > self.max_len - 1:
+            raise ValueError(f"prompt length {prompt.size} needs "
+                             f">= {prompt.size + 1} cache positions; "
+                             f"max_len is {self.max_len}")
+        if self.paged:
+            # Reject requests the pool can never run to completion: decode
+            # growth reaches blocks_for(prompt + generated K/V positions,
+            # max_len/ring-capped); admitting one and crashing mid-decode
+            # would take down every other in-flight request. This bound
+            # also dominates every (re-)admission's _admit_positions need.
+            n_pos = min(prompt.size + max(max_new_tokens - 1, 0),
+                        self.max_len)
+            if self.ring_len is not None:
+                n_pos = min(n_pos, self.ring_len)
+            need = self.pool.blocks_for(n_pos)
+            if need > self.pool.n_blocks:
+                raise ValueError(
+                    f"request needs up to {need} KV blocks "
+                    f"({n_pos} positions at block_size={self.block_size}) "
+                    f"but the pool has only {self.pool.n_blocks}; raise "
+                    f"n_blocks (budget) or lower max_new_tokens")
+        return prompt
+
+    def submit(self, uid: int, prompt: np.ndarray, max_new_tokens: int,
+               *, ttft_deadline_s: Optional[float] = None,
+               deadline_s: Optional[float] = None,
+               slo: Optional[SLOSpec] = None) -> Request:
+        prompt = self.validate_request(prompt, max_new_tokens)
+        if not 0 <= uid < 2 ** 32:
+            # per-slot sampling keys fold the uid as uint32 data
+            raise ValueError(f"request uid must fit uint32, got {uid}")
+        cur = self.requests.get(uid)
+        if cur is not None and not cur.done:
+            raise ValueError(f"request uid {uid} is still queued or active")
+        # The flat deadline kwargs are a thin mapping onto SLOSpec: either
+        # the caller hands a full SLO, or bare deadlines are wrapped into
+        # one — the Request's budget fields always mirror req.slo.
+        if slo is not None:
+            if ttft_deadline_s is not None or deadline_s is not None:
+                raise ValueError("pass deadlines either inside slo=SLOSpec("
+                                 "...) or as bare kwargs, not both")
+            slo.validate()
+            ttft_deadline_s = slo.ttft_deadline_s
+            deadline_s = slo.deadline_s
+        elif ttft_deadline_s is not None or deadline_s is not None:
+            # keep the caller's seconds verbatim on the Request (no ms
+            # round-trip drift); the wrapper SLO is the introspection view
+            slo = SLOSpec(
+                ttft_deadline_ms=None if ttft_deadline_s is None
+                else ttft_deadline_s * 1e3,
+                deadline_ms=None if deadline_s is None
+                else deadline_s * 1e3).validate()
+        req = Request(uid, prompt, max_new_tokens,
+                      ttft_deadline_s=ttft_deadline_s,
+                      deadline_s=deadline_s,
+                      slo=slo,
+                      submit_step=self.metrics.steps,
+                      submit_t=self.clock())
+        self._enqueue(req)
+        self.requests[uid] = req
+        tr = self.tracer
+        if tr.enabled:
+            tr.event("sched", "submit", "scheduler", uid=uid,
+                     prompt_len=int(prompt.size), max_new=max_new_tokens)
+        return req
+
+    def _enqueue(self, req: Request) -> None:
+        self.queue.append(req)
+        self._by_bucket.setdefault(self._bucket(req), deque()).append(req)
+        if req.ttft_deadline_s is not None or req.deadline_s is not None:
+            self._live_deadlines += 1
+
+    def cancel(self, uid: int) -> Optional[Request]:
+        """Cancel a live request in ANY state — queued, active (mid-decode),
+        or preempted-and-requeued. Slot and block-table state is released
+        immediately for active requests; queued entries go stale and purge
+        lazily. Returns the request (finish_reason="cancelled"), or None if
+        the uid is unknown or already finished."""
+        req = self.requests.get(uid)
+        if req is None or req.done:
+            return None
+        slot = None
+        if req.pending:
+            # queued (fresh or preempted): mark stale; the FIFO heads and
+            # _take_group skip done entries.
+            req.pending = False
+        else:
+            for s in range(self.n_slots):
+                if self.slots[s] is req:
+                    slot = s
+                    self._release_slot(s)
+                    break
+        req.done = True
+        req.finish_reason = "cancelled"
+        req.finish_t = self.clock()
+        self.metrics.cancelled += 1
+        tr = self.tracer
+        if tr.enabled:
+            tr.event("sched", "cancel", "scheduler", uid=uid)
+            if slot is not None:
+                tr.span("sched", f"req{uid}", f"slot{slot}",
+                        self._slot_admit_t[slot], req.finish_t,
+                        uid=uid, reason="cancelled")
+        self._retire(req)
+        return req
+
+    # -- shared helpers ------------------------------------------------------
+    def _full_tokens(self, req: Request) -> np.ndarray:
+        """Tokens a (re-)prefill must process: the prompt plus, for a
+        preempted request, everything it had already generated — greedy
+        re-prefill of that concatenation regenerates the identical next
+        token (recompute-style resume)."""
+        if not req.generated:
+            return req.prompt
+        return np.concatenate(
+            [req.prompt, np.asarray(req.generated, req.prompt.dtype)])
+
+    def _bucket(self, req: Request) -> int:
+        n = len(req.prompt) + len(req.generated)
+        if self.buckets is None:
+            return n
+        for b in self.buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"token count {n} exceeds largest bucket "
+                         f"{self.buckets[-1]}")
+
+    def _admit_positions(self, req: Request) -> int:
+        """Cache positions ``req``'s (re-)admission must cover: its resume
+        tokens plus one decode-headroom position — charged only if the
+        request will actually decode after the admission's own token (a
+        resume holding max_new - 1 tokens finishes at admission without a
+        decode write) — capped at the cache capacity (a resume holding
+        exactly ``max_len`` tokens finishes as max_len truncation) and at
+        the ring. The worst case over a request's lifetime equals the
+        ``submit``-time completability bound."""
+        n_tokens = len(req.prompt) + len(req.generated)
+        will_decode = len(req.generated) + 1 < req.max_new_tokens
+        n_pos = min(n_tokens + (1 if will_decode else 0), self.max_len)
+        if self.ring_len is not None:
+            n_pos = min(n_pos, self.ring_len)
+        return n_pos
+
+    def _blocks_needed(self, req: Request) -> int:
+        """Worst-case (no sharing) pool blocks to admit ``req``."""
+        return self.pool.blocks_for(self._admit_positions(req))
+
+    def _retire(self, req: Request) -> None:
+        if req.ttft_deadline_s is not None or req.deadline_s is not None:
+            self._live_deadlines -= 1
+        self._terminal_t.append(req.finish_t)   # drain-rate sample window
+        self._done_uids.append(req.uid)
+        while len(self._done_uids) > self._request_history:
+            old = self._done_uids.popleft()
+            cur = self.requests.get(old)
+            if cur is not None and cur.done:   # uid may have been resubmitted
+                del self.requests[old]
+
+    def _finish(self, req: Request, slot: int, reason: str,
+                finished: Dict[int, List[int]]):
+        req.done = True
+        req.finish_reason = reason
+        req.finish_t = self.clock()
+        finished[req.uid] = req.generated
+        self._release_slot(slot)
+        m = self.metrics
+        m.completed += 1
+        if reason == "stop":
+            m.eos_terminated += 1
+        elif reason == "max_len":
+            m.truncated += 1
+        if req.ttft_s is not None:
+            m.ttft_s.append(req.ttft_s)
+        if req.tpot_s is not None:
+            m.tpot_s.append(req.tpot_s)
+        self._record_attainment(req)
+        tr = self.tracer
+        if tr.enabled:
+            tr.event("sched", "finish", "scheduler", uid=req.uid,
+                     reason=reason, tokens=len(req.generated))
+            tr.span("sched", f"req{req.uid}", f"slot{slot}",
+                    self._slot_admit_t[slot], req.finish_t,
+                    uid=req.uid, reason=reason, tokens=len(req.generated))
+        self._retire(req)
+
+    def _record_attainment(self, req: Request) -> None:
+        """Fold a served completion's latencies into the per-class SLO
+        attainment counters (classes are SLOSpec.tenant; requests without
+        soft targets contribute nothing)."""
+        if req.slo is None:
+            return
+        att = req.slo.attainment(req.ttft_s, req.tpot_s)
+        if att is None:
+            return
+        cls = req.slo.tenant or "default"
+        d = self.metrics.slo_attainment.setdefault(
+            cls, {"ttft_ok": 0, "ttft_miss": 0, "tpot_ok": 0,
+                  "tpot_miss": 0})
+        if att.ttft_met is not None:
+            d["ttft_ok" if att.ttft_met else "ttft_miss"] += 1
+        if att.tpot_met is not None:
+            d["tpot_ok" if att.tpot_met else "tpot_miss"] += 1
+
+    def _fail(self, req: Request, slot: Optional[int], reason: str,
+              finished: Dict[int, List[int]]) -> None:
+        """Terminal *failure* path (deadline / quarantined): like _finish,
+        but counted as a failure rather than a served completion and
+        excluded from the latency samples. Partial output still surfaces
+        through ``finished`` so streams close with an explicit reason.
+        ``slot=None`` fails a queued entry in place (stale-purged later)."""
+        req.done = True
+        req.pending = False
+        req.finish_reason = reason
+        req.finish_t = self.clock()
+        finished[req.uid] = req.generated
+        if slot is not None:
+            self._release_slot(slot)
+        if reason == "deadline":
+            self.metrics.deadline_expired += 1
+        else:
+            self.metrics.quarantined += 1
+        tr = self.tracer
+        if tr.enabled:
+            # "deadline" / "quarantine" — the obs pass (tools/check.py)
+            # cross-checks these event counts against the metrics counters
+            name = "deadline" if reason == "deadline" else "quarantine"
+            tr.event("sched", name, "scheduler", uid=req.uid)
+            if slot is not None:
+                tr.span("sched", f"req{req.uid}", f"slot{slot}",
+                        self._slot_admit_t[slot], req.finish_t,
+                        uid=req.uid, reason=reason)
+        self._retire(req)
+
+    # -- deadlines / quarantine (DESIGN.md §14) -----------------------------
+    def _deadline_expired(self, req: Request, now: float) -> bool:
+        """Strictly-exceeded latency budgets on the scheduler clock: the
+        total budget always applies; the TTFT budget only before the first
+        token (a preempted request keeps its first_token_t stamp — resume
+        recompute is not a second first token)."""
+        if req.deadline_s is not None and now - req.submit_t > req.deadline_s:
+            return True
+        return (req.ttft_deadline_s is not None and req.first_token_t < 0
+                and now - req.submit_t > req.ttft_deadline_s)
+
+    def expire_deadlines(self, finished: Dict[int, List[int]]) -> None:
+        """Sweep every live request's budgets at the step boundary (before
+        admission, so a freed slot can be refilled the same step). Active
+        slots release immediately; queued entries fail in place."""
+        if self._live_deadlines <= 0:
+            return
+        now = self.clock()
+        for s in range(self.n_slots):
+            req = self.slots[s]
+            if req is not None and self._deadline_expired(req, now):
+                self._fail(req, s, "deadline", finished)
+        for req in list(self.queue):
+            if (req.pending and not req.done
+                    and self._deadline_expired(req, now)):
+                self._fail(req, None, "deadline", finished)
+        self._purge_stale()
+
+    def quarantine_slot(self, slot: int,
+                        finished: Dict[int, List[int]]) -> None:
+        """Contain a poisoned slot (device layer's non-finite logit scan
+        said this row cannot be trusted): fail only its session, free its
+        blocks; every other slot's commit proceeds untouched."""
+        req = self.slots[slot]
+        if req is None:
+            return
+        self.note_fault()
+        self._fail(req, slot, "quarantined", finished)
+
+    # -- graceful degradation (DESIGN.md §14) --------------------------------
+    def note_fault(self) -> None:
+        """Record one detected fault (NaN quarantine, retried launch,
+        storm, drafter error) in the pressure window."""
+        self._fault_steps.append(self.metrics.steps)
+
+    def update_degradation(self) -> None:
+        """One hysteresis tick of the ladder, called once per engine step:
+        escalate after ``escalate_after`` consecutive pressured steps,
+        recover one level after ``recover_after`` calm ones."""
+        pol = self.degradation_policy
+        st = self.degradation
+        m = self.metrics
+        while (self._fault_steps
+               and self._fault_steps[0] <= m.steps - pol.fault_window):
+            self._fault_steps.popleft()
+        prev_level = st.level
+        pressured = len(self._fault_steps) >= pol.fault_hi
+        if not pressured and pol.pressure:
+            if self.paged and self.pool.n_blocks:
+                pressured = (self.pool.blocks_in_use / self.pool.n_blocks
+                             >= pol.pool_hi)
+            pressured = pressured or (self.queue_depth
+                                      >= pol.queue_hi_factor * self.n_slots)
+        if pressured:
+            st.pressure_streak += 1
+            st.calm_streak = 0
+            if (st.pressure_streak >= pol.escalate_after
+                    and st.level < pol.max_level):
+                st.level += 1
+                st.since_step = m.steps
+                st.pressure_streak = 0
+        else:
+            st.calm_streak += 1
+            st.pressure_streak = 0
+            if st.calm_streak >= pol.recover_after and st.level > 0:
+                st.level -= 1
+                st.since_step = m.steps
+                st.calm_streak = 0
+        if st.level != prev_level:
+            # every rung transition is observable: counted here AND traced —
+            # tools/check.py's obs pass asserts the two never diverge
+            m.degradation_transitions += 1
+            tr = self.tracer
+            if tr.enabled:
+                tr.event("sched", "degradation", "scheduler",
+                         frm=prev_level, to=st.level, step=m.steps)
+        m.degradation_level = st.level
+        m.peak_degradation_level = max(m.peak_degradation_level, st.level)
+        if st.level:
+            m.degraded_steps += 1
+
+    @property
+    def effective_spec_k(self) -> int:
+        """Ladder-adjusted draft length: L1 halves it, L2+ turns it off.
+        Compile shapes never change — the verify window stays spec_k+1 wide
+        and shorter drafts ride the existing padding."""
+        if self.spec_k == 0:
+            return 0
+        lvl = self.degradation.level
+        if lvl <= 0:
+            return self.spec_k
+        if lvl == 1:
+            return max(1, self.spec_k // 2)
+        return 0
+
+    @property
+    def effective_admit_k(self) -> int:
+        """Ladder-adjusted admission width: L3+ serializes admission."""
+        return 1 if self.degradation.level >= 3 else self.admit_k
+
+    @property
+    def shedding(self) -> bool:
+        """Top rung: the session API sheds new submissions outright."""
+        return self.degradation.level >= self.degradation_policy.max_level
+
+    # -- chaos storms + clock (faults.py hooks) ------------------------------
+    def seize_blocks(self, n: int, duration: int) -> int:
+        """Pool-exhaustion storm: hold up to ``n`` free blocks for
+        ``duration`` steps. Clamped to keep one max-size request's worth of
+        headroom (plus the reserve) so a storm pressures the scheduler into
+        preemption/degradation without wedging a lone request; if growth
+        still corners the pool, ``_preempt_youngest`` force-releases the
+        storm rather than crash. Returns the blocks actually seized."""
+        if not self.paged or n <= 0:
+            return 0
+        cap = min(self.max_len,
+                  self.ring_len if self.ring_len is not None else self.max_len)
+        margin = self.reserve_blocks + self.pool.blocks_for(cap)
+        take = min(n, self.pool.available - margin)
+        if take <= 0:
+            return 0
+        blocks = [self.pool.alloc() for _ in range(take)]
+        self._seized.append([self.metrics.steps + duration, blocks])
+        self.metrics.storms += 1
+        self.metrics.seized_blocks = sum(len(b) for _, b in self._seized)
+        self.note_fault()
+        return take
+
+    def release_seized(self, force: bool = False) -> int:
+        """Free storm blocks whose hold expired (or all, when forced by
+        the liveness path). Called at every step boundary."""
+        kept, freed = [], 0
+        for until, blocks in self._seized:
+            if force or self.metrics.steps >= until:
+                for b in blocks:
+                    self.pool.decref(b)
+                freed += len(blocks)
+            else:
+                kept.append([until, blocks])
+        self._seized = kept
+        self.metrics.seized_blocks = sum(len(b) for _, b in self._seized)
+        return freed
+
+    def advance_clock(self, dt: float) -> None:
+        """Push the injected clock forward (slow-step spikes, retry
+        backoff) when it supports it — `loadgen.StepClock.advance`; the
+        wall monotonic clock advances itself."""
+        tick = getattr(self.clock, "advance", None)
+        if tick is not None and dt > 0:
+            tick(dt)
+
+    # -- backpressure hints --------------------------------------------------
+    def drain_rate(self) -> Optional[float]:
+        """Recent terminal events per clock second (any finish reason —
+        each frees capacity), from the last ``_terminal_t`` window; None
+        until two samples exist or when the clock hasn't advanced."""
+        if len(self._terminal_t) < 2:
+            return None
+        span = self._terminal_t[-1] - self._terminal_t[0]
+        if span <= 0:
+            return None
+        return (len(self._terminal_t) - 1) / span
+
+    def retry_after_s(self) -> Optional[float]:
+        """Backpressure hint: clock seconds until the queue has plausibly
+        drained one slot's worth at the current rate — (depth+1)/rate."""
+        rate = self.drain_rate()
+        if rate is None:
+            return None
+        return (self.queue_depth + 1) / rate
+
+    def _release_slot(self, slot: int) -> None:
+        self.slots[slot] = None
+        self.pos[slot] = 0
+        self.last_token[slot] = 0
+        # a mid-prefill chunk cursor does not survive its slot: the request
+        # resumes by re-chunking prompt+generated from position 0
+        self.chunk_goal[slot] = 0
+        if self._pending_copies:
+            # queued CoW copies of a released slot must never execute: the
+            # freed blocks may be reallocated before the copy would land
+            self._pending_copies = [
+                c for c in self._pending_copies if c[0] != slot]
+        if self.paged and self.tables[slot] is not None:
+            self.pool.free_table(self.tables[slot])
+            self.tables[slot] = None
+            self.table_arr[slot] = paged_cache.TRASH_BLOCK
+
+    def _preempt_youngest(self, exclude: int) -> None:
+        """Pool exhausted mid-decode: evict the youngest request (least
+        work lost) back to the head of the queue. Its blocks free
+        immediately; it resumes later by re-prefilling prompt+generated."""
+        cand = [s for s, r in enumerate(self.slots)
+                if r is not None and s != exclude]
+        if not cand:
+            # Liveness: an injected storm must never wedge a lone request —
+            # give its blocks back before declaring the pool undersized.
+            if self.release_seized(force=True):
+                return
+            raise RuntimeError(
+                f"KV block pool ({self.pool.n_blocks} x {self.block_size}) "
+                f"cannot hold a single request at max_len={self.max_len}; "
+                f"raise n_blocks (budget) or lower max_len")
+        s = max(cand, key=lambda i: (self.slots[i].admit_step, i))
+        req = self.slots[s]
+        tr = self.tracer
+        if tr.enabled:
+            tr.event("sched", "preempt", "scheduler", uid=req.uid, slot=s)
+            tr.span("sched", f"req{req.uid}", f"slot{s}",
+                    self._slot_admit_t[s], uid=req.uid, reason="preempt")
+        self._release_slot(s)
+        req.pending = True
+        req.admit_step = -1
+        # Queue-wait restarts at the requeue: the steps it spent actively
+        # decoding before the preemption are not queue time. (The wall-clock
+        # submit_t stamp does NOT reset — user-visible latency keeps
+        # counting across preemptions.)
+        req.submit_step = self.metrics.steps
+        self.queue.appendleft(req)
+        self._by_bucket.setdefault(self._bucket(req),
+                                   deque()).appendleft(req)
+        self.metrics.preemptions += 1
+
+    def _ensure_write_targets(self, s: int, n_positions: int) -> None:
+        """Make slot ``s``'s next ``n_positions`` write targets (positions
+        pos..pos+n_positions-1) exist and be private. Growth allocates the
+        next block when a position crosses a block boundary (preempting the
+        youngest request on exhaustion); copy-on-write queues a device copy
+        of a shared block before it is written (only reachable via forked
+        tables — prompt sharing never covers the write frontier). The single
+        protocol for plain decode (n_positions == 1) and speculative
+        verify windows alike."""
+        for j in range(n_positions):
+            p = int(self.pos[s]) + j
+            slot = p % self.ring_len if self.ring_len is not None else p
+            logical = slot // self.block_size
+            while True:
+                try:
+                    self.pool.ensure_capacity(self.tables[s], logical)
+                    break
+                except paged_cache.PoolExhausted:
+                    self._preempt_youngest(exclude=s)
+            cow = self.pool.ensure_writable(self.tables[s], logical)
+            if cow is not None:
+                self._pending_copies.append((s, *cow))
+                self.metrics.cow_copies += 1
+        self.table_arr[s] = self.tables[s].padded(self.max_blocks)
+
+    def _drain_copies(self) -> List[Tuple[int, int]]:
+        copies = [(src, dst) for (_s, src, dst) in self._pending_copies]
+        self._pending_copies = []
+        return copies
+
+    def prepare_decode(self) -> List[Tuple[int, int]]:
+        """Before a plain decode step: one private write target per active
+        slot. Returns the (src, dst) device block copies the step layer
+        must apply before launching."""
+        for s in range(self.n_slots):
+            if self.slots[s] is not None:
+                self._ensure_write_targets(s, 1)
+        return self._drain_copies()
+
+    def check_done(self, req: Request, slot: int, tok: int,
+                   finished: Dict[int, List[int]]) -> None:
+        """Termination, in priority order: stop token, token budget, cache
+        capacity (per-request max_len truncation)."""
+        if tok in self.stop_ids:
+            self._finish(req, slot, "stop", finished)
+        elif len(req.generated) >= req.max_new_tokens:
+            self._finish(req, slot, "max_new_tokens", finished)
+        elif self.pos[slot] >= self.max_len:
+            self._finish(req, slot, "max_len", finished)
+
+    # -- admission -----------------------------------------------------------
+    def _purge_stale(self):
+        """Drop admitted/cancelled (stale) entries from the queue head, so
+        ``queue`` emptiness keeps meaning "nothing left to admit"."""
+        while self.queue and (self.queue[0].done
+                              or not self.queue[0].pending):
+            self.queue.popleft()
+
+    def _take_group(self, limit: int) -> List[Request]:
+        """Pop up to ``limit`` same-bucket requests, FIFO: the group takes
+        the head-of-line request's bucket (via the per-bucket index,
+        O(group)); non-matching requests keep their relative order.
+        Cancelled entries purge as they surface.
+
+        Paged admission additionally gates on block availability: a request
+        joins the group only while its worst-case (unshared) block need
+        plus the reservation margin fits the pool — prefix sharing can only
+        reduce the actual allocation, so an admitted group never fails.
+        An empty group means "pool full, wait for completions to free
+        blocks" (head-of-line blocking is deliberate: FIFO fairness).
+        """
+        head_bucket = self._bucket(self.queue[0])
+        bq = self._by_bucket[head_bucket]
+        group: List[Request] = []
+        budget = None
+        if self.paged:
+            budget = self.pool.available - self.reserve_blocks
+            if all(r is None for r in self.slots):
+                # The reserve is decode-growth headroom for *other* active
+                # requests; with nothing in flight it would only wedge a
+                # pool-filling request out of an otherwise idle server.
+                budget = self.pool.available
+        while bq and len(group) < limit:
+            if bq[0].done or not bq[0].pending:     # cancelled / stale
+                bq.popleft()
+                continue
+            if budget is not None:
+                need = self._blocks_needed(bq[0])
+                if need > budget:
+                    break
+                budget -= need
+            req = bq.popleft()
+            req.pending = False
+            group.append(req)
+        if not bq:
+            del self._by_bucket[head_bucket]
+        self._purge_stale()
+        return group
+
+    def plan_admission(self) -> Optional[AdmissionPlan]:
+        """Resolve the next prefill launch, or None when admission must
+        stall (no free slot, empty queue, or the block gate holds the
+        head-of-line request back until completions free pool blocks)."""
+        self._purge_stale()
+        if not self.queue:
+            return None
+        free = [s for s in range(self.n_slots) if self.slots[s] is None]
+        if not free:
+            return None
+        group = self._take_group(min(len(free), self.effective_admit_k))
+        if not group:
+            # Block pool full: wait for completions to free blocks. If
+            # nothing is in flight and the pool is already fully free,
+            # waiting can never help — surface the sizing error.
+            if not self.queue:
+                return None
+            if (all(r is None for r in self.slots)
+                    and self.pool.blocks_in_use == 0):
+                need = self._blocks_needed(self.queue[0])
+                raise RuntimeError(
+                    f"request uid {self.queue[0].uid} needs {need} KV "
+                    f"blocks + {self.reserve_blocks} reserve but the "
+                    f"pool has only {self.pool.n_blocks}; raise "
+                    f"n_blocks (budget) or block_size")
+            return None
+        bucket = self._bucket(group[0])
+        k = self.admit_k
+        # Static [k, bucket] batch: right-pad prompts to the bucket, pad
+        # the group to k by duplicating its last real row (same target +
+        # same data -> the duplicate scatter writes are identical, hence
+        # exact; works for recurrent state too since no pad *tokens* are
+        # introduced).
+        full = [self._full_tokens(r) for r in group]
+        tokens = np.zeros((k, bucket), np.int64)
+        lens = np.empty(k, np.int32)
+        uids = np.empty(k, np.uint32)
+        counts = np.empty(k, np.uint32)
+        for i in range(k):
+            j = min(i, len(group) - 1)
+            ft = full[j]
+            tokens[i, :len(ft)] = ft
+            lens[i] = len(ft)
+            uids[i] = group[j].uid
+            counts[i] = len(group[j].generated)
+        if self.paged:
+            targets = self._map_group_blocks(group, full, free, bucket, k)
+        else:
+            targets = np.empty(k, np.int32)
+            for i in range(k):
+                targets[i] = free[min(i, len(group) - 1)]
+        return AdmissionPlan(group=group, slots=free[:len(group)],
+                             bucket=bucket, tokens=tokens, lens=lens,
+                             targets=targets, uids=uids, counts=counts)
+
+    def _map_group_blocks(self, group: List[Request],
+                          full: List[np.ndarray], free: List[int],
+                          bucket: int, k: int) -> np.ndarray:
+        """Allocate block tables (sharing full prompt blocks by chain hash)
+        for an admission group. The scratch cache covers ``scr_len``
+        positions (the bucket, ring-capped); chunks past a request's own
+        blocks write to the trash block."""
+        m = self.metrics
+        scr_len = bucket if self.ring_len is None else min(bucket,
+                                                           self.ring_len)
+        nblk_scr = -(-scr_len // self.block_size)
+        block_map = np.full((k, nblk_scr), paged_cache.TRASH_BLOCK, np.int32)
+        for i, (req, ft) in enumerate(zip(group, full)):
+            # _take_group's worst-case gate guarantees this cannot raise.
+            table, hits = self.pool.map_prompt(
+                ft, self._admit_positions(req))
+            m.prefix_hit_tokens += hits
+            s = free[i]
+            self.tables[s] = table
+            self.table_arr[s] = table.padded(self.max_blocks)
+            n = min(len(table.blocks), nblk_scr)
+            block_map[i, :n] = table.blocks[:n]
+        for i in range(len(group), k):     # group padding duplicates a row
+            block_map[i] = block_map[len(group) - 1]
+        return block_map
+
+    def commit_admission(self, plan: AdmissionPlan, next_tokens: np.ndarray,
+                         finished: Dict[int, List[int]],
+                         ok: Optional[np.ndarray] = None) -> None:
+        """Apply the sampled first tokens of an executed admission plan.
+        ``ok`` ([k] bool, the device layer's non-finite logit scan)
+        quarantines poisoned rows — those sessions fail alone and their
+        just-mapped blocks free; healthy rows commit untouched."""
+        m = self.metrics
+        m.prefill_calls += 1
+        m.padded_prefill_tokens += plan.tokens.shape[0] * plan.bucket
+        m.bucket_admits[plan.bucket] = \
+            m.bucket_admits.get(plan.bucket, 0) + 1
+        now = self.clock()
+        tr = self.tracer
+        for i, req in enumerate(plan.group):
+            s = plan.slots[i]
+            self.slots[s] = req
+            self._slot_admit_t[s] = now
+            if tr.enabled:
+                tr.event("sched", "admit", "scheduler", uid=req.uid,
+                         slot=s, bucket=plan.bucket,
+                         queued_steps=m.steps - req.submit_step)
+            if ok is not None and not ok[i]:
+                # a poisoned row's sampled token is garbage: no stream
+                # state is created (slot routed through _release_slot)
+                self.note_fault()
+                self._fail(req, s, "quarantined", finished)
+                continue
+            self.pos[s] = int(plan.lens[i])
+            self.last_token[s] = int(next_tokens[i])
+            req.generated.append(int(next_tokens[i]))
+            if req.first_token_t < 0:
+                req.first_token_t = now
+            req.admit_step = m.steps
+            m.admitted += 1
+            m.prefill_tokens += int(plan.lens[i])
+            m.queue_wait_steps += m.steps - req.submit_step
+            self.check_done(req, s, int(next_tokens[i]), finished)
+
+    # -- decode --------------------------------------------------------------
+    def decode_folds(self, active: List[int]
+                     ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray]]:
+        """Per-slot (uid, token index) sampling-key folds for a plain decode
+        step; (None, None) for greedy decoding (keys dead-code-eliminate)."""
+        if not self.sampled:
+            return None, None
+        uids = np.zeros(self.n_slots, np.uint32)
+        counts = np.zeros(self.n_slots, np.uint32)
+        for s in active:
+            uids[s] = self.slots[s].uid
+            counts[s] = len(self.slots[s].generated)
+        return uids, counts
+
+    def commit_decode(self, active: List[int], next_tokens: np.ndarray,
+                      finished: Dict[int, List[int]]) -> None:
+        """Apply one batched decode step's tokens to every active slot."""
+        m = self.metrics
+        m.decode_tokens += len(active)
+        for s in active:
+            req = self.slots[s]
+            req.generated.append(int(next_tokens[s]))
+            self.pos[s] += 1
+            self.last_token[s] = int(next_tokens[s])
+            self.check_done(req, s, int(next_tokens[s]), finished)
+
+    # -- chunked prefill + mixed-step staging (DESIGN.md §16) ----------------
+    def prefilling_slots(self) -> List[int]:
+        """Slots mid-chunked-prefill (cursor short of its goal)."""
+        return [s for s in range(self.n_slots)
+                if self.slots[s] is not None and self.chunk_goal[s] > 0]
+
+    def _edf_key(self, req: Request) -> Tuple[Any, ...]:
+        """Earliest-deadline-first ordering with per-tenant fairness, used
+        for both chunked admission and per-step chunk grants: priority
+        first (higher = more urgent), then the TTFT-target deadline on the
+        scheduler clock (no target, or first token already out => +inf —
+        post-first-token urgency is the TPOT throttle's job), then the
+        tenant fairness deficit (fewer granted chunk tokens wins ties),
+        then arrival order."""
+        slo = req.slo
+        pr = slo.priority if slo is not None else 0
+        if (slo is not None and slo.ttft_target_ms is not None
+                and req.first_token_t < 0):
+            dl = req.submit_t + slo.ttft_target_s
+        else:
+            dl = float("inf")
+        tenant = (slo.tenant if slo is not None else "") or "default"
+        return (-pr, dl, self._tenant_tokens.get(tenant, 0),
+                req.submit_step, req.uid)
+
+    def admit_chunked(self) -> List[int]:
+        """Chunked-mode admission: assign free slots to queued requests in
+        EDF order and allocate their full block tables up front — no device
+        launch, no bucket constraint; the prompt K/V streams in later via
+        :meth:`stage_mixed` chunks. Returns the newly filled slots.
+
+        The block gate is the same worst-case (unshared) bound bucketed
+        admission uses, so an admitted request's chunk writes can never
+        exhaust the pool; like `_take_group`, a blocked EDF head stalls
+        admission rather than being bypassed (no starvation)."""
+        self._purge_stale()
+        if not self.queue:
+            return []
+        free = [s for s in range(self.n_slots) if self.slots[s] is None]
+        if not free:
+            return []
+        cands = sorted((r for r in self.queue if r.pending and not r.done),
+                       key=self._edf_key)
+        limit = min(len(free), self.effective_admit_k)
+        budget = self.pool.available - self.reserve_blocks
+        if all(r is None for r in self.slots):
+            # reserve is decode-growth headroom for *other* active requests
+            budget = self.pool.available
+        m = self.metrics
+        now = self.clock()
+        tr = self.tracer
+        admitted: List[int] = []
+        for req in cands:
+            if len(admitted) >= limit:
+                break
+            need = self._blocks_needed(req)
+            if need > budget:
+                if (not admitted and all(r is None for r in self.slots)
+                        and self.pool.blocks_in_use == 0):
+                    raise RuntimeError(
+                        f"request uid {req.uid} needs {need} KV blocks but "
+                        f"the pool has only {self.pool.n_blocks}; raise "
+                        f"n_blocks (budget) or block_size")
+                break
+            budget -= need
+            req.pending = False
+            s = free[len(admitted)]
+            ft = self._full_tokens(req)
+            # worst-case gate above guarantees map_prompt cannot raise
+            table, hits = self.pool.map_prompt(ft,
+                                               self._admit_positions(req))
+            m.prefix_hit_tokens += hits
+            self.tables[s] = table
+            self.table_arr[s] = table.padded(self.max_blocks)
+            self.slots[s] = req
+            self.pos[s] = 0
+            self.last_token[s] = 0
+            self.chunk_goal[s] = len(ft)
+            self._slot_admit_t[s] = now
+            req.admit_step = m.steps
+            m.admitted += 1
+            m.queue_wait_steps += m.steps - req.submit_step
+            if tr.enabled:
+                tr.event("sched", "admit", "scheduler", uid=req.uid,
+                         slot=s, chunked=True, resume=len(ft),
+                         queued_steps=m.steps - req.submit_step)
+            admitted.append(s)
+        self._purge_stale()
+        return admitted
+
+    def stage_mixed(self) -> Tuple[MixedStepPlan, List[Tuple[int, int]]]:
+        """Assemble this step's mixed launch: every decoding slot gets its
+        private write target (growth may preempt the youngest slot —
+        usually a just-admitted prefilling one, which simply drops out of
+        the plan), then up to ``chunk_budget`` prefill positions are
+        granted across prefilling slots in EDF order. Chunk slots need no
+        new blocks here: their tables were fully allocated at admission,
+        and chunk writes only rewrite causally-identical content into any
+        shared prompt blocks (the same doctrine as bucketed prefill).
+
+        TPOT throttle: if any decoding request with a TPOT target is
+        projected above it, the step's chunk budget collapses to one chunk
+        — prefill keeps trickling (TTFT progress) without starving the
+        streams that are already behind."""
+        decode_slots = [s for s in range(self.n_slots)
+                        if self.slots[s] is not None
+                        and self.chunk_goal[s] == 0]
+        for s in decode_slots:
+            if self.slots[s] is not None:
+                self._ensure_write_targets(s, 1)
+        decode_slots = [s for s in decode_slots
+                        if self.slots[s] is not None]
+        budget = self.chunk_budget
+        now = self.clock()
+        for s in decode_slots:
+            req = self.slots[s]
+            slo = req.slo
+            if (slo is not None and slo.tpot_target_ms is not None
+                    and req.first_token_t >= 0
+                    and len(req.generated) >= 2):
+                proj = ((now - req.first_token_t)
+                        / (len(req.generated) - 1))
+                if proj > slo.tpot_target_s:
+                    budget = min(budget, self.chunk_size)
+                    break
+        chunk_cands = self.prefilling_slots()
+        chunk_cands.sort(key=lambda s: self._edf_key(self.slots[s]))
+        chunks: Dict[int, int] = {}
+        for s in chunk_cands:
+            if budget <= 0:
+                break
+            n = min(self.chunk_size,
+                    int(self.chunk_goal[s]) - int(self.pos[s]), budget)
+            if n <= 0:
+                continue
+            chunks[s] = n
+            budget -= n
+            req = self.slots[s]
+            tenant = (req.slo.tenant if req.slo is not None else "") \
+                or "default"
+            self._tenant_tokens[tenant] = \
+                self._tenant_tokens.get(tenant, 0) + n
+        W = self.chunk_size
+        tokens = np.zeros((self.n_slots, W), np.int64)
+        n_tokens = np.zeros(self.n_slots, np.int32)
+        uids = np.zeros(self.n_slots, np.uint32)
+        counts = np.zeros(self.n_slots, np.uint32)
+        for s in decode_slots:
+            req = self.slots[s]
+            tokens[s, 0] = self.last_token[s]
+            n_tokens[s] = 1
+            uids[s] = req.uid
+            counts[s] = len(req.generated)
+        for s, n in chunks.items():
+            req = self.slots[s]
+            ft = self._full_tokens(req)
+            c = int(self.pos[s])
+            tokens[s, :n] = ft[c:c + n]
+            n_tokens[s] = n
+            uids[s] = req.uid
+            counts[s] = len(req.generated)
+        plan = MixedStepPlan(tokens=tokens, n_tokens=n_tokens, uids=uids,
+                             counts=counts, decode_slots=decode_slots,
+                             chunks=chunks)
+        return plan, self._drain_copies()
+
+    def commit_chunks(self, chunks: Dict[int, int],
+                      next_tokens: np.ndarray,
+                      finished: Dict[int, List[int]]) -> None:
+        """Advance each granted slot's chunk cursor past its committed
+        window. A slot whose cursor reaches its goal finished prefilling:
+        the window's last real column sampled its next token — with the
+        same folded (uid, token-index) key bucketed admission would use,
+        so the stream is bitwise the unchunked one."""
+        m = self.metrics
+        now = self.clock()
+        for s, n in chunks.items():
+            req = self.slots[s]
+            if req is None:
+                continue
+            self.pos[s] += n
+            m.prefill_tokens += n
+            m.chunk_tokens += n
+            m.padded_prefill_tokens += self.chunk_size
+            if int(self.pos[s]) >= int(self.chunk_goal[s]):
+                self.chunk_goal[s] = 0
+                t = int(next_tokens[s])
+                req.generated.append(t)
+                self.last_token[s] = t
+                if req.first_token_t < 0:
+                    req.first_token_t = now
+                self.check_done(req, s, t, finished)
+
+    # -- speculative staging + commit (DESIGN.md §11) ------------------------
+    def _draft_cap(self, req: Request, slot: int) -> int:
+        """Largest useful draft length for this slot: the window must fit
+        the cache (positions pos..pos+L stay under max_len and inside the
+        ring) and the request's remaining token budget (emitting more than
+        the budget would be truncated anyway)."""
+        cap = min(self.effective_spec_k,
+                  self.max_len - 1 - int(self.pos[slot]),
+                  req.max_new_tokens - len(req.generated) - 1)
+        if self.ring_len is not None:
+            cap = min(cap, self.ring_len - 1)
+        return max(cap, 0)
+
+    def _window_new_blocks(self, s: int, n_positions: int) -> int:
+        """Pool blocks slot ``s`` would have to allocate to cover positions
+        pos..pos+n_positions-1 beyond its current table."""
+        need = 0
+        for j in range(n_positions):
+            p = int(self.pos[s]) + j
+            slot = p % self.ring_len if self.ring_len is not None else p
+            need = max(need, slot // self.block_size + 1)
+        return max(0, need - len(self.tables[s].blocks))
+
+    def stage_spec(self) -> Tuple[Dict[int, np.ndarray],
+                                  List[Tuple[int, int]]]:
+        """Draft for every active slot, then make the whole verify window's
+        write targets exist and be private (`_ensure_write_targets` over
+        the staged draft length + 1). Returns (staged drafts per slot,
+        device block copies to apply before the verify launch).
+
+        Speculation must be strictly non-harmful under memory pressure: the
+        window's FIRST position keeps plain decode's guarantee (growth may
+        preempt the youngest request — the step cannot proceed without it),
+        but the draft tail is trimmed to the blocks obtainable from the
+        free list, so a maybe-rejected draft never evicts committed work
+        to fund its pages."""
+        staged: Dict[int, np.ndarray] = {}
+        budget = self.pool.available
+        for s in range(self.n_slots):
+            req = self.slots[s]
+            if req is None:
+                continue
+            cap = self._draft_cap(req, s)
+            d = np.empty(0, np.int64)
+            if cap > 0:
+                try:
+                    if self.inject_drafter_fault:
+                        raise RuntimeError("injected drafter fault")
+                    d = np.asarray(
+                        self.drafter.propose(self._full_tokens(req), cap),
+                        dtype=np.int64)[:cap]
+                except Exception as e:
+                    # Drafts are advisory: a crashing drafter degrades this
+                    # slot to plain decode (empty draft), never kills the
+                    # stream. The fault still feeds the ladder.
+                    self.last_drafter_error = e
+                    self.metrics.drafter_errors += 1
+                    self.note_fault()
+                    d = np.empty(0, np.int64)
+            base_new = self._window_new_blocks(s, 1)
+            L = len(d)
+            while L > 0 and (self._window_new_blocks(s, L + 1)
+                             - base_new) > max(budget - base_new, 0):
+                L -= 1
+            staged[s] = d[:L]
+            budget -= self._window_new_blocks(s, L + 1)
+        for s in range(self.n_slots):
+            if self.slots[s] is not None:
+                self._ensure_write_targets(s, len(staged.get(s, ())) + 1)
+        return staged, self._drain_copies()
+
+    def build_verify(self, active: List[int],
+                     staged: Dict[int, np.ndarray]) -> VerifyBatch:
+        """Assemble the [n_slots, k+1] verify window batch: column 0 is the
+        slot's last token, columns 1..L its staged drafts."""
+        m = self.metrics
+        W = self.spec_k + 1
+        tokens = np.zeros((self.n_slots, W), np.int64)
+        tokens[:, 0] = self.last_token
+        draft_lens = np.zeros(self.n_slots, np.int32)
+        uids = np.zeros(self.n_slots, np.uint32)
+        counts = np.zeros(self.n_slots, np.uint32)
+        for s in active:
+            req = self.slots[s]
+            d = staged.get(s, np.empty(0, np.int64))
+            tokens[s, 1:1 + len(d)] = d
+            draft_lens[s] = len(d)
+            uids[s] = req.uid
+            counts[s] = len(req.generated)
+            m.drafted += len(d)
+        return VerifyBatch(tokens=tokens, draft_lens=draft_lens,
+                           uids=uids, counts=counts)
+
+    def _rollback_spec_blocks(self, s: int) -> None:
+        """Roll rejected window pages back to the pool: free table blocks
+        past the committed frontier. Their contents were never dirtied —
+        `engine.verify_step` redirects rejected positions to the trash
+        block — so this is pure bookkeeping and leaves the pool
+        invariant-clean."""
+        if self.ring_len is not None:
+            return                  # ring tables are cyclic and capped
+        tbl = self.tables[s]
+        keep = self.pool.blocks_for(int(self.pos[s]))
+        while len(tbl.blocks) > keep:
+            self.pool.decref(tbl.blocks.pop())
+        self.table_arr[s] = tbl.padded(self.max_blocks)
+
+    def commit_verify(self, active: List[int], tgt: np.ndarray,
+                      n_accept: np.ndarray,
+                      finished: Dict[int, List[int]]) -> None:
+        """Apply one executed verify step: emitted tokens replay the
+        baseline loop one at a time (same stop/budget/max_len priority
+        order), so a stop token mid-window truncates exactly where the
+        non-speculative stream would have stopped."""
+        m = self.metrics
+        for s in active:
+            req = self.slots[s]
+            a = int(n_accept[s])
+            emitted = 0
+            for t in tgt[s, :a + 1]:
+                t = int(t)
+                req.generated.append(t)
+                self.pos[s] += 1
+                self.last_token[s] = t
+                emitted += 1
+                m.decode_tokens += 1
+                self.check_done(req, s, t, finished)
+                if req.done:
+                    break
+            # Credit only drafts that became output (the bonus token is not
+            # a draft): a stop token mid-window discards the accepted tail,
+            # so accept_rate stays an emitted-throughput quantity and
+            # decode_tokens >= accepted holds by construction.
+            m.accepted += max(emitted - 1, 0)
+            if not req.done:
+                self._rollback_spec_blocks(s)
+
+    # -- crash-consistent snapshot / restore (DESIGN.md §14) -----------------
+    def export_state(self) -> Dict[str, Any]:
+        """Serialize every live request as plain JSON at a step boundary.
+
+        Active requests are exported *as if preempted* — in admission order
+        ahead of the queue, with their prompt + generated tokens — so a
+        restore re-prefills them through the ordinary recompute-resume
+        machinery; folded (uid, token-index) sampling keys make the resumed
+        streams bitwise the uninterrupted ones, greedy and sampled alike.
+        Block tables are deliberately NOT exported: cache content is
+        recomputable state, the token lists are the durable truth."""
+        if self._pending_copies:
+            raise RuntimeError(
+                "snapshot only at a step boundary: CoW copies are pending")
+
+        def ser(req: Request) -> Dict[str, Any]:
+            return {"uid": req.uid,
+                    "prompt": [int(t) for t in req.prompt],
+                    "max_new_tokens": req.max_new_tokens,
+                    "generated": [int(t) for t in req.generated],
+                    "submit_step": req.submit_step,
+                    "submit_t": req.submit_t,
+                    "first_token_t": req.first_token_t,
+                    "ttft_deadline_s": req.ttft_deadline_s,
+                    "deadline_s": req.deadline_s,
+                    "slo": req.slo.as_dict() if req.slo is not None
+                    else None}
+
+        active = [r for r in self.slots if r is not None]
+        active.sort(key=lambda r: (r.admit_step, r.uid))
+        queued = [r for r in self.queue if r.pending and not r.done]
+        return {"steps": self.metrics.steps,
+                "requests": [ser(r) for r in active + queued]}
+
+    def restore_state(self, state: Dict[str, Any]) -> List[Request]:
+        """Rebuild a fresh scheduler's queue from :meth:`export_state`
+        output: every request re-enters as a preempted (pending) entry with
+        its progress carried, ready for recompute-resume re-admission."""
+        if self.busy:
+            raise RuntimeError("restore_state needs a fresh scheduler")
+        self.metrics.steps = int(state["steps"])
+        restored: List[Request] = []
+        for d in state["requests"]:
+            req = Request(int(d["uid"]),
+                          np.asarray(d["prompt"], np.int64),
+                          int(d["max_new_tokens"]),
+                          ttft_deadline_s=d.get("ttft_deadline_s"),
+                          deadline_s=d.get("deadline_s"),
+                          slo=SLOSpec.from_dict(d["slo"])
+                          if d.get("slo") else None,
+                          submit_step=min(int(d["submit_step"]),
+                                          self.metrics.steps),
+                          submit_t=float(d["submit_t"]))
+            req.generated = [int(t) for t in d["generated"]]
+            req.first_token_t = float(d["first_token_t"])
+            self._enqueue(req)
+            self.requests[req.uid] = req
+            restored.append(req)
+        return restored

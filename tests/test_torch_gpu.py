@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the serving
+stepper's decode step as a CUDA graph against its eager run, on the card.
 
 Marked ``gpu``: each test skips where no CUDA device is present (the CPU
 tier-1 run) and runs on the card with
@@ -13,12 +14,16 @@ cores' truncating f32 accumulation. The plain versions run with
 ``allow_tf32 = False``.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch import configs
 from repro_torch.core import pruning, tiled_csl
 from repro_torch.analysis import contracts
 from repro_torch.kernels import gemm, ops, ref, spmm
+from repro_torch.launch import serve
+from repro_torch.serving import step
 
 pytestmark = pytest.mark.gpu
 
@@ -411,3 +416,98 @@ def test_decode_body_refuses_unaligned_words(cuda):
     with pytest.raises(contracts.ScheduleContractError, match="max_nnz"):
         spmm.lscd_spmm_splitk(t, b, n_tb=8, split_k=2)
     assert spmm.launch_counts()["lscd_spmm_splitk"] == before
+
+
+# ---------------------------------------------------------------------------
+# the serving stepper's decode step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _stepper_pair(dev, paged, temperature=0.0):
+    """Two steppers over one sparse smoke model (OPT-30B smoke, 0.8), one
+    graphed and one eager, each with one prompt prefilled into every
+    slot (dense) or every slot's own blocks (paged)."""
+    cfg = configs.smoke("opt_30b")
+    params, _ = serve.build(cfg, seed=0, sparsity=0.8, device=dev)
+    n_slots, max_len, block = 4, 32, 8
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab, (n_slots, 8))
+    lens = np.array([8, 5, 7, 3])
+    kw = dict(n_slots=n_slots, max_len=max_len, temperature=temperature,
+              top_k=8 if temperature else 0, seed=3)
+    tables = None
+    if paged:
+        kw.update(physical_blocks=1 + n_slots * (max_len // block),
+                  block_size=block)
+        tables = 1 + np.arange(n_slots * 4).reshape(n_slots, 4)
+    out = []
+    for graph in (True, False):
+        st = step.DeviceStepper(params, cfg, graph=graph, **kw)
+        targets = tables[:, :1] if paged else np.arange(n_slots)
+        logits = st.prefill(tokens, targets, lens)
+        first, ok = st.sample_admitted(logits, np.arange(n_slots), lens * 0)
+        assert ok.all()
+        out.append(st)
+    return out, first, lens, tables
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("paged", [False, True])
+def test_graphed_decode_bit_equals_eager(cuda, paged, temperature):
+    """Six decode steps, slots at different positions: the replayed graph
+    gives the eager step's tokens, and both leave bit-identical caches."""
+    (graphed, eager), first, lens, tables = _stepper_pair(cuda, paged,
+                                                          temperature)
+    toks = {id(graphed): first, id(eager): first}
+    for i in range(6):
+        for st in (graphed, eager):
+            tok, ok = st.decode(toks[id(st)], lens + i, tables,
+                                np.arange(4), np.full(4, i + 1))
+            assert ok.all()
+            toks[id(st)] = tok
+        assert np.array_equal(toks[id(graphed)], toks[id(eager)])
+    for a, b in zip(graphed.cache, eager.cache):
+        for name in ("k", "v"):
+            assert torch.equal(a[name], b[name])
+    assert graphed.graph and not eager.graph
+
+
+def test_graph_replays_are_counted(cuda):
+    """``launch_counts()`` counts what ran: the capture's own recording is
+    taken back out, each replay adds the graph's launches, and a graphed
+    step counts what an eager step counts."""
+    (graphed, eager), first, lens, _ = _stepper_pair(cuda, False)
+    graphed.decode(first, lens, None, None, None)        # warm-up + capture
+    per_step = graphed.graph_launches
+    assert per_step and sum(per_step.values()) > 0
+    spmm.reset_launch_counts()
+    for i in range(3):
+        graphed.decode(first, lens + 1 + i, None, None, None)
+    assert spmm.launch_counts() == {k: 3 * per_step.get(k, 0)
+                                    for k in spmm.KERNELS}
+    spmm.reset_launch_counts()
+    eager.decode(first, lens, None, None, None)
+    assert spmm.launch_counts() == {k: per_step.get(k, 0)
+                                    for k in spmm.KERNELS}
+
+
+def test_failed_capture_raises_and_never_falls_back(cuda):
+    """A step that syncs with the host cannot be captured: the capture
+    raises, the counts keep nothing of it, and the stepper stays without
+    a graph."""
+    (graphed, _), first, lens, _ = _stepper_pair(cuda, False)
+    step_fn = graphed._decode_step
+
+    def syncing_step():
+        out = step_fn()
+        int(out[0][0])                    # a host read inside the capture
+        return out
+
+    graphed._decode_step = syncing_step
+    before = spmm.launch_counts()
+    with pytest.raises(RuntimeError):
+        graphed.decode(first, lens, None, None, None)
+    assert graphed._graph is None
+    after = spmm.launch_counts()
+    # only the eager warm-up's launches remain counted
+    assert all(after[k] >= before[k] for k in spmm.KERNELS)
+    torch.cuda.synchronize()

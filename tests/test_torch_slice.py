@@ -67,17 +67,23 @@ def test_f32_logits_and_greedy_tokens(arch, sparsity):
 
 
 def test_sampling_is_a_function_of_seed_and_index():
-    """Temperature sampling draws from a generator seeded per token index:
-    the same (seed, index) gives the same tokens, and top-k keeps every
-    draw among the k largest logits."""
+    """Temperature sampling, the per-slot draw ``generate`` makes (row b
+    as uid b), is a pure function of (seed, token index): the same
+    (seed, index) gives the same tokens, and top-k keeps every draw among
+    the k largest logits."""
     rng = np.random.default_rng(3)
     logits = torch.from_numpy(rng.standard_normal((4, 50)).astype(np.float32))
-    assert torch.equal(engine.sample(logits), logits.argmax(-1))
-    once = engine.sample(logits, temperature=0.7, seed=5, index=9)
-    assert torch.equal(once, engine.sample(logits, temperature=0.7, seed=5,
-                                           index=9))
-    draws = torch.stack([engine.sample(logits, temperature=1.0, top_k=3,
-                                       seed=5, index=i) for i in range(40)])
+    uid = torch.arange(4, dtype=torch.int64)
+
+    def sample(index, **kw):
+        return engine.sample_per_slot(logits, uid, torch.full_like(uid, index),
+                                      seed=5, **kw)
+    assert torch.equal(engine.sample_per_slot(logits, None, None),
+                       logits.argmax(-1))
+    once = sample(9, temperature=0.7)
+    assert torch.equal(once, sample(9, temperature=0.7))
+    draws = torch.stack([sample(i, temperature=1.0, top_k=3)
+                         for i in range(40)])
     top3 = torch.topk(logits, 3, dim=-1).indices                # [4, 3]
     assert bool((draws[..., None] == top3[None]).any(-1).all())
     assert len(set(draws.flatten().tolist())) > 4               # not greedy
