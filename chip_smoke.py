@@ -48,19 +48,47 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    plain version on the same weight. It prints tokens/s, decode ms/step
    with the graph on and off, TTFT/TPOT p50/p99, the prefill shapes, the
    launches of prefill and of decode, peak blocks and the device's busy
-   share;
-5. prints the kernels' JSON line (launches of the slice and the serving
-   runs, the serving ones also by prefill and decode), the card line,
-   and last ``{"ok": true, "device": {...}}``; the
+   share. Last it admits a request of 32 tokens and then one that shares
+   its two prompt blocks from the 512-token bucket: the shared blocks'
+   bytes must not change and the first request's stream must equal its
+   run alone (it prints the same pair written as the reference writes
+   it, the whole block map, for comparison);
+5. full-depth phase: prints the planner's sparse and dense plans for
+   OPT-30B, OPT-66B and OPT-175B at 80 GB (``serving.budget``), builds
+   OPT-30B at all 48 layers layer by layer (``serve.build``), prints its
+   built against its planned weight bytes, holds the first decode step
+   against the plain path at 4, 12, 24 and 48 layers
+   (``depth_logits_tol``), then serves 32 requests (128-768 prompt
+   tokens, 64 greedy new tokens) through ``StreamingServer`` over 32
+   slots at max_len 1024 from the pool ``budget.plan`` sizes (paged,
+   graph on): all four LSCD kernels must launch, every launch
+   configuration must pass its plain version, and peak allocated bytes
+   must stay within the 80 GB budget. It prints decode ms/step, the first
+   call, tok/s, TTFT/TPOT p50/p99 and peak blocks, then runs
+   ``schedule.autotune`` on the four projections at N = 16 and 32 into a
+   cache file of its own beside ``select``'s analytic pick (serving never
+   reads a cache);
+6. tinyllama phase: tinyllama_1_1b at full size served through the same
+   server (16 slots, max_len 512, 16 requests, 32 new tokens): GQA and
+   the grouped ``gate_up`` ``silu_mul`` launch on a served path, every
+   launch configuration against its plain version, and the first decode
+   step against the plain path;
+7. prints the kernels' JSON line (launches of the slice, the serving
+   runs, the full-depth run and the tinyllama run, the serving ones also
+   by prefill and decode), the card line, and last
+   ``{"ok": true, "device": {...}}``; the
    full summary goes to ``chiprun_out/chip_smoke.json``.
 
 Any failure raises and exits non-zero. The plain versions run with
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (full f32 matmuls).
+The script sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``
+unless the environment sets it (``ALLOC_CONF``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -172,6 +200,14 @@ def close(torch, got, want, tol, what):
             f"{float(err.max()):.3e}; worst: got {float(g.flatten()[i])!r} "
             f"want {float(w.flatten()[i])!r} (atol {atol:.3e})")
     return float(err.max())
+
+
+def release(torch) -> None:
+    """Free what a finished run held: a stepper whose methods the serving
+    phases wrap sits in a reference cycle, so its cache and graph pool go
+    only at a collection."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def cuda_ms(torch, fn, reps: int, flush) -> float:
@@ -740,15 +776,18 @@ def _instrument(stepper, spmm, probe=None) -> dict:
     return out
 
 
-def _check_served_launches(torch, mods, seen, cfg) -> list:
+def _check_served_launches(torch, mods, seen, cfg,
+                           label: str = "serving") -> list:
     """Each launch configuration the probe saw on the serving path, held
     against the kernel's plain version (the split-K pair against the
     split-K reference, which sums the same slices) on the same weight and
     bias and a fresh B on the card of the recorded shape and dtype."""
     ref, spmm = mods["ref"], mods["spmm"]
-    d, f = cfg.d_model, cfg.d_ff
+    d, f, kvd = cfg.d_model, cfg.d_ff, cfg.n_kv * cfg.head_dim
     names = {((d, d), 3): "wqkv", ((d, d), 1): "wo", ((f, d), 1): "up",
-             ((d, f), 1): "down"}
+             ((d, f), 1): "down", ((f, d), 2): "gate_up",
+             ((kvd, d), 2): "wk+wv"}
+    names.setdefault(((kvd, d), 1), "wk")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
     rows = []
@@ -769,31 +808,32 @@ def _check_served_launches(torch, mods, seen, cfg) -> list:
                     else ref.spmm_ref)(t, b, **kw)
         shape = names.get(((m, k), g), f"{m}x{k} G={g}")
         tol = BF16_TOL if b_dtype == torch.bfloat16 else F32_TOL
-        err = close(torch, got, want, tol, f"serving path: {name} at "
+        err = close(torch, got, want, tol, f"{label} path: {name} at "
                     f"{shape} N={n} n_tb={n_tb} S={sk} {epi} ({phase})")
         rows.append(dict(kernel=name, shape=shape, m=m, k=k, group=g, n=n,
                          n_tb=n_tb, split_k=sk, epilogue=epi, phase=phase,
                          max_abs_err=err))
-        print(f"serving: checked {phase:7s} {name:25s} {shape:5s} N={n:<5d}"
-              f" n_tb={n_tb:<3d} S={sk:<2d} {epi:5s} max err {err:.2e}",
+        print(f"{label}: checked {phase:7s} {name:25s} {shape:5s} N={n:<5d}"
+              f" n_tb={n_tb:<3d} S={sk:<2d} {epi:8s} max err {err:.2e}",
               flush=True)
         del b, got, want
     torch.cuda.synchronize()
     return rows
 
 
-def _closed_loop(torch, mods, params, cfg, prompts, probe, *, paged, graph):
-    """Drain ``prompts`` (64 greedy new tokens each) through one
-    ``StreamingServer``. Returns the server and its measurements."""
+def _closed_loop(torch, mods, params, cfg, prompts, probe, *, paged, graph,
+                 config=None, new=SERVE_NEW, label="serving"):
+    """Drain ``prompts`` (``new`` greedy new tokens each) through one
+    ``StreamingServer`` (``config``, default the serving phase's).
+    Returns the server and its measurements."""
     api, scheduler = mods["api"], mods["scheduler"]
-    server = api.StreamingServer(params, cfg,
-                                 config=_serve_config(mods, paged=paged),
-                                 graph=graph)
+    if config is None:
+        config = _serve_config(mods, paged=paged)
+    server = api.StreamingServer(params, cfg, config=config, graph=graph)
     inst = _instrument(server.batcher.stepper, mods["spmm"], probe)
     times = inst["decode_s"]
     for i, p in enumerate(prompts):
-        server.submit(api.GenerationRequest(p, SERVE_NEW,
-                                            session_id=f"r{i}"))
+        server.submit(api.GenerationRequest(p, new, session_id=f"r{i}"))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     responses = server.run_until_drained()
@@ -820,13 +860,13 @@ def _closed_loop(torch, mods, params, cfg, prompts, probe, *, paged, graph):
         tpot=scheduler.latency_summary([r.tpot_s for r in responses
                                         if r.tpot_s is not None]),
         graph_launches=server.batcher.stepper.graph_launches)
-    check(out["completed"] == len(prompts), f"closed loop {paged=} {graph=}: "
-          f"{out['completed']} of {len(prompts)} requests finished")
-    check(all(len(t) == SERVE_NEW for t in streams.values()),
-          "a request finished short of its 64 tokens")
+    check(out["completed"] == len(prompts), f"{label}: closed loop {paged=} "
+          f"{graph=}: {out['completed']} of {len(prompts)} requests finished")
+    check(all(len(t) == new for t in streams.values()),
+          f"{label}: a request finished short of its {new} tokens")
     check(all(0 <= x < cfg.vocab for t in streams.values() for x in t),
-          "token ids outside the vocab")
-    print(f"serving: {'paged' if paged else 'dense'} cache, graph "
+          f"{label}: token ids outside the vocab")
+    print(f"{label}: {'paged' if paged else 'dense'} cache, graph "
           f"{'on ' if graph else 'off'}: {out['tokens']} tokens in "
           f"{wall:.3f} s ({out['tokens_per_s']:.1f} tok/s), decode "
           f"{out['decode_ms_per_step']:.3f} ms/step (median "
@@ -843,11 +883,11 @@ def _closed_loop(torch, mods, params, cfg, prompts, probe, *, paged, graph):
     return server, streams, out
 
 
-def _first_step_logits(torch, mods, params, cfg, prompts):
+def _first_step_logits(torch, mods, params, cfg, prompts, tol=LOGITS_TOL):
     """The first decode step's logits of 4 requests through the kernels
     against the same server on the plain versions (``backend="torch"``,
-    eager): the admitted first tokens equal, the logits within
-    ``LOGITS_TOL``."""
+    eager): the admitted first tokens equal, the logits within ``tol``
+    (``LOGITS_TOL``, or ``depth_logits_tol`` past 4 layers)."""
     api = mods["api"]
     got = {}
     for backend in ("auto", "torch"):
@@ -868,8 +908,8 @@ def _first_step_logits(torch, mods, params, cfg, prompts):
     check(got["auto"][0] == got["torch"][0],
           "first tokens differ between the kernels and the plain versions")
     return close(torch, got["auto"][1], got["torch"][1],
-                 dict(rtol=LOGITS_TOL, atol=LOGITS_TOL),
-                 "serving: first decode-step logits vs plain")
+                 dict(rtol=tol, atol=tol),
+                 f"{cfg.name}: server's first decode-step logits vs plain")
 
 
 def _profile_decode(torch, stepper, steps: int = 4) -> dict:
@@ -955,7 +995,7 @@ def serving_phase(torch, mods, params, cfg):
               f"ms/step ({100 * r['busy_share']:.1f}%), LSCD kernels "
               f"{r['lscd_ms_per_step']:.3f} ms/step", flush=True)
     del dense_g, dense_e
-    torch.cuda.empty_cache()
+    release(torch)
 
     # open loop: Poisson arrivals on the paged server
     trace = loadgen.make_trace(
@@ -989,20 +1029,411 @@ def serving_phase(torch, mods, params, cfg):
           f"p50/p99 {tpot['p50'] * 1e3:.2f}/{tpot['p99'] * 1e3:.2f} ms, peak "
           f"blocks {open_loop['peak_blocks_in_use']}", flush=True)
     del server, paged_g
-    torch.cuda.empty_cache()
+    release(torch)
 
     err = _first_step_logits(torch, mods, params, cfg, prompts)
     print(f"serving: first decode-step logits vs plain max abs err "
           f"{err:.3e}", flush=True)
+    prefix = _shared_prefix(torch, mods, params, cfg)
+    check(prefix["elements_changed"] == 0 and prefix["stream_same"],
+          "shared prefix: a later admission rewrote blocks a request in "
+          "flight shares")
     checked = _check_served_launches(torch, mods, probe.seen, cfg)
     print(f"serving: {len(checked)} launch configurations of the serving "
           f"path held against the plain versions", flush=True)
     summary = dict(closed_loop={"dense_graph": run_g, "dense_eager": run_e,
                                 "paged_graph": run_p},
                    open_loop=open_loop, logits_max_abs_err=err,
-                   profile=profile, launches=counts,
+                   shared_prefix=prefix, profile=profile, launches=counts,
                    launches_by_phase=by_phase, checked_launches=checked)
     return summary, by_phase
+
+
+def _shared_prefix(torch, mods, params, cfg) -> dict:
+    """Whether a later admission rewrites prompt blocks that a request in
+    flight shares. Request A (32 tokens: two full blocks, the 32-token
+    bucket, so prefill N = 4 x 32 = 128, where ``select`` splits K) is
+    admitted alone and decodes once; then B, A's 32 tokens and 400 more
+    (the 512-token bucket: N = 2048, single pass), is admitted on the same
+    paged server and maps A's two blocks as prefix hits. Compares those
+    blocks' bits in every cache leaf before and after B's admission, and
+    A's greedy stream against a run without B: as the port writes
+    (``AdmissionPlan.write_targets``), and, for comparison, as the
+    reference writes (the plan's whole block map, ``targets``)."""
+    import numpy as np
+    api, plan_cls = mods["api"], mods["scheduler"].AdmissionPlan
+    rng = np.random.default_rng(SEED + 3)
+    a = rng.integers(0, cfg.vocab, 32).astype(np.int64)
+    b = np.concatenate([a, rng.integers(0, cfg.vocab, 400).astype(np.int64)])
+
+    def run(with_b: bool) -> dict:
+        server = api.StreamingServer(params, cfg,
+                                     config=_serve_config(mods, paged=True))
+        server.submit(api.GenerationRequest(a, SERVE_NEW, session_id="a"))
+        server.step()                   # admits A, decodes once
+        bt = server.batcher
+        (slot,) = bt.sched.active_slot_ids()
+        shared = list(bt.sched.tables[slot].blocks[:2])
+        idx = torch.tensor(shared, device="cuda")
+        leaves = [layer[n] for layer in bt.stepper.cache for n in ("k", "v")]
+        before = [leaf[idx].clone() for leaf in leaves]
+        res = {}
+        if with_b:
+            server.submit(api.GenerationRequest(b, SERVE_NEW,
+                                                session_id="b"))
+            server.step()               # admits B, decodes both
+            other = [s for s in bt.sched.active_slot_ids() if s != slot]
+            check(len(other) == 1 and list(
+                bt.sched.tables[other[0]].blocks[:2]) == shared,
+                "shared prefix: B does not map A's two prompt blocks")
+            torch.cuda.synchronize()
+            after = [leaf[idx] for leaf in leaves]
+            res = dict(
+                blocks=shared, prefix_hit_tokens=int(
+                    bt.metrics.prefix_hit_tokens),
+                buckets=sorted(bt.metrics.bucket_admits),
+                elements=sum(x.numel() for x in before),
+                elements_changed=sum(
+                    int((x.view(torch.int16) != y.view(torch.int16)).sum())
+                    for x, y in zip(before, after)),
+                max_abs_change=max(float((x.float() - y.float()).abs().max())
+                                   for x, y in zip(before, after)))
+        res["stream"] = {r.session_id: r.tokens
+                         for r in server.run_until_drained()}["a"]
+        return res
+
+    alone = run(False)["stream"]
+    out = run(True)
+    saved = plan_cls.write_targets
+    plan_cls.write_targets = lambda plan: plan.targets
+    try:
+        ref = run(True)
+    finally:
+        plan_cls.write_targets = saved
+    release(torch)
+    out.update(stream_same=out.pop("stream") == alone,
+               reference=dict(elements_changed=ref["elements_changed"],
+                              max_abs_change=ref["max_abs_change"],
+                              stream_same=ref["stream"] == alone))
+    for label, r in (("as the port writes", out),
+                     ("as the reference writes", out["reference"])):
+        print(f"serving: shared prefix, {label}: B (bucket "
+              f"{out['buckets'][-1]}) mapped A's blocks {out['blocks']} "
+              f"({out['prefix_hit_tokens']} hit tokens); "
+              f"{r['elements_changed']} of {out['elements']} cache elements "
+              f"of those blocks changed at B's admission (max abs change "
+              f"{r['max_abs_change']:.3e}); A's stream "
+              f"{'equals' if r['stream_same'] else 'differs from'} its run "
+              f"without B", flush=True)
+    return out
+
+
+# The full-depth phase: OPT-30B at all 48 layers from a pool the planner
+# sizes for one 80 GB card, and tinyllama at full size.
+FULL_BUDGET = 80e9
+FULL_SLOTS, FULL_MAX_LEN, FULL_REQUESTS, FULL_NEW = 32, 1024, 32, 64
+FULL_PROMPT = (128, 769)                # uniform prompt lengths, half-open
+# One admission a step: the prefill's scratch cache is [admit_k, bucket]
+# for all 48 layers (1.41 GB a row at the 1024 bucket), and the planner
+# leaves 3% of the budget (2.4 GB) for the workspace.
+FULL_ADMIT_K = 1
+TINY_REQUESTS, TINY_NEW = 16, 32        # on the serving phase's server
+PLAN_ARCHS = ("opt_30b", "opt_66b", "opt_175b")
+AUTOTUNE_NS = (16, 32)
+
+
+def plans_report(mods) -> dict:
+    """The planner's sparse and dense plans for the paper's three models
+    at ``FULL_BUDGET``, block 16: blocks and dense-slot baseline at
+    max_len 1024, or the reason the card cannot hold them."""
+    budget, configs = mods["budget"], mods["configs"]
+    rows = {}
+    for arch in PLAN_ARCHS:
+        for mode in ("sparse_pallas", "dense"):
+            try:
+                p = budget.plan(configs.get(arch), hbm_budget=FULL_BUDGET,
+                                weight_mode=mode, sparsity=SPARSITY,
+                                block=16)
+            except ValueError as e:
+                rows[f"{arch}/{mode}"] = dict(error=str(e))
+                print(f"plan: {arch:8s} {mode:13s} {e}", flush=True)
+                continue
+            rows[f"{arch}/{mode}"] = dict(
+                p.as_dict(), n_dense_slots_1024=p.n_dense_slots(1024))
+            print(f"plan: {arch:8s} {mode:13s} weights {p.weight_bytes} B, "
+                  f"workspace {p.workspace_bytes} B, {p.n_blocks} usable "
+                  f"KV blocks of {p.block_bytes} B ({p.kv_positions} "
+                  f"positions, {p.kv_bytes} B KV), n_dense_slots(1024) = "
+                  f"{p.n_dense_slots(1024)}", flush=True)
+    return rows
+
+
+def _logits_vs_plain(torch, engine, params, cfg, prompts):
+    """First decode step's logits through the kernels and through the
+    plain versions (``backend="torch"``) on the same params; the first
+    tokens must agree. Returns (kernels' logits, plain logits), f32."""
+    steps = {}
+    S = prompts.shape[1]
+    with torch.inference_mode():
+        for backend in ("cuda", "torch"):
+            last, cache = engine.prefill(params, prompts, cfg, S + 1,
+                                         backend=backend)
+            tok = torch.argmax(last, dim=-1)[:, None]
+            logits, _ = engine.serve_step(params, cache, tok, S, cfg,
+                                          backend=backend)
+            steps[backend] = (tok, logits.float())
+            del cache, last
+    check(torch.equal(steps["cuda"][0], steps["torch"][0]),
+          f"{cfg.n_layers} layers: first token differs between kernels and "
+          "plain versions")
+    return steps["cuda"][1], steps["torch"][1]
+
+
+# First-step logits against the plain path at depth: the kernels and the
+# plain versions round each layer's bf16 outputs apart, and the residual
+# stream carries every layer's difference on, so the error grows with
+# depth. Measured (NVIDIA H100 80GB HBM3, 700 W, OPT-30B at sparsity 0.8,
+# 4 prompts of 128 tokens): the worst element's share of LOGITS_TOL
+# (3e-2 + 3e-2 relative) was 0.70, 0.94, 1.24 and 1.80 at 4, 12, 24 and
+# 48 layers (max abs err 0.023, 0.039, 0.047, 0.062). A sum of
+# independent per-layer roundings grows as the square root of the depth,
+# so the tolerance is LOGITS_TOL at the slice's 4 layers, scaled by
+# sqrt(n_layers / 4) past them: 0.104 at 48 layers, 0.070 at
+# tinyllama's 22. The 4-layer checks keep LOGITS_TOL.
+DEPTH_SWEEP = (4, 12, 24, 48)
+
+
+def depth_logits_tol(n_layers: int) -> float:
+    return LOGITS_TOL * max(1.0, (n_layers / 4) ** 0.5)
+
+
+def full_depth_phase(torch, mods) -> dict:
+    """OPT-30B at all 48 layers and full width, built layer by layer from
+    ``SEED`` at sparsity 0.8, its paged pool sized by ``budget.plan`` for
+    80 GB: the planner's three models, planned against built weight bytes,
+    the first decode step against the plain path, a closed loop of 32
+    requests (128-768 prompt tokens, 64 greedy new tokens) over 32 slots
+    at max_len 1024 with the decode step as a CUDA graph, every launch
+    configuration it made held against its plain version, peak allocated
+    bytes against the budget, and ``autotune`` at the decode widths."""
+    import numpy as np
+    configs, serve, budget, spmm, engine, cfgmod = (mods[x] for x in (
+        "configs", "serve", "budget", "spmm", "engine", "serve_config"))
+    check(not os.environ.get("REPRO_SCHEDULE_CACHE"),
+          "REPRO_SCHEDULE_CACHE is set: serving must keep the analytic pick")
+    cfg = configs.get("opt_30b")
+    out = dict(plans=plans_report(mods))
+    plan = budget.plan(cfg, hbm_budget=FULL_BUDGET,
+                       weight_mode="sparse_pallas", sparsity=SPARSITY,
+                       block=16)
+    print(f"full depth: {cfg.name}, {cfg.n_layers} layers at full width, "
+          f"sparsity {SPARSITY}; pool {plan.n_blocks} blocks of 16 from "
+          f"the {FULL_BUDGET:.0f} B plan; {FULL_SLOTS} slots, max_len "
+          f"{FULL_MAX_LEN}, admit_k {FULL_ADMIT_K}", flush=True)
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    params, built = serve.build(cfg, seed=SEED, sparsity=SPARSITY,
+                                device="cuda")
+    lm_dense = cfg.vocab * cfg.d_model * 2
+    lm_planned = budget.csl_bytes(cfg.vocab, cfg.d_model, SPARSITY)
+    free_b, total_b = torch.cuda.mem_get_info()
+    out.update(build=dict(
+        encode_s=built["encode_s"], build_s=built["build_s"],
+        n_tiled_csl=built["n_tiled_csl"], sparse_bytes=built["sparse_bytes"],
+        built_weight_bytes=built["weight_bytes"],
+        planned_weight_bytes=plan.weight_bytes,
+        lm_head_dense_bytes=lm_dense, lm_head_planned_bytes=lm_planned,
+        build_peak_allocated=built["max_memory_allocated"],
+        allocated_before=before, mem_free=free_b, mem_total=total_b))
+    print(f"full depth: built in {built['build_s']:.1f} s (prune, encode, "
+          f"re-pad and group {built['encode_s']:.1f} s), "
+          f"{built['n_tiled_csl']} Tiled-CSL weights of "
+          f"{built['sparse_bytes']} B; weights as built "
+          f"{built['weight_bytes']} B against {plan.weight_bytes} B planned "
+          f"({built['weight_bytes'] - plan.weight_bytes:+d} B; the plan "
+          f"counts lm_head as Tiled-CSL, {lm_planned} B, where it is built "
+          f"dense, {lm_dense} B); build peak allocated "
+          f"{built['max_memory_allocated']} B ({before} B allocated before "
+          f"it); mem_get_info free {free_b} of {total_b} B", flush=True)
+    check(built["max_memory_allocated"] <= FULL_BUDGET,
+          f"build peak {built['max_memory_allocated']} B over the budget")
+
+    prompts = serve.make_prompts(cfg, 4, 128, SEED, "cuda")
+    out["logits_by_depth"] = {}
+    for depth in sorted({d for d in DEPTH_SWEEP if d < cfg.n_layers}
+                        | {cfg.n_layers}):
+        tol = depth_logits_tol(depth)
+        got, want = _logits_vs_plain(
+            torch, engine, dict(params, layers=params["layers"][:depth]),
+            dataclasses.replace(cfg, n_layers=depth), prompts)
+        share = float(((got - want).abs() / (
+            LOGITS_TOL + LOGITS_TOL * want.abs())).max())
+        err = close(torch, got, want, dict(rtol=tol, atol=tol),
+                    f"full depth: first decode-step logits vs plain at "
+                    f"{depth} layers")
+        out["logits_by_depth"][depth] = dict(max_abs_err=err, tol=tol,
+                                             share_of_logits_tol=share)
+        print(f"full depth: first decode-step logits vs plain at {depth} "
+              f"layers: max abs err {err:.3e}, worst element at {share:.3f}"
+              f" of LOGITS_TOL; tolerance {tol:.4f} + {tol:.4f} relative",
+              flush=True)
+        del got, want
+    out["logits_max_abs_err"] = out["logits_by_depth"][cfg.n_layers][
+        "max_abs_err"]
+    release(torch)
+
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(*FULL_PROMPT, FULL_REQUESTS)
+    reqs = [rng.integers(0, cfg.vocab, int(n)).astype(np.int64)
+            for n in lengths]
+    config = cfgmod.ServeConfig(
+        scheduler=cfgmod.SchedulerConfig(
+            n_slots=FULL_SLOTS, max_len=FULL_MAX_LEN, min_bucket=8,
+            admit_k=FULL_ADMIT_K),
+        cache_kind="paged", block_size=16, n_blocks=plan.n_blocks)
+    print(f"full depth: {FULL_REQUESTS} requests, prompts "
+          f"{int(lengths.min())}-{int(lengths.max())} tokens, {FULL_NEW} "
+          f"greedy new tokens each", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    probe = LaunchProbe(spmm)
+    with probe:
+        spmm.reset_launch_counts()
+        server, _, run = _closed_loop(
+            torch, mods, params, cfg, reqs, probe, paged=True, graph=True,
+            config=config, new=FULL_NEW, label="full depth")
+        counts = spmm.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    run.update(launches=counts, peak_allocated=peak,
+               pool_bytes=(plan.n_blocks + 1) * plan.block_bytes)
+    print(f"full depth: launches {json.dumps(counts)} (graph replays "
+          f"counted; one replay launches {json.dumps(run['graph_launches'])})"
+          f"; by call {json.dumps(run['launches_by_phase'])}; peak "
+          f"allocated {peak} B against the {FULL_BUDGET:.0f} B budget "
+          f"(weights {built['weight_bytes']} B, pool {run['pool_bytes']} B)",
+          flush=True)
+    missing = [k for k, v in counts.items() if v == 0]
+    check(not missing, f"full depth: kernels never launched: {missing}")
+    check(peak <= FULL_BUDGET, f"full depth: peak allocated {peak} B over "
+          f"the {FULL_BUDGET:.0f} B budget")
+    out["serve"] = run
+    out["profile"] = _profile_decode(torch, server.batcher.stepper)
+    r = out["profile"]
+    if r["busy_share"] is None:
+        print("full depth: profile: no device activity seen; the busy "
+              "share is not measured", flush=True)
+    else:
+        print(f"full depth: profile graphed decode step: "
+              f"{r['wall_ms_per_step']:.3f} ms/step wall under "
+              f"torch.profiler, device busy {r['busy_ms_per_step']:.3f} "
+              f"ms/step ({100 * r['busy_share']:.1f}%), LSCD kernels "
+              f"{r['lscd_ms_per_step']:.3f} ms/step", flush=True)
+        for ms, n, name in r["top"]:
+            print(f"full depth:   {ms:8.3f} ms/step {n:4d}/step  {name}")
+    del server
+    release(torch)
+    out["checked_launches"] = _check_served_launches(
+        torch, mods, probe.seen, cfg, label="full depth")
+    print(f"full depth: {len(out['checked_launches'])} launch configurations "
+          f"held against the plain versions", flush=True)
+    out["autotune"] = autotune_phase(torch, mods, params["layers"][0])
+    del params, probe
+    release(torch)
+    return out
+
+
+def autotune_phase(torch, mods, layer) -> list:
+    """``schedule.autotune`` (CUDA events, cold L2) on one layer's four
+    projections at the decode widths, into a cache file of its own in the
+    kernels' build directory; each winner and its µs beside ``select``'s
+    analytic pick and that pick's µs from the same sweep."""
+    schedule = mods["schedule"]
+    path = str(mods["build"].build_dir() / "autotune_cache.json")
+    if os.path.exists(path):
+        os.remove(path)
+    cache = schedule.ScheduleCache(path)
+    flush = torch.empty(2 ** 28, dtype=torch.int32, device="cuda")
+    weights = {"wqkv": (layer["attn"]["wqkv"]["w"], "none"),
+               "wo": (layer["attn"]["wo"]["w"], "none"),
+               "up": (layer["mlp"]["up"]["w"], "gelu"),
+               "down": (layer["mlp"]["down"]["w"], "none")}
+    rows = []
+    for name, (t, epi) in weights.items():
+        for n in AUTOTUNE_NS:
+            best, timings = schedule.autotune(t, n, backend="cuda",
+                                              cache=cache, epilogue=epi,
+                                              flush=flush)
+            m, k = t.shape
+            pick = schedule.select_analytic(
+                m, k, n, m_tb=t.m_tb, k_tb=t.k_tb, max_nnz=t.max_nnz,
+                group=t.group or 1)
+            row = dict(shape=name, n=n, winner=dataclasses.asdict(best),
+                       winner_us=timings[best],
+                       analytic=dataclasses.asdict(pick),
+                       analytic_us=timings[pick], candidates=len(timings))
+            rows.append(row)
+            print(f"autotune: {name:5s} N={n:<3d} winner n_tb={best.n_tb:<3d}"
+                  f" S={best.split_k:<2d} {timings[best]:8.2f} us; select's "
+                  f"pick n_tb={pick.n_tb:<3d} S={pick.split_k:<2d} "
+                  f"{timings[pick]:8.2f} us ({timings[pick] / timings[best]:.3f}"
+                  f"x); {len(timings)} candidates timed", flush=True)
+    check(len(schedule.ScheduleCache(path)) == len(rows),
+          "autotune: the cache does not hold one winner per shape")
+    del flush
+    return rows
+
+
+def tinyllama_phase(torch, mods) -> dict:
+    """tinyllama_1_1b at full size (22 layers, GQA with 4 K/V heads,
+    SwiGLU), built layer by layer at sparsity 0.8, served in a short
+    closed loop (16 slots, max_len 512, 16 requests of 32-384 prompt
+    tokens, 32 greedy new tokens; the paged pool at the dense
+    byte-equivalent): the grouped ``gate_up`` ``silu_mul`` launches and
+    the GQA q/k/v launches on a served path, each configuration held
+    against its plain version, and the first decode step against the
+    plain path through the server."""
+    import numpy as np
+    configs, serve, spmm = (mods[x] for x in ("configs", "serve", "spmm"))
+    cfg = configs.get("tinyllama_1_1b")
+    params, built = serve.build(cfg, seed=SEED, sparsity=SPARSITY,
+                                device="cuda")
+    print(f"tinyllama: {cfg.name}, {cfg.n_layers} layers (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv} K/V heads, d_ff "
+          f"{cfg.d_ff}); built in {built['build_s']:.1f} s, "
+          f"{built['n_tiled_csl']} Tiled-CSL weights", flush=True)
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(*SERVE_PROMPT, TINY_REQUESTS)
+    reqs = [rng.integers(0, cfg.vocab, int(n)).astype(np.int64)
+            for n in lengths]
+    probe = LaunchProbe(spmm)
+    with probe:
+        spmm.reset_launch_counts()
+        server, _, run = _closed_loop(
+            torch, mods, params, cfg, reqs, probe, paged=True, graph=True,
+            new=TINY_NEW, label="tinyllama")
+        counts = spmm.launch_counts()
+    run["launches"] = counts
+    print(f"tinyllama: launches {json.dumps(counts)}; by call "
+          f"{json.dumps(run['launches_by_phase'])}", flush=True)
+    check(counts["lscd_spmm_grouped"] + counts["lscd_spmm_splitk_grouped"]
+          > 0, "tinyllama: no grouped launch")
+    check(any(key[6] == "silu_mul" for key in probe.seen),
+          "tinyllama: the gate_up silu_mul epilogue never launched")
+    del server
+    release(torch)
+    tol = depth_logits_tol(cfg.n_layers)
+    err = _first_step_logits(torch, mods, params, cfg, reqs, tol=tol)
+    print(f"tinyllama: first decode-step logits vs plain max abs err "
+          f"{err:.3e} (tolerance {tol:.4f} + {tol:.4f} relative)",
+          flush=True)
+    checked = _check_served_launches(torch, mods, probe.seen, cfg,
+                                     label="tinyllama")
+    print(f"tinyllama: {len(checked)} launch configurations held against "
+          f"the plain versions", flush=True)
+    del params, probe
+    release(torch)
+    return dict(serve=run, logits_max_abs_err=err, checked_launches=checked,
+                build_s=built["build_s"], encode_s=built["encode_s"])
 
 
 def _device_summary(torch, prof, wall_s: float, steps: int) -> dict:
@@ -1071,7 +1502,16 @@ def profile_steps(torch, engine, params, cfg, prompts, steps: int = 4):
     return out
 
 
+# The full-depth phase holds 76.1e9 B of weights and pool and needs up
+# to 1.9e9 B more for a decode step's attention on a card of 85.0e9 B.
+# The caching allocator's default fixed segments left 5.3 GiB reserved but
+# unallocated there and failed the step's first f32 copy (896 MiB);
+# expandable segments grow in place (NVIDIA H100 80GB HBM3, 700 W).
+ALLOC_CONF = "expandable_segments:True"
+
+
 def main() -> int:
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", ALLOC_CONF)
     try:
         import torch
     except ImportError:
@@ -1087,7 +1527,8 @@ def main() -> int:
         from repro_torch.core import pruning, roofline, tiled_csl
         from repro_torch.kernels import build, gemm, ops, ref, schedule, spmm
         from repro_torch.launch import serve
-        from repro_torch.serving import api, engine, loadgen, scheduler
+        from repro_torch.serving import (api, budget, engine, loadgen,
+                                         scheduler)
         from repro_torch.serving import config as serve_config
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -1097,7 +1538,7 @@ def main() -> int:
                 roofline=roofline, tiled_csl=tiled_csl, build=build, ops=ops,
                 ref=ref, schedule=schedule, spmm=spmm, gemm=gemm, serve=serve,
                 engine=engine, api=api, loadgen=loadgen, scheduler=scheduler,
-                serve_config=serve_config)
+                serve_config=serve_config, budget=budget)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1134,11 +1575,26 @@ def main() -> int:
     serving, serve_phases = serving_phase(torch, mods, params, cfg)
     serving["phase_s"] = time.perf_counter() - t0
     print(f"serving: phase took {serving['phase_s']:.1f} s", flush=True)
+    rep.pop("params")
+    del params
+    release(torch)
+    t0 = time.perf_counter()
+    full = full_depth_phase(torch, mods)
+    full["phase_s"] = time.perf_counter() - t0
+    print(f"full depth: phase took {full['phase_s']:.1f} s (build "
+          f"{full['build']['build_s']:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    tiny = tinyllama_phase(torch, mods)
+    tiny["phase_s"] = time.perf_counter() - t0
+    print(f"tinyllama: phase took {tiny['phase_s']:.1f} s", flush=True)
 
     kernels = []
     serve_counts = {k: serve_phases["prefill"][k] + serve_phases["decode"][k]
                     for k in spmm.KERNELS}
-    launches = {k: counts[k] + serve_counts[k] for k in spmm.KERNELS}
+    full_counts = full["serve"]["launches"]
+    tiny_counts = tiny["serve"]["launches"]
+    launches = {k: counts[k] + serve_counts[k] + full_counts[k]
+                + tiny_counts[k] for k in spmm.KERNELS}
     launches["dense_gemm"] = gemm_launches
     for name in spmm.KERNELS + ("dense_gemm",):
         r = best[name]
@@ -1150,6 +1606,8 @@ def main() -> int:
             launches_serving=serve_counts.get(name, 0),
             launches_serving_prefill=serve_phases["prefill"].get(name, 0),
             launches_serving_decode=serve_phases["decode"].get(name, 0),
+            launches_full_depth=full_counts.get(name, 0),
+            launches_tinyllama=tiny_counts.get(name, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
@@ -1161,7 +1619,8 @@ def main() -> int:
         launches=counts)
     summary = dict(card=card, ptxas=ptxas, rows=rows, compare=compare,
                    sweep=sweep, rings=rings, kernels=kernels,
-                   slice=slice_summary, profile=prof, serving=serving)
+                   slice=slice_summary, profile=prof, serving=serving,
+                   full_depth=full, tinyllama=tiny)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({"kernels": kernels}))

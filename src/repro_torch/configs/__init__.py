@@ -1,9 +1,10 @@
 """Architecture config registry of the port: ``get(arch_id)`` / ``smoke(arch_id)``.
 
-The port serves the dense family; it carries the paper's own model
-(OPT-30B) and tinyllama, whose GQA and SwiGLU cover the grouped
-``silu_mul`` path. Both files are the port's own copies of the JAX
-package's configs.
+The port serves the dense family. It carries the paper's three models
+(OPT-30B, OPT-66B, OPT-175B), so that the HBM planner
+(``serving.budget``) can size each of them, and tinyllama, whose GQA and
+SwiGLU cover the grouped ``silu_mul`` path. Every file is the port's own
+copy of the JAX package's config.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["opt_30b", "tinyllama_1_1b"]
+ARCH_IDS: List[str] = ["opt_30b", "opt_66b", "opt_175b", "tinyllama_1_1b"]
 
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}
 

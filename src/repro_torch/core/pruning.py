@@ -30,8 +30,10 @@ def unstructured_mask(scores: torch.Tensor, sparsity: float) -> torch.Tensor:
         return torch.ones_like(scores, dtype=torch.bool)
     n = scores.numel()
     k = max(int(round(n * (1.0 - sparsity))), 1)
-    # the k-th largest score, i.e. sorted(scores)[-k]
-    thresh = torch.kthvalue(scores.reshape(-1), n - k + 1).values
+    # The k-th largest score, i.e. sorted(scores)[-k]: the least of the top
+    # k. (``kthvalue`` gives the same element, but on a card it selects a
+    # whole matrix in one thread block, which made it most of the build.)
+    thresh = torch.topk(scores.reshape(-1), k, sorted=False).values.min()
     return scores >= thresh
 
 
@@ -58,7 +60,9 @@ def prune(w: torch.Tensor, sparsity: float, *,
     scores = w.abs()
     mask = (tile_balanced_mask(scores, sparsity) if balanced
             else unstructured_mask(scores, sparsity))
-    return torch.where(mask, w, torch.zeros_like(w))
+    del scores
+    return torch.where(mask, w, torch.zeros((), dtype=w.dtype,
+                                            device=w.device))
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +87,10 @@ def sparsify_matrix(w: torch.Tensor, sparsity: float, *,
     return t if max_nnz is None else tiled_csl.pad_max_nnz(t, max_nnz)
 
 
+# One step of a leaf path: a dict key ``['k']`` or a list index ``[3]``.
+_PATH_PART = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+
+
 def _walk(tree: Any, path: str = "") -> List[Tuple[str, Any]]:
     """(path, leaf) pairs; paths spell dict keys like ``['attn']`` and list
     indices like ``[3]``."""
@@ -96,7 +104,7 @@ def _walk(tree: Any, path: str = "") -> List[Tuple[str, Any]]:
 def _replace(tree: Any, path: str, new: Any) -> Any:
     if path == "":
         return new
-    m = re.match(r"\['([^']*)'\]|\[(\d+)\]", path)
+    m = _PATH_PART.match(path)
     rest = path[m.end():]
     if m.group(1) is not None:
         out = dict(tree)
@@ -121,14 +129,67 @@ def sparsify_params(params: Any, sparsity: float,
         if isinstance(leaf, torch.Tensor) and leaf.dim() == 2 \
                 and should_sparsify(path):
             picked[path] = sparsify_matrix(leaf, sparsity, balanced=balanced)
-    stack_max: Dict[str, int] = {}
-    for path, t in picked.items():
-        key = re.sub(r"\[\d+\]", "[*]", path)
-        stack_max[key] = max(stack_max.get(key, 0), t.max_nnz)
+    stack_max = stack_max_nnz(picked.items())
     out = params
     for path, t in picked.items():
-        mx = stack_max[re.sub(r"\[\d+\]", "[*]", path)]
-        out = _replace(out, path, tiled_csl.pad_max_nnz(t, mx))
+        out = _replace(out, path,
+                       tiled_csl.pad_max_nnz(t, stack_max[_stack_key(path)]))
+    return out
+
+
+def encode_in_place(tree: Any, sparsity: float,
+                    should_sparsify: Callable[[str], bool], *,
+                    balanced: bool = False, prefix: str = "") -> Any:
+    """Replace each selected 2-D tensor leaf of ``tree`` (nested dicts and
+    lists, changed in place) by its own Tiled-CSL encoding, one leaf at a
+    time, so that each dense source is freed as soon as it is encoded when
+    the caller holds no other reference to it. ``should_sparsify`` sees
+    the leaf's path with ``prefix`` in front. Each leaf keeps its own
+    ``max_nnz``; :func:`pad_to_stack_max` evens out a stack afterwards."""
+    paths = [p for p, leaf in _walk(tree)
+             if isinstance(leaf, torch.Tensor) and leaf.dim() == 2
+             and should_sparsify(prefix + p)]
+    for path in paths:
+        keys = [m.group(1) if m.group(1) is not None else int(m.group(2))
+                for m in _PATH_PART.finditer(path)]
+        parent = tree
+        for key in keys[:-1]:
+            parent = parent[key]
+        parent[keys[-1]] = sparsify_matrix(parent[keys[-1]], sparsity,
+                                           balanced=balanced)
+    return tree
+
+
+def _stack_key(path: str) -> str:
+    return re.sub(r"\[\d+\]", "[*]", path)
+
+
+def stack_max_nnz(leaves) -> Dict[str, int]:
+    """The largest ``max_nnz`` among (path, TiledCSL) pairs whose paths
+    differ only in list indices: each stack's shared pad target."""
+    out: Dict[str, int] = {}
+    for path, t in leaves:
+        key = _stack_key(path)
+        out[key] = max(out.get(key, 0), t.max_nnz)
+    return out
+
+
+def tiled_csl_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) of every Tiled-CSL leaf of ``tree``, paths starting
+    with ``prefix``."""
+    return [(prefix + p, t) for p, t in _walk(tree)
+            if isinstance(t, tiled_csl.TiledCSL)]
+
+
+def pad_to_stack_max(tree: Any, stack_max: Dict[str, int],
+                     prefix: str = "") -> Any:
+    """Re-pad every Tiled-CSL leaf of ``tree`` (paths under ``prefix``) to
+    its stack's target in ``stack_max``, as ``sparsify_params`` does."""
+    out = tree
+    for path, t in _walk(tree):
+        if isinstance(t, tiled_csl.TiledCSL):
+            out = _replace(out, path, tiled_csl.pad_max_nnz(
+                t, stack_max[_stack_key(prefix + path)]))
     return out
 
 

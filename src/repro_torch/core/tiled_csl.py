@@ -114,6 +114,12 @@ def _dtype_of(dense) -> torch.dtype:
     return dense.dtype if isinstance(dense, torch.Tensor) else torch.float32
 
 
+# Elements of the dense matrix one pass of ``encode`` turns into words: a
+# weight is encoded in runs of whole tile rows of about this size, which
+# bounds the index arrays of a pass (about 190 B a non-zero).
+ENCODE_CHUNK_ELEMS = 1 << 24
+
+
 def encode(dense: torch.Tensor, m_tb: int = DEFAULT_M_TB,
            k_tb: int = DEFAULT_K_TB,
            pad_quantum: int = PAD_QUANTUM) -> TiledCSL:
@@ -121,7 +127,10 @@ def encode(dense: torch.Tensor, m_tb: int = DEFAULT_M_TB,
 
     Zero elements are dropped; the rest keep bf16-rounded values, ordered
     within each tile by the reference's ``interleave`` reorder: rank
-    within (tile, row % 8) bucket, then (tile, rank, bucket).
+    within (tile, row % 8) bucket, then (tile, rank, bucket). A tile's
+    words depend on that tile alone, so the matrix is encoded in runs of
+    whole tile rows (``ENCODE_CHUNK_ELEMS``) into one padded array whose
+    ``max_nnz`` is known up front from the per-tile counts.
     """
     orig_dtype = _dtype_of(dense)
     a = torch.as_tensor(dense).to(torch.float32)
@@ -130,42 +139,60 @@ def encode(dense: torch.Tensor, m_tb: int = DEFAULT_M_TB,
         raise ValueError(f"shape {(m, k)} not tile-aligned to ({m_tb},{k_tb})")
     contracts.require_tile_loc(m_tb, k_tb)
     mt, kt = m // m_tb, k // k_tb
-    n_tiles = mt * kt
-    dev = a.device
+    counts = (a != 0).reshape(mt, m_tb, kt, k_tb).sum(dim=(1, 3),
+                                                      dtype=torch.int64)
+    max_nnz = max(int(counts.max().item()) if counts.numel() else 1, 1)
+    max_nnz = -(-max_nnz // pad_quantum) * pad_quantum
+    words = torch.zeros((mt, kt, max_nnz), dtype=torch.int32,
+                        device=a.device)
+    rows = max(1, ENCODE_CHUNK_ELEMS // (m_tb * k))
+    for r0 in range(0, mt, rows):
+        r1 = min(mt, r0 + rows)
+        _encode_rows(a[r0 * m_tb:r1 * m_tb], counts[r0:r1],
+                     words[r0:r1], m_tb, k_tb)
+    return TiledCSL(words=words, nnz=counts.to(torch.int32), shape=(m, k),
+                    m_tb=m_tb, k_tb=k_tb, dtype=orig_dtype)
 
+
+def _encode_rows(a: torch.Tensor, counts: torch.Tensor, out: torch.Tensor,
+                 m_tb: int, k_tb: int) -> None:
+    """Write the words of the tile rows ``a`` ([rows·m_tb, k]) into ``out``
+    ([rows, kt, max_nnz]); ``counts`` [rows, kt] are their tiles' nnz."""
+    kt = a.shape[1] // k_tb
+    n_tiles = counts.numel()
+    dev = a.device
     rr, cc = torch.nonzero(a, as_tuple=True)            # row-major order
+    n = rr.numel()
+    if not n:
+        return
     vv = a[rr, cc]
     tile_id = (rr // m_tb) * kt + (cc // k_tb)
     in_r, in_c = rr % m_tb, cc % k_tb
-    counts = torch.bincount(tile_id, minlength=n_tiles)
-    n = vv.numel()
-    max_nnz = max(int(counts.max().item()) if n else 1, 1)
-    max_nnz = -(-max_nnz // pad_quantum) * pad_quantum
-
-    words = torch.zeros((n_tiles, max_nnz), dtype=torch.int32, device=dev)
-    if n:
-        bucket = in_r % N_SUBLANES
-        grp = tile_id * N_SUBLANES + bucket
-        order0 = torch.sort(grp, stable=True).indices
-        grp_sorted = grp[order0]
-        grp_counts = torch.bincount(grp_sorted, minlength=n_tiles * N_SUBLANES)
-        grp_start = torch.cumsum(grp_counts, 0) - grp_counts
-        rank_key = torch.empty(n, dtype=torch.int64, device=dev)
-        rank_key[order0] = (torch.arange(n, device=dev)
-                            - grp_start[grp_sorted])
-        # (tile, rank, bucket) is unique per non-zero, so one sort of the
-        # combined key equals the reference's three-key lexsort.
-        key = (tile_id * (m_tb * k_tb) + rank_key) * N_SUBLANES + bucket
-        perm = torch.sort(key, stable=True).indices
-        tgt_tile = tile_id[perm]
-        starts = torch.cumsum(counts, 0) - counts
-        rank = torch.arange(n, device=dev) - starts[tgt_tile]
-        locs = in_r[perm] * k_tb + in_c[perm]
-        words[tgt_tile, rank] = pack_words(vv[perm], locs)
-
-    return TiledCSL(words=words.reshape(mt, kt, max_nnz),
-                    nnz=counts.reshape(mt, kt).to(torch.int32),
-                    shape=(m, k), m_tb=m_tb, k_tb=k_tb, dtype=orig_dtype)
+    del rr, cc
+    bucket = in_r % N_SUBLANES
+    grp = tile_id * N_SUBLANES + bucket
+    order0 = torch.sort(grp, stable=True).indices
+    grp_sorted = grp[order0]
+    del grp
+    grp_counts = torch.bincount(grp_sorted, minlength=n_tiles * N_SUBLANES)
+    grp_start = torch.cumsum(grp_counts, 0) - grp_counts
+    rank_key = torch.empty(n, dtype=torch.int64, device=dev)
+    rank_key[order0] = torch.arange(n, device=dev) - grp_start[grp_sorted]
+    del order0, grp_sorted
+    # (tile, rank, bucket) is unique per non-zero, so one sort of the
+    # combined key equals the reference's three-key lexsort.
+    key = (tile_id * (m_tb * k_tb) + rank_key) * N_SUBLANES + bucket
+    del rank_key, bucket
+    perm = torch.sort(key, stable=True).indices
+    del key
+    tgt_tile = tile_id[perm]
+    del tile_id
+    flat = counts.reshape(-1)
+    starts = torch.cumsum(flat, 0) - flat
+    rank = torch.arange(n, device=dev) - starts[tgt_tile]
+    locs = in_r[perm] * k_tb + in_c[perm]
+    del in_r, in_c
+    out.view(n_tiles, -1)[tgt_tile, rank] = pack_words(vv[perm], locs)
 
 
 def pad_max_nnz(t: TiledCSL, max_nnz: int) -> TiledCSL:

@@ -143,10 +143,13 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def _pos_vector(pos, batch: int, device) -> torch.Tensor:
-    """``pos`` (an int, or a [B] tensor of per-row positions) as [B]
-    int64."""
+    """``pos`` (an int, a 0-d tensor shared by every row, or a [B] tensor
+    of per-row positions) as [B] int64. A 0-d tensor is broadcast with
+    ``expand``, with no read back to the host, so a captured step can take
+    it."""
     if isinstance(pos, torch.Tensor):
-        return pos.to(device=device, dtype=torch.int64).reshape(batch)
+        pos = pos.to(device=device, dtype=torch.int64)
+        return pos.expand(batch) if pos.dim() == 0 else pos.reshape(batch)
     return torch.full((batch,), int(pos), dtype=torch.int64, device=device)
 
 

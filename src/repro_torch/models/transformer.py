@@ -17,7 +17,7 @@ given in place, where the reference returns a new one.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
@@ -60,22 +60,39 @@ def init_block(gen, cfg: ModelConfig, device, dtype=torch.float32) -> Params:
     return p
 
 
-def init_model(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
-               dtype=torch.float32) -> Params:
-    """Random params from ``seed`` on ``device`` (default ``"cuda"``)."""
+def init_model_parts(cfg: ModelConfig, *, seed: int = 0,
+                     device: DeviceLike = None, dtype=torch.float32
+                     ) -> Iterator[Tuple[str, Params]]:
+    """``init_model``'s draws, one part at a time and in its order:
+    ``("embed", p)``, ``("layers", p)`` once per layer, ``("final_norm",
+    p)``, then ``("lm_head", p)`` unless the head is tied. A part is drawn
+    only when the caller asks for the next one, so a caller that shrinks
+    each part first (the layer-by-layer sparse build) holds one part at
+    full precision at a time."""
     _check_family(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    params: Params = {
-        "embed": layers.init_embed(gen, cfg.vocab, cfg.d_model, dev, dtype),
-        "layers": [init_block(gen, cfg, dev, dtype)
-                   for _ in range(cfg.n_layers)],
-        "final_norm": _init_norm(cfg, dev, dtype),
-    }
+    yield "embed", layers.init_embed(gen, cfg.vocab, cfg.d_model, dev, dtype)
+    for _ in range(cfg.n_layers):
+        yield "layers", init_block(gen, cfg, dev, dtype)
+    yield "final_norm", _init_norm(cfg, dev, dtype)
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": nn.dense_init(
-            gen, cfg.vocab, cfg.d_model, dev, dtype)}
+        yield "lm_head", {"w": nn.dense_init(gen, cfg.vocab, cfg.d_model,
+                                             dev, dtype)}
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
+               dtype=torch.float32) -> Params:
+    """Random params from ``seed`` on ``device`` (default ``"cuda"``)."""
+    params: Params = {}
+    for name, part in init_model_parts(cfg, seed=seed, device=device,
+                                       dtype=dtype):
+        if name == "layers":
+            params.setdefault("layers", []).append(part)
+        else:
+            params[name] = part
+    params.setdefault("layers", [])
     return params
 
 

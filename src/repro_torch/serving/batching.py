@@ -288,7 +288,7 @@ class ContinuousBatcher:
                 break
             logits = self._launch(
                 "prefill", lambda: self.stepper.prefill(
-                    plan.tokens, plan.targets, plan.lens))
+                    plan.tokens, plan.write_targets(), plan.lens))
             m.compute_positions += plan.tokens.size
             nxt, ok = self.stepper.sample_admitted(logits, plan.uids,
                                                    plan.counts)

@@ -39,6 +39,14 @@ per-request progress) as plain JSON at a step boundary — restored requests
 re-enter as preempted entries, so recompute-resume regenerates bitwise
 streams.
 
+Shared prompt blocks (where the port departs from the reference): an
+admission that maps a prefix hit on a block another request already holds
+does not rewrite it. ``AdmissionPlan.write_targets`` sends that chunk of
+the prefill to the trash block, while ``targets`` and every scheduling
+decision stay the reference's. On a card the recomputed K/V of the same
+prefix can differ in its last bits, since another prefill shape sums in
+another order, and a request in flight would read the new bits.
+
 Wall-clock latency: the scheduler stamps ``submit_t`` / ``first_token_t`` /
 ``finish_t`` on every request from an injectable ``clock`` (defaults to
 ``time.monotonic``; `serving/loadgen.py` injects a virtual step clock for
@@ -297,6 +305,21 @@ class AdmissionPlan:
                                     # duplicate the last real row
     uids: np.ndarray                # [k] uint32 sampling-key folds
     counts: np.ndarray              # [k] uint32 token indices
+    written: Optional[np.ndarray] = None
+                                    # [k, nblk] bool (paged): False where
+                                    # the chunk's block is a prefix hit that
+                                    # another request already holds
+
+    def write_targets(self) -> np.ndarray:
+        """``targets`` as the prefill writes them: a chunk whose block
+        another request already holds goes to the trash block instead, so
+        an admission never rewrites bytes that a request in flight reads.
+        (On a card the recomputed K/V of a shared prefix need not equal
+        the stored bits: another prefill shape can sum in another order.)"""
+        if self.written is None:
+            return self.targets
+        return np.where(self.written, self.targets,
+                        paged_cache.TRASH_BLOCK).astype(self.targets.dtype)
 
 
 @dataclasses.dataclass
@@ -1070,28 +1093,36 @@ class Scheduler:
             lens[i] = len(ft)
             uids[i] = group[j].uid
             counts[i] = len(group[j].generated)
+        written = None
         if self.paged:
-            targets = self._map_group_blocks(group, full, free, bucket, k)
+            targets, written = self._map_group_blocks(group, full, free,
+                                                      bucket, k)
         else:
             targets = np.empty(k, np.int32)
             for i in range(k):
                 targets[i] = free[min(i, len(group) - 1)]
         return AdmissionPlan(group=group, slots=free[:len(group)],
                              bucket=bucket, tokens=tokens, lens=lens,
-                             targets=targets, uids=uids, counts=counts)
+                             targets=targets, uids=uids, counts=counts,
+                             written=written)
 
     def _map_group_blocks(self, group: List[Request],
                           full: List[np.ndarray], free: List[int],
-                          bucket: int, k: int) -> np.ndarray:
+                          bucket: int, k: int
+                          ) -> Tuple[np.ndarray, np.ndarray]:
         """Allocate block tables (sharing full prompt blocks by chain hash)
         for an admission group. The scratch cache covers ``scr_len``
         positions (the bucket, ring-capped); chunks past a request's own
-        blocks write to the trash block."""
+        blocks write to the trash block. Also returns which chunks the
+        prefill writes: not a prefix hit on a block that another request
+        (in flight, or an earlier row of this group, which writes it)
+        already holds."""
         m = self.metrics
         scr_len = bucket if self.ring_len is None else min(bucket,
                                                            self.ring_len)
         nblk_scr = -(-scr_len // self.block_size)
         block_map = np.full((k, nblk_scr), paged_cache.TRASH_BLOCK, np.int32)
+        written = np.ones((k, nblk_scr), bool)
         for i, (req, ft) in enumerate(zip(group, full)):
             # _take_group's worst-case gate guarantees this cannot raise.
             table, hits = self.pool.map_prompt(
@@ -1102,9 +1133,12 @@ class Scheduler:
             self.table_arr[s] = table.padded(self.max_blocks)
             n = min(len(table.blocks), nblk_scr)
             block_map[i, :n] = table.blocks[:n]
+            for j in range(min(table.n_shared, n)):
+                written[i, j] = self.pool.ref[table.blocks[j]] == 1
         for i in range(len(group), k):     # group padding duplicates a row
             block_map[i] = block_map[len(group) - 1]
-        return block_map
+            written[i] = written[len(group) - 1]
+        return block_map, written
 
     def commit_admission(self, plan: AdmissionPlan, next_tokens: np.ndarray,
                          finished: Dict[int, List[int]],

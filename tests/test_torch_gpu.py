@@ -14,6 +14,8 @@ cores' truncating f32 accumulation. The plain versions run with
 ``allow_tf32 = False``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -21,9 +23,10 @@ import torch
 from repro_torch import configs
 from repro_torch.core import pruning, tiled_csl
 from repro_torch.analysis import contracts
-from repro_torch.kernels import gemm, ops, ref, spmm
+from repro_torch.kernels import gemm, ops, ref, schedule, spmm
 from repro_torch.launch import serve
-from repro_torch.serving import step
+from repro_torch.models import transformer
+from repro_torch.serving import engine, step
 
 pytestmark = pytest.mark.gpu
 
@@ -511,3 +514,93 @@ def test_failed_capture_raises_and_never_falls_back(cuda):
     # only the eager warm-up's launches remain counted
     assert all(after[k] >= before[k] for k in spmm.KERNELS)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the schedule autotune and the layer-by-layer build, on the card
+# ---------------------------------------------------------------------------
+
+def test_serve_step_takes_a_0d_position(cuda):
+    """A 0-d position tensor is broadcast to every row of the batch."""
+    cfg = configs.smoke("opt_30b")
+    params, _ = serve.build(cfg, seed=0, sparsity=0.8, device=cuda)
+    prompts = serve.make_prompts(cfg, 3, 8, 0, cuda)
+    with torch.inference_mode():
+        outs = []
+        for pos in (torch.tensor(8, device=cuda), 8):
+            _, cache = engine.prefill(params, prompts, cfg, 10)
+            logits, _ = engine.serve_step(params, cache, prompts[:, :1], pos,
+                                          cfg)
+            outs.append(logits)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_autotune_cuda_persists_a_winner_select_finds(cuda, tmp_path,
+                                                      grouped):
+    """``autotune`` times the CUDA kernels (CUDA events) over the contract
+    -valid candidates, persists the fastest under the ``cuda`` key, and
+    ``select`` (so ``ops``) returns it; the tuned launch matches the
+    plain version."""
+    ts, gen = _weights(cuda, 3 if grouped else 1, 128, 128)
+    t = tiled_csl.group_stack(ts) if grouped else ts[0]
+    cache = schedule.ScheduleCache(str(tmp_path / "tuned.json"))
+    best, timings = schedule.autotune(t, 16, cache=cache, reps=3)
+    assert best == min(timings, key=timings.get)
+    assert all(not contracts.check_launch(
+        256, 384, 16, m_tb=128, k_tb=128, n_tb=s.n_tb, split_k=s.split_k,
+        group=t.group or 1, max_nnz=t.max_nnz) for s in timings)
+    assert len(schedule.ScheduleCache(cache.path)) == 1
+    got = schedule.select(256, 384, 16, m_tb=128, k_tb=128,
+                          max_nnz=t.max_nnz, group=t.group or 1,
+                          cache=cache)
+    assert got == best
+    b = (0.1 * torch.randn((384, 16), generator=gen, device=cuda)).to(
+        torch.bfloat16)
+    run = ops.spmm_grouped if grouped else ops.spmm
+    plain = ref.spmm_grouped_ref if grouped else ref.spmm_ref
+    _assert_close(run(t, b, backend="cuda", n_tb=best.n_tb,
+                      split_k=best.split_k), plain(t, b, out_dtype=b.dtype))
+
+
+def _layer_f32_bytes(cfg) -> int:
+    d, f = cfg.d_model, cfg.d_ff
+    return 4 * (4 * d * d + 2 * d * f)
+
+
+def test_layered_build_bit_equal_at_full_width(cuda):
+    """Two OPT-30B layers at full width: the layer-by-layer build equals
+    ``init_model`` + ``sparsify_params`` + ``group_projections`` on the
+    card, word for word."""
+    cfg = dataclasses.replace(configs.get("opt_30b"), n_layers=2)
+    got, _ = serve.build(cfg, seed=5, sparsity=0.8, device=cuda)
+    want = transformer.init_model(cfg, seed=5, device=cuda)
+    want = pruning.group_projections(pruning.sparsify_params(
+        want, 0.8,
+        should_sparsify=lambda n: any(k in n for k in serve.SPARSE_NAMES)))
+    for a, b in zip(want["layers"], got["layers"]):
+        for part, leaf in (("attn", "wqkv"), ("attn", "wo"), ("mlp", "up"),
+                           ("mlp", "down")):
+            ta, tb = a[part][leaf]["w"], b[part][leaf]["w"]
+            assert torch.equal(ta.words, tb.words)
+            assert torch.equal(ta.nnz, tb.nnz)
+    assert torch.equal(want["embed"]["table"].to(torch.bfloat16),
+                       got["embed"]["table"])
+
+
+def test_layered_build_peak_memory_at_12_layers(cuda):
+    """Twelve OPT-30B-width layers: the build's peak allocated bytes stay
+    below the encoded model plus two layers' f32 weights (a whole-tree
+    build would hold all twelve in f32, 29.6 GB)."""
+    cfg = dataclasses.replace(configs.get("opt_30b"), n_layers=12)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    params, rep = serve.build(cfg, seed=0, sparsity=0.8, device=cuda)
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    assert rep["max_memory_allocated"] - base == peak
+    assert peak <= rep["weight_bytes"] + 2 * _layer_f32_bytes(cfg), (
+        peak, rep["weight_bytes"])
+    assert rep["n_tiled_csl"] == 12 * 4
+    del params
+    torch.cuda.empty_cache()

@@ -89,3 +89,17 @@ def test_encode_group_byte_equal(g):
 def test_tile_loc_guard():
     with pytest.raises(ValueError, match="16-bit"):
         tiled_csl.encode(torch.ones(512, 256), m_tb=512, k_tb=256)
+
+
+@pytest.mark.parametrize("chunk", [1, 128 * 384 * 2])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_encode_in_tile_row_runs_byte_equal(monkeypatch, geom, chunk):
+    """A weight encoded in runs of tile rows (one row a run, or two) is the
+    reference's one-pass encoding byte for byte, empty tiles included."""
+    m_tb, k_tb = geom
+    monkeypatch.setattr(tiled_csl, "ENCODE_CHUNK_ELEMS", chunk)
+    rng = np.random.default_rng(11)
+    a = _matrix(rng, (640, 384), 0.8, empty_tiles=True, m_tb=m_tb, k_tb=k_tb)
+    a[m_tb:2 * m_tb] = 0.0                    # a whole empty tile row
+    _same(ref_csl.encode(a, m_tb=m_tb, k_tb=k_tb),
+          tiled_csl.encode(torch.from_numpy(a), m_tb=m_tb, k_tb=k_tb))
