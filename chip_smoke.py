@@ -53,7 +53,23 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    bytes must not change and the first request's stream must equal its
    run alone (it prints the same pair written as the reference writes
    it, the whole block map, for comparison);
-5. full-depth phase: prints the planner's sparse and dense plans for
+5. window phase: speculative verify and chunked prefill on the serving
+   phase's model, server (paged) and trace, against its paged graphed
+   run: (a) spec_k = 3 with ``NgramDrafter`` and (b) chunked prefill
+   (chunk 16, budget 32), each with the graph on and off (identical
+   streams), each against the plain streams by the near-tie rule (where
+   a stream first differs, the plain top-2 margin must be below
+   ``NEAR_TIE``), and (c) a self-draft (``DraftModelDrafter`` on the
+   target's own params, 8 requests of 32-128 tokens), where every
+   rejected draft must sit at a near tie; the first verify step's logits
+   against plain decode's at the same positions (``LOGITS_TOL``); clean
+   pools after every drain, one capture a graph, and every launch
+   configuration of the verify and mixed steps (N = 64 and 256) and of
+   the self-draft's rollout against its plain version. It prints the
+   graphed verify and mixed ms/step against graphed decode, the accept
+   rates, tok/s and TTFT/TPOT against the plain run, and one profiled
+   verify and mixed step by kernel;
+6. full-depth phase: prints the planner's sparse and dense plans for
    OPT-30B, OPT-66B and OPT-175B at 80 GB (``serving.budget``), builds
    OPT-30B at all 48 layers layer by layer (``serve.build``), prints its
    built against its planned weight bytes, holds the first decode step
@@ -68,14 +84,15 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    ``schedule.autotune`` on the four projections at N = 16 and 32 into a
    cache file of its own beside ``select``'s analytic pick (serving never
    reads a cache);
-6. tinyllama phase: tinyllama_1_1b at full size served through the same
+7. tinyllama phase: tinyllama_1_1b at full size served through the same
    server (16 slots, max_len 512, 16 requests, 32 new tokens): GQA and
    the grouped ``gate_up`` ``silu_mul`` launch on a served path, every
    launch configuration against its plain version, and the first decode
    step against the plain path;
-7. prints the kernels' JSON line (launches of the slice, the serving
-   runs, the full-depth run and the tinyllama run, the serving ones also
-   by prefill and decode), the card line, and last
+8. prints the kernels' JSON line (launches of the slice, the serving
+   runs, the window runs, the full-depth run and the tinyllama run, the
+   serving ones also by prefill and decode, the window ones also by
+   verify and mixed), the card line, and last
    ``{"ok": true, "device": {...}}``; the
    full summary goes to ``chiprun_out/chip_smoke.json``.
 
@@ -748,14 +765,19 @@ class LaunchProbe:
         return probed
 
 
+STEP_OPS = ("prefill", "decode", "verify", "mixed")
+
+
 def _instrument(stepper, spmm, probe=None) -> dict:
-    """Wrap ``stepper.prefill`` and ``stepper.decode``: record each decode
-    call's host time (it ends in a device synchronise: the tokens come
-    back to the host), add each call's LSCD launches (graph replays
-    counted) to its phase's tally, and tell ``probe`` which phase is
-    launching."""
-    out = dict(decode_s=[], launches={"prefill": dict.fromkeys(
-        spmm.KERNELS, 0), "decode": dict.fromkeys(spmm.KERNELS, 0)})
+    """Wrap the stepper's four entry points (prefill, decode, verify,
+    mixed): record each step call's host time (it ends in a device
+    synchronise: the tokens come back to the host), add each call's LSCD
+    launches (graph replays counted) to its call's tally, and tell
+    ``probe`` which call is launching."""
+    out = dict(step_s={op: [] for op in STEP_OPS[1:]},
+               launches={op: dict.fromkeys(spmm.KERNELS, 0)
+                         for op in STEP_OPS})
+    out["decode_s"] = out["step_s"]["decode"]
 
     def wrap(phase, inner):
         def call(*args):
@@ -764,16 +786,27 @@ def _instrument(stepper, spmm, probe=None) -> dict:
             before = spmm.launch_counts()
             t0 = time.perf_counter()
             res = inner(*args)
-            if phase == "decode":
-                out["decode_s"].append(time.perf_counter() - t0)
+            if phase != "prefill":
+                out["step_s"][phase].append(time.perf_counter() - t0)
             after = spmm.launch_counts()
             for k in after:
                 out["launches"][phase][k] += after[k] - before[k]
             return res
         return call
-    stepper.prefill = wrap("prefill", stepper.prefill)
-    stepper.decode = wrap("decode", stepper.decode)
+    for op in STEP_OPS:
+        setattr(stepper, op, wrap(op, getattr(stepper, op)))
     return out
+
+
+def _step_stats(times: list) -> dict:
+    """Host ms of one kind of step call: the first (it captures the
+    graph), and the mean and median of the rest."""
+    steady = sorted(times[1:])
+    nan = float("nan")
+    return dict(n=len(times), first_ms=times[0] * 1e3 if times else nan,
+                ms_per_step=sum(steady) / len(steady) * 1e3 if steady
+                else nan,
+                median_ms=steady[len(steady) // 2] * 1e3 if steady else nan)
 
 
 def _check_served_launches(torch, mods, seen, cfg,
@@ -822,15 +855,21 @@ def _check_served_launches(torch, mods, seen, cfg,
 
 
 def _closed_loop(torch, mods, params, cfg, prompts, probe, *, paged, graph,
-                 config=None, new=SERVE_NEW, label="serving"):
+                 config=None, new=SERVE_NEW, label="serving", drafter=None,
+                 on_server=None):
     """Drain ``prompts`` (``new`` greedy new tokens each) through one
-    ``StreamingServer`` (``config``, default the serving phase's).
-    Returns the server and its measurements."""
+    ``StreamingServer`` (``config``, default the serving phase's;
+    ``drafter`` for a speculative config). ``on_server`` is called with
+    the instrumented server before the requests are submitted. Returns
+    the server and its measurements."""
     api, scheduler = mods["api"], mods["scheduler"]
     if config is None:
         config = _serve_config(mods, paged=paged)
-    server = api.StreamingServer(params, cfg, config=config, graph=graph)
+    server = api.StreamingServer(params, cfg, config=config, graph=graph,
+                                 drafter=drafter)
     inst = _instrument(server.batcher.stepper, mods["spmm"], probe)
+    if on_server is not None:
+        on_server(server)
     times = inst["decode_s"]
     for i, p in enumerate(prompts):
         server.submit(api.GenerationRequest(p, new, session_id=f"r{i}"))
@@ -841,14 +880,20 @@ def _closed_loop(torch, mods, params, cfg, prompts, probe, *, paged, graph,
     wall = time.perf_counter() - t0
     m = server.metrics
     streams = {r.session_id: r.tokens for r in responses}
-    steady = sorted(times[1:])          # the first call captures the graph
+    # the first call of each step captures its graph
+    stats = {op: _step_stats(t) for op, t in inst["step_s"].items()}
+    steady_s = sum(sum(inst["step_s"][op][1:]) for op in ("decode",
+                                                           "verify"))
     out = dict(
         paged=paged, graph=graph, wall_s=wall, completed=len(responses),
         tokens=sum(len(t) for t in streams.values()),
         tokens_per_s=sum(len(t) for t in streams.values()) / wall,
-        decode_steps=len(times), first_decode_ms=times[0] * 1e3,
-        decode_ms_per_step=sum(steady) / len(steady) * 1e3,
-        decode_ms_median=steady[len(steady) // 2] * 1e3,
+        decode_steps=len(times), first_decode_ms=stats["decode"]["first_ms"],
+        decode_ms_per_step=stats["decode"]["ms_per_step"],
+        decode_ms_median=stats["decode"]["median_ms"], steps=stats,
+        # decode and verify emissions over those steps' host time, each
+        # kind's first call (its capture) left out
+        step_tokens_per_s=m.decode_tokens / steady_s if steady_s else None,
         prefill_shapes=sorted(server.batcher.stepper.prefill_shapes),
         bucket_admits=dict(m.bucket_admits),
         prefill_admissions=m.prefill_calls,
@@ -876,6 +921,10 @@ def _closed_loop(torch, mods, params, cfg, prompts, probe, *, paged, graph,
           f" TPOT p50/p99 {out['tpot']['p50'] * 1e3:.2f}/"
           f"{out['tpot']['p99'] * 1e3:.2f} ms; admit {m.admit_time_s:.3f} s,"
           f" decode {m.decode_time_s:.3f} s"
+          + "".join(f"; {op} {stats[op]['ms_per_step']:.3f} ms/step (median "
+                    f"{stats[op]['median_ms']:.3f}, first "
+                    f"{stats[op]['first_ms']:.1f} ms) over {stats[op]['n']} "
+                    f"steps" for op in ("verify", "mixed") if stats[op]["n"])
           + (f"; peak blocks {m.peak_blocks_in_use}/{out['n_blocks']}"
              if paged else "")
           + f"; prefill shapes (rows, bucket) {out['prefill_shapes']}",
@@ -939,8 +988,10 @@ def serving_phase(torch, mods, params, cfg):
     the closed loop three times (dense graph on, dense graph off, paged
     graph on), an open-loop Poisson replay on the paged server, the first
     decode step against the plain versions, and one profiled graphed and
-    eager decode step. Returns the phase's summary and the kernels'
-    launches on the serving path (the dense graphed run)."""
+    eager decode step. Returns the phase's summary, the kernels'
+    launches on the serving path (the dense graphed run), and the paged
+    graphed run's prompts, streams and measurements (the plain side of
+    the window phase)."""
     import numpy as np
     spmm, loadgen, scheduler = (mods[x] for x in ("spmm", "loadgen",
                                                   "scheduler"))
@@ -1046,7 +1097,9 @@ def serving_phase(torch, mods, params, cfg):
                    open_loop=open_loop, logits_max_abs_err=err,
                    shared_prefix=prefix, profile=profile, launches=counts,
                    launches_by_phase=by_phase, checked_launches=checked)
-    return summary, by_phase
+    plain = dict(prompts={f"r{i}": p for i, p in enumerate(prompts)},
+                 streams=streams_p, run=run_p)
+    return summary, by_phase, plain
 
 
 def _shared_prefix(torch, mods, params, cfg) -> dict:
@@ -1126,6 +1179,354 @@ def _shared_prefix(torch, mods, params, cfg) -> dict:
               f"{'equals' if r['stream_same'] else 'differs from'} its run "
               f"without B", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# window phase: speculative verify and chunked prefill
+# ---------------------------------------------------------------------------
+
+SPEC_K, CHUNK_SIZE, CHUNK_BUDGET = 3, 16, 32
+SELF_REQUESTS, SELF_PROMPT, SELF_NEW = 8, (32, 129), 32
+# Verify runs the LSCD products at N = 16 x 4 = 64 and the mixed step at
+# N = 16 x 16 = 256 where decode runs them at N = 16, so their sums run in
+# another order and bf16 logits drift by up to about LOGITS_TOL on each
+# side. Where a stream first differs from the plain one, the plain side's
+# top-2 margin must be below this.
+NEAR_TIE = 2 * LOGITS_TOL
+
+
+def _window_config(mods, *, spec_k=0, chunked=False):
+    cfgmod = mods["serve_config"]
+    return cfgmod.ServeConfig(
+        scheduler=cfgmod.SchedulerConfig(
+            n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, min_bucket=8,
+            admit_k=4, chunked_prefill=chunked, chunk_size=CHUNK_SIZE,
+            chunk_budget=CHUNK_BUDGET),
+        cache_kind="paged", block_size=16, spec_k=spec_k)
+
+
+def _top2_margin(torch, logits) -> float:
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _drained_clean(server, label: str) -> None:
+    pool = server.batcher.pool
+    pool.check_invariants()
+    check(pool.blocks_in_use == 0, f"{label}: {pool.blocks_in_use} blocks "
+          f"still in use after the drain")
+
+
+def _near_tie_streams(torch, mods, params, cfg, prompts, got, want,
+                      label: str) -> list:
+    """``got`` against the plain ``want`` by the near-tie rule of
+    ``tests/torch_serving_parity.py``: equal, or, at the first token where
+    they differ, the plain side's next-token logits (a prefill of the
+    prompt and the plain tokens before it) have a top-2 margin below
+    ``NEAR_TIE``, and the request is compared no further. Returns the cut
+    requests as (key, token index, margin)."""
+    import numpy as np
+    engine = mods["engine"]
+    check(set(got) == set(want), f"{label}: the requests differ")
+    cut = []
+    for key in sorted(want):
+        g, w = list(got[key]), list(want[key])
+        i = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if i is None:
+            check(len(g) == len(w), f"{label}: {key}: lengths differ")
+            continue
+        ctx = np.concatenate([prompts[key], np.asarray(w[:i], np.int64)])
+        with torch.inference_mode():
+            last, _ = engine.prefill(
+                params, torch.from_numpy(ctx[None]).cuda(), cfg, len(ctx))
+        margin = _top2_margin(torch, last[0])
+        check(margin < NEAR_TIE, f"{label}: {key} differs from the plain "
+              f"stream at token {i}, where the plain top-2 margin is "
+              f"{margin:.3e} (a near tie is below {NEAR_TIE:.1e})")
+        cut.append((key, i, margin))
+    print(f"{label}: {len(want) - len(cut)} of {len(want)} streams equal the"
+          f" plain ones; {len(cut)} cut at a near tie (request, token, "
+          f"margin) {json.dumps([[k, i, round(m, 5)] for k, i, m in cut])}",
+          flush=True)
+    return cut
+
+
+class _ScriptedDrafter:
+    """Proposes each request's known plain continuation."""
+
+    def __init__(self, known):
+        self.known = known              # [(prompt, generated tokens)]
+
+    def propose(self, tokens, k):
+        import numpy as np
+        for prompt, gen in self.known:
+            n = len(prompt)
+            if len(tokens) >= n and np.array_equal(tokens[:n], prompt):
+                return np.asarray(gen[len(tokens) - n:][:k], np.int64)
+        return np.empty(0, np.int64)
+
+
+def _first_verify_logits(torch, mods, params, cfg, prompts) -> dict:
+    """The first verify step's logits, column by column, against plain
+    decode's at the same positions: 4 requests decode SPEC_K + 1 steps on
+    a plain paged server (logits at positions len .. len + SPEC_K), then
+    a speculative server, drafting exactly those tokens, admits the same
+    requests and verifies them in one window."""
+    api = mods["api"]
+    keys = [f"r{i}" for i in range(4)]
+    server = api.StreamingServer(params, cfg, config=_window_config(mods))
+    for key in keys:
+        server.submit(api.GenerationRequest(prompts[key], SERVE_NEW,
+                                            session_id=key))
+    want = {}
+    b = server.batcher
+    for _ in range(SPEC_K + 1):
+        server.step()
+        for s in b.sched.active_slot_ids():
+            want.setdefault(b.slots[s].uid, []).append(
+                b.stepper.last_logits[s].float().clone())
+    known = [(prompts[key], list(b.requests[uid].generated))
+             for uid, key in enumerate(keys)]
+    del server, b
+    drafter = _ScriptedDrafter(known)
+    server = api.StreamingServer(params, cfg, config=_window_config(
+        mods, spec_k=SPEC_K), drafter=drafter)
+    for key in keys:
+        server.submit(api.GenerationRequest(prompts[key], SERVE_NEW,
+                                            session_id=key))
+    b = server.batcher
+    server.step()                       # admits all four, verifies once
+    check(b.stepper.window_shapes == {("verify", (SERVE_SLOTS,
+                                                  SPEC_K + 1))},
+          "the first step after admission was not one verify window")
+    got, wanted = [], []
+    for s in b.sched.active_slot_ids():
+        uid = b.slots[s].uid
+        check(len(want[uid]) == SPEC_K + 1, "plain decode steps missing")
+        got.append(b.stepper.last_logits[s].float())
+        wanted.append(torch.stack(want[uid]))
+    check(len(got) == 4, f"{len(got)} of 4 requests active")
+    accepted = b.metrics.accepted
+    err = close(torch, torch.stack(got), torch.stack(wanted),
+                dict(rtol=LOGITS_TOL, atol=LOGITS_TOL),
+                f"{cfg.name}: first verify-step logits vs plain decode")
+    del server
+    release(torch)
+    return dict(max_abs_err=err, accepted=int(accepted),
+                drafted=4 * SPEC_K)
+
+
+def _profile_window(torch, stepper, op: str, steps: int = 4) -> dict:
+    """``torch.profiler`` over ``steps`` calls of a drained server's
+    verify or mixed step (every slot idle at position 0, its table all
+    trash: the same fixed-shape step)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    n = stepper.n_slots
+    zeros = np.zeros(n, np.int64)
+    tables = np.zeros((n, stepper.max_blocks), np.int64)
+    width = stepper.spec_k + 1 if op == "verify" else stepper.chunk_size
+    tokens = np.zeros((n, width), np.int64)
+    fn = getattr(stepper, op)
+    fn(tokens, zeros, tables, zeros, zeros, zeros)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn(tokens, zeros, tables, zeros, zeros, zeros)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    return _device_summary(torch, prof, wall_s, steps)
+
+
+def window_phase(torch, mods, params, cfg, plain):
+    """Speculative verify and chunked prefill through ``StreamingServer``
+    on the serving phase's model, server and trace, against its paged
+    graphed run (``plain``): (a) spec_k = 3 with ``NgramDrafter``, graph
+    on and off; (b) chunked prefill (chunk 16, budget 32), graph on and
+    off; (c) a self-draft (``DraftModelDrafter`` on the target's own
+    params, 8 requests of 32-128 tokens). Checks identical streams graph
+    on and off, the near-tie rule against plain, the first verify step's
+    logits against plain decode, every rejected self-draft at a near tie,
+    clean pools, one capture a graph, and every launch configuration of
+    the verify and mixed steps and of the self-draft's rollout against
+    its plain version. Returns the phase's summary and the graph-on runs'
+    launches by stepper call."""
+    import numpy as np
+    spmm, speculative = mods["spmm"], mods["speculative"]
+    card = card_line()
+    prompts, want, base = plain["prompts"], plain["streams"], plain["run"]
+    plist = [prompts[f"r{i}"] for i in range(len(prompts))]
+    print(f"window: {cfg.name}, {cfg.n_layers} layers, {SERVE_SLOTS} slots, "
+          f"paged, block 16; the serving trace; spec_k {SPEC_K}, chunk "
+          f"{CHUNK_SIZE}, budget {CHUNK_BUDGET}; near tie below "
+          f"{NEAR_TIE:.1e}", flush=True)
+    probe = LaunchProbe(spmm)
+    launches = {op: dict.fromkeys(spmm.KERNELS, 0) for op in STEP_OPS}
+    runs, profile = {}, {}
+
+    def add(run):
+        for op, c in run["launches_by_phase"].items():
+            for k, n in c.items():
+                launches[op][k] += n
+
+    with probe:
+        logits = _first_verify_logits(torch, mods, params, cfg, prompts)
+        print(f"window: first verify step vs plain decode, {SPEC_K + 1} "
+              f"columns x 4 requests: logits max abs err "
+              f"{logits['max_abs_err']:.3e} (tol {LOGITS_TOL}); accepted "
+              f"{logits['accepted']} of {logits['drafted']} scripted drafts",
+              flush=True)
+        for kind, conf in (("spec", dict(spec_k=SPEC_K)),
+                           ("chunked", dict(chunked=True))):
+            op = "verify" if kind == "spec" else "mixed"
+            streams = {}
+            # graph off first: its run warms the allocator, emptied by
+            # release(), for the timed graphed run
+            for graph in (False, True):
+                label = f"window: {kind}, graph {'on' if graph else 'off'}"
+                server, streams[graph], run = _closed_loop(
+                    torch, mods, params, cfg, plist, probe, paged=True,
+                    graph=graph, config=_window_config(mods, **conf),
+                    label=label)
+                b = server.batcher
+                _drained_clean(server, label)
+                m = b.metrics
+                run.update(drafted=m.drafted, accepted=m.accepted,
+                           accept_rate=m.accept_rate,
+                           tokens_per_step=m.tokens_per_step,
+                           mixed_steps=m.mixed_steps,
+                           chunk_tokens=m.chunk_tokens,
+                           captures=dict(b.stepper.captures),
+                           window_shapes=sorted(b.stepper.window_shapes))
+                check(run["steps"][op]["n"] > 0, f"{label}: no {op} step ran")
+                if graph:
+                    check(b.stepper.captures[op] == 1 and
+                          b.stepper.captures["decode"] <= 1,
+                          f"{label}: captures {b.stepper.captures}")
+                    add(run)
+                    profile[op] = _profile_window(torch, b.stepper, op)
+                else:
+                    check(not any(b.stepper.captures.values()),
+                          f"{label}: a graph was captured")
+                runs[f"{kind}_{'graph' if graph else 'eager'}"] = run
+                del server, b
+                release(torch)
+            check(streams[True] == streams[False],
+                  f"window: {kind}: graph-on and graph-off streams differ")
+            probe.phase = None          # the plain side's prefills
+            runs[f"{kind}_cut"] = _near_tie_streams(
+                torch, mods, params, cfg, prompts, streams[True], want,
+                f"window: {kind} vs plain")
+
+        # (c) self-draft: the target drafts for itself
+        rng = np.random.default_rng(SEED + 5)
+        lengths = rng.integers(*SELF_PROMPT, SELF_REQUESTS)
+        sprompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int64)
+                    for n in lengths]
+        margins = []
+
+        def hook(server):
+            st = server.batcher.stepper
+            inner = st.verify
+
+            def verify(tokens, pos, tables, draft_lens, uids, counts):
+                tgt, n_acc = inner(tokens, pos, tables, draft_lens, uids,
+                                   counts)
+                for s in np.flatnonzero(draft_lens > n_acc):
+                    margins.append(_top2_margin(
+                        torch, st.last_logits[s, int(n_acc[s])]))
+                return tgt, n_acc
+            st.verify = verify
+
+        drafter = speculative.DraftModelDrafter(params, cfg, vocab=cfg.vocab)
+        propose = drafter.propose
+
+        def drafting(tokens, k):        # the rollout's own launches
+            probe.phase = "draft"
+            return propose(tokens, k)
+        drafter.propose = drafting
+        label = "window: self-draft"
+        server, _, run = _closed_loop(
+            torch, mods, params, cfg, sprompts, probe, paged=True, graph=True,
+            config=_window_config(mods, spec_k=SPEC_K), new=SELF_NEW,
+            label=label, drafter=drafter, on_server=hook)
+        _drained_clean(server, label)
+        m = server.metrics
+        run.update(drafted=m.drafted, accepted=m.accepted,
+                   accept_rate=m.accept_rate,
+                   tokens_per_step=m.tokens_per_step, rejected=len(margins),
+                   max_rejected_margin=max(margins, default=None))
+        largest = max(margins, default=float("nan"))
+        add(run)
+        runs["self_draft"] = run
+        del server, drafter
+        release(torch)
+        check(all(x < NEAR_TIE for x in margins), f"{label}: a draft was "
+              f"rejected at a top-2 margin of {largest:.3e}")
+        print(f"{label}: accept rate {m.accept_rate:.4f} ({m.accepted} of "
+              f"{m.drafted} drafts), {m.tokens_per_step:.4f} tokens per "
+              f"active slot-step; {len(margins)} rejected, every one at a "
+              f"top-2 margin below {NEAR_TIE:.1e} (largest {largest:.3e}); "
+              f"{card}",
+              flush=True)
+    seen = {k: v for k, v in probe.seen.items()
+            if k[-1] in ("verify", "mixed", "draft")}
+    ns = {op: sorted({k[3] for k in seen if k[-1] == op})
+          for op in ("verify", "mixed")}
+    check(SERVE_SLOTS * (SPEC_K + 1) in ns["verify"]
+          and SERVE_SLOTS * CHUNK_SIZE in ns["mixed"],
+          f"window: verify and mixed launches at N {ns}")
+    checked = _check_served_launches(torch, mods, seen, cfg, label="window")
+    print(f"window: {len(checked)} launch configurations of the verify and "
+          f"mixed steps and the self-draft rollout held against the plain "
+          f"versions", flush=True)
+
+    a, c, dec = runs["spec_graph"], runs["chunked_graph"], base
+    ratio = a["steps"]["verify"]["ms_per_step"] / dec["decode_ms_per_step"]
+    print(f"window: (a) spec_k {SPEC_K}, graphed: verify "
+          f"{a['steps']['verify']['ms_per_step']:.3f} ms/step (median "
+          f"{a['steps']['verify']['median_ms']:.3f}) against graphed decode "
+          f"{dec['decode_ms_per_step']:.3f} ms/step at {SERVE_SLOTS} slots "
+          f"({ratio:.3f}x);"
+          f" accept rate {a['accept_rate']:.4f}, "
+          f"{a['tokens_per_step']:.4f} tokens per active slot-step; "
+          f"{a['tokens_per_s']:.1f} tok/s spec on against "
+          f"{dec['tokens_per_s']:.1f} off (the step loop alone, captures "
+          f"left out: {a['step_tokens_per_s']:.1f} against "
+          f"{dec['step_tokens_per_s']:.1f}); {card}", flush=True)
+    print(f"window: (b) chunked {CHUNK_SIZE}/{CHUNK_BUDGET}, graphed: mixed "
+          f"{c['steps']['mixed']['ms_per_step']:.3f} ms/step (median "
+          f"{c['steps']['mixed']['median_ms']:.3f}) over "
+          f"{c['steps']['mixed']['n']} steps; TTFT p50/p99 "
+          f"{c['ttft']['p50'] * 1e3:.1f}/{c['ttft']['p99'] * 1e3:.1f} ms "
+          f"against bucketed {dec['ttft']['p50'] * 1e3:.1f}/"
+          f"{dec['ttft']['p99'] * 1e3:.1f}, TPOT p50/p99 "
+          f"{c['tpot']['p50'] * 1e3:.2f}/{c['tpot']['p99'] * 1e3:.2f} ms "
+          f"against {dec['tpot']['p50'] * 1e3:.2f}/"
+          f"{dec['tpot']['p99'] * 1e3:.2f}; {c['tokens_per_s']:.1f} tok/s; "
+          f"{card}", flush=True)
+    for op, r in profile.items():
+        if r["busy_share"] is None:
+            print(f"window: profile {op}: no device activity seen; the busy "
+                  "share is not measured", flush=True)
+            continue
+        print(f"window: profile graphed {op} step: "
+              f"{r['wall_ms_per_step']:.3f} ms/step wall under "
+              f"torch.profiler, device busy {r['busy_ms_per_step']:.3f} "
+              f"ms/step ({100 * r['busy_share']:.1f}%), LSCD kernels "
+              f"{r['lscd_ms_per_step']:.3f} ms/step; {card}", flush=True)
+        for ms, n, name in r["top"]:
+            print(f"window:   {op} {ms:8.3f} ms/step {n:4d}/step  {name}")
+    print(f"window: launches by call (graph replays counted) "
+          f"{json.dumps(launches)}", flush=True)
+    summary = dict(card=card, near_tie=NEAR_TIE, spec_k=SPEC_K,
+                   chunk_size=CHUNK_SIZE, chunk_budget=CHUNK_BUDGET,
+                   first_verify_logits=logits, runs=runs, profile=profile,
+                   verify_over_decode=ratio,
+                   launches_by_phase=launches, checked_launches=checked)
+    return summary, launches
 
 
 # The full-depth phase: OPT-30B at all 48 layers from a pool the planner
@@ -1528,7 +1929,7 @@ def main() -> int:
         from repro_torch.kernels import build, gemm, ops, ref, schedule, spmm
         from repro_torch.launch import serve
         from repro_torch.serving import (api, budget, engine, loadgen,
-                                         scheduler)
+                                         scheduler, speculative)
         from repro_torch.serving import config as serve_config
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -1538,7 +1939,8 @@ def main() -> int:
                 roofline=roofline, tiled_csl=tiled_csl, build=build, ops=ops,
                 ref=ref, schedule=schedule, spmm=spmm, gemm=gemm, serve=serve,
                 engine=engine, api=api, loadgen=loadgen, scheduler=scheduler,
-                serve_config=serve_config, budget=budget)
+                serve_config=serve_config, budget=budget,
+                speculative=speculative)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1572,9 +1974,13 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     rep, counts, built, prof, params, cfg = slice_phase(torch, mods)
     t0 = time.perf_counter()
-    serving, serve_phases = serving_phase(torch, mods, params, cfg)
+    serving, serve_phases, plain = serving_phase(torch, mods, params, cfg)
     serving["phase_s"] = time.perf_counter() - t0
     print(f"serving: phase took {serving['phase_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    window, window_phases = window_phase(torch, mods, params, cfg, plain)
+    window["phase_s"] = time.perf_counter() - t0
+    print(f"window: phase took {window['phase_s']:.1f} s", flush=True)
     rep.pop("params")
     del params
     release(torch)
@@ -1593,8 +1999,10 @@ def main() -> int:
                     for k in spmm.KERNELS}
     full_counts = full["serve"]["launches"]
     tiny_counts = tiny["serve"]["launches"]
-    launches = {k: counts[k] + serve_counts[k] + full_counts[k]
-                + tiny_counts[k] for k in spmm.KERNELS}
+    window_counts = {k: sum(window_phases[op][k] for op in STEP_OPS)
+                     for k in spmm.KERNELS}
+    launches = {k: counts[k] + serve_counts[k] + window_counts[k]
+                + full_counts[k] + tiny_counts[k] for k in spmm.KERNELS}
     launches["dense_gemm"] = gemm_launches
     for name in spmm.KERNELS + ("dense_gemm",):
         r = best[name]
@@ -1606,6 +2014,9 @@ def main() -> int:
             launches_serving=serve_counts.get(name, 0),
             launches_serving_prefill=serve_phases["prefill"].get(name, 0),
             launches_serving_decode=serve_phases["decode"].get(name, 0),
+            launches_window=window_counts.get(name, 0),
+            launches_window_verify=window_phases["verify"].get(name, 0),
+            launches_window_mixed=window_phases["mixed"].get(name, 0),
             launches_full_depth=full_counts.get(name, 0),
             launches_tinyllama=tiny_counts.get(name, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -1620,7 +2031,7 @@ def main() -> int:
     summary = dict(card=card, ptxas=ptxas, rows=rows, compare=compare,
                    sweep=sweep, rings=rings, kernels=kernels,
                    slice=slice_summary, profile=prof, serving=serving,
-                   full_depth=full, tinyllama=tiny)
+                   window=window, full_depth=full, tinyllama=tiny)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({"kernels": kernels}))

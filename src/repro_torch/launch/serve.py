@@ -16,18 +16,20 @@ requests per engine step.
 With ``--paged --hbm-budget-gb G`` (and no ``--n-blocks``) the block pool
 is sized by ``serving.budget.plan``: G GB less the weights (the sparse
 weight mode when ``--sparsity`` is given) and a workspace, in KV blocks.
-``--ttft-target-ms``/``--tpot-target-ms``/``--priority`` attach one
+``--spec-k K`` (with ``--paged``) verifies up to K drafts a step, from
+the request's own n-grams (``--drafter ngram``, ``--max-ngram``) or a
+smoke-sized draft model (``--drafter model``, ``--draft-arch``);
+``--chunked`` (with ``--paged``) streams prompts in ``--chunk-size``
+positions at a time through the mixed step, at most ``--chunk-budget`` a
+step. ``--ttft-target-ms``/``--tpot-target-ms``/``--priority`` attach one
 ``SLOSpec`` to every request; ``--fault-plan`` injects a saved
 ``serving.faults.FaultPlan``; ``--metrics-port``/``--digest-every``
 expose the scheduler's metrics (``obs.metrics``); ``--trace-out`` writes
 the run's trace as Chrome/Perfetto JSON (``obs.export``).
 
 The flags are those of ``repro.launch.serve`` but for the ones whose
-modules are not ported yet: ``--spec-k``, ``--drafter``,
-``--draft-arch``, ``--max-ngram``, ``--chunked``, ``--chunk-size`` and
-``--chunk-budget`` (speculation and chunked prefill, ROADMAP.md queue 1
-item 9), ``--profile-kernels`` (item 12), ``--ckpt`` and
-``--snapshot-dir`` (item 14).
+modules are not ported yet: ``--profile-kernels`` (ROADMAP.md queue 1
+item 12), ``--ckpt`` and ``--snapshot-dir`` (item 14).
 
 ``run`` serves one fixed batch through ``engine.generate`` instead (the
 slice that ``chip_smoke.py`` drives and profiles).
@@ -52,7 +54,8 @@ from repro_torch.models import transformer
 from repro_torch.obs import export as obs_export
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
-from repro_torch.serving import api, budget, engine, faults, loadgen
+from repro_torch.serving import (api, budget, engine, faults, loadgen,
+                                 speculative)
 from repro_torch.serving.config import SLOSpec, ServeConfig
 from repro_torch.serving.scheduler import latency_summary
 
@@ -223,6 +226,26 @@ def main(argv: Optional[Sequence[str]] = None, *,
                          "serving.budget.plan (weights + workspace + KV)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: drafts verified per step "
+                         "(DESIGN.md §11; requires --paged)")
+    ap.add_argument("--drafter", default="ngram", choices=("ngram", "model"),
+                    help="draft source: the request's own n-gram history, "
+                         "or a small draft model sharing the tokenizer")
+    ap.add_argument("--draft-arch", default=None,
+                    help="arch id for --drafter model (smoke-sized init)")
+    ap.add_argument("--max-ngram", type=int, default=3,
+                    help="longest suffix n-gram the ngram drafter matches")
+    ap.add_argument("--chunked", action="store_true",
+                    help="chunked prefill: stream prompts into their slots "
+                         "chunk-size positions per mixed step instead of "
+                         "bucketed whole-prompt admission (DESIGN.md §16; "
+                         "requires --paged)")
+    ap.add_argument("--chunk-size", type=int, default=16,
+                    help="prompt positions per prefill chunk (--chunked)")
+    ap.add_argument("--chunk-budget", type=int, default=32,
+                    help="max prefill positions granted per mixed step "
+                         "across all slots (--chunked)")
     ap.add_argument("--trace-rate", type=float, default=None, metavar="R",
                     help="open-loop mode: Poisson arrivals at R requests "
                          "per engine step (default: closed-loop drain)")
@@ -288,11 +311,26 @@ def main(argv: Optional[Sequence[str]] = None, *,
               f"{p.n_dense_slots(args.max_len)} slots at max_len)")
         config = dataclasses.replace(config, n_blocks=p.n_blocks).validate()
         rep["plan"] = p
+    dev = resolve_device(device)
+    drafter = None
+    if args.spec_k:
+        draft_params = draft_cfg = None
+        if args.drafter == "model":
+            draft_cfg = configs.smoke(args.draft_arch or args.arch)
+            draft_params = transformer.init_model(draft_cfg,
+                                                  seed=args.seed + 1,
+                                                  device=dev)
+        drafter = speculative.make_drafter(
+            args.drafter, max_ngram=args.max_ngram,
+            draft_params=draft_params, draft_cfg=draft_cfg,
+            vocab=cfg.vocab if args.drafter == "model" else None,
+            device=dev)
     plan = faults.FaultPlan.load(args.fault_plan) if args.fault_plan else None
     if plan is not None:
         print(f"fault plan: {len(plan)} events, "
               f"fingerprint {plan.fingerprint()[:12]}")
-    server = api.StreamingServer(params, cfg, config=config, fault_plan=plan)
+    server = api.StreamingServer(params, cfg, config=config, fault_plan=plan,
+                                 drafter=drafter)
     # Soft targets (or a priority class) promote the flat deadline flags
     # into one typed SLOSpec; without them the flat fields stay.
     slo = None
@@ -324,7 +362,6 @@ def main(argv: Optional[Sequence[str]] = None, *,
                 print("digest: " + registry.digest(obs_metrics.DIGEST_KEYS))
 
         threading.Thread(target=_digest_loop, daemon=True).start()
-    dev = resolve_device(device)
     _sync(dev)
     t0 = time.perf_counter()
     n_shed = 0
@@ -379,10 +416,19 @@ def main(argv: Optional[Sequence[str]] = None, *,
               f"preemptions={m.preemptions} "
               f"pool={b.pool.blocks_in_use}/{b.pool.n_blocks} in use, "
               f"peak {m.peak_blocks_in_use}")
+    if args.chunked:
+        print(f"chunked: mixed_steps={m.mixed_steps} "
+              f"chunk_tokens={m.chunk_tokens} "
+              f"compute_positions={m.compute_positions}")
     for tenant, c in sorted(m.slo_attainment.items()):
         print(f"slo[{tenant}]: ttft {c['ttft_ok']}/"
               f"{c['ttft_ok'] + c['ttft_miss']} met, "
               f"tpot {c['tpot_ok']}/{c['tpot_ok'] + c['tpot_miss']} met")
+    if args.spec_k:
+        print(f"speculative (k={args.spec_k}, {args.drafter}): "
+              f"drafted={m.drafted} accepted={m.accepted} "
+              f"accept_rate={m.accept_rate:.2f} "
+              f"tokens_per_step={m.tokens_per_step:.2f}")
     if plan is not None:
         frep = b.faults.report()
         print(f"faults: {frep['fired']}/{frep['plan_events']} events fired "

@@ -2,8 +2,11 @@
 
 The port's counterpart of the GQA path of ``repro.models.attention``:
 ``_project_qkv``, ``attention`` (prefill), ``attention_decode`` (dense
-cache, one position per row) and ``attention_decode_paged`` (a block pool
-read through per-request block tables). Projections go through
+cache, one position per row), ``attention_decode_paged`` (a block pool
+read through per-request block tables) and ``attention_verify_paged``
+(a window of W positions per row against the block pool, the cache write
+left to the caller: speculative verify and the chunked-prefill mixed
+step). Projections go through
 ``sparse_linear`` (dense or Tiled-CSL weights); the score and
 weighted-sum einsums stay plain PyTorch, as the reference leaves them to
 XLA. K/V are stored in bf16.
@@ -26,6 +29,8 @@ from repro_torch.models import nn, rope
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
+RING_NOT_PORTED = ("the sliding-window ring (ring_len) is not ported yet: "
+                   "ROADMAP.md queue 1 item 11")
 
 
 def init_attention(gen, cfg: ModelConfig, device, dtype=torch.float32) -> dict:
@@ -182,9 +187,9 @@ def _masked_decode_attend(q, ck, cv, pos_vec) -> torch.Tensor:
     return _attend(q, ck, cv, valid[:, None, :])
 
 
-def _decode_qkv(params, x, pos_vec, cfg: ModelConfig, backend: str):
+def _decode_qkv(params, x, positions, cfg: ModelConfig, backend: str):
+    """Projections with RoPE at ``positions [B, S]``."""
     q, k, v = _project_qkv(params, x, cfg, backend)
-    positions = pos_vec[:, None]
     return (rope.apply_rope(q, positions, cfg.rope_theta),
             rope.apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -197,7 +202,7 @@ def attention_decode(params: dict, x: torch.Tensor, cache: dict, pos,
     tensor: continuous batching decodes every slot at its own position).
     Writes K/V at ``pos`` and attends over positions [0, pos]."""
     pos_vec = _pos_vector(pos, x.shape[0], x.device)
-    q, k, v = _decode_qkv(params, x, pos_vec, cfg, backend)
+    q, k, v = _decode_qkv(params, x, pos_vec[:, None], cfg, backend)
     write_decode_token(cache["k"], k, pos_vec)
     write_decode_token(cache["v"], v, pos_vec)
     o = _masked_decode_attend(q, cache["k"], cache["v"], pos_vec)
@@ -218,7 +223,7 @@ def attention_decode_paged(params: dict, x: torch.Tensor, cache: dict,
     order being gather order."""
     B = x.shape[0]
     pos_vec = _pos_vector(pos, B, x.device)
-    q, k, v = _decode_qkv(params, x, pos_vec, cfg, backend)
+    q, k, v = _decode_qkv(params, x, pos_vec[:, None], cfg, backend)
     blk = cache["k"].shape[1]
     logical = torch.div(pos_vec, blk, rounding_mode="floor")
     phys = torch.gather(block_tables, 1, logical[:, None])[:, 0]
@@ -232,3 +237,57 @@ def attention_decode_paged(params: dict, x: torch.Tensor, cache: dict,
     y = sparse_linear.linear(params["wo"]["w"], o.to(x.dtype),
                              declared_out=cfg.d_model, backend=backend)
     return y, cache
+
+
+def verify_window_mask(pos_vec: torch.Tensor, W: int, T_old: int,
+                       ring_len: Optional[int] = None) -> torch.Tensor:
+    """[B, W, T_old + W] validity mask of a verify window whose query i
+    sits at absolute position ``pos_vec + i``. The first ``T_old`` columns
+    are the old cache gathered through the block tables before any
+    window write: valid strictly before the window (which also masks what
+    a rejected earlier window left at positions >= pos). The last W are
+    the window's own fresh keys: column j is valid for query i iff
+    j <= i. Per query that is exactly the set plain decode at pos + i
+    attends, so the masked softmax terms are exact zeros."""
+    if ring_len is not None:
+        raise NotImplementedError(RING_NOT_PORTED)
+    B, dev = pos_vec.shape[0], pos_vec.device
+    old = torch.arange(T_old, device=dev)[None, :] < pos_vec[:, None]
+    j = torch.arange(W, device=dev)
+    fresh = j[None, :] <= j[:, None]
+    return torch.cat([old[:, None, :].expand(B, W, T_old),
+                      fresh[None].expand(B, W, W)], dim=-1)
+
+
+def attention_verify_paged(params: dict, x: torch.Tensor, cache: dict,
+                           block_tables: torch.Tensor, pos,
+                           cfg: ModelConfig, *,
+                           ring_len: Optional[int] = None,
+                           backend: str = "auto"
+                           ) -> Tuple[torch.Tensor, dict]:
+    """A window of W positions per row against a paged block pool, with
+    the cache write left to the caller. ``x [B, W, d]``; ``pos`` is the
+    absolute position of window column 0 of each row. The old K/V is
+    gathered through the tables before anything is written, and the
+    window's fresh K/V rides as W extra masked columns, rounded to the
+    cache dtype as plain decode's write-then-gather rounds it. Returns
+    (y [B, W, d], fresh {"k"/"v": [B, W, kv, hd]} in the cache dtype);
+    the pool is left as it was (``transformer.commit_verify_window``
+    writes the accepted columns)."""
+    if ring_len is not None:
+        raise NotImplementedError(RING_NOT_PORTED)
+    B, W = x.shape[0], x.shape[1]
+    pos_vec = _pos_vector(pos, B, x.device)
+    positions = pos_vec[:, None] + torch.arange(W, device=x.device)[None, :]
+    q, k, v = _decode_qkv(params, x, positions, cfg, backend)
+    cdt = cache["k"].dtype
+    k, v = k.to(cdt), v.to(cdt)
+    kv_heads, hd = cache["k"].shape[-2], cache["k"].shape[-1]
+    kg = cache["k"][block_tables].reshape(B, -1, kv_heads, hd)
+    vg = cache["v"][block_tables].reshape(B, -1, kv_heads, hd)
+    valid = verify_window_mask(pos_vec, W, kg.shape[1])
+    o = _attend(q, torch.cat([kg, k], dim=1), torch.cat([vg, v], dim=1),
+                valid)
+    y = sparse_linear.linear(params["wo"]["w"], o.to(x.dtype),
+                             declared_out=cfg.d_model, backend=backend)
+    return y, {"k": k, "v": v}

@@ -9,10 +9,14 @@ modes share the block code:
   decode  — one token per row + cache (the paper's skinny-MatMul regime),
             each row at its own position, against the dense cache or a
             paged block pool
+  verify  — a window of W positions per row against a paged block pool,
+            the cache left unwritten (speculative verify and the mixed
+            prefill-chunk/decode step); returns each layer's fresh K/V
 
 The serving cache helpers (``scatter_cache_slots``,
-``scatter_cache_pages``, ``copy_cache_block``) write the cache they are
-given in place, where the reference returns a new one.
+``scatter_cache_pages``, ``copy_cache_block``, ``commit_verify_window``)
+write the cache they are given in place, where the reference returns a
+new one.
 """
 
 from __future__ import annotations
@@ -165,6 +169,40 @@ def scatter_cache_pages(cfg: ModelConfig, full: List[dict],
     return full
 
 
+def commit_verify_window(cfg: ModelConfig, cache: List[dict],
+                         fresh: List[dict], block_tables: torch.Tensor,
+                         pos_vec: torch.Tensor, commit: torch.Tensor,
+                         ring_len: Optional[int] = None) -> List[dict]:
+    """Write a verify window's fresh K/V (``forward(mode="verify")``'s
+    per-layer ``[B, W, ...]`` leaves) into the paged pools in place,
+    committing only where ``commit [B, W]`` is True. Window column j of
+    row b lands at cache position ``pos_vec[b] + j``; an uncommitted
+    column, or one past the table, is written to the trash block
+    (physical block 0, ``serving.paged_cache.TRASH_BLOCK``), so a rejected
+    draft never touches a real block and rollback is the write that never
+    happened. ``index_put_`` keeps the write capturable in a graph."""
+    if ring_len is not None:
+        raise NotImplementedError(attention.RING_NOT_PORTED)
+    blk = cache[0]["k"].shape[cache_slot_axis(cfg) + 1]
+    W = commit.shape[1]
+    slot = pos_vec[:, None] + torch.arange(W, device=pos_vec.device)[None]
+    logical = torch.div(slot, blk, rounding_mode="floor")
+    nblk = block_tables.shape[1]
+    ok = commit & (logical < nblk)          # beyond-table windows -> trash
+    phys = torch.gather(block_tables, 1, logical.clamp(max=nblk - 1))
+    phys = torch.where(ok, phys, torch.zeros_like(phys))  # TRASH_BLOCK
+    off = slot - logical * blk
+    for f, p in zip(_leaves(cache), _leaves(fresh)):
+        f.index_put_((phys, off), p.to(f.dtype))
+    return cache
+
+
+def cache_slot_axis(cfg: ModelConfig) -> int:
+    """Axis of the batch (decode-slot) dim in every cache leaf: 0, since
+    the port's layers are an unrolled list of [B, ...] leaves."""
+    return 0
+
+
 def copy_cache_block(cfg: ModelConfig, cache: List[dict], src: int,
                      dst: int) -> List[dict]:
     """Copy one physical pool block in every cache leaf (copy-on-write),
@@ -185,9 +223,13 @@ def _mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, backend: str):
 def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 positions=None, cache=None, pos=None, block_tables=None,
                 backend: str = "auto") -> Tuple[torch.Tensor, Optional[dict]]:
-    """Residual attention + MLP block. Returns (x, cache)."""
+    """Residual attention + MLP block. Returns (x, cache), or in verify
+    mode (x, the window's fresh {"k", "v"})."""
     h = _norm(cfg, p["pre_norm"], x)
-    if mode == "decode" and block_tables is not None:
+    if mode == "verify":
+        a, cache = attention.attention_verify_paged(
+            p["attn"], h, cache, block_tables, pos, cfg, backend=backend)
+    elif mode == "decode" and block_tables is not None:
         a, cache = attention.attention_decode_paged(
             p["attn"], h, cache, block_tables, pos, cfg, backend=backend)
     elif mode == "decode":
@@ -214,24 +256,32 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
     paged decode: ``cache`` is a block pool (``init_paged_cache``) and
     ``block_tables [B, blocks_per_seq]`` maps each row's logical blocks to
     physical ones; one table per request serves every layer.
+    verify: S == W window positions per row against the paged pool,
+    ``pos`` [B] each window's first position. The second result is not
+    the cache but each layer's fresh window K/V; the caller commits what
+    it accepts with ``commit_verify_window``.
     """
     _check_family(cfg)
-    if mode not in ("prefill", "decode"):
+    if mode not in ("prefill", "decode", "verify"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mode == "decode" and (cache is None or pos is None):
-        raise ValueError("decode needs a cache and pos")
+    if mode != "prefill" and (cache is None or pos is None):
+        raise ValueError(f"{mode} needs a cache and pos")
+    if mode == "verify" and block_tables is None:
+        raise ValueError("verify needs block_tables (the paged cache)")
     compute_dtype = getattr(torch, cfg.dtype)
     tokens = inputs["tokens"]
     x = layers.embed(params["embed"], tokens, compute_dtype)
     B, S = tokens.shape
     positions = inputs.get("positions")
-    if positions is None and mode != "decode":
+    if positions is None and mode == "prefill":
         positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    fresh = []
     for i, p in enumerate(params["layers"]):
         cache_l = cache[i] if cache is not None else None
-        x, cache_l = block_apply(p, x, cfg, mode=mode, positions=positions,
-                                 cache=cache_l, pos=pos,
-                                 block_tables=block_tables, backend=backend)
+        x, out_l = block_apply(p, x, cfg, mode=mode, positions=positions,
+                               cache=cache_l, pos=pos,
+                               block_tables=block_tables, backend=backend)
+        fresh.append(out_l)
     x = _norm(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:
         logits = layers.logits_head(None, params["embed"], x, vocab=cfg.vocab,
@@ -239,4 +289,4 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
     else:
         logits = layers.logits_head(params["lm_head"], None, x,
                                     vocab=cfg.vocab, backend=backend)
-    return logits, cache
+    return logits, (fresh if mode == "verify" else cache)

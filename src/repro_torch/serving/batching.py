@@ -10,11 +10,12 @@ The loop itself lives in two modules:
 
 * ``serving/scheduler.py`` — the scheduling-policy core (a copy of the
   reference's): bucketed FIFO admission, block-availability gating,
-  preemption, cancellation, deadlines, degradation, metrics. Pure host
-  state machine; plans work, commits results, never touches a tensor.
+  preemption, speculative staging, chunk grants, cancellation,
+  deadlines, degradation, metrics. Pure host state machine; plans work,
+  commits results, never touches a tensor.
 * ``serving/step.py`` — the device layer: params, K/V cache, and the
-  prefill / decode entry points that execute those plans, the decode
-  step as a captured CUDA graph on a card.
+  prefill / decode / verify / mixed entry points that execute those
+  plans, each fixed-shape step a captured CUDA graph on a card.
 
 :class:`ContinuousBatcher` composes the two behind the reference's
 interface (submit / step / run_to_completion, plus ``slots``, ``queue``,
@@ -38,8 +39,14 @@ preempted and re-queued (recompute resume: its prompt+generated tokens
 re-prefill on re-admission, which regenerates an identical stream for
 greedy and for the per-slot folded sampling draws alike).
 
-Not ported yet (ROADMAP.md queue 1 item 9): speculative decoding
-(``spec_k > 0``) and chunked prefill raise at construction.
+Speculative decoding (``spec_k > 0``, DESIGN.md §11, paged cache only):
+each step the drafter proposes up to ``spec_k`` tokens per slot, one
+verify window scores all k+1 positions, and the slot advances by 1 +
+the accepted drafts; with no drafts anywhere the step is plain decode.
+Chunked prefill (``chunked_prefill``, DESIGN.md §16, paged only):
+admission maps blocks and assigns slots without a launch, and prompts
+stream in ``chunk_size`` positions at a time through the mixed step,
+beside the decoding slots.
 """
 
 from __future__ import annotations
@@ -48,15 +55,17 @@ import time
 import warnings
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
+
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import Tracer, get_tracer
-from repro_torch.serving import engine, faults
+from repro_torch.serving import engine, faults, speculative
 from repro_torch.serving.config import ServeConfig, SLOSpec
 from repro_torch.serving.scheduler import (DegradationPolicy,  # noqa: F401
                                            Request, Scheduler,
                                            SchedulerMetrics)
-from repro_torch.serving.step import NOT_PORTED, DeviceStepper
+from repro_torch.serving.step import DeviceStepper
 
 
 class ContinuousBatcher:
@@ -74,6 +83,14 @@ class ContinuousBatcher:
     ``temperature`` / ``top_k`` / ``seed`` select per-slot sampling (0.0 =
     exact greedy, the default).
 
+    ``spec_k > 0`` turns on speculative decoding (paged cache only —
+    rollback rides the block machinery): each step the ``drafter``
+    (default ``speculative.NgramDrafter``) proposes up to ``spec_k``
+    tokens per slot from the slot's own history, one verify window
+    scores all k+1 positions, and the slot advances by 1 + the accepted
+    drafts. Greedy and sampled streams are the non-speculative ones: the
+    verify columns draw with the same (uid, token index) folds.
+
     ``clock`` injects the clock of the per-request latency stamps
     (default ``time.monotonic``; ``serving.loadgen.StepClock`` makes
     replayed traces deterministic). ``graph`` is the stepper's (the decode
@@ -86,6 +103,7 @@ class ContinuousBatcher:
 
     def __init__(self, params, cfg: ModelConfig, *,
                  config: Optional[ServeConfig] = None,
+                 drafter=None,
                  clock: Optional[Callable[[], float]] = None,
                  fault_plan=None, degradation=None,
                  tracer: Optional[Tracer] = None,
@@ -102,10 +120,6 @@ class ContinuousBatcher:
                             f"kwargs, not both: {sorted(legacy)}")
         config.validate()
         sc = config.scheduler
-        if config.spec_k:
-            raise NotImplementedError(NOT_PORTED.format("spec_k > 0"))
-        if sc.chunked_prefill:
-            raise NotImplementedError(NOT_PORTED.format("chunked_prefill"))
         self.config = config
         self.params = params
         self.cfg = cfg
@@ -122,6 +136,17 @@ class ContinuousBatcher:
         # The port serves pure-attention stacks only
         # (transformer._check_family), where bucket padding is exact.
         buckets = engine.length_buckets(sc.max_len, sc.min_bucket)
+        self.spec_k = int(config.spec_k)
+        self.drafter = drafter
+        self.chunked = bool(sc.chunked_prefill)
+        if self.spec_k:
+            if not self.paged:
+                raise ValueError(
+                    "speculative decoding (spec_k > 0) requires "
+                    "cache_kind='paged': rejected-window rollback rides "
+                    "the block machinery (DESIGN.md §11)")
+            if self.drafter is None:
+                self.drafter = speculative.NgramDrafter()
         n_blocks = config.n_blocks
         if self.paged:
             self.block_size = config.block_size
@@ -146,8 +171,10 @@ class ContinuousBatcher:
             max_blocks=self.max_blocks if self.paged else 0,
             reserve_blocks=sc.reserve_blocks,
             prefix_sharing=config.prefix_sharing,
-            request_history=sc.request_history,
-            sampled=self.temperature != 0.0,
+            request_history=sc.request_history, spec_k=self.spec_k,
+            drafter=self.drafter, sampled=self.temperature != 0.0,
+            chunked=self.chunked, chunk_size=sc.chunk_size,
+            chunk_budget=sc.chunk_budget,
             clock=clock, degradation=degradation, tracer=self.tracer)
         self.stepper = DeviceStepper(
             params, cfg, n_slots=sc.n_slots, max_len=sc.max_len,
@@ -156,8 +183,9 @@ class ContinuousBatcher:
                              if self.paged else None),
             block_size=config.block_size,
             temperature=config.temperature, top_k=config.top_k,
-            seed=config.seed, faults=self.faults, tracer=self.tracer,
-            graph=graph)
+            seed=config.seed, spec_k=self.spec_k,
+            chunk_size=sc.chunk_size if self.chunked else 0,
+            faults=self.faults, tracer=self.tracer, graph=graph)
 
     # -- delegation: the reference's introspection surface ------------------
     @property
@@ -260,10 +288,10 @@ class ContinuousBatcher:
                 delay *= 2.0
 
     def step(self) -> Dict[int, List[int]]:
-        """Admit + decode one token for all active slots. Returns finished
-        — which under fault injection may include sessions ended by
-        deadline expiry or slot quarantine, each with its explicit
-        ``finish_reason``."""
+        """Admit + decode one token for all active slots (1 + accepted
+        drafts with ``spec_k``). Returns finished — which under fault
+        injection may include sessions ended by deadline expiry or slot
+        quarantine, each with its explicit ``finish_reason``."""
         sched = self.sched
         m = sched.metrics
         finished: Dict[int, List[int]] = {}
@@ -282,22 +310,35 @@ class ContinuousBatcher:
         sched.expire_deadlines(finished)
         sched.update_degradation()
         t0 = time.monotonic()
-        while not sched.shedding:
-            plan = sched.plan_admission()
-            if plan is None:
-                break
-            logits = self._launch(
-                "prefill", lambda: self.stepper.prefill(
-                    plan.tokens, plan.write_targets(), plan.lens))
-            m.compute_positions += plan.tokens.size
-            nxt, ok = self.stepper.sample_admitted(logits, plan.uids,
-                                                   plan.counts)
-            sched.commit_admission(plan, nxt, finished, ok=ok)
+        if self.chunked:
+            # admission is slot assignment + block mapping only — the
+            # prompt K/V streams in through the mixed step's chunks below
+            if not sched.shedding:
+                sched.admit_chunked()
+        else:
+            while not sched.shedding:
+                plan = sched.plan_admission()
+                if plan is None:
+                    break
+                logits = self._launch(
+                    "prefill", lambda: self.stepper.prefill(
+                        plan.tokens, plan.write_targets(), plan.lens))
+                m.compute_positions += plan.tokens.size
+                nxt, ok = self.stepper.sample_admitted(logits, plan.uids,
+                                                       plan.counts)
+                sched.commit_admission(plan, nxt, finished, ok=ok)
         m.admit_time_s += time.monotonic() - t0
+        staged: Dict[int, np.ndarray] = {}
+        mixed_plan = None
         if self.paged:
             # Growth / copy-on-write / preemption happen before the step,
-            # so the decode sees fully-valid tables.
-            copies = sched.prepare_decode()
+            # so the launch sees fully-valid tables.
+            if self.chunked:
+                mixed_plan, copies = sched.stage_mixed()
+            elif self.spec_k and sched.effective_spec_k:
+                staged, copies = sched.stage_spec()
+            else:
+                copies = sched.prepare_decode()
             self.stepper.apply_copies(copies)
             m.blocks_in_use = sched.pool.blocks_in_use
             m.peak_blocks_in_use = max(m.peak_blocks_in_use, m.blocks_in_use)
@@ -310,17 +351,30 @@ class ContinuousBatcher:
             self._trace_step_end(m, 0, len(finished))
             return finished
         t0 = time.monotonic()
-        uids, counts = sched.decode_folds(active)
-        nxt, ok = self._launch("decode", lambda: self.stepper.decode(
-            sched.last_token, sched.pos,
-            sched.table_arr if self.paged else None, uids, counts))
-        m.compute_positions += self.n_slots
-        good = [s for s in active if ok[s]]
-        for s in active:
-            if not ok[s]:                        # non-finite logits: contain
-                sched.quarantine_slot(s, finished)
-        if good:
-            sched.commit_decode(good, nxt, finished)
+        if mixed_plan is not None and mixed_plan.chunks:
+            self._mixed(mixed_plan, finished)
+        elif self.spec_k and any(len(staged.get(s, ())) for s in active):
+            vb = sched.build_verify(active, staged)
+            tgt, n_acc = self._launch("verify", lambda: self.stepper.verify(
+                vb.tokens, sched.pos, sched.table_arr, vb.draft_lens,
+                vb.uids, vb.counts))
+            m.compute_positions += vb.tokens.size
+            sched.commit_verify(active, tgt, n_acc, finished)
+        else:
+            # No drafts anywhere (or spec off), no chunk granted: ordinary
+            # one-token decode, at window width 1 instead of a wasted
+            # (k+1)-wide verify.
+            uids, counts = sched.decode_folds(active)
+            nxt, ok = self._launch("decode", lambda: self.stepper.decode(
+                sched.last_token, sched.pos,
+                sched.table_arr if self.paged else None, uids, counts))
+            m.compute_positions += self.n_slots
+            good = [s for s in active if ok[s]]
+            for s in active:
+                if not ok[s]:                    # non-finite logits: contain
+                    sched.quarantine_slot(s, finished)
+            if good:
+                sched.commit_decode(good, nxt, finished)
         m.decode_time_s += time.monotonic() - t0
         if self.paged:
             # refresh after completions freed their tables (the pre-decode
@@ -328,6 +382,31 @@ class ContinuousBatcher:
             m.blocks_in_use = sched.pool.blocks_in_use
         self._trace_step_end(m, len(active), len(finished))
         return finished
+
+    def _mixed(self, plan, finished: Dict[int, List[int]]) -> None:
+        """Run one mixed prefill-chunk + decode launch and commit it: the
+        decode slots' tokens, then the granted chunks (a slot whose last
+        chunk went in takes its first token)."""
+        sched = self.sched
+        m = sched.metrics
+        tok, ok = self._launch("mixed", lambda: self.stepper.mixed(
+            plan.tokens, sched.pos, sched.table_arr, plan.n_tokens,
+            plan.uids, plan.counts))
+        m.compute_positions += plan.tokens.size
+        m.mixed_steps += 1
+        tr = self.tracer
+        if tr.enabled:
+            # paired with the mixed_steps counter (obs pass OB-EVENT)
+            tr.event("sched", "chunk", "scheduler", slots=len(plan.chunks),
+                     tokens=int(sum(plan.chunks.values())))
+        for s in plan.decode_slots + list(plan.chunks):
+            if not ok[s]:                        # non-finite logits: contain
+                sched.quarantine_slot(s, finished)
+        good = [s for s in plan.decode_slots if ok[s]]
+        if good:
+            sched.commit_decode(good, tok, finished)
+        sched.commit_chunks({s: n for s, n in plan.chunks.items() if ok[s]},
+                            tok, finished)
 
     def _trace_step_end(self, m, n_active: int, n_finished: int) -> None:
         """Per-step engine 'tick' event — the timeline's heartbeat (fault

@@ -2,12 +2,12 @@
 
 The port's counterpart of ``repro.serving.engine`` (``prefill``,
 ``length_buckets``/``bucket_for``, ``prefill_into_slots``,
-``prefill_into_pages``, ``serve_step``, ``sample_per_slot``,
-``generate``). The same engine runs dense
-weights (``torch.matmul``) or Tiled-CSL weights (the LSCD kernels): the
-dispatch happens per weight inside ``sparse_linear.linear``. Everything
-runs on the device of the params; the KV cache lives there too and is
-updated in place.
+``prefill_into_pages``, ``serve_step``, ``verify_step``,
+``prefill_chunk_into_pages``, ``sample_per_slot``, ``generate``). The
+same engine runs dense weights (``torch.matmul``) or Tiled-CSL weights
+(the LSCD kernels): the dispatch happens per weight inside
+``sparse_linear.linear``. Everything runs on the device of the params;
+the KV cache lives there too and is updated in place.
 
 Sampling: greedy decoding is exact and token-identical to the reference.
 Temperature sampling (``sample_per_slot``) is Gumbel-max over noise
@@ -27,7 +27,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.device import device_of
-from repro_torch.models import transformer
+from repro_torch.models import attention, transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -125,6 +125,95 @@ def serve_step(params, cache, token: torch.Tensor, pos,
                                         mode="decode", cache=cache, pos=pos,
                                         backend=backend)
     return logits[:, -1], cache
+
+
+def accept_drafts(logits: torch.Tensor, tokens: torch.Tensor,
+                  draft_lens: torch.Tensor, uids: Optional[torch.Tensor],
+                  counts: Optional[torch.Tensor], *,
+                  temperature: float = 0.0, top_k: int = 0, seed: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The target's token after each window prefix and the accepted draft
+    count of a verify window (logits [B, W, V], tokens [B, W]). Column j
+    draws as the non-speculative loop draws token index ``counts + j``
+    (argmax when greedy), so speculation leaves the streams as they
+    were. ``n_accept`` is the length of the prefix of drafts that match,
+    capped at each row's ``draft_lens``: a cumulative product on the
+    device, with no host read."""
+    B, W = tokens.shape
+    if temperature == 0.0:
+        tgt = torch.argmax(logits, dim=-1)
+    else:
+        cols = torch.arange(W, device=tokens.device)
+        tgt = sample_per_slot(
+            logits.reshape(B * W, -1), uids[:, None].expand(B, W).reshape(-1),
+            (counts[:, None] + cols[None, :]).reshape(-1),
+            temperature=temperature, top_k=top_k, seed=seed).reshape(B, W)
+    steps = torch.arange(W - 1, device=tokens.device)
+    match = (tokens[:, 1:] == tgt[:, :-1]) & (steps[None, :]
+                                              < draft_lens[:, None])
+    n_accept = torch.cumprod(match.to(torch.int64), dim=1).sum(dim=1)
+    return tgt, n_accept
+
+
+def verify_step(params, cache, tokens: torch.Tensor, pos_vec: torch.Tensor,
+                tables: torch.Tensor, draft_lens: torch.Tensor,
+                uids: Optional[torch.Tensor], counts: Optional[torch.Tensor],
+                cfg: ModelConfig, *, ring_len: Optional[int] = None,
+                temperature: float = 0.0, top_k: int = 0, seed: int = 0,
+                backend: str = "auto"
+                ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+    """Speculative verification: score W = k+1 candidate positions per
+    slot in one forward over the paged cache, accept the longest matching
+    draft prefix, and commit only the accepted positions' K/V.
+
+    tokens [B, W]: column 0 is each slot's committed last token, the rest
+    its drafts (right-padded past ``draft_lens [B]``); ``pos_vec [B]`` is
+    column 0's absolute position; ``tables [B, blocks_per_seq]``.
+    Returns (tgt [B, W], n_accept [B], cache): the slot emits
+    ``tgt[:, :a+1]`` (its a accepted drafts and the bonus token) and moves
+    to ``pos + a + 1``; rejected positions go to the trash block."""
+    if ring_len is not None:
+        raise NotImplementedError(attention.RING_NOT_PORTED)
+    W = tokens.shape[1]
+    logits, fresh = transformer.forward(
+        params, {"tokens": tokens}, cfg, mode="verify", cache=cache,
+        pos=pos_vec, block_tables=tables, backend=backend)
+    tgt, n_accept = accept_drafts(logits, tokens, draft_lens, uids, counts,
+                                  temperature=temperature, top_k=top_k,
+                                  seed=seed)
+    commit = (torch.arange(W, device=tokens.device)[None, :]
+              <= n_accept[:, None])
+    transformer.commit_verify_window(cfg, cache, fresh, tables, pos_vec,
+                                     commit)
+    return tgt, n_accept, cache
+
+
+def prefill_chunk_into_pages(params, cache, tokens: torch.Tensor,
+                             pos_vec: torch.Tensor, tables: torch.Tensor,
+                             n_tokens: torch.Tensor, cfg: ModelConfig, *,
+                             ring_len: Optional[int] = None,
+                             backend: str = "auto"
+                             ) -> Tuple[torch.Tensor, Any]:
+    """The mixed prefill-chunk/decode step over the paged cache: a
+    prefill chunk is a fully accepted verify window. ``tokens [B, W]``
+    holds a chunk slot's next ``n_tokens[b]`` prompt tokens (positions
+    ``pos_vec[b]`` on), a decode slot's last token in column 0
+    (``n_tokens[b] = 1``), an idle slot padding (``n_tokens[b] = 0``);
+    every real column's K/V is committed, padding goes to the trash
+    block. Returns (last [B, V], cache): the logits after each row's last
+    real column (meaningless for idle and mid-prompt rows). Every weight
+    product runs at N = B * W for the weight traffic of one step."""
+    if ring_len is not None:
+        raise NotImplementedError(attention.RING_NOT_PORTED)
+    B, W = tokens.shape
+    logits, fresh = transformer.forward(
+        params, {"tokens": tokens}, cfg, mode="verify", cache=cache,
+        pos=pos_vec, block_tables=tables, backend=backend)
+    cols = torch.arange(W, device=tokens.device)
+    transformer.commit_verify_window(cfg, cache, fresh, tables, pos_vec,
+                                     cols[None, :] < n_tokens[:, None])
+    idx = (n_tokens.to(torch.int64) - 1).clamp(min=0)
+    return logits[torch.arange(B, device=tokens.device), idx], cache
 
 
 # splitmix64's multipliers and increment, as signed 64-bit integers.

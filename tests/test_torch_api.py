@@ -361,3 +361,34 @@ def test_snapshot_and_restore_are_not_ported(model):
         server.snapshot("unused")
     with pytest.raises(NotImplementedError, match="queue 1 item 14"):
         api.StreamingServer.restore("unused", pparams, pcfg)
+
+
+def test_drafter_reaches_the_batcher_like_reference(model):
+    """``StreamingServer(drafter=...)`` hands the drafter to its batcher
+    and scheduler, which draft with it; the sessions' streams and the
+    speculative counters match the reference's server given the
+    reference's drafter."""
+    from repro.serving import speculative as ref_speculative
+    from repro_torch.serving import speculative
+    rcfg, jparams, pcfg, pparams = model
+    rng = np.random.default_rng(12)
+    prompts = [np.tile(rng.integers(0, pcfg.vocab, 3).astype(np.int64), 4)
+               for _ in range(3)]
+    seen = {}
+    for name, mods, params, cfg, drafter in (
+            ("port", PORT, pparams, pcfg, speculative.NgramDrafter(2)),
+            ("ref", REF, jparams, rcfg, ref_speculative.NgramDrafter(2))):
+        server = _server(mods, params, cfg, spec_k=3, drafter=drafter)
+        assert server.batcher.drafter is drafter
+        assert server.batcher.sched.drafter is drafter
+        for i, p in enumerate(prompts):
+            server.submit(mods[0].GenerationRequest(p, 8, session_id=f"s{i}"))
+        out = {r.session_id: r.tokens for r in server.run_until_drained()}
+        m = server.metrics
+        seen[name] = (out, (m.drafted, m.accepted, m.steps),
+                      _clean(server))
+    assert seen["port"][1][0] > 0
+    if not assert_streams_agree(
+            pparams, pcfg, {f"s{i}": p for i, p in enumerate(prompts)},
+            seen["port"][0], seen["ref"][0]):
+        assert seen["port"][1:] == seen["ref"][1:]

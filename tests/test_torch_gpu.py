@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, and the serving
-stepper's decode step as a CUDA graph against its eager run, on the card.
+stepper's decode, verify and mixed steps as CUDA graphs against their
+eager runs, on the card.
 
 Marked ``gpu``: each test skips where no CUDA device is present (the CPU
 tier-1 run) and runs on the card with
@@ -425,10 +426,11 @@ def test_decode_body_refuses_unaligned_words(cuda):
 # the serving stepper's decode step as a CUDA graph
 # ---------------------------------------------------------------------------
 
-def _stepper_pair(dev, paged, temperature=0.0):
+def _stepper_pair(dev, paged, temperature=0.0, **extra):
     """Two steppers over one sparse smoke model (OPT-30B smoke, 0.8), one
     graphed and one eager, each with one prompt prefilled into every
-    slot (dense) or every slot's own blocks (paged)."""
+    slot (dense) or every slot's own blocks (paged). ``extra`` goes to
+    both steppers (``spec_k``, ``chunk_size``)."""
     cfg = configs.smoke("opt_30b")
     params, _ = serve.build(cfg, seed=0, sparsity=0.8, device=dev)
     n_slots, max_len, block = 4, 32, 8
@@ -436,7 +438,7 @@ def _stepper_pair(dev, paged, temperature=0.0):
     tokens = rng.integers(0, cfg.vocab, (n_slots, 8))
     lens = np.array([8, 5, 7, 3])
     kw = dict(n_slots=n_slots, max_len=max_len, temperature=temperature,
-              top_k=8 if temperature else 0, seed=3)
+              top_k=8 if temperature else 0, seed=3, **extra)
     tables = None
     if paged:
         kw.update(physical_blocks=1 + n_slots * (max_len // block),
@@ -509,11 +511,103 @@ def test_failed_capture_raises_and_never_falls_back(cuda):
     before = spmm.launch_counts()
     with pytest.raises(RuntimeError):
         graphed.decode(first, lens, None, None, None)
-    assert graphed._graph is None
+    assert "decode" not in graphed._graphs and not graphed.captures["decode"]
     after = spmm.launch_counts()
     # only the eager warm-up's launches remain counted
     assert all(after[k] >= before[k] for k in spmm.KERNELS)
     torch.cuda.synchronize()
+
+
+def _paged_leaves(st):
+    """The stepper's pool leaves without the trash block (block 0), whose
+    bytes are never read unmasked and may differ where several rejected
+    columns write one trash position."""
+    return [layer[n][1:] for layer in st.cache for n in ("k", "v")]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_graphed_verify_and_mixed_equal_eager(cuda, temperature):
+    """Three verify windows (drafts of 3, 2, 1 and 0 tokens) and two mixed
+    steps (a decode slot, a full and a partial chunk, an idle slot): the
+    replayed graphs give the eager steps' tokens and accept counts, leave
+    bit-identical real blocks, are captured once each, and count their
+    launches at every replay."""
+    (graphed, eager), first, lens, tables = _stepper_pair(
+        cuda, True, temperature, spec_k=3, chunk_size=4)
+    vocab = graphed.cfg.vocab
+    rng = np.random.default_rng(1)
+    uids, pos, last = np.arange(4), lens.copy(), first
+    for i in range(3):
+        tokens = np.concatenate(
+            [last[:, None], rng.integers(0, vocab, (4, 3))], axis=1)
+        dl = np.array([3, 2, 1, 0])
+        spmm.reset_launch_counts()
+        outs = [st.verify(tokens, pos, tables, dl, uids, np.full(4, i))
+                for st in (graphed, eager)]
+        assert np.array_equal(outs[0][0], outs[1][0])
+        assert np.array_equal(outs[0][1], outs[1][1])
+        if i:           # a replay counts what an eager step counts
+            per = graphed.graph_launches_of("verify")
+            assert per and spmm.launch_counts() == {
+                k: 2 * per.get(k, 0) for k in spmm.KERNELS}
+        tgt, n_acc = outs[0]
+        last, pos = tgt[np.arange(4), n_acc], pos + n_acc + 1
+    for i in range(2):
+        n_tok = np.array([1, 4, 2, 0])
+        tokens = rng.integers(0, vocab, (4, 4))
+        tokens[:, 0] = np.where(n_tok == 1, last, tokens[:, 0])
+        tokens[np.arange(4)[None, :] >= n_tok[:, None]] = 0
+        outs = [st.mixed(tokens, pos, tables, n_tok, uids, np.full(4, 9 + i))
+                for st in (graphed, eager)]
+        assert np.array_equal(outs[0][0], outs[1][0])
+        assert outs[0][1].all() and outs[1][1].all()
+        last, pos = outs[0][0], pos + n_tok
+    for a, b in zip(_paged_leaves(graphed), _paged_leaves(eager)):
+        assert torch.equal(a, b)
+    assert graphed.captures == {"decode": 0, "verify": 1, "mixed": 1}
+    assert not any(eager.captures.values())
+
+
+def test_commit_verify_window_on_card_leaves_rejected_blocks():
+    """``commit_verify_window`` on the card writes the committed columns'
+    K/V and leaves every other position of every real block
+    bit-identical; a window running past its table goes to the trash."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    cfg = configs.smoke("opt_30b")
+    n_phys, block, W = 13, 4, 4
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    cache = [{n: torch.randn((n_phys, block, cfg.n_kv, cfg.head_dim),
+                             generator=gen, device=dev).to(torch.bfloat16)
+              for n in ("k", "v")} for _ in range(cfg.n_layers)]
+    fresh = [{n: torch.randn((3, W, cfg.n_kv, cfg.head_dim), generator=gen,
+                             device=dev).to(torch.bfloat16)
+              for n in ("k", "v")} for _ in range(cfg.n_layers)]
+    before = [{n: t.clone() for n, t in layer.items()} for layer in cache]
+    tables = (1 + torch.arange(12, device=dev)).reshape(3, 4)
+    pos = torch.tensor([5, 2, 13], device=dev)
+    commit = torch.tensor([[1, 1, 1, 1], [1, 1, 0, 0], [1, 1, 1, 1]],
+                          dtype=torch.bool, device=dev)
+    transformer.commit_verify_window(cfg, cache, fresh, tables, pos, commit)
+    torch.cuda.synchronize()
+    keep = torch.ones((n_phys, block), dtype=torch.bool)
+    keep[0] = False
+    for b in range(3):
+        for j in range(W):
+            p = int(pos[b]) + j
+            if commit[b, j] and p // block < 4:
+                phys, off = int(tables[b, p // block]), p % block
+                keep[phys, off] = False
+                for layer, fr in zip(cache, fresh):
+                    for n in ("k", "v"):
+                        assert torch.equal(layer[n][phys, off], fr[n][b, j])
+    assert int((~keep[1:]).sum()) == 4 + 2 + 3      # slot 2: 13..15 only
+    keep = keep.to(dev)
+    for layer, old in zip(cache, before):
+        for n in ("k", "v"):
+            assert torch.equal(layer[n][keep], old[n][keep])
 
 
 # ---------------------------------------------------------------------------

@@ -55,7 +55,7 @@ def test_no_jax_or_reference_imports(path):
 def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "spmm.py", "ops.py", "engine.py",
-            "serve.py"} <= names
+            "serve.py", "speculative.py"} <= names
 
 
 def _no_cuda(monkeypatch):

@@ -4,8 +4,8 @@ against the reference's, on the smoke configs of OPT-30B and TinyLlama
 ``test_serving.py``: mixed prompt lengths over two buckets, slot reuse,
 EOS and ``max_len`` truncation. Greedy streams agree under the near-tie
 rule of ``torch_serving_parity``. Also the engine's bucket helpers, the
-per-slot sampler, the stepper's graph refusal on the CPU and the
-not-ported paths.
+per-slot sampler, the stepper's graph refusal on the CPU and the paths
+still not ported.
 """
 
 import numpy as np
@@ -14,6 +14,7 @@ import torch
 
 from repro.serving import batching as ref_batching
 from repro.serving import engine as ref_engine
+from repro_torch.models import attention
 from repro_torch.serving import batching, config, engine, step
 from torch_serving_parity import assert_streams_agree, f32_models, prompts_of
 
@@ -146,6 +147,10 @@ def test_sample_per_slot_is_a_function_of_seed_uid_and_index():
 
 
 def test_graph_refused_on_cpu_and_unported_paths_raise():
+    """The graph is refused for params on the CPU. Of queue 1 item 9 what
+    the port leaves out raises: the sliding-window ring (item 11); and
+    the verify and mixed steps need the paged cache, as the reference
+    asks."""
     _, _, pcfg, pparams = f32_models("opt_30b", None)
     with pytest.raises(ValueError, match="CUDA"):
         step.DeviceStepper(pparams, pcfg, n_slots=2, max_len=16, graph=True)
@@ -154,19 +159,18 @@ def test_graph_refused_on_cpu_and_unported_paths_raise():
                                    graph=True)
     assert not step.DeviceStepper(pparams, pcfg, n_slots=2,
                                   max_len=16).graph
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(ValueError, match="paged"):
         batching.ContinuousBatcher(pparams, pcfg, config=config.ServeConfig(
             scheduler=config.SchedulerConfig(n_slots=2, max_len=16),
-            cache_kind="paged", spec_k=2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        batching.ContinuousBatcher(pparams, pcfg, config=config.ServeConfig(
-            scheduler=config.SchedulerConfig(n_slots=2, max_len=16,
-                                             chunked_prefill=True),
-            cache_kind="paged"))
-    st = step.DeviceStepper(pparams, pcfg, n_slots=2, max_len=16)
-    for fn in (st.verify, st.mixed):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            fn()
+            spec_k=2))
+    with pytest.raises(ValueError, match="paged"):
+        step.DeviceStepper(pparams, pcfg, n_slots=2, max_len=16, spec_k=2)
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        attention.verify_window_mask(torch.zeros(2, dtype=torch.long), 3, 8,
+                                     ring_len=4)
+    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
+        engine.verify_step(pparams, None, None, None, None, None, None,
+                           None, pcfg, ring_len=4)
 
 
 @pytest.mark.parametrize("extra", [[], ["--paged", "--trace-rate", "0.5"]])
