@@ -89,10 +89,31 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    the grouped ``gate_up`` ``silu_mul`` launch on a served path, every
    launch configuration against its plain version, and the first decode
    step against the plain path;
-8. prints the kernels' JSON line (launches of the slice, the serving
-   runs, the window runs, the full-depth run and the tinyllama run, the
-   serving ones also by prefill and decode, the window ones also by
-   verify and mixed), the card line, and last
+8. MLA phase: minicpm3_4b (Multi-head Latent Attention). First one
+   layer at full width with every factor (w_dq 768x2560, w_uq 3840x768,
+   w_dkv 288 rows padded to 384 x 2560, w_ukv 5120x256, wo and the MLP)
+   in Tiled-CSL against the same layer on the plain versions: prefill
+   (N = 1024), decode at a 0-d and a per-slot position, paged decode
+   (N = 32) and a verify window of 4 (N = 128), and w_ukv (which the
+   absorbed steps decode rather than launch) at N = 32 directly, then
+   every launch configuration held against its plain version and timed.
+   Then
+   the full 62 layers built layer by layer (``serve.build``: wo and the
+   MLP in Tiled-CSL, the latent factors dense), built against planned
+   bytes and the planner's blocks at 80 GB, first-step logits against
+   the plain path at 4 and 62 layers (``depth_logits_tol``), and 32
+   requests (128-768 prompt tokens, 64 greedy new tokens) over 32 slots
+   at max_len 1024: dense graph on, paged graph on and paged graph off
+   (identical streams), and spec_k 3 with n-gram drafts on the paged
+   server (the verify graph over the latent pool, the near-tie rule at
+   ``NEAR_TIE`` against the paged streams, clean pools); all four LSCD kernels must launch, every launch
+   configuration must pass its plain version; it prints decode and
+   verify ms/step, tok/s, TTFT/TPOT p50/p99, peak allocated bytes, the
+   accept rate and a profiled graphed decode and verify step by kernel;
+9. prints the kernels' JSON line (launches of the slice, the serving
+   runs, the window runs, the full-depth run, the tinyllama run and the
+   MLA runs, the serving ones also by prefill and decode, the window
+   ones also by verify and mixed), the card line, and last
    ``{"ok": true, "device": {...}}``; the
    full summary goes to ``chiprun_out/chip_smoke.json``.
 
@@ -809,18 +830,36 @@ def _step_stats(times: list) -> dict:
                 median_ms=steady[len(steady) // 2] * 1e3 if steady else nan)
 
 
-def _check_served_launches(torch, mods, seen, cfg,
-                           label: str = "serving") -> list:
+def _launch_names(cfg) -> dict:
+    """((M, K), group) -> the projection's name, for the reports."""
+    d, f = cfg.d_model, cfg.d_ff
+    names = {((f, d), 1): "up", ((d, f), 1): "down", ((f, d), 2): "gate_up"}
+    if cfg.attn_kind == "mla":
+        h, kvr, qr = cfg.n_heads, cfg.kv_lora_rank, cfg.q_lora_rank
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        pad = -(-(kvr + dr) // 128) * 128       # Tiled-CSL pads M to 128
+        names.update({((d, h * dv), 1): "wo", ((qr, d), 1): "w_dq",
+                      ((h * (dn + dr), qr), 1): "w_uq",
+                      ((pad, d), 1): "w_dkv",
+                      ((h * (dn + dv), kvr), 1): "w_ukv"})
+        return names
+    kvd = cfg.n_kv * cfg.head_dim
+    names.update({((d, d), 3): "wqkv", ((d, d), 1): "wo",
+                  ((kvd, d), 2): "wk+wv"})
+    names.setdefault(((kvd, d), 1), "wk")
+    return names
+
+
+def _check_served_launches(torch, mods, seen, cfg, label: str = "serving",
+                           flush=None) -> list:
     """Each launch configuration the probe saw on the serving path, held
     against the kernel's plain version (the split-K pair against the
     split-K reference, which sums the same slices) on the same weight and
-    bias and a fresh B on the card of the recorded shape and dtype."""
+    bias and a fresh B on the card of the recorded shape and dtype. With
+    ``flush`` each kernel and its plain version are also timed
+    (``cuda_ms``, cold L2)."""
     ref, spmm = mods["ref"], mods["spmm"]
-    d, f, kvd = cfg.d_model, cfg.d_ff, cfg.n_kv * cfg.head_dim
-    names = {((d, d), 3): "wqkv", ((d, d), 1): "wo", ((f, d), 1): "up",
-             ((d, f), 1): "down", ((f, d), 2): "gate_up",
-             ((kvd, d), 2): "wk+wv"}
-    names.setdefault(((kvd, d), 1), "wk")
+    names = _launch_names(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
     rows = []
@@ -832,23 +871,36 @@ def _check_served_launches(torch, mods, seen, cfg,
         kw = dict(out_dtype=out_dtype, epilogue=epi, bias=bias)
         grouped = name.endswith("grouped")
         if "splitk" in name:
-            got = getattr(spmm, name)(t, b, n_tb=n_tb, split_k=sk, **kw)
-            want = (ref.spmm_splitk_grouped_ref if grouped
-                    else ref.spmm_splitk_ref)(t, b, sk, **kw)
+            def kern():
+                return getattr(spmm, name)(t, b, n_tb=n_tb, split_k=sk, **kw)
+
+            def plain():
+                return (ref.spmm_splitk_grouped_ref if grouped
+                        else ref.spmm_splitk_ref)(t, b, sk, **kw)
         else:
-            got = getattr(spmm, name)(t, b, n_tb=n_tb, **kw)
-            want = (ref.spmm_grouped_ref if grouped
-                    else ref.spmm_ref)(t, b, **kw)
+            def kern():
+                return getattr(spmm, name)(t, b, n_tb=n_tb, **kw)
+
+            def plain():
+                return (ref.spmm_grouped_ref if grouped
+                        else ref.spmm_ref)(t, b, **kw)
+        got, want = kern(), plain()
         shape = names.get(((m, k), g), f"{m}x{k} G={g}")
         tol = BF16_TOL if b_dtype == torch.bfloat16 else F32_TOL
         err = close(torch, got, want, tol, f"{label} path: {name} at "
                     f"{shape} N={n} n_tb={n_tb} S={sk} {epi} ({phase})")
-        rows.append(dict(kernel=name, shape=shape, m=m, k=k, group=g, n=n,
-                         n_tb=n_tb, split_k=sk, epilogue=epi, phase=phase,
-                         max_abs_err=err))
+        row = dict(kernel=name, shape=shape, m=m, k=k, group=g, n=n,
+                   n_tb=n_tb, split_k=sk, epilogue=epi, phase=phase,
+                   max_abs_err=err)
+        timed = ""
+        if flush is not None:
+            row.update(ms=cuda_ms(torch, kern, 5, flush),
+                       plain_ms=cuda_ms(torch, plain, 5, flush))
+            timed = f", {row['ms']:.4f} ms (plain {row['plain_ms']:.4f})"
+        rows.append(row)
         print(f"{label}: checked {phase:7s} {name:25s} {shape:5s} N={n:<5d}"
-              f" n_tb={n_tb:<3d} S={sk:<2d} {epi:8s} max err {err:.2e}",
-              flush=True)
+              f" n_tb={n_tb:<3d} S={sk:<2d} {epi:8s} max err {err:.2e}"
+              f"{timed}", flush=True)
         del b, got, want
     torch.cuda.synchronize()
     return rows
@@ -1837,6 +1889,319 @@ def tinyllama_phase(torch, mods) -> dict:
                 build_s=built["build_s"], encode_s=built["encode_s"])
 
 
+# ---------------------------------------------------------------------------
+# MLA phase: minicpm3_4b at full size
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "minicpm3_4b"
+MLA_SLOTS, MLA_MAX_LEN, MLA_REQUESTS, MLA_NEW = 32, 1024, 32, 64
+MLA_PROMPT = (128, 769)                 # uniform prompt lengths, half-open
+MLA_DEPTHS = (4, 62)
+# The layer check: prefill of 2 x 512 positions (N = 1024), decode and
+# paged decode at 32 slots (N = 32), a verify window of 4 (N = 128).
+LAYER_B, LAYER_S, LAYER_SLOTS, LAYER_T, LAYER_W = 2, 512, 32, 1024, 4
+# Every MLA factor in Tiled-CSL as well as wo and the MLP: the
+# reference's default_should_sparsify, lm_head aside.
+MLA_ALL_FACTORS = ("'wo'", "'gate'", "'up'", "'down'", "'w_dq'", "'w_uq'",
+                   "'w_dkv'", "'w_ukv'")
+MLA_FACTORS = ("w_dq", "w_uq", "w_dkv", "w_ukv")
+
+
+def mla_layer_check(torch, mods) -> dict:
+    """One minicpm3 layer at full width with every factor (and the MLP) in
+    Tiled-CSL, through the kernels against the same layer on the plain
+    versions (``backend="torch"``), on the same inputs: prefill, decode
+    at a 0-d and at a per-slot position against the dense latent cache,
+    paged decode, and a verify window of ``LAYER_W`` over the latent
+    pool; outputs and written latents within ``LOGITS_TOL``. The
+    absorbed steps decode a Tiled-CSL ``w_ukv`` instead of launching it,
+    so its shape is launched once at decode N directly. Every launch
+    configuration (the four latent factors among them, at decode and
+    prefill N) is then held against its plain version and timed."""
+    configs, pruning, spmm = mods["configs"], mods["pruning"], mods["spmm"]
+    transformer = mods["transformer"]
+    cfg = dataclasses.replace(configs.get(MLA_ARCH), n_layers=1)
+    params = transformer.init_model(cfg, seed=SEED, device="cuda")
+    layer = pruning.group_projections(pruning.sparsify_params(
+        params["layers"][0], SPARSITY, should_sparsify=lambda n: n.endswith(
+            "['w']") and any(k in n for k in MLA_ALL_FACTORS)))
+    del params
+    for name in MLA_FACTORS + ("wo",):
+        check(hasattr(layer["attn"][name]["w"], "words"),
+              f"mla layer: {name} is not Tiled-CSL")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    kvr, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    cache = {"ckv": randn(LAYER_SLOTS, LAYER_T, kvr),
+             "krope": randn(LAYER_SLOTS, LAYER_T, dr)}
+    nblk = LAYER_T // 16
+    pool = {n: torch.cat([torch.zeros_like(t[:1, :16]),
+                          t.reshape(LAYER_SLOTS * nblk, 16, t.shape[-1])])
+            for n, t in cache.items()}
+    tables = 1 + torch.arange(LAYER_SLOTS * nblk,
+                              device="cuda").reshape(LAYER_SLOTS, nblk)
+    per_slot = torch.randint(LAYER_W, LAYER_T - LAYER_W, (LAYER_SLOTS,),
+                             generator=gen, device="cuda")
+    positions = torch.arange(LAYER_S, device="cuda")[None].expand(
+        LAYER_B, LAYER_S)
+    cases = (
+        ("prefill", "prefill", randn(LAYER_B, LAYER_S, cfg.d_model),
+         dict(positions=positions, cache={
+             "ckv": torch.zeros_like(cache["ckv"][:LAYER_B]),
+             "krope": torch.zeros_like(cache["krope"][:LAYER_B])})),
+        ("decode 0-d pos", "decode", randn(LAYER_SLOTS, 1, cfg.d_model),
+         dict(cache=cache, pos=torch.tensor(LAYER_T // 2, device="cuda"))),
+        ("decode per-slot pos", "decode", randn(LAYER_SLOTS, 1, cfg.d_model),
+         dict(cache=cache, pos=per_slot)),
+        ("paged decode", "decode", randn(LAYER_SLOTS, 1, cfg.d_model),
+         dict(cache=pool, pos=per_slot, block_tables=tables)),
+        ("verify", "verify", randn(LAYER_SLOTS, LAYER_W, cfg.d_model),
+         dict(cache=pool, pos=per_slot, block_tables=tables)))
+    probe = LaunchProbe(spmm)
+    out = dict(modes={})
+    tol = dict(rtol=LOGITS_TOL, atol=LOGITS_TOL)
+    with probe, torch.inference_mode():
+        for label, mode, x, kw in cases:
+            probe.phase = mode
+            res = {}
+            for backend in ("cuda", "torch"):
+                args = dict(kw, cache={n: t.clone()
+                                       for n, t in kw["cache"].items()})
+                y, new = transformer.block_apply(layer, x, cfg, mode=mode,
+                                                 backend=backend, **args)
+                res[backend] = (y, new)
+            probe.phase = None
+            err = close(torch, res["cuda"][0], res["torch"][0], tol,
+                        f"mla layer: {label}: output vs plain")
+            lat = max(close(torch, res["cuda"][1][n], res["torch"][1][n],
+                            tol, f"mla layer: {label}: {n} vs plain")
+                      for n in ("ckv", "krope"))
+            out["modes"][label] = dict(max_abs_err=err,
+                                       latent_max_abs_err=lat,
+                                       n=int(x.shape[0] * x.shape[1]))
+            print(f"mla layer: {label:20s} N={x.shape[0] * x.shape[1]:<5d}"
+                  f" output vs plain max abs err {err:.3e}, latents "
+                  f"{lat:.3e} (tol {LOGITS_TOL} + {LOGITS_TOL} relative)",
+                  flush=True)
+            del res
+        # The absorbed decode and verify decode a Tiled-CSL w_ukv in place
+        # of a launch, so its shape is launched at decode N directly.
+        probe.phase = "direct"
+        w = layer["attn"]["w_ukv"]["w"]
+        mods["ops"].spmm(w, randn(w.shape[1], LAYER_SLOTS))
+        probe.phase = None
+    names = _launch_names(cfg)
+    ran = {(names.get((key[1], key[2])), key[-1]) for key in probe.seen}
+    for name in MLA_FACTORS:
+        modes = (("prefill", "direct") if name == "w_ukv"
+                 else ("prefill", "decode", "verify"))
+        for mode in modes:
+            check((name, mode) in ran, f"mla layer: {name} never launched "
+                  f"in {mode}")
+    flush = torch.empty(2 ** 28, dtype=torch.int32, device="cuda")
+    out["checked_launches"] = _check_served_launches(
+        torch, mods, probe.seen, cfg, label="mla layer", flush=flush)
+    del flush, layer, cache, pool, probe
+    release(torch)
+    return out
+
+
+def mla_phase(torch, mods) -> dict:
+    """minicpm3_4b at full size (62 layers, MLA, SwiGLU), built layer by
+    layer at sparsity 0.8 (``serve.build``: wo and the MLP in Tiled-CSL,
+    the latent factors dense), after ``mla_layer_check``: built against
+    planned weight bytes and the planner's blocks at 80 GB, first-step
+    logits against the plain path at ``MLA_DEPTHS``, then 32 requests
+    (128-768 prompt tokens, 64 greedy new tokens) over 32 slots at
+    max_len 1024 through ``StreamingServer``: dense graph on, paged graph
+    on and paged graph off (identical streams), and the paged server with
+    spec_k 3 and n-gram drafts (the verify graph over the latent pool;
+    the near-tie rule against the paged streams, clean pools). All four
+    LSCD kernels must launch and every launch configuration must pass its
+    plain version. Returns the summary and the served runs' launches."""
+    import numpy as np
+    configs, serve, budget, spmm, engine, cfgmod = (mods[x] for x in (
+        "configs", "serve", "budget", "spmm", "engine", "serve_config"))
+    card = card_line()
+    out = dict(card=card, layer_check=mla_layer_check(torch, mods))
+    cfg = configs.get(MLA_ARCH)
+    plans = {}
+    for mode in ("sparse_pallas", "dense"):
+        p = budget.plan(cfg, hbm_budget=FULL_BUDGET, weight_mode=mode,
+                        sparsity=SPARSITY, block=16)
+        plans[mode] = dict(p.as_dict(),
+                           n_dense_slots_1024=p.n_dense_slots(1024))
+        print(f"mla: plan {mode:13s} weights {p.weight_bytes} B, "
+              f"workspace {p.workspace_bytes} B, {p.n_blocks} usable blocks "
+              f"of {p.block_bytes} B ({budget.block_bytes(cfg, 1)} B a "
+              f"token), n_dense_slots(1024) = {p.n_dense_slots(1024)}",
+              flush=True)
+    out["plans"] = plans
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params, built = serve.build(cfg, seed=SEED, sparsity=SPARSITY,
+                                device="cuda")
+    latent = sum(serve.params_bytes(layer["attn"][n])
+                 for layer in params["layers"] for n in MLA_FACTORS)
+    embed_head = serve.params_bytes(params["embed"]) + serve.params_bytes(
+        params.get("lm_head", {}))
+    planned = plans["sparse_pallas"]["weight_bytes"]
+    dense_bf16 = budget.weight_bytes(cfg, "dense")
+    out["build"] = dict(
+        build_s=built["build_s"], encode_s=built["encode_s"],
+        n_tiled_csl=built["n_tiled_csl"], sparse_bytes=built["sparse_bytes"],
+        latent_factor_bytes=latent, embed_lm_head_bytes=embed_head,
+        built_weight_bytes=built["weight_bytes"],
+        planned_weight_bytes=planned, dense_bf16_bytes=dense_bf16,
+        build_peak_allocated=built["max_memory_allocated"])
+    print(f"mla: {cfg.name}, {cfg.n_layers} layers at full width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, q_lora {cfg.q_lora_rank}, "
+          f"kv_lora {cfg.kv_lora_rank}, d_ff {cfg.d_ff}, vocab {cfg.vocab})"
+          f" built in {built['build_s']:.1f} s (prune, encode, re-pad and "
+          f"group {built['encode_s']:.1f} s): {built['weight_bytes']} B as "
+          f"built ({built['sparse_bytes']} B of Tiled-CSL in "
+          f"{built['n_tiled_csl']} weights, {latent} B of dense latent "
+          f"factors, {embed_head} B of embed and lm_head) against "
+          f"{planned} B planned ({built['weight_bytes'] - planned:+d} B; the "
+          f"plan counts lm_head and the latent factors as Tiled-CSL) and "
+          f"{dense_bf16} B dense in bf16; build peak allocated "
+          f"{built['max_memory_allocated']} B", flush=True)
+
+    prompts = serve.make_prompts(cfg, 4, 128, SEED, "cuda")
+    out["logits_by_depth"] = {}
+    for depth in MLA_DEPTHS:
+        tol = depth_logits_tol(depth)
+        got, want = _logits_vs_plain(
+            torch, engine, dict(params, layers=params["layers"][:depth]),
+            dataclasses.replace(cfg, n_layers=depth), prompts)
+        err = close(torch, got, want, dict(rtol=tol, atol=tol),
+                    f"mla: first decode-step logits vs plain at {depth} "
+                    f"layers")
+        out["logits_by_depth"][depth] = dict(max_abs_err=err, tol=tol)
+        print(f"mla: first decode-step logits vs plain at {depth} layers: "
+              f"max abs err {err:.3e} (tolerance {tol:.4f} + {tol:.4f} "
+              f"relative)", flush=True)
+        del got, want
+    del prompts
+    release(torch)
+
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(*MLA_PROMPT, MLA_REQUESTS)
+    reqs = [rng.integers(0, cfg.vocab, int(n)).astype(np.int64)
+            for n in lengths]
+
+    def config(paged, spec_k=0):
+        return cfgmod.ServeConfig(
+            scheduler=cfgmod.SchedulerConfig(
+                n_slots=MLA_SLOTS, max_len=MLA_MAX_LEN, min_bucket=8,
+                admit_k=4),
+            cache_kind="paged" if paged else "dense", block_size=16,
+            spec_k=spec_k)
+    print(f"mla: {MLA_REQUESTS} requests, prompts {int(lengths.min())}-"
+          f"{int(lengths.max())} tokens, {MLA_NEW} greedy new tokens each, "
+          f"{MLA_SLOTS} slots, max_len {MLA_MAX_LEN}; the paged pool at the "
+          f"dense byte-equivalent", flush=True)
+    probe = LaunchProbe(spmm)
+    runs, streams, launches = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with probe:
+        spmm.reset_launch_counts()
+        for key, paged, graph, spec_k in (
+                ("dense_graph", False, True, 0),
+                ("paged_graph", True, True, 0),
+                ("paged_eager", True, False, 0),
+                ("spec_graph", True, True, SPEC_K)):
+            label = f"mla: {key}"
+            server, streams[key], run = _closed_loop(
+                torch, mods, params, cfg, reqs, probe, paged=paged,
+                graph=graph, config=config(paged, spec_k), new=MLA_NEW,
+                label=label)
+            b = server.batcher
+            if paged:
+                _drained_clean(server, label)
+            m = b.metrics
+            run.update(captures=dict(b.stepper.captures),
+                       drafted=m.drafted, accepted=m.accepted,
+                       accept_rate=m.accept_rate,
+                       tokens_per_step=m.tokens_per_step)
+            if key == "paged_graph":
+                out["profile"] = _profile_decode(torch, b.stepper)
+            if spec_k:
+                check(run["steps"]["verify"]["n"] > 0 and
+                      b.stepper.captures["verify"] == 1,
+                      f"{label}: verify steps {run['steps']['verify']['n']}"
+                      f", captures {b.stepper.captures}")
+                out["profile_verify"] = _profile_window(torch, b.stepper,
+                                                        "verify")
+            runs[key] = run
+            del server, b
+            release(torch)
+        counts = spmm.launch_counts()
+    out["peak_allocated"] = torch.cuda.max_memory_allocated()
+    for key, run in runs.items():
+        for op, c in run["launches_by_phase"].items():
+            for k, n in c.items():
+                launches.setdefault(op, dict.fromkeys(spmm.KERNELS, 0))[k] \
+                    += n
+    check(streams["dense_graph"] == streams["paged_graph"]
+          == streams["paged_eager"],
+          "mla: dense graph-on, paged graph-on and paged graph-off streams "
+          "differ")
+    missing = [k for k, v in counts.items() if v == 0]
+    check(not missing, f"mla: kernels never launched: {missing}")
+    out["spec_cut"] = _near_tie_streams(
+        torch, mods, params, cfg, dict(enumerate(reqs)),
+        {i: streams["spec_graph"][f"r{i}"] for i in range(len(reqs))},
+        {i: streams["paged_graph"][f"r{i}"] for i in range(len(reqs))},
+        "mla: spec vs paged")
+    release(torch)
+    out["checked_launches"] = _check_served_launches(
+        torch, mods, probe.seen, cfg, label="mla")
+    d, p, e, sp = (runs[k] for k in ("dense_graph", "paged_graph",
+                                     "paged_eager", "spec_graph"))
+    print(f"mla: launches {json.dumps(counts)} (graph replays counted); by "
+          f"call {json.dumps(launches)}; peak allocated "
+          f"{out['peak_allocated']} B; {len(out['checked_launches'])} launch "
+          f"configurations held against the plain versions", flush=True)
+    print(f"mla: decode {d['decode_ms_per_step']:.3f} ms/step dense graph "
+          f"on, {p['decode_ms_per_step']:.3f} paged graph on, "
+          f"{e['decode_ms_per_step']:.3f} paged graph off; "
+          f"{d['tokens_per_s']:.1f}/{p['tokens_per_s']:.1f}/"
+          f"{e['tokens_per_s']:.1f} tok/s; TTFT p50/p99 "
+          f"{p['ttft']['p50'] * 1e3:.1f}/{p['ttft']['p99'] * 1e3:.1f} ms, "
+          f"TPOT p50/p99 {p['tpot']['p50'] * 1e3:.2f}/"
+          f"{p['tpot']['p99'] * 1e3:.2f} ms (paged graph on); spec_k "
+          f"{SPEC_K}: verify {sp['steps']['verify']['ms_per_step']:.3f} "
+          f"ms/step (median {sp['steps']['verify']['median_ms']:.3f}), "
+          f"accept rate {sp['accept_rate']:.4f}, "
+          f"{sp['tokens_per_step']:.4f} tokens per active slot-step, "
+          f"{sp['tokens_per_s']:.1f} tok/s, {len(out['spec_cut'])} streams "
+          f"cut at a near tie (below {NEAR_TIE:.3f}); {card}", flush=True)
+    for key, r in (("decode", out["profile"]),
+                   ("verify", out["profile_verify"])):
+        if r["busy_share"] is None:
+            print(f"mla: profile {key}: no device activity seen; the busy "
+                  "share is not measured", flush=True)
+            continue
+        print(f"mla: profile graphed {key} step: {r['wall_ms_per_step']:.3f}"
+              f" ms/step wall under torch.profiler, device busy "
+              f"{r['busy_ms_per_step']:.3f} ms/step "
+              f"({100 * r['busy_share']:.1f}%), LSCD kernels "
+              f"{r['lscd_ms_per_step']:.3f} ms/step; {card}", flush=True)
+        for ms, n, name in r["top"]:
+            print(f"mla:   {key} {ms:8.3f} ms/step {n:4d}/step  {name}")
+    out.update(runs=runs, launches=counts, launches_by_phase=launches,
+               near_tie=NEAR_TIE)
+    del params, probe
+    release(torch)
+    return out
+
+
 def _device_summary(torch, prof, wall_s: float, steps: int) -> dict:
     """Per-step device busy time from a profiler window: the sum of the
     device activities' durations (one stream, so they do not overlap),
@@ -1928,6 +2293,7 @@ def main() -> int:
         from repro_torch.core import pruning, roofline, tiled_csl
         from repro_torch.kernels import build, gemm, ops, ref, schedule, spmm
         from repro_torch.launch import serve
+        from repro_torch.models import transformer
         from repro_torch.serving import (api, budget, engine, loadgen,
                                          scheduler, speculative)
         from repro_torch.serving import config as serve_config
@@ -1940,7 +2306,7 @@ def main() -> int:
                 ref=ref, schedule=schedule, spmm=spmm, gemm=gemm, serve=serve,
                 engine=engine, api=api, loadgen=loadgen, scheduler=scheduler,
                 serve_config=serve_config, budget=budget,
-                speculative=speculative)
+                speculative=speculative, transformer=transformer)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1993,16 +2359,23 @@ def main() -> int:
     tiny = tinyllama_phase(torch, mods)
     tiny["phase_s"] = time.perf_counter() - t0
     print(f"tinyllama: phase took {tiny['phase_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    mla = mla_phase(torch, mods)
+    mla["phase_s"] = time.perf_counter() - t0
+    print(f"mla: phase took {mla['phase_s']:.1f} s (build "
+          f"{mla['build']['build_s']:.1f} s)", flush=True)
 
     kernels = []
     serve_counts = {k: serve_phases["prefill"][k] + serve_phases["decode"][k]
                     for k in spmm.KERNELS}
     full_counts = full["serve"]["launches"]
     tiny_counts = tiny["serve"]["launches"]
+    mla_counts = mla["launches"]
     window_counts = {k: sum(window_phases[op][k] for op in STEP_OPS)
                      for k in spmm.KERNELS}
     launches = {k: counts[k] + serve_counts[k] + window_counts[k]
-                + full_counts[k] + tiny_counts[k] for k in spmm.KERNELS}
+                + full_counts[k] + tiny_counts[k] + mla_counts[k]
+                for k in spmm.KERNELS}
     launches["dense_gemm"] = gemm_launches
     for name in spmm.KERNELS + ("dense_gemm",):
         r = best[name]
@@ -2019,6 +2392,9 @@ def main() -> int:
             launches_window_mixed=window_phases["mixed"].get(name, 0),
             launches_full_depth=full_counts.get(name, 0),
             launches_tinyllama=tiny_counts.get(name, 0),
+            launches_mla=mla_counts.get(name, 0),
+            launches_mla_verify=mla["launches_by_phase"].get(
+                "verify", {}).get(name, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
@@ -2031,7 +2407,7 @@ def main() -> int:
     summary = dict(card=card, ptxas=ptxas, rows=rows, compare=compare,
                    sweep=sweep, rings=rings, kernels=kernels,
                    slice=slice_summary, profile=prof, serving=serving,
-                   window=window, full_depth=full, tinyllama=tiny)
+                   window=window, full_depth=full, tinyllama=tiny, mla=mla)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({"kernels": kernels}))

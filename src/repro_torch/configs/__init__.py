@@ -2,9 +2,11 @@
 
 The port serves the dense family. It carries the paper's three models
 (OPT-30B, OPT-66B, OPT-175B), so that the HBM planner
-(``serving.budget``) can size each of them, and tinyllama, whose GQA and
-SwiGLU cover the grouped ``silu_mul`` path. Every file is the port's own
-copy of the JAX package's config.
+(``serving.budget``) can size each of them, tinyllama, whose GQA and
+SwiGLU cover the grouped ``silu_mul`` path, and minicpm3, whose
+Multi-head Latent Attention (``models/mla.py``) caches a 288-wide latent
+a token a layer instead of K/V heads. Every file is the port's own copy
+of the JAX package's config.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["opt_30b", "opt_66b", "opt_175b", "tinyllama_1_1b"]
+ARCH_IDS: List[str] = ["opt_30b", "opt_66b", "opt_175b", "tinyllama_1_1b",
+                       "minicpm3_4b"]
 
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}
 

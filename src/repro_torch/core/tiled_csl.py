@@ -250,7 +250,10 @@ def decode(t: TiledCSL) -> torch.Tensor:
     """Dense f32 reconstruction (``[G, m, k]`` for grouped encodings).
 
     Only the first ``nnz`` words of each tile are placed, so padding
-    words never touch element (0, 0)."""
+    words never touch element (0, 0): they are sent to a spare element
+    past the matrix, which is dropped. Nothing reads a device value on
+    the host, so a captured CUDA graph can decode (the absorbed MLA step
+    decodes a Tiled-CSL ``w_ukv`` each call)."""
     if t.group is not None:
         return torch.stack([decode(group_slice(t, g)) for g in range(t.group)])
     m, k = t.shape
@@ -263,6 +266,8 @@ def decode(t: TiledCSL) -> torch.Tensor:
     tj = torch.arange(kt, device=dev)[None, :, None]
     rows = ti * t.m_tb + locs // t.k_tb
     cols = tj * t.k_tb + locs % t.k_tb
-    out = torch.zeros(m * k, dtype=torch.float32, device=dev)
-    out.index_put_((rows[live] * k + cols[live],), vals[live], accumulate=True)
-    return out.reshape(m, k)
+    idx = torch.where(live, rows * k + cols, m * k)
+    out = torch.zeros(m * k + 1, dtype=torch.float32, device=dev)
+    out.index_add_(0, idx.reshape(-1),
+                   torch.where(live, vals, 0.0).reshape(-1))
+    return out[:m * k].reshape(m, k)

@@ -5,8 +5,9 @@
         --arch opt_30b --smoke --sparsity 0.8 --slots 4 --paged
 
 Builds the model from ``--seed``, optionally prunes and reformats its
-projections to Tiled-CSL on the device (``lm_head`` stays dense, as in
-the JAX launcher), then serves a synthetic workload through the session
+projections to Tiled-CSL on the device (``lm_head`` and, for MLA
+(``--arch minicpm3_4b``), the four latent factors stay dense, as in the
+JAX launcher), then serves a synthetic workload through the session
 API (``serving.api.StreamingServer`` over the continuous batcher, its
 decode step a CUDA graph), reporting tokens/s, TTFT/TPOT percentiles and
 the weight-bytes saving. Default is a closed-loop drain; ``--trace-rate
@@ -16,6 +17,9 @@ requests per engine step.
 With ``--paged --hbm-budget-gb G`` (and no ``--n-blocks``) the block pool
 is sized by ``serving.budget.plan``: G GB less the weights (the sparse
 weight mode when ``--sparsity`` is given) and a workspace, in KV blocks.
+It prints the planned weight bytes beside those built: the plan counts
+``lm_head`` and the MLA factors as Tiled-CSL, as the reference's does,
+where the build keeps them dense.
 ``--spec-k K`` (with ``--paged``) verifies up to K drafts a step, from
 the request's own n-grams (``--drafter ngram``, ``--max-ngram``) or a
 smoke-sized draft model (``--drafter model``, ``--draft-arch``);
@@ -59,6 +63,8 @@ from repro_torch.serving import (api, budget, engine, faults, loadgen,
 from repro_torch.serving.config import SLOSpec, ServeConfig
 from repro_torch.serving.scheduler import latency_summary
 
+# The JAX launcher's list. On an MLA model it matches wo, gate, up and
+# down; the latent factors (w_dq, w_uq, w_dkv, w_ukv) stay dense.
 SPARSE_NAMES = ("'wq'", "'wk'", "'wv'", "'wo'", "'gate'", "'up'", "'down'")
 
 
@@ -81,6 +87,27 @@ def _sparse_path(path: str) -> bool:
     return any(k in path for k in SPARSE_NAMES)
 
 
+# Dense weights the forward reads outside ``sparse_linear.linear``: MLA's
+# absorbed steps take ``w_uk``/``w_uv`` from ``w_ukv`` in f32, as the
+# reference does from its f32 params, so the build leaves it as drawn.
+KEEP_AS_DRAWN = ("w_ukv",)
+
+
+def _cast_dense_matrices(tree, dtype):
+    """Cast every dense 2-D weight (a ``"w"`` tensor) of ``tree`` that only
+    ``sparse_linear.linear`` reads to ``dtype``, in place: ``linear``
+    casts a dense weight to the activation dtype on every call, to the
+    same values. Subtrees named in ``KEEP_AS_DRAWN`` keep their dtype."""
+    for key, v in tree.items():
+        if key in KEEP_AS_DRAWN:
+            continue
+        if isinstance(v, dict):
+            _cast_dense_matrices(v, dtype)
+        elif key == "w" and isinstance(v, torch.Tensor) and v.dim() == 2:
+            tree[key] = v.to(dtype)
+    return tree
+
+
 def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
           balanced: bool = False, device: DeviceLike = None):
     """Random params on ``device``, pruned and reformatted to Tiled-CSL
@@ -95,10 +122,14 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
     is known only after the last layer; a second pass re-pads and groups
     (``group_projections``) one layer at a time.
     The result equals ``init_model`` + ``sparsify_params`` +
-    ``group_projections`` bit for bit; the peak is about the encoded model
-    plus one layer. ``embed`` and ``lm_head`` are cast to the compute
-    dtype as they are drawn (the forward would cast them on every call to
-    the same values); ``lm_head`` stays dense, as in the JAX launcher.
+    ``group_projections`` and the casts below bit for bit; the peak is
+    about the encoded model plus one layer. ``embed``, ``lm_head`` and
+    every weight matrix left dense that the forward reads only through
+    ``linear`` (all of them in a dense build, MLA's ``w_ukv`` aside) are
+    cast to the compute dtype as they are drawn (the forward would cast
+    them on every call to the same values); ``w_ukv`` stays f32, as the
+    absorbed decode reads it. ``lm_head`` stays dense, as in the JAX
+    launcher.
 
     The report holds ``encode_s`` (the prune, encode, re-pad and group
     time, device synchronised), ``build_s`` (all of it, init included), the
@@ -130,7 +161,7 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
                 prefix=f"['layers'][{len(stack)}]")
             _sync(dev)
             report["encode_s"] += time.perf_counter() - t0
-        stack.append(part)
+        stack.append(_cast_dense_matrices(part, dt))
     if sparsity:
         _sync(dev)
         t0 = time.perf_counter()
@@ -305,7 +336,8 @@ def main(argv: Optional[Sequence[str]] = None, *,
                         weight_mode=mode, sparsity=args.sparsity or 0.8,
                         block=args.block_size)
         print(f"budget: {args.hbm_budget_gb:.1f} GB -> weights "
-              f"{p.weight_bytes / 1e9:.2f} GB ({mode}), "
+              f"{p.weight_bytes / 1e9:.2f} GB ({mode}; "
+              f"{rep['weight_bytes'] / 1e9:.2f} GB as built), "
               f"{p.n_blocks} KV blocks x {p.block} tok "
               f"({p.kv_bytes / 1e9:.2f} GB KV; dense-slot baseline "
               f"{p.n_dense_slots(args.max_len)} slots at max_len)")

@@ -2,8 +2,10 @@
 
 The port's counterpart of ``repro.models.transformer`` for ``family ==
 "dense"``: a pre-norm decoder of attention + MLP blocks, its layers a
-Python list walked in order (the reference's ``lax.scan`` stack). Two
-modes share the block code:
+Python list walked in order (the reference's ``lax.scan`` stack). The
+attention is GQA (``attention``, K/V cache leaves ``"k"``/``"v"``) or
+Multi-head Latent Attention (``mla``, latent cache leaves
+``"ckv"``/``"krope"``). Three modes share the block code:
 
   prefill — full sequence; writes the cache when one is given
   decode  — one token per row + cache (the paper's skinny-MatMul regime),
@@ -12,11 +14,12 @@ modes share the block code:
   verify  — a window of W positions per row against a paged block pool,
             the cache left unwritten (speculative verify and the mixed
             prefill-chunk/decode step); returns each layer's fresh K/V
+            (or latents)
 
 The serving cache helpers (``scatter_cache_slots``,
 ``scatter_cache_pages``, ``copy_cache_block``, ``commit_verify_window``)
 write the cache they are given in place, where the reference returns a
-new one.
+new one. They walk every cache leaf, whatever the attention kind.
 """
 
 from __future__ import annotations
@@ -26,18 +29,20 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import attention, layers, nn
+from repro_torch.models import attention, layers, mla, nn
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.attn_kind != "gqa" or cfg.n_codebooks \
-            or cfg.n_routed_experts or cfg.layer_pattern is not None \
+    if cfg.family != "dense" or cfg.attn_kind not in ("gqa", "mla") \
+            or cfg.n_codebooks or cfg.n_routed_experts \
+            or cfg.layer_pattern is not None \
             or cfg.local_window is not None or cfg.mrope_sections is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense GQA family only")
+            f"{cfg.name}: the port serves the dense family with GQA or MLA "
+            "attention only")
 
 
 def _init_norm(cfg: ModelConfig, device, dtype):
@@ -53,7 +58,10 @@ def _norm(cfg: ModelConfig, p, x):
 
 def init_block(gen, cfg: ModelConfig, device, dtype=torch.float32) -> Params:
     p: Params = {"pre_norm": _init_norm(cfg, device, dtype),
-                 "attn": attention.init_attention(gen, cfg, device, dtype),
+                 "attn": (mla.init_mla(gen, cfg, device, dtype)
+                          if cfg.attn_kind == "mla"
+                          else attention.init_attention(gen, cfg, device,
+                                                        dtype)),
                  "mlp_norm": _init_norm(cfg, device, dtype)}
     if cfg.mlp_kind == "swiglu":
         p["mlp"] = layers.init_swiglu_mlp(gen, cfg.d_model, cfg.d_ff, device,
@@ -103,10 +111,13 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: DeviceLike = None,
                dtype=torch.bfloat16) -> List[dict]:
-    """Per-layer K/V caches ``[batch, max_len, n_kv, head_dim]``."""
+    """Per-layer K/V caches ``[batch, max_len, n_kv, head_dim]``, or for
+    MLA latent caches ``[batch, max_len, kv_lora_rank / qk_rope_dim]``."""
     _check_family(cfg)
     dev = resolve_device(device)
-    return [attention.init_cache(cfg, batch, max_len, dev, dtype)
+    init = (mla.init_mla_cache if cfg.attn_kind == "mla"
+            else attention.init_cache)
+    return [init(cfg, batch, max_len, dev, dtype)
             for _ in range(cfg.n_layers)]
 
 
@@ -114,11 +125,14 @@ def init_paged_cache(cfg: ModelConfig, n_physical: int, block: int, *,
                      device: DeviceLike = None,
                      dtype=torch.bfloat16) -> List[dict]:
     """Block-pool serving cache: per-layer leaves ``[n_physical, block,
-    n_kv, head_dim]``. ``n_physical`` includes the reserved trash block 0
+    n_kv, head_dim]`` (MLA: ``[n_physical, block, kv_lora_rank /
+    qk_rope_dim]``). ``n_physical`` includes the reserved trash block 0
     (``serving.paged_cache.BlockPool.physical_blocks``)."""
     _check_family(cfg)
     dev = resolve_device(device)
-    return [attention.init_paged_cache(cfg, n_physical, block, dev, dtype)
+    init = (mla.init_paged_mla_cache if cfg.attn_kind == "mla"
+            else attention.init_paged_cache)
+    return [init(cfg, n_physical, block, dev, dtype)
             for _ in range(cfg.n_layers)]
 
 
@@ -173,9 +187,10 @@ def commit_verify_window(cfg: ModelConfig, cache: List[dict],
                          fresh: List[dict], block_tables: torch.Tensor,
                          pos_vec: torch.Tensor, commit: torch.Tensor,
                          ring_len: Optional[int] = None) -> List[dict]:
-    """Write a verify window's fresh K/V (``forward(mode="verify")``'s
-    per-layer ``[B, W, ...]`` leaves) into the paged pools in place,
-    committing only where ``commit [B, W]`` is True. Window column j of
+    """Write a verify window's fresh K/V or latents
+    (``forward(mode="verify")``'s per-layer ``[B, W, ...]`` leaves) into
+    the paged pools in place, committing only where ``commit [B, W]`` is
+    True; the block size is read off the first leaf. Window column j of
     row b lands at cache position ``pos_vec[b] + j``; an uncommitted
     column, or one past the table, is written to the trash block
     (physical block 0, ``serving.paged_cache.TRASH_BLOCK``), so a rejected
@@ -183,7 +198,7 @@ def commit_verify_window(cfg: ModelConfig, cache: List[dict],
     happened. ``index_put_`` keeps the write capturable in a graph."""
     if ring_len is not None:
         raise NotImplementedError(attention.RING_NOT_PORTED)
-    blk = cache[0]["k"].shape[cache_slot_axis(cfg) + 1]
+    blk = _leaves(cache)[0].shape[cache_slot_axis(cfg) + 1]
     W = commit.shape[1]
     slot = pos_vec[:, None] + torch.arange(W, device=pos_vec.device)[None]
     logical = torch.div(slot, blk, rounding_mode="floor")
@@ -224,9 +239,22 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 positions=None, cache=None, pos=None, block_tables=None,
                 backend: str = "auto") -> Tuple[torch.Tensor, Optional[dict]]:
     """Residual attention + MLP block. Returns (x, cache), or in verify
-    mode (x, the window's fresh {"k", "v"})."""
+    mode (x, the window's fresh {"k", "v"} or {"ckv", "krope"})."""
     h = _norm(cfg, p["pre_norm"], x)
-    if mode == "verify":
+    if cfg.attn_kind == "mla":
+        if mode == "verify":
+            a, cache = mla.mla_verify_paged(p["attn"], h, cache, block_tables,
+                                            pos, cfg, backend=backend)
+        elif mode == "decode" and block_tables is not None:
+            a, cache = mla.mla_decode_paged(p["attn"], h, cache, block_tables,
+                                            pos, cfg, backend=backend)
+        elif mode == "decode":
+            a, cache = mla.mla_decode(p["attn"], h, cache, pos, cfg,
+                                      backend=backend)
+        else:
+            a, cache = mla.mla_attention(p["attn"], h, positions, cfg,
+                                         cache=cache, backend=backend)
+    elif mode == "verify":
         a, cache = attention.attention_verify_paged(
             p["attn"], h, cache, block_tables, pos, cfg, backend=backend)
     elif mode == "decode" and block_tables is not None:
@@ -259,7 +287,8 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
     verify: S == W window positions per row against the paged pool,
     ``pos`` [B] each window's first position. The second result is not
     the cache but each layer's fresh window K/V; the caller commits what
-    it accepts with ``commit_verify_window``.
+    it accepts with ``commit_verify_window``. For MLA (``attn_kind ==
+    "mla"``) decode and verify run the absorbed form over the latents.
     """
     _check_family(cfg)
     if mode not in ("prefill", "decode", "verify"):

@@ -133,8 +133,9 @@ class ContinuousBatcher:
                          + [int(t) for t in sc.stop_ids])
         self.admit_k = max(1, min(sc.admit_k or min(sc.n_slots, 4),
                                   sc.n_slots))
-        # The port serves pure-attention stacks only
-        # (transformer._check_family), where bucket padding is exact.
+        # The port serves pure-attention stacks only, GQA or MLA
+        # (transformer._check_family): the causal mask keeps real positions
+        # off the pad K/V or latents, so bucket padding is exact.
         buckets = engine.length_buckets(sc.max_len, sc.min_bucket)
         self.spec_k = int(config.spec_k)
         self.drafter = drafter

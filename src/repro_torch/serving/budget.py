@@ -15,12 +15,13 @@ made: dense leaves at 2 B (bf16), Tiled-CSL leaves at 4 B a word plus
 4 B a nnz counter, with the analytic ``max_nnz`` =
 ceil(128·128·(1 − s)·IMBALANCE) rounded up to ``PAD_QUANTUM``. The
 leaves picked are those the reference's ``launch.specs.
-default_should_sparsify`` picks, ``lm_head`` included, so every number
-equals the reference's byte for byte. The serving launchers keep
-``lm_head`` dense, so for a sparse deployment the plan counts less for
-it than the built model holds. ``sparse_pallas`` and ``sparse_xla`` name
-the reference's kernels, not the format: both count the same encoded
-bytes.
+default_should_sparsify`` picks, ``lm_head`` and the MLA factors
+included, so every number equals the reference's byte for byte. The
+serving launchers keep ``lm_head`` and the MLA factors (``w_dq``,
+``w_uq``, ``w_dkv``, ``w_ukv``) dense, so for a sparse deployment the
+plan counts less for them than the built model holds. ``sparse_pallas``
+and ``sparse_xla`` name the reference's kernels, not the format: both
+count the same encoded bytes.
 """
 
 from __future__ import annotations
@@ -44,8 +45,10 @@ DEFAULT_WORKSPACE_FRAC = 0.03
 IMBALANCE = 1.15
 
 # The weights the reference's launch specs encode as Tiled-CSL in the
-# dense family: its ``default_should_sparsify`` list, ``lm_head`` included.
-SPARSE_NAMES = ("wq", "wk", "wv", "wo", "gate", "up", "down", "lm_head")
+# dense family: its ``default_should_sparsify`` list, ``lm_head`` and the
+# four MLA factors included.
+SPARSE_NAMES = ("wq", "wk", "wv", "wo", "w_dq", "w_uq", "w_dkv", "w_ukv",
+                "gate", "up", "down", "lm_head")
 
 BF16_BYTES = 2
 
@@ -53,9 +56,10 @@ BF16_BYTES = 2
 def _dense_family_leaves(cfg: ModelConfig) -> Iterator[Tuple[str, Tuple[int, ...], int]]:
     """(name, shape, count) of every parameter leaf of the dense family,
     ``count`` being how many copies the stack holds (one per layer)."""
-    if cfg.family != "dense" or cfg.attn_kind != "gqa":
+    if cfg.family != "dense" or cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: the port's planner counts the dense GQA family only")
+            f"{cfg.name}: the port's planner counts the dense family with "
+            "GQA or MLA attention only")
     d, L = cfg.d_model, cfg.n_layers
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     norm = (("scale",) if cfg.norm_kind == "rmsnorm" else ("scale", "bias"))
@@ -63,11 +67,20 @@ def _dense_family_leaves(cfg: ModelConfig) -> Iterator[Tuple[str, Tuple[int, ...
     for part in ("pre_norm", "mlp_norm"):
         for leaf in norm:
             yield f"{part}.{leaf}", (d,), L
-    for name, out in (("wq", h * hd), ("wk", kv * hd), ("wv", kv * hd)):
-        yield f"{name}.w", (out, d), L
-        if cfg.qkv_bias:
-            yield f"{name}.b", (out,), L
-    yield "wo.w", (d, h * hd), L
+    if cfg.attn_kind == "mla":
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        yield "w_dq.w", (cfg.q_lora_rank, d), L
+        yield "w_uq.w", (h * (dn + dr), cfg.q_lora_rank), L
+        yield "w_dkv.w", (cfg.kv_lora_rank + dr, d), L
+        yield "w_ukv.w", (h * (dn + dv), cfg.kv_lora_rank), L
+        yield "wo.w", (d, h * dv), L
+    else:
+        for name, out in (("wq", h * hd), ("wk", kv * hd),
+                          ("wv", kv * hd)):
+            yield f"{name}.w", (out, d), L
+            if cfg.qkv_bias:
+                yield f"{name}.b", (out,), L
+        yield "wo.w", (d, h * hd), L
     if cfg.mlp_kind == "swiglu":
         mlp = (("gate", cfg.d_ff, d), ("up", cfg.d_ff, d),
                ("down", d, cfg.d_ff))

@@ -17,7 +17,7 @@ from repro.serving import budget as ref_budget
 from repro_torch import configs
 from repro_torch.serving import budget
 
-ARCHS = ("opt_30b", "opt_66b", "opt_175b", "tinyllama_1_1b")
+ARCHS = ("opt_30b", "opt_66b", "opt_175b", "tinyllama_1_1b", "minicpm3_4b")
 BUDGETS = (80e9, 320e9)
 SMOKE_BUDGETS = (80e9, 2e6)
 BLOCKS = (16, 128)

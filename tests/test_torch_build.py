@@ -2,10 +2,11 @@
 
 * ``serve.build`` with a sparsity draws, prunes and encodes one layer at a
   time; its result must equal ``init_model`` + ``sparsify_params`` +
-  ``group_projections`` over the whole tree bit for bit (words, nnz,
-  dense leaves, key order), at 2 layers and at 4, where the layers'
-  own ``max_nnz`` differ and the second pass must re-pad them to the
-  stack's largest.
+  ``group_projections`` over the whole tree, the weight matrices left
+  dense cast to the compute dtype, bit for bit (words, nnz, dense
+  leaves, key order), at 2 layers and at 4, where the layers' own
+  ``max_nnz`` differ and the second pass must re-pad them to the stack's
+  largest; for minicpm3 the latent factors stay dense.
 * ``--hbm-budget-gb`` sizes the paged pool to the reference planner's
   ``n_blocks``; the SLO, fault-plan, digest and trace flags run through
   ``serve.main(..., device="cpu")``.
@@ -28,15 +29,27 @@ from repro_torch.serving import faults
 SPARSITY = 0.8
 
 
+def _cast_as_built(params, cfg):
+    """``embed``, ``lm_head`` and every layer weight matrix left dense in
+    the compute dtype, MLA's ``w_ukv`` aside (the absorbed decode reads it
+    in f32), as ``serve.build`` leaves them."""
+    dt = getattr(torch, cfg.dtype)
+    params["embed"]["table"] = params["embed"]["table"].to(dt)
+    params["lm_head"]["w"] = params["lm_head"]["w"].to(dt)
+    for path, leaf in pruning._walk(params["layers"]):
+        if path.endswith("['w']") and "['w_ukv']" not in path \
+                and isinstance(leaf, torch.Tensor) and leaf.dim() == 2:
+            params["layers"] = pruning._replace(params["layers"], path,
+                                                leaf.to(dt))
+    return params
+
+
 def _whole_tree_build(cfg, seed):
     params = transformer.init_model(cfg, seed=seed, device="cpu")
     params = pruning.group_projections(pruning.sparsify_params(
         params, SPARSITY,
         should_sparsify=lambda n: any(k in n for k in serve.SPARSE_NAMES)))
-    dt = getattr(torch, cfg.dtype)
-    params["embed"]["table"] = params["embed"]["table"].to(dt)
-    params["lm_head"]["w"] = params["lm_head"]["w"].to(dt)
-    return params
+    return _cast_as_built(params, cfg)
 
 
 def _assert_same(a, b, path=""):
@@ -59,7 +72,7 @@ def _assert_same(a, b, path=""):
 
 
 @pytest.mark.parametrize("n_layers", [None, 4])
-@pytest.mark.parametrize("arch", ["opt_30b", "tinyllama_1_1b"])
+@pytest.mark.parametrize("arch", ["opt_30b", "tinyllama_1_1b", "minicpm3_4b"])
 def test_layered_build_equals_whole_tree_build(arch, n_layers):
     cfg = configs.smoke(arch)
     if n_layers:
@@ -67,6 +80,10 @@ def test_layered_build_equals_whole_tree_build(arch, n_layers):
     want = _whole_tree_build(cfg, seed=3)
     got, rep = serve.build(cfg, seed=3, sparsity=SPARSITY, device="cpu")
     _assert_same(want, got)
+    if cfg.attn_kind == "mla":
+        attn = got["layers"][0]["attn"]
+        assert attn["w_uq"]["w"].dtype == torch.bfloat16
+        assert attn["w_ukv"]["w"].dtype == torch.float32
     csl = serve.tiled_csl_leaves(got)
     assert rep["n_tiled_csl"] == len(csl) > 0
     assert rep["sparse_bytes"] == sum(t.nbytes_sparse for t in csl)
@@ -101,12 +118,11 @@ def test_four_layer_build_repads_the_stack():
 
 def test_dense_build_is_init_model():
     cfg = configs.smoke("opt_30b")
-    want = transformer.init_model(cfg, seed=1, device="cpu")
+    want = _cast_as_built(transformer.init_model(cfg, seed=1, device="cpu"),
+                          cfg)
     got, rep = serve.build(cfg, seed=1, device="cpu")
-    dt = getattr(torch, cfg.dtype)
-    want["embed"]["table"] = want["embed"]["table"].to(dt)
-    want["lm_head"]["w"] = want["lm_head"]["w"].to(dt)
     _assert_same(want, got)
+    assert got["layers"][0]["attn"]["wq"]["w"].dtype == torch.bfloat16
     assert rep["n_tiled_csl"] == 0 and rep["encode_s"] == 0.0
 
 

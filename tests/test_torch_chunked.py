@@ -25,7 +25,8 @@ from torch_window_parity import (assert_window_committed,
                                  committed_positions, port_cache, port_np,
                                  random_pools, ref_cache, ref_np)
 
-CASES = [("opt_30b", 0.8), ("tinyllama_1_1b", None)]
+CASES = [("opt_30b", 0.8), ("tinyllama_1_1b", None), ("minicpm3_4b", None),
+         ("minicpm3_4b", 0.8)]
 CHUNK_COUNTERS = ("mixed_steps", "chunk_tokens", "prefill_tokens",
                   "decode_tokens", "steps", "compute_positions", "admitted",
                   "completed")

@@ -426,13 +426,17 @@ def test_decode_body_refuses_unaligned_words(cuda):
 # the serving stepper's decode step as a CUDA graph
 # ---------------------------------------------------------------------------
 
-def _stepper_pair(dev, paged, temperature=0.0, **extra):
-    """Two steppers over one sparse smoke model (OPT-30B smoke, 0.8), one
-    graphed and one eager, each with one prompt prefilled into every
-    slot (dense) or every slot's own blocks (paged). ``extra`` goes to
-    both steppers (``spec_k``, ``chunk_size``)."""
-    cfg = configs.smoke("opt_30b")
-    params, _ = serve.build(cfg, seed=0, sparsity=0.8, device=dev)
+def _stepper_pair(dev, paged, temperature=0.0, params_cfg=None, **extra):
+    """Two steppers over one sparse smoke model (OPT-30B smoke, 0.8, unless
+    ``params_cfg`` gives another (params, cfg)), one graphed and one eager,
+    each with one prompt prefilled into every slot (dense) or every
+    slot's own blocks (paged). ``extra`` goes to both steppers
+    (``spec_k``, ``chunk_size``)."""
+    if params_cfg is None:
+        cfg = configs.smoke("opt_30b")
+        params, _ = serve.build(cfg, seed=0, sparsity=0.8, device=dev)
+    else:
+        params, cfg = params_cfg
     n_slots, max_len, block = 4, 32, 8
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab, (n_slots, 8))
@@ -522,7 +526,7 @@ def _paged_leaves(st):
     """The stepper's pool leaves without the trash block (block 0), whose
     bytes are never read unmasked and may differ where several rejected
     columns write one trash position."""
-    return [layer[n][1:] for layer in st.cache for n in ("k", "v")]
+    return [layer[n][1:] for layer in st.cache for n in sorted(layer)]
 
 
 @pytest.mark.parametrize("temperature", [0.0, 0.8])
@@ -698,3 +702,130 @@ def test_layered_build_peak_memory_at_12_layers(cuda):
     assert rep["n_tiled_csl"] == 12 * 4
     del params
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (minicpm3) on the card
+# ---------------------------------------------------------------------------
+
+# Every MLA factor in Tiled-CSL as well as the launchers' list: the
+# reference's default_should_sparsify, lm_head aside.
+MLA_SPARSE = serve.SPARSE_NAMES + ("'w_dq'", "'w_uq'", "'w_dkv'", "'w_ukv'")
+LAYER_TOL = dict(rtol=3e-2, atol=3e-2)   # one bf16 layer, kernels vs plain
+
+
+def _all_factors_csl(params):
+    return pruning.group_projections(pruning.sparsify_params(
+        params, 0.8, should_sparsify=lambda n: any(k in n
+                                                   for k in MLA_SPARSE)))
+
+
+def test_mla_layer_all_factors_csl_matches_plain_at_full_width(cuda):
+    """One minicpm3 layer at full width with every factor (and the MLP) in
+    Tiled-CSL: prefill (N = 512), decode at a 0-d and at per-slot
+    positions (N = 8), paged decode and a W = 4 verify window (N = 32)
+    through the kernels against the same layer on the plain versions;
+    each of the four LSCD kernels launches."""
+    cfg = dataclasses.replace(configs.get("minicpm3_4b"), n_layers=1)
+    params = _all_factors_csl(transformer.init_model(cfg, seed=0,
+                                                     device=cuda))
+    layer = params["layers"][0]
+    for n in ("w_dq", "w_uq", "w_dkv", "w_ukv", "wo"):
+        assert isinstance(layer["attn"][n]["w"], tiled_csl.TiledCSL)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    B, S, blk = 8, 64, 16
+
+    def x_of(*shape):
+        return torch.randn(shape + (cfg.d_model,), generator=gen,
+                           device=cuda).to(torch.bfloat16)
+
+    def both(mode, x, **kw):
+        outs = []
+        for backend in ("cuda", "torch"):
+            cache = kw.get("cache")
+            if cache is not None:
+                kw["cache"] = {n: t.clone() for n, t in cache.items()}
+            y, out = transformer.block_apply(layer, x, cfg, mode=mode,
+                                             backend=backend, **kw)
+            outs.append((y, out))
+        _assert_layer_close(outs[0][0], outs[1][0])
+        return outs[1][1]
+
+    spmm.reset_launch_counts()
+    positions = torch.arange(S, device=cuda)[None].expand(B, S)
+    with torch.inference_mode():
+        cache = both("prefill", x_of(B, S), positions=positions,
+                     cache=transformer.init_cache(cfg, B, 2 * S,
+                                                  device=cuda)[0])
+        both("decode", x_of(B, 1), cache=cache,
+             pos=torch.tensor(S, device=cuda))
+        per_slot = torch.arange(B, device=cuda) + S - B
+        both("decode", x_of(B, 1), cache=cache, pos=per_slot)
+        nblk = 2 * S // blk
+        pool = {n: torch.cat([torch.zeros_like(t[:1, :blk]),
+                              t.reshape(B * nblk, blk, t.shape[-1])])
+                for n, t in cache.items()}
+        tables = 1 + torch.arange(B * nblk, device=cuda).reshape(B, nblk)
+        both("decode", x_of(B, 1), cache=pool, pos=per_slot,
+             block_tables=tables)
+        both("verify", x_of(B, 4), cache=pool, pos=per_slot,
+             block_tables=tables)
+    counts = spmm.launch_counts()
+    assert all(counts[k] > 0 for k in spmm.KERNELS), counts
+
+
+def _assert_layer_close(got, want):
+    torch.testing.assert_close(got.float(), want.float(), **LAYER_TOL)
+
+
+def _mla_smoke(dev):
+    cfg = configs.smoke("minicpm3_4b")
+    return _all_factors_csl(transformer.init_model(cfg, seed=0,
+                                                   device=dev)), cfg
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_mla_graphed_decode_equals_eager(cuda, paged):
+    """A minicpm3 smoke model with every factor Tiled-CSL (``w_ukv``
+    decoded inside the captured step): six graphed decode steps give the
+    eager steps' tokens and leave bit-identical latent caches."""
+    (graphed, eager), first, lens, tables = _stepper_pair(
+        cuda, paged, params_cfg=_mla_smoke(cuda))
+    toks = {id(graphed): first, id(eager): first}
+    for i in range(6):
+        for st in (graphed, eager):
+            tok, ok = st.decode(toks[id(st)], lens + i, tables,
+                                np.arange(4), np.full(4, i + 1))
+            assert ok.all()
+            toks[id(st)] = tok
+        assert np.array_equal(toks[id(graphed)], toks[id(eager)])
+    for a, b in zip(graphed.cache, eager.cache):
+        assert sorted(a) == ["ckv", "krope"]
+        for name in a:
+            assert torch.equal(a[name], b[name])
+    assert graphed.captures["decode"] == 1
+
+
+def test_mla_graphed_verify_equals_eager(cuda):
+    """Verify windows over the paged latent pool (drafts of 3, 2, 1 and 0
+    tokens): the replayed graph gives the eager step's tokens and accept
+    counts and leaves bit-identical real blocks."""
+    (graphed, eager), first, lens, tables = _stepper_pair(
+        cuda, True, params_cfg=_mla_smoke(cuda), spec_k=3)
+    vocab = graphed.cfg.vocab
+    rng = np.random.default_rng(1)
+    uids, pos, last = np.arange(4), lens.copy(), first
+    for i in range(3):
+        tokens = np.concatenate(
+            [last[:, None], rng.integers(0, vocab, (4, 3))], axis=1)
+        dl = np.array([3, 2, 1, 0])
+        outs = [st.verify(tokens, pos, tables, dl, uids, np.full(4, i))
+                for st in (graphed, eager)]
+        assert np.array_equal(outs[0][0], outs[1][0])
+        assert np.array_equal(outs[0][1], outs[1][1])
+        tgt, n_acc = outs[0]
+        last, pos = tgt[np.arange(4), n_acc], pos + n_acc + 1
+    for a, b in zip(_paged_leaves(graphed), _paged_leaves(eager)):
+        assert torch.equal(a, b)
+    assert graphed.captures["verify"] == 1

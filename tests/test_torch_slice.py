@@ -36,7 +36,8 @@ def _near_tie_step(logits_steps, tol):
 
 
 @pytest.mark.parametrize("sparsity", [None, 0.8])
-@pytest.mark.parametrize("arch", ["opt_30b", "tinyllama_1_1b"])
+@pytest.mark.parametrize("arch", ["opt_30b", "tinyllama_1_1b",
+                                  "minicpm3_4b"])
 def test_f32_logits_and_greedy_tokens(arch, sparsity):
     rcfg, jparams, pcfg, pparams = models(arch, sparsity, "float32")
     prompt = prompt_of(rcfg)

@@ -1,7 +1,7 @@
 """The slice in the default bf16 configs: reference params through
 ``convert`` into the port; prefill and first decode-step logits match the
 reference's within ``atol=rtol=3e-2`` (bf16 rounds at other places in the
-two frameworks), on both smoke configs, dense and at sparsity 0.8."""
+two frameworks), on the three smoke configs, dense and at sparsity 0.8."""
 
 import numpy as np
 import pytest
@@ -12,7 +12,8 @@ BF16_TOL = 3e-2
 
 
 @pytest.mark.parametrize("sparsity", [None, 0.8])
-@pytest.mark.parametrize("arch", ["opt_30b", "tinyllama_1_1b"])
+@pytest.mark.parametrize("arch", ["opt_30b", "tinyllama_1_1b",
+                                  "minicpm3_4b"])
 def test_bf16_logits(arch, sparsity):
     rcfg, jparams, pcfg, pparams = models(arch, sparsity, "bfloat16")
     prompt = prompt_of(rcfg)

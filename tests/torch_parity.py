@@ -17,20 +17,24 @@ from repro_torch import configs, convert
 from repro_torch.serving import engine
 
 SPARSE = ("'wq'", "'wk'", "'wv'", "'wo'", "'gate'", "'up'", "'down'")
+# The launchers' list above keeps the MLA factors dense; this one encodes
+# every factor as well (the reference's default_should_sparsify).
+SPARSE_ALL = SPARSE + ("'w_dq'", "'w_uq'", "'w_dkv'", "'w_ukv'")
 
 
-def should_sparsify(name):
+def should_sparsify(name, names=SPARSE):
     # weights only (the reference's scan-stacked [L, d] biases are 2-D too)
-    return name.endswith("['w']") and any(k in name for k in SPARSE)
+    return name.endswith("['w']") and any(k in name for k in names)
 
 
-def models(arch, sparsity, dtype):
+def models(arch, sparsity, dtype, names=SPARSE):
     rcfg = dataclasses.replace(ref_configs.smoke(arch), dtype=dtype)
     pcfg = dataclasses.replace(configs.smoke(arch), dtype=dtype)
     jparams = ref_tf.init_model(jax.random.PRNGKey(0), rcfg)
     if sparsity:
         jparams = ref_pruning.group_projections(ref_pruning.sparsify_params(
-            jparams, sparsity, should_sparsify=should_sparsify))
+            jparams, sparsity,
+            should_sparsify=lambda n: should_sparsify(n, names)))
     pparams = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
                                         device="cpu")
     return rcfg, jparams, pcfg, pparams

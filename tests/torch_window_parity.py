@@ -1,7 +1,8 @@
 """Shared set-up of the verify-window parity tests (speculative verify and
 the chunked-prefill mixed step): one random bf16 block pool laid out for
-both packages (the port's list of per-layer ``{"k", "v"}`` pools, the
-reference's scan-stacked ``[L, P, block, kv, hd]`` leaves), and the
+both packages (the port's list of per-layer ``{"k", "v"}`` pools, or
+``{"ckv", "krope"}`` latent pools for MLA, the reference's scan-stacked
+``[L, P, block, ...]`` leaves), and the
 check of a committed window: committed positions hold the reference's
 bits within one bf16 ulp (each side rounds its own f32 K/V), every other
 position of every real block keeps its bits exactly. Physical block 0 is
@@ -15,39 +16,45 @@ import torch
 BF16_ULP = 2.0 ** -7                    # relative spacing of bf16
 
 
+def leaf_shapes(cfg):
+    """{leaf name: per-position shape} of one layer's cache."""
+    if cfg.attn_kind == "mla":
+        return {"ckv": (cfg.kv_lora_rank,), "krope": (cfg.qk_rope_dim,)}
+    return {name: (cfg.n_kv, cfg.head_dim) for name in ("k", "v")}
+
+
 def random_pools(cfg, n_phys, block, seed=0):
-    """[L] pairs of f32 arrays [n_phys, block, kv, hd], already bf16
+    """[L] dicts {leaf name: f32 array [n_phys, block, ...]}, already bf16
     values, so both packages hold the same bits."""
     rng = np.random.default_rng(seed)
-    shape = (n_phys, block, cfg.n_kv, cfg.head_dim)
     out = []
     for _ in range(cfg.n_layers):
-        pair = [rng.standard_normal(shape).astype(np.float32)
-                for _ in range(2)]
-        out.append([torch.from_numpy(x).to(torch.bfloat16).float().numpy()
-                    for x in pair])
+        out.append({name: torch.from_numpy(rng.standard_normal(
+            (n_phys, block) + shape).astype(np.float32)).to(
+                torch.bfloat16).float().numpy()
+            for name, shape in leaf_shapes(cfg).items()})
     return out
 
 
 def port_cache(pools):
-    return [{"k": torch.from_numpy(k).to(torch.bfloat16),
-             "v": torch.from_numpy(v).to(torch.bfloat16)} for k, v in pools]
+    return [{name: torch.from_numpy(x).to(torch.bfloat16)
+             for name, x in layer.items()} for layer in pools]
 
 
 def ref_cache(pools):
-    return {name: jnp.asarray(np.stack([p[i] for p in pools]), jnp.bfloat16)
-            for i, name in enumerate(("k", "v"))}
+    return {name: jnp.asarray(np.stack([p[name] for p in pools]),
+                              jnp.bfloat16) for name in pools[0]}
 
 
 def port_np(cache):
-    """{name: f32 [L, P, block, kv, hd]} of the port's pools."""
+    """{name: f32 [L, P, block, ...]} of the port's pools."""
     return {name: np.stack([layer[name].float().numpy() for layer in cache])
-            for name in ("k", "v")}
+            for name in cache[0]}
 
 
 def ref_np(cache):
     return {name: np.asarray(cache[name].astype(jnp.float32))
-            for name in ("k", "v")}
+            for name in cache}
 
 
 def committed_positions(tables, pos, commit, block):
@@ -65,11 +72,11 @@ def committed_positions(tables, pos, commit, block):
 def assert_window_committed(got, want, before, committed):
     """``got``/``want``/``before``: {name: [L, P, block, ...]} f32 pools of
     the port after, the reference after, and both before the commit."""
-    keep = np.ones(before["k"].shape[1:3], bool)          # [P, block]
+    keep = np.ones(next(iter(before.values())).shape[1:3], bool)  # [P, block]
     keep[0] = False                                       # the trash block
     for phys, off in committed:
         keep[phys, off] = False
-    for name in ("k", "v"):
+    for name in before:
         g, w, b = got[name], want[name], before[name]
         np.testing.assert_array_equal(g[:, keep], b[:, keep])
         np.testing.assert_array_equal(w[:, keep], b[:, keep])
