@@ -5,8 +5,9 @@
 
 Needs one CUDA card (an H100 for the numbers it prints). In order it
 
-1. prints the card's name and power limit and builds the five CUDA
-   kernels (four LSCD SpMM kernels and the dense GEMM baseline) from
+1. prints the card's name and power limit and builds the seven CUDA
+   kernels (six LSCD SpMM kernels, two of them expert-batched for the
+   MoE stacks, and the dense GEMM baseline) from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one process per
    source, all at once), and fails if ``ptxas`` reports a spill, a
    serialized ``wgmma`` (C7518) or an ignored ``setmaxnreg`` (C7508) in
@@ -52,7 +53,9 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    its two prompt blocks from the 512-token bucket: the shared blocks'
    bytes must not change and the first request's stream must equal its
    run alone (it prints the same pair written as the reference writes
-   it, the whole block map, for comparison);
+   it, the whole block map, for comparison), and reports the same pair
+   on the chunked server (chunk 16, budget 32), where B's chunks write
+   A's blocks again from position 0;
 5. window phase: speculative verify and chunked prefill on the serving
    phase's model, server (paged) and trace, against its paged graphed
    run: (a) spec_k = 3 with ``NgramDrafter`` and (b) chunked prefill
@@ -110,10 +113,31 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    configuration must pass its plain version; it prints decode and
    verify ms/step, tok/s, TTFT/TPOT p50/p99, peak allocated bytes, the
    accept rate and a profiled graphed decode and verify step by kernel;
-9. prints the kernels' JSON line (launches of the slice, the serving
-   runs, the window runs, the full-depth run, the tinyllama run and the
-   MLA runs, the serving ones also by prefill and decode, the window
-   ones also by verify and mixed), the card line, and last
+9. MoE phase: first one qwen2-moe-a2.7b layer at full width (60
+   experts at d_expert 1408, the fused 5632-wide shared expert, wqkv with
+   the q/k/v bias) with every weight but the router in Tiled-CSL: the
+   attention and the MoE block (on the same normalised input, so both
+   sides route alike) against their plain versions in prefill (2 x 512),
+   decode and paged decode (32 slots), every launch configuration held
+   against its plain version and timed. Then qwen3-moe-30b-a3b at all 48
+   layers (128 experts top-8 at d_expert 768) built layer by layer with
+   its expert stacks in Tiled-CSL, the planner's plans and built against
+   planned bytes, first-step logits against the plain path at 4 and 48
+   layers with the kernels' routes pinned to the plain run's
+   (``depth_logits_tol``, ``LOGITS_TOL`` at 4; where a route differed
+   before the pin, the first one that did must sit at a router near tie,
+   both sides' top-k margins below ``NEAR_TIE``), 32 requests (128-768 prompt tokens, 64
+   greedy new tokens) over 32 slots at max_len 1024 from the planner's
+   pool, dense graph on, paged graph on and paged graph off (identical
+   streams, clean pools), every launch configuration against its plain
+   version, ``select``'s pick per expert shape, a profiled graphed
+   decode step, and the two batched kernels at the decode cell timed
+   beside their plain versions and ``torch.bmm``;
+10. prints the kernels' JSON line (launches of the slice, the serving
+   runs, the window runs, the full-depth run, the tinyllama run, the
+   MLA runs and the MoE runs, the serving ones also by prefill and
+   decode, the window ones also by verify and mixed), the card line, and
+   last
    ``{"ok": true, "device": {...}}``; the
    full summary goes to ``chiprun_out/chip_smoke.json``.
 
@@ -151,6 +175,9 @@ SOURCES = {
     "lscd_spmm_splitk": "src/repro/kernels/spmm.py:497",
     "lscd_spmm_splitk_grouped": "src/repro/kernels/spmm.py:641",
     "dense_gemm": "src/repro/kernels/gemm.py:46",
+    # jax.vmap over lscd_spmm / lscd_spmm_splitk (repro/models/moe.py:52-60)
+    "lscd_spmm_batched": "src/repro/kernels/spmm.py:204",
+    "lscd_spmm_splitk_batched": "src/repro/kernels/spmm.py:497",
 }
 
 
@@ -704,7 +731,7 @@ def slice_phase(torch, mods):
         print(f"slice: schedule {key} -> {dataclasses.asdict(sched)}, "
               f"{mods['contracts'].body(sched.n_tb)} body")
     print(f"slice: launches {json.dumps(counts)}", flush=True)
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in spmm.WEIGHT_KERNELS if counts[k] == 0]
     check(not missing, f"kernels never launched on the main path: {missing}")
 
     # First decode step against the same model through the plain versions.
@@ -776,7 +803,9 @@ class LaunchProbe:
     def _wrap(self, name, fn):
         def probed(t, b, **kw):
             bias = kw.get("bias")
-            key = (name, tuple(t.shape), t.group or 1, int(b.shape[1]),
+            # an expert stack's experts stand where a group's weights do
+            key = (name, tuple(t.shape), t.experts or t.group or 1,
+                   int(b.shape[-1]),
                    kw["n_tb"], kw.get("split_k", 1),
                    kw.get("epilogue", "none"), bias is not None,
                    b.dtype, kw.get("out_dtype") or b.dtype,
@@ -831,9 +860,22 @@ def _step_stats(times: list) -> dict:
 
 
 def _launch_names(cfg) -> dict:
-    """((M, K), group) -> the projection's name, for the reports."""
+    """((M, K), group, or experts of an expert stack) -> the projection's
+    name, for the reports."""
     d, f = cfg.d_model, cfg.d_ff
     names = {((f, d), 1): "up", ((d, f), 1): "down", ((f, d), 2): "gate_up"}
+    if cfg.n_routed_experts:
+        e, fe = cfg.n_routed_experts, cfg.d_expert
+        fs = cfg.d_shared_expert * cfg.n_shared_experts
+        h = cfg.n_heads * cfg.head_dim
+        names = {((fe, d), e): "e.gate", ((d, fe), e): "e.down",
+                 ((fs, d), 2): "s.gate_up", ((d, fs), 1): "s.down",
+                 ((d, h), 1): "wo", ((h, d), 3): "wqkv"}
+        kvd = cfg.n_kv * cfg.head_dim
+        names.setdefault(((h, d), 1), "wq")
+        names.setdefault(((kvd, d), 1), "wk")
+        names.setdefault(((kvd, d), 2), "wk+wv")
+        return names
     if cfg.attn_kind == "mla":
         h, kvr, qr = cfg.n_heads, cfg.kv_lora_rank, cfg.q_lora_rank
         dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -854,10 +896,11 @@ def _check_served_launches(torch, mods, seen, cfg, label: str = "serving",
                            flush=None) -> list:
     """Each launch configuration the probe saw on the serving path, held
     against the kernel's plain version (the split-K pair against the
-    split-K reference, which sums the same slices) on the same weight and
-    bias and a fresh B on the card of the recorded shape and dtype. With
-    ``flush`` each kernel and its plain version are also timed
-    (``cuda_ms``, cold L2)."""
+    split-K reference, which sums the same slices; an expert-batched
+    launch against the loop of plain versions over its experts) on the
+    same weight and bias and a fresh B on the card of the recorded shape
+    and dtype. With ``flush`` each kernel and its plain version are also
+    timed (``cuda_ms``, cold L2)."""
     ref, spmm = mods["ref"], mods["spmm"]
     names = _launch_names(cfg)
     gen = torch.Generator(device="cuda")
@@ -866,11 +909,21 @@ def _check_served_launches(torch, mods, seen, cfg, label: str = "serving",
     for key in sorted(seen, key=lambda k: (str(k[-1]), k[3], k[:3])):
         name, (m, k), g, n, n_tb, sk, epi, _, b_dtype, out_dtype, phase = key
         t, bias = seen[key]
-        b = (0.1 * torch.randn((k, n), generator=gen, device="cuda")).to(
-            b_dtype)
+        batched = name.endswith("batched")
+        b = (0.1 * torch.randn(((g,) if batched else ()) + (k, n),
+                               generator=gen, device="cuda")).to(b_dtype)
         kw = dict(out_dtype=out_dtype, epilogue=epi, bias=bias)
         grouped = name.endswith("grouped")
-        if "splitk" in name:
+        if batched:
+            def kern():
+                extra = dict(split_k=sk) if "splitk" in name else {}
+                return getattr(spmm, name)(t, b, n_tb=n_tb,
+                                           out_dtype=out_dtype, **extra)
+
+            def plain():
+                return ref.spmm_splitk_batched_ref(t, b, sk,
+                                                   out_dtype=out_dtype)
+        elif "splitk" in name:
             def kern():
                 return getattr(spmm, name)(t, b, n_tb=n_tb, split_k=sk, **kw)
 
@@ -898,7 +951,7 @@ def _check_served_launches(torch, mods, seen, cfg, label: str = "serving",
                        plain_ms=cuda_ms(torch, plain, 5, flush))
             timed = f", {row['ms']:.4f} ms (plain {row['plain_ms']:.4f})"
         rows.append(row)
-        print(f"{label}: checked {phase:7s} {name:25s} {shape:5s} N={n:<5d}"
+        print(f"{label}: checked {phase:7s} {name:25s} {shape:7s} N={n:<5d}"
               f" n_tb={n_tb:<3d} S={sk:<2d} {epi:8s} max err {err:.2e}"
               f"{timed}", flush=True)
         del b, got, want
@@ -1070,7 +1123,7 @@ def serving_phase(torch, mods, params, cfg):
               f"launch {json.dumps(by_phase['prefill'])}, "
               f"{run_g['decode_steps']} decode steps launch "
               f"{json.dumps(by_phase['decode'])}", flush=True)
-        missing = [k for k, v in counts.items() if v == 0]
+        missing = [k for k in spmm.WEIGHT_KERNELS if counts[k] == 0]
         check(not missing, f"kernels never launched on the serving path: "
               f"{missing}")
         check(all(by_phase["prefill"][k] + by_phase["decode"][k] == counts[k]
@@ -1141,6 +1194,14 @@ def serving_phase(torch, mods, params, cfg):
     check(prefix["elements_changed"] == 0 and prefix["stream_same"],
           "shared prefix: a later admission rewrote blocks a request in "
           "flight shares")
+    # Chunked: B's mixed steps also carry A's decode (N = 256 where A
+    # alone decodes at N = 16), so A's stream may differ at a near tie;
+    # the blocks' bits may not.
+    prefix["chunked"] = _shared_prefix(torch, mods, params, cfg,
+                                       chunked=True)
+    check(prefix["chunked"]["elements_changed"] == 0,
+          "shared prefix: a chunked admission rewrote blocks a request in "
+          "flight shares with other bits")
     checked = _check_served_launches(torch, mods, probe.seen, cfg)
     print(f"serving: {len(checked)} launch configurations of the serving "
           f"path held against the plain versions", flush=True)
@@ -1154,30 +1215,45 @@ def serving_phase(torch, mods, params, cfg):
     return summary, by_phase, plain
 
 
-def _shared_prefix(torch, mods, params, cfg) -> dict:
+def _shared_prefix(torch, mods, params, cfg, chunked: bool = False) -> dict:
     """Whether a later admission rewrites prompt blocks that a request in
-    flight shares. Request A (32 tokens: two full blocks, the 32-token
-    bucket, so prefill N = 4 x 32 = 128, where ``select`` splits K) is
-    admitted alone and decodes once; then B, A's 32 tokens and 400 more
-    (the 512-token bucket: N = 2048, single pass), is admitted on the same
-    paged server and maps A's two blocks as prefix hits. Compares those
-    blocks' bits in every cache leaf before and after B's admission, and
-    A's greedy stream against a run without B: as the port writes
-    (``AdmissionPlan.write_targets``), and, for comparison, as the
-    reference writes (the plan's whole block map, ``targets``)."""
+    flight shares. Request A (32 tokens: two full blocks) is admitted
+    alone and decodes once; then B, A's 32 tokens and 400 more, is
+    admitted on the same paged server and maps A's two blocks as prefix
+    hits. Bucketed (``chunked`` False): A takes the 32-token bucket
+    (prefill N = 4 x 32 = 128, where ``select`` splits K), B the 512-token
+    one (N = 2048, single pass). Chunked (the window phase's server:
+    chunks of 16, a budget of 32): both stream their prompts through the
+    mixed step (N = 16 x 16 = 256) from position 0, so B's first two
+    chunks write A's two blocks again. Compares those blocks' bits in
+    every cache leaf before and after B's prefill, and A's greedy stream
+    against a run without B: as the port writes (``AdmissionPlan.
+    write_targets``) and, bucketed, for comparison, as the reference
+    writes (the plan's whole block map, ``targets``)."""
     import numpy as np
     api, plan_cls = mods["api"], mods["scheduler"].AdmissionPlan
     rng = np.random.default_rng(SEED + 3)
     a = rng.integers(0, cfg.vocab, 32).astype(np.int64)
     b = np.concatenate([a, rng.integers(0, cfg.vocab, 400).astype(np.int64)])
+    config = (_window_config(mods, chunked=True) if chunked
+              else _serve_config(mods, paged=True))
+
+    def step_until_first_token(server, prompt) -> int:
+        bt = server.batcher
+        for _ in range(64):             # a chunked prompt takes 27 steps
+            server.step()
+            slot = next((s for s in bt.sched.active_slot_ids()
+                         if len(bt.slots[s].prompt) == len(prompt)), None)
+            if slot is not None and bt.slots[slot].generated:
+                return slot
+        raise SmokeFailure(f"shared prefix: the {len(prompt)}-token request "
+                           "never finished its prefill")
 
     def run(with_b: bool) -> dict:
-        server = api.StreamingServer(params, cfg,
-                                     config=_serve_config(mods, paged=True))
+        server = api.StreamingServer(params, cfg, config=config)
         server.submit(api.GenerationRequest(a, SERVE_NEW, session_id="a"))
-        server.step()                   # admits A, decodes once
         bt = server.batcher
-        (slot,) = bt.sched.active_slot_ids()
+        slot = step_until_first_token(server, a)    # A admitted, decodes
         shared = list(bt.sched.tables[slot].blocks[:2])
         idx = torch.tensor(shared, device="cuda")
         leaves = [layer[n] for layer in bt.stepper.cache for n in ("k", "v")]
@@ -1186,17 +1262,16 @@ def _shared_prefix(torch, mods, params, cfg) -> dict:
         if with_b:
             server.submit(api.GenerationRequest(b, SERVE_NEW,
                                                 session_id="b"))
-            server.step()               # admits B, decodes both
-            other = [s for s in bt.sched.active_slot_ids() if s != slot]
-            check(len(other) == 1 and list(
-                bt.sched.tables[other[0]].blocks[:2]) == shared,
-                "shared prefix: B does not map A's two prompt blocks")
+            other = step_until_first_token(server, b)
+            check(list(bt.sched.tables[other].blocks[:2]) == shared,
+                  "shared prefix: B does not map A's two prompt blocks")
             torch.cuda.synchronize()
             after = [leaf[idx] for leaf in leaves]
             res = dict(
                 blocks=shared, prefix_hit_tokens=int(
                     bt.metrics.prefix_hit_tokens),
                 buckets=sorted(bt.metrics.bucket_admits),
+                mixed_steps=int(bt.metrics.mixed_steps),
                 elements=sum(x.numel() for x in before),
                 elements_changed=sum(
                     int((x.view(torch.int16) != y.view(torch.int16)).sum())
@@ -1209,22 +1284,25 @@ def _shared_prefix(torch, mods, params, cfg) -> dict:
 
     alone = run(False)["stream"]
     out = run(True)
-    saved = plan_cls.write_targets
-    plan_cls.write_targets = lambda plan: plan.targets
-    try:
-        ref = run(True)
-    finally:
-        plan_cls.write_targets = saved
+    out["stream_same"] = out.pop("stream") == alone
+    runs = [("as the port writes", out)]
+    if not chunked:
+        saved = plan_cls.write_targets
+        plan_cls.write_targets = lambda plan: plan.targets
+        try:
+            ref = run(True)
+        finally:
+            plan_cls.write_targets = saved
+        out["reference"] = dict(elements_changed=ref["elements_changed"],
+                                max_abs_change=ref["max_abs_change"],
+                                stream_same=ref["stream"] == alone)
+        runs.append(("as the reference writes", out["reference"]))
     release(torch)
-    out.update(stream_same=out.pop("stream") == alone,
-               reference=dict(elements_changed=ref["elements_changed"],
-                              max_abs_change=ref["max_abs_change"],
-                              stream_same=ref["stream"] == alone))
-    for label, r in (("as the port writes", out),
-                     ("as the reference writes", out["reference"])):
-        print(f"serving: shared prefix, {label}: B (bucket "
-              f"{out['buckets'][-1]}) mapped A's blocks {out['blocks']} "
-              f"({out['prefix_hit_tokens']} hit tokens); "
+    how = (f"chunked ({out['mixed_steps']} mixed steps)" if chunked
+           else f"bucket {out['buckets'][-1]}")
+    for label, r in runs:
+        print(f"serving: shared prefix, {label}: B ({how}) mapped A's blocks"
+              f" {out['blocks']} ({out['prefix_hit_tokens']} hit tokens); "
               f"{r['elements_changed']} of {out['elements']} cache elements "
               f"of those blocks changed at B's admission (max abs change "
               f"{r['max_abs_change']:.3e}); A's stream "
@@ -1765,7 +1843,7 @@ def full_depth_phase(torch, mods) -> dict:
           f"allocated {peak} B against the {FULL_BUDGET:.0f} B budget "
           f"(weights {built['weight_bytes']} B, pool {run['pool_bytes']} B)",
           flush=True)
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in spmm.WEIGHT_KERNELS if counts[k] == 0]
     check(not missing, f"full depth: kernels never launched: {missing}")
     check(peak <= FULL_BUDGET, f"full depth: peak allocated {peak} B over "
           f"the {FULL_BUDGET:.0f} B budget")
@@ -2152,7 +2230,7 @@ def mla_phase(torch, mods) -> dict:
           == streams["paged_eager"],
           "mla: dense graph-on, paged graph-on and paged graph-off streams "
           "differ")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in spmm.WEIGHT_KERNELS if counts[k] == 0]
     check(not missing, f"mla: kernels never launched: {missing}")
     out["spec_cut"] = _near_tie_streams(
         torch, mods, params, cfg, dict(enumerate(reqs)),
@@ -2197,6 +2275,492 @@ def mla_phase(torch, mods) -> dict:
             print(f"mla:   {key} {ms:8.3f} ms/step {n:4d}/step  {name}")
     out.update(runs=runs, launches=counts, launches_by_phase=launches,
                near_tie=NEAR_TIE)
+    del params, probe
+    release(torch)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MoE phase: qwen3_moe_30b_a3b at full size
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MOE_LAYER_ARCH = "qwen3_moe_30b_a3b", "qwen2_moe_a2_7b"
+MOE_SLOTS, MOE_MAX_LEN, MOE_REQUESTS, MOE_NEW = 32, 1024, 32, 64
+MOE_PROMPT = (128, 769)                 # uniform prompt lengths, half-open
+MOE_DEPTHS = (4, 48)
+# The prefill buckets are powers of two and admit_k is 4, so every
+# admission's 4 x bucket tokens split into whole 256-token subgroups.
+MOE_ADMIT_K = 4
+# The layer check: prefill of 2 x 512 positions (N = 1024 for the dense
+# products, 4 subgroups x C = 22 per expert), decode and paged decode at
+# 32 slots (C = 3 per expert).
+MOE_LAYER_B, MOE_LAYER_S, MOE_LAYER_SLOTS, MOE_LAYER_T = 2, 512, 32, 1024
+MOE_STACKS = ("gate", "up", "down")
+
+
+class RouteTrace:
+    """While entered, wraps the router product inside each
+    ``moe.moe_block`` call and records per call the router's output and,
+    per token, its routes as the block takes them (the top-k of the f32
+    softmax, sorted) and its top-k margin: the k-th largest router logit
+    less the (k+1)-th (softmax keeps the order, so that is the margin a
+    route flip must cross). Given ``pin``, an earlier trace's calls, a
+    token whose routes differ from that trace's takes that trace's router
+    output row, so every token routes as in the earlier run; ``calls``
+    keeps the routes from before the pin and ``pinned`` counts the
+    tokens pinned."""
+
+    def __init__(self, torch, moe, sparse_linear, pin=None):
+        self.torch, self.moe, self.sl, self.pin = torch, moe, sparse_linear, pin
+        self.calls, self.pinned = [], 0
+
+    def __enter__(self):
+        self._orig = self.moe.moe_block
+        self.moe.moe_block = self._traced
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_block = self._orig
+
+    def _routes(self, logits, k):
+        torch = self.torch
+        probs = torch.softmax(logits.to(torch.float32), dim=-1)
+        return torch.topk(probs, k, dim=-1).indices.sort(dim=-1).values
+
+    def _traced(self, params, x, cfg, *, backend="auto"):
+        torch, k = self.torch, cfg.top_k
+        router, linear = params["router"]["w"], self.sl.linear
+
+        def routed(w, *args, **kw):
+            out = linear(w, *args, **kw)
+            if w is not router:
+                return out
+            idx = self._routes(out, k)
+            top = torch.topk(out.to(torch.float32), k + 1, dim=-1).values
+            self.calls.append((out.clone(), idx.reshape(-1, k),
+                               (top[..., k - 1] - top[..., k]).reshape(-1)))
+            if self.pin is None:
+                return out
+            want_out, want_idx, _ = self.pin[len(self.calls) - 1]
+            flip = (idx != want_idx.reshape(idx.shape)).any(dim=-1)
+            self.pinned += int(flip.sum())
+            out = torch.where(flip[..., None], want_out, out)
+            check(torch.equal(self._routes(out, k).reshape(-1, k), want_idx),
+                  f"moe: MoE call {len(self.calls) - 1}: the pinned routes "
+                  "differ from the plain run's")
+            return out
+
+        self.sl.linear = routed
+        try:
+            return self._orig(params, x, cfg, backend=backend)
+        finally:
+            self.sl.linear = linear
+
+
+def _moe_logits_vs_plain(torch, mods, params, cfg, prompts):
+    """``_logits_vs_plain`` with every MoE call traced: the plain pass
+    first, then the kernels' pass with its routes pinned to the plain
+    pass's (``RouteTrace``). Returns (kernels' tokens, logits, plain
+    tokens, logits, the first route that differed before the pin as
+    (call, token, plain margin, kernels' margin) or None, the tokens
+    pinned); calls run prefill's layers, then decode's."""
+    engine, moe, sl = mods["engine"], mods["moe"], mods["sparse_linear"]
+    S = prompts.shape[1]
+    res, pin = {}, None
+    with torch.inference_mode():
+        for backend in ("torch", "cuda"):
+            with RouteTrace(torch, moe, sl, pin=pin) as rt:
+                last, cache = engine.prefill(params, prompts, cfg, S + 1,
+                                             backend=backend)
+                tok = torch.argmax(last, dim=-1)[:, None]
+                logits, _ = engine.serve_step(params, cache, tok, S, cfg,
+                                              backend=backend)
+            res[backend] = (tok, logits.float(), rt)
+            pin = rt.calls
+            del cache, last
+    plain, kern = res["torch"][2], res["cuda"][2]
+    check(len(plain.calls) == len(kern.calls), "moe: the kernels' pass made "
+          f"{len(kern.calls)} MoE calls, the plain pass {len(plain.calls)}")
+    first = None
+    for i, ((_, ri, rm), (_, pi, pm)) in enumerate(zip(kern.calls,
+                                                       plain.calls)):
+        diff = (ri != pi).any(dim=-1)
+        if bool(diff.any()):
+            t = int(diff.nonzero()[0, 0])
+            first = (i, t, float(pm[t]), float(rm[t]))
+            break
+    return res["cuda"][0], res["cuda"][1], res["torch"][0], res["torch"][1], \
+        first, kern.pinned
+
+
+def moe_layer_check(torch, mods) -> dict:
+    """One qwen2-moe-a2.7b layer at full width (d_model 2048, 16 heads with
+    the q/k/v bias, 60 routed experts at d_expert 1408 top-4, the four
+    shared experts fused to one 5632-wide SwiGLU) with every weight but
+    the router in Tiled-CSL: wqkv grouped with its bias, wo, the shared
+    expert's gate_up (``silu_mul``) and down, and the three routed
+    expert stacks (the batched kernels). Through the kernels against the
+    plain versions (``backend="torch"``) on the same inputs: the
+    attention in prefill, decode and paged decode, then the MoE block
+    on the plain side's normalised attention output, so both sides
+    route the same tokens (the router is dense); outputs within
+    ``LOGITS_TOL``. Every launch configuration is then held against its
+    plain version and timed."""
+    configs, pruning, spmm, serve = (mods[x] for x in (
+        "configs", "pruning", "spmm", "serve"))
+    transformer, attention, moe = (mods[x] for x in (
+        "transformer", "attention", "moe"))
+    cfg = dataclasses.replace(configs.get(MOE_LAYER_ARCH), n_layers=1)
+    params = transformer.init_model(cfg, seed=SEED, device="cuda")
+    layer = pruning.group_projections(pruning.sparsify_params(
+        params["layers"][0], SPARSITY,
+        should_sparsify=lambda n: any(k in n for k in serve.SPARSE_NAMES)
+        and not n.endswith("['b']")))
+    del params
+    dt = torch.bfloat16
+    for name in MOE_STACKS:
+        check(getattr(layer["moe"][name], "stack", False),
+              f"moe layer: {name} is not an expert stack")
+    check("wqkv" in layer["attn"] and "gate_up" in layer["moe"]["shared"],
+          "moe layer: wqkv or the shared gate_up is not grouped")
+    layer["moe"]["router"]["w"] = layer["moe"]["router"]["w"].to(dt)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    kv = (cfg.n_kv, cfg.head_dim)
+    cache = {n: randn(MOE_LAYER_SLOTS, MOE_LAYER_T, *kv) for n in ("k", "v")}
+    nblk = MOE_LAYER_T // 16
+    pool = {n: torch.cat([torch.zeros_like(t[:1, :16]),
+                          t.reshape(MOE_LAYER_SLOTS * nblk, 16, *kv)])
+            for n, t in cache.items()}
+    tables = 1 + torch.arange(MOE_LAYER_SLOTS * nblk,
+                              device="cuda").reshape(MOE_LAYER_SLOTS, nblk)
+    per_slot = torch.randint(1, MOE_LAYER_T - 1, (MOE_LAYER_SLOTS,),
+                             generator=gen, device="cuda")
+    positions = torch.arange(MOE_LAYER_S, device="cuda")[None].expand(
+        MOE_LAYER_B, MOE_LAYER_S)
+    B, S = MOE_LAYER_B, MOE_LAYER_S
+    cases = (
+        ("prefill", randn(B, S, cfg.d_model),
+         lambda p, h, c, be: attention.attention(
+             p, h, positions, cfg, cache=c, backend=be),
+         {n: torch.zeros_like(t[:B]) for n, t in cache.items()}),
+        ("decode", randn(MOE_LAYER_SLOTS, 1, cfg.d_model),
+         lambda p, h, c, be: attention.attention_decode(
+             p, h, c, per_slot, cfg, backend=be), cache),
+        ("paged decode", randn(MOE_LAYER_SLOTS, 1, cfg.d_model),
+         lambda p, h, c, be: attention.attention_decode_paged(
+             p, h, c, tables, per_slot, cfg, backend=be), pool))
+    probe = LaunchProbe(spmm)
+    out = dict(modes={})
+    tol = dict(rtol=LOGITS_TOL, atol=LOGITS_TOL)
+    with probe, torch.inference_mode():
+        for label, x, attend, c in cases:
+            probe.phase = "prefill" if label == "prefill" else "decode"
+            h = transformer._norm(cfg, layer["pre_norm"], x)
+            att = {}
+            for backend in ("cuda", "torch"):
+                a, _ = attend(layer["attn"], h, {n: t.clone()
+                                                 for n, t in c.items()},
+                              backend)
+                att[backend] = a
+            err_a = close(torch, att["cuda"], att["torch"], tol,
+                          f"moe layer: {label}: attention vs plain")
+            h2 = transformer._norm(cfg, layer["mlp_norm"], x + att["torch"])
+            ys = {be: moe.moe_block(layer["moe"], h2, cfg, backend=be)[0]
+                  for be in ("cuda", "torch")}
+            err_m = close(torch, ys["cuda"], ys["torch"], tol,
+                          f"moe layer: {label}: moe block vs plain")
+            T = x.shape[0] * x.shape[1]
+            sg = min(cfg.moe_subgroup, T)
+            C = int(-(-sg * cfg.top_k // cfg.n_routed_experts)
+                    * cfg.capacity_factor)
+            out["modes"][label] = dict(attention_max_abs_err=err_a,
+                                       moe_max_abs_err=err_m, tokens=T,
+                                       expert_n=T // sg * C)
+            print(f"moe layer: {label:12s} T={T:<5d} expert N={T // sg * C:<4d}"
+                  f" attention vs plain max abs err {err_a:.3e}, MoE block "
+                  f"{err_m:.3e} (tol {LOGITS_TOL} + {LOGITS_TOL} relative)",
+                  flush=True)
+            del att, ys, h, h2
+        probe.phase = None
+    names = _launch_names(cfg)
+    ran = {(names.get((key[1], key[2])), key[-1]) for key in probe.seen}
+    for name in ("e.gate", "e.down", "s.gate_up", "s.down", "wqkv", "wo"):
+        for mode in ("prefill", "decode"):
+            check((name, mode) in ran, f"moe layer: {name} never launched in "
+                  f"{mode}")
+    flush = torch.empty(2 ** 28, dtype=torch.int32, device="cuda")
+    out["checked_launches"] = _check_served_launches(
+        torch, mods, probe.seen, cfg, label="moe layer", flush=flush)
+    del flush, layer, cache, pool, probe
+    release(torch)
+    return out
+
+
+def moe_kernel_rows(torch, mods, layer, cfg, flush) -> dict:
+    """The two batched kernels at their main-path cells, on the built
+    model's first layer: ``lscd_spmm_splitk_batched`` on the routed gate
+    stack and ``lscd_spmm_batched`` on the down stack, at the decode
+    step's per-expert N (32 slots: C = 2), on the schedule ``select``
+    picks there. Each is held against its plain version and timed beside
+    it and beside ``torch.bmm`` on the decoded bf16 stack (the library
+    call computing the same function); the bound counts this stack's
+    real words, its counters, B and C once, and 2 * nnz * N operations."""
+    ops, ref, schedule, roofline, tiled_csl = (mods[x] for x in (
+        "ops", "ref", "schedule", "roofline", "tiled_csl"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    C = int(-(-MOE_SLOTS * cfg.top_k // cfg.n_routed_experts)
+            * cfg.capacity_factor)
+    rows = {}
+    for kernel, stack in (("lscd_spmm_splitk_batched", "gate"),
+                          ("lscd_spmm_batched", "down")):
+        t = layer["moe"][stack]
+        (m, k), e = t.shape, t.experts
+        sel = schedule.select(m, k, C, m_tb=t.m_tb, k_tb=t.k_tb,
+                              max_nnz=t.max_nnz, experts=e)
+        split = max(sel.split_k, 2) if "splitk" in kernel else 1
+        b = (0.1 * torch.randn((e, k, C), generator=gen,
+                               device="cuda")).to(torch.bfloat16)
+
+        def kern():
+            return ops.spmm_batched(t, b, backend="cuda", n_tb=sel.n_tb,
+                                    split_k=split)
+
+        def plain():
+            return ref.spmm_splitk_batched_ref(t, b, split,
+                                               out_dtype=b.dtype)
+        want = plain()
+        err = close(torch, kern(), want, BF16_TOL,
+                    f"{kernel} at {stack} {e}x{m}x{k} N={C} S={split}")
+        dense = tiled_csl.decode(t).to(torch.bfloat16)
+        nnz = int(t.nnz.sum())
+        bound_s, bound_by = roofline.lscd_bound_s(
+            4.0 * nnz, 4.0 * t.nnz.numel(), 2.0 * b.numel(),
+            2.0 * want.numel(), 2.0 * nnz * C)
+        rows[kernel] = dict(
+            shape=f"e.{stack}", experts=e, m=m, k=k, n=C, n_tb=sel.n_tb,
+            split_k=split, selected=dataclasses.asdict(sel),
+            max_abs_err=err, ms=cuda_ms(torch, kern, 20, flush),
+            plain_ms=cuda_ms(torch, plain, 3, flush),
+            library_ms=cuda_ms(torch, lambda: torch.bmm(dense, b), 20,
+                               flush),
+            bound_ms=bound_s * 1e3, bound_by=bound_by,
+            words_mib=t.words.numel() * 4 / 2 ** 20)
+        r = rows[kernel]
+        print(f"moe: {kernel:25s} e.{stack:4s} {e}x{m}x{k} N={C} "
+              f"n_tb={sel.n_tb} S={split}: {r['ms']:.3f} ms (bound "
+              f"{r['bound_ms']:.3f} ms by {bound_by}, plain "
+              f"{r['plain_ms']:.3f} ms, torch.bmm {r['library_ms']:.3f} ms, "
+              f"max err {err:.2e}; select -> n_tb {sel.n_tb}, S "
+              f"{sel.split_k})", flush=True)
+        del dense, want, b
+    return rows
+
+
+def moe_phase(torch, mods) -> dict:
+    """qwen3-moe-30b-a3b at full size (48 layers, 128 routed experts top-8
+    at d_expert 768, GQA with 4 K/V heads), built layer by layer at
+    sparsity 0.8 (``serve.build``: the attention and the routed expert
+    stacks in Tiled-CSL, the router, embed and ``lm_head`` dense), after
+    ``moe_layer_check``: the planner's plans and built against planned
+    weight bytes at 80 GB, first-step logits against the plain path at 4
+    and 48 layers with the kernels' routes pinned to the plain run's
+    (``depth_logits_tol``; where a route differed before the pin, the
+    first that did must sit at a router near tie, both margins below
+    ``NEAR_TIE``), then 32 requests
+    (128-768 prompt tokens, 64 greedy new tokens) over 32 slots at
+    max_len 1024 from the planner's pool: dense graph on, paged graph on
+    and paged graph off (identical streams, clean pools). Every launch
+    configuration must pass its plain version and the batched kernels
+    must launch. Returns the summary and the served runs' launches."""
+    import numpy as np
+    configs, serve, budget, spmm, cfgmod, ops = (mods[x] for x in (
+        "configs", "serve", "budget", "spmm", "serve_config", "ops"))
+    card = card_line()
+    out = dict(card=card, layer_check=moe_layer_check(torch, mods))
+    cfg = configs.get(MOE_ARCH)
+    plans = {}
+    for mode in ("sparse_pallas", "dense"):
+        p = budget.plan(cfg, hbm_budget=FULL_BUDGET, weight_mode=mode,
+                        sparsity=SPARSITY, block=16)
+        plans[mode] = dict(p.as_dict(),
+                           n_dense_slots_1024=p.n_dense_slots(1024))
+        print(f"moe: plan {mode:13s} weights {p.weight_bytes} B, "
+              f"workspace {p.workspace_bytes} B, {p.n_blocks} usable blocks "
+              f"of {p.block_bytes} B ({budget.block_bytes(cfg, 1)} B a "
+              f"token), n_dense_slots(1024) = {p.n_dense_slots(1024)}",
+              flush=True)
+    out["plans"] = plans
+    plan = plans["sparse_pallas"]
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ops.SCHEDULES.clear()
+    params, built = serve.build(cfg, seed=SEED, sparsity=SPARSITY,
+                                device="cuda")
+    routed = sum(serve.params_bytes(layer["moe"][n])
+                 for layer in params["layers"] for n in MOE_STACKS)
+    embed_head = serve.params_bytes(params["embed"]) + serve.params_bytes(
+        params.get("lm_head", {}))
+    routed_dense = (3 * cfg.n_layers * cfg.n_routed_experts * cfg.d_expert
+                    * cfg.d_model * 2)
+    out["build"] = dict(
+        build_s=built["build_s"], encode_s=built["encode_s"],
+        n_tiled_csl=built["n_tiled_csl"], sparse_bytes=built["sparse_bytes"],
+        routed_stack_bytes=routed, routed_stack_dense_bf16_bytes=routed_dense,
+        embed_lm_head_bytes=embed_head,
+        built_weight_bytes=built["weight_bytes"],
+        planned_weight_bytes=plan["weight_bytes"],
+        dense_bf16_bytes=budget.weight_bytes(cfg, "dense"),
+        build_peak_allocated=built["max_memory_allocated"])
+    print(f"moe: {cfg.name}, {cfg.n_layers} layers at full width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv} K/V heads, "
+          f"{cfg.n_routed_experts} experts top-{cfg.top_k} at d_expert "
+          f"{cfg.d_expert}, vocab {cfg.vocab}) built in "
+          f"{built['build_s']:.1f} s (prune, encode, re-pad and group "
+          f"{built['encode_s']:.1f} s): {built['weight_bytes']} B as built "
+          f"({built['sparse_bytes']} B of Tiled-CSL in "
+          f"{built['n_tiled_csl']} weights, of which {routed} B the routed "
+          f"stacks ({routed_dense} B dense in bf16); {embed_head} B of "
+          f"embed and lm_head) against {plan['weight_bytes']} B planned "
+          f"({built['weight_bytes'] - plan['weight_bytes']:+d} B; the plan "
+          f"counts the routed stacks dense, as the reference's does); build "
+          f"peak allocated {built['max_memory_allocated']} B", flush=True)
+
+    prompts = serve.make_prompts(cfg, 4, 128, SEED, "cuda")
+    out["logits_by_depth"] = {}
+    for depth in MOE_DEPTHS:
+        tol = depth_logits_tol(depth)
+        gtok, got, ptok, want, first, pinned = _moe_logits_vs_plain(
+            torch, mods, dict(params, layers=params["layers"][:depth]),
+            dataclasses.replace(cfg, n_layers=depth), prompts)
+        err = float((got - want).abs().max())
+        row = dict(max_abs_err=err, tol=tol, first_route_diff=first,
+                   tokens_pinned=pinned)
+        how = f"routes pinned, tolerance {tol:.4f} + {tol:.4f} relative; "
+        if first is None:
+            how += "every route agreed before the pin"
+        else:
+            call, tok, margin, kmargin = first
+            how += (f"{pinned} token-routes pinned; unpinned, the routes "
+                    f"first differ at MoE call {call} (layer {call % depth} "
+                    f"of {'prefill' if call < depth else 'decode'}), token "
+                    f"{tok}, at a router top-k margin of {margin:.3e} plain /"
+                    f" {kmargin:.3e} kernels (near tie below {NEAR_TIE:.1e})")
+        out["logits_by_depth"][depth] = row
+        print(f"moe: first decode-step logits vs plain at {depth} layers: "
+              f"max abs err {err:.3e}; {how}", flush=True)
+        if first is not None:
+            check(max(margin, kmargin) < NEAR_TIE, f"moe: {depth} layers: the"
+                  f" routes first differ at MoE call {call} (layer "
+                  f"{call % depth}), token {tok}, where the routers' top-k "
+                  f"margins are {margin:.3e} plain and {kmargin:.3e} kernels "
+                  f"(a near tie is below {NEAR_TIE:.1e})")
+        check(torch.equal(gtok, ptok), f"moe: {depth} layers: first token "
+              "differs between the kernels and the plain versions")
+        close(torch, got, want, dict(rtol=tol, atol=tol),
+              f"moe: first decode-step logits vs plain at {depth} layers, "
+              "routes pinned to the plain run's")
+        del got, want
+    del prompts
+    release(torch)
+
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(*MOE_PROMPT, MOE_REQUESTS)
+    reqs = [rng.integers(0, cfg.vocab, int(n)).astype(np.int64)
+            for n in lengths]
+
+    def config(paged):
+        return cfgmod.ServeConfig(
+            scheduler=cfgmod.SchedulerConfig(
+                n_slots=MOE_SLOTS, max_len=MOE_MAX_LEN, min_bucket=8,
+                admit_k=MOE_ADMIT_K),
+            cache_kind="paged" if paged else "dense", block_size=16,
+            n_blocks=plan["n_blocks"] if paged else None)
+    print(f"moe: {MOE_REQUESTS} requests, prompts {int(lengths.min())}-"
+          f"{int(lengths.max())} tokens, {MOE_NEW} greedy new tokens each, "
+          f"{MOE_SLOTS} slots, max_len {MOE_MAX_LEN}, admit_k {MOE_ADMIT_K};"
+          f" the paged pool at the planner's {plan['n_blocks']} blocks",
+          flush=True)
+    probe = LaunchProbe(spmm)
+    runs, streams, launches = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with probe:
+        spmm.reset_launch_counts()
+        for key, paged, graph in (("dense_graph", False, True),
+                                  ("paged_graph", True, True),
+                                  ("paged_eager", True, False)):
+            label = f"moe: {key}"
+            server, streams[key], run = _closed_loop(
+                torch, mods, params, cfg, reqs, probe, paged=paged,
+                graph=graph, config=config(paged), new=MOE_NEW, label=label)
+            if paged:
+                _drained_clean(server, label)
+            run["captures"] = dict(server.batcher.stepper.captures)
+            if key == "paged_graph":
+                out["profile"] = _profile_decode(torch,
+                                                 server.batcher.stepper)
+            runs[key] = run
+            del server
+            release(torch)
+        counts = spmm.launch_counts()
+    out["peak_allocated"] = torch.cuda.max_memory_allocated()
+    for key, run in runs.items():
+        for op, c in run["launches_by_phase"].items():
+            for k, n in c.items():
+                launches.setdefault(op, dict.fromkeys(spmm.KERNELS, 0))[k] \
+                    += n
+    check(streams["dense_graph"] == streams["paged_graph"]
+          == streams["paged_eager"],
+          "moe: dense graph-on, paged graph-on and paged graph-off streams "
+          "differ")
+    missing = [k for k in spmm.BATCHED_KERNELS if counts[k] == 0]
+    check(not missing, f"moe: batched kernels never launched: {missing}")
+    out["schedules"] = {
+        f"{m}x{k} N={n} E={e}": dataclasses.asdict(sched)
+        for (kind, m, k, n, e), sched in sorted(ops.SCHEDULES.items())
+        if kind == "spmm_batched"}
+    for key, sched in out["schedules"].items():
+        print(f"moe: select's pick for the expert stacks at {key}: "
+              f"n_tb {sched['n_tb']}, S {sched['split_k']}", flush=True)
+    out["checked_launches"] = _check_served_launches(
+        torch, mods, probe.seen, cfg, label="moe")
+    flush = torch.empty(2 ** 28, dtype=torch.int32, device="cuda")
+    out["kernel_rows"] = moe_kernel_rows(torch, mods, params["layers"][0],
+                                         cfg, flush)
+    del flush
+    d, p, e = (runs[k] for k in ("dense_graph", "paged_graph",
+                                 "paged_eager"))
+    print(f"moe: launches {json.dumps(counts)} (graph replays counted); by "
+          f"call {json.dumps(launches)}; peak allocated "
+          f"{out['peak_allocated']} B; {len(out['checked_launches'])} launch "
+          f"configurations held against the plain versions", flush=True)
+    print(f"moe: decode {d['decode_ms_per_step']:.3f} ms/step dense graph "
+          f"on, {p['decode_ms_per_step']:.3f} paged graph on, "
+          f"{e['decode_ms_per_step']:.3f} paged graph off; "
+          f"{d['tokens_per_s']:.1f}/{p['tokens_per_s']:.1f}/"
+          f"{e['tokens_per_s']:.1f} tok/s; TTFT p50/p99 "
+          f"{p['ttft']['p50'] * 1e3:.1f}/{p['ttft']['p99'] * 1e3:.1f} ms, "
+          f"TPOT p50/p99 {p['tpot']['p50'] * 1e3:.2f}/"
+          f"{p['tpot']['p99'] * 1e3:.2f} ms (paged graph on); {card}",
+          flush=True)
+    r = out["profile"]
+    if r["busy_share"] is None:
+        print("moe: profile: no device activity seen; the busy share is not "
+              "measured", flush=True)
+    else:
+        print(f"moe: profile graphed decode step: {r['wall_ms_per_step']:.3f}"
+              f" ms/step wall under torch.profiler, device busy "
+              f"{r['busy_ms_per_step']:.3f} ms/step "
+              f"({100 * r['busy_share']:.1f}%), LSCD kernels "
+              f"{r['lscd_ms_per_step']:.3f} ms/step; {card}", flush=True)
+        for ms, n, name in r["top"]:
+            print(f"moe:   decode {ms:8.3f} ms/step {n:4d}/step  {name}")
+    out.update(runs=runs, launches=counts, launches_by_phase=launches)
     del params, probe
     release(torch)
     return out
@@ -2290,10 +2854,11 @@ def main() -> int:
     try:
         from repro_torch import configs
         from repro_torch.analysis import contracts
-        from repro_torch.core import pruning, roofline, tiled_csl
+        from repro_torch.core import (pruning, roofline, sparse_linear,
+                                      tiled_csl)
         from repro_torch.kernels import build, gemm, ops, ref, schedule, spmm
         from repro_torch.launch import serve
-        from repro_torch.models import transformer
+        from repro_torch.models import attention, moe, transformer
         from repro_torch.serving import (api, budget, engine, loadgen,
                                          scheduler, speculative)
         from repro_torch.serving import config as serve_config
@@ -2306,7 +2871,8 @@ def main() -> int:
                 ref=ref, schedule=schedule, spmm=spmm, gemm=gemm, serve=serve,
                 engine=engine, api=api, loadgen=loadgen, scheduler=scheduler,
                 serve_config=serve_config, budget=budget,
-                speculative=speculative, transformer=transformer)
+                speculative=speculative, transformer=transformer,
+                attention=attention, moe=moe, sparse_linear=sparse_linear)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -2364,6 +2930,11 @@ def main() -> int:
     mla["phase_s"] = time.perf_counter() - t0
     print(f"mla: phase took {mla['phase_s']:.1f} s (build "
           f"{mla['build']['build_s']:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    moe_out = moe_phase(torch, mods)
+    moe_out["phase_s"] = time.perf_counter() - t0
+    print(f"moe: phase took {moe_out['phase_s']:.1f} s (build "
+          f"{moe_out['build']['build_s']:.1f} s)", flush=True)
 
     kernels = []
     serve_counts = {k: serve_phases["prefill"][k] + serve_phases["decode"][k]
@@ -2371,12 +2942,14 @@ def main() -> int:
     full_counts = full["serve"]["launches"]
     tiny_counts = tiny["serve"]["launches"]
     mla_counts = mla["launches"]
+    moe_counts = moe_out["launches"]
     window_counts = {k: sum(window_phases[op][k] for op in STEP_OPS)
                      for k in spmm.KERNELS}
     launches = {k: counts[k] + serve_counts[k] + window_counts[k]
                 + full_counts[k] + tiny_counts[k] + mla_counts[k]
-                for k in spmm.KERNELS}
+                + moe_counts[k] for k in spmm.KERNELS}
     launches["dense_gemm"] = gemm_launches
+    best.update(moe_out["kernel_rows"])
     for name in spmm.KERNELS + ("dense_gemm",):
         r = best[name]
         kernels.append(dict(
@@ -2395,6 +2968,9 @@ def main() -> int:
             launches_mla=mla_counts.get(name, 0),
             launches_mla_verify=mla["launches_by_phase"].get(
                 "verify", {}).get(name, 0),
+            launches_moe=moe_counts.get(name, 0),
+            launches_moe_decode=moe_out["launches_by_phase"].get(
+                "decode", {}).get(name, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
@@ -2407,7 +2983,8 @@ def main() -> int:
     summary = dict(card=card, ptxas=ptxas, rows=rows, compare=compare,
                    sweep=sweep, rings=rings, kernels=kernels,
                    slice=slice_summary, profile=prof, serving=serving,
-                   window=window, full_depth=full, tinyllama=tiny, mla=mla)
+                   window=window, full_depth=full, tinyllama=tiny, mla=mla,
+                   moe=moe_out)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -10,7 +10,13 @@ KC-LAUNCH  what the CUDA kernels in ``kernels/csrc`` accept: ``m_tb`` in
            ``1 <= split_k <= Kt``, dense dims that tile evenly, a shared
            memory footprint within the H100's 227 KB per block (in place
            of the TPU's VMEM budget), and at most
-           ``MAX_ACC_PER_THREAD`` f32 accumulators per thread.
+           ``MAX_ACC_PER_THREAD`` f32 accumulators per thread. An
+           expert-batched launch (``experts`` E > 1: the MoE stacks'
+           ``lscd_spmm_batched`` / ``lscd_spmm_splitk_batched``) takes one
+           weight a stack and no binary epilogue, its grid's z extent
+           (split x weights x experts) stays within ``MAX_GRID_Z``, and a
+           split-K launch's f32 workspace ``[S, E, G, M, N]`` within
+           ``MAX_SPLITK_WORKSPACE_BYTES``.
 
 The LSCD kernels have three bodies, chosen by dtype and N tile: bf16 B
 with ``n_tb <= DECODE_MAX_N_TB`` runs the decode body
@@ -94,6 +100,12 @@ DECODE_THREADS = 256
 DECODE_STATIC_SMEM = 128
 DECODE_REG_BLOCKS = {8: 4, 16: 4, 32: 2}
 DECODE_MAX_RING = 4
+
+#: A grid's z extent on CUDA (the LSCD kernels put split x weights x
+#: experts there).
+MAX_GRID_Z = 65535
+#: The split-K f32 workspace one launch may allocate.
+MAX_SPLITK_WORKSPACE_BYTES = 1 << 30
 
 
 class ScheduleContractError(ValueError):
@@ -231,17 +243,35 @@ def acc_per_thread(m_tb: int, n_tb: int, weights: int,
     return weights * m_tb * n_tb // THREADS
 
 
+def splitk_workspace_bytes(m: int, n: int, *, n_tb: int, split_k: int,
+                           group: int = 1, experts: int = 1) -> int:
+    """The f32 partials ``[S, E, G, M, N]`` (N padded to the N tile) of a
+    split-K launch; 0 for a single-pass one."""
+    if split_k <= 1:
+        return 0
+    return 4 * split_k * experts * group * m * (-(-n // n_tb) * n_tb)
+
+
 def check_launch(m: int, k: int, n: int, *, m_tb: int, k_tb: int, n_tb: int,
                  split_k: int, group: int = 1, binary: bool = False,
                  b_dtype_bytes: int = 2,
-                 max_nnz: Optional[int] = None) -> List[str]:
+                 max_nnz: Optional[int] = None,
+                 experts: int = 1) -> List[str]:
     """Problems with one launch (empty == the kernels take it).
     ``binary``: a silu_mul/gelu_mul epilogue combining a G=2 pair;
     ``b_dtype_bytes``: 2 for bf16 B and C, 4 for f32; ``max_nnz``: the
     encoding's word slots per tile (the decode body copies whole 16-byte
     chunks of them and sizes its ring from them; a dense tile if not
-    given)."""
+    given); ``experts``: the stacks of an expert-batched launch."""
     out: List[str] = []
+    if experts < 1:
+        out.append(f"KC-LAUNCH: {experts} experts")
+    elif experts > 1 and (group != 1 or binary):
+        out.append(f"KC-LAUNCH: an expert-batched launch takes one weight a "
+                   f"stack and no binary epilogue (group {group})")
+    elif split_k * group * experts > MAX_GRID_Z:
+        out.append(f"KC-LAUNCH: grid z = split {split_k} x {group} weights x "
+                   f"{experts} experts exceeds {MAX_GRID_Z}")
     if not tile_loc_ok(m_tb, k_tb):
         out.append(f"KC-LOC: tile ({m_tb},{k_tb}) exceeds {MAX_TILE_ELEMS} "
                    "intra-tile locations")
@@ -283,6 +313,11 @@ def check_launch(m: int, k: int, n: int, *, m_tb: int, k_tb: int, n_tb: int,
             out.append(f"KC-LAUNCH: {steps} (K tile, weight) steps per "
                        f"block exceed the {MAX_PIPE_STEPS} of the bf16 "
                        "bodies' step list")
+        ws = splitk_workspace_bytes(m, n, n_tb=n_tb, split_k=split_k,
+                                    group=group, experts=experts)
+        if ws > MAX_SPLITK_WORKSPACE_BYTES:
+            out.append(f"KC-LAUNCH: a {ws} B split-K workspace exceeds "
+                       f"{MAX_SPLITK_WORKSPACE_BYTES} B")
     return out
 
 

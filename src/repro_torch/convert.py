@@ -10,13 +10,20 @@ then
 * recognises a Tiled-CSL leaf by duck typing (``words``, ``nnz``,
   ``shape``, ``m_tb``, ``k_tb``), so the port never imports ``repro``,
   and brings ``words`` in as an int32 tensor with the same bits;
+* marks the MoE expert stacks (``moe["gate"]``, ``["up"]``,
+  ``["down"]``) that are Tiled-CSL as expert stacks (``TiledCSL.stack``):
+  their words ``[E, mt, kt, w]`` have a grouped encoding's layout, and
+  only their place in the tree tells them apart;
 * splits scan-stacked ``[L, ...]`` leaves under ``"layers"`` into a list
-  of L per-layer dicts, Tiled-CSL words included (``[L, mt, kt, w]`` and
-  grouped ``[L, G, mt, kt, w]``).
+  of L per-layer dicts, Tiled-CSL words included (``[L, mt, kt, w]``,
+  grouped ``[L, G, mt, kt, w]`` and expert stacks ``[L, E, mt, kt, w]``);
+  the MoE router ``[L, E, d]`` and dense expert stacks ``[L, E, f, d]``
+  split the same way.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -64,12 +71,31 @@ def _leaf(x: Any, device) -> Any:
     return _tensor(x, device)
 
 
+EXPERT_STACKS = ("gate", "up", "down")
+
+
+def _mark_expert_stacks(tree: Any) -> Any:
+    """The Tiled-CSL leaves ``moe[name]`` for name in ``EXPERT_STACKS``
+    as expert stacks, in place."""
+    if isinstance(tree, dict):
+        moe = tree.get("moe")
+        if isinstance(moe, dict):
+            for name in EXPERT_STACKS:
+                if isinstance(moe.get(name), TiledCSL):
+                    moe[name] = dataclasses.replace(moe[name], stack=True)
+        for v in tree.values():
+            _mark_expert_stacks(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            _mark_expert_stacks(v)
+    return tree
+
+
 def _layer(tree: Any, i: int) -> Any:
     """Element ``i`` of a scan-stacked subtree."""
     if is_tiled_csl_like(tree):
-        return TiledCSL(words=tree.words[i], nnz=tree.nnz[i],
-                        shape=tree.shape, m_tb=tree.m_tb, k_tb=tree.k_tb,
-                        dtype=tree.dtype)
+        return dataclasses.replace(tree, words=tree.words[i],
+                                   nnz=tree.nnz[i])
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
@@ -87,7 +113,7 @@ def params_from_numpy(params: Any, *, device: DeviceLike = None) -> Any:
     """The reference's params (numpy leaves) as port params on ``device``
     (default ``"cuda"``): tensors, TiledCSL, per-layer lists."""
     dev = resolve_device(device)
-    out = _leaf(params, dev)
+    out = _mark_expert_stacks(_leaf(params, dev))
     if isinstance(out, dict) and isinstance(out.get("layers"), dict):
         stacked = out["layers"]
         out["layers"] = [_layer(stacked, i) for i in range(_n_layers(stacked))]

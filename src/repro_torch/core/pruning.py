@@ -25,16 +25,18 @@ from repro_torch.core import sparse_linear, tiled_csl
 
 
 def unstructured_mask(scores: torch.Tensor, sparsity: float) -> torch.Tensor:
-    """Global top-(1-sparsity) mask over the whole matrix."""
+    """Global top-(1-sparsity) mask over the whole matrix; over each
+    matrix of a stack ``[E, M, K]``."""
     if sparsity <= 0.0:
         return torch.ones_like(scores, dtype=torch.bool)
-    n = scores.numel()
-    k = max(int(round(n * (1.0 - sparsity))), 1)
+    lead = scores.shape[:-2]
+    flat = scores.reshape(-1, scores.shape[-2] * scores.shape[-1])
+    k = max(int(round(flat.shape[1] * (1.0 - sparsity))), 1)
     # The k-th largest score, i.e. sorted(scores)[-k]: the least of the top
     # k. (``kthvalue`` gives the same element, but on a card it selects a
     # whole matrix in one thread block, which made it most of the build.)
-    thresh = torch.topk(scores.reshape(-1), k, sorted=False).values.min()
-    return scores >= thresh
+    thresh = torch.topk(flat, k, dim=-1, sorted=False).values.min(-1).values
+    return scores >= thresh.reshape(lead + (1, 1))
 
 
 def tile_balanced_mask(scores: torch.Tensor, sparsity: float,
@@ -56,7 +58,10 @@ def tile_balanced_mask(scores: torch.Tensor, sparsity: float,
 
 def prune(w: torch.Tensor, sparsity: float, *,
           balanced: bool = False) -> torch.Tensor:
-    """Magnitude pruning: the masked dense weight."""
+    """Magnitude pruning: the masked dense weight; each matrix of a stack
+    ``[E, M, K]`` on its own."""
+    if balanced and w.dim() == 3:
+        return torch.stack([prune(x, sparsity, balanced=True) for x in w])
     scores = w.abs()
     mask = (tile_balanced_mask(scores, sparsity) if balanced
             else unstructured_mask(scores, sparsity))
@@ -70,7 +75,7 @@ def prune(w: torch.Tensor, sparsity: float, *,
 # ---------------------------------------------------------------------------
 
 def _pad_to_tiles(w: torch.Tensor, m_tb: int, k_tb: int) -> torch.Tensor:
-    m, k = w.shape
+    m, k = w.shape[-2:]
     mp, kp = -(-m // m_tb) * m_tb, -(-k // k_tb) * k_tb
     return w if (mp, kp) == (m, k) else F.pad(w, (0, kp - k, 0, mp - m))
 
@@ -81,9 +86,14 @@ def sparsify_matrix(w: torch.Tensor, sparsity: float, *,
                     k_tb: int = tiled_csl.DEFAULT_K_TB,
                     max_nnz: int | None = None) -> tiled_csl.TiledCSL:
     """Prune a dense [M, K] weight (in f32) and encode it as Tiled-CSL;
-    ``max_nnz`` re-pads the word streams to a shared target."""
-    wp = prune(w.to(torch.float32), sparsity, balanced=balanced)
-    t = tiled_csl.encode(_pad_to_tiles(wp, m_tb, k_tb), m_tb=m_tb, k_tb=k_tb)
+    ``max_nnz`` re-pads the word streams to a shared target. An expert
+    stack ``[E, M, K]`` is pruned and encoded per expert, padded to the
+    stack's largest ``max_nnz`` (the reference's ``ndim == 3`` branch of
+    ``sparsify_params``), into one stack (``tiled_csl.encode_stack``)."""
+    wp = _pad_to_tiles(prune(w.to(torch.float32), sparsity,
+                             balanced=balanced), m_tb, k_tb)
+    encode = tiled_csl.encode_stack if wp.dim() == 3 else tiled_csl.encode
+    t = encode(wp, m_tb=m_tb, k_tb=k_tb)
     return t if max_nnz is None else tiled_csl.pad_max_nnz(t, max_nnz)
 
 
@@ -119,14 +129,16 @@ def _replace(tree: Any, path: str, new: Any) -> Any:
 def sparsify_params(params: Any, sparsity: float,
                     should_sparsify: Callable[[str], bool], *,
                     balanced: bool = False) -> Any:
-    """Convert the selected 2-D weights of a params tree to Tiled-CSL.
+    """Convert the selected weights of a params tree to Tiled-CSL: 2-D
+    matrices, and 3-D MoE expert stacks ``[E, M, K]`` into stacked
+    Tiled-CSL (``sparsify_matrix``).
 
     ``should_sparsify(path)`` decides per leaf. Leaves that differ only in
     list indices (one per layer) share the largest ``max_nnz`` among them,
     the reference's per-stack pad target."""
     picked: Dict[str, tiled_csl.TiledCSL] = {}
     for path, leaf in _walk(params):
-        if isinstance(leaf, torch.Tensor) and leaf.dim() == 2 \
+        if isinstance(leaf, torch.Tensor) and leaf.dim() in (2, 3) \
                 and should_sparsify(path):
             picked[path] = sparsify_matrix(leaf, sparsity, balanced=balanced)
     stack_max = stack_max_nnz(picked.items())
@@ -141,13 +153,14 @@ def encode_in_place(tree: Any, sparsity: float,
                     should_sparsify: Callable[[str], bool], *,
                     balanced: bool = False, prefix: str = "") -> Any:
     """Replace each selected 2-D tensor leaf of ``tree`` (nested dicts and
-    lists, changed in place) by its own Tiled-CSL encoding, one leaf at a
-    time, so that each dense source is freed as soon as it is encoded when
-    the caller holds no other reference to it. ``should_sparsify`` sees
-    the leaf's path with ``prefix`` in front. Each leaf keeps its own
-    ``max_nnz``; :func:`pad_to_stack_max` evens out a stack afterwards."""
+    lists, changed in place), and each 3-D expert stack, by its own
+    Tiled-CSL encoding, one leaf at a time, so that each dense source is
+    freed as soon as it is encoded when the caller holds no other
+    reference to it. ``should_sparsify`` sees the leaf's path with
+    ``prefix`` in front. Each leaf keeps its own ``max_nnz``;
+    :func:`pad_to_stack_max` evens out a stack afterwards."""
     paths = [p for p, leaf in _walk(tree)
-             if isinstance(leaf, torch.Tensor) and leaf.dim() == 2
+             if isinstance(leaf, torch.Tensor) and leaf.dim() in (2, 3)
              and should_sparsify(prefix + p)]
     for path in paths:
         keys = [m.group(1) if m.group(1) is not None else int(m.group(2))
@@ -205,7 +218,9 @@ def _pregroupable(ws) -> bool:
 def group_projections(params: Any) -> Any:
     """Pre-group same-shape Tiled-CSL projections at reformat time:
     ``{gate, up}`` -> ``gate_up`` (G=2) and ``{wq, wk, wv}`` -> ``wqkv``
-    (G=3); biases stay on the per-name dicts."""
+    (G=3); biases stay on the per-name dicts. MoE's bare expert stacks
+    (``moe["gate"]``, not ``{"w": ...}`` dicts) are no projection group
+    and stay as they are; its shared expert's ``gate``/``up`` group."""
     if not isinstance(params, dict):
         if isinstance(params, (list, tuple)):
             return type(params)(group_projections(p) for p in params)

@@ -42,7 +42,7 @@ class SplitKTerms:
 def lscd_splitk_terms(m: int, k: int, n: int, *, m_tb: int, k_tb: int,
                       n_tb: int, split_k: int, max_nnz: int, group: int = 1,
                       b_dtype_bytes: int = 2, block_groups: int = 1,
-                      resident: int = 1) -> SplitKTerms:
+                      resident: int = 1, experts: int = 1) -> SplitKTerms:
     """What the grid moves: A words (``max_nnz`` per tile, padding
     included) once per N tile, B once per M tile, C once, and the f32
     partials written and read once when ``split_k > 1``. Utilization: the
@@ -50,7 +50,10 @@ def lscd_splitk_terms(m: int, k: int, n: int, *, m_tb: int, k_tb: int,
     ``LAUNCH_ROUNDS`` rounds of the ``resident`` blocks each SM holds at
     once; below that the achieved bandwidth is modelled as scaling with
     the block count, the skinny-decode failure mode split-K exists to
-    fix."""
+    fix. An expert-batched launch (``experts`` E) moves all of that E
+    times, each expert with its own B, and puts E times the blocks in
+    flight: a grid the experts already fill gains nothing from a split
+    but its partials' bytes."""
     if split_k < 1:
         raise ValueError(f"split_k must be >= 1, got {split_k}")
     mt = -(-m // m_tb)
@@ -61,10 +64,10 @@ def lscd_splitk_terms(m: int, k: int, n: int, *, m_tb: int, k_tb: int,
     b_once = float(b_dtype_bytes) * k * n_pad
     c_bytes = float(group) * b_dtype_bytes * m * n_pad
     partials = 8.0 * group * split_k * m * n_pad if split_k > 1 else 0.0
-    bytes_ = nt * a_once + mt * b_once + c_bytes + partials
-    blocks = mt * nt * split_k * (group // block_groups)
+    bytes_ = experts * (nt * a_once + mt * b_once + c_bytes + partials)
+    blocks = mt * nt * split_k * (group // block_groups) * experts
     util = min(1.0, blocks / float(LAUNCH_ROUNDS * resident * N_SMS))
-    return SplitKTerms(flops=float(group) * 2.0 * m * k * n_pad,
+    return SplitKTerms(flops=float(experts * group) * 2.0 * m * k * n_pad,
                        hbm_bytes=bytes_, utilization=util)
 
 

@@ -5,6 +5,9 @@ tensor goes to ``torch.matmul`` (the paper's cuBLAS path); a
 ``tiled_csl.TiledCSL`` goes to the LSCD SpMM (``kernels.ops``).
 ``linear_grouped()`` runs G same-shape projections of one ``x`` through
 one grouped launch, optionally with a unary or binary epilogue.
+``linear_batched()`` runs an MoE expert stack, each expert against its
+own activation block: a dense ``[E, out, in]`` stack through one batched
+einsum, a stacked Tiled-CSL through one expert-batched launch.
 
 Orientation is the paper's: weights are ``[out, in]`` = A[M, K] and the
 activation is transposed to B = ``[in, tokens]``, so N is the skinny
@@ -41,6 +44,30 @@ def _pad_bias(b: Optional[torch.Tensor], m_pad: int) -> Optional[torch.Tensor]:
     if b is None or b.shape[0] == m_pad:
         return b
     return F.pad(b, (0, m_pad - b.shape[0]))
+
+
+def linear_batched(w: Weight, x: torch.Tensor, *,
+                   declared_out: Optional[int] = None,
+                   backend: str = "auto") -> torch.Tensor:
+    """y[e, ..., declared_out] = x[e, ..., in] @ W[e]^T for the E experts
+    of a stack: a dense ``[E, out, in]`` tensor (one einsum in the
+    activation dtype, as the reference's ``_expert_ffn``) or a stacked
+    Tiled-CSL (``ops.spmm_batched``: B[e] = x[e]^T, one launch for all
+    E, the out dim sliced back to ``declared_out``)."""
+    if not isinstance(w, tiled_csl.TiledCSL):
+        y = torch.einsum("e...d,efd->e...f", x, w.to(x.dtype))
+        return y if declared_out is None else y[..., :declared_out]
+    if not w.stack:
+        raise ValueError("linear_batched needs an expert stack")
+    e, lead, k_in = x.shape[0], x.shape[1:-1], x.shape[-1]
+    xt = x.reshape(e, -1, k_in).transpose(1, 2)             # [E, in, tokens]
+    if w.shape[1] != k_in:
+        xt = F.pad(xt, (0, 0, 0, w.shape[1] - k_in))
+    y = ops.spmm_batched(w, xt.contiguous(), out_dtype=x.dtype,
+                         backend=backend)                    # [E, M, tokens]
+    y = y.transpose(1, 2).reshape(e, *lead, w.shape[0])
+    out_dim = w.shape[0] if declared_out is None else declared_out
+    return y[..., :out_dim] if out_dim != w.shape[0] else y
 
 
 def linear(w: Weight, x: torch.Tensor, b: Optional[torch.Tensor] = None, *,

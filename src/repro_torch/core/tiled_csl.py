@@ -36,10 +36,18 @@ class TiledCSL:
     """A sparse matrix of logical shape ``(m, k)`` in padded Tiled-CSL.
 
     words: int32[mt, kt, max_nnz], or int32[G, mt, kt, max_nnz] for a
-           grouped encoding of G same-shape matrices sharing one max_nnz.
-    nnz:   int32[mt, kt] (or [G, mt, kt]) true non-zeros per tile.
+           grouped encoding of G same-shape matrices sharing one max_nnz,
+           or int32[E, mt, kt, max_nnz] for an expert stack.
+    nnz:   int32[mt, kt] (or [G, mt, kt], [E, mt, kt]) true non-zeros per
+           tile.
     shape: logical dense shape (m, k) of each matrix, tile-aligned.
     dtype: dtype of the dense source.
+    stack: True for a stack of E experts' matrices (MoE ``gate``/``up``/
+           ``down`` ``[E, M, K]``), each multiplied by its own activation
+           block (``ops.spmm_batched``). The reference tells a stack from
+           a projection group by nothing but its caller
+           (``repro.core.tiled_csl.TiledCSL.group``'s caveat); here a
+           stack has no ``group``, so the grouped ops refuse it.
     """
 
     words: torch.Tensor
@@ -48,6 +56,7 @@ class TiledCSL:
     m_tb: int
     k_tb: int
     dtype: torch.dtype = torch.float32
+    stack: bool = False
 
     @property
     def max_nnz(self) -> int:
@@ -55,8 +64,16 @@ class TiledCSL:
 
     @property
     def group(self):
-        """Number of grouped matrices, or None for a plain 2-D encoding."""
+        """Number of grouped matrices, or None for a plain 2-D encoding or
+        an expert stack."""
+        if self.stack:
+            return None
         return int(self.words.shape[0]) if self.words.dim() == 4 else None
+
+    @property
+    def experts(self):
+        """Number of experts of a stack, or None."""
+        return int(self.words.shape[0]) if self.stack else None
 
     @property
     def grid(self) -> Tuple[int, int]:
@@ -239,6 +256,33 @@ def group_stack(ts: Sequence[TiledCSL]) -> TiledCSL:
                     k_tb=ts[0].k_tb, dtype=ts[0].dtype)
 
 
+def encode_stack(dense: torch.Tensor, m_tb: int = DEFAULT_M_TB,
+                 k_tb: int = DEFAULT_K_TB,
+                 pad_quantum: int = PAD_QUANTUM) -> TiledCSL:
+    """Encode an expert stack ``[E, m, k]`` (tile-aligned) in one call:
+    each expert's words, padded to the stack's largest ``max_nnz``, as
+    the reference's per-expert encode and re-pad gives them. A tile's
+    words depend on that tile alone, so the stack is encoded as one
+    ``[E * m, k]`` matrix and its tile rows split by expert."""
+    e, m, k = dense.shape
+    if m % m_tb:
+        raise ValueError(f"shape {(m, k)} not tile-aligned to ({m_tb},{k_tb})")
+    t = encode(dense.reshape(e * m, k), m_tb=m_tb, k_tb=k_tb,
+               pad_quantum=pad_quantum)
+    mt, kt = m // m_tb, k // k_tb
+    return TiledCSL(words=t.words.reshape(e, mt, kt, t.max_nnz),
+                    nnz=t.nnz.reshape(e, mt, kt), shape=(m, k), m_tb=m_tb,
+                    k_tb=k_tb, dtype=t.dtype, stack=True)
+
+
+def expert_slice(t: TiledCSL, e: int) -> TiledCSL:
+    """Expert ``e`` of a stack as a plain 2-D encoding."""
+    if not t.stack:
+        raise ValueError("expert_slice needs an expert stack")
+    return dataclasses.replace(t, words=t.words[e], nnz=t.nnz[e],
+                               stack=False)
+
+
 def group_slice(t: TiledCSL, g: int) -> TiledCSL:
     """Member ``g`` of a grouped TiledCSL as a plain 2-D encoding."""
     if t.group is None:
@@ -247,13 +291,20 @@ def group_slice(t: TiledCSL, g: int) -> TiledCSL:
 
 
 def decode(t: TiledCSL) -> torch.Tensor:
-    """Dense f32 reconstruction (``[G, m, k]`` for grouped encodings).
+    """Dense f32 reconstruction (``[G, m, k]`` for grouped encodings,
+    ``[E, m, k]`` for expert stacks).
 
     Only the first ``nnz`` words of each tile are placed, so padding
     words never touch element (0, 0): they are sent to a spare element
     past the matrix, which is dropped. Nothing reads a device value on
     the host, so a captured CUDA graph can decode (the absorbed MLA step
     decodes a Tiled-CSL ``w_ukv`` each call)."""
+    if t.stack:     # the experts' tile rows, one after the other
+        e, (m, k), (mt, kt) = t.experts, t.shape, t.grid
+        flat = TiledCSL(words=t.words.reshape(e * mt, kt, t.max_nnz),
+                        nnz=t.nnz.reshape(e * mt, kt), shape=(e * m, k),
+                        m_tb=t.m_tb, k_tb=t.k_tb, dtype=t.dtype)
+        return decode(flat).reshape(e, m, k)
     if t.group is not None:
         return torch.stack([decode(group_slice(t, g)) for g in range(t.group)])
     m, k = t.shape

@@ -21,7 +21,8 @@ from typing import Dict
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("lscd_spmm", "lscd_spmm_grouped", "lscd_spmm_splitk",
-           "lscd_spmm_splitk_grouped", "dense_gemm")
+           "lscd_spmm_splitk_grouped", "lscd_spmm_batched",
+           "lscd_spmm_splitk_batched", "dense_gemm")
 _REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -65,6 +66,11 @@ _LSCD_ARGS = ([_P] * 6     # words, nnz, b, bias, partials, out
                            # split_k, dtype, epilogue, ring
               + [_P])      # stream
 ARGTYPES = {name: _LSCD_ARGS for name in SOURCES if name.startswith("lscd")}
+ARGTYPES.update({name: ([_P] * 5     # words, nnz, b, partials, out
+                        + [_I] * 11  # experts, m, k, n, m_tb, k_tb, n_tb,
+                                     # max_nnz, split_k, dtype, ring
+                        + [_P])      # stream
+                 for name in SOURCES if name.endswith("_batched")})
 ARGTYPES["dense_gemm"] = ([_P] * 3     # a, b, out
                           + [_I] * 7   # m, k, n, m_tb, k_tb, n_tb, dtype
                           + [_P])      # stream

@@ -457,11 +457,13 @@ __device__ __forceinline__ void zero_tile(uint16_t* p) {
 }
 
 // What the LSCD bodies read: the padded Tiled-CSL words of weights
-// g0 .. g0 + GB - 1, the live-step counts' shape and B.
+// g0 .. g0 + GB - 1, the live-step counts' shape and B. B may be a stack
+// of experts' blocks [E, K, N]; this block's weights multiply the K rows
+// from b_row0 on.
 struct Operands {
-  const uint32_t* words;  // [G, Mt, Kt, max_nnz]
-  const uint16_t* b;      // [K, N] bf16 bits
-  int k, n, max_nnz, mt_count, kt_count, g0;
+  const uint32_t* words;  // [E * G, Mt, Kt, max_nnz]
+  const uint16_t* b;      // [E * K, N] bf16 bits
+  int k, n, max_nnz, mt_count, kt_count, g0, b_row0;
 };
 
 // Step list entry: (K tile - kt_begin) * GB + g in bits 10..0, count above.
@@ -646,8 +648,8 @@ __device__ __forceinline__ void sparse_producer(
       const int kt = kt_begin +
                      (int)(list[j] & ((1u << ENTRY_BITS) - 1u)) / GB;
       mbar_expect_tx(full + slot, 2 * Gm::B_ELEMS);
-      load_b<K_TB, N_TB>(Gm::b_tile(ring, slot), map_b, kt * K_TB,
-                         ni * N_TB, full + slot);
+      load_b<K_TB, N_TB>(Gm::b_tile(ring, slot), map_b,
+                         op.b_row0 + kt * K_TB, ni * N_TB, full + slot);
     }
     if (j + 1 < steps) fetch_words<GB>(nxt, op, list[j + 1], mi, kt_begin);
     zero_tile<Gm::A_ELEMS>(a_s);

@@ -28,6 +28,17 @@
 // The single-pass kernels flush bias + epilogue + one cast; the split-K
 // kernels write f32 partials [S, G, M, N] and a reduce kernel sums the S
 // slices in slice order (no atomics), then applies the same flush_value().
+//
+// Expert-batched launches (lscd_spmm_batched.cu, lscd_spmm_splitk_batched.cu;
+// the counterpart of jax.vmap over the TPU kernels in repro/models/moe.py,
+// which Pallas batches into one pallas_call with the expert axis in the
+// grid): C[e] = decode(A[e]) @ B[e] for the E experts of a stacked
+// Tiled-CSL weight, words [E, Mt, Kt, max_nnz], B [E, K, N], C [E, M, N],
+// in one launch (one partials launch and one reduce over [S, E, M, N] for
+// split-K). The expert is one more grid index: weight w = e * G + g, z =
+// slice * E * G / GB + w / GB in the bf16 bodies (Args::experts E, G = 1),
+// z = slice * E + e in the first body; words, counts, B rows and outputs
+// are offset by it. No bias, no epilogue.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -151,16 +162,29 @@ struct FmaTile {
 };
 
 struct Args {
-  const uint32_t* words;  // [G, Mt, Kt, max_nnz]
-  const int32_t* nnz;     // [G, Mt, Kt]
-  const void* b;          // [K, N] bf16 or f32, row-major
+  const uint32_t* words;  // [E, G, Mt, Kt, max_nnz]
+  const int32_t* nnz;     // [E, G, Mt, Kt]
+  const void* b;          // [E, K, N] bf16 or f32, row-major
   const float* bias;      // [G, M] or nullptr
-  float* partials;        // [S, G, M, N] (split-K only)
-  void* out;              // [G, M, N], or [M, N] for binary epilogues
+  float* partials;        // [S, E, G, M, N] (split-K only)
+  void* out;              // [E, G, M, N], or [M, N] for binary epilogues
   int groups, m, k, n, m_tb, k_tb, n_tb, max_nnz, split_k, dtype, epilogue;
   int ring;               // word slots of the decode body's ring
+  int experts;            // E of an expert-batched launch, else 1
   cudaStream_t stream;
 };
+
+// Expert ex's operands in the first body: its words, counts, B and output.
+template <int G>
+__device__ __forceinline__ Args for_expert(const Args& a, int ex) {
+  Args x = a;
+  const size_t tiles = (size_t)ex * G * (a.m / a.m_tb) * (a.k / a.k_tb);
+  x.words = a.words + tiles * a.max_nnz;
+  x.nnz = a.nnz + tiles;
+  x.b = static_cast<const float*>(a.b) + (size_t)ex * a.k * a.n;
+  x.out = static_cast<float*>(a.out) + (size_t)ex * G * a.m * a.n;
+  return x;
+}
 
 // The first body: the K tiles [kt_begin, kt_end) of one (m tile, n tile)
 // for all G weights, f32.
@@ -240,7 +264,9 @@ __global__ void __launch_bounds__(THREADS)
   extern __shared__ __align__(16) unsigned char smem[];
   float* a_s = reinterpret_cast<float*>(smem);
   float* b_s = reinterpret_cast<float*>(smem + Tile::a_bytes(a.k_tb));
-  const int mi = blockIdx.x, ni = blockIdx.y, s = blockIdx.z;
+  const int mi = blockIdx.x, ni = blockIdx.y;
+  const int s = blockIdx.z / a.experts, ex = blockIdx.z % a.experts;
+  const Args x = for_expert<G>(a, ex);
   const int kt_count = a.k / a.k_tb;
   int kt_begin = 0, kt_end = kt_count;
   if (SPLIT) {
@@ -249,7 +275,7 @@ __global__ void __launch_bounds__(THREADS)
     kt_end = min(kt_begin + chunk, kt_count);
   }
   float acc[G][Tile::ACC];
-  accumulate<G, M_TB, N_TB>(acc, a, static_cast<const float*>(a.b), mi, ni,
+  accumulate<G, M_TB, N_TB>(acc, x, static_cast<const float*>(x.b), mi, ni,
                             kt_begin, kt_end, a_s, b_s);
 #pragma unroll
   for (int e = 0; e < Tile::ACC; ++e) {
@@ -259,9 +285,10 @@ __global__ void __launch_bounds__(THREADS)
     if constexpr (SPLIT) {
 #pragma unroll
       for (int g = 0; g < G; ++g)
-        a.partials[(((size_t)s * G + g) * a.m + row) * a.n + col] = acc[g][e];
+        a.partials[(((size_t)s * a.experts * G + ex * G + g) * a.m + row) *
+                       a.n + col] = acc[g][e];
     } else {
-      flush_value<G, float>(a, row, col, [&](int g) { return acc[g][e]; });
+      flush_value<G, float>(x, row, col, [&](int g) { return acc[g][e]; });
     }
   }
 }
@@ -281,14 +308,17 @@ __global__ void __launch_bounds__(THREADS) splitk_reduce_kernel(const Args a) {
   });
 }
 
-// After a split-K partials launch that returned e: the reduce.
+// After a split-K partials launch that returned e: the reduce. A batched
+// launch (G == 1, no bias) reduces its E experts' outputs as E * M rows.
 template <bool SPLIT, int G, typename T>
 int then_reduce(const Args& a, cudaError_t e) {
   if constexpr (SPLIT) {
     if (e != cudaSuccess) return (int)e;
-    const size_t total = (size_t)a.m * a.n;
+    Args r = a;
+    r.m = a.m * a.experts;
+    const size_t total = (size_t)r.m * r.n;
     const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-    splitk_reduce_kernel<G, T><<<blocks, THREADS, 0, a.stream>>>(a);
+    splitk_reduce_kernel<G, T><<<blocks, THREADS, 0, a.stream>>>(r);
     e = cudaGetLastError();
   }
   return (int)e;
@@ -304,25 +334,25 @@ int launch_tile(const Args& a) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid(a.m / M_TB, a.n / N_TB, SPLIT ? a.split_k : 1);
+    dim3 grid(a.m / M_TB, a.n / N_TB, (SPLIT ? a.split_k : 1) * a.experts);
     kern<<<grid, THREADS, smem, a.stream>>>(a);
     return then_reduce<SPLIT, G, float>(a, cudaGetLastError());
   }
 }
 
 // A bf16 body's block: its K tiles, and the weights g0 .. g0 + GB - 1 it
-// accumulates. GB is 2 for a binary epilogue, which combines the pair at
-// the flush; else 1, with the weight in the grid (z = slice * G / GB +
-// weight) and n tiles fastest.
+// accumulates (of the E * G of a batched launch). GB is 2 for a binary
+// epilogue, which combines the pair at the flush; else 1, with the weight
+// in the grid (z = slice * E * G / GB + weight / GB) and n tiles fastest.
 template <bool SPLIT, int G, int GB>
 struct BlockWork {
   int ni, mi, s, g0, kt_begin, kt_end;
   __device__ BlockWork(const Args& a, int kt_count) {
-    constexpr int GZ = G / GB;
+    const int gz = G / GB * a.experts;
     ni = blockIdx.x;
     mi = blockIdx.y;
-    s = blockIdx.z / GZ;
-    g0 = (blockIdx.z % GZ) * GB;
+    s = blockIdx.z / gz;
+    g0 = (blockIdx.z % gz) * GB;
     kt_begin = 0;
     kt_end = kt_count;
     if (SPLIT) {
@@ -352,8 +382,8 @@ __device__ __forceinline__ void flush_bf16(const Args& a,
     if constexpr (SPLIT) {
 #pragma unroll
       for (int g = 0; g < GB; ++g)
-        a.partials[(((size_t)w.s * G + w.g0 + g) * a.m + row) * a.n + col] =
-            acc[g][e];
+        a.partials[(((size_t)w.s * G * a.experts + w.g0 + g) * a.m + row) *
+                       a.n + col] = acc[g][e];
     } else {
       flush_value<GB, __nv_bfloat16>(f, row, col,
                                      [&](int g) { return acc[g][e]; });
@@ -361,6 +391,8 @@ __device__ __forceinline__ void flush_bf16(const Args& a,
   }
 }
 
+// Weight g0's operands in a bf16 body: B's rows of expert g0 / G.
+template <int G>
 __device__ __forceinline__ hpipe::Operands operands(const Args& a, int m_tb,
                                                    int k_tb, int g0) {
   hpipe::Operands op;
@@ -368,6 +400,7 @@ __device__ __forceinline__ hpipe::Operands operands(const Args& a, int m_tb,
   op.b = static_cast<const uint16_t*>(a.b);
   op.k = a.k; op.n = a.n; op.max_nnz = a.max_nnz;
   op.mt_count = a.m / m_tb; op.kt_count = a.k / k_tb; op.g0 = g0;
+  op.b_row0 = g0 / G * a.k;
   return op;
 }
 
@@ -383,7 +416,7 @@ __global__ void __launch_bounds__(ldec::THREADS,
   const ldec::Layout<M_TB, K_TB, N_TB> lay(a.max_nnz, a.ring, 0);
   ldec::init_ring(reinterpret_cast<uint64_t*>(dec_smem + lay.bars), a.ring);
   uint32_t* list = reinterpret_cast<uint32_t*>(dec_smem + lay.list);
-  const hpipe::Operands op = operands(a, M_TB, K_TB, w.g0);
+  const hpipe::Operands op = operands<G>(a, M_TB, K_TB, w.g0);
   // live_steps' barriers also publish the ring's mbarriers
   const int steps = hpipe::live_steps<GB, ldec::THREADS>(
       list, a.nnz, op, w.mi, w.kt_begin, w.kt_end);
@@ -408,7 +441,7 @@ int launch_decode(const Args& a) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(a.n / N_TB, a.m / M_TB, slices * (G / GB));
+  dim3 grid(a.n / N_TB, a.m / M_TB, slices * (G / GB) * a.experts);
   kern<<<grid, ldec::THREADS, smem, a.stream>>>(a);
   return then_reduce<SPLIT, G, __nv_bfloat16>(a, cudaGetLastError());
 }
@@ -429,7 +462,7 @@ __global__ void __launch_bounds__(hpipe::Source<false>::THREADS, 1)
       reinterpret_cast<uint32_t*>(base + L::RING_BYTES + L::BAR_BYTES);
   hpipe::init_ring<Gm>(full, empty, hpipe::STAGES, 1 + hpipe::PRODUCERS);
   const BlockWork<SPLIT, G, GB> w(a, a.k / K_TB);
-  const hpipe::Operands op = operands(a, M_TB, K_TB, w.g0);
+  const hpipe::Operands op = operands<G>(a, M_TB, K_TB, w.g0);
   // live_steps' barriers also publish the ring's mbarriers
   const int steps = hpipe::live_steps<GB, hpipe::Source<false>::THREADS>(
       list, a.nnz, op, w.mi, w.kt_begin, w.kt_end);
@@ -455,14 +488,14 @@ int launch_pipe(const Args& a) {
     if ((kt_count + slices - 1) / slices * GB > hpipe::MAX_STEPS)
       return (int)cudaErrorInvalidValue;
     CUtensorMap map_b;
-    const int rc = hpipe::make_map(&map_b, a.b, a.k, a.n, K_TB);
+    const int rc = hpipe::make_map(&map_b, a.b, a.experts * a.k, a.n, K_TB);
     if (rc != 0) return rc;
     const size_t smem = hpipe::SparseLayout<M_TB, K_TB, N_TB>::SMEM_BYTES;
     auto kern = lscd_pipe_kernel<SPLIT, G, GB, M_TB, K_TB, N_TB>;
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid(a.n / N_TB, a.m / M_TB, slices * (G / GB));
+    dim3 grid(a.n / N_TB, a.m / M_TB, slices * (G / GB) * a.experts);
     kern<<<grid, hpipe::Source<false>::THREADS, smem, a.stream>>>(a, map_b);
     return then_reduce<SPLIT, G, __nv_bfloat16>(a, cudaGetLastError());
   }
@@ -526,9 +559,15 @@ int launch_t(const Args& a) {
   return (int)cudaErrorInvalidValue;
 }
 
+// The grid's z extent (analysis/contracts.py: MAX_GRID_Z).
+constexpr int MAX_GRID_Z = 65535;
+
 template <bool SPLIT, bool GROUPED>
 int launch(const Args& a) {
   if (a.m <= 0 || a.n <= 0 || a.n % a.n_tb || a.m % a.m_tb || a.k % a.k_tb)
+    return (int)cudaErrorInvalidValue;
+  if (a.experts < 1 ||
+      (long long)(SPLIT ? a.split_k : 1) * a.groups * a.experts > MAX_GRID_Z)
     return (int)cudaErrorInvalidValue;
   if (SPLIT && a.split_k < 1) return (int)cudaErrorInvalidValue;
   if constexpr (GROUPED) {
@@ -544,7 +583,8 @@ int launch(const Args& a) {
 
 }  // namespace lscd
 
-// Plain C entry shared by the four sources (one exported name each).
+// Plain C entry shared by the four single-weight-stack sources (one
+// exported name each).
 #define LSCD_DEFINE_ENTRY(NAME, SPLIT, GROUPED)                              \
   extern "C" int NAME(const void* words, const void* nnz, const void* b,     \
                       const void* bias, void* partials, void* out,           \
@@ -562,6 +602,30 @@ int launch(const Args& a) {
     a.m_tb = m_tb; a.k_tb = k_tb; a.n_tb = n_tb; a.max_nnz = max_nnz;        \
     a.split_k = split_k; a.dtype = dtype; a.epilogue = epilogue;             \
     a.ring = ring;                                                           \
+    a.experts = 1;                                                           \
     a.stream = static_cast<cudaStream_t>(stream);                            \
     return lscd::launch<SPLIT, GROUPED>(a);                                  \
+  }
+
+// Plain C entry of the two expert-batched sources: E experts' stacked
+// words, B [E, K, N] and C [E, M, N]; no bias, no epilogue.
+#define LSCD_DEFINE_BATCHED_ENTRY(NAME, SPLIT)                               \
+  extern "C" int NAME(const void* words, const void* nnz, const void* b,     \
+                      void* partials, void* out, int experts, int m, int k,  \
+                      int n, int m_tb, int k_tb, int n_tb, int max_nnz,      \
+                      int split_k, int dtype, int ring, void* stream) {      \
+    lscd::Args a;                                                            \
+    a.words = static_cast<const uint32_t*>(words);                           \
+    a.nnz = static_cast<const int32_t*>(nnz);                                \
+    a.b = b;                                                                 \
+    a.bias = nullptr;                                                        \
+    a.partials = static_cast<float*>(partials);                              \
+    a.out = out;                                                             \
+    a.groups = 1; a.m = m; a.k = k; a.n = n;                                 \
+    a.m_tb = m_tb; a.k_tb = k_tb; a.n_tb = n_tb; a.max_nnz = max_nnz;        \
+    a.split_k = split_k; a.dtype = dtype; a.epilogue = lscd::EPI_NONE;       \
+    a.ring = ring;                                                           \
+    a.experts = experts;                                                     \
+    a.stream = static_cast<cudaStream_t>(stream);                            \
+    return lscd::launch<SPLIT, false>(a);                                    \
   }

@@ -244,7 +244,7 @@ __device__ __forceinline__ void mainloop(
     uint64_t* bar = full + j % depth;
     const uint32_t w_bytes = (uint32_t)((cnt + 3) & ~3) * 4u;
     const uint16_t* b_src =
-        op.b + (size_t)kt * K_TB * op.n + (size_t)ni * N_TB;
+        op.b + (size_t)(op.b_row0 + kt * K_TB) * op.n + (size_t)ni * N_TB;
     uint16_t* b_dst = b_ring + (j % (depth + 1)) * Gm::B_ELEMS;
     if (lane == 0) mbar_expect_tx(bar, w_bytes + B_BYTES);
     __syncwarp();

@@ -29,7 +29,8 @@ from repro_torch.kernels import spmm as spmm_mod
 
 BACKENDS = ("auto", "cuda", "torch")
 
-#: (kind, M, K, N, group) -> the schedule picked for it, for reports.
+#: (kind, M, K, N, group or experts) -> the schedule picked for it, for
+#: reports.
 SCHEDULES: Dict[Tuple[str, int, int, int, int], schedule_mod.Schedule] = {}
 
 
@@ -57,10 +58,17 @@ def _pick(kind: str, t: tiled_csl.TiledCSL, b: torch.Tensor,
 
 
 def _pad_n(b: torch.Tensor, n_tb: int) -> torch.Tensor:
-    n = b.shape[1]
+    """B (``[K, N]``, or ``[E, K, N]``) with N padded to the N tile."""
+    n = b.shape[-1]
     n_pad = -(-n // n_tb) * n_tb
     b = F.pad(b, (0, n_pad - n)) if n_pad != n else b
     return b.contiguous()
+
+
+def _refuse_stack(t: tiled_csl.TiledCSL, op: str) -> None:
+    if t.stack:
+        raise ValueError(f"{op}: an expert stack is no projection group and "
+                         "no single weight; use spmm_batched")
 
 
 def spmm(t: tiled_csl.TiledCSL, b: torch.Tensor, *, out_dtype=None,
@@ -68,6 +76,7 @@ def spmm(t: tiled_csl.TiledCSL, b: torch.Tensor, *, out_dtype=None,
          split_k: Optional[int] = None, epilogue: str = "none",
          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C[M, N] = epilogue(A_tiled_csl[M, K] @ B[K, N] + bias)."""
+    _refuse_stack(t, "spmm")
     if t.group is not None:
         raise ValueError("grouped TiledCSL: use spmm_grouped")
     spmm_mod.epilogue_kind(epilogue)
@@ -94,6 +103,7 @@ def spmm_grouped(t: tiled_csl.TiledCSL, b: torch.Tensor, *, out_dtype=None,
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Grouped SpMM: C[G, M, N] (unary epilogues; bias [G, M]) or C[M, N]
     (binary epilogues combining the G == 2 pair)."""
+    _refuse_stack(t, "spmm_grouped")
     groups = t.group
     if groups is None:
         raise ValueError("ungrouped TiledCSL: use spmm")
@@ -117,6 +127,35 @@ def spmm_grouped(t: tiled_csl.TiledCSL, b: torch.Tensor, *, out_dtype=None,
     if bp.shape[1] != n:
         out = out[:, :n] if kind == "binary" else out[..., :n]
     return out
+
+
+def spmm_batched(t: tiled_csl.TiledCSL, b: torch.Tensor, *, out_dtype=None,
+                 backend: str = "auto", n_tb: Optional[int] = None,
+                 split_k: Optional[int] = None) -> torch.Tensor:
+    """Expert-batched SpMM: C[E, M, N], C[e] = A[e] @ B[e], for an expert
+    stack ``t`` (``tiled_csl.encode_stack``) and B ``[E, K, N]``. On the
+    kernel path one launch serves all E experts (``lscd_spmm_batched``,
+    or the ``lscd_spmm_splitk_batched`` pair), with one schedule for the
+    stack; N is padded to its N tile."""
+    if not t.stack:
+        raise ValueError("spmm_batched needs an expert stack")
+    out_dtype = out_dtype or b.dtype
+    if resolve_backend(backend, b) == "torch":
+        return ref_mod.spmm_batched_ref(t, b, out_dtype=out_dtype)
+    (m, k), n, e = t.shape, b.shape[2], t.experts
+    sched = schedule_mod.select(
+        m, k, n, m_tb=t.m_tb, k_tb=t.k_tb, max_nnz=t.max_nnz, n_tb=n_tb,
+        split_k=split_k, b_dtype_bytes=b.element_size(), experts=e)
+    SCHEDULES[("spmm_batched", m, k, n, e)] = sched
+    bp = _pad_n(b, sched.n_tb)
+    if sched.split_k == 1:
+        out = spmm_mod.lscd_spmm_batched(t, bp, n_tb=sched.n_tb,
+                                         out_dtype=out_dtype)
+    else:
+        out = spmm_mod.lscd_spmm_splitk_batched(
+            t, bp, n_tb=sched.n_tb, split_k=sched.split_k,
+            out_dtype=out_dtype)
+    return out[..., :n] if bp.shape[-1] != n else out
 
 
 class _SpmmDiff(torch.autograd.Function):

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four LSCD SpMM kernels.
+"""Plain PyTorch versions of the LSCD SpMM kernels.
 
 The counterparts of ``repro.kernels.ref``, with the same rounding points:
 decode the weight to f32, an f32 matmul, the f32 bias, the f32 epilogue,
@@ -97,3 +97,32 @@ def spmm_splitk_grouped_ref(t: tiled_csl.TiledCSL, b: torch.Tensor,
         _splitk_partials(a[g], bf, t.k_tb, t.grid[1], split_k).sum(0)
         for g in range(groups)])
     return _grouped_out(_biased(y, bias), kind, epilogue, out_dtype)
+
+
+def _expert_b(t: tiled_csl.TiledCSL, b: torch.Tensor) -> None:
+    if not t.stack:
+        raise ValueError("the batched versions need an expert stack")
+    if b.dim() != 3 or b.shape[0] != t.experts:
+        raise ValueError(f"B shape {tuple(b.shape)} is not [E={t.experts}, "
+                         "K, N]")
+
+
+def spmm_batched_ref(t: tiled_csl.TiledCSL, b: torch.Tensor,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """Expert-batched: C[e] = decode(A[e]) @ B[e] for the E experts of a
+    stack, B ``[E, K, N]``; a loop of :func:`spmm_ref`, as the
+    reference's vmap applies it per expert."""
+    _expert_b(t, b)
+    return torch.stack([spmm_ref(tiled_csl.expert_slice(t, e), b[e],
+                                 out_dtype=out_dtype)
+                        for e in range(t.experts)])
+
+
+def spmm_splitk_batched_ref(t: tiled_csl.TiledCSL, b: torch.Tensor,
+                            split_k: int,
+                            out_dtype=torch.float32) -> torch.Tensor:
+    """Expert-batched split-K: a loop of :func:`spmm_splitk_ref`."""
+    _expert_b(t, b)
+    return torch.stack([spmm_splitk_ref(tiled_csl.expert_slice(t, e), b[e],
+                                        split_k, out_dtype=out_dtype)
+                        for e in range(t.experts)])

@@ -75,12 +75,14 @@ def sparsity_from_max_nnz(max_nnz: int, m_tb: int, k_tb: int) -> float:
 
 def cache_key(m: int, k: int, n: int, sparsity: float, *, group: int = 1,
               backend: str = "cuda", m_tb: Optional[int] = None,
-              k_tb: Optional[int] = None) -> str:
+              k_tb: Optional[int] = None, experts: int = 1) -> str:
     """Stable JSON-cache key: shape + backend (+ pinned tile geometry),
-    in the reference's format."""
+    in the reference's format; an expert-batched launch adds its expert
+    count."""
     tile = f"_mtb{m_tb}_ktb{k_tb}" if m_tb and k_tb else ""
+    stack = f"_e{experts}" if experts > 1 else ""
     return (f"{backend}_m{m}_k{k}_n{n}_s{round(float(sparsity), 4)}"
-            f"_g{group}{tile}")
+            f"_g{group}{tile}{stack}")
 
 
 def _read_entries(path: str) -> Dict[str, dict]:
@@ -184,7 +186,8 @@ def select(m: int, k: int, n: int, *, m_tb: int, k_tb: int, max_nnz: int,
            n_tb: Optional[int] = None, split_k: Optional[int] = None,
            group: int = 1, b_dtype_bytes: int = 2, binary: bool = False,
            backend: str = "cuda",
-           cache: "Optional[ScheduleCache] | bool" = None) -> Schedule:
+           cache: "Optional[ScheduleCache] | bool" = None,
+           experts: int = 1) -> Schedule:
     """Pick the launch for one SpMM shape.
 
     A launch with both ``n_tb`` and ``split_k`` pinned is checked and
@@ -192,7 +195,10 @@ def select(m: int, k: int, n: int, *, m_tb: int, k_tb: int, max_nnz: int,
     ``REPRO_SCHEDULE_CACHE`` file when ``cache`` is None or True; False
     ignores both) if it agrees with every pin and the launch contract
     takes it; else the analytic pick (:func:`select_analytic`) decides.
-    ``backend`` names the kernels the entry was measured on."""
+    ``backend`` names the kernels the entry was measured on; ``experts``
+    is the stack count of an expert-batched launch (one schedule for all
+    E experts, where the reference's vmap picks one per expert: here
+    the experts share the grid)."""
     if n_tb is None or split_k is None:
         if cache is False:
             cache = None
@@ -201,7 +207,8 @@ def select(m: int, k: int, n: int, *, m_tb: int, k_tb: int, max_nnz: int,
         if cache is not None:
             hit = cache.get(cache_key(
                 m, k, n, sparsity_from_max_nnz(max_nnz, m_tb, k_tb),
-                group=group, backend=backend, m_tb=m_tb, k_tb=k_tb))
+                group=group, backend=backend, m_tb=m_tb, k_tb=k_tb,
+                experts=experts))
             if hit is not None and (hit.m_tb, hit.k_tb) == (m_tb, k_tb) \
                     and (n_tb is None or hit.n_tb == n_tb) \
                     and (split_k is None or hit.split_k == split_k) \
@@ -209,31 +216,35 @@ def select(m: int, k: int, n: int, *, m_tb: int, k_tb: int, max_nnz: int,
                         m, k, n, m_tb=hit.m_tb, k_tb=hit.k_tb,
                         n_tb=hit.n_tb, split_k=hit.split_k, group=group,
                         binary=binary, b_dtype_bytes=b_dtype_bytes,
-                        max_nnz=max_nnz):
+                        max_nnz=max_nnz, experts=experts):
                 return hit
     return select_analytic(m, k, n, m_tb=m_tb, k_tb=k_tb, max_nnz=max_nnz,
                            n_tb=n_tb, split_k=split_k, group=group,
-                           b_dtype_bytes=b_dtype_bytes, binary=binary)
+                           b_dtype_bytes=b_dtype_bytes, binary=binary,
+                           experts=experts)
 
 
 @functools.lru_cache(maxsize=4096)
 def select_analytic(m: int, k: int, n: int, *, m_tb: int, k_tb: int,
                     max_nnz: int, n_tb: Optional[int] = None,
                     split_k: Optional[int] = None, group: int = 1,
-                    b_dtype_bytes: int = 2, binary: bool = False
-                    ) -> Schedule:
+                    b_dtype_bytes: int = 2, binary: bool = False,
+                    experts: int = 1) -> Schedule:
     """The analytic pick: least ``effective_s``, ties to fewer bytes, then
     smaller split, then larger N tile. Pinned fields are kept; a pinned
     launch the kernels do not take raises. ``binary``: a silu_mul/gelu_mul
-    epilogue, which keeps the G=2 pair in one block. Memoised, so a
-    repeated dispatch is a dict hit."""
+    epilogue, which keeps the G=2 pair in one block; ``experts``: an
+    expert-batched launch, whose E stacks fill the grid before any split
+    (``roofline.lscd_splitk_terms``). Memoised, so a repeated dispatch is
+    a dict hit."""
     best, best_key, rejected = None, None, []
     for cand in candidates(m, k, n, m_tb=m_tb, k_tb=k_tb, n_tb=n_tb,
                            split_k=split_k):
         bad = contracts.check_launch(m, k, n, m_tb=cand.m_tb, k_tb=cand.k_tb,
                                      n_tb=cand.n_tb, split_k=cand.split_k,
                                      group=group, binary=binary,
-                                     b_dtype_bytes=b_dtype_bytes)
+                                     b_dtype_bytes=b_dtype_bytes,
+                                     experts=experts)
         if bad:
             rejected.extend(bad)
             continue
@@ -245,13 +256,15 @@ def select_analytic(m: int, k: int, n: int, *, m_tb: int, k_tb: int,
             block_groups=contracts.block_groups(
                 group, cand.n_tb, b_dtype_bytes, binary),
             resident=contracts.launch_resident(k, **shape, binary=binary,
-                                               max_nnz=max_nnz))
+                                               max_nnz=max_nnz),
+            experts=experts)
         key = (t.effective_s, t.hbm_bytes, cand.split_k, -cand.n_tb)
         if best_key is None or key < best_key:
             best, best_key = cand, key
     if best is None:
         raise contracts.ScheduleContractError(
-            f"no launchable schedule for ({m},{k},{n}) group={group}: "
+            f"no launchable schedule for ({m},{k},{n}) group={group} "
+            f"experts={experts}: "
             + "; ".join(sorted(set(rejected))))
     return best
 

@@ -10,7 +10,12 @@ entries, each a hand-written CUDA C++ kernel in ``csrc/`` (built by
   combining the G=2 pair;
 * :func:`lscd_spmm_splitk` / :func:`lscd_spmm_splitk_grouped` — K split
   over S slices into f32 partials, then a reduce that sums the slices in
-  order and applies bias + epilogue with one cast.
+  order and applies bias + epilogue with one cast;
+* :func:`lscd_spmm_batched` / :func:`lscd_spmm_splitk_batched` — the MoE
+  expert stacks: ``C[e] = decode(A[e]) @ B[e]`` for the E experts of a
+  stacked Tiled-CSL weight in one launch (one partials launch and one
+  reduce for split-K), the counterpart of ``jax.vmap`` over the first and
+  third in ``repro.models.moe``; no bias, no epilogue.
 
 Every entry takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates its outputs (and the split-K workspace) with
@@ -81,8 +86,12 @@ def epilogue_kind(name: str, *, groups: int = 1) -> str:
 # launch counters
 # ---------------------------------------------------------------------------
 
-KERNELS = ("lscd_spmm", "lscd_spmm_grouped", "lscd_spmm_splitk",
-           "lscd_spmm_splitk_grouped")
+# One weight (or projection group) against one B; expert stacks, each
+# expert against its own B.
+WEIGHT_KERNELS = ("lscd_spmm", "lscd_spmm_grouped", "lscd_spmm_splitk",
+                  "lscd_spmm_splitk_grouped")
+BATCHED_KERNELS = ("lscd_spmm_batched", "lscd_spmm_splitk_batched")
+KERNELS = WEIGHT_KERNELS + BATCHED_KERNELS
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -99,10 +108,8 @@ def launch_counts() -> Dict[str, int]:
 # raw kernel entries
 # ---------------------------------------------------------------------------
 
-def _check(t, b: torch.Tensor, n_tb: int, split_k: int, out_dtype,
-           bias: Optional[torch.Tensor], groups: int,
-           epilogue: str) -> Optional[torch.Tensor]:
-    """Raise on anything the kernels do not take; returns the f32 bias."""
+def _check_operands(t, b: torch.Tensor, out_dtype) -> None:
+    """Device, contiguity and dtypes of the words, counts and B."""
     for name, x in (("words", t.words), ("nnz", t.nnz), ("B", b)):
         if not x.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
@@ -116,6 +123,24 @@ def _check(t, b: torch.Tensor, n_tb: int, split_k: int, out_dtype,
         raise ValueError(f"B dtype {b.dtype} not in {list(_DTYPE_CODES)}")
     if out_dtype != b.dtype:
         raise ValueError(f"out dtype {out_dtype} must equal B dtype {b.dtype}")
+
+
+def _check_alignment(t, b: torch.Tensor, n_tb: int) -> None:
+    body = contracts.body(n_tb, b.element_size())
+    if body != "first" and b.data_ptr() % 16:
+        raise ValueError(f"B must be 16-byte aligned for the {body} body")
+    if body == "decode" and t.words.data_ptr() % 16:
+        raise ValueError("words must be 16-byte aligned for the decode body")
+
+
+def _check(t, b: torch.Tensor, n_tb: int, split_k: int, out_dtype,
+           bias: Optional[torch.Tensor], groups: int,
+           epilogue: str) -> Optional[torch.Tensor]:
+    """Raise on anything the kernels do not take; returns the f32 bias."""
+    if t.stack:
+        raise ValueError("an expert stack: use lscd_spmm_batched / "
+                         "lscd_spmm_splitk_batched")
+    _check_operands(t, b, out_dtype)
     m, k = t.shape
     if b.dim() != 2 or b.shape[0] != k:
         raise ValueError(f"B shape {tuple(b.shape)} does not match K={k}")
@@ -132,11 +157,7 @@ def _check(t, b: torch.Tensor, n_tb: int, split_k: int, out_dtype,
                              split_k=split_k, group=groups, binary=binary,
                              b_dtype_bytes=b.element_size(),
                              max_nnz=t.max_nnz)
-    body = contracts.body(n_tb, b.element_size())
-    if body != "first" and b.data_ptr() % 16:
-        raise ValueError(f"B must be 16-byte aligned for the {body} body")
-    if body == "decode" and t.words.data_ptr() % 16:
-        raise ValueError("words must be 16-byte aligned for the decode body")
+    _check_alignment(t, b, n_tb)
     if bias is None:
         return None
     if bias.device != b.device:
@@ -241,3 +262,67 @@ def lscd_spmm_splitk_grouped(t, b: torch.Tensor, *, n_tb: int = 128,
                    split_k=split_k, out_dtype=out_dtype or b.dtype,
                    epilogue=epilogue, bias=bias, groups=t.group,
                    out_shape=_grouped_shape(t, b, epilogue))
+
+
+def _check_batched(t, b: torch.Tensor, n_tb: int, split_k: int,
+                   out_dtype) -> None:
+    """Raise on an expert-batched launch the kernels do not take."""
+    if not t.stack:
+        raise ValueError("lscd_spmm_batched needs an expert stack "
+                         "(tiled_csl.encode_stack)")
+    _check_operands(t, b, out_dtype)
+    e, (m, k), (mt, kt) = t.experts, t.shape, t.grid
+    if b.dim() != 3 or b.shape[0] != e or b.shape[1] != k:
+        raise ValueError(f"B shape {tuple(b.shape)} is not [E={e}, K={k}, N]")
+    n = b.shape[2]
+    if n % n_tb:
+        raise ValueError(f"N={n} not a multiple of n_tb={n_tb}")
+    if tuple(t.nnz.shape) != (e, mt, kt) or \
+            tuple(t.words.shape[:-1]) != (e, mt, kt):
+        raise ValueError("words/nnz shapes do not match the tile grid")
+    contracts.require_launch(m, k, n, m_tb=t.m_tb, k_tb=t.k_tb, n_tb=n_tb,
+                             split_k=split_k, b_dtype_bytes=b.element_size(),
+                             max_nnz=t.max_nnz, experts=e)
+    _check_alignment(t, b, n_tb)
+
+
+def _launch_batched(name: str, t, b, *, n_tb: int, split_k: int,
+                    out_dtype) -> torch.Tensor:
+    from repro_torch.kernels import build   # builds with nvcc at first use
+    _check_batched(t, b, n_tb, split_k, out_dtype)
+    e, (m, k), n = t.experts, t.shape, b.shape[2]
+    out = torch.empty((e, m, n), dtype=out_dtype, device=b.device)
+    partials = None
+    if split_k > 1:
+        partials = torch.empty((split_k, e, m, n), dtype=torch.float32,
+                               device=b.device)
+    fn = build.entry(name)
+    stream = torch.cuda.current_stream(b.device).cuda_stream
+    rc = fn(t.words.data_ptr(), t.nnz.data_ptr(), b.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            out.data_ptr(), e, m, k, n, t.m_tb, t.k_tb, n_tb, t.max_nnz,
+            split_k, _DTYPE_CODES[b.dtype],
+            ring_depth(t, n_tb, split_k, 1, "none", b.element_size()),
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def lscd_spmm_batched(t, b: torch.Tensor, *, n_tb: int = 128,
+                      out_dtype=None) -> torch.Tensor:
+    """Raw expert-batched kernel: C[E, M, N], C[e] = decode(A[e]) @ B[e],
+    for an expert stack ``t`` and B ``[E, K, N]``, in one launch.
+    Requires N % n_tb == 0."""
+    return _launch_batched("lscd_spmm_batched", t, b, n_tb=n_tb, split_k=1,
+                           out_dtype=out_dtype or b.dtype)
+
+
+def lscd_spmm_splitk_batched(t, b: torch.Tensor, *, n_tb: int = 128,
+                             split_k: int = 2,
+                             out_dtype=None) -> torch.Tensor:
+    """Raw expert-batched split-K pair: f32 partials [S, E, M, N] in one
+    launch, then one reduce into C[E, M, N]."""
+    return _launch_batched("lscd_spmm_splitk_batched", t, b, n_tb=n_tb,
+                           split_k=split_k, out_dtype=out_dtype or b.dtype)

@@ -7,7 +7,11 @@
 Builds the model from ``--seed``, optionally prunes and reformats its
 projections to Tiled-CSL on the device (``lm_head`` and, for MLA
 (``--arch minicpm3_4b``), the four latent factors stay dense, as in the
-JAX launcher), then serves a synthetic workload through the session
+JAX launcher; for MoE (``--arch qwen3_moe_30b_a3b``, ``qwen2_moe_a2_7b``)
+the routed ``gate``/``up``/``down`` stacks are encoded per expert into
+expert stacks, which the JAX launcher's scan-stacked layout leaves dense,
+and the router stays dense), then serves a synthetic workload through
+the session
 API (``serving.api.StreamingServer`` over the continuous batcher, its
 decode step a CUDA graph), reporting tokens/s, TTFT/TPOT percentiles and
 the weight-bytes saving. Default is a closed-loop drain; ``--trace-rate
@@ -64,7 +68,9 @@ from repro_torch.serving.config import SLOSpec, ServeConfig
 from repro_torch.serving.scheduler import latency_summary
 
 # The JAX launcher's list. On an MLA model it matches wo, gate, up and
-# down; the latent factors (w_dq, w_uq, w_dkv, w_ukv) stay dense.
+# down; the latent factors (w_dq, w_uq, w_dkv, w_ukv) stay dense. On an
+# MoE model it matches the routed stacks (moe['gate'], ...) and the shared
+# expert; the router stays dense.
 SPARSE_NAMES = ("'wq'", "'wk'", "'wv'", "'wo'", "'gate'", "'up'", "'down'")
 
 

@@ -233,6 +233,15 @@ def attention_decode_paged(params: dict, x: torch.Tensor, cache: dict,
     kv_heads, hd = cache["k"].shape[-2], cache["k"].shape[-1]
     kg = cache["k"][block_tables].reshape(B, -1, kv_heads, hd)
     vg = cache["v"][block_tables].reshape(B, -1, kv_heads, hd)
+    # Each row reads back its own token at pos, as from the dense cache.
+    # A live row's write is private to it, so this changes none of its
+    # bits; the idle rows all write the trash block, where one idle row
+    # would read another's token. An MoE layer's capacity makes the live
+    # rows depend on the idle ones, so dense and paged steps must agree
+    # on them.
+    rows = torch.arange(B, device=x.device)
+    kg[rows, pos_vec] = k[:, 0].to(kg.dtype)
+    vg[rows, pos_vec] = v[:, 0].to(vg.dtype)
     o = _masked_decode_attend(q, kg, vg, pos_vec)
     y = sparse_linear.linear(params["wo"]["w"], o.to(x.dtype),
                              declared_out=cfg.d_model, backend=backend)

@@ -1,11 +1,14 @@
-"""Model assembly for the dense family: init, cache and forward.
+"""Model assembly for the dense and MoE families: init, cache and forward.
 
 The port's counterpart of ``repro.models.transformer`` for ``family ==
-"dense"``: a pre-norm decoder of attention + MLP blocks, its layers a
-Python list walked in order (the reference's ``lax.scan`` stack). The
-attention is GQA (``attention``, K/V cache leaves ``"k"``/``"v"``) or
-Multi-head Latent Attention (``mla``, latent cache leaves
-``"ckv"``/``"krope"``). Three modes share the block code:
+"dense"`` and ``"moe"``: a pre-norm decoder of attention + MLP blocks, its
+layers a Python list walked in order (the reference's ``lax.scan``
+stack). The attention is GQA (``attention``, K/V cache leaves
+``"k"``/``"v"``) or Multi-head Latent Attention (``mla``, latent cache
+leaves ``"ckv"``/``"krope"``); an MoE model's MLP is routed experts
+(``moe``, params ``p["moe"]``; GQA attention only), whose aux loss the
+forward drops, since the port serves and does not train. Three modes
+share the block code:
 
   prefill — full sequence; writes the cache when one is given
   decode  — one token per row + cache (the paper's skinny-MatMul regime),
@@ -29,20 +32,23 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import attention, layers, mla, nn
+from repro_torch.models import attention, layers, mla, moe, nn
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.attn_kind not in ("gqa", "mla") \
-            or cfg.n_codebooks or cfg.n_routed_experts \
+    dense = cfg.family == "dense" and cfg.attn_kind in ("gqa", "mla") \
+        and not cfg.n_routed_experts
+    routed = cfg.family == "moe" and cfg.attn_kind == "gqa" \
+        and cfg.n_routed_experts > 0
+    if not (dense or routed) or cfg.n_codebooks \
             or cfg.layer_pattern is not None \
             or cfg.local_window is not None or cfg.mrope_sections is not None:
         raise NotImplementedError(
             f"{cfg.name}: the port serves the dense family with GQA or MLA "
-            "attention only")
+            "attention and the MoE family with GQA attention only")
 
 
 def _init_norm(cfg: ModelConfig, device, dtype):
@@ -63,7 +69,9 @@ def init_block(gen, cfg: ModelConfig, device, dtype=torch.float32) -> Params:
                           else attention.init_attention(gen, cfg, device,
                                                         dtype)),
                  "mlp_norm": _init_norm(cfg, device, dtype)}
-    if cfg.mlp_kind == "swiglu":
+    if cfg.n_routed_experts:
+        p["moe"] = moe.init_moe(gen, cfg, device, dtype)
+    elif cfg.mlp_kind == "swiglu":
         p["mlp"] = layers.init_swiglu_mlp(gen, cfg.d_model, cfg.d_ff, device,
                                           dtype)
     else:
@@ -238,8 +246,9 @@ def _mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, backend: str):
 def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 positions=None, cache=None, pos=None, block_tables=None,
                 backend: str = "auto") -> Tuple[torch.Tensor, Optional[dict]]:
-    """Residual attention + MLP block. Returns (x, cache), or in verify
-    mode (x, the window's fresh {"k", "v"} or {"ckv", "krope"})."""
+    """Residual attention + MLP (or routed experts) block. Returns (x,
+    cache), or in verify mode (x, the window's fresh {"k", "v"} or
+    {"ckv", "krope"})."""
     h = _norm(cfg, p["pre_norm"], x)
     if cfg.attn_kind == "mla":
         if mode == "verify":
@@ -267,8 +276,12 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         a, cache = attention.attention(p["attn"], h, positions, cfg,
                                        cache=cache, backend=backend)
     x = x + a
-    x = x + _mlp_apply(p["mlp"], _norm(cfg, p["mlp_norm"], x), cfg, backend)
-    return x, cache
+    h = _norm(cfg, p["mlp_norm"], x)
+    if cfg.n_routed_experts:
+        m, _ = moe.moe_block(p["moe"], h, cfg, backend=backend)  # aux: training
+    else:
+        m = _mlp_apply(p["mlp"], h, cfg, backend)
+    return x + m, cache
 
 
 def forward(params: Params, inputs: Dict[str, torch.Tensor],

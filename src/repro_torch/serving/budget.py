@@ -19,7 +19,13 @@ default_should_sparsify`` picks, ``lm_head`` and the MLA factors
 included, so every number equals the reference's byte for byte. The
 serving launchers keep ``lm_head`` and the MLA factors (``w_dq``,
 ``w_uq``, ``w_dkv``, ``w_ukv``) dense, so for a sparse deployment the
-plan counts less for them than the built model holds. ``sparse_pallas``
+plan counts less for them than the built model holds. For an MoE model
+the reference counts the routed expert stacks dense: their paths carry
+no ``['w']`` and its scan-stacked leaves ``[L, E, f, d]`` are 4-D, which
+``sparse_params_struct`` skips; the router stays dense and the shared
+expert and the attention are encoded. The port's build encodes the
+routed stacks too, so there the plan counts more than is built.
+``sparse_pallas``
 and ``sparse_xla`` name the reference's kernels, not the format: both
 count the same encoded bytes.
 """
@@ -54,12 +60,16 @@ BF16_BYTES = 2
 
 
 def _dense_family_leaves(cfg: ModelConfig) -> Iterator[Tuple[str, Tuple[int, ...], int]]:
-    """(name, shape, count) of every parameter leaf of the dense family,
-    ``count`` being how many copies the stack holds (one per layer)."""
-    if cfg.family != "dense" or cfg.attn_kind not in ("gqa", "mla"):
+    """(name, shape, count) of every parameter leaf of the dense and MoE
+    families, ``count`` being how many copies the stack holds (one per
+    layer). A routed expert stack is one 3-D leaf, so ``weight_bytes``
+    counts it dense, as the reference does."""
+    dense = cfg.family == "dense" and cfg.attn_kind in ("gqa", "mla")
+    routed = cfg.family == "moe" and cfg.attn_kind == "gqa"
+    if not (dense or routed):
         raise NotImplementedError(
             f"{cfg.name}: the port's planner counts the dense family with "
-            "GQA or MLA attention only")
+            "GQA or MLA attention and the MoE family with GQA only")
     d, L = cfg.d_model, cfg.n_layers
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     norm = (("scale",) if cfg.norm_kind == "rmsnorm" else ("scale", "bias"))
@@ -81,7 +91,17 @@ def _dense_family_leaves(cfg: ModelConfig) -> Iterator[Tuple[str, Tuple[int, ...
             if cfg.qkv_bias:
                 yield f"{name}.b", (out,), L
         yield "wo.w", (d, h * hd), L
-    if cfg.mlp_kind == "swiglu":
+    if cfg.n_routed_experts:
+        e, f = cfg.n_routed_experts, cfg.d_expert
+        yield "router.w", (e, d), L
+        for name, shape in (("gate", (e, f, d)), ("up", (e, f, d)),
+                            ("down", (e, d, f))):
+            yield f"experts.{name}", shape, L
+        fs = cfg.d_shared_expert * cfg.n_shared_experts
+        mlp = ((("gate", fs, d), ("up", fs, d), ("down", d, fs))
+               if cfg.n_shared_experts else ())
+        bias = False
+    elif cfg.mlp_kind == "swiglu":
         mlp = (("gate", cfg.d_ff, d), ("up", cfg.d_ff, d),
                ("down", d, cfg.d_ff))
         bias = False

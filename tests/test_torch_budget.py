@@ -17,7 +17,9 @@ from repro.serving import budget as ref_budget
 from repro_torch import configs
 from repro_torch.serving import budget
 
-ARCHS = ("opt_30b", "opt_66b", "opt_175b", "tinyllama_1_1b", "minicpm3_4b")
+ARCHS = ("opt_30b", "opt_66b", "opt_175b", "tinyllama_1_1b", "minicpm3_4b",
+         "deepseek_coder_33b", "qwen2_1_5b", "qwen2_moe_a2_7b",
+         "qwen3_moe_30b_a3b")
 BUDGETS = (80e9, 320e9)
 SMOKE_BUDGETS = (80e9, 2e6)
 BLOCKS = (16, 128)

@@ -6,7 +6,9 @@
   dense cast to the compute dtype, bit for bit (words, nnz, dense
   leaves, key order), at 2 layers and at 4, where the layers' own
   ``max_nnz`` differ and the second pass must re-pad them to the stack's
-  largest; for minicpm3 the latent factors stay dense.
+  largest; for minicpm3 the latent factors stay dense; for the MoE
+  configs the routed stacks are 3-D leaves, encoded per expert into
+  expert stacks, the router left dense.
 * ``--hbm-budget-gb`` sizes the paged pool to the reference planner's
   ``n_blocks``; the SLO, fault-plan, digest and trace flags run through
   ``serve.main(..., device="cpu")``.
@@ -71,8 +73,10 @@ def _assert_same(a, b, path=""):
         assert a.dtype == b.dtype and torch.equal(a, b), path
 
 
-@pytest.mark.parametrize("n_layers", [None, 4])
-@pytest.mark.parametrize("arch", ["opt_30b", "tinyllama_1_1b", "minicpm3_4b"])
+@pytest.mark.parametrize("arch,n_layers", [
+    (arch, n) for arch in ("opt_30b", "tinyllama_1_1b", "minicpm3_4b")
+    for n in (None, 4)] + [("qwen2_moe_a2_7b", None),
+                           ("qwen3_moe_30b_a3b", 4)])
 def test_layered_build_equals_whole_tree_build(arch, n_layers):
     cfg = configs.smoke(arch)
     if n_layers:

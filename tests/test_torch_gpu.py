@@ -423,6 +423,93 @@ def test_decode_body_refuses_unaligned_words(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the expert-batched kernels (MoE stacks)
+# ---------------------------------------------------------------------------
+
+def _expert_stack(dev, experts, m_tb=128, k_tb=128):
+    """An expert stack of ``experts`` pruned 256x384 weights: expert 0 has
+    an all-empty first tile, expert 1 is all zeros, the rest differ in
+    density, so the stack pads every expert to one max_nnz."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    ws = []
+    for e in range(experts):
+        w = torch.randn((256, 384), generator=gen, device=dev)
+        if e == 0:
+            w[:m_tb, :k_tb] = 0.0
+        if e == 1:
+            w.zero_()
+        ws.append(pruning.prune(w, 0.6 + 0.05 * (e % 4)))
+    t = tiled_csl.encode_stack(torch.stack(ws), m_tb=m_tb, k_tb=k_tb)
+    return t, gen
+
+
+BATCHED_N_TB = [8, 16, 32, 64, 128]
+
+
+@pytest.mark.parametrize("split_k", [1, 2, 3])
+@pytest.mark.parametrize("n_tb", BATCHED_N_TB)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("geom", GEOMS)
+def test_batched_kernels_match_plain(cuda, geom, dtype, n_tb, split_k):
+    """C[e] = A[e] @ B[e] for five experts in one launch (one partials
+    launch and one reduce at S > 1), every body (decode, pipelined, f32
+    first), ragged N, against the loop of plain versions."""
+    t, gen = _expert_stack(cuda, 5, *geom)
+    n = 2 * n_tb - 3 if n_tb > 8 else 13
+    b = (0.1 * torch.randn((5, 384, n), generator=gen, device=cuda)).to(dtype)
+    name = "lscd_spmm_splitk_batched" if split_k > 1 else "lscd_spmm_batched"
+    bad = contracts.check_launch(256, 384, n, m_tb=geom[0], k_tb=geom[1],
+                                 n_tb=n_tb, split_k=split_k,
+                                 b_dtype_bytes=b.element_size(),
+                                 max_nnz=t.max_nnz, experts=5)
+    if bad:
+        pytest.skip("; ".join(bad))
+    before = spmm.launch_counts()[name]
+    got = ops.spmm_batched(t, b, backend="cuda", n_tb=n_tb, split_k=split_k)
+    want = ref.spmm_splitk_batched_ref(t, b, split_k, out_dtype=dtype)
+    _assert_close(got, want)
+    assert spmm.launch_counts()[name] == before + 1
+    assert torch.equal(got[1], torch.zeros_like(got[1]))   # all-zero expert
+
+
+@pytest.mark.parametrize("n_tb", [8, 32, 64])
+def test_batched_equals_per_expert_kernel(cuda, n_tb):
+    """The batched launch runs each expert through the single-weight
+    kernel's body: bit-equal to one ``lscd_spmm``/``lscd_spmm_splitk``
+    launch per expert, single pass and split-K."""
+    t, gen = _expert_stack(cuda, 4)
+    b = torch.randn((4, 384, 2 * n_tb), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    for split_k in (1, 3):
+        got = ops.spmm_batched(t, b, backend="cuda", n_tb=n_tb,
+                               split_k=split_k)
+        for e in range(4):
+            one = ops.spmm(tiled_csl.expert_slice(t, e), b[e].contiguous(),
+                           backend="cuda", n_tb=n_tb, split_k=split_k)
+            assert torch.equal(got[e], one), (e, split_k)
+
+
+def test_batched_refusals(cuda):
+    """The grouped and single-weight entries refuse an expert stack; the
+    batched ones refuse a plain weight and a B of the wrong expert
+    count; nothing launches."""
+    t, gen = _expert_stack(cuda, 3)
+    b = torch.randn((3, 384, 8), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    before = spmm.launch_counts()
+    with pytest.raises(ValueError, match="expert stack"):
+        ops.spmm_grouped(t, b[0], backend="cuda")
+    with pytest.raises(ValueError, match="expert stack"):
+        spmm.lscd_spmm(t, b[0], n_tb=8)
+    with pytest.raises(ValueError, match="expert stack"):
+        ops.spmm_batched(tiled_csl.expert_slice(t, 0), b, backend="cuda")
+    with pytest.raises(ValueError, match="E=3"):
+        spmm.lscd_spmm_batched(t, b[:2], n_tb=8)
+    assert spmm.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
 # the serving stepper's decode step as a CUDA graph
 # ---------------------------------------------------------------------------
 
@@ -772,7 +859,7 @@ def test_mla_layer_all_factors_csl_matches_plain_at_full_width(cuda):
         both("verify", x_of(B, 4), cache=pool, pos=per_slot,
              block_tables=tables)
     counts = spmm.launch_counts()
-    assert all(counts[k] > 0 for k in spmm.KERNELS), counts
+    assert all(counts[k] > 0 for k in spmm.WEIGHT_KERNELS), counts
 
 
 def _assert_layer_close(got, want):
@@ -829,3 +916,30 @@ def test_mla_graphed_verify_equals_eager(cuda):
     for a, b in zip(_paged_leaves(graphed), _paged_leaves(eager)):
         assert torch.equal(a, b)
     assert graphed.captures["verify"] == 1
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_moe_graphed_decode_equals_eager(cuda, paged):
+    """A qwen3-moe smoke model with its expert stacks, attention and no
+    router in Tiled-CSL, capacity factor 1.0 (tokens dropped): six
+    graphed decode steps give the eager steps' tokens and caches, and a
+    replay launches the batched kernels."""
+    cfg = dataclasses.replace(configs.smoke("qwen3_moe_30b_a3b"),
+                              capacity_factor=1.0)
+    params, _ = serve.build(cfg, seed=0, sparsity=0.8, device=cuda)
+    assert params["layers"][0]["moe"]["gate"].stack
+    (graphed, eager), first, lens, tables = _stepper_pair(
+        cuda, paged, params_cfg=(params, cfg))
+    toks = {id(graphed): first, id(eager): first}
+    for i in range(6):
+        for st in (graphed, eager):
+            tok, ok = st.decode(toks[id(st)], lens + i, tables,
+                                np.arange(4), np.full(4, i + 1))
+            assert ok.all()
+            toks[id(st)] = tok
+        assert np.array_equal(toks[id(graphed)], toks[id(eager)])
+    for a, b in zip(graphed.cache, eager.cache):
+        for name in ("k", "v"):
+            assert torch.equal(a[name], b[name])
+    per = graphed.graph_launches
+    assert any(per.get(k, 0) for k in spmm.BATCHED_KERNELS), per

@@ -104,12 +104,15 @@ def test_cuda_backend_on_cpu_tensor_raises():
 
 @pytest.mark.parametrize("name", spmm.KERNELS)
 def test_raw_kernel_entries_refuse_cpu_tensors(name):
-    t = _small()
+    t, b = _small(), torch.ones(128, 8)
     if "grouped" in name:
         t = tiled_csl.group_stack([t, t])
+    if "batched" in name:
+        t = tiled_csl.encode_stack(tiled_csl.decode(t).expand(2, -1, -1))
+        b = torch.ones(2, 128, 8)
     before = spmm.launch_counts()[name]
     with pytest.raises(ValueError, match="CUDA"):
-        getattr(spmm, name)(t, torch.ones(128, 8), n_tb=8)
+        getattr(spmm, name)(t, b, n_tb=8)
     assert spmm.launch_counts()[name] == before
 
 
@@ -123,7 +126,12 @@ def test_auto_backend_on_cpu_uses_plain_version_without_counting():
 
 def test_kernel_sources_carry_their_note():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    for name in spmm.KERNELS:
+    notes = [(name, "Replaces the TPU kernel repro/kernels/spmm.py:" + name)
+             for name in spmm.WEIGHT_KERNELS]
+    notes += [(name, "Replaces jax.vmap over the TPU kernel "
+               "repro/kernels/spmm.py:" + name.removesuffix("_batched"))
+              for name in spmm.BATCHED_KERNELS]
+    for name, note in notes:
         text = re.sub(r"\s*\n//\s*", " ", (csrc / f"{name}.cu").read_text())
-        assert "Replaces the TPU kernel repro/kernels/spmm.py:" + name in text
+        assert note in text
         assert "Bound on an H100" in text

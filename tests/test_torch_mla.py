@@ -130,16 +130,20 @@ def test_convert_brings_every_factor_across(sparse):
 
 
 def test_check_family_admits_mla_and_refuses_the_rest():
-    """MLA is served; MoE, SSM, RG-LRU, M-RoPE, codebooks and sliding
-    windows still raise ``NotImplementedError``, also with MLA on."""
+    """MLA is served, and MoE with GQA attention; MoE with MLA, SSM,
+    RG-LRU, M-RoPE, codebooks and sliding windows still raise
+    ``NotImplementedError``, also with MLA on."""
     cfg = configs.smoke(ARCH)
     transformer._check_family(cfg)
-    for arch in ("qwen3_moe_30b_a3b", "mamba2_130m", "recurrentgemma_9b",
+    transformer._check_family(configs.smoke("qwen3_moe_30b_a3b"))
+    for arch in ("mamba2_130m", "recurrentgemma_9b",
                  "qwen2_vl_2b", "musicgen_large"):
         with pytest.raises(NotImplementedError):
             transformer.init_cache(ref_configs.smoke(arch), 1, 8,
                                    device="cpu")
     for bad in (dict(n_routed_experts=4, top_k=2, d_expert=32),
+                dict(family="moe", n_routed_experts=4, top_k=2,
+                     d_expert=32),
                 dict(local_window=8), dict(family="ssm"),
                 dict(layer_pattern=("rglru", "attn")),
                 dict(mrope_sections=(2, 1, 1)), dict(n_codebooks=2),

@@ -25,7 +25,8 @@ from repro_torch.serving import batching, paged_cache, scheduler
 from torch_serving_parity import assert_streams_agree, f32_models, prompts_of
 
 CASES = [("opt_30b", None), ("opt_30b", 0.8), ("tinyllama_1_1b", None),
-         ("tinyllama_1_1b", 0.8), ("minicpm3_4b", None), ("minicpm3_4b", 0.8)]
+         ("tinyllama_1_1b", 0.8), ("minicpm3_4b", None), ("minicpm3_4b", 0.8),
+         ("qwen2_moe_a2_7b", None), ("qwen3_moe_30b_a3b", 0.8)]
 
 
 def _state(pool):

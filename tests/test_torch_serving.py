@@ -19,7 +19,8 @@ from repro_torch.serving import batching, config, engine, step
 from torch_serving_parity import assert_streams_agree, f32_models, prompts_of
 
 CASES = [("opt_30b", None), ("opt_30b", 0.8), ("tinyllama_1_1b", None),
-         ("tinyllama_1_1b", 0.8), ("minicpm3_4b", None), ("minicpm3_4b", 0.8)]
+         ("tinyllama_1_1b", 0.8), ("minicpm3_4b", None), ("minicpm3_4b", 0.8),
+         ("qwen2_moe_a2_7b", None), ("qwen3_moe_30b_a3b", 0.8)]
 LENGTHS = [3, 9, 14, 5, 12, 4]          # buckets 8 and 16 at max_len 32
 
 

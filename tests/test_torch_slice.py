@@ -35,9 +35,15 @@ def _near_tie_step(logits_steps, tol):
     return None
 
 
-@pytest.mark.parametrize("sparsity", [None, 0.8])
-@pytest.mark.parametrize("arch", ["opt_30b", "tinyllama_1_1b",
-                                  "minicpm3_4b"])
+# Each config dense and at 0.8; the ones added since, one of the two each.
+CASES = [(arch, sparsity)
+         for arch in ("opt_30b", "tinyllama_1_1b", "minicpm3_4b")
+         for sparsity in (None, 0.8)] + [
+    ("deepseek_coder_33b", 0.8), ("qwen2_1_5b", None),
+    ("qwen2_moe_a2_7b", 0.8), ("qwen3_moe_30b_a3b", None)]
+
+
+@pytest.mark.parametrize("arch,sparsity", CASES)
 def test_f32_logits_and_greedy_tokens(arch, sparsity):
     rcfg, jparams, pcfg, pparams = models(arch, sparsity, "float32")
     prompt = prompt_of(rcfg)
