@@ -1,7 +1,7 @@
 """Architecture config registry of the port: ``get(arch_id)`` / ``smoke(arch_id)``.
 
-The port serves the dense and the Mixture-of-Experts families. It
-carries the paper's three models (OPT-30B, OPT-66B, OPT-175B), so that
+The port serves the dense, the Mixture-of-Experts and the hybrid
+families. It carries the paper's three models (OPT-30B, OPT-66B, OPT-175B), so that
 the HBM planner (``serving.budget``) can size each of them; tinyllama,
 whose GQA and SwiGLU cover the grouped ``silu_mul`` path; deepseek-coder
 33B and qwen2 1.5B, dense GQA models (qwen2 with the q/k/v bias and a
@@ -9,8 +9,10 @@ tied embedding); minicpm3, whose Multi-head Latent Attention
 (``models/mla.py``) caches a 288-wide latent a token a layer instead of
 K/V heads; and the two MoE models (``models/moe.py``): qwen2-moe-a2.7b
 (60 routed experts top-4 and a shared expert) and qwen3-moe-30b-a3b (128
-routed experts top-8). Every file is the port's own copy of the JAX
-package's config.
+routed experts top-8); and recurrentgemma-9b, the hybrid family: RG-LRU
+recurrent blocks (``models/rglru.py``) and local attention over a
+2048-position sliding-window ring, two to one. Every file is the port's
+own copy of the JAX package's config.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from repro_torch.models.config import ModelConfig
 
 ARCH_IDS: List[str] = ["opt_30b", "opt_66b", "opt_175b", "tinyllama_1_1b",
                        "minicpm3_4b", "deepseek_coder_33b", "qwen2_1_5b",
-                       "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b"]
+                       "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b",
+                       "recurrentgemma_9b"]
 
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}
 

@@ -94,9 +94,10 @@ def _sparse_path(path: str) -> bool:
 
 
 # Dense weights the forward reads outside ``sparse_linear.linear``: MLA's
-# absorbed steps take ``w_uk``/``w_uv`` from ``w_ukv`` in f32, as the
-# reference does from its f32 params, so the build leaves it as drawn.
-KEEP_AS_DRAWN = ("w_ukv",)
+# absorbed steps take ``w_uk``/``w_uv`` from ``w_ukv`` in f32, and the
+# RG-LRU gates read ``wa`` by an f32 matmul, as the reference does from
+# its f32 params, so the build leaves them as drawn.
+KEEP_AS_DRAWN = ("w_ukv", "wa")
 
 
 def _cast_dense_matrices(tree, dtype):
@@ -123,18 +124,21 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
     exists in f32: each layer is drawn (``transformer.init_model_parts``,
     the same generator and order as ``init_model``) and its projections
     are pruned and encoded one at a time, each f32 source freed as soon as
-    it is encoded, before the next layer is drawn. ``sparsify_params``
-    pads every layer of a stack to the stack's largest ``max_nnz``, which
-    is known only after the last layer; a second pass re-pads and groups
-    (``group_projections``) one layer at a time.
+    it is encoded, before the next layer is drawn. Where the reference
+    stacks the layers for ``lax.scan`` (``transformer.uses_scan``),
+    ``sparsify_params`` pads every layer of a stack to the stack's
+    largest ``max_nnz``, which is known only after the last layer; a
+    second pass re-pads and groups (``group_projections``) one layer at a
+    time. An unrolled stack (recurrentgemma's) keeps each leaf's own
+    ``max_nnz`` and is only grouped.
     The result equals ``init_model`` + ``sparsify_params`` +
     ``group_projections`` and the casts below bit for bit; the peak is
     about the encoded model plus one layer. ``embed``, ``lm_head`` and
     every weight matrix left dense that the forward reads only through
     ``linear`` (all of them in a dense build, MLA's ``w_ukv`` aside) are
     cast to the compute dtype as they are drawn (the forward would cast
-    them on every call to the same values); ``w_ukv`` stays f32, as the
-    absorbed decode reads it. ``lm_head`` stays dense, as in the JAX
+    them on every call to the same values); ``w_ukv`` and ``wa`` stay
+    f32 (``KEEP_AS_DRAWN``). ``lm_head`` stays dense, as in the JAX
     launcher.
 
     The report holds ``encode_s`` (the prune, encode, re-pad and group
@@ -176,8 +180,10 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
             pv for i, p in enumerate(stack)
             for pv in pruning.tiled_csl_paths(p, f"['layers'][{i}]"))
         for i in range(len(stack)):
-            stack[i] = pruning.group_projections(pruning.pad_to_stack_max(
-                stack[i], stack_max, f"['layers'][{i}]"))
+            if transformer.uses_scan(cfg):
+                stack[i] = pruning.pad_to_stack_max(stack[i], stack_max,
+                                                    f"['layers'][{i}]")
+            stack[i] = pruning.group_projections(stack[i])
         _sync(dev)
         report["encode_s"] += time.perf_counter() - t0
         csl = tiled_csl_leaves(params)

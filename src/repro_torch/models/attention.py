@@ -6,7 +6,11 @@ cache, one position per row), ``attention_decode_paged`` (a block pool
 read through per-request block tables) and ``attention_verify_paged``
 (a window of W positions per row against the block pool, the cache write
 left to the caller: speculative verify and the chunked-prefill mixed
-step). Projections go through
+step). A config with ``local_window`` W attends to the last W positions
+only and keeps them in a ring: the dense cache holds min(max_len, W)
+positions, position p at slot ``p % W``, and the paged cache puts p at
+``p % ring_len`` of the request's blocks, ``ring_len`` = min(max_len, W)
+given by the caller. Projections go through
 ``sparse_linear`` (dense or Tiled-CSL weights); the score and
 weighted-sum einsums stay plain PyTorch, as the reference leaves them to
 XLA. K/V are stored in bf16.
@@ -29,8 +33,6 @@ from repro_torch.models import nn, rope
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
-RING_NOT_PORTED = ("the sliding-window ring (ring_len) is not ported yet: "
-                   "ROADMAP.md queue 1 item 11")
 
 
 def init_attention(gen, cfg: ModelConfig, device, dtype=torch.float32) -> dict:
@@ -50,7 +52,11 @@ def init_attention(gen, cfg: ModelConfig, device, dtype=torch.float32) -> dict:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
                dtype=torch.bfloat16) -> dict:
+    """K/V ``[batch, max_len, n_kv, head_dim]``; a sliding window caps the
+    length at the window (the ring)."""
     kv, hd = cfg.n_kv, cfg.head_dim
+    if cfg.local_window is not None:
+        max_len = min(max_len, cfg.local_window)
     return {"k": torch.zeros((batch, max_len, kv, hd), dtype=dtype,
                              device=device),
             "v": torch.zeros((batch, max_len, kv, hd), dtype=dtype,
@@ -120,8 +126,10 @@ def _attend(q, k, v, valid) -> torch.Tensor:
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, *, cache: Optional[dict] = None,
               backend: str = "auto") -> Tuple[torch.Tensor, Optional[dict]]:
-    """Full-sequence (prefill) causal attention. With ``cache``, the new
-    K/V are written at positions [0, S) of it."""
+    """Full-sequence (prefill) causal attention, within the last
+    ``local_window`` positions where the config has one. With ``cache``,
+    the new K/V are written at positions [0, S) of it; a ring shorter
+    than S takes the trailing window, position p at slot ``p % W``."""
     S = x.shape[1]
     q, k, v = _project_qkv(params, x, cfg, backend)
     q = rope.apply_rope(q, positions, cfg.rope_theta)
@@ -137,13 +145,23 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     for lo in range(0, S, chunk):
         qp = positions[:, lo:lo + chunk]
         valid = positions[:, None, :] <= qp[:, :, None]        # [B, c, T]
+        if cfg.local_window is not None:
+            valid &= (qp[:, :, None] - positions[:, None, :]) \
+                < cfg.local_window
         outs.append(_attend(q[:, lo:lo + chunk], k, v, valid))
     o = torch.cat(outs, dim=1).to(x.dtype)
     y = sparse_linear.linear(params["wo"]["w"], o, declared_out=cfg.d_model,
                              backend=backend)
     if cache is not None:
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
+        W = cache["k"].shape[1]
+        if cfg.local_window is not None and S > W:
+            # The trailing W positions cover every residue once: a roll.
+            slots = torch.arange(S - W, S, device=x.device) % W
+            cache["k"][:, slots] = k[:, S - W:].to(cache["k"].dtype)
+            cache["v"][:, slots] = v[:, S - W:].to(cache["v"].dtype)
+        else:
+            cache["k"][:, :S] = k.to(cache["k"].dtype)
+            cache["v"][:, :S] = v.to(cache["v"].dtype)
     return y, cache
 
 
@@ -177,13 +195,20 @@ def write_decode_token_paged(pool: torch.Tensor, new: torch.Tensor,
     return pool
 
 
-def _masked_decode_attend(q, ck, cv, pos_vec) -> torch.Tensor:
+def _masked_decode_attend(q, ck, cv, pos_vec, slot,
+                          ring_len: Optional[int]) -> torch.Tensor:
     """Scores, validity mask and weighted sum for one-token decode over a
     [B, T, KV, D] key/value sequence (the dense cache, or a block-table
     gather, whose T is whole blocks): column t is valid iff t <= pos, and
-    masked columns get exact softmax zeros."""
-    T = ck.shape[1]
-    valid = torch.arange(T, device=q.device)[None, :] <= pos_vec[:, None]
+    masked columns get exact softmax zeros. In a ring of ``ring_len``
+    (the token at pos written at ``slot``), column t holds the newest
+    position p <= pos with p % ring_len == t, valid iff p >= 0."""
+    idx = torch.arange(ck.shape[1], device=q.device)[None, :]
+    if ring_len is not None:
+        age = torch.remainder(slot[:, None] - idx, ring_len)
+        valid = (pos_vec[:, None] - age >= 0) & (idx < ring_len)
+    else:
+        valid = idx <= pos_vec[:, None]
     return _attend(q, ck, cv, valid[:, None, :])
 
 
@@ -200,12 +225,17 @@ def attention_decode(params: dict, x: torch.Tensor, cache: dict, pos,
     """Single-token decode against the dense cache. ``pos`` is the
     absolute position of every row (an int) or of each row (a [B]
     tensor: continuous batching decodes every slot at its own position).
-    Writes K/V at ``pos`` and attends over positions [0, pos]."""
+    Writes K/V at ``pos`` and attends over positions [0, pos]; with a
+    sliding window, writes at ``pos % W`` of the ring (W its length) and
+    attends over the positions the ring still holds."""
     pos_vec = _pos_vector(pos, x.shape[0], x.device)
     q, k, v = _decode_qkv(params, x, pos_vec[:, None], cfg, backend)
-    write_decode_token(cache["k"], k, pos_vec)
-    write_decode_token(cache["v"], v, pos_vec)
-    o = _masked_decode_attend(q, cache["k"], cache["v"], pos_vec)
+    ring_len = cache["k"].shape[1] if cfg.local_window is not None else None
+    slot = pos_vec % ring_len if ring_len is not None else pos_vec
+    write_decode_token(cache["k"], k, slot)
+    write_decode_token(cache["v"], v, slot)
+    o = _masked_decode_attend(q, cache["k"], cache["v"], pos_vec, slot,
+                              ring_len)
     y = sparse_linear.linear(params["wo"]["w"], o.to(x.dtype),
                              declared_out=cfg.d_model, backend=backend)
     return y, cache
@@ -213,36 +243,46 @@ def attention_decode(params: dict, x: torch.Tensor, cache: dict, pos,
 
 def attention_decode_paged(params: dict, x: torch.Tensor, cache: dict,
                            block_tables: torch.Tensor, pos,
-                           cfg: ModelConfig, *, backend: str = "auto"
+                           cfg: ModelConfig, *,
+                           ring_len: Optional[int] = None,
+                           backend: str = "auto"
                            ) -> Tuple[torch.Tensor, dict]:
     """Single-token decode against a paged block pool. Cache leaves are
     ``[n_physical, block, kv, hd]``; ``block_tables`` is
     [B, blocks_per_seq] physical block ids (padding entries name the trash
     block and are masked); ``pos`` is per row. Each row's K/V is gathered
     through its table into [B, blocks_per_seq * block, ...], position
-    order being gather order."""
+    order being gather order. A sliding-window config passes ``ring_len``
+    = min(max_len, window): position p lives at ``p % ring_len``, as in
+    the dense ring, so a request's blocks are overwritten cyclically."""
     B = x.shape[0]
     pos_vec = _pos_vector(pos, B, x.device)
+    ring = cfg.local_window is not None
+    if ring and ring_len is None:
+        raise ValueError("sliding-window paged decode needs ring_len")
     q, k, v = _decode_qkv(params, x, pos_vec[:, None], cfg, backend)
     blk = cache["k"].shape[1]
-    logical = torch.div(pos_vec, blk, rounding_mode="floor")
+    slot = pos_vec % ring_len if ring else pos_vec
+    logical = torch.div(slot, blk, rounding_mode="floor")
     phys = torch.gather(block_tables, 1, logical[:, None])[:, 0]
-    off = pos_vec - logical * blk
+    off = slot - logical * blk
     write_decode_token_paged(cache["k"], k, phys, off)
     write_decode_token_paged(cache["v"], v, phys, off)
     kv_heads, hd = cache["k"].shape[-2], cache["k"].shape[-1]
     kg = cache["k"][block_tables].reshape(B, -1, kv_heads, hd)
     vg = cache["v"][block_tables].reshape(B, -1, kv_heads, hd)
-    # Each row reads back its own token at pos, as from the dense cache.
+    # Each row reads back its own token at its slot, as from the dense
+    # cache.
     # A live row's write is private to it, so this changes none of its
     # bits; the idle rows all write the trash block, where one idle row
     # would read another's token. An MoE layer's capacity makes the live
     # rows depend on the idle ones, so dense and paged steps must agree
     # on them.
     rows = torch.arange(B, device=x.device)
-    kg[rows, pos_vec] = k[:, 0].to(kg.dtype)
-    vg[rows, pos_vec] = v[:, 0].to(vg.dtype)
-    o = _masked_decode_attend(q, kg, vg, pos_vec)
+    kg[rows, slot] = k[:, 0].to(kg.dtype)
+    vg[rows, slot] = v[:, 0].to(vg.dtype)
+    o = _masked_decode_attend(q, kg, vg, pos_vec, slot,
+                              ring_len if ring else None)
     y = sparse_linear.linear(params["wo"]["w"], o.to(x.dtype),
                              declared_out=cfg.d_model, backend=backend)
     return y, cache
@@ -257,15 +297,24 @@ def verify_window_mask(pos_vec: torch.Tensor, W: int, T_old: int,
     a rejected earlier window left at positions >= pos). The last W are
     the window's own fresh keys: column j is valid for query i iff
     j <= i. Per query that is exactly the set plain decode at pos + i
-    attends, so the masked softmax terms are exact zeros."""
-    if ring_len is not None:
-        raise NotImplementedError(RING_NOT_PORTED)
+    attends, so the masked softmax terms are exact zeros. In a ring of
+    ``ring_len``, old column t holds the newest position p < pos with
+    p % ring_len == t, valid iff p >= 0 and p lies within query i's own
+    window (the scheduler keeps W <= ring_len, so no fresh column ages
+    out inside the window)."""
     B, dev = pos_vec.shape[0], pos_vec.device
-    old = torch.arange(T_old, device=dev)[None, :] < pos_vec[:, None]
+    idx = torch.arange(T_old, device=dev)[None, :]
+    if ring_len is None:
+        old = (idx < pos_vec[:, None])[:, None, :].expand(B, W, T_old)
+    else:
+        last = pos_vec[:, None] - 1                 # last position before
+        abs_pos = last - torch.remainder(last - idx, ring_len)
+        qpos = pos_vec[:, None] + torch.arange(W, device=dev)[None, :]
+        old = (((abs_pos >= 0) & (idx < ring_len))[:, None, :]
+               & (qpos[:, :, None] - abs_pos[:, None, :] < ring_len))
     j = torch.arange(W, device=dev)
     fresh = j[None, :] <= j[:, None]
-    return torch.cat([old[:, None, :].expand(B, W, T_old),
-                      fresh[None].expand(B, W, W)], dim=-1)
+    return torch.cat([old, fresh[None].expand(B, W, W)], dim=-1)
 
 
 def attention_verify_paged(params: dict, x: torch.Tensor, cache: dict,
@@ -282,9 +331,10 @@ def attention_verify_paged(params: dict, x: torch.Tensor, cache: dict,
     cache dtype as plain decode's write-then-gather rounds it. Returns
     (y [B, W, d], fresh {"k"/"v": [B, W, kv, hd]} in the cache dtype);
     the pool is left as it was (``transformer.commit_verify_window``
-    writes the accepted columns)."""
-    if ring_len is not None:
-        raise NotImplementedError(RING_NOT_PORTED)
+    writes the accepted columns). A sliding-window config needs
+    ``ring_len``, as in ``attention_decode_paged``."""
+    if cfg.local_window is not None and ring_len is None:
+        raise ValueError("sliding-window paged verify needs ring_len")
     B, W = x.shape[0], x.shape[1]
     pos_vec = _pos_vector(pos, B, x.device)
     positions = pos_vec[:, None] + torch.arange(W, device=x.device)[None, :]
@@ -294,7 +344,7 @@ def attention_verify_paged(params: dict, x: torch.Tensor, cache: dict,
     kv_heads, hd = cache["k"].shape[-2], cache["k"].shape[-1]
     kg = cache["k"][block_tables].reshape(B, -1, kv_heads, hd)
     vg = cache["v"][block_tables].reshape(B, -1, kv_heads, hd)
-    valid = verify_window_mask(pos_vec, W, kg.shape[1])
+    valid = verify_window_mask(pos_vec, W, kg.shape[1], ring_len)
     o = _attend(q, torch.cat([kg, k], dim=1), torch.cat([vg, v], dim=1),
                 valid)
     y = sparse_linear.linear(params["wo"]["w"], o.to(x.dtype),

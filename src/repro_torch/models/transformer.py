@@ -1,14 +1,20 @@
-"""Model assembly for the dense and MoE families: init, cache and forward.
+"""Model assembly for the dense, MoE and hybrid families: init, cache and
+forward.
 
 The port's counterpart of ``repro.models.transformer`` for ``family ==
-"dense"`` and ``"moe"``: a pre-norm decoder of attention + MLP blocks, its
-layers a Python list walked in order (the reference's ``lax.scan``
-stack). The attention is GQA (``attention``, K/V cache leaves
-``"k"``/``"v"``) or Multi-head Latent Attention (``mla``, latent cache
-leaves ``"ckv"``/``"krope"``); an MoE model's MLP is routed experts
-(``moe``, params ``p["moe"]``; GQA attention only), whose aux loss the
-forward drops, since the port serves and does not train. Three modes
-share the block code:
+"dense"``, ``"moe"`` and ``"hybrid"``: a pre-norm decoder of residual
+blocks, its layers a Python list walked in order (the reference's
+``lax.scan`` stack, or its unrolled list for a heterogeneous pattern).
+Block kinds follow ``cfg.layer_kind(i)``. An ``"attn"`` block is
+attention + MLP: GQA (``attention``, K/V cache leaves ``"k"``/``"v"``,
+a sliding-window ring where the config has ``local_window``) or
+Multi-head Latent Attention (``mla``, latent cache leaves
+``"ckv"``/``"krope"``); an MoE model's MLP is routed experts (``moe``,
+params ``p["moe"]``; GQA attention only), whose aux loss the forward
+drops, since the port serves and does not train. An ``"rglru"`` block
+(the hybrid family, recurrentgemma) is the RG-LRU recurrent block
+(``rglru``, state leaves ``"h"``/``"conv"``, one row a slot) + SwiGLU
+MLP. Three modes share the block code:
 
   prefill — full sequence; writes the cache when one is given
   decode  — one token per row + cache (the paper's skinny-MatMul regime),
@@ -32,23 +38,29 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import attention, layers, mla, moe, nn
+from repro_torch.models import attention, layers, mla, moe, nn, rglru
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
 
 
 def _check_family(cfg: ModelConfig) -> None:
+    gqa = cfg.attn_kind == "gqa"
+    plain = cfg.layer_pattern is None
     dense = cfg.family == "dense" and cfg.attn_kind in ("gqa", "mla") \
-        and not cfg.n_routed_experts
-    routed = cfg.family == "moe" and cfg.attn_kind == "gqa" \
-        and cfg.n_routed_experts > 0
-    if not (dense or routed) or cfg.n_codebooks \
-            or cfg.layer_pattern is not None \
-            or cfg.local_window is not None or cfg.mrope_sections is not None:
+        and not cfg.n_routed_experts and plain
+    routed = cfg.family == "moe" and gqa and cfg.n_routed_experts > 0 \
+        and plain and cfg.local_window is None
+    hybrid = cfg.family == "hybrid" and gqa and not cfg.n_routed_experts \
+        and not plain and set(cfg.layer_pattern) <= {"rglru", "attn"}
+    window = cfg.local_window is None or gqa
+    if not (dense or routed or hybrid) or not window or cfg.n_codebooks \
+            or cfg.mrope_sections is not None:
         raise NotImplementedError(
             f"{cfg.name}: the port serves the dense family with GQA or MLA "
-            "attention and the MoE family with GQA attention only")
+            "attention (a sliding window with GQA only), the MoE family "
+            "with GQA attention and the hybrid family of RG-LRU and GQA "
+            "blocks only")
 
 
 def _init_norm(cfg: ModelConfig, device, dtype):
@@ -62,7 +74,14 @@ def _norm(cfg: ModelConfig, p, x):
             else layers.layernorm(p, x))
 
 
-def init_block(gen, cfg: ModelConfig, device, dtype=torch.float32) -> Params:
+def init_block(gen, cfg: ModelConfig, device, dtype=torch.float32, *,
+               kind: str = "attn") -> Params:
+    if kind == "rglru":
+        return {"pre_norm": _init_norm(cfg, device, dtype),
+                "rglru": rglru.init_rglru(gen, cfg, device, dtype),
+                "mlp_norm": _init_norm(cfg, device, dtype),
+                "mlp": layers.init_swiglu_mlp(gen, cfg.d_model, cfg.d_ff,
+                                              device, dtype)}
     p: Params = {"pre_norm": _init_norm(cfg, device, dtype),
                  "attn": (mla.init_mla(gen, cfg, device, dtype)
                           if cfg.attn_kind == "mla"
@@ -94,8 +113,9 @@ def init_model_parts(cfg: ModelConfig, *, seed: int = 0,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     yield "embed", layers.init_embed(gen, cfg.vocab, cfg.d_model, dev, dtype)
-    for _ in range(cfg.n_layers):
-        yield "layers", init_block(gen, cfg, dev, dtype)
+    for i in range(cfg.n_layers):
+        yield "layers", init_block(gen, cfg, dev, dtype,
+                                   kind=cfg.layer_kind(i))
     yield "final_norm", _init_norm(cfg, dev, dtype)
     if not cfg.tie_embeddings:
         yield "lm_head", {"w": nn.dense_init(gen, cfg.vocab, cfg.d_model,
@@ -116,17 +136,31 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
     return params
 
 
+def uses_scan(cfg: ModelConfig) -> bool:
+    """The reference's rule for a scan-stacked layer stack: a homogeneous
+    pattern with ``scan_layers``. The port's stack is always a list; the
+    rule decides only whether a sparse build pads each Tiled-CSL leaf to
+    the largest ``max_nnz`` of its place in the stack (the reference's
+    stacked ``[L, ...]`` leaves share one) or leaves it its own."""
+    return cfg.scan_layers and cfg.uniform_layers
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: DeviceLike = None,
                dtype=torch.bfloat16) -> List[dict]:
-    """Per-layer K/V caches ``[batch, max_len, n_kv, head_dim]``, or for
-    MLA latent caches ``[batch, max_len, kv_lora_rank / qk_rope_dim]``."""
+    """Per-layer caches: K/V ``[batch, max_len, n_kv, head_dim]`` (a
+    sliding window caps the length at the window), MLA latents
+    ``[batch, max_len, kv_lora_rank / qk_rope_dim]``, or an RG-LRU
+    layer's f32 state ``h [batch, rnn]`` and ``conv [batch, conv - 1,
+    rnn]``."""
     _check_family(cfg)
     dev = resolve_device(device)
-    init = (mla.init_mla_cache if cfg.attn_kind == "mla"
+    attn = (mla.init_mla_cache if cfg.attn_kind == "mla"
             else attention.init_cache)
-    return [init(cfg, batch, max_len, dev, dtype)
-            for _ in range(cfg.n_layers)]
+    return [rglru.init_rglru_cache(cfg, batch, dev)
+            if cfg.layer_kind(i) == "rglru"
+            else attn(cfg, batch, max_len, dev, dtype)
+            for i in range(cfg.n_layers)]
 
 
 def init_paged_cache(cfg: ModelConfig, n_physical: int, block: int, *,
@@ -135,8 +169,14 @@ def init_paged_cache(cfg: ModelConfig, n_physical: int, block: int, *,
     """Block-pool serving cache: per-layer leaves ``[n_physical, block,
     n_kv, head_dim]`` (MLA: ``[n_physical, block, kv_lora_rank /
     qk_rope_dim]``). ``n_physical`` includes the reserved trash block 0
-    (``serving.paged_cache.BlockPool.physical_blocks``)."""
+    (``serving.paged_cache.BlockPool.physical_blocks``). Paging applies
+    to position-indexed caches only: recurrent state has no per-token
+    axis to page, so a stack with RG-LRU layers keeps the dense cache."""
     _check_family(cfg)
+    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
+    if kinds != {"attn"}:
+        raise ValueError(
+            f"paged KV cache requires a pure-attention stack, got {kinds}")
     dev = resolve_device(device)
     init = (mla.init_paged_mla_cache if cfg.attn_kind == "mla"
             else attention.init_paged_cache)
@@ -146,20 +186,35 @@ def init_paged_cache(cfg: ModelConfig, n_physical: int, block: int, *,
 
 def paged_blocks_per_seq(cfg: ModelConfig, max_len: int, block: int) -> int:
     """Static per-request block-table width: the blocks ``max_len``
-    positions need."""
-    return -(-max_len // block)
+    positions need (a sliding window caps them: the ring reuses its
+    blocks cyclically)."""
+    positions = max_len
+    if cfg.local_window is not None:
+        positions = min(max_len, cfg.local_window)
+    return -(-positions // block)
 
 
 def _leaves(cache: List[dict]):
     return [layer[name] for layer in cache for name in sorted(layer)]
 
 
+def state_leaves(cfg: ModelConfig, cache: List[dict]) -> List[torch.Tensor]:
+    """The recurrent-state leaves of a dense cache (an RG-LRU layer's
+    ``h`` and ``conv``): what a decode step overwrites as a function of
+    itself, where it writes K/V at a position."""
+    return [t for i, layer in enumerate(cache)
+            if cfg.layer_kind(i) == "rglru" for t in layer.values()]
+
+
 def scatter_cache_slots(cfg: ModelConfig, full: List[dict],
                         part: List[dict], slots: torch.Tensor) -> List[dict]:
     """Write a ``k``-request scratch cache (``init_cache(cfg, k, S)``)
-    into rows ``slots [k]`` of the serving cache, positions [0, S), in
-    place. Duplicate slots are allowed iff their rows carry identical
-    data (admission pads its group to a static size this way)."""
+    into rows ``slots [k]`` of the serving cache, in place: K/V and latent
+    leaves at positions [0, S) (a ring's scratch holds min(S, window)
+    positions, already at their residues), recurrent-state leaves (no
+    position axis) over the whole row. Duplicate slots are allowed iff
+    their rows carry identical data (admission pads its group to a static
+    size this way)."""
     for f, p in zip(_leaves(full), _leaves(part)):
         f[slots, :p.shape[1]] = p.to(f.dtype)
     return full
@@ -174,7 +229,9 @@ def scatter_cache_pages(cfg: ModelConfig, full: List[dict],
     ``flat_blocks [k * nblk]``. Entries may repeat only where the written
     data is identical (admission group padding, recomputed shared-prefix
     content) or where they name the trash block (bucket padding past a
-    prompt's own blocks), whose contents are never read unmasked."""
+    prompt's own blocks), whose contents are never read unmasked. A ring's
+    scratch is min(S, ring_len) long with each position at its residue,
+    the layout of the ring's blocks, so it scatters the same way."""
     for f, p in zip(_leaves(full), _leaves(part)):
         block = f.shape[1]
         k, S = p.shape[0], p.shape[1]
@@ -203,12 +260,15 @@ def commit_verify_window(cfg: ModelConfig, cache: List[dict],
     column, or one past the table, is written to the trash block
     (physical block 0, ``serving.paged_cache.TRASH_BLOCK``), so a rejected
     draft never touches a real block and rollback is the write that never
-    happened. ``index_put_`` keeps the write capturable in a graph."""
-    if ring_len is not None:
-        raise NotImplementedError(attention.RING_NOT_PORTED)
+    happened, which keeps a ring exact (a rejected entry must not clobber
+    the older position of its residue). With ``ring_len``, column j lands
+    at ring residue ``(pos_vec[b] + j) % ring_len``. ``index_put_`` keeps
+    the write capturable in a graph."""
     blk = _leaves(cache)[0].shape[cache_slot_axis(cfg) + 1]
     W = commit.shape[1]
     slot = pos_vec[:, None] + torch.arange(W, device=pos_vec.device)[None]
+    if ring_len is not None:
+        slot = slot % ring_len
     logical = torch.div(slot, blk, rounding_mode="floor")
     nblk = block_tables.shape[1]
     ok = commit & (logical < nblk)          # beyond-table windows -> trash
@@ -244,12 +304,24 @@ def _mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, backend: str):
 
 
 def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
-                positions=None, cache=None, pos=None, block_tables=None,
+                kind: str = "attn", positions=None, cache=None, pos=None,
+                block_tables=None, ring_len: Optional[int] = None,
                 backend: str = "auto") -> Tuple[torch.Tensor, Optional[dict]]:
-    """Residual attention + MLP (or routed experts) block. Returns (x,
-    cache), or in verify mode (x, the window's fresh {"k", "v"} or
-    {"ckv", "krope"})."""
+    """Residual block of ``kind``: attention + MLP (or routed experts), or
+    RG-LRU + MLP. Returns (x, cache), or in verify mode (x, the window's
+    fresh {"k", "v"} or {"ckv", "krope"}). ``ring_len`` is a
+    sliding-window config's ring on the paged cache."""
     h = _norm(cfg, p["pre_norm"], x)
+    if kind == "rglru":                 # dense cache only: no verify mode
+        if mode == "decode":
+            r, cache = rglru.rglru_decode(p["rglru"], h, cache, cfg,
+                                          backend=backend)
+        else:
+            r, cache = rglru.rglru_block(p["rglru"], h, cfg, cache=cache,
+                                         backend=backend)
+        x = x + r
+        return x + _mlp_apply(p["mlp"], _norm(cfg, p["mlp_norm"], x), cfg,
+                              backend), cache
     if cfg.attn_kind == "mla":
         if mode == "verify":
             a, cache = mla.mla_verify_paged(p["attn"], h, cache, block_tables,
@@ -265,10 +337,12 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                                          cache=cache, backend=backend)
     elif mode == "verify":
         a, cache = attention.attention_verify_paged(
-            p["attn"], h, cache, block_tables, pos, cfg, backend=backend)
+            p["attn"], h, cache, block_tables, pos, cfg, ring_len=ring_len,
+            backend=backend)
     elif mode == "decode" and block_tables is not None:
         a, cache = attention.attention_decode_paged(
-            p["attn"], h, cache, block_tables, pos, cfg, backend=backend)
+            p["attn"], h, cache, block_tables, pos, cfg, ring_len=ring_len,
+            backend=backend)
     elif mode == "decode":
         a, cache = attention.attention_decode(p["attn"], h, cache, pos, cfg,
                                               backend=backend)
@@ -288,6 +362,7 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
             cfg: ModelConfig, *, mode: str, cache: Any = None,
             pos: Union[int, torch.Tensor, None] = None,
             block_tables: Optional[torch.Tensor] = None,
+            ring_len: Optional[int] = None,
             backend: str = "auto") -> Tuple[torch.Tensor, Any]:
     """Run the stack. Returns (logits [B, S, vocab], cache).
 
@@ -302,6 +377,9 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
     the cache but each layer's fresh window K/V; the caller commits what
     it accepts with ``commit_verify_window``. For MLA (``attn_kind ==
     "mla"``) decode and verify run the absorbed form over the latents.
+    ``ring_len`` (paged decode and verify of a sliding-window config) is
+    the ring's length, min(max_len, window); the dense ring reads it off
+    the cache.
     """
     _check_family(cfg)
     if mode not in ("prefill", "decode", "verify"):
@@ -320,9 +398,10 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
     fresh = []
     for i, p in enumerate(params["layers"]):
         cache_l = cache[i] if cache is not None else None
-        x, out_l = block_apply(p, x, cfg, mode=mode, positions=positions,
-                               cache=cache_l, pos=pos,
-                               block_tables=block_tables, backend=backend)
+        x, out_l = block_apply(p, x, cfg, mode=mode, kind=cfg.layer_kind(i),
+                               positions=positions, cache=cache_l, pos=pos,
+                               block_tables=block_tables, ring_len=ring_len,
+                               backend=backend)
         fresh.append(out_l)
     x = _norm(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:

@@ -28,7 +28,11 @@ one bucket prefill in one call, the group padded to a static ``k`` by
 repeating a real row; their K/V is written into the shared cache in
 place. Decode is one token for every slot per engine step, each slot at
 its own absolute position. Requests end on EOS / stop tokens, on their
-``max_new_tokens`` budget, or at ``max_len``.
+``max_new_tokens`` budget, or at ``max_len``. A stack with recurrent
+layers (RG-LRU) cannot absorb pad tokens into its state, so it admits
+at exact-length "buckets" (one prefill shape per distinct length).
+A sliding-window config keeps positions at ``pos % ring_len``,
+``ring_len`` = min(max_len, window), in the dense and the paged cache.
 
 Cache kinds (DESIGN.md §7 vs §10): ``cache_kind="dense"`` is the shared
 ``[n_slots, max_len]`` cache; ``cache_kind="paged"`` is the block pool,
@@ -133,19 +137,36 @@ class ContinuousBatcher:
                          + [int(t) for t in sc.stop_ids])
         self.admit_k = max(1, min(sc.admit_k or min(sc.n_slots, 4),
                                   sc.n_slots))
-        # The port serves pure-attention stacks only, GQA or MLA
-        # (transformer._check_family): the causal mask keeps real positions
-        # off the pad K/V or latents, so bucket padding is exact.
-        buckets = engine.length_buckets(sc.max_len, sc.min_bucket)
+        # Recurrent state (rglru) cannot absorb pad tokens: bucket padding
+        # is exact only for pure-attention stacks, whose causal mask keeps
+        # real positions off the pad K/V or latents. Others admit at
+        # exact-length "buckets" (one prefill shape per distinct length).
+        pure_attn = all(cfg.layer_kind(i) == "attn"
+                        for i in range(cfg.n_layers))
+        buckets = (engine.length_buckets(sc.max_len, sc.min_bucket)
+                   if pure_attn else None)
+        # Ring length for sliding-window configs (positions live at
+        # ``pos % ring_len``; None for ordinary causal stacks).
+        self.ring_len = (min(sc.max_len, cfg.local_window)
+                         if cfg.local_window is not None else None)
         self.spec_k = int(config.spec_k)
         self.drafter = drafter
         self.chunked = bool(sc.chunked_prefill)
+        if self.chunked and self.ring_len is not None:
+            raise ValueError(
+                "chunked_prefill does not support sliding-window (ring) "
+                "stacks: chunk windows assume monotone cache positions; "
+                "use bucketed admission for this arch")
         if self.spec_k:
             if not self.paged:
                 raise ValueError(
                     "speculative decoding (spec_k > 0) requires "
                     "cache_kind='paged': rejected-window rollback rides "
                     "the block machinery (DESIGN.md §11)")
+            if self.ring_len is not None and self.spec_k + 1 > self.ring_len:
+                raise ValueError(
+                    f"verify window {self.spec_k + 1} exceeds the sliding-"
+                    f"window ring ({self.ring_len}); lower spec_k")
             if self.drafter is None:
                 self.drafter = speculative.NgramDrafter()
         n_blocks = config.n_blocks
@@ -166,7 +187,7 @@ class ContinuousBatcher:
             self.faults.tracer = self.tracer    # one timeline per server
         self.sched = Scheduler(
             n_slots=sc.n_slots, max_len=sc.max_len, stop_ids=stop,
-            admit_k=self.admit_k, buckets=buckets, ring_len=None,
+            admit_k=self.admit_k, buckets=buckets, ring_len=self.ring_len,
             paged=self.paged, block_size=config.block_size,
             n_blocks=n_blocks,
             max_blocks=self.max_blocks if self.paged else 0,
@@ -182,7 +203,7 @@ class ContinuousBatcher:
             backend=config.backend,
             physical_blocks=(self.sched.pool.physical_blocks
                              if self.paged else None),
-            block_size=config.block_size,
+            block_size=config.block_size, ring_len=self.ring_len,
             temperature=config.temperature, top_k=config.top_k,
             seed=config.seed, spec_k=self.spec_k,
             chunk_size=sc.chunk_size if self.chunked else 0,

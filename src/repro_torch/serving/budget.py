@@ -15,11 +15,14 @@ made: dense leaves at 2 B (bf16), Tiled-CSL leaves at 4 B a word plus
 4 B a nnz counter, with the analytic ``max_nnz`` =
 ceil(128·128·(1 − s)·IMBALANCE) rounded up to ``PAD_QUANTUM``. The
 leaves picked are those the reference's ``launch.specs.
-default_should_sparsify`` picks, ``lm_head`` and the MLA factors
-included, so every number equals the reference's byte for byte. The
-serving launchers keep ``lm_head`` and the MLA factors (``w_dq``,
-``w_uq``, ``w_dkv``, ``w_ukv``) dense, so for a sparse deployment the
-plan counts less for them than the built model holds. For an MoE model
+default_should_sparsify`` picks, ``lm_head``, the MLA factors and the
+RG-LRU projections included, so every number equals the reference's
+byte for byte. The serving launchers keep ``lm_head``, the MLA factors
+(``w_dq``, ``w_uq``, ``w_dkv``, ``w_ukv``) and the RG-LRU projections
+(``w_x``, ``w_gate``, ``w_out``) dense, so for a sparse deployment the
+plan counts less for them than the built model holds. A stack with
+RG-LRU layers has no paged cache, so ``block_bytes`` and ``plan`` refuse
+it, as the reference's do. For an MoE model
 the reference counts the routed expert stacks dense: their paths carry
 no ``['w']`` and its scan-stacked leaves ``[L, E, f, d]`` are 4-D, which
 ``sparse_params_struct`` skips; the router stays dense and the shared
@@ -50,33 +53,47 @@ DEFAULT_WORKSPACE_FRAC = 0.03
 # take it; tile-balanced pruning makes it 1.0.
 IMBALANCE = 1.15
 
-# The weights the reference's launch specs encode as Tiled-CSL in the
-# dense family: its ``default_should_sparsify`` list, ``lm_head`` and the
-# four MLA factors included.
+# The weights the reference's launch specs encode as Tiled-CSL: its
+# ``default_should_sparsify`` list, ``lm_head``, the four MLA factors and
+# the three RG-LRU projections included.
 SPARSE_NAMES = ("wq", "wk", "wv", "wo", "w_dq", "w_uq", "w_dkv", "w_ukv",
-                "gate", "up", "down", "lm_head")
+                "gate", "up", "down", "w_x", "w_gate", "w_out", "lm_head")
 
 BF16_BYTES = 2
 
 
-def _dense_family_leaves(cfg: ModelConfig) -> Iterator[Tuple[str, Tuple[int, ...], int]]:
-    """(name, shape, count) of every parameter leaf of the dense and MoE
-    families, ``count`` being how many copies the stack holds (one per
-    layer). A routed expert stack is one 3-D leaf, so ``weight_bytes``
-    counts it dense, as the reference does."""
+def _param_leaves(cfg: ModelConfig) -> Iterator[Tuple[str, Tuple[int, ...], int]]:
+    """(name, shape, count) of every parameter leaf of the dense, MoE and
+    hybrid families, ``count`` being how many copies the stack holds (one
+    per layer of the leaf's block kind). A routed expert stack is one 3-D
+    leaf, so ``weight_bytes`` counts it dense, as the reference does."""
     dense = cfg.family == "dense" and cfg.attn_kind in ("gqa", "mla")
     routed = cfg.family == "moe" and cfg.attn_kind == "gqa"
-    if not (dense or routed):
+    hybrid = cfg.family == "hybrid" and cfg.attn_kind == "gqa"
+    if not (dense or routed or hybrid):
         raise NotImplementedError(
             f"{cfg.name}: the port's planner counts the dense family with "
-            "GQA or MLA attention and the MoE family with GQA only")
+            "GQA or MLA attention, the MoE family with GQA and the hybrid "
+            "family with GQA only")
     d, L = cfg.d_model, cfg.n_layers
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    n_rglru = sum(cfg.layer_kind(i) == "rglru" for i in range(L))
     norm = (("scale",) if cfg.norm_kind == "rmsnorm" else ("scale", "bias"))
     yield "embed", (cfg.vocab, d), 1
     for part in ("pre_norm", "mlp_norm"):
         for leaf in norm:
             yield f"{part}.{leaf}", (d,), L
+    if n_rglru:
+        r, f = cfg.rnn_dim, cfg.d_ff
+        for name, shape in (("w_x.w", (r, d)), ("w_gate.w", (r, d)),
+                            ("w_out.w", (d, r)),
+                            ("conv_w", (cfg.rglru_conv, r)),
+                            ("conv_b", (r,)), ("wa.w", (r, r)), ("ba", (r,)),
+                            ("wi_b", (r,)), ("wi_diag", (r,)), ("lam", (r,)),
+                            ("gate.w", (f, d)), ("up.w", (f, d)),
+                            ("down.w", (d, f))):
+            yield name, shape, n_rglru
+        L -= n_rglru                      # the attention blocks follow
     if cfg.attn_kind == "mla":
         dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         yield "w_dq.w", (cfg.q_lora_rank, d), L
@@ -141,7 +158,7 @@ def weight_bytes(cfg: ModelConfig, mode: str = "dense",
     if mode not in WEIGHT_MODES:
         raise ValueError(f"weight mode {mode!r} not in {WEIGHT_MODES}")
     total = 0
-    for name, shape, count in _dense_family_leaves(cfg):
+    for name, shape, count in _param_leaves(cfg):
         leaf = name.split(".")[0]
         if mode != "dense" and len(shape) == 2 and name.endswith(".w") \
                 and leaf in SPARSE_NAMES:

@@ -27,7 +27,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch.device import device_of
-from repro_torch.models import attention, transformer
+from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -171,20 +171,21 @@ def verify_step(params, cache, tokens: torch.Tensor, pos_vec: torch.Tensor,
     column 0's absolute position; ``tables [B, blocks_per_seq]``.
     Returns (tgt [B, W], n_accept [B], cache): the slot emits
     ``tgt[:, :a+1]`` (its a accepted drafts and the bonus token) and moves
-    to ``pos + a + 1``; rejected positions go to the trash block."""
-    if ring_len is not None:
-        raise NotImplementedError(attention.RING_NOT_PORTED)
+    to ``pos + a + 1``; rejected positions go to the trash block.
+    ``ring_len`` is a sliding-window config's ring (positions at
+    ``p % ring_len``)."""
     W = tokens.shape[1]
     logits, fresh = transformer.forward(
         params, {"tokens": tokens}, cfg, mode="verify", cache=cache,
-        pos=pos_vec, block_tables=tables, backend=backend)
+        pos=pos_vec, block_tables=tables, ring_len=ring_len,
+        backend=backend)
     tgt, n_accept = accept_drafts(logits, tokens, draft_lens, uids, counts,
                                   temperature=temperature, top_k=top_k,
                                   seed=seed)
     commit = (torch.arange(W, device=tokens.device)[None, :]
               <= n_accept[:, None])
     transformer.commit_verify_window(cfg, cache, fresh, tables, pos_vec,
-                                     commit)
+                                     commit, ring_len=ring_len)
     return tgt, n_accept, cache
 
 
@@ -202,16 +203,18 @@ def prefill_chunk_into_pages(params, cache, tokens: torch.Tensor,
     every real column's K/V is committed, padding goes to the trash
     block. Returns (last [B, V], cache): the logits after each row's last
     real column (meaningless for idle and mid-prompt rows). Every weight
-    product runs at N = B * W for the weight traffic of one step."""
-    if ring_len is not None:
-        raise NotImplementedError(attention.RING_NOT_PORTED)
+    product runs at N = B * W for the weight traffic of one step.
+    ``ring_len`` as in ``verify_step`` (the batcher refuses chunked
+    prefill on a ring, as the reference does)."""
     B, W = tokens.shape
     logits, fresh = transformer.forward(
         params, {"tokens": tokens}, cfg, mode="verify", cache=cache,
-        pos=pos_vec, block_tables=tables, backend=backend)
+        pos=pos_vec, block_tables=tables, ring_len=ring_len,
+        backend=backend)
     cols = torch.arange(W, device=tokens.device)
     transformer.commit_verify_window(cfg, cache, fresh, tables, pos_vec,
-                                     cols[None, :] < n_tokens[:, None])
+                                     cols[None, :] < n_tokens[:, None],
+                                     ring_len=ring_len)
     idx = (n_tokens.to(torch.int64) - 1).clamp(min=0)
     return logits[torch.arange(B, device=tokens.device), idx], cache
 

@@ -12,7 +12,9 @@ planned, verbatim: a stepper call never changes scheduling state, and
 the scheduler never sees a device tensor — numpy in, numpy out across
 the boundary.
 
-The cache is allocated once and written in place. Where the reference
+The cache is allocated once and written in place, every leaf of it: K/V
+and latents by ``index_put_``, an RG-LRU layer's state by ``copy_``, so a
+graph replay reads the state the last step left. Where the reference
 jits each fixed-shape step once — decode ``[n_slots, 1]``, verify
 ``[n_slots, spec_k + 1]``, mixed ``[n_slots, chunk_size]`` — the port
 captures each once as a CUDA graph (``graph=True``, the default on a
@@ -76,12 +78,15 @@ class DeviceStepper:
     (``[n_slots, spec_k + 1]``), ``chunk_size > 0`` the mixed step
     (``[n_slots, chunk_size]``); both need the paged cache. ``graph``
     (default: on for a CUDA device) runs each fixed-shape step as a
-    captured CUDA graph; asking for it on the CPU raises.
+    captured CUDA graph; asking for it on the CPU raises. ``ring_len`` is
+    a sliding-window config's ring on the paged cache (the dense ring
+    reads it off the cache).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int,
                  max_len: int, backend: str = "auto",
                  physical_blocks: Optional[int] = None, block_size: int = 16,
+                 ring_len: Optional[int] = None,
                  temperature: float = 0.0, top_k: int = 0, seed: int = 0,
                  spec_k: int = 0, chunk_size: int = 0, faults=None,
                  tracer: Optional[Tracer] = None,
@@ -103,6 +108,7 @@ class DeviceStepper:
         self.faults = faults                    # serving.faults.FaultInjector
         self.n_slots = n_slots
         self.paged = physical_blocks is not None
+        self.ring_len = ring_len
         if (spec_k or chunk_size) and not self.paged:
             raise ValueError("the verify and mixed steps need the paged "
                              "cache (physical_blocks)")
@@ -150,6 +156,7 @@ class DeviceStepper:
         logits, _ = transformer.forward(
             self.params, {"tokens": self._tok_in}, self.cfg, mode="decode",
             cache=self.cache, pos=self._pos_in, block_tables=self._tab_in,
+            ring_len=self.ring_len if self.paged else None,
             backend=self.backend)
         logits = logits[:, -1].masked_fill(self._poison_in[:, None],
                                            float("nan"))
@@ -168,14 +175,14 @@ class DeviceStepper:
         logits, fresh = transformer.forward(
             self.params, {"tokens": tokens}, self.cfg, mode="verify",
             cache=self.cache, pos=self._pos_in, block_tables=tables,
-            backend=self.backend)
+            ring_len=self.ring_len, backend=self.backend)
         tgt, n_acc = engine.accept_drafts(
             logits, tokens, self._vlen_in, self._uid_in, self._cnt_in,
             temperature=self.temperature, top_k=self.top_k, seed=self.seed)
         cols = torch.arange(tokens.shape[1], device=tokens.device)
         transformer.commit_verify_window(
             self.cfg, self.cache, fresh, tables, self._pos_in,
-            cols[None, :] <= n_acc[:, None])
+            cols[None, :] <= n_acc[:, None], ring_len=self.ring_len)
         return tgt, n_acc, logits
 
     def _mixed_step(self):
@@ -186,7 +193,8 @@ class DeviceStepper:
         bucketed ones. Returns (tok, ok, last logits [n_slots, V])."""
         logits, _ = engine.prefill_chunk_into_pages(
             self.params, self.cache, self._mtok_in, self._pos_in,
-            self._tab_in, self._ntok_in, self.cfg, backend=self.backend)
+            self._tab_in, self._ntok_in, self.cfg, ring_len=self.ring_len,
+            backend=self.backend)
         logits = logits.masked_fill(self._poison_in[:, None], float("nan"))
         ok = torch.isfinite(logits).all(dim=-1)
         tok = engine.sample_per_slot(
@@ -196,13 +204,20 @@ class DeviceStepper:
 
     def _capture(self, op: str) -> None:
         """Run step ``op`` once eagerly (build, first-launch set-up, the
-        schedules), then capture it. Raises if the capture fails."""
+        schedules), then capture it. Raises if the capture fails. The
+        eager run writes the K/V the replay writes again, but it advances
+        recurrent state (an RG-LRU layer's ``h`` and ``conv``), which is
+        put back before the capture, so the replay advances it once."""
         fn = getattr(self, f"_{op}_step")
+        state = transformer.state_leaves(self.cfg, self.cache)
+        saved = [t.clone() for t in state]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             fn()
         torch.cuda.current_stream(self.device).wait_stream(side)
+        for t, s in zip(state, saved):
+            t.copy_(s)
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
         before = spmm.launch_counts()

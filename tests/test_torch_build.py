@@ -8,7 +8,8 @@
   ``max_nnz`` differ and the second pass must re-pad them to the stack's
   largest; for minicpm3 the latent factors stay dense; for the MoE
   configs the routed stacks are 3-D leaves, encoded per expert into
-  expert stacks, the router left dense.
+  expert stacks, the router left dense; recurrentgemma's unrolled stack
+  keeps each leaf's own ``max_nnz`` and its RG-LRU ``wa`` in f32.
 * ``--hbm-budget-gb`` sizes the paged pool to the reference planner's
   ``n_blocks``; the SLO, fault-plan, digest and trace flags run through
   ``serve.main(..., device="cpu")``.
@@ -33,13 +34,14 @@ SPARSITY = 0.8
 
 def _cast_as_built(params, cfg):
     """``embed``, ``lm_head`` and every layer weight matrix left dense in
-    the compute dtype, MLA's ``w_ukv`` aside (the absorbed decode reads it
-    in f32), as ``serve.build`` leaves them."""
+    the compute dtype, ``serve.KEEP_AS_DRAWN`` aside (MLA's ``w_ukv`` and
+    the RG-LRU ``wa``, read in f32), as ``serve.build`` leaves them."""
     dt = getattr(torch, cfg.dtype)
     params["embed"]["table"] = params["embed"]["table"].to(dt)
     params["lm_head"]["w"] = params["lm_head"]["w"].to(dt)
     for path, leaf in pruning._walk(params["layers"]):
-        if path.endswith("['w']") and "['w_ukv']" not in path \
+        if path.endswith("['w']") and not any(
+                f"['{k}']" in path for k in serve.KEEP_AS_DRAWN) \
                 and isinstance(leaf, torch.Tensor) and leaf.dim() == 2:
             params["layers"] = pruning._replace(params["layers"], path,
                                                 leaf.to(dt))
@@ -48,10 +50,16 @@ def _cast_as_built(params, cfg):
 
 def _whole_tree_build(cfg, seed):
     params = transformer.init_model(cfg, seed=seed, device="cpu")
-    params = pruning.group_projections(pruning.sparsify_params(
-        params, SPARSITY,
-        should_sparsify=lambda n: any(k in n for k in serve.SPARSE_NAMES)))
-    return _cast_as_built(params, cfg)
+
+    def sparsify(tree):
+        return pruning.sparsify_params(
+            tree, SPARSITY,
+            should_sparsify=lambda n: any(k in n for k in serve.SPARSE_NAMES))
+    if transformer.uses_scan(cfg):
+        params = sparsify(params)
+    else:               # an unrolled stack: every layer its own max_nnz
+        params["layers"] = [sparsify(layer) for layer in params["layers"]]
+    return _cast_as_built(pruning.group_projections(params), cfg)
 
 
 def _assert_same(a, b, path=""):
@@ -76,7 +84,9 @@ def _assert_same(a, b, path=""):
 @pytest.mark.parametrize("arch,n_layers", [
     (arch, n) for arch in ("opt_30b", "tinyllama_1_1b", "minicpm3_4b")
     for n in (None, 4)] + [("qwen2_moe_a2_7b", None),
-                           ("qwen3_moe_30b_a3b", 4)])
+                           ("qwen3_moe_30b_a3b", 4),
+                           ("recurrentgemma_9b", None),
+                           ("recurrentgemma_9b", 6)])
 def test_layered_build_equals_whole_tree_build(arch, n_layers):
     cfg = configs.smoke(arch)
     if n_layers:
@@ -88,6 +98,10 @@ def test_layered_build_equals_whole_tree_build(arch, n_layers):
         attn = got["layers"][0]["attn"]
         assert attn["w_uq"]["w"].dtype == torch.bfloat16
         assert attn["w_ukv"]["w"].dtype == torch.float32
+    if cfg.family == "hybrid":
+        rg = got["layers"][0]["rglru"]
+        assert rg["wa"]["w"].dtype == torch.float32
+        assert rg["w_x"]["w"].dtype == torch.bfloat16
     csl = serve.tiled_csl_leaves(got)
     assert rep["n_tiled_csl"] == len(csl) > 0
     assert rep["sparse_bytes"] == sum(t.nbytes_sparse for t in csl)

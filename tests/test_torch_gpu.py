@@ -918,6 +918,33 @@ def test_mla_graphed_verify_equals_eager(cuda):
     assert graphed.captures["verify"] == 1
 
 
+@pytest.mark.parametrize("window", [None, 8])
+def test_hybrid_graphed_decode_equals_eager(cuda, window):
+    """A recurrentgemma smoke model (MLP and attention Tiled-CSL), its own
+    32-position window or an 8-position one that the decode wraps: six
+    graphed decode steps give the eager steps' tokens and leave
+    bit-identical caches, the RG-LRU state advanced once a step."""
+    cfg = configs.smoke("recurrentgemma_9b")
+    if window:
+        cfg = dataclasses.replace(cfg, local_window=window)
+    params, _ = serve.build(cfg, seed=0, sparsity=0.8, device=cuda)
+    (graphed, eager), first, lens, tables = _stepper_pair(
+        cuda, False, params_cfg=(params, cfg))
+    toks = {id(graphed): first, id(eager): first}
+    for i in range(6):
+        for st in (graphed, eager):
+            tok, ok = st.decode(toks[id(st)], lens + i, tables,
+                                np.arange(4), np.full(4, i + 1))
+            assert ok.all()
+            toks[id(st)] = tok
+        assert np.array_equal(toks[id(graphed)], toks[id(eager)])
+    for a, b in zip(graphed.cache, eager.cache):
+        assert sorted(a) == sorted(b)
+        for name in a:
+            assert torch.equal(a[name], b[name]), name
+    assert graphed.captures["decode"] == 1
+
+
 @pytest.mark.parametrize("paged", [False, True])
 def test_moe_graphed_decode_equals_eager(cuda, paged):
     """A qwen3-moe smoke model with its expert stacks, attention and no

@@ -130,14 +130,22 @@ def test_convert_brings_every_factor_across(sparse):
 
 
 def test_check_family_admits_mla_and_refuses_the_rest():
-    """MLA is served, and MoE with GQA attention; MoE with MLA, SSM,
-    RG-LRU, M-RoPE, codebooks and sliding windows still raise
-    ``NotImplementedError``, also with MLA on."""
+    """MLA is served, MoE with GQA attention, the hybrid family
+    (recurrentgemma: RG-LRU and GQA blocks) and a sliding window on GQA
+    attention; MoE with MLA, SSM, M-RoPE and codebooks still raise
+    ``NotImplementedError``, and so do a sliding window and an RG-LRU
+    pattern with MLA (no reference config has either)."""
     cfg = configs.smoke(ARCH)
     transformer._check_family(cfg)
     transformer._check_family(configs.smoke("qwen3_moe_30b_a3b"))
-    for arch in ("mamba2_130m", "recurrentgemma_9b",
-                 "qwen2_vl_2b", "musicgen_large"):
+    transformer.init_cache(ref_configs.smoke("recurrentgemma_9b"), 1, 8,
+                           device="cpu")
+    gqa = configs.smoke("tinyllama_1_1b")
+    for ok in (dict(local_window=8),
+               dict(family="hybrid", layer_pattern=("rglru", "attn"),
+                    rnn_width=64)):
+        transformer.init_model(dataclasses.replace(gqa, **ok), device="cpu")
+    for arch in ("mamba2_130m", "qwen2_vl_2b", "musicgen_large"):
         with pytest.raises(NotImplementedError):
             transformer.init_cache(ref_configs.smoke(arch), 1, 8,
                                    device="cpu")

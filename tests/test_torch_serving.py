@@ -8,10 +8,14 @@ per-slot sampler, the stepper's graph refusal on the CPU and the paths
 still not ported.
 """
 
+import dataclasses
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.models import attention as ref_attention
 from repro.serving import batching as ref_batching
 from repro.serving import engine as ref_engine
 from repro_torch.models import attention
@@ -148,10 +152,11 @@ def test_sample_per_slot_is_a_function_of_seed_uid_and_index():
 
 
 def test_graph_refused_on_cpu_and_unported_paths_raise():
-    """The graph is refused for params on the CPU. Of queue 1 item 9 what
-    the port leaves out raises: the sliding-window ring (item 11); and
-    the verify and mixed steps need the paged cache, as the reference
-    asks."""
+    """The graph is refused for params on the CPU; the verify and mixed
+    steps need the paged cache, as the reference asks; and the
+    sliding-window ring takes the reference's ring branch of the verify
+    mask, and its verify window without ``ring_len`` raises the
+    reference's ``ValueError``."""
     _, _, pcfg, pparams = f32_models("opt_30b", None)
     with pytest.raises(ValueError, match="CUDA"):
         step.DeviceStepper(pparams, pcfg, n_slots=2, max_len=16, graph=True)
@@ -166,12 +171,17 @@ def test_graph_refused_on_cpu_and_unported_paths_raise():
             spec_k=2))
     with pytest.raises(ValueError, match="paged"):
         step.DeviceStepper(pparams, pcfg, n_slots=2, max_len=16, spec_k=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        attention.verify_window_mask(torch.zeros(2, dtype=torch.long), 3, 8,
-                                     ring_len=4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        engine.verify_step(pparams, None, None, None, None, None, None,
-                           None, pcfg, ring_len=4)
+    pos = np.array([0, 5], np.int64)
+    np.testing.assert_array_equal(
+        attention.verify_window_mask(torch.from_numpy(pos), 3, 8,
+                                     ring_len=4).numpy(),
+        np.asarray(ref_attention.verify_window_mask(
+            jnp.asarray(pos, jnp.int32), 3, 8, 4)))
+    with pytest.raises(ValueError, match="needs ring_len"):
+        attention.attention_verify_paged(
+            pparams["layers"][0]["attn"], torch.zeros(2, 3, pcfg.d_model),
+            None, None, torch.from_numpy(pos),
+            dataclasses.replace(pcfg, local_window=4))
 
 
 @pytest.mark.parametrize("extra", [[], ["--paged", "--trace-rate", "0.5"]])

@@ -49,14 +49,21 @@ def _f32(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-def step_logits(rcfg, jparams, pcfg, pparams, prompt, max_len):
-    """Prefill and one decode-step logits from both packages."""
-    jlast, jcache = ref_engine.prefill(jparams, jnp.asarray(prompt), rcfg,
-                                       max_len)
+# The reference's prefill and step compiled whole, as its batcher serves
+# them (one XLA compile instead of one per primitive).
+_REF_PREFILL = jax.jit(ref_engine.prefill, static_argnums=(2, 3))
+_REF_STEP = jax.jit(ref_engine.serve_step, static_argnums=(4,))
+
+
+def step_logits(rcfg, jparams, pcfg, pparams, prompt, max_len, jit=False):
+    """Prefill and one decode-step logits from both packages; with
+    ``jit`` the reference's engine runs jitted."""
+    prefill, step = ((_REF_PREFILL, _REF_STEP) if jit
+                     else (ref_engine.prefill, ref_engine.serve_step))
+    jlast, jcache = prefill(jparams, jnp.asarray(prompt), rcfg, max_len)
     tok = np.array(jnp.argmax(jlast, -1))[:, None]
-    jstep, _ = ref_engine.serve_step(jparams, jcache, jnp.asarray(tok),
-                                     jnp.array(prompt.shape[1], jnp.int32),
-                                     rcfg)
+    jstep, _ = step(jparams, jcache, jnp.asarray(tok),
+                    jnp.array(prompt.shape[1], jnp.int32), rcfg)
     with torch.inference_mode():
         plast, pcache = engine.prefill(pparams, torch.from_numpy(prompt).long(),
                                        pcfg, max_len)
