@@ -144,7 +144,9 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    its own ``max_nnz``, as the reference's unrolled stack), built against
    dense bf16 bytes, first-step logits against the plain path
    (``depth_logits_tol``) at 4 layers, at 4 layers past the wrap
-   (2100-token prompts), and at 38 layers in f32 and teacher-forced in
+   (2100-token prompts), and at 38 layers in f32 (with the engine's
+   bf16 K/V cache, and again with an f32 one through
+   ``transformer.forward``, printed beside it) and teacher-forced in
    bf16 (each layer's kernels on the plain path's input of that layer),
    with each layer's share of the free-running bf16 gap printed, 32
    requests (24 of 128-1983 prompt tokens, 4 of 1990-2040
@@ -160,11 +162,38 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    wrap, the paged ring (block 16) graph on and off equal to the dense
    ring's streams, spec_k 3 graph on and off equal to each other and to
    the dense ring's by the near-tie rule, clean pools;
-11. prints the kernels' JSON line (launches of the slice, the serving
+11. SSM phase: one mamba2-130m SSD block at full width in f32, its
+   chunked prefill's final state and conv cache against the same input
+   fed token by token through ``ssm_decode`` at 1, 255, 256, 257 and
+   2047 positions (within 1e-4 relative); mamba2-130m built at its 24
+   layers (no weight encoded: the launcher's list names no SSM weight,
+   so no LSCD kernel runs on this path), the bf16 first-step logits
+   against the same stack in f32 (teacher-forced within
+   ``depth_logits_tol``, free-running printed, first tokens equal but at
+   near ties); 32 requests of 128-3000 prompt tokens (64 greedy new
+   tokens) over 32 slots at max_len 4096 on the dense cache with
+   exact-length admission, graph on and off (identical streams, clean
+   slots), and a profiled graphed decode step;
+12. vlm phase: qwen2-vl-2b at its 28 layers (M-RoPE, GQA with the q/k/v
+   bias, every projection Tiled-CSL), first-step logits against the
+   plain path at 4 and 28 layers, an ``engine.prefill`` with an
+   ``embeds`` prefix (a 16 x 16 patch grid at t = 0 with distinct h and
+   w ids, then text) against the plain path, 32 requests (128-768 prompt
+   tokens, 64 new) over 32 slots at max_len 1024: dense graph on, paged
+   graph on and paged graph off (identical streams, clean pools), all
+   four LSCD kernels launched, every launch configuration against its
+   plain version, ``select``'s picks and a profiled graphed step;
+13. audio phase: musicgen-large at its 48 layers (MHA, LayerNorm, GELU
+   with biases, 4 codebooks), first-step logits against the plain path
+   at 4 and 48 layers (one row a request and codebook), the batcher's
+   refusal of a codebook config, and ``engine.generate`` on 8 prompts
+   of [4, 256] for 64 greedy frames (all four LSCD kernels launched,
+   every launch configuration against its plain version, frames/s);
+14. prints the kernels' JSON line (launches of the slice, the serving
    runs, the window runs, the full-depth run, the tinyllama run, the
-   MLA runs, the MoE runs, the hybrid runs and the ring runs, the
-   serving ones also by prefill and decode, the window ones also by
-   verify and mixed), the card line, and last
+   MLA runs, the MoE runs, the hybrid runs, the ring runs and the ssm,
+   vlm and audio runs, the serving ones also by prefill and decode, the
+   window ones also by verify and mixed), the card line, and last
    ``{"ok": true, "device": {...}}``; the
    full summary goes to ``chiprun_out/chip_smoke.json``.
 
@@ -1734,16 +1763,20 @@ def _logits_vs_plain(torch, engine, params, cfg, prompts):
     tokens must agree, or differ only in rows where the plain prefill's
     top-2 margin is below ``NEAR_TIE`` (a random 256 000-word head has
     near ties). Both decode steps take the plain run's first tokens.
+    A codebook model's rows are its (request, codebook) pairs.
     Returns (kernels' logits, plain logits, f32, the rows cut at a near
     tie as (row, plain margin), and how many rows have a plain margin
     below ``NEAR_TIE``)."""
-    S = prompts.shape[1]
+    S = prompts.shape[-1]
     first, caches = {}, {}
     with torch.inference_mode():
         for backend in ("cuda", "torch"):
             last, caches[backend] = engine.prefill(params, prompts, cfg,
                                                    S + 1, backend=backend)
-            first[backend] = (torch.argmax(last, dim=-1), last.float())
+            # a codebook model's [B, n_cb, V]: one row a (request, codebook)
+            lead = last.shape[:-1]
+            first[backend] = (torch.argmax(last, dim=-1).reshape(-1),
+                              last.float().reshape(-1, last.shape[-1]))
             del last
         ties, n_under = _first_token_ties(torch, first["cuda"][0],
                                           *first["torch"])
@@ -1751,7 +1784,7 @@ def _logits_vs_plain(torch, engine, params, cfg, prompts):
               f"{cfg.n_layers} layers: first token differs between kernels "
               f"and plain versions (rows and plain top-2 margins {ties}; "
               f"a near tie is below {NEAR_TIE:.3f})")
-        tok = first["torch"][0][:, None]
+        tok = first["torch"][0].reshape(lead)[..., None]
         steps = {b: engine.serve_step(params, caches[b], tok, S, cfg,
                                       backend=b)[0].float()
                  for b in ("cuda", "torch")}
@@ -3070,8 +3103,9 @@ def ring_paged_check(torch, mods) -> dict:
 # which set that tolerance, sits at 0.5-0.7x. So at 38 layers the phase
 # holds depth_logits_tol on what the kernels themselves decide: the same
 # stack with f32 activations (the kernels' f32 body against the plain
-# versions in f32; only the K/V cache stays bf16), and the
-# bf16 stack teacher-forced (every layer's kernels on the plain path's
+# versions in f32, with the engine's bf16 K/V cache and with an f32 one:
+# 2.461e-03 against 2.767e-03, same card), and the bf16 stack
+# teacher-forced (every layer's kernels on the plain path's
 # input of that layer, ``_depth_drift``). The free-running bf16 gap is
 # printed beside them, with each layer's share of it.
 def _depth_drift(torch, mods, params, cfg, prompts) -> dict:
@@ -3218,6 +3252,37 @@ def _depth_drift_report(torch, mods, params, cfg, prompts) -> dict:
     return out
 
 
+def _f32_kv_cache_logits(torch, mods, params, cfg, prompts) -> tuple:
+    """The first decode step of ``cfg`` (the f32 stack) through the
+    kernels and the plain versions with an f32 K/V cache
+    (``transformer.init_cache(..., dtype=torch.float32)``), through
+    ``transformer.forward`` directly (the engine keeps the reference's
+    bf16 cache). Prefill still rounds its K/V to bf16 before the write, as
+    the reference does; the decode step's own K/V and the attention over
+    the cache stay f32. Both decode steps take the plain run's first
+    tokens. Returns the two logits (f32) and the near-tie rows."""
+    transformer = mods["transformer"]
+    B, S = prompts.shape
+    caches, first = {}, {}
+    with torch.inference_mode():
+        for backend in ("cuda", "torch"):
+            cache = transformer.init_cache(cfg, B, S + 1, device="cuda",
+                                           dtype=torch.float32)
+            logits, caches[backend] = transformer.forward(
+                params, {"tokens": prompts}, cfg, mode="prefill", cache=cache,
+                backend=backend)
+            first[backend] = (torch.argmax(logits[:, -1], dim=-1),
+                              logits[:, -1].float())
+            del logits
+        ties, n_under = _first_token_ties(torch, first["cuda"][0],
+                                          *first["torch"])
+        tok = first["torch"][0][:, None]
+        steps = {b: transformer.forward(
+            params, {"tokens": tok}, cfg, mode="decode", cache=caches[b],
+            pos=S, backend=b)[0][:, -1].float() for b in ("cuda", "torch")}
+    return steps["cuda"], steps["torch"], ties, n_under
+
+
 def hybrid_phase(torch, mods) -> dict:
     """recurrentgemma_9b at full size (38 layers cycling rglru, rglru,
     attn; d_model 4096, MQA with head_dim 256 over a 2048-position
@@ -3301,6 +3366,29 @@ def hybrid_phase(torch, mods) -> dict:
               f"{NEAR_TIE:.2f}, first tokens differing there {ties}",
               flush=True)
         del got, want
+    # The f32 stack with an f32 K/V cache: how much of the f32 gap above
+    # comes from the bf16 cache; gated at the f32 run's tolerance.
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    tol = depth_logits_tol(cfg.n_layers)
+    got, want, ties, n_under = _f32_kv_cache_logits(torch, mods, params, c32,
+                                                    prompts)
+    check(all(m < NEAR_TIE for _, m in ties),
+          f"hybrid: f32 K/V cache: first token differs between kernels and "
+          f"plain versions (rows and plain top-2 margins {ties})")
+    what = (f"hybrid: first decode-step logits vs plain at {cfg.n_layers} "
+            f"layers f32 with an f32 K/V cache")
+    err = close(torch, got, want, dict(rtol=tol, atol=tol), what)
+    bf16_cache = out["logits"][f"{cfg.n_layers} layers f32"]["max_abs_err"]
+    out["logits"][f"{cfg.n_layers} layers f32, f32 K/V cache"] = dict(
+        max_abs_err=err, tol=tol, bf16_cache_max_abs_err=bf16_cache,
+        share_of_tol=float(((got - want).abs()
+                            / (tol + tol * want.abs())).max()),
+        near_ties=ties, rows_under_near_tie=n_under)
+    print(f"{what}: max abs err {err:.3e}, beside {bf16_cache:.3e} with the "
+          f"bf16 cache ({err / bf16_cache:.3f}x; tolerance {tol:.4f} + "
+          f"{tol:.4f} relative); first tokens differing at near ties {ties}",
+          flush=True)
+    del got, want
     out["drift"] = _depth_drift_report(torch, mods, params, cfg, prompts)
     del prompts, wrap
     release(torch)
@@ -3323,7 +3411,7 @@ def hybrid_phase(torch, mods) -> dict:
           f"{min(HYBRID_MAX_LEN, cfg.local_window)}), exact-length "
           f"admission", flush=True)
     probe = LaunchProbe(spmm)
-    runs, streams, launches = {}, {}, {}
+    runs, streams = {}, {}
     torch.cuda.reset_peak_memory_stats()
     ops.SCHEDULES.clear()
     with probe:
@@ -3348,15 +3436,8 @@ def hybrid_phase(torch, mods) -> dict:
             release(torch)
         counts = spmm.launch_counts()
     out["peak_allocated"] = torch.cuda.max_memory_allocated()
-    for run in runs.values():
-        for op, c in run["launches_by_phase"].items():
-            for k, n in c.items():
-                launches.setdefault(op, dict.fromkeys(spmm.KERNELS, 0))[k] \
-                    += n
     check(streams["dense_graph"] == streams["dense_eager"],
           "hybrid: graph-on and graph-off streams differ")
-    missing = [k for k in spmm.WEIGHT_KERNELS if counts[k] == 0]
-    check(not missing, f"hybrid: kernels never launched: {missing}")
     names = _launch_names(cfg)
     served = sorted({(names.get((key[1], key[2]), f"{key[1]} G={key[2]}"),
                       key[0], key[-1]) for key in probe.seen})
@@ -3366,47 +3447,610 @@ def hybrid_phase(torch, mods) -> dict:
     out["schedules"] = {
         f"{kind} {m}x{k} G={g} N={n}": dataclasses.asdict(sched)
         for (kind, m, k, n, g), sched in sorted(ops.SCHEDULES.items())}
-    picks = {}
-    for (kind, m, k, n, g), sched in sorted(ops.SCHEDULES.items()):
-        where = "decode N=32" if n == HYBRID_SLOTS else "prefill"
-        picks.setdefault((names.get(((m, k), g), f"{m}x{k} G={g}"), where),
-                         set()).add((sched.n_tb, sched.split_k))
-    for (name, where), s in sorted(picks.items()):
-        print(f"hybrid: select's pick for {name:7s} at {where}: (n_tb, S) "
-              f"{sorted(s)}", flush=True)
-    out["checked_launches"] = _check_served_launches(
-        torch, mods, probe.seen, cfg, label="hybrid")
+    out.update(_served_summary(torch, mods, runs, counts, probe, cfg,
+                               "hybrid", HYBRID_SLOTS))
     flush = torch.empty(2 ** 28, dtype=torch.int32, device="cuda")
     out["kernel_rows"] = hybrid_kernel_rows(torch, mods, params["layers"][0],
                                             cfg, flush)
     del flush
     d, e = runs["dense_graph"], runs["dense_eager"]
-    print(f"hybrid: launches {json.dumps(counts)} (graph replays counted); "
-          f"by call {json.dumps(launches)}; peak allocated "
-          f"{out['peak_allocated']} B; {len(out['checked_launches'])} launch "
-          f"configurations held against the plain versions", flush=True)
     print(f"hybrid: decode {d['decode_ms_per_step']:.3f} ms/step graph on, "
           f"{e['decode_ms_per_step']:.3f} graph off; "
           f"{d['tokens_per_s']:.1f}/{e['tokens_per_s']:.1f} tok/s; TTFT "
           f"p50/p99 {d['ttft']['p50'] * 1e3:.1f}/{d['ttft']['p99'] * 1e3:.1f}"
           f" ms, TPOT p50/p99 {d['tpot']['p50'] * 1e3:.2f}/"
-          f"{d['tpot']['p99'] * 1e3:.2f} ms (graph on); {card}", flush=True)
-    r = out["profile"]
-    if r["busy_share"] is None:
-        print("hybrid: profile: no device activity seen; the busy share is "
-              "not measured", flush=True)
-    else:
-        print(f"hybrid: profile graphed decode step: "
-              f"{r['wall_ms_per_step']:.3f} ms/step wall under "
-              f"torch.profiler, device busy {r['busy_ms_per_step']:.3f} "
-              f"ms/step ({100 * r['busy_share']:.1f}%), LSCD kernels "
-              f"{r['lscd_ms_per_step']:.3f} ms/step; {card}", flush=True)
-        for ms, n, name in r["top"]:
-            print(f"hybrid:   decode {ms:8.3f} ms/step {n:4d}/step  {name}")
-    out.update(runs=runs, launches=counts, launches_by_phase=launches)
+          f"{d['tpot']['p99'] * 1e3:.2f} ms (graph on); peak allocated "
+          f"{out['peak_allocated']} B; {card}", flush=True)
+    _print_profile("hybrid", out["profile"], card)
+    out.update(runs=runs, launches=counts)
     del params, probe
     release(torch)
     out["ring"] = ring_paged_check(torch, mods)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# SSM, vlm and audio phases: mamba2_130m, qwen2_vl_2b and musicgen_large at
+# full size
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2_130m"
+SSM_SLOTS, SSM_MAX_LEN, SSM_REQUESTS, SSM_NEW = 32, 4096, 32, 64
+SSM_PROMPT = (128, 3001)                # uniform prompt lengths, half-open
+# Below, at and past the 256-position chunk, and past seven chunks.
+SSM_STATE_LENGTHS = (1, 255, 256, 257, 2047)
+# The chunked prefill against the token-by-token recurrence in f32: two
+# association orders of f32 sums over a state whose decay forgets within
+# a few hundred steps. Elementwise within 1e-4 relative, plus 1e-4 of the
+# leaf's largest magnitude for the elements near zero.
+SSM_STATE_TOL = 1e-4
+SSM_DEPTH = 24
+
+
+def ssm_state_check(torch, mods) -> dict:
+    """One mamba2-130m SSD block at full width (d_inner 1536, 24 heads of
+    64, state 128, chunk 256) in f32 on the card: for each length of
+    ``SSM_STATE_LENGTHS``, the chunked prefill's final state and conv
+    cache against the same input (2 rows, from the seed) fed token by
+    token through ``ssm_decode``."""
+    ssm = mods["ssm"]
+    cfg = dataclasses.replace(mods["configs"].get(SSM_ARCH), dtype="float32")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    p = ssm.init_ssm(gen, cfg, "cuda")
+    rows = {}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for L in SSM_STATE_LENGTHS:
+            x = torch.randn((2, L, cfg.d_model), generator=gen, device="cuda")
+            _, whole = ssm.ssm_block(p, x, cfg,
+                                     cache=ssm.init_ssm_cache(cfg, 2, "cuda"))
+            steps = ssm.init_ssm_cache(cfg, 2, "cuda")
+            for t in range(L):
+                _, steps = ssm.ssm_decode(p, x[:, t:t + 1], steps, cfg)
+            row = {}
+            for name in ("state", "conv"):
+                scale = float(steps[name].abs().max())
+                row[name] = close(
+                    torch, whole[name], steps[name],
+                    dict(rtol=SSM_STATE_TOL, atol=SSM_STATE_TOL * scale),
+                    f"ssm: chunked prefill vs token by token at L={L}: "
+                    f"{name}")
+                row[f"{name}_scale"] = scale
+            rows[L] = row
+            print(f"ssm: chunked prefill vs token by token at L={L:4d} (f32):"
+                  f" state max abs err {row['state']:.3e} (largest "
+                  f"{row['state_scale']:.3e}), conv {row['conv']:.3e} "
+                  f"(largest {row['conv_scale']:.3e})", flush=True)
+    torch.cuda.synchronize()
+    return dict(rows=rows, tol=SSM_STATE_TOL, s=time.perf_counter() - t0)
+
+
+def _ssm_dtype_drift(torch, mods, params, cfg, prompts) -> dict:
+    """The first decode step of the stack three ways, as
+    ``_depth_drift`` does for the hybrid, with f32 in the place of the
+    plain versions (no LSCD kernel runs on this path): the stack in f32;
+    free-running in bf16 (each layer on the bf16 stack's own output, as
+    served); and teacher-forced in bf16 (each layer, prefill and decode,
+    in bf16 on the f32 stack's input of that layer, so only that layer's
+    own rounding reaches its output). Both decode steps take the f32
+    run's first tokens. Returns the three logits (f32), the first-token
+    ties of the free-running prefill and how many rows have an f32 top-2
+    margin below ``NEAR_TIE``."""
+    transformer, layers = mods["transformer"], mods["layers"]
+    B, S = prompts.shape
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    cfgs = {k: dataclasses.replace(cfg, dtype="float32" if k == "f32"
+                                   else "bfloat16") for k in dts}
+
+    def layer(i, x, mode, cache, k):
+        return transformer.block_apply(
+            params["layers"][i], x, cfgs[k], mode=mode,
+            kind=cfg.layer_kind(i), cache=cache, pos=S)
+
+    def head(x):
+        x = transformer._norm(cfg, params["final_norm"], x[:, -1:])
+        return layers.logits_head(None, params["embed"], x,
+                                  vocab=cfg.vocab)[:, -1].float()
+
+    caches = {k: transformer.init_cache(cfg, B, S + 1, device="cuda")
+              for k in ("f32", "free", "forced")}
+    bf16 = dts["bf16"]
+    with torch.inference_mode():
+        xp = layers.embed(params["embed"], prompts, dts["f32"])
+        xk = layers.embed(params["embed"], prompts, bf16)
+        for i in range(cfg.n_layers):
+            nxt, caches["f32"][i] = layer(i, xp, "prefill", caches["f32"][i],
+                                          "f32")
+            xk, caches["free"][i] = layer(i, xk, "prefill",
+                                          caches["free"][i], "bf16")
+            _, caches["forced"][i] = layer(i, xp.to(bf16), "prefill",
+                                           caches["forced"][i], "bf16")
+            xp = nxt
+        first = head(xp)
+        ties, n_under = _first_token_ties(
+            torch, torch.argmax(head(xk), dim=-1),
+            torch.argmax(first, dim=-1), first)
+        tok = torch.argmax(first, dim=-1)[:, None]
+        yp = layers.embed(params["embed"], tok, dts["f32"])
+        yk = layers.embed(params["embed"], tok, bf16)
+        for i in range(cfg.n_layers):
+            nxt, caches["f32"][i] = layer(i, yp, "decode", caches["f32"][i],
+                                          "f32")
+            yk, caches["free"][i] = layer(i, yk, "decode", caches["free"][i],
+                                          "bf16")
+            yt, caches["forced"][i] = layer(i, yp.to(bf16), "decode",
+                                            caches["forced"][i], "bf16")
+            yp = nxt
+        logits = dict(f32=head(yp), free=head(yk), forced=head(yt))
+    del caches
+    return dict(logits=logits, ties=ties, rows_under_near_tie=n_under)
+
+
+def _build_report(torch, mods, cfg, label: str, extra: str = "") -> tuple:
+    """``serve.build`` at ``SPARSITY`` from ``SEED`` on the card, printed
+    against the planner's dense bf16 bytes and its sparse plan."""
+    serve, budget = mods["serve"], mods["budget"]
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params, built = serve.build(cfg, seed=SEED, sparsity=SPARSITY,
+                                device="cuda")
+    dense_bf16 = budget.weight_bytes(cfg, "dense")
+    planned = budget.weight_bytes(cfg, "sparse_pallas", SPARSITY)
+    rep = dict(build_s=built["build_s"], encode_s=built["encode_s"],
+               n_tiled_csl=built["n_tiled_csl"],
+               sparse_bytes=built["sparse_bytes"],
+               built_weight_bytes=built["weight_bytes"],
+               dense_bf16_bytes=dense_bf16, planned_weight_bytes=planned,
+               build_peak_allocated=built["max_memory_allocated"])
+    print(f"{label}: {cfg.name}, {cfg.n_layers} layers at full width{extra} "
+          f"built in {built['build_s']:.1f} s (prune, encode and group "
+          f"{built['encode_s']:.1f} s): {built['weight_bytes']} B as built "
+          f"against {dense_bf16} B dense bf16 "
+          f"({built['weight_bytes'] / dense_bf16:.3f}x) and {planned} B "
+          f"planned at sparsity {SPARSITY}; {built['sparse_bytes']} B of "
+          f"Tiled-CSL in {built['n_tiled_csl']} weights; build peak "
+          f"allocated {built['max_memory_allocated']} B", flush=True)
+    return params, rep
+
+
+def _served_summary(torch, mods, runs, counts, probe, cfg, label: str,
+                    n_slots: int) -> dict:
+    """Launch sums by stepper call, ``select``'s pick per projection and
+    every launch configuration held against its plain version."""
+    spmm, ops = mods["spmm"], mods["ops"]
+    launches = {}
+    for run in runs.values():
+        for op, c in run["launches_by_phase"].items():
+            for k, n in c.items():
+                launches.setdefault(op, dict.fromkeys(spmm.KERNELS, 0))[k] \
+                    += n
+    missing = [k for k in spmm.WEIGHT_KERNELS if counts[k] == 0]
+    check(not missing, f"{label}: kernels never launched: {missing}")
+    names = _launch_names(cfg)
+    picks = {}
+    for (kind, m, k, n, g), sched in sorted(ops.SCHEDULES.items()):
+        where = f"decode N={n}" if n <= n_slots else "prefill"
+        picks.setdefault(f"{names.get(((m, k), g), f'{m}x{k} G={g}')} at "
+                         f"{where}", set()).add((sched.n_tb, sched.split_k))
+    for key, s in sorted(picks.items()):
+        print(f"{label}: select's pick for {key}: (n_tb, S) {sorted(s)}",
+              flush=True)
+    checked = _check_served_launches(torch, mods, probe.seen, cfg,
+                                     label=label)
+    print(f"{label}: launches {json.dumps(counts)} (graph replays counted); "
+          f"by call {json.dumps(launches)}; {len(checked)} launch "
+          f"configurations held against the plain versions", flush=True)
+    return dict(launches_by_phase=launches,
+                picks={k: sorted(v) for k, v in picks.items()},
+                checked_launches=checked)
+
+
+def _print_profile(label: str, r: dict, card: str) -> None:
+    if r["busy_share"] is None:
+        print(f"{label}: profile: no device activity seen; the busy share is "
+              "not measured", flush=True)
+        return
+    print(f"{label}: profile graphed decode step: {r['wall_ms_per_step']:.3f}"
+          f" ms/step wall under torch.profiler, device busy "
+          f"{r['busy_ms_per_step']:.3f} ms/step "
+          f"({100 * r['busy_share']:.1f}%), LSCD kernels "
+          f"{r['lscd_ms_per_step']:.3f} ms/step; {card}", flush=True)
+    for ms, n, name in r["top"]:
+        print(f"{label}:   decode {ms:8.3f} ms/step {n:4d}/step  {name}")
+
+
+def ssm_phase(torch, mods) -> dict:
+    """mamba2_130m at full size (24 layers, d_model 768, d_inner 1536, 24
+    SSD heads of 64, state 128, conv 4, chunk 256, vocab 50 280, tied
+    head), after ``ssm_state_check``: built from ``SEED`` at sparsity 0.8
+    through ``serve.build`` (the launcher's list names no SSM weight, so
+    ``in_proj``/``out_proj`` stay dense bf16 and no LSCD kernel runs on
+    this path), built against dense bf16 bytes; the 24-layer first-step
+    logits in bf16 against the same stack in f32 (``_ssm_dtype_drift``:
+    teacher-forced within ``depth_logits_tol``, free-running printed, its
+    first tokens equal but at near ties); then ``SSM_REQUESTS`` requests of 128-3000
+    prompt tokens (64 greedy new tokens) over 32 slots at max_len 4096
+    through ``StreamingServer`` on the dense cache with exact-length
+    admission, the decode step as a CUDA graph and eager (identical
+    streams, clean slots), and a profiled graphed decode step."""
+    import numpy as np
+    configs, serve, spmm, cfgmod = (mods[x] for x in (
+        "configs", "serve", "spmm", "serve_config"))
+    card = card_line()
+    out = dict(card=card, state_check=ssm_state_check(torch, mods))
+    cfg = configs.get(SSM_ARCH)
+    params, out["build"] = _build_report(
+        torch, mods, cfg, "ssm",
+        f" (d_model {cfg.d_model}, d_inner {cfg.ssm_inner}, {cfg.ssm_heads} "
+        f"heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+        f"{cfg.ssm_chunk}, vocab {cfg.vocab})")
+    check(out["build"]["n_tiled_csl"] == 0,
+          "ssm: the launcher's list encoded an SSM weight")
+    prompts = serve.make_prompts(cfg, 4, 128, SEED, "cuda")
+    got = _ssm_dtype_drift(torch, mods, params, cfg, prompts)
+    tol = depth_logits_tol(SSM_DEPTH)
+    ties = got["ties"]
+    check(all(m < NEAR_TIE for _, m in ties),
+          f"ssm: {SSM_DEPTH} layers: first token differs between bf16 and "
+          f"f32 (rows and f32 top-2 margins {ties}; a near tie is below "
+          f"{NEAR_TIE:.3f})")
+    want = got["logits"]["f32"]
+    out["dtype_logits"] = dict(tol=tol, ties=ties,
+                               rows_under_near_tie=got["rows_under_near_tie"])
+    for key in ("forced", "free"):
+        d = (got["logits"][key] - want).abs()
+        over = d - (tol + tol * want.abs())
+        out["dtype_logits"][key] = dict(
+            max_abs_err=float(d.max()),
+            share_of_tol=float((d / (tol + tol * want.abs())).max()),
+            elements_over_tol=int((over > 0).sum()), elements=d.numel())
+    close(torch, got["logits"]["forced"], want, dict(rtol=tol, atol=tol),
+          f"ssm: first decode-step logits bf16 teacher-forced vs f32 at "
+          f"{SSM_DEPTH} layers")
+    r = out["dtype_logits"]
+    print(f"ssm: first decode-step logits vs the f32 stack at {SSM_DEPTH} "
+          f"layers (128-token prompts): bf16 teacher-forced max abs err "
+          f"{r['forced']['max_abs_err']:.3e} ({r['forced']['share_of_tol']:.3f}"
+          f" of {tol:.4f} + {tol:.4f} relative; gate), bf16 free-running "
+          f"{r['free']['max_abs_err']:.3e} ({r['free']['share_of_tol']:.3f}; "
+          f"{r['free']['elements_over_tol']} of {r['free']['elements']} "
+          f"elements past the tolerance; printed); "
+          f"{r['rows_under_near_tie']} of {prompts.shape[0]} rows with an f32"
+          f" top-2 margin below {NEAR_TIE:.2f}, first tokens differing there "
+          f"{ties}", flush=True)
+    del prompts, got
+    release(torch)
+
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(*SSM_PROMPT, SSM_REQUESTS)
+    reqs = [rng.integers(0, cfg.vocab, int(n)).astype(np.int64)
+            for n in lengths]
+    config = cfgmod.ServeConfig(
+        scheduler=cfgmod.SchedulerConfig(
+            n_slots=SSM_SLOTS, max_len=SSM_MAX_LEN, min_bucket=8, admit_k=1),
+        cache_kind="dense")
+    print(f"ssm: {len(reqs)} requests, prompts {int(lengths.min())}-"
+          f"{int(lengths.max())} tokens, {SSM_NEW} greedy new tokens each, "
+          f"{SSM_SLOTS} slots, max_len {SSM_MAX_LEN}, exact-length admission",
+          flush=True)
+    probe = LaunchProbe(spmm)
+    runs, streams = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with probe:
+        spmm.reset_launch_counts()
+        for key, graph in (("dense_graph", True), ("dense_eager", False)):
+            label = f"ssm: {key}"
+            server, streams[key], run = _closed_loop(
+                torch, mods, params, cfg, reqs, probe, paged=False,
+                graph=graph, config=config, new=SSM_NEW, label=label)
+            b = server.batcher
+            check(b.buckets is None and {
+                s[1] for s in b.stepper.prefill_shapes} == {
+                    int(n) for n in lengths},
+                f"{label}: the prefill shapes are not the prompts' lengths")
+            check(b.slots == [None] * SSM_SLOTS,
+                  f"{label}: slots not clean after the drain")
+            run["captures"] = dict(b.stepper.captures)
+            if graph:
+                check(b.stepper.captures["decode"] == 1,
+                      f"{label}: captures {b.stepper.captures}")
+                out["profile"] = _profile_decode(torch, b.stepper)
+            runs[key] = run
+            del server, b
+            release(torch)
+        counts = spmm.launch_counts()
+    out["peak_allocated"] = torch.cuda.max_memory_allocated()
+    check(streams["dense_graph"] == streams["dense_eager"],
+          "ssm: graph-on and graph-off streams differ")
+    d, e = runs["dense_graph"], runs["dense_eager"]
+    print(f"ssm: launches {json.dumps(counts)} (no LSCD kernel on this "
+          f"path); peak allocated {out['peak_allocated']} B", flush=True)
+    print(f"ssm: decode {d['decode_ms_per_step']:.3f} ms/step graph on, "
+          f"{e['decode_ms_per_step']:.3f} graph off; "
+          f"{d['tokens_per_s']:.1f}/{e['tokens_per_s']:.1f} tok/s; TTFT "
+          f"p50/p99 {d['ttft']['p50'] * 1e3:.1f}/{d['ttft']['p99'] * 1e3:.1f}"
+          f" ms, TPOT p50/p99 {d['tpot']['p50'] * 1e3:.2f}/"
+          f"{d['tpot']['p99'] * 1e3:.2f} ms (graph on); {card}", flush=True)
+    _print_profile("ssm", out["profile"], card)
+    out.update(runs=runs, launches=counts)
+    del params, probe
+    release(torch)
+    return out
+
+
+VLM_ARCH = "qwen2_vl_2b"
+VLM_SLOTS, VLM_MAX_LEN, VLM_REQUESTS, VLM_NEW = 32, 1024, 32, 64
+VLM_PROMPT = (128, 769)                 # uniform prompt lengths, half-open
+VLM_DEPTHS = (4, 28)
+# The stub vision prefix: a 16 x 16 patch grid at t = 0 with its rows and
+# columns as h and w ids, then 64 text tokens at 16 on (all three ids).
+VLM_GRID, VLM_TEXT = 16, 64
+
+
+def _vlm_embeds_check(torch, mods, params, cfg) -> dict:
+    """``engine.prefill`` with an ``embeds`` prefix and explicit [3, B, S]
+    M-RoPE positions (a stub ``VLM_GRID``-square patch grid, then text)
+    through the kernels against the plain versions: the prefill's last
+    logits and the first decode step (all three ids at the scalar
+    position, as the reference decodes) within ``depth_logits_tol``; and
+    the same prefix at the default positions must give other logits (the
+    h/w ids reach the attention)."""
+    engine = mods["engine"]
+    B, G = 4, VLM_GRID * VLM_GRID
+    S = G + VLM_TEXT
+    dev = "cuda"
+    r = torch.arange(G, device=dev) // VLM_GRID
+    c = torch.arange(G, device=dev) % VLM_GRID
+    text = VLM_GRID + torch.arange(VLM_TEXT, device=dev)
+    thw = torch.stack([torch.cat([torch.zeros_like(r), text]),
+                       torch.cat([r, text]), torch.cat([c, text])])
+    positions = thw[:, None].expand(3, B, S)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    table = params["embed"]["table"]
+    patches = (0.02 * torch.randn((B, G, cfg.d_model), generator=gen,
+                                  device=dev)).to(table.dtype)
+    embeds = torch.cat([patches, table[tokens[:, G:]]], dim=1)
+    tol = depth_logits_tol(cfg.n_layers)
+    res, first = {}, {}
+    with torch.inference_mode():
+        for backend in ("cuda", "torch"):
+            last, cache = engine.prefill(params, tokens, cfg, S + 1,
+                                         embeds=embeds, positions=positions,
+                                         backend=backend)
+            first[backend] = torch.argmax(last, dim=-1)
+            res[backend] = [last.float(), cache]
+        tok = first["torch"][:, None]
+        for backend in ("cuda", "torch"):
+            res[backend][1] = engine.serve_step(
+                params, res[backend][1], tok, S, cfg,
+                backend=backend)[0].float()
+        flat, _ = engine.prefill(params, tokens, cfg, S + 1, embeds=embeds)
+    errs = {}
+    for i, what in enumerate(("prefill", "decode")):
+        errs[what] = close(torch, res["cuda"][i], res["torch"][i],
+                           dict(rtol=tol, atol=tol),
+                           f"vlm: embeds prefix {what} logits vs plain")
+    moved = float((flat.float() - res["cuda"][0]).abs().max())
+    check(moved > tol, f"vlm: the vision prefix's h/w ids moved the logits "
+          f"by only {moved:.3e}")
+    print(f"vlm: embeds prefix ({VLM_GRID}x{VLM_GRID} patches at t = 0 with "
+          f"h, w ids, then {VLM_TEXT} text tokens; {B} rows): logits vs "
+          f"plain at {cfg.n_layers} layers max abs err prefill "
+          f"{errs['prefill']:.3e}, decode {errs['decode']:.3e} (tolerance "
+          f"{tol:.4f} + {tol:.4f} relative); the same prefix at 1-D "
+          f"positions moves the logits by {moved:.3e}", flush=True)
+    return dict(errs, tol=tol, moved_by_hw_ids=moved,
+                same_first=int((first["cuda"] == first["torch"]).sum()))
+
+
+def vlm_phase(torch, mods) -> dict:
+    """qwen2_vl_2b at full size (28 layers, d_model 1536, 12 heads and 2
+    K/V heads of 128, q/k/v bias, d_ff 8960, vocab 151 936, M-RoPE
+    sections (16, 24, 24), theta 1e6, tied head): built from ``SEED`` at
+    sparsity 0.8 (q/k/v grouped with their bias, wo and the SwiGLU MLP in
+    Tiled-CSL), built against dense and planned bytes; first-step logits
+    against the plain path at ``VLM_DEPTHS``; the ``embeds`` prefix
+    (``_vlm_embeds_check``); then ``VLM_REQUESTS`` requests (128-768
+    prompt tokens, 64 greedy new tokens) over 32 slots at max_len 1024
+    through ``StreamingServer``: dense graph on, paged graph on and paged
+    graph off (identical streams, clean pools). All four LSCD kernels must
+    launch and every launch configuration pass its plain version."""
+    import numpy as np
+    configs, serve, spmm, engine, cfgmod, ops = (mods[x] for x in (
+        "configs", "serve", "spmm", "engine", "serve_config", "ops"))
+    card = card_line()
+    cfg = configs.get(VLM_ARCH)
+    out = dict(card=card)
+    params, out["build"] = _build_report(
+        torch, mods, cfg, "vlm",
+        f" (d_model {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv} K/V heads"
+        f" of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, M-RoPE "
+        f"sections {cfg.mrope_sections})")
+    prompts = serve.make_prompts(cfg, 4, 128, SEED, "cuda")
+    out["logits_by_depth"] = {}
+    for depth in VLM_DEPTHS:
+        tol = depth_logits_tol(depth)
+        got, want, ties, n_under = _logits_vs_plain(
+            torch, engine, dict(params, layers=params["layers"][:depth]),
+            dataclasses.replace(cfg, n_layers=depth), prompts)
+        err = close(torch, got, want, dict(rtol=tol, atol=tol),
+                    f"vlm: first decode-step logits vs plain at {depth} "
+                    f"layers")
+        out["logits_by_depth"][depth] = dict(max_abs_err=err, tol=tol,
+                                             near_ties=ties)
+        print(f"vlm: first decode-step logits vs plain at {depth} layers: "
+              f"max abs err {err:.3e} (tolerance {tol:.4f} + {tol:.4f} "
+              f"relative); first tokens differing at near ties {ties}",
+              flush=True)
+        del got, want
+    del prompts
+    out["embeds"] = _vlm_embeds_check(torch, mods, params, cfg)
+    release(torch)
+
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(*VLM_PROMPT, VLM_REQUESTS)
+    reqs = [rng.integers(0, cfg.vocab, int(n)).astype(np.int64)
+            for n in lengths]
+
+    def config(paged):
+        return cfgmod.ServeConfig(
+            scheduler=cfgmod.SchedulerConfig(
+                n_slots=VLM_SLOTS, max_len=VLM_MAX_LEN, min_bucket=8,
+                admit_k=4),
+            cache_kind="paged" if paged else "dense", block_size=16)
+    print(f"vlm: {VLM_REQUESTS} requests, prompts {int(lengths.min())}-"
+          f"{int(lengths.max())} tokens, {VLM_NEW} greedy new tokens each, "
+          f"{VLM_SLOTS} slots, max_len {VLM_MAX_LEN}; the paged pool at the "
+          f"dense byte-equivalent", flush=True)
+    probe = LaunchProbe(spmm)
+    runs, streams = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.SCHEDULES.clear()
+    with probe:
+        spmm.reset_launch_counts()
+        for key, paged, graph in (("dense_graph", False, True),
+                                  ("paged_graph", True, True),
+                                  ("paged_eager", True, False)):
+            label = f"vlm: {key}"
+            server, streams[key], run = _closed_loop(
+                torch, mods, params, cfg, reqs, probe, paged=paged,
+                graph=graph, config=config(paged), new=VLM_NEW, label=label)
+            b = server.batcher
+            if paged:
+                _drained_clean(server, label)
+            run["captures"] = dict(b.stepper.captures)
+            if key == "paged_graph":
+                out["profile"] = _profile_decode(torch, b.stepper)
+            runs[key] = run
+            del server, b
+            release(torch)
+        counts = spmm.launch_counts()
+    out["peak_allocated"] = torch.cuda.max_memory_allocated()
+    check(streams["dense_graph"] == streams["paged_graph"]
+          == streams["paged_eager"],
+          "vlm: dense graph-on, paged graph-on and paged graph-off streams "
+          "differ")
+    out.update(_served_summary(torch, mods, runs, counts, probe, cfg, "vlm",
+                               VLM_SLOTS))
+    d, p, e = (runs[k] for k in ("dense_graph", "paged_graph", "paged_eager"))
+    print(f"vlm: decode {d['decode_ms_per_step']:.3f} ms/step dense graph "
+          f"on, {p['decode_ms_per_step']:.3f} paged graph on, "
+          f"{e['decode_ms_per_step']:.3f} paged graph off; "
+          f"{d['tokens_per_s']:.1f}/{p['tokens_per_s']:.1f}/"
+          f"{e['tokens_per_s']:.1f} tok/s; TTFT p50/p99 "
+          f"{p['ttft']['p50'] * 1e3:.1f}/{p['ttft']['p99'] * 1e3:.1f} ms, "
+          f"TPOT p50/p99 {p['tpot']['p50'] * 1e3:.2f}/"
+          f"{p['tpot']['p99'] * 1e3:.2f} ms (paged graph on); peak allocated "
+          f"{out['peak_allocated']} B; {card}", flush=True)
+    _print_profile("vlm", out["profile"], card)
+    out.update(runs=runs, launches=counts)
+    del params, probe
+    release(torch)
+    return out
+
+
+AUDIO_ARCH = "musicgen_large"
+AUDIO_DEPTHS = (4, 48)
+AUDIO_REQUESTS, AUDIO_PROMPT, AUDIO_NEW = 8, 256, 64
+
+
+def audio_phase(torch, mods) -> dict:
+    """musicgen_large at full size (48 layers, d_model 2048, MHA of 32
+    heads, LayerNorm, a GELU MLP of 8192 with biases, 4 codebooks of 2048,
+    untied head of 8192 rows): built from ``SEED`` at sparsity 0.8 (wqkv,
+    wo, up and down in Tiled-CSL, the [4, 2048, 2048] embedding and the
+    head dense), built against dense and planned bytes; first-step logits
+    against the plain path at ``AUDIO_DEPTHS`` (one row a request and
+    codebook); the batcher's refusal, as the reference's; then
+    ``engine.generate`` on ``AUDIO_REQUESTS`` prompts of [4, 256] for 64
+    greedy frames, the reference's entry point for codebook models: all
+    four LSCD kernels must launch and every launch configuration pass its
+    plain version."""
+    configs, serve, spmm, engine, batching, cfgmod, ops = (mods[x] for x in (
+        "configs", "serve", "spmm", "engine", "batching", "serve_config",
+        "ops"))
+    card = card_line()
+    cfg = configs.get(AUDIO_ARCH)
+    out = dict(card=card)
+    params, out["build"] = _build_report(
+        torch, mods, cfg, "audio",
+        f" (d_model {cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, "
+        f"{cfg.n_codebooks} codebooks of {cfg.vocab})")
+    prompts = serve.make_prompts(cfg, 4, 128, SEED, "cuda")
+    out["logits_by_depth"] = {}
+    for depth in AUDIO_DEPTHS:
+        tol = depth_logits_tol(depth)
+        got, want, ties, n_under = _logits_vs_plain(
+            torch, engine, dict(params, layers=params["layers"][:depth]),
+            dataclasses.replace(cfg, n_layers=depth), prompts)
+        err = close(torch, got, want, dict(rtol=tol, atol=tol),
+                    f"audio: first decode-step logits vs plain at {depth} "
+                    f"layers")
+        out["logits_by_depth"][depth] = dict(max_abs_err=err, tol=tol,
+                                             near_ties=ties)
+        print(f"audio: first decode-step logits [B, {cfg.n_codebooks}, "
+              f"{cfg.vocab}] vs plain at {depth} layers: max abs err "
+              f"{err:.3e} (tolerance {tol:.4f} + {tol:.4f} relative); first "
+              f"tokens differing at near ties (request x codebook row, "
+              f"margin) {ties}", flush=True)
+        del got, want
+    del prompts
+    release(torch)
+    refused = None
+    try:
+        batching.ContinuousBatcher(params, cfg, config=cfgmod.ServeConfig(
+            scheduler=cfgmod.SchedulerConfig(n_slots=4, max_len=512)))
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "codebook" in refused,
+          f"audio: the batcher took a codebook config ({refused!r})")
+    out["batcher_refusal"] = refused
+    print(f"audio: the batcher refuses the config: {refused}", flush=True)
+
+    prompts = serve.make_prompts(cfg, AUDIO_REQUESTS, AUDIO_PROMPT, SEED + 5,
+                                 "cuda")
+    probe = LaunchProbe(spmm)
+    times = {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.SCHEDULES.clear()
+    with probe:
+        probe.phase = "generate"
+        spmm.reset_launch_counts()
+        frames = engine.generate(params, prompts, cfg,
+                                 max_new_tokens=AUDIO_NEW, timings=times)
+        counts = spmm.launch_counts()
+    out["peak_allocated"] = torch.cuda.max_memory_allocated()
+    shape = (AUDIO_REQUESTS, cfg.n_codebooks, AUDIO_PROMPT + AUDIO_NEW)
+    check(tuple(frames.shape) == shape,
+          f"audio: generate gave {tuple(frames.shape)}, not {shape}")
+    check(torch.equal(frames[..., :AUDIO_PROMPT], prompts),
+          "audio: generate changed the prompts")
+    new = frames[..., AUDIO_PROMPT:]
+    check(bool(((new >= 0) & (new < cfg.vocab)).all()),
+          "audio: codes outside the codebook")
+    n_frames = AUDIO_REQUESTS * AUDIO_NEW
+    out["generate"] = dict(
+        prefill_s=times["prefill_s"], decode_s=times["decode_s"],
+        decode_ms_per_step=times["decode_s"] / (AUDIO_NEW - 1) * 1e3,
+        frames_per_s=n_frames / (times["prefill_s"] + times["decode_s"]),
+        distinct_codes=int(new.unique().numel()))
+    runs = {"generate": dict(launches_by_phase={"generate": dict(counts)})}
+    out.update(_served_summary(torch, mods, runs, counts, probe, cfg,
+                               "audio", AUDIO_REQUESTS))
+    g = out["generate"]
+    print(f"audio: engine.generate {AUDIO_REQUESTS} x [{cfg.n_codebooks}, "
+          f"{AUDIO_PROMPT}] prompts, {AUDIO_NEW} greedy frames: prefill "
+          f"{g['prefill_s'] * 1e3:.1f} ms, decode {g['decode_ms_per_step']:.3f}"
+          f" ms/step, {g['frames_per_s']:.1f} frames/s "
+          f"({g['frames_per_s'] * cfg.n_codebooks:.1f} codes/s), "
+          f"{g['distinct_codes']} distinct codes; peak allocated "
+          f"{out['peak_allocated']} B; {card}", flush=True)
+    out.update(launches=counts)
+    del params, probe, frames
+    release(torch)
     return out
 
 
@@ -3484,6 +4128,23 @@ def profile_steps(torch, engine, params, cfg, prompts, steps: int = 4):
 ALLOC_CONF = "expandable_segments:True"
 
 
+# The phases after the window phase, in order, by their summary's name.
+PHASES = {"full": "full_depth_phase", "tiny": "tinyllama_phase",
+          "mla": "mla_phase", "moe": "moe_phase", "hybrid": "hybrid_phase",
+          "ssm": "ssm_phase", "vlm": "vlm_phase", "audio": "audio_phase"}
+
+
+def _timed_phase(torch, mods, name: str) -> dict:
+    t0 = time.perf_counter()
+    out = globals()[PHASES[name]](torch, mods)
+    out["phase_s"] = time.perf_counter() - t0
+    built = out.get("build", {}).get("build_s")
+    print(f"{name}: phase took {out['phase_s']:.1f} s"
+          + (f" (build {built:.1f} s)" if built is not None else ""),
+          flush=True)
+    return out
+
+
 def main() -> int:
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", ALLOC_CONF)
     try:
@@ -3502,9 +4163,10 @@ def main() -> int:
                                       tiled_csl)
         from repro_torch.kernels import build, gemm, ops, ref, schedule, spmm
         from repro_torch.launch import serve
-        from repro_torch.models import attention, layers, moe, transformer
-        from repro_torch.serving import (api, budget, engine, loadgen,
-                                         scheduler, speculative)
+        from repro_torch.models import (attention, layers, moe, ssm,
+                                        transformer)
+        from repro_torch.serving import (api, batching, budget, engine,
+                                         loadgen, scheduler, speculative)
         from repro_torch.serving import config as serve_config
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
@@ -3516,8 +4178,8 @@ def main() -> int:
                 engine=engine, api=api, loadgen=loadgen, scheduler=scheduler,
                 serve_config=serve_config, budget=budget,
                 speculative=speculative, transformer=transformer,
-                attention=attention, layers=layers, moe=moe,
-                sparse_linear=sparse_linear)
+                attention=attention, layers=layers, moe=moe, ssm=ssm,
+                batching=batching, sparse_linear=sparse_linear)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -3561,30 +4223,8 @@ def main() -> int:
     rep.pop("params")
     del params
     release(torch)
-    t0 = time.perf_counter()
-    full = full_depth_phase(torch, mods)
-    full["phase_s"] = time.perf_counter() - t0
-    print(f"full depth: phase took {full['phase_s']:.1f} s (build "
-          f"{full['build']['build_s']:.1f} s)", flush=True)
-    t0 = time.perf_counter()
-    tiny = tinyllama_phase(torch, mods)
-    tiny["phase_s"] = time.perf_counter() - t0
-    print(f"tinyllama: phase took {tiny['phase_s']:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    mla = mla_phase(torch, mods)
-    mla["phase_s"] = time.perf_counter() - t0
-    print(f"mla: phase took {mla['phase_s']:.1f} s (build "
-          f"{mla['build']['build_s']:.1f} s)", flush=True)
-    t0 = time.perf_counter()
-    moe_out = moe_phase(torch, mods)
-    moe_out["phase_s"] = time.perf_counter() - t0
-    print(f"moe: phase took {moe_out['phase_s']:.1f} s (build "
-          f"{moe_out['build']['build_s']:.1f} s)", flush=True)
-    t0 = time.perf_counter()
-    hybrid = hybrid_phase(torch, mods)
-    hybrid["phase_s"] = time.perf_counter() - t0
-    print(f"hybrid: phase took {hybrid['phase_s']:.1f} s (build "
-          f"{hybrid['build']['build_s']:.1f} s)", flush=True)
+    full, tiny, mla, moe_out, hybrid, ssm_out, vlm, audio = (
+        _timed_phase(torch, mods, name) for name in PHASES)
 
     kernels = []
     serve_counts = {k: serve_phases["prefill"][k] + serve_phases["decode"][k]
@@ -3595,11 +4235,14 @@ def main() -> int:
     moe_counts = moe_out["launches"]
     hybrid_counts = hybrid["launches"]
     ring_counts = hybrid["ring"]["launches"]
+    ssm_counts, vlm_counts, audio_counts = (
+        r["launches"] for r in (ssm_out, vlm, audio))
     window_counts = {k: sum(window_phases[op][k] for op in STEP_OPS)
                      for k in spmm.KERNELS}
     launches = {k: counts[k] + serve_counts[k] + window_counts[k]
                 + full_counts[k] + tiny_counts[k] + mla_counts[k]
                 + moe_counts[k] + hybrid_counts[k] + ring_counts[k]
+                + ssm_counts[k] + vlm_counts[k] + audio_counts[k]
                 for k in spmm.KERNELS}
     launches["dense_gemm"] = gemm_launches
     best.update(moe_out["kernel_rows"])
@@ -3628,6 +4271,9 @@ def main() -> int:
             launches_hybrid_decode=hybrid["launches_by_phase"].get(
                 "decode", {}).get(name, 0),
             launches_ring=ring_counts.get(name, 0),
+            launches_ssm=ssm_counts.get(name, 0),
+            launches_vlm=vlm_counts.get(name, 0),
+            launches_audio=audio_counts.get(name, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
@@ -3641,7 +4287,8 @@ def main() -> int:
                    sweep=sweep, rings=rings, kernels=kernels,
                    slice=slice_summary, profile=prof, serving=serving,
                    window=window, full_depth=full, tinyllama=tiny, mla=mla,
-                   moe=moe_out, hybrid=hybrid)
+                   moe=moe_out, hybrid=hybrid, ssm=ssm_out, vlm=vlm,
+                   audio=audio)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({"kernels": kernels}))

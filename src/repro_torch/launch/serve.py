@@ -10,8 +10,9 @@ projections to Tiled-CSL on the device (``lm_head`` and, for MLA
 JAX launcher; for MoE (``--arch qwen3_moe_30b_a3b``, ``qwen2_moe_a2_7b``)
 the routed ``gate``/``up``/``down`` stacks are encoded per expert into
 expert stacks, which the JAX launcher's scan-stacked layout leaves dense,
-and the router stays dense), then serves a synthetic workload through
-the session
+and the router stays dense; for mamba2 (``--arch mamba2_130m``) the SSM's
+``in_proj``/``out_proj`` stay dense, as the JAX launcher's list does not
+name them), then serves a synthetic workload through the session
 API (``serving.api.StreamingServer`` over the continuous batcher, its
 decode step a CUDA graph), reporting tokens/s, TTFT/TPOT percentiles and
 the weight-bytes saving. Default is a closed-loop drain; ``--trace-rate
@@ -133,8 +134,9 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
     ``max_nnz`` and is only grouped.
     The result equals ``init_model`` + ``sparsify_params`` +
     ``group_projections`` and the casts below bit for bit; the peak is
-    about the encoded model plus one layer. ``embed``, ``lm_head`` and
-    every weight matrix left dense that the forward reads only through
+    about the encoded model plus one layer. ``embed`` (a codebook model's
+    ``[n_cb, vocab, d]`` stack too), ``lm_head`` and every weight matrix
+    left dense that the forward reads only through
     ``linear`` (all of them in a dense build, MLA's ``w_ukv`` aside) are
     cast to the compute dtype as they are drawn (the forward would cast
     them on every call to the same values); ``w_ukv`` and ``wa`` stay
@@ -212,10 +214,13 @@ def params_bytes(tree) -> int:
 
 def make_prompts(cfg, requests: int, prompt_len: int, seed: int,
                  device) -> torch.Tensor:
+    """[requests, prompt_len] token ids from ``seed``; a codebook config
+    draws [requests, n_codebooks, prompt_len]."""
     gen = torch.Generator(device="cpu")
     gen.manual_seed(seed)
-    return torch.randint(0, cfg.vocab, (requests, prompt_len),
-                         generator=gen).to(device)
+    shape = ((requests, cfg.n_codebooks, prompt_len) if cfg.n_codebooks
+             else (requests, prompt_len))
+    return torch.randint(0, cfg.vocab, shape, generator=gen).to(device)
 
 
 def run(cfg, *, requests: int = 8, prompt_len: int = 16, max_new: int = 16,
@@ -334,10 +339,13 @@ def main(argv: Optional[Sequence[str]] = None, *,
     params, rep = build(cfg, seed=args.seed, sparsity=args.sparsity,
                         balanced=args.balanced, device=device)
     if args.sparsity:
+        # No weight of an SSM stack is on the list: no ratio to print.
+        ratio = (f" ({rep['sparse_bytes'] / rep['dense_bytes']:.3f}x)"
+                 if rep["dense_bytes"] else "")
         print(f"reformatted {rep['n_tiled_csl']} weights to Tiled-CSL in "
               f"{rep['encode_s']:.2f}s: {rep['dense_bytes'] / 2 ** 20:.1f} "
-              f"MiB dense -> {rep['sparse_bytes'] / 2 ** 20:.1f} MiB sparse "
-              f"({rep['sparse_bytes'] / rep['dense_bytes']:.3f}x)")
+              f"MiB dense -> {rep['sparse_bytes'] / 2 ** 20:.1f} MiB sparse"
+              f"{ratio}")
     config = ServeConfig.from_flags(args)
     if args.paged and args.hbm_budget_gb is not None \
             and args.n_blocks is None:

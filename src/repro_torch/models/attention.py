@@ -123,18 +123,34 @@ def _attend(q, k, v, valid) -> torch.Tensor:
     return _gqa_out(torch.softmax(scores, dim=-1), v)
 
 
+def _rope_q_k(q, k, positions, cfg: ModelConfig):
+    """RoPE at ``positions [B, S]``, or M-RoPE at ``[3, B, S]`` (t, h, w
+    ids) where the config has ``mrope_sections``."""
+    if cfg.mrope_sections is not None:
+        return (rope.apply_mrope(q, positions, cfg.mrope_sections,
+                                 cfg.rope_theta),
+                rope.apply_mrope(k, positions, cfg.mrope_sections,
+                                 cfg.rope_theta))
+    return (rope.apply_rope(q, positions, cfg.rope_theta),
+            rope.apply_rope(k, positions, cfg.rope_theta))
+
+
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, *, cache: Optional[dict] = None,
               backend: str = "auto") -> Tuple[torch.Tensor, Optional[dict]]:
     """Full-sequence (prefill) causal attention, within the last
-    ``local_window`` positions where the config has one. With ``cache``,
-    the new K/V are written at positions [0, S) of it; a ring shorter
-    than S takes the trailing window, position p at slot ``p % W``."""
+    ``local_window`` positions where the config has one. ``positions``
+    is [B, S], or [3, B, S] with M-RoPE, whose temporal row orders the
+    causal mask. With ``cache``, the new K/V are written at positions
+    [0, S) of it; a ring shorter than S takes the trailing window,
+    position p at slot ``p % W``."""
     S = x.shape[1]
     q, k, v = _project_qkv(params, x, cfg, backend)
-    q = rope.apply_rope(q, positions, cfg.rope_theta)
-    k = rope.apply_rope(k, positions, cfg.rope_theta).to(torch.bfloat16)
+    q, k = _rope_q_k(q, k, positions, cfg)
+    k = k.to(torch.bfloat16)
     v = v.to(torch.bfloat16)
+    if positions.dim() == 3:
+        positions = positions[0]
     # Query chunks bound the score block to [B, KV, G, chunk, S]; each
     # chunk sees every key, so the result is the full-scores one.
     chunk = cfg.attn_q_chunk if cfg.attn_q_chunk and S > cfg.attn_q_chunk \
@@ -213,10 +229,13 @@ def _masked_decode_attend(q, ck, cv, pos_vec, slot,
 
 
 def _decode_qkv(params, x, positions, cfg: ModelConfig, backend: str):
-    """Projections with RoPE at ``positions [B, S]``."""
+    """Projections with RoPE at ``positions [B, S]``; with M-RoPE every
+    axis takes the same position, as the reference's decode does."""
     q, k, v = _project_qkv(params, x, cfg, backend)
-    return (rope.apply_rope(q, positions, cfg.rope_theta),
-            rope.apply_rope(k, positions, cfg.rope_theta), v)
+    if cfg.mrope_sections is not None:
+        positions = positions[None].expand(3, -1, -1)
+    q, k = _rope_q_k(q, k, positions, cfg)
+    return q, k, v
 
 
 def attention_decode(params: dict, x: torch.Tensor, cache: dict, pos,

@@ -1,10 +1,10 @@
-"""Model assembly for the dense, MoE and hybrid families: init, cache and
-forward.
+"""Model assembly for every family: init, cache and forward.
 
 The port's counterpart of ``repro.models.transformer`` for ``family ==
-"dense"``, ``"moe"`` and ``"hybrid"``: a pre-norm decoder of residual
-blocks, its layers a Python list walked in order (the reference's
-``lax.scan`` stack, or its unrolled list for a heterogeneous pattern).
+"dense"``, ``"moe"``, ``"hybrid"``, ``"ssm"``, ``"vlm"`` and ``"audio"``:
+a pre-norm decoder of residual blocks, its layers a Python list walked
+in order (the reference's ``lax.scan`` stack, or its unrolled list for a
+heterogeneous pattern).
 Block kinds follow ``cfg.layer_kind(i)``. An ``"attn"`` block is
 attention + MLP: GQA (``attention``, K/V cache leaves ``"k"``/``"v"``,
 a sliding-window ring where the config has ``local_window``) or
@@ -14,7 +14,14 @@ params ``p["moe"]``; GQA attention only), whose aux loss the forward
 drops, since the port serves and does not train. An ``"rglru"`` block
 (the hybrid family, recurrentgemma) is the RG-LRU recurrent block
 (``rglru``, state leaves ``"h"``/``"conv"``, one row a slot) + SwiGLU
-MLP. Three modes share the block code:
+MLP. An ``"ssm"`` block (mamba2) is the Mamba2 SSD block (``ssm``, state
+leaves ``"state"``/``"conv"``), with a SwiGLU MLP only where ``d_ff`` is
+set. The vlm family (qwen2-vl) is the GQA block with M-RoPE: prefill
+positions are [3, B, S] (t, h, w ids), and ``inputs["embeds"]`` may stand
+in for the tokens (the stubbed vision frontend's patch embeddings). The
+audio family (musicgen) reads ``n_codebooks`` parallel token streams
+``[B, n_cb, S]``, sums their embeddings, and its untied head returns
+``[B, S, n_cb, vocab]``. Three modes share the block code:
 
   prefill — full sequence; writes the cache when one is given
   decode  — one token per row + cache (the paper's skinny-MatMul regime),
@@ -38,7 +45,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import attention, layers, mla, moe, nn, rglru
+from repro_torch.models import attention, layers, mla, moe, nn, rglru, ssm
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -47,20 +54,29 @@ Params = Dict[str, Any]
 def _check_family(cfg: ModelConfig) -> None:
     gqa = cfg.attn_kind == "gqa"
     plain = cfg.layer_pattern is None
+    no_moe = not cfg.n_routed_experts
     dense = cfg.family == "dense" and cfg.attn_kind in ("gqa", "mla") \
-        and not cfg.n_routed_experts and plain
+        and no_moe and plain
     routed = cfg.family == "moe" and gqa and cfg.n_routed_experts > 0 \
         and plain and cfg.local_window is None
-    hybrid = cfg.family == "hybrid" and gqa and not cfg.n_routed_experts \
+    hybrid = cfg.family == "hybrid" and gqa and no_moe \
         and not plain and set(cfg.layer_pattern) <= {"rglru", "attn"}
+    ssm_ok = cfg.family == "ssm" and cfg.ssm_state > 0 and no_moe \
+        and plain and cfg.local_window is None
+    vlm = cfg.family == "vlm" and gqa and no_moe and plain \
+        and cfg.mrope_sections is not None
+    audio = cfg.family == "audio" and gqa and no_moe and plain \
+        and cfg.n_codebooks > 0
     window = cfg.local_window is None or gqa
-    if not (dense or routed or hybrid) or not window or cfg.n_codebooks \
-            or cfg.mrope_sections is not None:
+    if not (dense or routed or hybrid or ssm_ok or vlm or audio) \
+            or not window or (cfg.n_codebooks and not audio) \
+            or (cfg.mrope_sections is not None and not vlm):
         raise NotImplementedError(
             f"{cfg.name}: the port serves the dense family with GQA or MLA "
             "attention (a sliding window with GQA only), the MoE family "
-            "with GQA attention and the hybrid family of RG-LRU and GQA "
-            "blocks only")
+            "with GQA attention, the hybrid family of RG-LRU and GQA "
+            "blocks, the SSM family, the vlm family (GQA with M-RoPE) and "
+            "the audio family (GQA over codebooks) only")
 
 
 def _init_norm(cfg: ModelConfig, device, dtype):
@@ -76,6 +92,14 @@ def _norm(cfg: ModelConfig, p, x):
 
 def init_block(gen, cfg: ModelConfig, device, dtype=torch.float32, *,
                kind: str = "attn") -> Params:
+    if kind == "ssm":
+        p = {"pre_norm": _init_norm(cfg, device, dtype),
+             "ssm": ssm.init_ssm(gen, cfg, device, dtype)}
+        if cfg.d_ff:
+            p["mlp_norm"] = _init_norm(cfg, device, dtype)
+            p["mlp"] = layers.init_swiglu_mlp(gen, cfg.d_model, cfg.d_ff,
+                                              device, dtype)
+        return p
     if kind == "rglru":
         return {"pre_norm": _init_norm(cfg, device, dtype),
                 "rglru": rglru.init_rglru(gen, cfg, device, dtype),
@@ -112,14 +136,21 @@ def init_model_parts(cfg: ModelConfig, *, seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    yield "embed", layers.init_embed(gen, cfg.vocab, cfg.d_model, dev, dtype)
+    if cfg.n_codebooks:                 # one table a codebook, [n_cb, V, d]
+        yield "embed", {"table": torch.stack([
+            nn.embed_init(gen, cfg.vocab, cfg.d_model, dev, dtype)
+            for _ in range(cfg.n_codebooks)])}
+    else:
+        yield "embed", layers.init_embed(gen, cfg.vocab, cfg.d_model, dev,
+                                         dtype)
     for i in range(cfg.n_layers):
         yield "layers", init_block(gen, cfg, dev, dtype,
                                    kind=cfg.layer_kind(i))
     yield "final_norm", _init_norm(cfg, dev, dtype)
     if not cfg.tie_embeddings:
-        yield "lm_head", {"w": nn.dense_init(gen, cfg.vocab, cfg.d_model,
-                                             dev, dtype)}
+        yield "lm_head", {"w": nn.dense_init(
+            gen, cfg.vocab * max(cfg.n_codebooks, 1), cfg.d_model, dev,
+            dtype)}
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
@@ -150,17 +181,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                dtype=torch.bfloat16) -> List[dict]:
     """Per-layer caches: K/V ``[batch, max_len, n_kv, head_dim]`` (a
     sliding window caps the length at the window), MLA latents
-    ``[batch, max_len, kv_lora_rank / qk_rope_dim]``, or an RG-LRU
-    layer's f32 state ``h [batch, rnn]`` and ``conv [batch, conv - 1,
-    rnn]``."""
+    ``[batch, max_len, kv_lora_rank / qk_rope_dim]`` (both in ``dtype``),
+    an RG-LRU layer's f32 state ``h [batch, rnn]`` and ``conv [batch,
+    conv - 1, rnn]``, or an SSM layer's f32 ``state [batch, heads,
+    head_dim, n]`` and ``conv [batch, conv - 1, d_inner + 2 n]``."""
     _check_family(cfg)
     dev = resolve_device(device)
     attn = (mla.init_mla_cache if cfg.attn_kind == "mla"
             else attention.init_cache)
-    return [rglru.init_rglru_cache(cfg, batch, dev)
-            if cfg.layer_kind(i) == "rglru"
-            else attn(cfg, batch, max_len, dev, dtype)
-            for i in range(cfg.n_layers)]
+
+    def layer(kind):
+        if kind == "rglru":
+            return rglru.init_rglru_cache(cfg, batch, dev)
+        if kind == "ssm":
+            return ssm.init_ssm_cache(cfg, batch, dev)
+        return attn(cfg, batch, max_len, dev, dtype)
+    return [layer(cfg.layer_kind(i)) for i in range(cfg.n_layers)]
 
 
 def init_paged_cache(cfg: ModelConfig, n_physical: int, block: int, *,
@@ -171,7 +207,8 @@ def init_paged_cache(cfg: ModelConfig, n_physical: int, block: int, *,
     qk_rope_dim]``). ``n_physical`` includes the reserved trash block 0
     (``serving.paged_cache.BlockPool.physical_blocks``). Paging applies
     to position-indexed caches only: recurrent state has no per-token
-    axis to page, so a stack with RG-LRU layers keeps the dense cache."""
+    axis to page, so a stack with RG-LRU or SSM layers keeps the dense
+    cache."""
     _check_family(cfg)
     kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
     if kinds != {"attn"}:
@@ -200,10 +237,11 @@ def _leaves(cache: List[dict]):
 
 def state_leaves(cfg: ModelConfig, cache: List[dict]) -> List[torch.Tensor]:
     """The recurrent-state leaves of a dense cache (an RG-LRU layer's
-    ``h`` and ``conv``): what a decode step overwrites as a function of
-    itself, where it writes K/V at a position."""
+    ``h`` and ``conv``, an SSM layer's ``state`` and ``conv``): what a
+    decode step overwrites as a function of itself, where it writes K/V
+    at a position."""
     return [t for i, layer in enumerate(cache)
-            if cfg.layer_kind(i) == "rglru" for t in layer.values()]
+            if cfg.layer_kind(i) in ("rglru", "ssm") for t in layer.values()]
 
 
 def scatter_cache_slots(cfg: ModelConfig, full: List[dict],
@@ -307,11 +345,24 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 kind: str = "attn", positions=None, cache=None, pos=None,
                 block_tables=None, ring_len: Optional[int] = None,
                 backend: str = "auto") -> Tuple[torch.Tensor, Optional[dict]]:
-    """Residual block of ``kind``: attention + MLP (or routed experts), or
-    RG-LRU + MLP. Returns (x, cache), or in verify mode (x, the window's
-    fresh {"k", "v"} or {"ckv", "krope"}). ``ring_len`` is a
-    sliding-window config's ring on the paged cache."""
+    """Residual block of ``kind``: attention + MLP (or routed experts),
+    RG-LRU + MLP, or SSD (+ MLP where ``d_ff`` is set). Returns (x,
+    cache), or in verify mode (x, the window's fresh {"k", "v"} or
+    {"ckv", "krope"}). ``ring_len`` is a sliding-window config's ring on
+    the paged cache."""
     h = _norm(cfg, p["pre_norm"], x)
+    if kind == "ssm":                   # dense cache only: no verify mode
+        if mode == "decode":
+            s, cache = ssm.ssm_decode(p["ssm"], h, cache, cfg,
+                                      backend=backend)
+        else:
+            s, cache = ssm.ssm_block(p["ssm"], h, cfg, cache=cache,
+                                     backend=backend)
+        x = x + s
+        if cfg.d_ff:
+            x = x + _mlp_apply(p["mlp"], _norm(cfg, p["mlp_norm"], x), cfg,
+                               backend)
+        return x, cache
     if kind == "rglru":                 # dense cache only: no verify mode
         if mode == "decode":
             r, cache = rglru.rglru_decode(p["rglru"], h, cache, cfg,
@@ -358,15 +409,35 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     return x + m, cache
 
 
+def _embed_tokens(params: Params, inputs: Dict[str, torch.Tensor],
+                  cfg: ModelConfig, compute_dtype) -> torch.Tensor:
+    """``inputs["embeds"] [B, S, d]`` where given, else the tokens'
+    embeddings; codebook tokens ``[B, n_cb, S]`` sum one lookup a
+    codebook, in codebook order."""
+    if inputs.get("embeds") is not None:
+        return inputs["embeds"].to(compute_dtype)
+    tokens = inputs["tokens"]
+    if cfg.n_codebooks:
+        tab = params["embed"]["table"].to(compute_dtype)       # [ncb, V, d]
+        x = tab[0][tokens[:, 0]]
+        for i in range(1, cfg.n_codebooks):
+            x = x + tab[i][tokens[:, i]]
+        return x
+    return layers.embed(params["embed"], tokens, compute_dtype)
+
+
 def forward(params: Params, inputs: Dict[str, torch.Tensor],
             cfg: ModelConfig, *, mode: str, cache: Any = None,
             pos: Union[int, torch.Tensor, None] = None,
             block_tables: Optional[torch.Tensor] = None,
             ring_len: Optional[int] = None,
             backend: str = "auto") -> Tuple[torch.Tensor, Any]:
-    """Run the stack. Returns (logits [B, S, vocab], cache).
+    """Run the stack. Returns (logits [B, S, vocab], or [B, S, n_cb,
+    vocab] for an untied codebook head, and the cache).
 
-    inputs: {"tokens": [B, S]} (optional "positions": [B, S]).
+    inputs: {"tokens": [B, S] (or [B, n_cb, S])} or {"embeds": [B, S, d]},
+    optional "positions": [B, S] ([3, B, S] for M-RoPE; prefill's default
+    is arange(S) on every row, on all three axes with M-RoPE).
     decode: S == 1 and ``pos`` is the absolute position of every row (an
     int) or of each row (a [B] tensor).
     paged decode: ``cache`` is a block pool (``init_paged_cache``) and
@@ -389,12 +460,13 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
     if mode == "verify" and block_tables is None:
         raise ValueError("verify needs block_tables (the paged cache)")
     compute_dtype = getattr(torch, cfg.dtype)
-    tokens = inputs["tokens"]
-    x = layers.embed(params["embed"], tokens, compute_dtype)
-    B, S = tokens.shape
+    x = _embed_tokens(params, inputs, cfg, compute_dtype)
+    B, S = x.shape[0], x.shape[1]
     positions = inputs.get("positions")
     if positions is None and mode == "prefill":
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        if cfg.mrope_sections is not None:
+            positions = positions[None].expand(3, B, S)
     fresh = []
     for i, p in enumerate(params["layers"]):
         cache_l = cache[i] if cache is not None else None
@@ -404,10 +476,16 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
                                backend=backend)
         fresh.append(out_l)
     x = _norm(cfg, params["final_norm"], x)
-    if cfg.tie_embeddings:
-        logits = layers.logits_head(None, params["embed"], x, vocab=cfg.vocab,
-                                    backend=backend)
+    if cfg.tie_embeddings:             # a codebook model ties to table 0
+        table = params["embed"]["table"]
+        logits = layers.logits_head(
+            None, {"table": table[0] if cfg.n_codebooks else table}, x,
+            vocab=cfg.vocab, backend=backend)
     else:
         logits = layers.logits_head(params["lm_head"], None, x,
-                                    vocab=cfg.vocab, backend=backend)
+                                    vocab=cfg.vocab * max(cfg.n_codebooks, 1),
+                                    backend=backend)
+        if cfg.n_codebooks:
+            logits = logits.reshape(*logits.shape[:-1], cfg.n_codebooks,
+                                    cfg.vocab)
     return logits, (fresh if mode == "verify" else cache)

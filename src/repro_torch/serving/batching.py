@@ -29,10 +29,12 @@ repeating a real row; their K/V is written into the shared cache in
 place. Decode is one token for every slot per engine step, each slot at
 its own absolute position. Requests end on EOS / stop tokens, on their
 ``max_new_tokens`` budget, or at ``max_len``. A stack with recurrent
-layers (RG-LRU) cannot absorb pad tokens into its state, so it admits
-at exact-length "buckets" (one prefill shape per distinct length).
-A sliding-window config keeps positions at ``pos % ring_len``,
-``ring_len`` = min(max_len, window), in the dense and the paged cache.
+layers (RG-LRU, SSM) cannot absorb pad tokens into its state, so it
+admits at exact-length "buckets" (one prefill shape per distinct
+length). A codebook (audio) config is refused: its prompts are [n_cb, S]
+streams, served through ``engine.generate``. A sliding-window config
+keeps positions at ``pos % ring_len``, ``ring_len`` = min(max_len,
+window), in the dense and the paged cache.
 
 Cache kinds (DESIGN.md §7 vs §10): ``cache_kind="dense"`` is the shared
 ``[n_slots, max_len]`` cache; ``cache_kind="paged"`` is the block pool,
@@ -124,6 +126,9 @@ class ContinuousBatcher:
                             f"kwargs, not both: {sorted(legacy)}")
         config.validate()
         sc = config.scheduler
+        if cfg.n_codebooks:
+            raise ValueError("codebook (audio) archs need [n_cb, S] prompts; "
+                             "drive engine.generate directly")
         self.config = config
         self.params = params
         self.cfg = cfg
@@ -137,10 +142,11 @@ class ContinuousBatcher:
                          + [int(t) for t in sc.stop_ids])
         self.admit_k = max(1, min(sc.admit_k or min(sc.n_slots, 4),
                                   sc.n_slots))
-        # Recurrent state (rglru) cannot absorb pad tokens: bucket padding
-        # is exact only for pure-attention stacks, whose causal mask keeps
-        # real positions off the pad K/V or latents. Others admit at
-        # exact-length "buckets" (one prefill shape per distinct length).
+        # Recurrent state (ssm, rglru) cannot absorb pad tokens: bucket
+        # padding is exact only for pure-attention stacks, whose causal
+        # mask keeps real positions off the pad K/V or latents. Any other
+        # stack admits at exact-length "buckets" (one prefill shape per
+        # distinct length).
         pure_attn = all(cfg.layer_kind(i) == "attn"
                         for i in range(cfg.n_layers))
         buckets = (engine.length_buckets(sc.max_len, sc.min_bucket)

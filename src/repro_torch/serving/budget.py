@@ -15,13 +15,14 @@ made: dense leaves at 2 B (bf16), Tiled-CSL leaves at 4 B a word plus
 4 B a nnz counter, with the analytic ``max_nnz`` =
 ceil(128·128·(1 − s)·IMBALANCE) rounded up to ``PAD_QUANTUM``. The
 leaves picked are those the reference's ``launch.specs.
-default_should_sparsify`` picks, ``lm_head``, the MLA factors and the
-RG-LRU projections included, so every number equals the reference's
-byte for byte. The serving launchers keep ``lm_head``, the MLA factors
-(``w_dq``, ``w_uq``, ``w_dkv``, ``w_ukv``) and the RG-LRU projections
-(``w_x``, ``w_gate``, ``w_out``) dense, so for a sparse deployment the
-plan counts less for them than the built model holds. A stack with
-RG-LRU layers has no paged cache, so ``block_bytes`` and ``plan`` refuse
+default_should_sparsify`` picks, ``lm_head``, the MLA factors, the
+RG-LRU projections and the SSM's ``in_proj``/``out_proj`` included, so
+every number equals the reference's byte for byte. The serving
+launchers keep ``lm_head``, the MLA factors (``w_dq``, ``w_uq``,
+``w_dkv``, ``w_ukv``), the RG-LRU projections (``w_x``, ``w_gate``,
+``w_out``) and the SSM's two dense, so for a sparse deployment the plan
+counts less for them than the built model holds. A stack with RG-LRU or
+SSM layers has no paged cache, so ``block_bytes`` and ``plan`` refuse
 it, as the reference's do. For an MoE model
 the reference counts the routed expert stacks dense: their paths carry
 no ``['w']`` and its scan-stacked leaves ``[L, E, f, d]`` are 4-D, which
@@ -54,35 +55,52 @@ DEFAULT_WORKSPACE_FRAC = 0.03
 IMBALANCE = 1.15
 
 # The weights the reference's launch specs encode as Tiled-CSL: its
-# ``default_should_sparsify`` list, ``lm_head``, the four MLA factors and
-# the three RG-LRU projections included.
+# ``default_should_sparsify`` list, ``lm_head``, the four MLA factors, the
+# three RG-LRU projections and the SSM's two included.
 SPARSE_NAMES = ("wq", "wk", "wv", "wo", "w_dq", "w_uq", "w_dkv", "w_ukv",
-                "gate", "up", "down", "w_x", "w_gate", "w_out", "lm_head")
+                "gate", "up", "down", "in_proj", "out_proj", "w_x", "w_gate",
+                "w_out", "lm_head")
 
 BF16_BYTES = 2
 
 
 def _param_leaves(cfg: ModelConfig) -> Iterator[Tuple[str, Tuple[int, ...], int]]:
-    """(name, shape, count) of every parameter leaf of the dense, MoE and
-    hybrid families, ``count`` being how many copies the stack holds (one
-    per layer of the leaf's block kind). A routed expert stack is one 3-D
-    leaf, so ``weight_bytes`` counts it dense, as the reference does."""
-    dense = cfg.family == "dense" and cfg.attn_kind in ("gqa", "mla")
-    routed = cfg.family == "moe" and cfg.attn_kind == "gqa"
-    hybrid = cfg.family == "hybrid" and cfg.attn_kind == "gqa"
-    if not (dense or routed or hybrid):
+    """(name, shape, count) of every parameter leaf of every family,
+    ``count`` being how many copies the stack holds (one per layer of the
+    leaf's block kind). A routed expert stack is one 3-D leaf, and so is
+    a codebook model's embedding ``[n_cb, vocab, d]``, so ``weight_bytes``
+    counts both dense, as the reference does."""
+    if cfg.attn_kind == "mla" and cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: the port's planner counts the dense family with "
-            "GQA or MLA attention, the MoE family with GQA and the hybrid "
-            "family with GQA only")
+            f"{cfg.name}: the port's planner counts MLA attention in the "
+            "dense family only")
     d, L = cfg.d_model, cfg.n_layers
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    n_rglru = sum(cfg.layer_kind(i) == "rglru" for i in range(L))
+    kinds = [cfg.layer_kind(i) for i in range(L)]
+    n_rglru, n_ssm = kinds.count("rglru"), kinds.count("ssm")
     norm = (("scale",) if cfg.norm_kind == "rmsnorm" else ("scale", "bias"))
-    yield "embed", (cfg.vocab, d), 1
-    for part in ("pre_norm", "mlp_norm"):
+    yield "embed", ((cfg.n_codebooks,) if cfg.n_codebooks else ()) \
+        + (cfg.vocab, d), 1
+    # an SSM block has an MLP (and its norm) only where d_ff is set
+    n_mlp_norm = L - (0 if cfg.d_ff else n_ssm)
+    for part, count in (("pre_norm", L), ("mlp_norm", n_mlp_norm)):
         for leaf in norm:
-            yield f"{part}.{leaf}", (d,), L
+            yield f"{part}.{leaf}", (d,), count
+    if n_ssm:
+        din, heads, n = cfg.ssm_inner, cfg.ssm_heads, cfg.ssm_state
+        for name, shape in (("in_proj.w", (2 * din + 2 * n + heads, d)),
+                            ("out_proj.w", (d, din)),
+                            ("conv_w", (cfg.ssm_conv, din + 2 * n)),
+                            ("conv_b", (din + 2 * n,)), ("a_log", (heads,)),
+                            ("d_skip", (heads,)), ("dt_bias", (heads,)),
+                            ("norm.scale", (din,))):
+            yield name, shape, n_ssm
+        if cfg.d_ff:
+            for name, shape in (("gate.w", (cfg.d_ff, d)),
+                                ("up.w", (cfg.d_ff, d)),
+                                ("down.w", (d, cfg.d_ff))):
+                yield name, shape, n_ssm
+        L -= n_ssm                        # no attention blocks follow
     if n_rglru:
         r, f = cfg.rnn_dim, cfg.d_ff
         for name, shape in (("w_x.w", (r, d)), ("w_gate.w", (r, d)),
@@ -94,45 +112,46 @@ def _param_leaves(cfg: ModelConfig) -> Iterator[Tuple[str, Tuple[int, ...], int]
                             ("down.w", (d, f))):
             yield name, shape, n_rglru
         L -= n_rglru                      # the attention blocks follow
-    if cfg.attn_kind == "mla":
-        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-        yield "w_dq.w", (cfg.q_lora_rank, d), L
-        yield "w_uq.w", (h * (dn + dr), cfg.q_lora_rank), L
-        yield "w_dkv.w", (cfg.kv_lora_rank + dr, d), L
-        yield "w_ukv.w", (h * (dn + dv), cfg.kv_lora_rank), L
-        yield "wo.w", (d, h * dv), L
-    else:
-        for name, out in (("wq", h * hd), ("wk", kv * hd),
-                          ("wv", kv * hd)):
-            yield f"{name}.w", (out, d), L
-            if cfg.qkv_bias:
+    if L:
+        if cfg.attn_kind == "mla":
+            dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+            yield "w_dq.w", (cfg.q_lora_rank, d), L
+            yield "w_uq.w", (h * (dn + dr), cfg.q_lora_rank), L
+            yield "w_dkv.w", (cfg.kv_lora_rank + dr, d), L
+            yield "w_ukv.w", (h * (dn + dv), cfg.kv_lora_rank), L
+            yield "wo.w", (d, h * dv), L
+        else:
+            for name, out in (("wq", h * hd), ("wk", kv * hd),
+                              ("wv", kv * hd)):
+                yield f"{name}.w", (out, d), L
+                if cfg.qkv_bias:
+                    yield f"{name}.b", (out,), L
+            yield "wo.w", (d, h * hd), L
+        if cfg.n_routed_experts:
+            e, f = cfg.n_routed_experts, cfg.d_expert
+            yield "router.w", (e, d), L
+            for name, shape in (("gate", (e, f, d)), ("up", (e, f, d)),
+                                ("down", (e, d, f))):
+                yield f"experts.{name}", shape, L
+            fs = cfg.d_shared_expert * cfg.n_shared_experts
+            mlp = ((("gate", fs, d), ("up", fs, d), ("down", d, fs))
+                   if cfg.n_shared_experts else ())
+            bias = False
+        elif cfg.mlp_kind == "swiglu":
+            mlp = (("gate", cfg.d_ff, d), ("up", cfg.d_ff, d),
+                   ("down", d, cfg.d_ff))
+            bias = False
+        else:
+            mlp = (("up", cfg.d_ff, d), ("down", d, cfg.d_ff))
+            bias = cfg.mlp_bias
+        for name, out, inp in mlp:
+            yield f"{name}.w", (out, inp), L
+            if bias:
                 yield f"{name}.b", (out,), L
-        yield "wo.w", (d, h * hd), L
-    if cfg.n_routed_experts:
-        e, f = cfg.n_routed_experts, cfg.d_expert
-        yield "router.w", (e, d), L
-        for name, shape in (("gate", (e, f, d)), ("up", (e, f, d)),
-                            ("down", (e, d, f))):
-            yield f"experts.{name}", shape, L
-        fs = cfg.d_shared_expert * cfg.n_shared_experts
-        mlp = ((("gate", fs, d), ("up", fs, d), ("down", d, fs))
-               if cfg.n_shared_experts else ())
-        bias = False
-    elif cfg.mlp_kind == "swiglu":
-        mlp = (("gate", cfg.d_ff, d), ("up", cfg.d_ff, d),
-               ("down", d, cfg.d_ff))
-        bias = False
-    else:
-        mlp = (("up", cfg.d_ff, d), ("down", d, cfg.d_ff))
-        bias = cfg.mlp_bias
-    for name, out, inp in mlp:
-        yield f"{name}.w", (out, inp), L
-        if bias:
-            yield f"{name}.b", (out,), L
     for leaf in norm:
         yield f"final_norm.{leaf}", (d,), 1
     if not cfg.tie_embeddings:
-        yield "lm_head.w", (cfg.vocab, d), 1
+        yield "lm_head.w", (cfg.vocab * max(cfg.n_codebooks, 1), d), 1
 
 
 def analytic_max_nnz(sparsity: float) -> int:

@@ -17,12 +17,15 @@ token index), and a preempted request's re-prefill redraws the same
 token; the hash is not the reference's threefry, so sampled streams are
 compared within the port only. It is plain tensor arithmetic, so a
 captured decode step can sample too. ``generate`` draws row b as uid b.
+A codebook model (musicgen) samples ``[B, n_cb, vocab]`` logits, each
+codebook with noise of its own (the codebook index is folded in), as
+the reference draws each codebook independently.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -32,13 +35,23 @@ from repro_torch.models.config import ModelConfig
 
 
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int, *,
+            embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
             backend: str = "auto") -> Tuple[torch.Tensor, Any]:
-    """Process the prompt; returns (last-token logits, filled cache)."""
+    """Process the prompt; returns (last-token logits, filled cache).
+    ``embeds [B, S, d]`` stand in for the tokens' embeddings (a stubbed
+    modality frontend's output); ``positions`` are explicit prefill
+    positions ([3, B, S] t/h/w ids for M-RoPE). ``tokens`` still sets
+    the batch and the device."""
     cache = transformer.init_cache(cfg, tokens.shape[0], max_len,
                                    device=tokens.device)
-    logits, cache = transformer.forward(params, {"tokens": tokens}, cfg,
-                                        mode="prefill", cache=cache,
-                                        backend=backend)
+    inputs: Dict[str, Any] = {"tokens": tokens}
+    if embeds is not None:
+        inputs["embeds"] = embeds
+    if positions is not None:
+        inputs["positions"] = positions
+    logits, cache = transformer.forward(params, inputs, cfg, mode="prefill",
+                                        cache=cache, backend=backend)
     return logits[:, -1], cache
 
 
@@ -118,13 +131,14 @@ def prefill_into_pages(params, cache, tokens: torch.Tensor,
 def serve_step(params, cache, token: torch.Tensor, pos,
                cfg: ModelConfig, *, backend: str = "auto"
                ) -> Tuple[torch.Tensor, Any]:
-    """One decode step: token [B, 1] at absolute position ``pos`` (an
-    int, or a [B] tensor of per-row positions). Every weight product has
-    N = B, the skinny regime the paper targets."""
+    """One decode step: token [B, 1] (or [B, n_cb, 1]) at absolute
+    position ``pos`` (an int, or a [B] tensor of per-row positions).
+    Every weight product has N = B, the skinny regime the paper
+    targets."""
     logits, cache = transformer.forward(params, {"tokens": token}, cfg,
                                         mode="decode", cache=cache, pos=pos,
                                         backend=backend)
-    return logits[:, -1], cache
+    return (logits[:, 0] if cfg.n_codebooks else logits[:, -1]), cache
 
 
 def accept_drafts(logits: torch.Tensor, tokens: torch.Tensor,
@@ -238,16 +252,20 @@ def _mix64(x: torch.Tensor) -> torch.Tensor:
 
 
 def _slot_noise(seed: int, uids: torch.Tensor, counts: torch.Tensor,
-               vocab: int) -> torch.Tensor:
+                vocab: int, codebooks: int = 0) -> torch.Tensor:
     """Gumbel noise [B, vocab] (f32), a pure function of (seed, uid, token
     index, vocab id): the per-slot counterpart of the reference's keys
-    folded by (uid, token index)."""
+    folded by (uid, token index). With ``codebooks``, [B, codebooks,
+    vocab], the codebook index folded in after the token index."""
     dev = uids.device
     key = _mix64(torch.full_like(uids, seed, dtype=torch.int64) + _GOLDEN)
     key = _mix64(key + uids.to(torch.int64) * _GOLDEN)
     key = _mix64(key + counts.to(torch.int64) * _GOLDEN)
+    if codebooks:
+        cb = torch.arange(codebooks, device=dev, dtype=torch.int64)
+        key = _mix64(key[:, None] + cb[None, :] * _GOLDEN)
     ids = torch.arange(vocab, device=dev, dtype=torch.int64) * _GOLDEN
-    bits = _mix64(key[:, None] + ids[None, :])
+    bits = _mix64(key[..., None] + ids)
     u = (_shr(bits, 41).to(torch.float32) + 0.5) * (2.0 ** -23)  # (0, 1)
     return -torch.log(-torch.log(u))
 
@@ -256,17 +274,19 @@ def sample_per_slot(logits: torch.Tensor, uids: Optional[torch.Tensor],
                     counts: Optional[torch.Tensor], *,
                     temperature: float = 0.0, top_k: int = 0,
                     seed: int = 0) -> torch.Tensor:
-    """Per-slot sampling for continuous batching: logits [B, vocab]; row
-    b draws with noise from (seed, uids[b], counts[b]), so a slot's
-    stream is independent of admission order, slot and preemption.
-    T == 0 is exact greedy (no folds needed): the argmax."""
+    """Per-slot sampling for continuous batching: logits [B, vocab] (or
+    [B, n_cb, vocab], one draw a codebook); row b draws with noise from
+    (seed, uids[b], counts[b]), so a slot's stream is independent of
+    admission order, slot and preemption. T == 0 is exact greedy (no
+    folds needed): the argmax."""
     if temperature == 0.0:
         return torch.argmax(logits, dim=-1)
     logits = logits.to(torch.float32) / temperature
     if top_k:
         vals = torch.topk(logits, top_k, dim=-1).values
         logits = logits.masked_fill(logits < vals[..., -1:], float("-inf"))
-    noise = _slot_noise(seed, uids, counts, logits.shape[-1])
+    noise = _slot_noise(seed, uids, counts, logits.shape[-1],
+                        logits.shape[1] if logits.dim() == 3 else 0)
     return torch.argmax(logits + noise, dim=-1)
 
 
@@ -275,7 +295,8 @@ def generate(params, prompt: torch.Tensor, cfg: ModelConfig, *,
              temperature: float = 0.0, seed: int = 0,
              backend: str = "auto",
              timings: Optional[dict] = None) -> torch.Tensor:
-    """Autoregressive generation: prompt [B, S] -> [B, S + new].
+    """Autoregressive generation: prompt [B, S] -> [B, S + new] (a
+    codebook model: [B, n_cb, S] -> [B, n_cb, S + new]).
 
     ``timings``, when given, receives ``prefill_s`` (prompt through the
     first token) and ``decode_s`` (the remaining steps), host clock around
@@ -303,7 +324,7 @@ def generate(params, prompt: torch.Tensor, cfg: ModelConfig, *,
         sync()
         t1 = time.perf_counter()
         for i in range(max_new_tokens):
-            nxt = tok[:, None]
+            nxt = tok[:, :, None] if cfg.n_codebooks else tok[:, None]
             out.append(nxt)
             if i == max_new_tokens - 1:
                 break

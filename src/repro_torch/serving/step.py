@@ -206,8 +206,9 @@ class DeviceStepper:
         """Run step ``op`` once eagerly (build, first-launch set-up, the
         schedules), then capture it. Raises if the capture fails. The
         eager run writes the K/V the replay writes again, but it advances
-        recurrent state (an RG-LRU layer's ``h`` and ``conv``), which is
-        put back before the capture, so the replay advances it once."""
+        recurrent state (an RG-LRU layer's ``h`` and ``conv``, an SSM
+        layer's ``state`` and ``conv``), which is put back before the
+        capture, so the replay advances it once."""
         fn = getattr(self, f"_{op}_step")
         state = transformer.state_leaves(self.cfg, self.cache)
         saved = [t.clone() for t in state]

@@ -5,8 +5,9 @@ reference's (``repro.serving.budget``), which counts its weight term on
 Every number must be equal: the weight bytes of each weight mode, the
 bytes of a KV block, every ``Plan`` field, and the cases where the budget
 cannot hold the deployment (``ValueError``). recurrentgemma's stack has
-RG-LRU layers and so no paged cache: its block bytes and every plan
-raise the reference's ``ValueError``. No tensor is made.
+RG-LRU layers and mamba2's SSM layers, and so no paged cache: their
+block bytes and every plan raise the reference's ``ValueError``. No
+tensor is made.
 """
 
 import functools
@@ -21,7 +22,8 @@ from repro_torch.serving import budget
 
 ARCHS = ("opt_30b", "opt_66b", "opt_175b", "tinyllama_1_1b", "minicpm3_4b",
          "deepseek_coder_33b", "qwen2_1_5b", "qwen2_moe_a2_7b",
-         "qwen3_moe_30b_a3b", "recurrentgemma_9b")
+         "qwen3_moe_30b_a3b", "recurrentgemma_9b", "mamba2_130m",
+         "qwen2_vl_2b", "musicgen_large")
 BUDGETS = (80e9, 320e9)
 SMOKE_BUDGETS = (80e9, 2e6)
 BLOCKS = (16, 128)

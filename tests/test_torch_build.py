@@ -9,7 +9,10 @@
   largest; for minicpm3 the latent factors stay dense; for the MoE
   configs the routed stacks are 3-D leaves, encoded per expert into
   expert stacks, the router left dense; recurrentgemma's unrolled stack
-  keeps each leaf's own ``max_nnz`` and its RG-LRU ``wa`` in f32.
+  keeps each leaf's own ``max_nnz`` and its RG-LRU ``wa`` in f32;
+  mamba2's SSM weights are not in the launcher's list and stay dense,
+  qwen2-vl's q/k/v bias rides the grouped ``wqkv``, and musicgen's
+  ``[n_cb, V, d]`` embedding is cast whole.
 * ``--hbm-budget-gb`` sizes the paged pool to the reference planner's
   ``n_blocks``; the SLO, fault-plan, digest and trace flags run through
   ``serve.main(..., device="cpu")``.
@@ -38,7 +41,8 @@ def _cast_as_built(params, cfg):
     the RG-LRU ``wa``, read in f32), as ``serve.build`` leaves them."""
     dt = getattr(torch, cfg.dtype)
     params["embed"]["table"] = params["embed"]["table"].to(dt)
-    params["lm_head"]["w"] = params["lm_head"]["w"].to(dt)
+    if "lm_head" in params:                     # untied heads only
+        params["lm_head"]["w"] = params["lm_head"]["w"].to(dt)
     for path, leaf in pruning._walk(params["layers"]):
         if path.endswith("['w']") and not any(
                 f"['{k}']" in path for k in serve.KEEP_AS_DRAWN) \
@@ -86,7 +90,9 @@ def _assert_same(a, b, path=""):
     for n in (None, 4)] + [("qwen2_moe_a2_7b", None),
                            ("qwen3_moe_30b_a3b", 4),
                            ("recurrentgemma_9b", None),
-                           ("recurrentgemma_9b", 6)])
+                           ("recurrentgemma_9b", 6),
+                           ("mamba2_130m", None), ("qwen2_vl_2b", None),
+                           ("musicgen_large", 4)])
 def test_layered_build_equals_whole_tree_build(arch, n_layers):
     cfg = configs.smoke(arch)
     if n_layers:
@@ -98,12 +104,17 @@ def test_layered_build_equals_whole_tree_build(arch, n_layers):
         attn = got["layers"][0]["attn"]
         assert attn["w_uq"]["w"].dtype == torch.bfloat16
         assert attn["w_ukv"]["w"].dtype == torch.float32
+    if cfg.n_codebooks:
+        assert got["embed"]["table"].dim() == 3
+        assert got["embed"]["table"].dtype == torch.bfloat16
     if cfg.family == "hybrid":
         rg = got["layers"][0]["rglru"]
         assert rg["wa"]["w"].dtype == torch.float32
         assert rg["w_x"]["w"].dtype == torch.bfloat16
     csl = serve.tiled_csl_leaves(got)
-    assert rep["n_tiled_csl"] == len(csl) > 0
+    assert rep["n_tiled_csl"] == len(csl)
+    # the launcher's list names no SSM weight: mamba2 stays dense
+    assert (len(csl) > 0) == (cfg.family != "ssm")
     assert rep["sparse_bytes"] == sum(t.nbytes_sparse for t in csl)
     assert rep["weight_bytes"] == serve.params_bytes(got)
     assert rep["encode_s"] > 0 and rep["build_s"] >= rep["encode_s"]

@@ -970,3 +970,79 @@ def test_moe_graphed_decode_equals_eager(cuda, paged):
             assert torch.equal(a[name], b[name])
     per = graphed.graph_launches
     assert any(per.get(k, 0) for k in spmm.BATCHED_KERNELS), per
+
+
+# ---------------------------------------------------------------------------
+# the SSM, vlm and audio families
+# ---------------------------------------------------------------------------
+
+def test_ssm_graphed_decode_equals_eager(cuda):
+    """A mamba2 smoke model: six graphed decode steps give the eager
+    steps' tokens and leave bit-identical state and conv leaves, the
+    state advanced once a step (the capture's warm-up restores it)."""
+    cfg = configs.smoke("mamba2_130m")
+    params, _ = serve.build(cfg, seed=0, sparsity=0.8, device=cuda)
+    (graphed, eager), first, lens, tables = _stepper_pair(
+        cuda, False, params_cfg=(params, cfg))
+    toks = {id(graphed): first, id(eager): first}
+    for i in range(6):
+        for st in (graphed, eager):
+            tok, ok = st.decode(toks[id(st)], lens + i, tables,
+                                np.arange(4), np.full(4, i + 1))
+            assert ok.all()
+            toks[id(st)] = tok
+        assert np.array_equal(toks[id(graphed)], toks[id(eager)])
+    for a, b in zip(graphed.cache, eager.cache):
+        assert sorted(a) == ["conv", "state"]
+        for name in a:
+            assert torch.equal(a[name], b[name]), name
+    assert graphed.captures["decode"] == 1
+
+
+@pytest.mark.parametrize("L", [1, 255, 256, 257])
+def test_ssm_full_width_prefill_equals_token_by_token(cuda, L):
+    """One mamba2-130m block at full width in f32 on the card: the chunked
+    prefill's final state and conv cache equal the same input fed token
+    by token through ``ssm_decode``, within 1e-4 relative."""
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(configs.get("mamba2_130m"), n_layers=1,
+                              dtype="float32")
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    p = ssm.init_ssm(gen, cfg, cuda)
+    x = torch.randn((2, L, cfg.d_model), generator=gen, device=cuda)
+    _, whole = ssm.ssm_block(p, x, cfg, cache=ssm.init_ssm_cache(cfg, 2, cuda))
+    steps = ssm.init_ssm_cache(cfg, 2, cuda)
+    for t in range(L):
+        _, steps = ssm.ssm_decode(p, x[:, t:t + 1], steps, cfg)
+    for name in ("state", "conv"):
+        torch.testing.assert_close(whole[name], steps[name], rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_vl_2b", "musicgen_large"])
+def test_one_full_width_layer_matches_plain(cuda, arch):
+    """One layer of qwen2-vl-2b (M-RoPE, GQA with bias, SwiGLU) and of
+    musicgen-large (MHA, LayerNorm, GELU with biases, 4 codebooks) at
+    full width, Tiled-CSL at 0.8: prefill (8 x 64 positions) and one
+    decode step (N = 8) through the kernels, which must launch an
+    ungrouped and a grouped LSCD kernel, against the plain versions
+    (bf16, 3e-2)."""
+    cfg = dataclasses.replace(configs.get(arch), n_layers=1)
+    params, _ = serve.build(cfg, seed=0, sparsity=0.8, device=cuda)
+    prompts = serve.make_prompts(cfg, 8, 64, 0, cuda)
+    before = spmm.launch_counts()
+    out = {}
+    for backend in ("cuda", "torch"):
+        last, cache = engine.prefill(params, prompts, cfg, 66,
+                                     backend=backend)
+        tok = torch.argmax(last, dim=-1)[..., None]
+        step, _ = engine.serve_step(params, cache, tok, 64, cfg,
+                                    backend=backend)
+        out[backend] = (last.float(), step.float())
+    ran = {k: n - before[k] for k, n in spmm.launch_counts().items()}
+    # select splits or not by shape, so which of each pair runs varies
+    assert ran["lscd_spmm"] + ran["lscd_spmm_splitk"] > 0, ran
+    assert ran["lscd_spmm_grouped"] + ran["lscd_spmm_splitk_grouped"] > 0, ran
+    for got, want in zip(out["cuda"], out["torch"]):
+        torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)

@@ -6,9 +6,12 @@
 * Entry points called with no ``device`` on a box without CUDA raise
   instead of running on the CPU.
 * A kernel wrapper given a CPU tensor with ``backend="cuda"`` raises.
+* Every config of the JAX package has its copy in the port, which the
+  port's family check accepts.
 """
 
 import ast
+import dataclasses
 import pathlib
 import re
 
@@ -16,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as ref_configs
 from repro_torch import configs, convert
 from repro_torch.core import tiled_csl
 from repro_torch.kernels import ops, spmm
@@ -135,3 +139,19 @@ def test_kernel_sources_carry_their_note():
         text = re.sub(r"\s*\n//\s*", " ", (csrc / f"{name}.cu").read_text())
         assert note in text
         assert "Bound on an H100" in text
+
+
+_REF_ARCHS = ref_configs.ARCH_IDS + ref_configs.PAPER_IDS
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", _REF_ARCHS)
+def test_port_serves_every_reference_config(arch, smoke):
+    """Every config of the JAX package has the port's own copy, equal
+    field for field, and ``transformer``'s family check accepts it."""
+    get = "smoke" if smoke else "get"
+    pcfg = getattr(configs, get)(arch)
+    assert dataclasses.asdict(pcfg) == dataclasses.asdict(
+        getattr(ref_configs, get)(arch))
+    transformer._check_family(pcfg)
+    assert configs.LONG_CTX_ARCHS == ref_configs.LONG_CTX_ARCHS
