@@ -189,18 +189,45 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    refusal of a codebook config, and ``engine.generate`` on 8 prompts
    of [4, 256] for 64 greedy frames (all four LSCD kernels launched,
    every launch configuration against its plain version, frames/s);
-14. prints the kernels' JSON line (launches of the slice, the serving
+14. train phase: tinyllama_1_1b at full width and depth (22 layers)
+   trained through ``launch/train.py``'s functions: f32 params, AdamW at
+   the launcher's defaults, 0.8 masks by the reference launcher's rule,
+   ``SyntheticLM`` batches of 8 x 512, 30 steps (every loss finite, the
+   mean of the last 5 below step 1's, no masked weight nonzero after any
+   step), ms/step and tokens/s over steps 6-30 and the peak allocated
+   bytes, step 1's loss and gradient norm with bf16 compute beside f32
+   compute; an asynchronous checkpoint at step 15, ``--resume`` from it
+   through step 20 bit for bit against the straight run (deterministic
+   algorithms; an op without a deterministic kernel is named and the
+   gate falls back to the losses within 1e-3); one 4-layer f32 step on
+   the card against the CPU (loss within 1e-4, each gradient leaf within
+   1e-3 of its largest value); then the step-30 checkpoint read through
+   ``convert.params_from_checkpoint`` and built at 0.8 with its trained
+   masks (each encoded ``nnz`` equal to its mask's count), served over
+   16 slots (16 requests of 32-384 tokens, 32 new) graph on and off
+   (identical streams) with the kernel profiler on, its drift table of
+   CUDA-event times (beside the kernel table's time where a shape is
+   shared), first-step logits within ``depth_logits_tol(22)``, every
+   launch configuration against its plain version, and a
+   ``StreamingServer`` snapshot after step 8 restored into a new server:
+   each (session, index) delivered once, every token streamed before the
+   snapshot the uninterrupted run's, and after it equal to it or parted
+   at a near tie (the restored sessions re-prefill their tokens);
+15. prints the kernels' JSON line (launches of the slice, the serving
    runs, the window runs, the full-depth run, the tinyllama run, the
    MLA runs, the MoE runs, the hybrid runs, the ring runs and the ssm,
-   vlm and audio runs, the serving ones also by prefill and decode, the
-   window ones also by verify and mixed), the card line, and last
+   vlm, audio and train runs, the serving ones also by prefill and
+   decode, the window ones also by verify and mixed), the card line, and
+   last
    ``{"ok": true, "device": {...}}``; the
    full summary goes to ``chiprun_out/chip_smoke.json``.
 
 Any failure raises and exits non-zero. The plain versions run with
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (full f32 matmuls).
 The script sets ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True``
-unless the environment sets it (``ALLOC_CONF``).
+unless the environment sets it (``ALLOC_CONF``), and
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` likewise (``CUBLAS_WORKSPACE``: the
+train phase's deterministic resume needs it).
 """
 
 from __future__ import annotations
@@ -4054,6 +4081,604 @@ def audio_phase(torch, mods) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# train phase: masked training of tinyllama-1.1b, checkpoints, resume, and
+# the trained checkpoint served through the LSCD kernels
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "tinyllama_1_1b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 512
+TRAIN_SAVE_AT, TRAIN_RESUME_TO = 15, 20
+TRAIN_TIMED_FROM = 6                     # steps 6-30 timed
+TRAIN_PROFILED = 5                       # under torch.profiler, untimed
+TRAIN_LATE = 5                           # the mean of the last 5 losses
+# The card-against-CPU step: 4 layers at full width, f32, TF32 off. Both
+# sides round attention's K/V to bf16 as the reference does, and the
+# backward rounds their cotangents to bf16 too: a last-bit difference
+# moves such an element by one bf16 ulp (a flip), which moved a gradient
+# leaf by 3.2e-3 of its largest value (measured on one H100). So the card
+# is held to the CPU with each rounding's result taken from the CPU run,
+# forward and backward (``_KVForcing``), after checking that the card's
+# own roundings differ from it only by rounding noise: no element by more
+# than one bf16 ulp of the tensor's largest element (a small element is
+# an f32 sum that cancelled, whose last bits differ more; 2.7% of a
+# cotangent's elements differed so, measured on one H100).
+TRAIN_GATE_LAYERS, TRAIN_GATE_BATCH, TRAIN_GATE_SEQ = 4, 2, 128
+TRAIN_GATE_LOSS_RTOL, TRAIN_GATE_GRAD_TOL = 1e-4, 1e-3
+TRAIN_SNAPSHOT_AT = 8                    # server steps before the snapshot
+
+
+def _train_args(mods, ckpt_dir, *extra):
+    return mods["train"].parse_args(
+        ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+         "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+         "--sparsity", str(SPARSITY), "--seed", str(SEED),
+         "--ckpt-dir", ckpt_dir, *extra])
+
+
+def _masked_nonzeros(torch, ft, params, masks) -> int:
+    """Masked positions that hold a nonzero, over every masked leaf (one
+    read back)."""
+    by_path = dict(ft.flatten_with_paths(params))
+    total = torch.zeros((), dtype=torch.int64, device="cuda")
+    for path, m in ft.flatten_with_paths(masks):
+        total += ((by_path[path] != 0) & ~m).sum()
+    return int(total)
+
+
+class _KVForcing:
+    """Wraps ``attention._attend`` (one call a layer here: no q-chunks).
+    Recording (the CPU run) keeps each call's bf16 K and V and, by hooks,
+    their bf16 cotangents. Forcing (the card run) checks the card's K/V
+    and, in the backward, its cotangents against the recorded ones (no
+    element off by more than one bf16 ulp of the largest) and carries on
+    with the recorded values: its own gradient path, the CPU's
+    rounding."""
+
+    def __init__(self, torch, attention):
+        self.attention = attention
+        self.values, self.grads, self.flips = [], {}, []
+        self.mode, self.i = None, 0
+        owner = self
+
+        class Force(torch.autograd.Function):
+            """Forward the recorded value; backward the recorded
+            cotangent, once the card's own is checked against it."""
+
+            @staticmethod
+            def forward(ctx, x, value, grad, tag):
+                ctx.grad, ctx.tag = grad, tag
+                return value.clone()
+
+            @staticmethod
+            def backward(ctx, g):
+                owner._check(f"{ctx.tag} cotangent", g, ctx.grad)
+                return ctx.grad, None, None, None
+        self.force = Force
+
+    def __call__(self, mode):
+        self.mode, self.i = mode, 0
+        return self
+
+    def __enter__(self):
+        self.orig = self.attention._attend
+        self.attention._attend = self._attend
+        return self
+
+    def __exit__(self, *exc):
+        self.attention._attend = self.orig
+
+    def _check(self, what, got, want):
+        g, w = got.float(), want.float()
+        n = int((g != w).sum())
+        gap = float((g - w).abs().max())
+        ulp = float(w.abs().max()) * 2.0 ** -7
+        check(gap <= ulp,
+              f"train: 4-layer step: {what}: {n} of {w.numel()} elements "
+              f"differ from the CPU's, at most by {gap:.3e} (one bf16 ulp "
+              f"of the largest: {ulp:.3e})")
+        self.flips.append((what, n, w.numel(), gap / ulp if ulp else 0.0))
+
+    def _attend(self, q, k, v, valid):
+        i = self.i
+        self.i += 1
+        if self.mode == "record":
+            self.values.append((k.detach().clone(), v.detach().clone()))
+            for name, t in (("k", k), ("v", v)):
+                t.register_hook(lambda g, key=(i, name): self.grads.
+                                __setitem__(key, g.detach().clone()))
+            return self.orig(q, k, v, valid)
+        forced = []
+        for name, t, want in zip("kv", (k, v), self.values[i]):
+            want = want.to(t.device)
+            self._check(f"layer {i} {name}", t.detach(), want)
+            forced.append(self.force.apply(
+                t, want, self.grads[(i, name)].to(t.device),
+                f"layer {i} {name}"))
+        return self.orig(q, forced[0], forced[1], valid)
+
+
+def _worst_leaf(ft, got, want):
+    worst, worst_path = 0.0, None
+    for (path, g), (_, w) in zip(ft.flatten_with_paths(got),
+                                 ft.flatten_with_paths(want)):
+        scale = float(w.abs().max())
+        rel = float((g.cpu() - w).abs().max()) / scale if scale else 0.0
+        if rel > worst:
+            worst, worst_path = rel, path
+    return worst, worst_path
+
+
+def _train_numerics_gate(torch, mods, cfg) -> dict:
+    """One f32 train step of ``cfg`` cut to 4 layers (TF32 off) on the card
+    against the same step of the port on the CPU, from the same masked
+    params and batch: loss within ``TRAIN_GATE_LOSS_RTOL``, each gradient
+    leaf within ``TRAIN_GATE_GRAD_TOL`` of its largest absolute value,
+    with the bf16 K/V roundings taken from the CPU run once the card's
+    own are shown to differ only by flips (``_KVForcing``); the same
+    step without that is printed."""
+    transformer, train, train_loop, optimizer, data, ft = (
+        mods[x] for x in ("transformer", "train", "train_loop", "optimizer",
+                          "data", "ft"))
+    cfg4 = dataclasses.replace(cfg, n_layers=TRAIN_GATE_LAYERS,
+                               dtype="float32")
+    cpu = transformer.init_model(cfg4, seed=SEED, device="cpu")
+    cpu = optimizer.apply_masks(cpu, train.reference_masks(cpu, cfg4,
+                                                           SPARSITY))
+    card = optimizer.tree_map(lambda t: t.to("cuda"), cpu)
+    batch = data.SyntheticLM(cfg.vocab, TRAIN_GATE_SEQ + 1, TRAIN_GATE_BATCH,
+                             seed=SEED).next_batch()
+    forcing = _KVForcing(torch, mods["attention"])
+    t0 = time.perf_counter()
+    with forcing("record"):
+        want = train_loop.value_and_grad(
+            cpu, train_loop.batch_to(batch, "cpu"), cfg4)
+    cpu_s = time.perf_counter() - t0
+    free = train_loop.value_and_grad(
+        card, train_loop.batch_to(batch, "cuda"), cfg4)
+    free_worst = _worst_leaf(ft, free[2], want[2])
+    del free
+    with forcing("force"):
+        got = train_loop.value_and_grad(
+            card, train_loop.batch_to(batch, "cuda"), cfg4)
+    check(len(forcing.flips) == 4 * TRAIN_GATE_LAYERS,
+          f"train: 4-layer step: {len(forcing.flips)} roundings checked")
+    loss_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    check(loss_rel <= TRAIN_GATE_LOSS_RTOL,
+          f"train: 4-layer f32 loss on the card {float(got[0])} vs CPU "
+          f"{float(want[0])}: {loss_rel:.3e} relative")
+    worst, worst_path = _worst_leaf(ft, got[2], want[2])
+    check(worst <= TRAIN_GATE_GRAD_TOL,
+          f"train: 4-layer f32 gradient {worst_path} on the card is "
+          f"{worst:.3e} of its largest value from the CPU's")
+    flipped = sum(f[1] for f in forcing.flips)
+    total = sum(f[2] for f in forcing.flips)
+    widest = max(f[3] for f in forcing.flips)
+    print(f"train: 4-layer f32 step (TF32 off, batch {TRAIN_GATE_BATCH} x "
+          f"{TRAIN_GATE_SEQ}) card vs CPU: loss {float(got[0]):.6f} vs "
+          f"{float(want[0]):.6f} ({loss_rel:.2e} relative, tolerance "
+          f"{TRAIN_GATE_LOSS_RTOL}), worst gradient leaf {worst_path} "
+          f"{worst:.2e} of its largest value (tolerance "
+          f"{TRAIN_GATE_GRAD_TOL}) with the CPU's bf16 K/V roundings; the "
+          f"card's own differed in {flipped} of {total} elements, at most "
+          f"by {widest:.2f} bf16 ulp of the tensor's largest element; "
+          f"without the CPU's roundings the worst leaf is "
+          f"{free_worst[1]} at {free_worst[0]:.2e}; CPU step {cpu_s:.1f} s",
+          flush=True)
+    del cpu, card, got, want
+    release(torch)
+    return dict(loss_rel=loss_rel, worst_grad_rel=worst,
+                worst_grad_leaf=worst_path, flips=forcing.flips,
+                unforced_worst_grad_rel=free_worst[0],
+                unforced_worst_grad_leaf=free_worst[1], cpu_s=cpu_s)
+
+
+def _host_state(torch, ft, state) -> dict:
+    """Every leaf of a train state, copied to page-locked host memory, by
+    path: a copy on
+    the card would crowd the steps after it, and the resume check could
+    not hold both states beside its own (on one H100 it ran out of the
+    card's 80 GB)."""
+    return {p: torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+            for p, t in ft.flatten_with_paths(state)}
+
+
+def _profile_train_step(torch, step_fn, state, batch) -> tuple:
+    """One train step under ``torch.profiler``, device activity only (the
+    host side's ten thousand ops would take seconds to collect): (the
+    new state and metrics, the device summary)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    return out, _device_summary(torch, prof, wall_s, 1)
+
+
+def _resume_check(torch, mods, ck_train, straight, straight_losses):
+    """(d): ``--resume`` through the launcher's ``setup`` from the step-15
+    checkpoint, five steps, and each leaf of the result against the
+    straight run's step-20 state (``straight``: path -> host copy).
+    Returns the report."""
+    train, train_loop, ft = (mods[x] for x in ("train", "train_loop", "ft"))
+    t0 = time.perf_counter()
+    again = train.setup(_train_args(mods, ck_train, "--resume"), "cuda")
+    restore_s = time.perf_counter() - t0
+    check(again["start"] == TRAIN_SAVE_AT,
+          f"train: resumed at {again['start']}, not {TRAIN_SAVE_AT}")
+    step_fn = train_loop.make_train_step(again["cfg"], again["opt"],
+                                         masks=again["masks"])
+    state, losses = again["state"], []
+    for _ in range(TRAIN_SAVE_AT, TRAIN_RESUME_TO):
+        batch = train_loop.batch_to(again["stream"].next_batch(), "cuda")
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+    got = ft.flatten_with_paths(state)
+    differ = [p for p, t in got if not torch.equal(t, straight[p].to(t))]
+    del again, state, step_fn, metrics, batch, got
+    release(torch)
+    return dict(restore_s=restore_s, losses=losses, leaves=len(straight),
+                differ=differ, straight_losses=straight_losses)
+
+
+def _train_run(torch, mods, ck_train, ck_serve):
+    """(a)-(d): the f32-compute step beside the bf16 one at 22 layers, 30
+    masked steps (gates: finite, falling loss, no masked weight nonzero
+    after any step; step 5, untimed, under the profiler for where its
+    time goes), the asynchronous save at step 15, the step-30
+    checkpoint for serving (written while the resume runs), and
+    ``--resume`` from step 15 through step 20 against the straight run,
+    bit for bit under deterministic algorithms. Returns the report and
+    the serving checkpoint's manager (``wait`` before reading)."""
+    import warnings
+
+    import numpy as np
+    train, train_loop, optimizer, data, ft = (
+        mods[x] for x in ("train", "train_loop", "optimizer", "data", "ft"))
+    args = _train_args(mods, ck_train)
+    torch.cuda.reset_peak_memory_stats()
+    run = train.setup(args, "cuda")
+    cfg, state, masks, stream, mgr = (run[k] for k in (
+        "cfg", "state", "masks", "stream", "mgr"))
+    counts = train.mask_counts(masks)
+    kept = sum(counts.values())
+    total = sum(m.numel() for _, m in ft.flatten_with_paths(masks))
+    print(f"train: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}; f32 params and AdamW ({args.lr} peak, warmup "
+          f"{args.warmup}, cosine over {args.steps}); {len(counts)} masked "
+          f"weights, {kept} of {total} kept ({kept / total:.4f}) by the "
+          f"reference launcher's rule; batch {args.batch} x seq {args.seq}",
+          flush=True)
+    first = train_loop.batch_to(data.SyntheticLM(
+        cfg.vocab, args.seq, args.batch, seed=SEED).next_batch(), "cuda")
+    f32 = train_loop.value_and_grad(state.params, first,
+                                    dataclasses.replace(cfg, dtype="float32"))
+    f32_loss = float(f32[0])
+    f32_gnorm = float(optimizer.global_norm(f32[2]))
+    del f32, first
+    release(torch)
+    step_fn = train_loop.make_train_step(cfg, run["opt"], masks=masks)
+    log = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for s in range(TRAIN_STEPS):
+                batch = train_loop.batch_to(stream.next_batch(), "cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if s + 1 == TRAIN_PROFILED:
+                    (state, metrics), prof = _profile_train_step(
+                        torch, step_fn, state, batch)
+                else:
+                    state, metrics = step_fn(state, batch)
+                loss = float(metrics["loss"])          # waits for the step
+                gnorm = float(metrics["grad_norm"])
+                dt = time.perf_counter() - t0
+                leaks = _masked_nonzeros(torch, ft, state.params, masks)
+                check(leaks == 0, f"train: {leaks} masked weights are "
+                      f"nonzero after step {s + 1}")
+                log.append(dict(step=s + 1, loss=loss, grad_norm=gnorm,
+                                ms=dt * 1e3))
+                print(f"train: step {s + 1:3d} loss {loss:.4f} gnorm "
+                      f"{gnorm:.3f} {dt * 1e3:.1f} ms; masked weights all "
+                      f"zero", flush=True)
+                if s + 1 == TRAIN_SAVE_AT:
+                    t_save = time.perf_counter()
+                    mgr.save(s + 1, (state, stream.state_dict()),
+                             extra=train.checkpoint_extra(args))
+                    save_call_s = time.perf_counter() - t_save
+                if s + 1 == TRAIN_RESUME_TO:
+                    t_copy = time.perf_counter()
+                    at20 = _host_state(torch, ft, state)
+                    at20_s = time.perf_counter() - t_copy
+            peak = torch.cuda.max_memory_allocated()
+            t_wait = time.perf_counter()
+            mgr.wait()
+            wait_s = time.perf_counter() - t_wait
+            t_final = time.perf_counter()
+            serve_mgr = ft.CheckpointManager(ck_serve, async_save=True)
+            serve_mgr.save(TRAIN_STEPS, (state, stream.state_dict()),
+                           extra=train.checkpoint_extra(args))
+            final_copy_s = time.perf_counter() - t_final
+            del state, metrics, batch, step_fn, run, stream, mgr
+            release(torch)
+            resume = _resume_check(
+                torch, mods, ck_train, at20,
+                [r["loss"] for r in log[TRAIN_SAVE_AT:TRAIN_RESUME_TO]])
+            del at20
+        finally:
+            torch.use_deterministic_algorithms(False)
+        det_warnings = sorted({str(w.message).split("\n")[0]
+                               for w in caught
+                               if "deterministic" in str(w.message)})
+    differ = resume["differ"]
+    if det_warnings:
+        print(f"train: ops without a deterministic kernel: {det_warnings}",
+              flush=True)
+    check(not differ or det_warnings,
+          f"train: the resumed run's step {TRAIN_RESUME_TO} differs from "
+          f"the straight run's in {len(differ)} leaves (first {differ[:3]}),"
+          f" and no op reported a nondeterministic kernel")
+    check(not differ or max(abs(a - b) / abs(b) for a, b in zip(
+              resume["losses"], resume["straight_losses"])) < 1e-3,
+          f"train: resumed losses {resume['losses']} vs "
+          f"{resume['straight_losses']}")
+    print(f"train: resumed from the step-{TRAIN_SAVE_AT} checkpoint "
+          f"(restore {resume['restore_s']:.1f} s; the step-{TRAIN_RESUME_TO} "
+          f"copy {at20_s:.1f} s) through step {TRAIN_RESUME_TO}: "
+          + ("bit for bit equal to the straight run in all "
+             f"{resume['leaves']} leaves (params, mu, nu, steps)"
+             if not differ else
+             f"{len(differ)} leaves differ, within the stated tolerance")
+          + f"; losses {resume['losses']} vs {resume['straight_losses']}",
+          flush=True)
+    losses = [r["loss"] for r in log]
+    check(all(np.isfinite(losses)), f"train: a loss is not finite: {losses}")
+    late = float(np.mean(losses[-TRAIN_LATE:]))
+    check(late < losses[0], f"train: the mean loss of steps "
+          f"{TRAIN_STEPS - TRAIN_LATE + 1}-{TRAIN_STEPS} ({late:.4f}) is not "
+          f"below step 1's ({losses[0]:.4f})")
+    timed = [r["ms"] for r in log[TRAIN_TIMED_FROM - 1:]]
+    ms_step = float(np.mean(timed))
+    tokens = TRAIN_BATCH * (TRAIN_SEQ - 1)
+    out = dict(losses=losses, grad_norms=[r["grad_norm"] for r in log],
+               step_ms=[r["ms"] for r in log], ms_per_step=ms_step,
+               ms_per_step_median=float(np.median(timed)),
+               tokens_per_step=tokens, tokens_per_s=tokens / ms_step * 1e3,
+               peak_allocated=peak, late_mean_loss=late,
+               f32_compute=dict(loss=f32_loss, grad_norm=f32_gnorm),
+               bf16_compute=dict(loss=losses[0],
+                                 grad_norm=log[0]["grad_norm"]),
+               mask_counts=counts, resume_bit_exact=not differ,
+               resume_differ=len(differ), nondeterministic_ops=det_warnings,
+               resume_restore_s=resume["restore_s"], at20_copy_s=at20_s,
+               save_call_s=save_call_s, async_wait_s=wait_s,
+               final_copy_s=final_copy_s, profile=prof)
+    print(f"train: steps {TRAIN_TIMED_FROM}-{TRAIN_STEPS}: "
+          f"{ms_step:.1f} ms/step (median {out['ms_per_step_median']:.1f}), "
+          f"{out['tokens_per_s']:.0f} tokens/s ({tokens} tokens a step); "
+          f"peak allocated {peak} B; loss {losses[0]:.4f} at step 1, mean "
+          f"{late:.4f} over the last {TRAIN_LATE}; step 1 at "
+          f"{cfg.n_layers} layers with bf16 compute: loss {losses[0]:.4f}, "
+          f"gnorm {log[0]['grad_norm']:.3f}; with f32 compute: loss "
+          f"{f32_loss:.4f}, gnorm {f32_gnorm:.3f}; step-{TRAIN_SAVE_AT} save "
+          f"{save_call_s:.1f} s to copy, {wait_s:.1f} s more to finish its "
+          f"write; step-{TRAIN_STEPS} save {final_copy_s:.1f} s to copy",
+          flush=True)
+    if prof["busy_share"] is None:
+        print("train: the profiler saw no device activity; the busy share "
+              "is not measured", flush=True)
+    else:
+        print(f"train: step {TRAIN_PROFILED} under torch.profiler: "
+              f"{prof['wall_ms_per_step']:.1f} ms wall, device busy "
+              f"{prof['busy_ms_per_step']:.1f} ms "
+              f"({100 * prof['busy_share']:.1f}%)", flush=True)
+        for ms, n, name in prof["top"]:
+            print(f"train:   step {ms:8.3f} ms {n:5d} calls  {name}")
+    return out, serve_mgr
+
+
+def _drift_beside_table(rows, table) -> list:
+    """Each drift row with the kernel table's time where the table has the
+    same launch (kernel, M, K, N, group)."""
+    def kernel_of(r):
+        base = {"spmm": "lscd_spmm", "spmm_grouped": "lscd_spmm_grouped",
+                "spmm_batched": "lscd_spmm_batched"}[r["kind"]]
+        if r["schedule"]["split_k"] > 1:
+            base = base.replace("lscd_spmm", "lscd_spmm_splitk")
+        return base
+    known = {(t["kernel"], t["m"], t["k"], t["n"], t["group"]): t["ms"]
+             for t in table}
+    out = []
+    for r in rows:
+        key = (kernel_of(r), r["m"], r["k"], r["n"],
+               r["experts"] if r["kind"] == "spmm_batched" else r["group"])
+        out.append(dict(r, kernel=key[0], table_ms=known.get(key)))
+    return out
+
+
+def _serve_trained(torch, mods, ck_serve, counts_by_path) -> dict:
+    """(e)-(f): the step-30 checkpoint built at sparsity 0.8 with its
+    trained masks, served graph on and off (identical streams), profiled,
+    its first decode step against the plain path, a snapshot after step 8
+    restored into a new server, and every launch configuration against
+    its plain version."""
+    convert, serve, train, spmm, api, tiled_csl, obs_profile, ft = (
+        mods[x] for x in ("convert", "serve", "train", "spmm", "api",
+                          "tiled_csl", "obs_profile", "ft"))
+    import numpy as np
+    cfg = mods["configs"].get(TRAIN_ARCH)
+    mods["ops"].SCHEDULES.clear()
+    t0 = time.perf_counter()
+    src, meta = convert.params_from_checkpoint(ck_serve, device="cuda")
+    check(meta["step"] == TRAIN_STEPS and meta["extra"].get("sparsity")
+          == SPARSITY, f"train: served checkpoint manifest {meta['extra']}")
+    params, built = serve.build(
+        cfg, sparsity=SPARSITY, device="cuda", source=src,
+        masked=lambda path: train.masked_leaf(cfg, path, 2))
+    del src
+    release(torch)
+    load_s = time.perf_counter() - t0
+    grouped = {"wq": ("wqkv", 0), "wk": ("wqkv", 1), "wv": ("wqkv", 2),
+               "gate": ("gate_up", 0), "up": ("gate_up", 1)}
+    bad = []
+    for path, n in counts_by_path.items():
+        _, i, sub, name, _ = ft.split_path(path)
+        leaf = params["layers"][i][sub]
+        if name in grouped and grouped[name][0] in leaf:
+            t = tiled_csl.group_slice(leaf[grouped[name][0]]["w"],
+                                      grouped[name][1])
+        else:
+            t = leaf[name]["w"]
+        if int(t.nnz.sum()) != n:
+            bad.append((path, int(t.nnz.sum()), n))
+    check(not bad, f"train: encoded nnz differs from the trained masks: "
+          f"{bad[:4]}")
+    print(f"train: step-{TRAIN_STEPS} checkpoint read and built in "
+          f"{load_s:.1f} s: {built['n_tiled_csl']} Tiled-CSL weights, "
+          f"{built['sparse_bytes']} B; each of the {len(counts_by_path)} "
+          f"encoded weights holds exactly its trained mask's "
+          f"{sum(counts_by_path.values())} nonzeros in all", flush=True)
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(*SERVE_PROMPT, TINY_REQUESTS)
+    reqs = [rng.integers(0, cfg.vocab, int(n)).astype(np.int64)
+            for n in lengths]
+    probe = LaunchProbe(spmm)
+    prof = obs_profile.KernelProfiler()
+    runs, events = {}, []
+    with probe:
+        spmm.reset_launch_counts()
+        with obs_profile.profiled(prof):
+            server, on, runs["graph"] = _closed_loop(
+                torch, mods, params, cfg, reqs, probe, paged=True,
+                graph=True, new=TINY_NEW, label="train-serve")
+        del server
+        release(torch)
+        server, off, runs["eager"] = _closed_loop(
+            torch, mods, params, cfg, reqs, probe, paged=True, graph=False,
+            new=TINY_NEW, label="train-serve")
+        del server
+        release(torch)
+        check(on == off, "train-serve: streams differ with the graph on "
+              "and off")
+        # (f) a snapshot after step 8, restored into a new server
+        probe.phase = "snapshot"
+        snap_dir = os.path.join(os.path.dirname(ck_serve), "snapshot")
+        config = _serve_config(mods, paged=True)
+        first = api.StreamingServer(params, cfg, config=config, graph=True)
+        for i, p in enumerate(reqs):
+            first.submit(api.GenerationRequest(
+                p, TINY_NEW, session_id=f"r{i}", on_token=events.append))
+        for _ in range(TRAIN_SNAPSHOT_AT):
+            first.step()
+        check(first.busy, f"train-snapshot: drained in "
+              f"{TRAIN_SNAPSHOT_AT} steps")
+        path = first.snapshot(snap_dir)
+        n_before, live = len(events), sorted(first.live_sessions())
+        del first
+        release(torch)
+        second = api.StreamingServer.restore(snap_dir, params, cfg,
+                                             on_token=events.append,
+                                             config=config, graph=True)
+        check(sorted(second.live_sessions()) == live,
+              "train-snapshot: the restored server's sessions differ")
+        second.run_until_drained()
+        del second
+        release(torch)
+        counts = spmm.launch_counts()
+    got = {}
+    for ev in events:
+        got.setdefault(ev.session_id, []).append((ev.index, ev.token))
+    dup = [sid for sid, pairs in got.items()
+           if [i for i, _ in pairs] != list(range(len(pairs)))]
+    check(not dup, f"train-snapshot: duplicated, missing or out-of-order "
+          f"token events for {dup[:4]}")
+    before = [ev for ev in events[:n_before]
+              if ev.token != on[ev.session_id][ev.index]]
+    check(not before, f"train-snapshot: {len(before)} tokens streamed "
+          f"before the snapshot differ from the uninterrupted run")
+    # The restored sessions re-prefill prompt + generated tokens, whose
+    # bf16 K/V are not the decode steps' bit for bit: streams may part at
+    # a near tie after the snapshot, by the rule of the window phase.
+    cut = _near_tie_streams(
+        torch, mods, params, cfg, {f"r{i}": p for i, p in enumerate(reqs)},
+        {sid: [t for _, t in pairs] for sid, pairs in got.items()}, on,
+        "train-snapshot")
+    print(f"train-snapshot: {path} after {TRAIN_SNAPSHOT_AT} steps "
+          f"({n_before} events, {len(live)} live sessions, each the "
+          f"uninterrupted graphed run's), restored and drained: each "
+          f"(session, index) once, {len(events)} events", flush=True)
+    out = dict(build_s=built["build_s"], load_and_build_s=load_s,
+               sparse_bytes=built["sparse_bytes"], runs=runs,
+               snapshot_events=len(events), snapshot_before=n_before,
+               snapshot_cut=cut)
+    out.update(_served_summary(torch, mods, runs, counts, probe, cfg,
+                               "train-serve", SERVE_SLOTS))
+    tol = depth_logits_tol(cfg.n_layers)
+    err = _first_step_logits(torch, mods, params, cfg, reqs, tol=tol)
+    print(f"train-serve: first decode-step logits vs plain max abs err "
+          f"{err:.3e} (tolerance {tol:.4f} + {tol:.4f} relative)",
+          flush=True)
+    rep = prof.drift_report(reps=5)
+    rows = _drift_beside_table(rep["rows"], mods["kernel_rows"])
+    check(rows and all(r["timing"] == "cuda_events" and r["measured_us"] > 0
+                       for r in rows),
+          "train-serve: a profiled launch has no CUDA-event time")
+    print(f"train-serve: kernel drift ({len(rows)} unique launches, CUDA "
+          f"events after an L2 flush, 5 calls each):", flush=True)
+    print(obs_profile.render_drift_table(rows), flush=True)
+    shared = [r for r in rows if r["table_ms"] is not None]
+    for r in shared:
+        print(f"train-serve: drift {r['kernel']} {r['m']}x{r['k']} N={r['n']}"
+              f" measured {r['measured_us']:.1f} us beside the kernel "
+              f"table's {r['table_ms'] * 1e3:.1f} us", flush=True)
+    if not shared:
+        print("train-serve: no profiled launch has a shape of the kernel "
+              "table (its cells are OPT-30B's)", flush=True)
+    out.update(launches=counts, logits_max_abs_err=err, drift=rows)
+    del params, probe
+    release(torch)
+    return out
+
+
+def train_phase(torch, mods) -> dict:
+    """tinyllama_1_1b at full width and depth trained with 0.8 masks by the
+    reference launcher's rule (``launch/train.py``'s functions: f32 params,
+    AdamW, ``SyntheticLM``, batch 8 x 512, 30 steps), checkpointed at step
+    15 (asynchronously) and 30, resumed from 15 through 20 against the
+    straight run, one 4-layer f32 step held against the CPU, then the
+    step-30 checkpoint served through the LSCD kernels with the profiler
+    on, and a ``StreamingServer`` snapshot restored exactly once."""
+    import shutil
+    root = os.path.join(str(mods["build"].build_dir()), "train_phase")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ck_train, ck_serve = (os.path.join(root, d) for d in ("train", "serve"))
+    try:
+        free = shutil.disk_usage(root).free
+        print(f"train: checkpoints under {root} ({free} B free)", flush=True)
+        trained, serve_mgr = _train_run(torch, mods, ck_train, ck_serve)
+        out = dict(train=trained)
+        cfg = mods["configs"].get(TRAIN_ARCH)
+        out["numerics"] = _train_numerics_gate(torch, mods, cfg)
+        t0 = time.perf_counter()
+        serve_mgr.wait()
+        trained["final_wait_s"] = time.perf_counter() - t0
+        shutil.rmtree(ck_train, ignore_errors=True)
+        print(f"train: the step-{TRAIN_STEPS} checkpoint's write finished "
+              f"{trained['final_wait_s']:.1f} s after the resume and the "
+              f"4-layer step", flush=True)
+        out["serve"] = _serve_trained(torch, mods, ck_serve,
+                                      trained.pop("mask_counts"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = out["serve"]["launches"]
+    return out
+
+
 def _device_summary(torch, prof, wall_s: float, steps: int) -> dict:
     """Per-step device busy time from a profiler window: the sum of the
     device activities' durations (one stream, so they do not overlap),
@@ -4131,7 +4756,13 @@ ALLOC_CONF = "expandable_segments:True"
 # The phases after the window phase, in order, by their summary's name.
 PHASES = {"full": "full_depth_phase", "tiny": "tinyllama_phase",
           "mla": "mla_phase", "moe": "moe_phase", "hybrid": "hybrid_phase",
-          "ssm": "ssm_phase", "vlm": "vlm_phase", "audio": "audio_phase"}
+          "ssm": "ssm_phase", "vlm": "vlm_phase", "audio": "audio_phase",
+          "train": "train_phase"}
+
+# The train phase's resume check runs under deterministic algorithms,
+# which need cuBLAS's workspace fixed before its first handle is made.
+# This setting is the H100's default workspace (8 buffers of 4 MiB).
+CUBLAS_WORKSPACE = ":4096:8"
 
 
 def _timed_phase(torch, mods, name: str) -> dict:
@@ -4147,6 +4778,7 @@ def _timed_phase(torch, mods, name: str) -> dict:
 
 def main() -> int:
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", ALLOC_CONF)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
     try:
         import torch
     except ImportError:
@@ -4157,17 +4789,21 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
-        from repro_torch import configs
+        from repro_torch import configs, convert
         from repro_torch.analysis import contracts
         from repro_torch.core import (pruning, roofline, sparse_linear,
                                       tiled_csl)
         from repro_torch.kernels import build, gemm, ops, ref, schedule, spmm
+        from repro_torch.distributed import fault_tolerance
         from repro_torch.launch import serve
+        from repro_torch.launch import train as train_launch
         from repro_torch.models import (attention, layers, moe, ssm,
                                         transformer)
+        from repro_torch.obs import profile as obs_profile
         from repro_torch.serving import (api, batching, budget, engine,
                                          loadgen, scheduler, speculative)
         from repro_torch.serving import config as serve_config
+        from repro_torch.training import data, optimizer, train_loop
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -4179,7 +4815,10 @@ def main() -> int:
                 serve_config=serve_config, budget=budget,
                 speculative=speculative, transformer=transformer,
                 attention=attention, layers=layers, moe=moe, ssm=ssm,
-                batching=batching, sparse_linear=sparse_linear)
+                batching=batching, sparse_linear=sparse_linear,
+                convert=convert, ft=fault_tolerance, train=train_launch,
+                obs_profile=obs_profile, data=data, optimizer=optimizer,
+                train_loop=train_loop)
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -4210,6 +4849,7 @@ def main() -> int:
     rows, best, compare, sweep, rings, gemm_launches = opt_shapes(
         torch, mods, flush)
     del flush
+    mods["kernel_rows"] = rows
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     rep, counts, built, prof, params, cfg = slice_phase(torch, mods)
     t0 = time.perf_counter()
@@ -4223,7 +4863,7 @@ def main() -> int:
     rep.pop("params")
     del params
     release(torch)
-    full, tiny, mla, moe_out, hybrid, ssm_out, vlm, audio = (
+    full, tiny, mla, moe_out, hybrid, ssm_out, vlm, audio, train = (
         _timed_phase(torch, mods, name) for name in PHASES)
 
     kernels = []
@@ -4235,15 +4875,15 @@ def main() -> int:
     moe_counts = moe_out["launches"]
     hybrid_counts = hybrid["launches"]
     ring_counts = hybrid["ring"]["launches"]
-    ssm_counts, vlm_counts, audio_counts = (
-        r["launches"] for r in (ssm_out, vlm, audio))
+    ssm_counts, vlm_counts, audio_counts, train_counts = (
+        r["launches"] for r in (ssm_out, vlm, audio, train))
     window_counts = {k: sum(window_phases[op][k] for op in STEP_OPS)
                      for k in spmm.KERNELS}
     launches = {k: counts[k] + serve_counts[k] + window_counts[k]
                 + full_counts[k] + tiny_counts[k] + mla_counts[k]
                 + moe_counts[k] + hybrid_counts[k] + ring_counts[k]
                 + ssm_counts[k] + vlm_counts[k] + audio_counts[k]
-                for k in spmm.KERNELS}
+                + train_counts[k] for k in spmm.KERNELS}
     launches["dense_gemm"] = gemm_launches
     best.update(moe_out["kernel_rows"])
     for name in spmm.KERNELS + ("dense_gemm",):
@@ -4274,6 +4914,7 @@ def main() -> int:
             launches_ssm=ssm_counts.get(name, 0),
             launches_vlm=vlm_counts.get(name, 0),
             launches_audio=audio_counts.get(name, 0),
+            launches_train=train_counts.get(name, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
@@ -4288,7 +4929,7 @@ def main() -> int:
                    slice=slice_summary, profile=prof, serving=serving,
                    window=window, full_depth=full, tinyllama=tiny, mla=mla,
                    moe=moe_out, hybrid=hybrid, ssm=ssm_out, vlm=vlm,
-                   audio=audio)
+                   audio=audio, train=train)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -19,18 +19,29 @@ then
   grouped ``[L, G, mt, kt, w]`` and expert stacks ``[L, E, mt, kt, w]``);
   the MoE router ``[L, E, d]`` and dense expert stacks ``[L, E, f, d]``
   split the same way.
+
+:func:`train_state_from_checkpoint` reads a training checkpoint, one
+that ``repro.launch.train`` wrote or the port's own, into a port
+``TrainState`` (params, AdamW moments and step) and the data stream's
+state; :func:`params_from_checkpoint` reads only the params. A
+reference checkpoint's leaves are ``keystr`` paths over its
+``(TrainState, data state)`` pair, scan-stacked ``[L, ...]`` where the
+config scans its layers; the moments have the params' structure, so
+:func:`params_from_numpy` brings params, ``mu`` and ``nu`` across alike.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.tiled_csl import TiledCSL
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import fault_tolerance as ft
+from repro_torch.training import optimizer, train_loop
 
 _TCSL_ATTRS = ("words", "nnz", "shape", "m_tb", "k_tb")
 
@@ -118,3 +129,54 @@ def params_from_numpy(params: Any, *, device: DeviceLike = None) -> Any:
         stacked = out["layers"]
         out["layers"] = [_layer(stacked, i) for i in range(_n_layers(stacked))]
     return out
+
+
+def _checkpoint_tree(directory: str, step: Optional[int], prefix: str):
+    arrays, meta = ft.CheckpointManager(directory).read(step=step,
+                                                        prefix=prefix)
+    if not arrays:
+        raise KeyError(f"checkpoint in {directory} has no leaf under "
+                       f"{prefix!r}")
+    dtypes = meta.get("dtypes", {})
+    if dtypes:             # the port's bf16 leaves: their uint16 bits
+        arrays = {k: (torch.from_numpy(np.ascontiguousarray(v).view(
+            np.int16)).view(torch.bfloat16).to(torch.float32).numpy()
+            if dtypes.get(k) == "bfloat16" else v)
+            for k, v in arrays.items()}
+    return ft.tree_from_paths(arrays), meta
+
+
+def params_from_checkpoint(directory: str, *, step: Optional[int] = None,
+                           device: DeviceLike = None) -> Tuple[Any, dict]:
+    """The params subtree (``[0].params``) of a training checkpoint (the
+    newest unless ``step`` is given), the reference's or the port's, as
+    port params on ``device``; and the checkpoint's manifest."""
+    tree, meta = _checkpoint_tree(directory, step, "[0].params")
+    return params_from_numpy(tree[0]["params"], device=device), meta
+
+
+def train_state_from_checkpoint(directory: str, *,
+                                step: Optional[int] = None,
+                                device: DeviceLike = None):
+    """(TrainState, data state dict, manifest) from a training checkpoint
+    that ``repro.launch.train`` (AdamW) wrote, or the port's: params and
+    the ``mu``/``nu`` moments through :func:`params_from_numpy`, the
+    optimizer's and the state's step as int32 0-d tensors, and the data
+    stream's ``{"seed", "step"}``."""
+    tree, meta = _checkpoint_tree(directory, step, "")
+    state, data = tree[0], tree[1]
+    dev = resolve_device(device)
+
+    def step_of(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32,
+                            device=dev)
+    opt = state["opt_state"]
+    opt_state = optimizer.AdamWState(
+        step=step_of(opt["step"]),
+        mu=params_from_numpy(opt["mu"], device=dev),
+        nu=params_from_numpy(opt["nu"], device=dev))
+    ts = train_loop.TrainState(
+        params=params_from_numpy(state["params"], device=dev),
+        opt_state=opt_state, step=step_of(state["step"]))
+    data_state = {k: int(np.asarray(v)) for k, v in data.items()}
+    return ts, data_state, meta

@@ -13,6 +13,16 @@ failed build or launch falls back to it. On the kernel path
 ``schedule.select`` picks the N tile and split-K factor per call;
 ``split_k > 1`` runs the split-K pair. N is padded to the N tile and
 sliced back; epilogues are elementwise, so the slice commutes with them.
+
+Observability (:func:`_note_launch`, the reference's hook): while a
+``obs.profile`` profiler is active or the tracer is on, each dispatch
+is noted with its schedule and the roofline's predicted time, on the
+plain path too (the schedule the kernel would run). The port dispatches
+on every eager call and once per CUDA-graph capture; a graph replay is
+no dispatch, as a compiled call is none in the reference, which notes
+once per jit trace. The tracer gets one ``"kernel"`` event per distinct
+launch (``Tracer.first``), so eager serving cannot evict the
+scheduler's records from its bounded ring.
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ from repro_torch.core import tiled_csl
 from repro_torch.kernels import ref as ref_mod
 from repro_torch.kernels import schedule as schedule_mod
 from repro_torch.kernels import spmm as spmm_mod
+from repro_torch.obs import profile as obs_profile
+from repro_torch.obs import trace as obs_trace
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -45,16 +57,54 @@ def resolve_backend(backend: str, b: torch.Tensor) -> str:
 
 
 def _pick(kind: str, t: tiled_csl.TiledCSL, b: torch.Tensor,
-          n_tb: Optional[int], split_k: Optional[int],
-          binary: bool = False) -> schedule_mod.Schedule:
+          n_tb: Optional[int], split_k: Optional[int], *,
+          binary: bool = False, epilogue: str = "none",
+          backend: str = "cuda") -> schedule_mod.Schedule:
+    """The schedule of one launch (``kind``: "spmm", "spmm_grouped" or
+    "spmm_batched"); a kernel launch's is kept in ``SCHEDULES``."""
     m, k = t.shape
-    n = b.shape[1]
+    n = b.shape[-1]
     sched = schedule_mod.select(
         m, k, n, m_tb=t.m_tb, k_tb=t.k_tb, max_nnz=t.max_nnz, n_tb=n_tb,
         split_k=split_k, group=t.group or 1, b_dtype_bytes=b.element_size(),
-        binary=binary)
-    SCHEDULES[(kind, m, k, n, t.group or 1)] = sched
+        binary=binary, experts=t.experts or 1)
+    if backend == "cuda":
+        SCHEDULES[(kind, m, k, n, t.experts or t.group or 1)] = sched
+    _note_launch(kind, t, b, sched, backend, epilogue, binary)
     return sched
+
+
+def _observed() -> bool:
+    return obs_profile.active() is not None or obs_trace.get_tracer().enabled
+
+
+def _note_launch(kind: str, t: tiled_csl.TiledCSL, b: torch.Tensor,
+                 sched: schedule_mod.Schedule, backend: str, epilogue: str,
+                 binary: bool) -> None:
+    """Feed the active profiler, and the tracer one ``"kernel"`` event per
+    distinct launch, with the schedule and the predicted time."""
+    prof = obs_profile.active()
+    tr = obs_trace.get_tracer()
+    if prof is None and not tr.enabled:
+        return
+    m, k = t.shape
+    n = b.shape[-1]
+    group, experts = t.group or 1, t.experts or 1
+    sparsity = schedule_mod.sparsity_from_max_nnz(t.max_nnz, t.m_tb, t.k_tb)
+    dtype = str(b.dtype).rsplit(".", 1)[-1]
+    if prof is not None:
+        prof.note_dispatch(kind, m, k, n, sparsity, group, t.max_nnz,
+                           t.m_tb, t.k_tb, backend, sched, experts=experts,
+                           epilogue=epilogue, dtype=dtype, binary=binary)
+    if tr.enabled and tr.first(("kernel", kind, m, k, n, group, experts,
+                                backend, sched)):
+        terms = schedule_mod.predicted(
+            m, k, n, sparsity, sched, group=group, max_nnz=t.max_nnz,
+            b_dtype_bytes=b.element_size(), binary=binary, experts=experts)
+        tr.event("kernel", f"{kind} {m}x{k}x{n}", "kernel",
+                 backend=backend, schedule=sched.as_dict(), group=group,
+                 experts=experts, sparsity=round(float(sparsity), 4),
+                 predicted_us=terms.effective_s * 1e6)
 
 
 def _pad_n(b: torch.Tensor, n_tb: int) -> torch.Tensor:
@@ -82,10 +132,13 @@ def spmm(t: tiled_csl.TiledCSL, b: torch.Tensor, *, out_dtype=None,
     spmm_mod.epilogue_kind(epilogue)
     out_dtype = out_dtype or b.dtype
     if resolve_backend(backend, b) == "torch":
+        if _observed():
+            _pick("spmm", t, b, n_tb, split_k, epilogue=epilogue,
+                  backend="torch")
         return ref_mod.spmm_ref(t, b, out_dtype=out_dtype, epilogue=epilogue,
                                 bias=bias)
     n = b.shape[1]
-    sched = _pick("spmm", t, b, n_tb, split_k)
+    sched = _pick("spmm", t, b, n_tb, split_k, epilogue=epilogue)
     bp = _pad_n(b, sched.n_tb)
     if sched.split_k == 1:
         out = spmm_mod.lscd_spmm(t, bp, n_tb=sched.n_tb, out_dtype=out_dtype,
@@ -109,12 +162,16 @@ def spmm_grouped(t: tiled_csl.TiledCSL, b: torch.Tensor, *, out_dtype=None,
         raise ValueError("ungrouped TiledCSL: use spmm")
     kind = spmm_mod.epilogue_kind(epilogue, groups=groups)
     out_dtype = out_dtype or b.dtype
+    binary = kind == "binary"
     if resolve_backend(backend, b) == "torch":
+        if _observed():
+            _pick("spmm_grouped", t, b, n_tb, split_k, binary=binary,
+                  epilogue=epilogue, backend="torch")
         return ref_mod.spmm_grouped_ref(t, b, out_dtype=out_dtype,
                                         epilogue=epilogue, bias=bias)
     n = b.shape[1]
-    sched = _pick("spmm_grouped", t, b, n_tb, split_k,
-                  binary=kind == "binary")
+    sched = _pick("spmm_grouped", t, b, n_tb, split_k, binary=binary,
+                  epilogue=epilogue)
     bp = _pad_n(b, sched.n_tb)
     if sched.split_k == 1:
         out = spmm_mod.lscd_spmm_grouped(
@@ -141,12 +198,11 @@ def spmm_batched(t: tiled_csl.TiledCSL, b: torch.Tensor, *, out_dtype=None,
         raise ValueError("spmm_batched needs an expert stack")
     out_dtype = out_dtype or b.dtype
     if resolve_backend(backend, b) == "torch":
+        if _observed():
+            _pick("spmm_batched", t, b, n_tb, split_k, backend="torch")
         return ref_mod.spmm_batched_ref(t, b, out_dtype=out_dtype)
-    (m, k), n, e = t.shape, b.shape[2], t.experts
-    sched = schedule_mod.select(
-        m, k, n, m_tb=t.m_tb, k_tb=t.k_tb, max_nnz=t.max_nnz, n_tb=n_tb,
-        split_k=split_k, b_dtype_bytes=b.element_size(), experts=e)
-    SCHEDULES[("spmm_batched", m, k, n, e)] = sched
+    n = b.shape[2]
+    sched = _pick("spmm_batched", t, b, n_tb, split_k)
     bp = _pad_n(b, sched.n_tb)
     if sched.split_k == 1:
         out = spmm_mod.lscd_spmm_batched(t, bp, n_tb=sched.n_tb,

@@ -224,6 +224,38 @@ def select(m: int, k: int, n: int, *, m_tb: int, k_tb: int, max_nnz: int,
                            experts=experts)
 
 
+def _terms(m: int, k: int, n: int, sched: Schedule, *, max_nnz: int,
+           group: int, b_dtype_bytes: int, binary: bool,
+           experts: int) -> roofline.SplitKTerms:
+    shape = dict(m_tb=sched.m_tb, k_tb=sched.k_tb, n_tb=sched.n_tb,
+                 split_k=sched.split_k, group=group,
+                 b_dtype_bytes=b_dtype_bytes)
+    return roofline.lscd_splitk_terms(
+        m, k, n, max_nnz=max_nnz, **shape,
+        block_groups=contracts.block_groups(group, sched.n_tb,
+                                            b_dtype_bytes, binary),
+        resident=contracts.launch_resident(k, **shape, binary=binary,
+                                           max_nnz=max_nnz),
+        experts=experts)
+
+
+def predicted(m: int, k: int, n: int, sparsity: float, sched: Schedule, *,
+              group: int = 1, max_nnz: Optional[int] = None,
+              b_dtype_bytes: int = 2, binary: bool = False,
+              experts: int = 1) -> roofline.SplitKTerms:
+    """The cost-model terms of one concrete schedule on the H100 roofline
+    (``core.roofline``): the card's predicted time (``effective_s``), not
+    the TPU's. They are the terms :func:`select_analytic` ranks its
+    candidates by. ``max_nnz`` is the encoding's own; without it each
+    tile is charged ``(1 - sparsity)`` of its positions."""
+    if max_nnz is None:
+        max_nnz = max(1, int(round(sched.m_tb * sched.k_tb
+                                   * (1.0 - sparsity))))
+    return _terms(m, k, n, sched, max_nnz=max_nnz, group=group,
+                  b_dtype_bytes=b_dtype_bytes, binary=binary,
+                  experts=experts)
+
+
 @functools.lru_cache(maxsize=4096)
 def select_analytic(m: int, k: int, n: int, *, m_tb: int, k_tb: int,
                     max_nnz: int, n_tb: Optional[int] = None,
@@ -248,16 +280,9 @@ def select_analytic(m: int, k: int, n: int, *, m_tb: int, k_tb: int,
         if bad:
             rejected.extend(bad)
             continue
-        shape = dict(m_tb=cand.m_tb, k_tb=cand.k_tb, n_tb=cand.n_tb,
-                     split_k=cand.split_k, group=group,
-                     b_dtype_bytes=b_dtype_bytes)
-        t = roofline.lscd_splitk_terms(
-            m, k, n, max_nnz=max_nnz, **shape,
-            block_groups=contracts.block_groups(
-                group, cand.n_tb, b_dtype_bytes, binary),
-            resident=contracts.launch_resident(k, **shape, binary=binary,
-                                               max_nnz=max_nnz),
-            experts=experts)
+        t = _terms(m, k, n, cand, max_nnz=max_nnz, group=group,
+                   b_dtype_bytes=b_dtype_bytes, binary=binary,
+                   experts=experts)
         key = (t.effective_s, t.hbm_bytes, cand.split_k, -cand.n_tb)
         if best_key is None or key < best_key:
             best, best_key = cand, key

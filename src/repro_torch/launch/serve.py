@@ -36,9 +36,20 @@ step. ``--ttft-target-ms``/``--tpot-target-ms``/``--priority`` attach one
 expose the scheduler's metrics (``obs.metrics``); ``--trace-out`` writes
 the run's trace as Chrome/Perfetto JSON (``obs.export``).
 
-The flags are those of ``repro.launch.serve`` but for the ones whose
-modules are not ported yet: ``--profile-kernels`` (ROADMAP.md queue 1
-item 12), ``--ckpt`` and ``--snapshot-dir`` (item 14).
+``--ckpt DIR`` serves the params of the newest training checkpoint in
+DIR instead of random ones: one that ``repro_torch.launch.train`` wrote,
+or ``repro.launch.train`` (its ``(TrainState, data state)`` leaves; the
+params subtree is taken, through ``convert.params_from_checkpoint``).
+With ``--sparsity`` they are pruned and encoded as random weights are,
+except that where the checkpoint's manifest records masked training at
+the same sparsity, the weights the trainer masked are encoded as they
+stand, so the served Tiled-CSL holds exactly the trained masks.
+``--snapshot-dir DIR`` restores in-flight sessions from the newest
+``StreamingServer`` snapshot there at start and writes one after the run
+drains. ``--profile-kernels`` records each unique LSCD launch
+(``obs.profile``) and, after the run drains, times each on its own
+(CUDA events on the card) and prints the predicted-against-measured
+drift table. The flags are those of ``repro.launch.serve``.
 
 ``run`` serves one fixed batch through ``engine.generate`` instead (the
 slice that ``chip_smoke.py`` drives and profiles).
@@ -55,13 +66,16 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, convert
 from repro_torch.core import pruning, tiled_csl
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import fault_tolerance as ft
 from repro_torch.kernels import ops
+from repro_torch.launch import train as train_launch
 from repro_torch.models import transformer
 from repro_torch.obs import export as obs_export
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import profile as obs_profile
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving import (api, budget, engine, faults, loadgen,
                                  speculative)
@@ -116,10 +130,38 @@ def _cast_dense_matrices(tree, dtype):
     return tree
 
 
+def params_parts(params):
+    """A params tree as ``transformer.init_model_parts`` yields a model's
+    parts, for :func:`build`'s ``source``."""
+    yield "embed", dict(params["embed"])
+    for layer in params["layers"]:
+        yield "layers", _copy_tree(layer)
+    yield "final_norm", dict(params["final_norm"])
+    if "lm_head" in params:
+        yield "lm_head", dict(params["lm_head"])
+
+
+def _copy_tree(tree):
+    """The containers of ``tree`` anew, its leaves shared (the build
+    replaces leaves in place)."""
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_tree(v) for v in tree]
+    return tree
+
+
 def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
-          balanced: bool = False, device: DeviceLike = None):
+          balanced: bool = False, device: DeviceLike = None, source=None,
+          masked=None):
     """Random params on ``device``, pruned and reformatted to Tiled-CSL
     when ``sparsity`` is given. Returns (params, report dict).
+
+    ``source``, a params tree on ``device`` (a checkpoint's), stands in
+    for the random draw; it is left as it was. ``masked(path)`` names
+    the weights whose zeros are already their masks (masked training at
+    this sparsity): those are encoded as they stand, every other one
+    listed is pruned to ``sparsity`` first.
 
     The sparse build goes layer by layer, so a full-depth model never
     exists in f32: each layer is drawn (``transformer.init_model_parts``,
@@ -156,8 +198,9 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
     _sync(dev)
     t_start = time.perf_counter()
     params = {}
-    for name, part in transformer.init_model_parts(cfg, seed=seed,
-                                                   device=dev):
+    parts = (transformer.init_model_parts(cfg, seed=seed, device=dev)
+             if source is None else params_parts(source))
+    for name, part in parts:
         if name != "layers":
             if name in ("embed", "lm_head"):
                 key = "table" if name == "embed" else "w"
@@ -168,9 +211,14 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
         if sparsity:
             _sync(dev)
             t0 = time.perf_counter()
+            prefix = f"['layers'][{len(stack)}]"
+            if masked is not None:      # their nonzeros are their masks
+                part = pruning.encode_in_place(
+                    part, 0.0, lambda p: _sparse_path(p) and masked(p),
+                    prefix=prefix)
             part = pruning.encode_in_place(
                 part, sparsity, _sparse_path, balanced=balanced,
-                prefix=f"['layers'][{len(stack)}]")
+                prefix=prefix)
             _sync(dev)
             report["encode_s"] += time.perf_counter() - t0
         stack.append(_cast_dense_matrices(part, dt))
@@ -330,14 +378,39 @@ def main(argv: Optional[Sequence[str]] = None, *,
                     help="export the run's structured trace (scheduler "
                          "decisions, engine steps) as Perfetto/Chrome "
                          "trace_event JSON")
+    ap.add_argument("--ckpt", default=None, metavar="DIR",
+                    help="serve the params of the newest training "
+                         "checkpoint in DIR (the port's or the JAX "
+                         "launcher's)")
+    ap.add_argument("--snapshot-dir", default=None, metavar="DIR",
+                    help="restore in-flight sessions from the newest "
+                         "snapshot in DIR at start, and write one after "
+                         "the run drains")
+    ap.add_argument("--profile-kernels", action="store_true",
+                    help="record every unique kernel launch, time each on "
+                         "its own after the run drains, and print the "
+                         "predicted-against-measured drift table")
     args = ap.parse_args(argv)
     if args.max_len <= args.max_new:
         ap.error("--max-len must exceed --max-new")
     if args.trace_out:
         obs_trace.get_tracer().enable()
+    profiler = obs_profile.KernelProfiler() if args.profile_kernels else None
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    source = masked = None
+    if args.ckpt:
+        source, meta = convert.params_from_checkpoint(args.ckpt,
+                                                      device=device)
+        trained = meta.get("extra", {}).get("sparsity")
+        print(f"params from {args.ckpt}, step {meta['step']}"
+              + (f" (trained with {trained} masks)" if trained else ""))
+        if args.sparsity and trained == args.sparsity:
+            def masked(path):
+                return train_launch.masked_leaf(cfg, path, 2)
     params, rep = build(cfg, seed=args.seed, sparsity=args.sparsity,
-                        balanced=args.balanced, device=device)
+                        balanced=args.balanced, device=device, source=source,
+                        masked=masked)
+    del source
     if args.sparsity:
         # No weight of an SSM stack is on the list: no ratio to print.
         ratio = (f" ({rep['sparse_bytes'] / rep['dense_bytes']:.3f}x)"
@@ -381,8 +454,19 @@ def main(argv: Optional[Sequence[str]] = None, *,
     if plan is not None:
         print(f"fault plan: {len(plan)} events, "
               f"fingerprint {plan.fingerprint()[:12]}")
-    server = api.StreamingServer(params, cfg, config=config, fault_plan=plan,
-                                 drafter=drafter)
+    live_kwargs = dict(fault_plan=plan, drafter=drafter)
+    resume = (ft.SnapshotStore(args.snapshot_dir).latest_path()
+              if args.snapshot_dir else None)
+    if resume is not None:
+        server = api.StreamingServer.restore(args.snapshot_dir, params, cfg,
+                                             config=config, **live_kwargs)
+        print(f"restored {len(server.live_sessions())} in-flight "
+              f"session(s) from {resume}")
+    else:
+        server = api.StreamingServer(params, cfg, config=config,
+                                     **live_kwargs)
+    if profiler is not None:
+        obs_profile.set_profiler(profiler)
     # Soft targets (or a priority class) promote the flat deadline flags
     # into one typed SLOSpec; without them the flat fields stay.
     slo = None
@@ -442,6 +526,8 @@ def main(argv: Optional[Sequence[str]] = None, *,
         responses = server.run_until_drained()
     _sync(dev)
     dt = time.perf_counter() - t0
+    if profiler is not None:
+        obs_profile.set_profiler(None)
     n_tokens = sum(len(r.tokens) for r in responses)
     print(f"served {len(responses)} requests / {n_tokens} tokens in "
           f"{dt:.2f}s ({n_tokens / dt:.1f} tok/s"
@@ -487,12 +573,20 @@ def main(argv: Optional[Sequence[str]] = None, *,
               f"{frep['by_kind']}; retries={m.step_retries} "
               f"quarantined={m.quarantined} deadline={m.deadline_expired} "
               f"peak_degradation={m.peak_degradation_level}")
+    if args.snapshot_dir:
+        rep["snapshot"] = server.snapshot(args.snapshot_dir)
+        print(f"snapshot: {rep['snapshot']}")
     if registry is not None:
         print("digest: " + registry.digest(obs_metrics.DIGEST_KEYS))
     if stop_digest is not None:
         stop_digest.set()
     if http_srv is not None:
         http_srv.shutdown()
+    if profiler is not None:
+        rep["drift"] = profiler.drift_report(reps=2)
+        print(f"kernel drift ({rep['drift']['n_unique_launches']} unique "
+              f"launches):")
+        print(obs_profile.render_drift_table(rep["drift"]["rows"]))
     if args.trace_out:
         tr = obs_trace.get_tracer()
         obs_export.write_chrome_trace(tr.records(), args.trace_out)

@@ -10,8 +10,8 @@ attention + MLP: GQA (``attention``, K/V cache leaves ``"k"``/``"v"``,
 a sliding-window ring where the config has ``local_window``) or
 Multi-head Latent Attention (``mla``, latent cache leaves
 ``"ckv"``/``"krope"``); an MoE model's MLP is routed experts (``moe``,
-params ``p["moe"]``; GQA attention only), whose aux loss the forward
-drops, since the port serves and does not train. An ``"rglru"`` block
+params ``p["moe"]``; GQA attention only), whose aux loss only the train
+mode returns. An ``"rglru"`` block
 (the hybrid family, recurrentgemma) is the RG-LRU recurrent block
 (``rglru``, state leaves ``"h"``/``"conv"``, one row a slot) + SwiGLU
 MLP. An ``"ssm"`` block (mamba2) is the Mamba2 SSD block (``ssm``, state
@@ -21,7 +21,11 @@ positions are [3, B, S] (t, h, w ids), and ``inputs["embeds"]`` may stand
 in for the tokens (the stubbed vision frontend's patch embeddings). The
 audio family (musicgen) reads ``n_codebooks`` parallel token streams
 ``[B, n_cb, S]``, sums their embeddings, and its untied head returns
-``[B, S, n_cb, vocab]``. Three modes share the block code:
+``[B, S, n_cb, vocab]``. Four modes share the block code:
+
+  train   — full sequence, no cache (:func:`forward_train`): params in
+            f32, compute in ``cfg.dtype``, the blocks' MoE aux losses
+            summed, ``cfg.remat`` honoured
 
   prefill — full sequence; writes the cache when one is given
   decode  — one token per row + cache (the paper's skinny-MatMul regime),
@@ -43,6 +47,7 @@ from __future__ import annotations
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention, layers, mla, moe, nn, rglru, ssm
@@ -350,6 +355,19 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     cache), or in verify mode (x, the window's fresh {"k", "v"} or
     {"ckv", "krope"}). ``ring_len`` is a sliding-window config's ring on
     the paged cache."""
+    x, cache, _ = _block(p, x, cfg, mode=mode, kind=kind,
+                         positions=positions, cache=cache, pos=pos,
+                         block_tables=block_tables, ring_len=ring_len,
+                         backend=backend)
+    return x, cache
+
+
+def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
+           kind: str, positions, cache, pos, block_tables,
+           ring_len: Optional[int], backend: str):
+    """:func:`block_apply`, also returning the block's aux loss (the MoE
+    load-balancing term; 0 for every other block)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = _norm(cfg, p["pre_norm"], x)
     if kind == "ssm":                   # dense cache only: no verify mode
         if mode == "decode":
@@ -362,7 +380,7 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         if cfg.d_ff:
             x = x + _mlp_apply(p["mlp"], _norm(cfg, p["mlp_norm"], x), cfg,
                                backend)
-        return x, cache
+        return x, cache, aux
     if kind == "rglru":                 # dense cache only: no verify mode
         if mode == "decode":
             r, cache = rglru.rglru_decode(p["rglru"], h, cache, cfg,
@@ -372,7 +390,7 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                                          backend=backend)
         x = x + r
         return x + _mlp_apply(p["mlp"], _norm(cfg, p["mlp_norm"], x), cfg,
-                              backend), cache
+                              backend), cache, aux
     if cfg.attn_kind == "mla":
         if mode == "verify":
             a, cache = mla.mla_verify_paged(p["attn"], h, cache, block_tables,
@@ -403,10 +421,10 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     x = x + a
     h = _norm(cfg, p["mlp_norm"], x)
     if cfg.n_routed_experts:
-        m, _ = moe.moe_block(p["moe"], h, cfg, backend=backend)  # aux: training
+        m, aux = moe.moe_block(p["moe"], h, cfg, backend=backend)
     else:
         m = _mlp_apply(p["mlp"], h, cfg, backend)
-    return x + m, cache
+    return x + m, cache, aux
 
 
 def _embed_tokens(params: Params, inputs: Dict[str, torch.Tensor],
@@ -475,17 +493,79 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
                                block_tables=block_tables, ring_len=ring_len,
                                backend=backend)
         fresh.append(out_l)
+    logits = _head(params, x, cfg, backend)
+    return logits, (fresh if mode == "verify" else cache)
+
+
+def _head(params: Params, x: torch.Tensor, cfg: ModelConfig,
+          backend: str) -> torch.Tensor:
+    """Final norm and logits: [B, S, vocab], or [B, S, n_cb, vocab] for an
+    untied codebook head."""
     x = _norm(cfg, params["final_norm"], x)
     if cfg.tie_embeddings:             # a codebook model ties to table 0
         table = params["embed"]["table"]
-        logits = layers.logits_head(
+        return layers.logits_head(
             None, {"table": table[0] if cfg.n_codebooks else table}, x,
             vocab=cfg.vocab, backend=backend)
-    else:
-        logits = layers.logits_head(params["lm_head"], None, x,
-                                    vocab=cfg.vocab * max(cfg.n_codebooks, 1),
-                                    backend=backend)
-        if cfg.n_codebooks:
-            logits = logits.reshape(*logits.shape[:-1], cfg.n_codebooks,
-                                    cfg.vocab)
-    return logits, (fresh if mode == "verify" else cache)
+    logits = layers.logits_head(params["lm_head"], None, x,
+                                vocab=cfg.vocab * max(cfg.n_codebooks, 1),
+                                backend=backend)
+    if cfg.n_codebooks:
+        logits = logits.reshape(*logits.shape[:-1], cfg.n_codebooks,
+                                cfg.vocab)
+    return logits
+
+
+# Matmuls without a batch dimension (``aten.mm``/``addmm``; a linear on a
+# [B, S, d] activation folds into one): what the reference's "dots"
+# policy (``dots_with_no_batch_dims_saveable``) keeps; attention's
+# batched products and everything else are recomputed.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    cp = torch_checkpoint.CheckpointPolicy
+    return cp.MUST_SAVE if op in _SAVED_DOTS else cp.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return torch_checkpoint.create_selective_checkpoint_contexts(
+        _dots_policy)
+
+
+def forward_train(params: Params, inputs: Dict[str, torch.Tensor],
+                  cfg: ModelConfig, *, backend: str = "auto"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The train mode of the reference's ``forward``: the full sequence
+    with no cache, compute in ``cfg.dtype`` from the params as given (f32
+    in training). Returns (logits, aux): the logits as :func:`forward`
+    gives them and the sum of the blocks' aux losses (f32, 0 without
+    MoE). ``cfg.remat`` recomputes each block in the backward pass:
+    ``"full"`` keeps only its input, ``"dots"`` also its matmul outputs
+    (the reference's ``jax.checkpoint`` policies)."""
+    _check_family(cfg)
+    compute_dtype = getattr(torch, cfg.dtype)
+    x = _embed_tokens(params, inputs, cfg, compute_dtype)
+    B, S = x.shape[0], x.shape[1]
+    positions = inputs.get("positions")
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        if cfg.mrope_sections is not None:
+            positions = positions[None].expand(3, B, S)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, p in enumerate(params["layers"]):
+        def block(x, p=p, kind=cfg.layer_kind(i)):
+            x, _, aux = _block(p, x, cfg, mode="train", kind=kind,
+                               positions=positions, cache=None, pos=None,
+                               block_tables=None, ring_len=None,
+                               backend=backend)
+            return x, aux
+        if cfg.remat == "none":
+            x, aux = block(x)
+        else:
+            extra = ({} if cfg.remat == "full"
+                     else dict(context_fn=_dots_context))
+            x, aux = torch_checkpoint.checkpoint(block, x,
+                                                 use_reentrant=False, **extra)
+        aux_total = aux_total + aux
+    return _head(params, x, cfg, backend), aux_total

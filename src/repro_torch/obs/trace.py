@@ -55,7 +55,8 @@ class TraceRecord:
 class Tracer:
     """Ring-buffered trace collector.  Off by default; bounded memory."""
 
-    __slots__ = ("enabled", "clock", "capacity", "dropped", "_ring")
+    __slots__ = ("enabled", "clock", "capacity", "dropped", "_ring",
+                 "_seen")
 
     def __init__(self, capacity: int = 65536,
                  clock: Optional[Callable[[], float]] = None) -> None:
@@ -66,6 +67,7 @@ class Tracer:
         self.capacity = capacity
         self.dropped = 0                      # records evicted by the ring
         self._ring: deque = deque(maxlen=capacity)
+        self._seen: set = set()               # keys that :meth:`first` saw
 
     # -- lifecycle ----------------------------------------------------------
     def enable(self, clock: Optional[Callable[[], float]] = None) -> "Tracer":
@@ -85,7 +87,18 @@ class Tracer:
 
     def clear(self) -> None:
         self._ring.clear()
+        self._seen.clear()
         self.dropped = 0
+
+    def first(self, key: Any) -> bool:
+        """True the first time ``key`` is asked about since the last
+        :meth:`clear`: a site that runs on every eager call (the port's
+        kernel dispatch) records one event per distinct key, so it cannot
+        evict the scheduler's records from the ring."""
+        if key in self._seen:
+            return False
+        self._seen.add(key)
+        return True
 
     # -- emission -----------------------------------------------------------
     def event(self, cat: str, name: str, track: str, **args: Any) -> None:

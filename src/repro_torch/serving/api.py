@@ -1,7 +1,7 @@
 """Session-oriented streaming front-end over the continuous batcher.
 
-The port's copy of ``repro.serving.api``; only ``snapshot``/``restore``
-differ: they raise until ``distributed.fault_tolerance`` is ported.
+The port's copy of ``repro.serving.api``; ``snapshot``/``restore``
+publish through the port's ``distributed.fault_tolerance``.
 
 DESIGN.md §13: the request-level surface the examples, the load harness
 (`serving/loadgen.py`), and `launch/serve.py` sit on. The batcher speaks
@@ -47,6 +47,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.distributed.fault_tolerance import SnapshotStore
 from repro_torch.serving.batching import ContinuousBatcher
 from repro_torch.serving.config import (SchedulerConfig, ServeConfig,
                                   SLOAttainment, SLOSpec)
@@ -310,20 +311,66 @@ class StreamingServer:
 
     # -- crash recovery (DESIGN.md §14) --------------------------------------
     def snapshot(self, directory: str) -> str:
-        """Not ported yet: the reference publishes the scheduler and session
-        state through ``distributed.fault_tolerance``, which is ROADMAP.md
-        queue 1 item 14."""
-        raise NotImplementedError(
-            "StreamingServer.snapshot is not ported yet: it needs "
-            "distributed.fault_tolerance (ROADMAP.md queue 1 item 14)")
+        """Publish a crash-consistent snapshot of the server's host state
+        (scheduler queue + in-flight requests as-if-preempted, session
+        watermarks, uid counter, virtual-clock time) through the atomic-
+        rename machinery in `distributed.fault_tolerance`. Call at a step
+        boundary only. Returns the snapshot path.
+
+        Model params and KV blocks are deliberately NOT captured: params
+        are immutable inputs, and the restored requests re-prefill their
+        prompt+generated tokens on re-admission (recompute resume), which
+        regenerates bitwise-identical greedy *and* sampled streams via the
+        (uid, token-index)-folded keys."""
+        payload = {
+            "version": 1,
+            "scheduler": self.batcher.sched.export_state(),
+            "sessions": [
+                {"sid": s.session_id, "uid": s.uid,
+                 "delivered": s.delivered}
+                for s in sorted(self._by_uid.values(), key=lambda s: s.uid)],
+            "next_uid": self._next_uid,
+        }
+        t = getattr(self.batcher.sched.clock, "t", None)
+        if t is not None:
+            payload["clock_t"] = float(t)
+        return SnapshotStore(directory).save(payload)
 
     @classmethod
-    def restore(cls, directory: str, params, cfg, **kwargs
-                ) -> "StreamingServer":
-        """Not ported yet (see :meth:`snapshot`)."""
-        raise NotImplementedError(
-            "StreamingServer.restore is not ported yet: it needs "
-            "distributed.fault_tolerance (ROADMAP.md queue 1 item 14)")
+    def restore(cls, directory: str, params, cfg, *,
+                on_token: Optional[Callable[[TokenEvent], None]] = None,
+                config: Optional[ServeConfig] = None,
+                max_queue: Optional[int] = None,
+                **batcher_kwargs) -> "StreamingServer":
+        """Rebuild a server from the newest snapshot in ``directory`` —
+        the crashed process's in-flight sessions resume queued (in their
+        original admission order, ahead of the old queue) and stream
+        *exactly once*: each restored session's delivered watermark
+        suppresses re-emission of tokens already streamed before the
+        crash. ``on_token`` (one callback; events carry the session id)
+        reattaches streaming to every restored session. Batcher kwargs
+        must match the crashed server's (same pool geometry, sampling,
+        and clock kind) — the snapshot holds state, not configuration."""
+        payload = SnapshotStore(directory).latest()
+        if payload is None:
+            raise FileNotFoundError(f"no snapshot in {directory!r}")
+        server = cls(params, cfg, config=config, max_queue=max_queue,
+                     **batcher_kwargs)
+        clock = server.batcher.sched.clock
+        if "clock_t" in payload and hasattr(clock, "t"):
+            clock.t = float(payload["clock_t"])
+        reqs = server.batcher.sched.restore_state(payload["scheduler"])
+        by_uid = {r.uid: r for r in reqs}
+        for s in payload["sessions"]:
+            req = by_uid.get(int(s["uid"]))
+            if req is None:
+                continue          # finished before the snapshot — stale row
+            sess = _Session(int(s["uid"]), s["sid"], req, on_token,
+                            delivered=int(s["delivered"]))
+            server._sessions[s["sid"]] = sess
+            server._by_uid[sess.uid] = sess
+        server._next_uid = int(payload["next_uid"])
+        return server
 
     # -- internals -----------------------------------------------------------
     def _drain_stream(self, sess: _Session, req) -> None:

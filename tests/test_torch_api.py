@@ -354,15 +354,6 @@ def test_fault_injection_matches_reference(model):
         obs["quarantined"] >= 2
 
 
-def test_snapshot_and_restore_are_not_ported(model):
-    _, _, pcfg, pparams = model
-    server = _server(PORT, pparams, pcfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        server.snapshot("unused")
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        api.StreamingServer.restore("unused", pparams, pcfg)
-
-
 def test_drafter_reaches_the_batcher_like_reference(model):
     """``StreamingServer(drafter=...)`` hands the drafter to its batcher
     and scheduler, which draft with it; the sessions' streams and the

@@ -1046,3 +1046,85 @@ def test_one_full_width_layer_matches_plain(cuda, arch):
     assert ran["lscd_spmm_grouped"] + ran["lscd_spmm_splitk_grouped"] > 0, ran
     for got, want in zip(out["cuda"], out["torch"]):
         torch.testing.assert_close(got, want, rtol=3e-2, atol=3e-2)
+
+
+# ---------------------------------------------------------------------------
+# training, checkpoints and the kernel profiler on the card
+# ---------------------------------------------------------------------------
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One f32 step of tinyllama smoke (TF32 off) on the card against the
+    CPU from the same params and batch: loss within 1e-5 relative, each
+    gradient leaf within one bf16 ulp (2^-8) of its largest value, since
+    both round attention's K/V (and their cotangents) to bf16."""
+    from repro_torch.training import data, optimizer, train_loop
+    cfg = dataclasses.replace(configs.smoke("tinyllama_1_1b"),
+                              dtype="float32")
+    params = transformer.init_model(cfg, seed=0, device="cpu")
+    card = optimizer.tree_map(lambda t: t.to(cuda), params)
+    batch = data.SyntheticLM(cfg.vocab, 33, 4, seed=0).next_batch()
+    want = train_loop.value_and_grad(params, train_loop.batch_to(batch,
+                                                                 "cpu"), cfg)
+    got = train_loop.value_and_grad(card, train_loop.batch_to(batch, cuda),
+                                    cfg)
+    assert abs(float(got[0]) - float(want[0])) <= 1e-5 * abs(float(want[0]))
+    flat = dict(_flat(want[2]))
+    for path, g in _flat(got[2]):
+        w = flat[path]
+        assert float((g.cpu() - w).abs().max()) <= \
+            2.0 ** -8 * float(w.abs().max()), path
+
+
+def _flat(tree):
+    from repro_torch.distributed import fault_tolerance as ft
+    return ft.flatten_with_paths(tree)
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    from repro_torch.distributed import fault_tolerance as ft
+    tree = {"w": torch.randn(64, 32, device=cuda),
+            "h": torch.randn(16, device=cuda).to(torch.bfloat16),
+            "n": [torch.arange(5, device=cuda, dtype=torch.int32)]}
+    mgr = ft.CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(1, tree)
+    mgr.wait()
+    got, meta = mgr.restore({k: (v if k != "n" else [torch.zeros_like(
+        v[0])]) for k, v in tree.items()}, device=cuda)
+    assert meta["step"] == 1
+    for (p, a), (_, b) in zip(_flat(got), _flat(tree)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype, p
+        assert torch.equal(a, b), p
+
+
+def test_profiler_times_card_launches_with_cuda_events(cuda):
+    from repro_torch.obs import profile as obs_profile
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    t = pruning.sparsify_matrix(torch.randn(512, 1024, generator=gen,
+                                            device=cuda), 0.8)
+    b = torch.randn(1024, 8, generator=gen, device=cuda).to(torch.bfloat16)
+    before = spmm.launch_counts()
+    with obs_profile.profiled(obs_profile.KernelProfiler()) as prof:
+        ops.spmm(t, b)
+    ran = {k: n - before[k] for k, n in spmm.launch_counts().items()}
+    assert sum(ran.values()) >= 1
+    rows = prof.measure(reps=3)
+    assert len(rows) == 1 and rows[0]["backend"] == "cuda"
+    assert rows[0]["timing"] == "cuda_events" and rows[0]["measured_us"] > 0
+
+
+def test_trained_checkpoint_served_on_card_keeps_its_masks(cuda, tmp_path):
+    from repro_torch.launch import train as train_launch
+    d = str(tmp_path / "ck")
+    out = train_launch.main(["--arch", "tinyllama_1_1b", "--smoke",
+                             "--steps", "2", "--batch", "2", "--seq", "16",
+                             "--sparsity", "0.8", "--ckpt-dir", d],
+                            device=cuda)
+    counts = train_launch.mask_counts(out["masks"])
+    rep = serve.main(["--arch", "tinyllama_1_1b", "--smoke", "--ckpt", d,
+                      "--sparsity", "0.8", "--requests", "2", "--slots", "2",
+                      "--max-new", "3", "--profile-kernels"], device=cuda)
+    wo = rep["server"].batcher.params["layers"][0]["attn"]["wo"]["w"]
+    assert int(wo.nnz.sum()) == counts["['layers'][0]['attn']['wo']['w']"]
+    rows = rep["drift"]["rows"]
+    assert rows and all(r["timing"] == "cuda_events" for r in rows)
