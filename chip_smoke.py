@@ -213,10 +213,36 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    each (session, index) delivered once, every token streamed before the
    snapshot the uninterrupted run's, and after it equal to it or parted
    at a near tie (the restored sessions re-prefill their tokens);
-15. prints the kernels' JSON line (launches of the slice, the serving
+15. mesh phase: four ranks share the card over gloo
+   (``launch.mesh.run_world``; NCCL refuses two ranks on one device).
+   (a) OPT-30B at full width, sparsity 0.8, tensor-parallel over a 1x4
+   mesh: first the unsharded model in this process (first decode step
+   and ``engine.generate``'s greedy streams of 8 prompts of 128 tokens,
+   32 new, at 4 and 48 layers, each step's top-2 margins recorded), then
+   four ranks, each building its shard layer by layer
+   (``serve.build(mesh=)``): the ranks' encoded non-zeros summing to the
+   unsharded build's, first-step logits (teacher-forced with the
+   unsharded first tokens) within ``LOGITS_TOL`` at 4 layers and
+   ``depth_logits_tol(48)`` at 48, every rank's streams equal and equal
+   to the unsharded ones or parted at a near tie (``NEAR_TIE``), all four
+   LSCD kernels launched on every rank, each rank's launch
+   configurations held against the plain versions, per-rank bytes,
+   peaks, prefill and decode times and a profiled sharded decode step.
+   (b) tinyllama-1.1b at its published widths and depth on a 2x2 mesh,
+   0.8 masks, global batch 4 x 512: the unsharded step 1 in this process,
+   then four ranks (the launcher's ``setup`` under the mesh): the
+   compressed all-reduce of each step-1 gradient leaf over ``data``
+   within world x max|g| / 127, step 1's loss and gradient norm within
+   5e-3 relative and every param within 5e-3 of the unsharded step,
+   masked weights at zero after every step, five steps, a save from 2x2,
+   its restores onto 1x4 (a mesh over the same ranks) and onto one rank
+   with every leaf's position-weighted checksums equal to the saved
+   state's, and step 6 on the 1x4 restore within 5e-3 of step 6 on 2x2;
+16. prints the kernels' JSON line (launches of the slice, the serving
    runs, the window runs, the full-depth run, the tinyllama run, the
    MLA runs, the MoE runs, the hybrid runs, the ring runs and the ssm,
-   vlm, audio and train runs, the serving ones also by prefill and
+   vlm, audio, train and mesh runs (the mesh's summed over its ranks,
+   and one rank's), the serving ones also by prefill and
    decode, the window ones also by verify and mixed), the card line, and
    last
    ``{"ok": true, "device": {...}}``; the
@@ -237,6 +263,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -4120,7 +4147,8 @@ def _masked_nonzeros(torch, ft, params, masks) -> int:
     """Masked positions that hold a nonzero, over every masked leaf (one
     read back)."""
     by_path = dict(ft.flatten_with_paths(params))
-    total = torch.zeros((), dtype=torch.int64, device="cuda")
+    total = torch.zeros((), dtype=torch.int64,
+                        device=next(iter(by_path.values())).device)
     for path, m in ft.flatten_with_paths(masks):
         total += ((by_path[path] != 0) & ~m).sum()
     return int(total)
@@ -4745,6 +4773,730 @@ def profile_steps(torch, engine, params, cfg, prompts, steps: int = 4):
     return out
 
 
+# ---------------------------------------------------------------------------
+# mesh phase: OPT-30B tensor-parallel over four ranks that share the card,
+# and tinyllama-1.1b trained on a 2x2 mesh with an elastic restore
+# ---------------------------------------------------------------------------
+
+MESH_DEVICE = "cuda"
+MESH_SERVE_ARCH, MESH_SERVE_SHAPE = "opt_30b", (1, 4)
+# The serving comparison runs at 4 and 24 layers of the 48 built: a
+# sharded 48-layer generate alone took 40 s (gloo between four processes
+# that share the card), and the phase ran 303-319 s at (4, 48) against
+# the 150 s it was given (NVIDIA H100 80GB HBM3, 700 W).
+MESH_DEPTHS = (4, 24)
+MESH_REQUESTS, MESH_PROMPT, MESH_NEW = 8, 128, 32
+MESH_TRAIN_ARCH, MESH_TRAIN_SHAPE = "tinyllama_1_1b", (2, 2)
+# 4 x 512 for both sides: at 8 x 512 the unsharded step alone peaked at
+# 54.43e9 B (NVIDIA H100 80GB HBM3, 700 W), and four ranks' shares of it
+# beside each other would not fit the card.
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 512
+MESH_TRAIN_SAVE_AT = 5
+MESH_TRAIN_TOL = 5e-3           # tests/test_distributed.py:152-154
+# Adam's early steps move nearly every unmasked element by about lr, so a
+# param gate alone cannot fail on a skipped or sign-wrong update: its
+# largest difference is about lr, and a gradient that rounds across zero
+# in one run turns a sound step by 2 lr. The update gate counts the
+# elements off by more than lr / 2 over those the other run moved by more
+# than lr / 2: near 1 for a skipped, sign-wrong or mis-scaled update, at
+# most 0.045 for a sound one in tests/test_torch_sharding.py's f32 steps.
+UPDATE_MISS_TOL = 0.25
+# Position-weighted checksums of a leaf modulo two primes: a leaf whose
+# bits differ in one element changes at least one of them.
+FP_PRIMES = (2 ** 31 - 1, 2 ** 31 - 19)
+FP_CHUNK = 1 << 26
+
+
+class _MarginTap:
+    """While entered, records the top-2 margin of every row of each
+    logits tensor ``engine.generate`` samples from (one a step)."""
+
+    def __init__(self, engine):
+        self.engine, self.margins = engine, []
+
+    def __enter__(self):
+        self.orig = self.engine.sample_per_slot
+
+        def tapped(logits, *args, **kw):
+            top = logits.float().topk(2, dim=-1).values
+            self.margins.append((top[..., 0] - top[..., 1]).cpu())
+            return self.orig(logits, *args, **kw)
+        self.engine.sample_per_slot = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.sample_per_slot = self.orig
+
+
+def _in_turn(torch, fn):
+    """``fn()`` on each rank in turn, the rest waiting at a barrier: the
+    ranks share one card, and four builds' transients (a layer drawn
+    whole in f32, its pruning and encoding) at once ran it out of memory
+    (NVIDIA H100 80GB HBM3, 700 W). Each rank frees its cache after."""
+    import torch.distributed as dist
+    out = None
+    for turn in range(dist.get_world_size()):
+        if dist.get_rank() == turn:
+            out = fn()
+            release(torch)
+        dist.barrier()
+    return out
+
+
+def _first_step(torch, engine, params, cfg, prompts, tok=None, mesh=None):
+    """(first tokens, the first decode step's f32 logits on the host, the
+    prefill's top-2 margins): ``tok`` teacher-forces the first tokens."""
+    S = prompts.shape[1]
+    with torch.inference_mode():
+        last, cache = engine.prefill(params, prompts, cfg, S + 1, mesh=mesh)
+        top = last.float().topk(2, dim=-1).values
+        own = torch.argmax(last, dim=-1)
+        tok = own if tok is None else tok.to(own.device)
+        step, _ = engine.serve_step(params, cache, tok[:, None], S, cfg,
+                                    mesh=mesh)
+    return own.cpu(), step.float().cpu(), (top[:, 0] - top[:, 1]).cpu()
+
+
+def _mesh_serve_reference(torch, mods) -> dict:
+    """The unsharded side, in this process: OPT-30B at 48 layers built
+    whole, the first step and the greedy streams at ``MESH_DEPTHS``."""
+    serve, engine = mods["serve"], mods["engine"]
+    cfg = mods["configs"].get(MESH_SERVE_ARCH)
+    release(torch)
+    params, built = serve.build(cfg, seed=SEED, sparsity=SPARSITY,
+                                device=MESH_DEVICE)
+    prompts = serve.make_prompts(cfg, MESH_REQUESTS, MESH_PROMPT, SEED + 9,
+                                 MESH_DEVICE)
+    out = dict(nnz=built["nnz"], weight_bytes=built["weight_bytes"],
+               build_s=built["build_s"], prompts=prompts.cpu().numpy(),
+               depths={})
+    for depth in MESH_DEPTHS:
+        p = dict(params, layers=params["layers"][:depth])
+        c = dataclasses.replace(cfg, n_layers=depth)
+        tok, step, _ = _first_step(torch, engine, p, c, prompts)
+        times = {}
+        with _MarginTap(engine) as tap:
+            streams = engine.generate(p, prompts, c, max_new_tokens=MESH_NEW,
+                                      timings=times)
+        out["depths"][depth] = dict(
+            tok=tok.numpy(), step=step.numpy(),
+            streams=streams[:, MESH_PROMPT:].cpu().numpy(),
+            margins=torch.stack(tap.margins).numpy(),
+            prefill_ms=times["prefill_s"] * 1e3,
+            decode_ms_per_step=times["decode_s"] / (MESH_NEW - 1) * 1e3)
+    del params, prompts
+    release(torch)
+    return out
+
+
+def _profile_mesh_decode(torch, engine, params, cfg, prompts, mesh,
+                         steps: int = 4) -> dict:
+    """``steps`` sharded decode steps under ``torch.profiler`` (device
+    activity only): this rank's device busy time, the LSCD kernels' share
+    and the largest names."""
+    from torch.profiler import ProfilerActivity, profile
+    S = prompts.shape[1]
+    with torch.inference_mode():
+        last, cache = engine.prefill(params, prompts, cfg, S + steps + 1,
+                                     mesh=mesh)
+        tok = torch.argmax(last, dim=-1)[:, None]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                logits, cache = engine.serve_step(params, cache, tok, S + i,
+                                                  cfg, mesh=mesh)
+                tok = torch.argmax(logits, dim=-1)[:, None]
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    return _device_summary(torch, prof, wall_s, steps)
+
+
+def mesh_serve_rank(mesh, ref_tok: dict, prompts_np) -> dict:
+    """One rank of the serving mesh: OPT-30B built layer by layer with
+    this rank's shard (``serve.build(mesh=)``), the first decode step
+    teacher-forced with the unsharded run's first tokens, and
+    ``engine.generate``'s greedy streams at ``MESH_DEPTHS``; its LSCD
+    launches (counted from 0 over each generate), a profiled sharded
+    decode step, and every launch configuration it made held against
+    the plain version on the card."""
+    import torch
+    import torch.distributed as dist
+    mods = load_mods()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    serve, engine, spmm = mods["serve"], mods["engine"], mods["spmm"]
+    rank = dist.get_rank()
+    dev = mods["mesh"].rank_device(mesh)
+    cfg = mods["configs"].get(MESH_SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params, built = _in_turn(torch, lambda: serve.build(
+        cfg, seed=SEED, sparsity=SPARSITY, device=dev, mesh=mesh))
+    out = dict(rank=rank, nnz=built["nnz"], build_s=built["build_s"],
+               weight_bytes=built["weight_bytes"],
+               sparse_bytes=built["sparse_bytes"],
+               build_peak_allocated=built["max_memory_allocated"],
+               depths={})
+    prompts = torch.from_numpy(prompts_np).to(dev)
+    probe = LaunchProbe(spmm)
+    for depth in MESH_DEPTHS:
+        p = dict(params, layers=params["layers"][:depth])
+        c = dataclasses.replace(cfg, n_layers=depth)
+        tok, step, _ = _first_step(torch, engine, p, c, prompts,
+                                   torch.from_numpy(ref_tok[depth]), mesh)
+        times = {}
+        with probe:
+            probe.phase = f"generate@{depth}"
+            spmm.reset_launch_counts()
+            streams = engine.generate(p, prompts, c, max_new_tokens=MESH_NEW,
+                                      timings=times, mesh=mesh)
+            counts = spmm.launch_counts()
+        out["depths"][depth] = dict(
+            tok=tok.numpy(), step=step.numpy(),
+            streams=streams[:, MESH_PROMPT:].cpu().numpy(), launches=counts,
+            prefill_ms=times["prefill_s"] * 1e3,
+            decode_ms_per_step=times["decode_s"] / (MESH_NEW - 1) * 1e3)
+    out["peak_allocated"] = torch.cuda.max_memory_allocated()
+    out["profile"] = _profile_mesh_decode(torch, engine, p, c, prompts,
+                                          mesh)
+    out["checked"] = _check_served_launches(torch, mods, probe.seen, cfg,
+                                            label=f"mesh: rank {rank}")
+    del params, probe
+    release(torch)
+    return out
+
+
+def _mesh_serving(torch, mods, card: str) -> dict:
+    """OPT-30B on ``MESH_SERVE_SHAPE``: the unsharded run, then four
+    ranks, and the gates."""
+    configs, mesh_mod = mods["configs"], mods["mesh"]
+    cfg = configs.get(MESH_SERVE_ARCH)
+    want = _mesh_serve_reference(torch, mods)
+    print(f"mesh: unsharded {cfg.name} at {cfg.n_layers} layers built in "
+          f"{want['build_s']:.1f} s, {want['weight_bytes']} B, "
+          f"{want['nnz']} non-zeros encoded; "
+          + "; ".join(f"{d} layers: prefill {r['prefill_ms']:.1f} ms, decode "
+                      f"{r['decode_ms_per_step']:.3f} ms/step"
+                      for d, r in want["depths"].items()), flush=True)
+    t0 = time.perf_counter()
+    ranks = mesh_mod.run_world(
+        mesh_serve_rank, MESH_SERVE_SHAPE, device=MESH_DEVICE,
+        args=({d: r["tok"] for d, r in want["depths"].items()},
+              want["prompts"]))
+    world_s = time.perf_counter() - t0
+    out = dict(card=card, world_s=world_s, shape=list(MESH_SERVE_SHAPE),
+               unsharded=dict(nnz=want["nnz"],
+                              weight_bytes=want["weight_bytes"]),
+               depths={}, ranks=[])
+    nnz = sum(r["nnz"] for r in ranks)
+    check(nnz == want["nnz"], f"mesh: the ranks encode {nnz} non-zeros, the "
+          f"unsharded build {want['nnz']}")
+    import numpy as np
+    for depth in MESH_DEPTHS:
+        w = want["depths"][depth]
+        got = [r["depths"][depth] for r in ranks]
+        for g in got[1:]:
+            check(np.array_equal(g["streams"], got[0]["streams"]),
+                  f"mesh: ranks' streams differ at {depth} layers")
+        tol = LOGITS_TOL if depth <= 4 else depth_logits_tol(depth)
+        err = close(torch, torch.from_numpy(got[0]["step"]),
+                    torch.from_numpy(w["step"]), dict(rtol=tol, atol=tol),
+                    f"mesh: first decode-step logits at {depth} layers vs "
+                    f"unsharded")
+        first_ties = [(int(i), float(w["margins"][0][i]))
+                      for i in np.nonzero(got[0]["tok"] != w["tok"])[0]]
+        check(all(m < NEAR_TIE for _, m in first_ties),
+              f"mesh: first tokens differ from unsharded at {first_ties} "
+              f"(rows, unsharded margins)")
+        cut = []
+        for row in range(MESH_REQUESTS):
+            diff = np.nonzero(got[0]["streams"][row] != w["streams"][row])[0]
+            if not len(diff):
+                continue
+            i = int(diff[0])
+            margin = float(w["margins"][i][row])
+            check(margin < NEAR_TIE, f"mesh: request {row} at {depth} layers "
+                  f"parts from the unsharded stream at token {i}, where its "
+                  f"top-2 margin is {margin:.3e} (a near tie is below "
+                  f"{NEAR_TIE:.1e})")
+            cut.append((row, i, margin))
+        out["depths"][depth] = dict(
+            max_abs_err=err, tol=tol, first_token_ties=first_ties, cut=cut,
+            prefill_ms=[g["prefill_ms"] for g in got],
+            decode_ms_per_step=[g["decode_ms_per_step"] for g in got],
+            unsharded_prefill_ms=w["prefill_ms"],
+            unsharded_decode_ms_per_step=w["decode_ms_per_step"],
+            launches=[g["launches"] for g in got])
+        print(f"mesh: {depth} layers on {MESH_SERVE_SHAPE[0]}x"
+              f"{MESH_SERVE_SHAPE[1]}: first decode-step logits vs unsharded "
+              f"max abs err {err:.3e} (tolerance {tol:.4f} + {tol:.4f} "
+              f"relative); {MESH_REQUESTS - len(cut)} of {MESH_REQUESTS} "
+              f"streams of {MESH_NEW} equal, {len(cut)} parted at a near tie "
+              f"{json.dumps([[r, i, round(m, 5)] for r, i, m in cut])}; "
+              f"rank 0 prefill {got[0]['prefill_ms']:.1f} ms, decode "
+              f"{got[0]['decode_ms_per_step']:.3f} ms/step (unsharded "
+              f"{w['prefill_ms']:.1f} ms, "
+              f"{w['decode_ms_per_step']:.3f} ms/step); {card}", flush=True)
+    for r in ranks:
+        deep = r["depths"][MESH_DEPTHS[-1]]
+        missing = [k for k in mods["spmm"].WEIGHT_KERNELS
+                   if not deep["launches"][k]]
+        check(not missing, f"mesh: rank {r['rank']} never launched {missing}")
+        out["ranks"].append(dict(
+            rank=r["rank"], weight_bytes=r["weight_bytes"],
+            sparse_bytes=r["sparse_bytes"], nnz=r["nnz"],
+            build_s=r["build_s"], peak_allocated=r["peak_allocated"],
+            build_peak_allocated=r["build_peak_allocated"],
+            launches={d: r["depths"][d]["launches"] for d in MESH_DEPTHS},
+            profile=r["profile"], checked=len(r["checked"])))
+        print(f"mesh: rank {r['rank']}: built {r['weight_bytes']} B "
+              f"({r['sparse_bytes']} B Tiled-CSL, {r['nnz']} non-zeros) in "
+              f"{r['build_s']:.1f} s, peak allocated {r['peak_allocated']} B;"
+              f" LSCD launches at {MESH_DEPTHS[-1]} layers "
+              f"{json.dumps(deep['launches'])}; {len(r['checked'])} launch "
+              f"configurations held against the plain versions", flush=True)
+    prof = ranks[0]["profile"]
+    if prof["busy_share"] is not None:
+        print(f"mesh: rank 0 profiled sharded decode step: "
+              f"{prof['wall_ms_per_step']:.3f} ms/step wall, device busy "
+              f"{prof['busy_ms_per_step']:.3f} ms/step "
+              f"({100 * prof['busy_share']:.1f}%, four ranks share the card)"
+              f", LSCD {prof['lscd_ms_per_step']:.3f} ms/step; {card}",
+              flush=True)
+        for ms, n, name in prof["top"]:
+            print(f"mesh:   decode {ms:8.3f} ms/step {n:4d}/step  {name}")
+    out["launches"] = {k: sum(r["depths"][d]["launches"][k]
+                              for r in ranks for d in MESH_DEPTHS)
+                       for k in mods["spmm"].KERNELS}
+    out["launches_per_rank"] = {k: sum(ranks[0]["depths"][d]["launches"][k]
+                                       for d in MESH_DEPTHS)
+                                for k in mods["spmm"].KERNELS}
+    return out
+
+
+def _mesh_train_args(mods):
+    return mods["train"].parse_args(
+        ["--arch", MESH_TRAIN_ARCH, "--steps", str(MESH_TRAIN_SAVE_AT + 1),
+         "--batch", str(MESH_TRAIN_BATCH), "--seq", str(MESH_TRAIN_SEQ),
+         "--sparsity", str(SPARSITY), "--seed", str(SEED)])
+
+
+def _mesh_train_reference(torch, mods, path: str) -> dict:
+    """The unsharded step 1, in this process; its params go to ``path``
+    (host tensors by path) for the ranks to read their blocks of."""
+    train, train_loop, ft = mods["train"], mods["train_loop"], mods["ft"]
+    release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    run = train.setup(_mesh_train_args(mods), MESH_DEVICE)
+    step_fn = train_loop.make_train_step(run["cfg"], run["opt"],
+                                         masks=run["masks"])
+    batch = train_loop.batch_to(run["stream"].next_batch(), MESH_DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step_fn(run["state"], batch)
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    step_s = time.perf_counter() - t0
+    torch.save({p: t.cpu() for p, t in ft.flatten_with_paths(state.params)},
+               path)
+    peak = torch.cuda.max_memory_allocated()
+    del run, step_fn, state, metrics, batch
+    release(torch)
+    return dict(loss=loss, grad_norm=gnorm, step_s=step_s,
+                peak_allocated=peak)
+
+
+def _fingerprints(torch, mods, tree, shardings, mesh) -> "torch.Tensor":
+    """[leaves, 2] int64: each tensor leaf's checksums (``FP_PRIMES``) of
+    its bits weighted by their positions in the whole leaf, summed over
+    the ``model`` ranks (modulo each prime); a rank's block of a leaf
+    split over ``model`` sits at its offset."""
+    ft, sharding, tp = mods["ft"], mods["sharding"], mods["tensor_parallel"]
+    rows = []
+    model = tp.of(mesh)
+    for path, t in ft.flatten_with_paths(tree):
+        if not isinstance(t, torch.Tensor):
+            continue
+        dev = t.device
+        ppath = ft.params_path(path)
+        spec = (shardings[ppath] if mesh is not None and ppath is not None
+                else (None,) * t.dim())
+        dims = [i for i, e in enumerate(spec) if e is not None]
+        shape = list(t.shape)
+        d = dims[0] if dims else 0
+        parts = model.size if dims and model is not None else 1
+        off = model.rank * shape[d] if parts > 1 else 0
+        if model is not None and parts == 1 and model.rank:
+            # a replicated leaf counts once: model rank 0's
+            rows.append(torch.zeros(len(FP_PRIMES), dtype=torch.int64,
+                                    device=dev))
+            continue
+        inner = 1
+        for n in shape[d + 1:]:
+            inner *= n
+        flat = t.detach().reshape(-1)
+        bits = (flat.view(torch.int32) if flat.element_size() == 4
+                else flat.to(torch.int32)).to(torch.int64) & 0xFFFFFFFF
+        acc = [torch.zeros((), dtype=torch.int64, device=dev)
+               for _ in FP_PRIMES]
+        for lo in range(0, flat.numel(), FP_CHUNK):
+            i = torch.arange(lo, min(lo + FP_CHUNK, flat.numel()),
+                             device=dev, dtype=torch.int64)
+            if shape:
+                outer, di = i // (shape[d] * inner), (i // inner) % shape[d]
+                g = (outer * (shape[d] * parts) + off + di) * inner \
+                    + i % inner
+            else:
+                g = i
+            b = bits[lo:lo + FP_CHUNK]
+            for k, prime in enumerate(FP_PRIMES):
+                w = (g * 48271 + 1) % prime
+                acc[k] = (acc[k] + ((b % prime) * w % prime).sum()) % prime
+        rows.append(torch.stack(acc))
+    fp = torch.stack(rows)
+    if model is not None:
+        fp = tp.all_reduce(fp, model.group)
+        fp = torch.stack([fp[:, k] % prime
+                          for k, prime in enumerate(FP_PRIMES)], dim=1)
+    return fp.cpu()
+
+
+def _template(torch, mods, state, shardings, mesh_from, mesh_to):
+    """A train state's structure with leaves on the meta device (no
+    memory) of the shapes a rank of ``mesh_to`` holds (the whole ones
+    without a mesh), from this rank's ``state`` on ``mesh_from``."""
+    ft, sharding = mods["ft"], mods["sharding"]
+
+    def leaf(path, t):
+        ppath = ft.params_path(path)
+        spec = shardings.get(ppath) if ppath is not None else None
+        shape = list(t.shape)
+        for i, e in enumerate(spec or ()):
+            if e is not None:
+                shape[i] *= sharding.axis_sizes(mesh_from)[e]
+        if mesh_to is not None:
+            for i, e in enumerate(sharding.spec_for(ppath, shape, mesh_to)
+                                  if ppath is not None else ()):
+                if e is not None:
+                    shape[i] //= sharding.axis_sizes(mesh_to)[e]
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
+    def rebuild(x, path=""):
+        if isinstance(x, dict):
+            return {k: rebuild(v, f"{path}['{k}']") for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(rebuild(getattr(x, f), f"{path}.{f}")
+                             for f in x._fields))
+        if isinstance(x, (list, tuple)):
+            return type(x)(rebuild(v, f"{path}[{i}]")
+                           for i, v in enumerate(x))
+        return leaf(path, x) if isinstance(x, torch.Tensor) else x
+    return rebuild(state)
+
+
+def _mesh_compression(torch, mods, params, batch, cfg, mesh) -> dict:
+    """Each step-1 gradient leaf (this rank's, before the data mean)
+    summed over ``data`` by ``compressed_all_reduce`` against the exact
+    f32 sum: within world x max|g| / 127, the reference's bound."""
+    train_loop, ft = mods["train_loop"], mods["ft"]
+    compression, tp = mods["compression"], mods["tensor_parallel"]
+    import torch.distributed as dist
+    grads = train_loop.value_and_grad(params, batch, cfg, mesh=mesh)[2]
+    data = tp.axis(mesh, "data")
+    worst, worst_path, n = 0.0, None, 0
+    for path, g in ft.flatten_with_paths(grads):
+        exact = tp.all_reduce(g.float(), data.group)
+        got = compression.compressed_all_reduce(g, data.group)
+        gmax = tp.all_reduce(g.abs().max().float().reshape(1), data.group,
+                             op=dist.ReduceOp.MAX)
+        bound = data.size * float(gmax) / 127.0
+        share = float((got - exact).abs().max()) / bound if bound else 0.0
+        if share > worst:
+            worst, worst_path = share, path
+        n += 1
+    del grads
+    return dict(leaves=n, worst_share_of_bound=worst, worst_leaf=worst_path)
+
+
+def _host_params(ft, params) -> dict:
+    return {path: t.detach().cpu()
+            for path, t in ft.flatten_with_paths(params)}
+
+
+def _update_gap(torch, ft, params, want_of, before: dict, lr: float) -> dict:
+    """This rank's params after a step against ``want_of(path)``, the
+    other run's block of the same leaf, both stepped from ``before``
+    (host tensors): the largest difference, and the update's misses (see
+    ``UPDATE_MISS_TOL``) in the worst leaf."""
+    gap = dict(lr=lr, param_err=0.0, param_err_leaf=None, update_miss=0.0,
+               update_miss_leaf=None, moved=0)
+    for path, t in ft.flatten_with_paths(params):
+        t = t.detach().float()
+        w = want_of(path).to(t.device, torch.float32)
+        d = (t - w).abs()
+        moved = int(((w - before[path].to(t.device, torch.float32)).abs()
+                     > lr / 2).sum())
+        miss = int((d > lr / 2).sum()) / max(moved, 1)
+        gap["moved"] += moved
+        err = float(d.max())
+        if err > gap["param_err"]:
+            gap.update(param_err=err, param_err_leaf=path)
+        if miss > gap["update_miss"]:
+            gap.update(update_miss=miss, update_miss_leaf=path)
+        del w, d
+    return gap
+
+
+def mesh_train_rank(mesh, ref: dict, work: str) -> dict:
+    """One rank of the training mesh (2x2): the whole model drawn, masked
+    and sharded by the launcher's ``setup``; the compressed all-reduce of
+    the step-1 gradients; step 1 against the unsharded step (``work``'s
+    ``step1_params.pt``); steps 2-5 with the masks checked; the step-5
+    save; the live state's checksums against its restores onto 1x4 (a
+    mesh over the same ranks) and onto one rank; step 6 on 2x2 and on the
+    1x4 restore, element by element."""
+    import torch
+    import torch.distributed as dist
+    mods = load_mods()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train, train_loop, ft = mods["train"], mods["train_loop"], mods["ft"]
+    data, sharding, mesh_mod = mods["data"], mods["sharding"], mods["mesh"]
+    transformer = mods["transformer"]
+    rank = dist.get_rank()
+    dev = mesh_mod.rank_device(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = _in_turn(torch, lambda: train.setup(_mesh_train_args(mods), dev,
+                                              mesh))
+    setup_s = time.perf_counter() - t0
+    state = run.pop("state")        # the loop's own: the first state goes
+    cfg, masks, stream = (run[k] for k in ("cfg", "masks", "stream"))
+    shardings = run["shardings"]
+    opt = run["opt"]
+    lr_at = lambda s: float(opt.lr(s))     # the launcher's schedule
+    ckpt_dir = os.path.join(work, "ckpt")
+    step_fn = train_loop.make_train_step(cfg, opt, masks=masks, mesh=mesh,
+                                         shardings=shardings)
+    at = (mesh.get_local_rank("data"), mesh.size(0))
+    out = dict(rank=rank, setup_s=setup_s, steps=[])
+    batch = train_loop.batch_to(data.batch_slice(stream.next_batch(), *at),
+                                dev)
+    out["compression"] = _mesh_compression(torch, mods, state.params, batch,
+                                           cfg, mesh)
+    before = _host_params(ft, state.params)
+    for s in range(1, MESH_TRAIN_SAVE_AT + 1):
+        if s > 1:
+            batch = train_loop.batch_to(
+                data.batch_slice(stream.next_batch(), *at), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        out["steps"].append(dict(loss=loss, grad_norm=gnorm,
+                                 s=time.perf_counter() - t0,
+                                 masked_nonzero=_masked_nonzeros(
+                                     torch, ft, state.params, masks)))
+        if s == 1:           # this rank's blocks of the unsharded step
+            want = torch.load(os.path.join(work, "step1_params.pt"),
+                              mmap=True)
+            out["step1"] = _update_gap(
+                torch, ft, state.params,
+                lambda path: sharding.shard_leaf(want[path], shardings[path],
+                                                 mesh), before, lr_at(1))
+            del want, before
+    out["peak_allocated"] = torch.cuda.max_memory_allocated()
+    mgr = ft.CheckpointManager(ckpt_dir, keep=1)
+    t0 = time.perf_counter()
+    mgr.save(MESH_TRAIN_SAVE_AT, (state, stream.state_dict()), mesh=mesh,
+             shardings=shardings, block=True)
+    out["save_s"] = time.perf_counter() - t0
+    live = _fingerprints(torch, mods, state, shardings, mesh)
+    batch6 = stream.next_batch()
+    state6, m6 = step_fn(state, train_loop.batch_to(
+        data.batch_slice(batch6, *at), dev))
+    out["step6"] = dict(loss=float(m6["loss"]),
+                        grad_norm=float(m6["grad_norm"]))
+    if at[0] == 0:          # data row 0's model ranks: the step-6 params
+        torch.save(_host_params(ft, state6.params), os.path.join(
+            work, f"step6_model{mesh.get_local_rank('model')}.pt"))
+    del state6, m6
+    dist.barrier()
+    # the 1x4 restore, a mesh over the same four ranks, and the one-rank
+    # restore, onto templates of this state's shapes; then it goes
+    mesh4 = mesh_mod.make_host_mesh(4, 4, device_type=dev.type)
+    data_state = stream.state_dict()
+    template4 = _template(torch, mods, (state, data_state), shardings,
+                          mesh, mesh4)
+    template1 = _template(torch, mods, (state, data_state), shardings,
+                          mesh, None)
+    del state, masks, step_fn, run
+    release(torch)
+    t0 = time.perf_counter()
+    (state4, _), meta = mgr.restore(template4, device=dev, mesh=mesh4)
+    out["restore_1x4_s"] = time.perf_counter() - t0
+
+    def masks_on_1x4():             # by the launcher's rule, whole, then cut
+        whole = transformer.init_model(cfg, seed=SEED, device=dev)
+        masks = train.reference_masks(whole, cfg, SPARSITY)
+        return (sharding.params_shardings(whole, mesh4),
+                sharding.shard_params(masks, mesh4))
+    shardings4, masks4 = _in_turn(torch, masks_on_1x4)
+    out["restored_1x4"] = _fingerprints(torch, mods, state4, shardings4,
+                                        mesh4)
+    out["live"] = live
+    out["restored_step"] = meta["step"]
+    step4 = train_loop.make_train_step(cfg, opt, masks=masks4, mesh=mesh4,
+                                       shardings=shardings4)
+    before = _host_params(ft, state4.params)
+    state4, m4 = step4(state4, train_loop.batch_to(batch6, dev))
+    halves = [torch.load(os.path.join(work, f"step6_model{k}.pt"), mmap=True)
+              for k in range(MESH_TRAIN_SHAPE[1])]
+
+    def on_2x2(path):           # the whole 2x2 step-6 leaf, cut for 1x4
+        dims = [i for i, e in enumerate(shardings[path]) if e is not None]
+        whole = (torch.cat([h[path] for h in halves], dim=dims[0]) if dims
+                 else halves[0][path])
+        return sharding.shard_leaf(whole, shardings4[path], mesh4)
+    out["step6_1x4"] = dict(loss=float(m4["loss"]),
+                            grad_norm=float(m4["grad_norm"]),
+                            masked_nonzero=_masked_nonzeros(
+                                torch, ft, state4.params, masks4),
+                            **_update_gap(torch, ft, state4.params, on_2x2,
+                                          before, lr_at(MESH_TRAIN_SAVE_AT
+                                                        + 1)))
+    del state4, m4, masks4, step4, halves, before
+    release(torch)
+    dist.barrier()
+    if rank == 0:           # onto one process: the whole state
+        t0 = time.perf_counter()
+        (state1, _), _ = mgr.restore(template1, device=dev)
+        out["restore_one_s"] = time.perf_counter() - t0
+        out["restored_one"] = _fingerprints(torch, mods, state1, None, None)
+        del state1
+        release(torch)
+    dist.barrier()
+    return out
+
+
+def _mesh_training(torch, mods, card: str) -> dict:
+    """tinyllama-1.1b on ``MESH_TRAIN_SHAPE``: the unsharded step 1, then
+    four ranks, and the gates."""
+    mesh_mod = mods["mesh"]
+    work = os.path.join(str(mods["build"].build_dir()), "mesh_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        ref = _mesh_train_reference(torch, mods, os.path.join(
+            work, "step1_params.pt"))
+        print(f"mesh: unsharded {MESH_TRAIN_ARCH} step 1 (batch "
+              f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}, 0.8 masks): loss "
+              f"{ref['loss']:.6f}, grad norm {ref['grad_norm']:.6f}, "
+              f"{ref['step_s'] * 1e3:.1f} ms, peak allocated "
+              f"{ref['peak_allocated']} B; {card}", flush=True)
+        t0 = time.perf_counter()
+        ranks = mesh_mod.run_world(mesh_train_rank, MESH_TRAIN_SHAPE,
+                                   device=MESH_DEVICE,
+                                   args=(ref, work))
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    r0 = ranks[0]
+    s1 = r0["steps"][0]
+    rel = lambda a, b: abs(a - b) / abs(b)
+    for name, a, b in (("loss", s1["loss"], ref["loss"]),
+                       ("grad norm", s1["grad_norm"], ref["grad_norm"])):
+        check(rel(a, b) <= MESH_TRAIN_TOL, f"mesh: step-1 {name} {a} on "
+              f"2x2 vs {b} unsharded: {rel(a, b):.3e} relative")
+    for r in ranks:
+        for name, g, vs in (("step 1", r["step1"], "unsharded"),
+                            ("step 6 on 1x4", r["step6_1x4"], "2x2")):
+            check(g["param_err"] <= MESH_TRAIN_TOL,
+                  f"mesh: rank {r['rank']}: {name} param "
+                  f"{g['param_err_leaf']} off the {vs} step's by "
+                  f"{g['param_err']:.3e}")
+            check(g["update_miss"] <= UPDATE_MISS_TOL,
+                  f"mesh: rank {r['rank']}: {name} update of "
+                  f"{g['update_miss_leaf']} misses the {vs} step's on "
+                  f"{g['update_miss']:.3e} of the elements it moved by "
+                  f"more than lr / 2 = {g['lr'] / 2:.3e}")
+        bad = [i + 1 for i, s in enumerate(r["steps"]) if s["masked_nonzero"]]
+        check(not bad and not r["step6_1x4"]["masked_nonzero"],
+              f"mesh: rank {r['rank']}: masked weights nonzero after steps "
+              f"{bad}")
+        check(r["compression"]["worst_share_of_bound"] <= 1.0,
+              f"mesh: rank {r['rank']}: compressed all-reduce of "
+              f"{r['compression']['worst_leaf']} at "
+              f"{r['compression']['worst_share_of_bound']:.3f} of its bound")
+        check(r["restored_step"] == MESH_TRAIN_SAVE_AT,
+              f"mesh: restored step {r['restored_step']}")
+        check(bool((r["restored_1x4"] == r0["live"]).all())
+              and bool((r["live"] == r0["live"]).all()),
+              f"mesh: rank {r['rank']}: the 1x4 restore's checksums differ "
+              f"from the saved 2x2 state's")
+    check(bool((r0["restored_one"] == r0["live"]).all()),
+          "mesh: the one-rank restore's checksums differ from the saved "
+          "2x2 state's")
+    a, b = r0["step6_1x4"], r0["step6"]
+    for name, x, y in (("loss", a["loss"], b["loss"]),
+                       ("grad norm", a["grad_norm"], b["grad_norm"])):
+        check(rel(x, y) <= MESH_TRAIN_TOL, f"mesh: step 6 on the 1x4 restore "
+              f"vs 2x2: {name} {rel(x, y):.3e} relative")
+    step_s = [s["s"] for s in r0["steps"]]
+    out = dict(card=card, world_s=world_s, shape=list(MESH_TRAIN_SHAPE),
+               batch=[MESH_TRAIN_BATCH, MESH_TRAIN_SEQ], reference=ref,
+               step1_loss_rel=rel(s1["loss"], ref["loss"]),
+               step1_grad_norm_rel=rel(s1["grad_norm"], ref["grad_norm"]),
+               step1_param_err=max(r["step1"]["param_err"] for r in ranks),
+               step1_update_miss=max(r["step1"]["update_miss"]
+                                     for r in ranks),
+               losses=[s["loss"] for s in r0["steps"]], step_s=step_s,
+               save_s=r0["save_s"], restore_1x4_s=r0["restore_1x4_s"],
+               restore_one_s=r0["restore_one_s"],
+               compression=[r["compression"] for r in ranks],
+               step6_loss_rel=rel(a["loss"], b["loss"]),
+               step6_grad_norm_rel=rel(a["grad_norm"], b["grad_norm"]),
+               step6_param_err=max(r["step6_1x4"]["param_err"]
+                                   for r in ranks),
+               step6_update_miss=max(r["step6_1x4"]["update_miss"]
+                                     for r in ranks),
+               leaves_checked=int(r0["live"].shape[0]),
+               peak_allocated=[r["peak_allocated"] for r in ranks],
+               setup_s=[r["setup_s"] for r in ranks])
+    print(f"mesh: {MESH_TRAIN_ARCH} on {MESH_TRAIN_SHAPE[0]}x"
+          f"{MESH_TRAIN_SHAPE[1]} (global batch {MESH_TRAIN_BATCH} x "
+          f"{MESH_TRAIN_SEQ}): step 1 loss {s1['loss']:.6f} "
+          f"({out['step1_loss_rel']:.2e} relative to unsharded), grad norm "
+          f"({out['step1_grad_norm_rel']:.2e}), params within "
+          f"{out['step1_param_err']:.2e} (tolerance {MESH_TRAIN_TOL}), "
+          f"update misses {out['step1_update_miss']:.3e} of the moved "
+          f"elements (tolerance {UPDATE_MISS_TOL}); "
+          f"losses {json.dumps([round(x, 5) for x in out['losses']])}, "
+          f"ms/step {json.dumps([round(x * 1e3, 1) for x in step_s])}; masks "
+          f"held; compressed all-reduce of the step-1 gradients at most "
+          f"{max(c['worst_share_of_bound'] for c in out['compression']):.3f}"
+          f" of its bound; saved in {r0['save_s']:.1f} s, restored onto 1x4"
+          f" in {r0['restore_1x4_s']:.1f} s and onto one rank in "
+          f"{r0['restore_one_s']:.1f} s, {out['leaves_checked']} leaves' "
+          f"checksums equal the saved state's; step 6 on 1x4 vs 2x2: loss "
+          f"{out['step6_loss_rel']:.2e}, grad norm "
+          f"{out['step6_grad_norm_rel']:.2e} relative, params within "
+          f"{out['step6_param_err']:.2e}, update misses "
+          f"{out['step6_update_miss']:.3e}; "
+          f"peak allocated per rank {out['peak_allocated']} B; {card}",
+          flush=True)
+    return out
+
+
+def mesh_phase(torch, mods) -> dict:
+    """The mesh phase: four ranks share the one card over gloo (NCCL
+    refuses two ranks on a device); no speed is claimed, since they
+    time-share it and gloo stages every collective through the host."""
+    card = card_line()
+    print(f"mesh: four ranks share the card over gloo; {card}", flush=True)
+    serving = _mesh_serving(torch, mods, card)
+    training = _mesh_training(torch, mods, card)
+    return dict(card=card, serving=serving, training=training,
+                launches=serving["launches"])
+
+
 # The full-depth phase holds 76.1e9 B of weights and pool and needs up
 # to 1.9e9 B more for a decode step's attention on a card of 85.0e9 B.
 # The caching allocator's default fixed segments left 5.3 GiB reserved but
@@ -4757,12 +5509,50 @@ ALLOC_CONF = "expandable_segments:True"
 PHASES = {"full": "full_depth_phase", "tiny": "tinyllama_phase",
           "mla": "mla_phase", "moe": "moe_phase", "hybrid": "hybrid_phase",
           "ssm": "ssm_phase", "vlm": "vlm_phase", "audio": "audio_phase",
-          "train": "train_phase"}
+          "train": "train_phase", "mesh": "mesh_phase"}
 
 # The train phase's resume check runs under deterministic algorithms,
 # which need cuBLAS's workspace fixed before its first handle is made.
 # This setting is the H100's default workspace (8 buffers of 4 MiB).
 CUBLAS_WORKSPACE = ":4096:8"
+
+
+def load_mods() -> dict:
+    """The port's modules this script drives, by short name (the mesh
+    phase's ranks load them again in their own processes)."""
+    src = os.path.join(ROOT, "src")
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    from repro_torch import configs, convert
+    from repro_torch.analysis import contracts
+    from repro_torch.core import (pruning, roofline, sparse_linear,
+                                  tiled_csl)
+    from repro_torch.kernels import build, gemm, ops, ref, schedule, spmm
+    from repro_torch.distributed import compression, sharding
+    from repro_torch.distributed import fault_tolerance
+    from repro_torch.distributed import tensor_parallel
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import (attention, layers, moe, ssm,
+                                    transformer)
+    from repro_torch.obs import profile as obs_profile
+    from repro_torch.serving import (api, batching, budget, engine,
+                                     loadgen, scheduler, speculative)
+    from repro_torch.serving import config as serve_config
+    from repro_torch.training import data, optimizer, train_loop
+    return dict(configs=configs, contracts=contracts, pruning=pruning,
+                roofline=roofline, tiled_csl=tiled_csl, build=build, ops=ops,
+                ref=ref, schedule=schedule, spmm=spmm, gemm=gemm, serve=serve,
+                engine=engine, api=api, loadgen=loadgen, scheduler=scheduler,
+                serve_config=serve_config, budget=budget,
+                speculative=speculative, transformer=transformer,
+                attention=attention, layers=layers, moe=moe, ssm=ssm,
+                batching=batching, sparse_linear=sparse_linear,
+                convert=convert, ft=fault_tolerance, train=train_launch,
+                obs_profile=obs_profile, data=data, optimizer=optimizer,
+                train_loop=train_loop, mesh=mesh_mod, sharding=sharding,
+                compression=compression, tensor_parallel=tensor_parallel)
 
 
 def _timed_phase(torch, mods, name: str) -> dict:
@@ -4787,38 +5577,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
-        from repro_torch import configs, convert
-        from repro_torch.analysis import contracts
-        from repro_torch.core import (pruning, roofline, sparse_linear,
-                                      tiled_csl)
-        from repro_torch.kernels import build, gemm, ops, ref, schedule, spmm
-        from repro_torch.distributed import fault_tolerance
-        from repro_torch.launch import serve
-        from repro_torch.launch import train as train_launch
-        from repro_torch.models import (attention, layers, moe, ssm,
-                                        transformer)
-        from repro_torch.obs import profile as obs_profile
-        from repro_torch.serving import (api, batching, budget, engine,
-                                         loadgen, scheduler, speculative)
-        from repro_torch.serving import config as serve_config
-        from repro_torch.training import data, optimizer, train_loop
+        mods = load_mods()
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
-    mods = dict(configs=configs, contracts=contracts, pruning=pruning,
-                roofline=roofline, tiled_csl=tiled_csl, build=build, ops=ops,
-                ref=ref, schedule=schedule, spmm=spmm, gemm=gemm, serve=serve,
-                engine=engine, api=api, loadgen=loadgen, scheduler=scheduler,
-                serve_config=serve_config, budget=budget,
-                speculative=speculative, transformer=transformer,
-                attention=attention, layers=layers, moe=moe, ssm=ssm,
-                batching=batching, sparse_linear=sparse_linear,
-                convert=convert, ft=fault_tolerance, train=train_launch,
-                obs_profile=obs_profile, data=data, optimizer=optimizer,
-                train_loop=train_loop)
+    build, spmm = mods["build"], mods["spmm"]
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -4863,7 +5628,7 @@ def main() -> int:
     rep.pop("params")
     del params
     release(torch)
-    full, tiny, mla, moe_out, hybrid, ssm_out, vlm, audio, train = (
+    full, tiny, mla, moe_out, hybrid, ssm_out, vlm, audio, train, mesh = (
         _timed_phase(torch, mods, name) for name in PHASES)
 
     kernels = []
@@ -4875,15 +5640,15 @@ def main() -> int:
     moe_counts = moe_out["launches"]
     hybrid_counts = hybrid["launches"]
     ring_counts = hybrid["ring"]["launches"]
-    ssm_counts, vlm_counts, audio_counts, train_counts = (
-        r["launches"] for r in (ssm_out, vlm, audio, train))
+    ssm_counts, vlm_counts, audio_counts, train_counts, mesh_counts = (
+        r["launches"] for r in (ssm_out, vlm, audio, train, mesh))
     window_counts = {k: sum(window_phases[op][k] for op in STEP_OPS)
                      for k in spmm.KERNELS}
     launches = {k: counts[k] + serve_counts[k] + window_counts[k]
                 + full_counts[k] + tiny_counts[k] + mla_counts[k]
                 + moe_counts[k] + hybrid_counts[k] + ring_counts[k]
                 + ssm_counts[k] + vlm_counts[k] + audio_counts[k]
-                + train_counts[k] for k in spmm.KERNELS}
+                + train_counts[k] + mesh_counts[k] for k in spmm.KERNELS}
     launches["dense_gemm"] = gemm_launches
     best.update(moe_out["kernel_rows"])
     for name in spmm.KERNELS + ("dense_gemm",):
@@ -4915,6 +5680,9 @@ def main() -> int:
             launches_vlm=vlm_counts.get(name, 0),
             launches_audio=audio_counts.get(name, 0),
             launches_train=train_counts.get(name, 0),
+            launches_mesh=mesh_counts.get(name, 0),
+            launches_mesh_per_rank=mesh["serving"][
+                "launches_per_rank"].get(name, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
@@ -4929,7 +5697,7 @@ def main() -> int:
                    slice=slice_summary, profile=prof, serving=serving,
                    window=window, full_depth=full, tinyllama=tiny, mla=mla,
                    moe=moe_out, hybrid=hybrid, ssm=ssm_out, vlm=vlm,
-                   audio=audio, train=train)
+                   audio=audio, train=train, mesh=mesh)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -20,6 +20,11 @@ then
   the MoE router ``[L, E, d]`` and dense expert stacks ``[L, E, f, d]``
   split the same way.
 
+:func:`rank_params_from_numpy` brings them across whole, prunes and
+encodes them whole where a sparsity is given (one threshold over each
+whole matrix: pruning a shard by its own threshold gives other masks),
+and keeps a mesh rank's shard (``distributed.sharding``).
+
 :func:`train_state_from_checkpoint` reads a training checkpoint, one
 that ``repro.launch.train`` wrote or the port's own, into a port
 ``TrainState`` (params, AdamW moments and step) and the data stream's
@@ -38,9 +43,11 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import pruning
 from repro_torch.core.tiled_csl import TiledCSL
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import fault_tolerance as ft
+from repro_torch.distributed import sharding
 from repro_torch.training import optimizer, train_loop
 
 _TCSL_ATTRS = ("words", "nnz", "shape", "m_tb", "k_tb")
@@ -129,6 +136,20 @@ def params_from_numpy(params: Any, *, device: DeviceLike = None) -> Any:
         stacked = out["layers"]
         out["layers"] = [_layer(stacked, i) for i in range(_n_layers(stacked))]
     return out
+
+
+def rank_params_from_numpy(params: Any, mesh, *, device: DeviceLike = None,
+                          sparsity: Optional[float] = None,
+                          should_sparsify=None) -> Any:
+    """This rank's shard of the reference's params (numpy leaves): whole
+    through :func:`params_from_numpy`, with ``sparsity`` pruned and
+    encoded whole (``pruning.sparsify_params`` with ``should_sparsify``,
+    then ``group_projections``), then cut by the sharding rules."""
+    whole = params_from_numpy(params, device=device)
+    if sparsity:
+        whole = pruning.group_projections(pruning.sparsify_params(
+            whole, sparsity, should_sparsify))
+    return sharding.shard_params(whole, mesh)
 
 
 def _checkpoint_tree(directory: str, step: Optional[int], prefix: str):

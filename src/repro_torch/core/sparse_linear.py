@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import tiled_csl
+from repro_torch.distributed import tensor_parallel
 from repro_torch.kernels import ops, spmm as spmm_mod
 
 Weight = Union[torch.Tensor, tiled_csl.TiledCSL]
@@ -182,3 +183,110 @@ def linear_grouped(ws: Union[tiled_csl.TiledCSL, Sequence[Weight]],
         og = y[g].T.reshape(*lead, m_pad)
         outs.append(og[..., :do] if do != m_pad else og)
     return tuple(outs)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: a rank's share of a product (``distributed.
+# tensor_parallel``). A weight is this rank's shard of the whole leaf, or
+# the whole leaf where the sharding rule left it whole (``fit_spec``: its
+# split dim does not divide the model axis); the whole leaf's product is
+# cut to this rank's share after it.
+# ---------------------------------------------------------------------------
+
+def _share(full: int, tp) -> Tuple[int, int]:
+    """(offset, length) of this rank's share of a dim of ``full``."""
+    if full % tp.size:
+        raise ValueError(f"dim {full} does not split over {tp.size} model "
+                         "ranks")
+    n = full // tp.size
+    return tp.rank * n, n
+
+
+def _held_whole(held: int, full: int, tp, what: str) -> bool:
+    """True iff a weight dim of ``held`` (Tiled-CSL: padded to the tile)
+    is the whole dim of ``full``; False iff it is this rank's share."""
+    if held >= full:
+        return True
+    if held * tp.size == full:
+        return False
+    raise ValueError(f"{what} of {held} is neither the whole {full} nor a "
+                     f"1/{tp.size} share (a padded Tiled-CSL dim does not "
+                     "shard)")
+
+
+def _bias_share(b: Optional[torch.Tensor], full: int, tp,
+                whole: bool) -> Optional[torch.Tensor]:
+    """The bias for a product whose weight is whole (the whole bias,
+    zero-padded if the rank holds its share only) or a share (its
+    share)."""
+    if b is None:
+        return None
+    lo, n = _share(full, tp)
+    if whole:
+        return b if b.shape[0] == full else F.pad(b, (lo, full - lo - n))
+    return b[lo:lo + n] if b.shape[0] == full else b
+
+
+def column_parallel(w: Weight, x: torch.Tensor,
+                    b: Optional[torch.Tensor] = None, *, out: int, tp,
+                    epilogue: str = "none", backend: str = "auto"
+                    ) -> torch.Tensor:
+    """This rank's out columns ``[r * out/m, (r+1) * out/m)`` of
+    ``epilogue(x @ W^T + b)``, ``x`` whole on every rank (the caller has
+    passed it through ``tensor_parallel.copy_to``)."""
+    lo, n = _share(out, tp)
+    whole = _held_whole(w.shape[0], out, tp, "out dim")
+    b = _bias_share(b, out, tp, whole)
+    if not whole:
+        return linear(w, x, b, declared_out=n, epilogue=epilogue,
+                      backend=backend)
+    return linear(w, x, b, declared_out=out, epilogue=epilogue,
+                  backend=backend)[..., lo:lo + n]
+
+
+def column_parallel_grouped(ws, x: torch.Tensor, bs=None, *,
+                            outs: Sequence[int], tp, epilogue: str = "none",
+                            backend: str = "auto"):
+    """:func:`linear_grouped` column-parallel: each member's share of its
+    out dim (``outs``, whole sizes). Members share one shape, so they are
+    whole or shares alike."""
+    held = ws.shape[0] if isinstance(ws, tiled_csl.TiledCSL) \
+        else tuple(ws)[0].shape[0]
+    whole = _held_whole(held, max(outs), tp, "out dim")
+    bs = tuple(bs) if bs is not None else (None,) * len(outs)
+    bs = tuple(_bias_share(b, o, tp, whole) for b, o in zip(bs, outs))
+    shares = [_share(o, tp) for o in outs]
+    if not whole:
+        return linear_grouped(ws, x, bs, declared_outs=[n for _, n in shares],
+                              epilogue=epilogue, backend=backend)
+    y = linear_grouped(ws, x, bs, declared_outs=outs, epilogue=epilogue,
+                       backend=backend)
+    if isinstance(y, torch.Tensor):                  # a binary epilogue
+        lo, n = shares[0]
+        return y[..., lo:lo + n]
+    return tuple(yg[..., lo:lo + n] for yg, (lo, n) in zip(y, shares))
+
+
+def row_parallel(w: Weight, x: torch.Tensor,
+                 b: Optional[torch.Tensor] = None, *, out: int, tp,
+                 backend: str = "auto") -> torch.Tensor:
+    """``x_whole @ W^T + b`` from this rank's in columns ``x [..., K/m]``:
+    the rank's partial product, summed over the model ranks in f32, the
+    replicated bias added once after the sum, one cast to ``x``'s dtype.
+    No nonlinear epilogue runs before the sum. A Tiled-CSL product takes
+    ``x`` in f32 (its values exactly), since the kernel writes in its B's
+    dtype: the partial stays f32 and rounds once, after the sum. A dense
+    product runs in ``x``'s dtype, as the unsharded one does, and its
+    partial is summed in f32."""
+    dtype = x.dtype
+    k = x.shape[-1] * tp.size
+    if _held_whole(w.shape[1], k, tp, "in dim"):
+        lo, n = _share(k, tp)
+        x = F.pad(x, (lo, k - lo - n))
+    if isinstance(w, tiled_csl.TiledCSL):
+        x = x.to(torch.float32)
+    y = linear(w, x, declared_out=out, backend=backend).to(torch.float32)
+    y = tensor_parallel.reduce_from(y, tp)
+    if b is not None:
+        y = y + b.to(torch.float32)
+    return y.to(dtype)

@@ -21,9 +21,13 @@ trees have ``[0].params['layers']['attn']['wq']['w']`` with an ``[L,
 numpy has no bfloat16: a bf16 leaf is stored as its uint16 bits, and
 the manifest's ``dtypes`` names it, so it restores bit for bit.
 
-Not ported yet (ROADMAP.md queue 1 item 14): the elastic re-shard of
-``restore`` onto another mesh; here ``restore`` takes a template tree
-and a device.
+Elastic restore: a checkpoint holds whole arrays, as the reference stores
+them, whatever mesh saved it. ``save(..., mesh=, shardings=)`` gathers a
+rank's shards to model rank 0 of data row 0 over a gloo group, on host
+tensors, and global rank 0 writes; ``restore(template, mesh=)`` gives
+each rank its shard of every leaf by the sharding rules
+(``distributed.sharding``), so a checkpoint saved on one mesh restores
+on another, or on one process.
 """
 
 from __future__ import annotations
@@ -39,8 +43,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import sharding
 
 # ---------------------------------------------------------------------------
 # path-keyed (de)serialisation
@@ -254,6 +260,70 @@ class SnapshotStore:
 
 
 # ---------------------------------------------------------------------------
+# sharded state: a leaf's params path, the gather, the shard
+# ---------------------------------------------------------------------------
+
+# A train state leaf that mirrors a params leaf: the params themselves or
+# an AdamW moment (``[0].params[...]``, ``[0].opt_state.mu[...]``).
+_PARAMS_LEAF = re.compile(r"\.(?:params|mu|nu)((?:\[[^\]]*\])+)$")
+
+
+def params_path(path: str) -> Optional[str]:
+    """The params path a state leaf mirrors, or None (a step, the data
+    stream's state)."""
+    m = _PARAMS_LEAF.search(path)
+    return m.group(1) if m else None
+
+
+def leaf_spec(path: str, shape, mesh) -> tuple:
+    """A state leaf's spec on ``mesh`` from its whole ``shape``: its
+    params leaf's, or replicated."""
+    ppath = params_path(path)
+    if ppath is None:
+        return sharding.replicated(len(shape))
+    return sharding.spec_for(ppath, tuple(shape), mesh)
+
+
+_HOST_GROUPS: Dict[int, Any] = {}
+
+
+def host_model_group(mesh):
+    """A gloo group over this rank's ``model`` axis (the mesh's own where
+    it is gloo already). Every rank makes every row's group, in order."""
+    group = mesh.get_group("model")
+    if dist.get_backend(group) == "gloo":
+        return group
+    if id(mesh) not in _HOST_GROUPS:
+        ranks = mesh.mesh.reshape(-1, mesh.size(
+            mesh.mesh_dim_names.index("model"))).tolist()
+        mine = None
+        for row in ranks:
+            g = dist.new_group(row, backend="gloo")
+            if dist.get_rank() in row:
+                mine = g
+        _HOST_GROUPS[id(mesh)] = mine
+    return _HOST_GROUPS[id(mesh)]
+
+
+def _gather_whole(leaf: torch.Tensor, spec, mesh, group) -> torch.Tensor:
+    """The whole leaf on model rank 0 (``None`` elsewhere) from every
+    model rank's block, on the host."""
+    local = leaf.detach().to("cpu").contiguous()
+    dims = [i for i, e in enumerate(spec) if e is not None]
+    if not dims:
+        return local
+    if len(dims) > 1 or spec[dims[0]] != "model":
+        raise NotImplementedError(f"gathering spec {spec} (only a model "
+                                  "split is saved from a mesh)")
+    size = mesh.size(mesh.mesh_dim_names.index("model"))
+    first = mesh.get_local_rank("model") == 0
+    parts = [torch.empty_like(local) for _ in range(size)] if first else None
+    dist.gather(local, parts, dst=dist.get_global_rank(group, 0),
+                group=group)
+    return torch.cat(parts, dim=dims[0]) if first else None
+
+
+# ---------------------------------------------------------------------------
 # checkpoint manager
 # ---------------------------------------------------------------------------
 
@@ -271,15 +341,50 @@ class CheckpointManager:
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, state: Any, *, extra: Optional[dict] = None,
-             block: bool = False) -> None:
+             block: bool = False, mesh=None,
+             shardings: Optional[Dict[str, tuple]] = None) -> None:
         """Copy every leaf of ``state`` to the host now (so the caller may
         go on), then write; with ``async_save`` (and not ``block``) the
-        write runs on a thread, after the previous one has finished."""
+        write runs on a thread, after the previous one has finished.
+
+        Under ``mesh`` ``state`` is a rank's shard and ``shardings`` its
+        params' specs (``sharding.params_shardings`` of the whole
+        params): every rank calls ``save``, the whole arrays are gathered
+        to global rank 0, which writes; with ``block`` every rank returns
+        once the checkpoint is on disk."""
+        if mesh is not None:
+            self._save_sharded(step, state, extra, block, mesh, shardings)
+            return
         arrays, dtypes = {}, {}
         for path, leaf in flatten_with_paths(state):
             arrays[path], name = _to_numpy(leaf)
             if name is not None:
                 dtypes[path] = name
+        self._publish(step, arrays, dtypes, extra, block)
+
+    def _save_sharded(self, step, state, extra, block, mesh, shardings):
+        group = host_model_group(mesh)
+        row0 = mesh.get_local_rank("data") == 0 \
+            if "data" in mesh.mesh_dim_names else True
+        writer = dist.get_rank() == 0
+        arrays, dtypes = {}, {}
+        if row0:
+            for path, leaf in flatten_with_paths(state):
+                if isinstance(leaf, torch.Tensor):
+                    ppath = params_path(path)
+                    spec = (shardings[ppath] if ppath is not None
+                            else sharding.replicated(leaf.dim()))
+                    leaf = _gather_whole(leaf, spec, mesh, group)
+                if writer:
+                    arrays[path], name = _to_numpy(leaf)
+                    if name is not None:
+                        dtypes[path] = name
+        if writer:
+            self._publish(step, arrays, dtypes, extra, block)
+        if block:
+            dist.barrier()
+
+    def _publish(self, step, arrays, dtypes, extra, block) -> None:
         meta = {"step": int(step), "extra": extra or {},
                 "leaves": sorted(arrays)}
         if dtypes:
@@ -347,13 +452,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def read(self, *, step: Optional[int] = None,
-             prefix: str = "") -> Tuple[Dict[str, np.ndarray], dict]:
+    def read(self, *, step: Optional[int] = None, prefix: str = "",
+             transform: Optional[Callable[[str, np.ndarray], np.ndarray]]
+             = None) -> Tuple[Dict[str, np.ndarray], dict]:
         """The arrays of one checkpoint (the newest by default) whose
         paths start with ``prefix``, and its manifest. The leaves are
         read by ``READ_THREADS`` threads, each through its own handle
         (the archive's CRC checks and copies release the interpreter
-        lock)."""
+        lock). ``transform(path, array)``, when given, replaces each
+        array as it is read (a rank keeps its shard only)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -365,7 +472,9 @@ class CheckpointManager:
 
         def part(ks):
             with np.load(npz) as z:
-                return {k: z[k] for k in ks}
+                if transform is None:
+                    return {k: z[k] for k in ks}
+                return {k: transform(k, z[k]) for k in ks}
         arrays: Dict[str, np.ndarray] = {}
         with ThreadPoolExecutor(READ_THREADS) as ex:
             for got in ex.map(part, [keys[i::READ_THREADS]
@@ -374,10 +483,22 @@ class CheckpointManager:
         return arrays, meta
 
     def restore(self, template: Any, *, step: Optional[int] = None,
-                device: DeviceLike = None) -> Tuple[Any, dict]:
+                device: DeviceLike = None, mesh=None) -> Tuple[Any, dict]:
         """Restore onto ``template``'s structure and dtypes, on ``device``
-        (default: each template leaf's own). Returns (state, manifest)."""
-        arrays, meta = self.read(step=step)
+        (default: each template leaf's own). Returns (state, manifest).
+        Under ``mesh`` ``template`` is a rank's shard, and each leaf is
+        cut to this rank's block by the sharding rules on its whole
+        shape (the checkpoint may come from any mesh, or none)."""
+        transform = None
+        if mesh is not None:
+            def transform(path, arr):
+                spec = leaf_spec(path, arr.shape, mesh)
+                if not any(e is not None for e in spec):
+                    return arr
+                block = sharding.shard_leaf(torch.from_numpy(arr), spec,
+                                            mesh)
+                return np.ascontiguousarray(block.numpy())
+        arrays, meta = self.read(step=step, transform=transform)
         return unflatten_like(template, arrays, meta.get("dtypes"),
                               device), meta
 

@@ -70,6 +70,7 @@ from repro_torch import configs, convert
 from repro_torch.core import pruning, tiled_csl
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import fault_tolerance as ft
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.launch import train as train_launch
 from repro_torch.models import transformer
@@ -153,7 +154,7 @@ def _copy_tree(tree):
 
 def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
           balanced: bool = False, device: DeviceLike = None, source=None,
-          masked=None):
+          masked=None, mesh=None):
     """Random params on ``device``, pruned and reformatted to Tiled-CSL
     when ``sparsity`` is given. Returns (params, report dict).
 
@@ -185,13 +186,24 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
     f32 (``KEEP_AS_DRAWN``). ``lm_head`` stays dense, as in the JAX
     launcher.
 
+    With ``mesh`` (``launch.mesh``) this rank keeps its shard
+    (``distributed.sharding.shard_params``): each layer is drawn, pruned
+    and encoded whole, as without a mesh, then cut to the rank's shard
+    and the whole freed before the next layer; a shard keeps its whole
+    leaf's ``max_nnz``, so the re-pad and the grouping decide as on the
+    whole model, and the result is the shard of the unsharded build bit
+    for bit.
+
     The report holds ``encode_s`` (the prune, encode, re-pad and group
     time, device synchronised), ``build_s`` (all of it, init included), the
     Tiled-CSL count and bytes (``sparse_bytes``; ``dense_bytes`` is their
-    bf16 size), ``weight_bytes`` (every leaf as built) and, on a card,
-    ``max_memory_allocated`` at the end of the build.
+    bf16 size), ``nnz`` (the non-zeros encoded), ``weight_bytes`` (every
+    leaf as built) and, on a card, ``max_memory_allocated`` at the end of
+    the build.
     """
     dev = resolve_device(device)
+    if mesh is not None:
+        transformer.rank_config(cfg, mesh)      # refuses what TP cannot
     dt = getattr(torch, cfg.dtype)
     report = {"encode_s": 0.0, "sparse_bytes": 0, "dense_bytes": 0,
               "n_tiled_csl": 0}
@@ -205,7 +217,7 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
             if name in ("embed", "lm_head"):
                 key = "table" if name == "embed" else "w"
                 part[key] = part[key].to(dt)
-            params[name] = part
+            params[name] = _rank_part(part, mesh, f"['{name}']")
             continue
         stack = params.setdefault("layers", [])
         if sparsity:
@@ -221,6 +233,7 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
                 prefix=prefix)
             _sync(dev)
             report["encode_s"] += time.perf_counter() - t0
+        part = _rank_part(part, mesh, f"['layers'][{len(stack)}]")
         stack.append(_cast_dense_matrices(part, dt))
     if sparsity:
         _sync(dev)
@@ -239,13 +252,21 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
         csl = tiled_csl_leaves(params)
         report.update(n_tiled_csl=len(csl),
                       sparse_bytes=sum(t.nbytes_sparse for t in csl),
-                      dense_bytes=sum(t.nbytes_dense for t in csl))
+                      dense_bytes=sum(t.nbytes_dense for t in csl),
+                      nnz=sum(int(t.nnz.sum()) for t in csl))
     _sync(dev)
     report["build_s"] = time.perf_counter() - t_start
     report["weight_bytes"] = params_bytes(params)
     report["max_memory_allocated"] = (torch.cuda.max_memory_allocated(dev)
                                       if dev.type == "cuda" else None)
     return params, report
+
+
+def _rank_part(part, mesh, prefix: str):
+    """``part`` (a params subtree at ``prefix``) as this rank keeps it."""
+    if mesh is None:
+        return part
+    return sharding.shard_params(part, mesh, prefix=prefix)
 
 
 def params_bytes(tree) -> int:

@@ -13,8 +13,17 @@ mask-preserving sparse training, the paper's retraining-based pruning
 loop: the masks follow the reference launcher's rule exactly
 (:func:`reference_masks`), and the checkpoint's manifest records the
 sparsity, so ``launch.serve --ckpt`` encodes the trained weights with
-exactly their masks. ``--mesh`` is refused: the sharded path is
-ROADMAP.md queue 1 item 14.
+exactly their masks.
+
+``--mesh DxM`` trains data-parallel over D and tensor-parallel over M
+ranks (``launch.mesh``, ``fsdp`` off as in the reference): every rank
+draws the whole model from the seed, computes the masks on the whole
+leaves by the launcher's rule, keeps its shard
+(``distributed.sharding``) and takes its slice of each global batch.
+Checkpoints hold whole arrays (``distributed.fault_tolerance``), so
+``--resume`` continues on another mesh, or on none. ``main`` starts its
+own world of D x M ranks unless it runs inside one already (``torchrun``:
+``WORLD_SIZE`` set).
 
 It runs on the card (``device="cuda"``) unless ``main`` is asked for
 another device; the tests call ``main([...], device="cpu")``.
@@ -23,15 +32,19 @@ another device; the tests call ``main([...], device="cpu")``.
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.core import pruning
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import fault_tolerance as ft
+from repro_torch.distributed import sharding
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.training import data as data_mod
@@ -55,14 +68,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--mesh", default=None,
-                    help='"DxM" over local devices (not ported: ROADMAP.md '
-                         'queue 1 item 14)')
+                    help='"DxM": D data-parallel by M tensor-parallel ranks')
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
     if args.mesh:
-        ap.error("--mesh is not ported yet: sharded training is ROADMAP.md "
-                 "queue 1 item 14")
+        try:
+            mesh_mod.parse_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
     return args
 
 
@@ -127,21 +141,37 @@ def mask_counts(masks: Any) -> Dict[str, int]:
     return {path: int(m.sum()) for path, m in ft.flatten_with_paths(masks)}
 
 
-def setup(args: argparse.Namespace, device: DeviceLike = None) -> dict:
+def setup(args: argparse.Namespace, device: DeviceLike = None,
+          mesh=None) -> dict:
     """The run's objects: config, optimizer, state (masked), masks, data
     stream, checkpoint manager, and the step to start from (after
-    ``--resume``)."""
+    ``--resume``). Under ``mesh`` the state and masks are this rank's
+    shards, and ``shardings`` the whole params' specs."""
     dev = resolve_device(device)
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     opt = opt_mod.AdamW(lr=opt_mod.cosine_schedule(args.lr, args.warmup,
                                                    args.steps))
-    state = train_loop.init_train_state(cfg, opt, seed=args.seed, device=dev)
+    if mesh is None:
+        state = train_loop.init_train_state(cfg, opt, seed=args.seed,
+                                            device=dev)
+        params = state.params
+    else:                   # the whole draw, then this rank's shard
+        params = transformer.init_model(cfg, seed=args.seed, device=dev)
     masks = None
     if args.sparsity:
-        masks = reference_masks(state.params, cfg, args.sparsity)
+        masks = reference_masks(params, cfg, args.sparsity)
+        params = opt_mod.apply_masks(params, masks)
+    shardings = None
+    if mesh is not None:
+        shardings = sharding.params_shardings(params, mesh)
+        params = sharding.shard_params(params, mesh)
+        if masks is not None:
+            masks = sharding.shard_params(masks, mesh)
         state = train_loop.TrainState(
-            opt_mod.apply_masks(state.params, masks), state.opt_state,
-            state.step)
+            params, opt.init(params),
+            torch.zeros((), dtype=torch.int32, device=dev))
+    else:
+        state = train_loop.TrainState(params, state.opt_state, state.step)
     stream = data_mod.SyntheticLM(cfg.vocab, args.seq, args.batch,
                                   seed=args.seed, n_codebooks=cfg.n_codebooks)
     mgr = (ft.CheckpointManager(args.ckpt_dir, keep=3, async_save=True)
@@ -149,12 +179,18 @@ def setup(args: argparse.Namespace, device: DeviceLike = None) -> dict:
     start = 0
     if args.resume and mgr and mgr.latest_step() is not None:
         (state, data_state), meta = mgr.restore((state, stream.state_dict()),
-                                                device=dev)
+                                                device=dev, mesh=mesh)
         stream.load_state_dict(data_state)
         start = meta["step"]
-        print(f"resumed from step {start}")
+        _say(mesh, f"resumed from step {start}")
     return dict(cfg=cfg, opt=opt, state=state, masks=masks, stream=stream,
-                mgr=mgr, start=start, device=dev)
+                mgr=mgr, start=start, device=dev, shardings=shardings)
+
+
+def _say(mesh, line: str) -> None:
+    """Print on one rank of a mesh (every rank logs the same lines)."""
+    if mesh is None or dist.get_rank() == 0:
+        print(line, flush=True)
 
 
 def checkpoint_extra(args: argparse.Namespace) -> dict:
@@ -164,47 +200,92 @@ def checkpoint_extra(args: argparse.Namespace) -> dict:
 
 def main(argv: Optional[Sequence[str]] = None, *,
          device: DeviceLike = None) -> dict:
-    """Train; returns the final state, the masks and the logged lines."""
+    """Train; returns the final state, the masks and the logged lines.
+    With ``--mesh DxM`` outside a running world, starts D x M ranks and
+    returns rank 0's logged lines and step count."""
     args = parse_args(argv)
-    run = setup(args, device)
-    state, stream, mgr, dev = (run[k] for k in ("state", "stream", "mgr",
-                                                "device"))
+    if not args.mesh:
+        return train(args, device)
+    d, m = mesh_mod.parse_mesh(args.mesh)
+    dev = resolve_device(device)
+    transformer.check_tensor_parallel(
+        configs.smoke(args.arch) if args.smoke else configs.get(args.arch), m)
+    if dist.is_initialized():                   # a rank of a running world
+        if dist.get_world_size() != d * m:
+            raise ValueError(f"--mesh {args.mesh} in a world of "
+                             f"{dist.get_world_size()} ranks")
+        mesh = mesh_mod.make_host_mesh(d * m, m, device_type=dev.type)
+        return train(args, mesh_mod.rank_device(mesh), mesh)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return mesh_mod.run_world(_train_rank, (d, m), device=dev,
+                              args=(argv,))[0]
+
+
+def _train_rank(mesh, argv: Sequence[str]) -> dict:
+    out = train(parse_args(argv), mesh_mod.rank_device(mesh), mesh)
+    return {k: out[k] for k in ("log", "steps")}
+
+
+def train(args: argparse.Namespace, device: DeviceLike = None,
+          mesh=None) -> dict:
+    """The training loop of :func:`main` on this process (a rank's share
+    under ``mesh``)."""
+    run = setup(args, device, mesh)
+    state = run.pop("state")        # the loop's own: the first state goes
+    stream, mgr, dev = (run[k] for k in ("stream", "mgr", "device"))
     step_fn = train_loop.make_train_step(run["cfg"], run["opt"],
                                          masks=run["masks"],
-                                         microbatches=args.microbatches)
+                                         microbatches=args.microbatches,
+                                         mesh=mesh,
+                                         shardings=run["shardings"])
+    data_at = ((mesh.get_local_rank("data"), mesh.size(0))
+               if mesh is not None else (0, 1))
     preempt = ft.PreemptionHandler()
     extra = checkpoint_extra(args)
+    save_kw = dict(extra=extra, mesh=mesh, shardings=run["shardings"])
     log: List[dict] = []
     done = run["start"]
     try:
         t0 = time.perf_counter()
         for s in range(run["start"], args.steps):
-            batch = train_loop.batch_to(stream.next_batch(), dev)
-            state, metrics = step_fn(state, batch)
+            batch = data_mod.batch_slice(stream.next_batch(), *data_at)
+            state, metrics = step_fn(state, train_loop.batch_to(batch, dev))
             done = s + 1
             if done % args.log_every == 0:
                 loss, gnorm = float(metrics["loss"]), \
                     float(metrics["grad_norm"])    # waits for the step
                 dt = (time.perf_counter() - t0) / args.log_every
                 tok_s = args.batch * args.seq / dt
-                print(f"step {done:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
-                      f"{tok_s:,.0f} tok/s", flush=True)
+                _say(mesh, f"step {done:5d} loss {loss:.4f} gnorm "
+                     f"{gnorm:.3f} {tok_s:,.0f} tok/s")
                 log.append(dict(step=done, loss=loss, grad_norm=gnorm,
                                 tok_s=tok_s))
                 t0 = time.perf_counter()
-            if preempt.should_stop:
-                print("preemption: writing the final checkpoint; exiting")
+            if _stop(preempt, mesh):
+                _say(mesh, "preemption: writing the final checkpoint; "
+                     "exiting")
                 break
             if mgr and done % args.ckpt_every == 0:
-                mgr.save(done, (state, stream.state_dict()), extra=extra)
+                mgr.save(done, (state, stream.state_dict()), **save_kw)
         if mgr:             # the final checkpoint, at the step reached
-            mgr.save(done, (state, stream.state_dict()), extra=extra,
-                     block=True)
+            mgr.save(done, (state, stream.state_dict()), block=True,
+                     **save_kw)
     finally:
         preempt.close()
-    print("done")
+    _say(mesh, "done")
     return dict(state=state, masks=run["masks"], log=log, steps=done,
                 cfg=run["cfg"])
+
+
+def _stop(preempt: ft.PreemptionHandler, mesh) -> bool:
+    """Whether to stop now; under a mesh, as soon as any rank was told
+    to (every rank leaves the loop at the same step)."""
+    if mesh is None:
+        return preempt.should_stop
+    flag = torch.tensor([int(preempt.should_stop)],
+                        device=mesh_mod.rank_device(mesh))
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
 
 
 if __name__ == "__main__":

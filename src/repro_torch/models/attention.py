@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import sparse_linear
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models import nn, rope
 from repro_torch.models.config import ModelConfig
 
@@ -75,11 +76,13 @@ def init_paged_cache(cfg: ModelConfig, n_physical: int, block: int, device,
                              device=device)}
 
 
-def _project_qkv(params, x, cfg: ModelConfig, backend: str):
+def _project_qkv(params, x, cfg: ModelConfig, backend: str, tp=None):
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     bs = tuple(params.get(n, {}).get("b") for n in ("wq", "wk", "wv"))
     outs = (h * hd, kv * hd, kv * hd)
-    if "wqkv" in params:
+    if tp is not None:
+        q, k, v = _project_qkv_tp(params, x, bs, outs, hd, backend, tp)
+    elif "wqkv" in params:
         q, k, v = sparse_linear.linear_grouped(
             params["wqkv"]["w"], x, bs, declared_outs=outs, backend=backend)
     else:
@@ -100,6 +103,59 @@ def _project_qkv(params, x, cfg: ModelConfig, backend: str):
     B, S = x.shape[0], x.shape[1]
     return (q.reshape(B, S, h, hd), k.reshape(B, S, kv, hd),
             v.reshape(B, S, kv, hd))
+
+
+def _project_qkv_tp(params, x, bs, outs, hd: int, backend: str, tp):
+    """Column-parallel q/k/v: ``cfg`` is the rank's (its heads), so the
+    whole q dim is ``outs[0] * tp.size`` and the whole k/v dims
+    ``tp.kv_heads * head_dim``. Where there are fewer KV heads than
+    ranks, each rank computes its share of k/v, the shares are summed
+    into the whole k/v (``gather_from``) and the rank keeps the one head
+    its query heads read."""
+    x = tensor_parallel.copy_to(x, tp)
+    full = (outs[0] * tp.size,) + (tp.kv_heads * hd,) * 2
+    if "wqkv" in params:
+        q, k, v = sparse_linear.column_parallel_grouped(
+            params["wqkv"]["w"], x, bs, outs=full, tp=tp, backend=backend)
+        return q, k, v
+    ws = tuple(params[n]["w"] for n in ("wq", "wk", "wv"))
+    if full[0] == full[1] and sparse_linear.groupable(ws):
+        return sparse_linear.column_parallel_grouped(
+            ws, x, bs, outs=full, tp=tp, backend=backend)
+    q = sparse_linear.column_parallel(ws[0], x, bs[0], out=full[0], tp=tp,
+                                      backend=backend)
+    if sparse_linear.groupable(ws[1:]):
+        k, v = sparse_linear.column_parallel_grouped(
+            ws[1:], x, bs[1:], outs=full[1:], tp=tp, backend=backend)
+    else:
+        k, v = (sparse_linear.column_parallel(w, x, b, out=o, tp=tp,
+                                              backend=backend)
+                for w, b, o in zip(ws[1:], bs[1:], full[1:]))
+    if tp.kv_heads < tp.size:               # ranks share each KV head
+        head = tp.rank // (tp.size // tp.kv_heads)
+        k, v = (_whole_kv(t, tp)[..., head * hd:(head + 1) * hd]
+                for t in (k, v))
+    return q, k, v
+
+
+def _whole_kv(share: torch.Tensor, tp) -> torch.Tensor:
+    """The whole k or v from every rank's column share."""
+    n = share.shape[-1]
+    lo = tp.rank * n
+    full = torch.nn.functional.pad(share.to(torch.float32),
+                                   (lo, n * tp.size - lo - n))
+    return tensor_parallel.gather_from(full, tp).to(share.dtype)
+
+
+def _out_proj(params, o, cfg: ModelConfig, backend: str, tp=None):
+    """wo: row-parallel over the rank's heads with ``tp``."""
+    if tp is not None:
+        return sparse_linear.row_parallel(params["wo"]["w"], o,
+                                          params["wo"].get("b"),
+                                          out=cfg.d_model, tp=tp,
+                                          backend=backend)
+    return sparse_linear.linear(params["wo"]["w"], o,
+                                declared_out=cfg.d_model, backend=backend)
 
 
 def _gqa_scores(q, k):
@@ -137,7 +193,8 @@ def _rope_q_k(q, k, positions, cfg: ModelConfig):
 
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, *, cache: Optional[dict] = None,
-              backend: str = "auto") -> Tuple[torch.Tensor, Optional[dict]]:
+              backend: str = "auto", tp=None
+              ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Full-sequence (prefill) causal attention, within the last
     ``local_window`` positions where the config has one. ``positions``
     is [B, S], or [3, B, S] with M-RoPE, whose temporal row orders the
@@ -145,7 +202,7 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     [0, S) of it; a ring shorter than S takes the trailing window,
     position p at slot ``p % W``."""
     S = x.shape[1]
-    q, k, v = _project_qkv(params, x, cfg, backend)
+    q, k, v = _project_qkv(params, x, cfg, backend, tp)
     q, k = _rope_q_k(q, k, positions, cfg)
     k = k.to(torch.bfloat16)
     v = v.to(torch.bfloat16)
@@ -166,8 +223,7 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 < cfg.local_window
         outs.append(_attend(q[:, lo:lo + chunk], k, v, valid))
     o = torch.cat(outs, dim=1).to(x.dtype)
-    y = sparse_linear.linear(params["wo"]["w"], o, declared_out=cfg.d_model,
-                             backend=backend)
+    y = _out_proj(params, o, cfg, backend, tp)
     if cache is not None:
         W = cache["k"].shape[1]
         if cfg.local_window is not None and S > W:
@@ -228,10 +284,11 @@ def _masked_decode_attend(q, ck, cv, pos_vec, slot,
     return _attend(q, ck, cv, valid[:, None, :])
 
 
-def _decode_qkv(params, x, positions, cfg: ModelConfig, backend: str):
+def _decode_qkv(params, x, positions, cfg: ModelConfig, backend: str,
+                tp=None):
     """Projections with RoPE at ``positions [B, S]``; with M-RoPE every
     axis takes the same position, as the reference's decode does."""
-    q, k, v = _project_qkv(params, x, cfg, backend)
+    q, k, v = _project_qkv(params, x, cfg, backend, tp)
     if cfg.mrope_sections is not None:
         positions = positions[None].expand(3, -1, -1)
     q, k = _rope_q_k(q, k, positions, cfg)
@@ -239,7 +296,7 @@ def _decode_qkv(params, x, positions, cfg: ModelConfig, backend: str):
 
 
 def attention_decode(params: dict, x: torch.Tensor, cache: dict, pos,
-                     cfg: ModelConfig, *, backend: str = "auto"
+                     cfg: ModelConfig, *, backend: str = "auto", tp=None
                      ) -> Tuple[torch.Tensor, dict]:
     """Single-token decode against the dense cache. ``pos`` is the
     absolute position of every row (an int) or of each row (a [B]
@@ -248,16 +305,14 @@ def attention_decode(params: dict, x: torch.Tensor, cache: dict, pos,
     sliding window, writes at ``pos % W`` of the ring (W its length) and
     attends over the positions the ring still holds."""
     pos_vec = _pos_vector(pos, x.shape[0], x.device)
-    q, k, v = _decode_qkv(params, x, pos_vec[:, None], cfg, backend)
+    q, k, v = _decode_qkv(params, x, pos_vec[:, None], cfg, backend, tp)
     ring_len = cache["k"].shape[1] if cfg.local_window is not None else None
     slot = pos_vec % ring_len if ring_len is not None else pos_vec
     write_decode_token(cache["k"], k, slot)
     write_decode_token(cache["v"], v, slot)
     o = _masked_decode_attend(q, cache["k"], cache["v"], pos_vec, slot,
                               ring_len)
-    y = sparse_linear.linear(params["wo"]["w"], o.to(x.dtype),
-                             declared_out=cfg.d_model, backend=backend)
-    return y, cache
+    return _out_proj(params, o.to(x.dtype), cfg, backend, tp), cache
 
 
 def attention_decode_paged(params: dict, x: torch.Tensor, cache: dict,

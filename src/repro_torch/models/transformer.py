@@ -46,10 +46,13 @@ from __future__ import annotations
 
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
+import dataclasses
+
 import torch
 import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models import attention, layers, mla, moe, nn, rglru, ssm
 from repro_torch.models.config import ModelConfig
 
@@ -82,6 +85,55 @@ def _check_family(cfg: ModelConfig) -> None:
             "with GQA attention, the hybrid family of RG-LRU and GQA "
             "blocks, the SSM family, the vlm family (GQA with M-RoPE) and "
             "the audio family (GQA over codebooks) only")
+
+
+MESH_ITEM = "ROADMAP.md queue 1 item 14"
+
+
+def check_tensor_parallel(cfg: ModelConfig, model: int) -> None:
+    """Raise unless tensor parallelism over ``model`` ranks covers
+    ``cfg``: the dense family with GQA attention (no sliding window),
+    whose query heads and ``d_ff`` split ``model`` ways, and whose KV
+    heads split ``model`` ways or are fewer and divide it (each shared
+    by ``model / n_kv`` ranks)."""
+    if model == 1:
+        return
+    dense = (cfg.family == "dense" and cfg.attn_kind == "gqa"
+             and not cfg.n_routed_experts and cfg.layer_pattern is None
+             and cfg.local_window is None and not cfg.n_codebooks
+             and cfg.mrope_sections is None)
+    if not dense:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism covers the dense family with "
+            f"GQA attention only; the {cfg.family} family "
+            f"({cfg.attn_kind} attention) under a model axis of {model} "
+            f"is {MESH_ITEM}")
+    kv_ok = cfg.n_kv % model == 0 or model % cfg.n_kv == 0
+    for what, n, ok in (("n_heads", cfg.n_heads, cfg.n_heads % model == 0),
+                        ("n_kv", cfg.n_kv, kv_ok),
+                        ("d_ff", cfg.d_ff, cfg.d_ff % model == 0)):
+        if not ok:
+            raise ValueError(
+                f"{cfg.name}: {what} {n} does not split over a model axis "
+                f"of {model} ({MESH_ITEM})")
+
+
+def rank_config(cfg: ModelConfig, mesh) -> Tuple[ModelConfig, Any]:
+    """(the config as one model rank sees it, its ``tensor_parallel.Axis``)
+    under ``mesh``: the rank's query and KV heads (``n_heads / m``, and
+    ``n_kv / m`` or the one KV head it shares where ``n_kv < m``; the
+    head dim kept); ``d_ff`` stays whole (the MLPs take their shares
+    themselves). Without a mesh, or with a ``model`` axis of 1, the
+    config as it is and None. Raises where :func:`check_tensor_parallel`
+    does."""
+    tp = tensor_parallel.of(mesh)
+    if tp is None:
+        return cfg, None
+    check_tensor_parallel(cfg, tp.size)
+    tp = dataclasses.replace(tp, kv_heads=cfg.n_kv)
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp.size,
+                               n_kv=max(cfg.n_kv // tp.size, 1),
+                               d_head=cfg.head_dim), tp
 
 
 def _init_norm(cfg: ModelConfig, device, dtype):
@@ -183,14 +235,16 @@ def uses_scan(cfg: ModelConfig) -> bool:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: DeviceLike = None,
-               dtype=torch.bfloat16) -> List[dict]:
+               dtype=torch.bfloat16, mesh=None) -> List[dict]:
     """Per-layer caches: K/V ``[batch, max_len, n_kv, head_dim]`` (a
     sliding window caps the length at the window), MLA latents
     ``[batch, max_len, kv_lora_rank / qk_rope_dim]`` (both in ``dtype``),
     an RG-LRU layer's f32 state ``h [batch, rnn]`` and ``conv [batch,
     conv - 1, rnn]``, or an SSM layer's f32 ``state [batch, heads,
-    head_dim, n]`` and ``conv [batch, conv - 1, d_inner + 2 n]``."""
+    head_dim, n]`` and ``conv [batch, conv - 1, d_inner + 2 n]``. Under
+    ``mesh`` a rank's K/V hold its KV heads."""
     _check_family(cfg)
+    cfg, _ = rank_config(cfg, mesh)
     dev = resolve_device(device)
     attn = (mla.init_mla_cache if cfg.attn_kind == "mla"
             else attention.init_cache)
@@ -338,33 +392,37 @@ def copy_cache_block(cfg: ModelConfig, cache: List[dict], src: int,
     return cache
 
 
-def _mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, backend: str):
+def _mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, backend: str,
+               tp=None):
     if cfg.mlp_kind == "swiglu":
         return layers.swiglu_mlp(p, x, d_ff=cfg.d_ff, d_model=cfg.d_model,
-                                 backend=backend)
+                                 backend=backend, tp=tp)
     return layers.gelu_mlp(p, x, d_ff=cfg.d_ff, d_model=cfg.d_model,
-                           backend=backend)
+                           backend=backend, tp=tp)
 
 
 def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 kind: str = "attn", positions=None, cache=None, pos=None,
                 block_tables=None, ring_len: Optional[int] = None,
-                backend: str = "auto") -> Tuple[torch.Tensor, Optional[dict]]:
+                backend: str = "auto", tp=None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Residual block of ``kind``: attention + MLP (or routed experts),
     RG-LRU + MLP, or SSD (+ MLP where ``d_ff`` is set). Returns (x,
     cache), or in verify mode (x, the window's fresh {"k", "v"} or
     {"ckv", "krope"}). ``ring_len`` is a sliding-window config's ring on
-    the paged cache."""
+    the paged cache. With ``tp`` (``cfg`` the rank's, from
+    :func:`rank_config`) the attention and the MLP are split over the
+    model ranks (prefill, dense decode and train)."""
     x, cache, _ = _block(p, x, cfg, mode=mode, kind=kind,
                          positions=positions, cache=cache, pos=pos,
                          block_tables=block_tables, ring_len=ring_len,
-                         backend=backend)
+                         backend=backend, tp=tp)
     return x, cache
 
 
 def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
            kind: str, positions, cache, pos, block_tables,
-           ring_len: Optional[int], backend: str):
+           ring_len: Optional[int], backend: str, tp=None):
     """:func:`block_apply`, also returning the block's aux loss (the MoE
     load-balancing term; 0 for every other block)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -414,21 +472,21 @@ def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
             backend=backend)
     elif mode == "decode":
         a, cache = attention.attention_decode(p["attn"], h, cache, pos, cfg,
-                                              backend=backend)
+                                              backend=backend, tp=tp)
     else:
         a, cache = attention.attention(p["attn"], h, positions, cfg,
-                                       cache=cache, backend=backend)
+                                       cache=cache, backend=backend, tp=tp)
     x = x + a
     h = _norm(cfg, p["mlp_norm"], x)
     if cfg.n_routed_experts:
         m, aux = moe.moe_block(p["moe"], h, cfg, backend=backend)
     else:
-        m = _mlp_apply(p["mlp"], h, cfg, backend)
+        m = _mlp_apply(p["mlp"], h, cfg, backend, tp)
     return x + m, cache, aux
 
 
 def _embed_tokens(params: Params, inputs: Dict[str, torch.Tensor],
-                  cfg: ModelConfig, compute_dtype) -> torch.Tensor:
+                  cfg: ModelConfig, compute_dtype, tp=None) -> torch.Tensor:
     """``inputs["embeds"] [B, S, d]`` where given, else the tokens'
     embeddings; codebook tokens ``[B, n_cb, S]`` sum one lookup a
     codebook, in codebook order."""
@@ -441,7 +499,8 @@ def _embed_tokens(params: Params, inputs: Dict[str, torch.Tensor],
         for i in range(1, cfg.n_codebooks):
             x = x + tab[i][tokens[:, i]]
         return x
-    return layers.embed(params["embed"], tokens, compute_dtype)
+    return layers.embed(params["embed"], tokens, compute_dtype, tp=tp,
+                        vocab=cfg.vocab)
 
 
 def forward(params: Params, inputs: Dict[str, torch.Tensor],
@@ -449,7 +508,7 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
             pos: Union[int, torch.Tensor, None] = None,
             block_tables: Optional[torch.Tensor] = None,
             ring_len: Optional[int] = None,
-            backend: str = "auto") -> Tuple[torch.Tensor, Any]:
+            backend: str = "auto", mesh=None) -> Tuple[torch.Tensor, Any]:
     """Run the stack. Returns (logits [B, S, vocab], or [B, S, n_cb,
     vocab] for an untied codebook head, and the cache).
 
@@ -469,6 +528,11 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
     ``ring_len`` (paged decode and verify of a sliding-window config) is
     the ring's length, min(max_len, window); the dense ring reads it off
     the cache.
+    ``mesh`` (``launch.mesh``): ``params`` are this rank's shard
+    (``distributed.sharding.shard_params``) and the cache its KV heads
+    (``init_cache(..., mesh=mesh)``); the stack runs tensor-parallel
+    over the ``model`` axis (prefill and dense decode) and every rank
+    returns the whole logits.
     """
     _check_family(cfg)
     if mode not in ("prefill", "decode", "verify"):
@@ -477,8 +541,13 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
         raise ValueError(f"{mode} needs a cache and pos")
     if mode == "verify" and block_tables is None:
         raise ValueError("verify needs block_tables (the paged cache)")
+    cfg, tp = rank_config(cfg, mesh)
+    if tp is not None and block_tables is not None:
+        raise NotImplementedError(
+            f"the paged cache and the verify window under a mesh are "
+            f"{MESH_ITEM}")
     compute_dtype = getattr(torch, cfg.dtype)
-    x = _embed_tokens(params, inputs, cfg, compute_dtype)
+    x = _embed_tokens(params, inputs, cfg, compute_dtype, tp)
     B, S = x.shape[0], x.shape[1]
     positions = inputs.get("positions")
     if positions is None and mode == "prefill":
@@ -491,14 +560,14 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
         x, out_l = block_apply(p, x, cfg, mode=mode, kind=cfg.layer_kind(i),
                                positions=positions, cache=cache_l, pos=pos,
                                block_tables=block_tables, ring_len=ring_len,
-                               backend=backend)
+                               backend=backend, tp=tp)
         fresh.append(out_l)
-    logits = _head(params, x, cfg, backend)
+    logits = _head(params, x, cfg, backend, tp)
     return logits, (fresh if mode == "verify" else cache)
 
 
 def _head(params: Params, x: torch.Tensor, cfg: ModelConfig,
-          backend: str) -> torch.Tensor:
+          backend: str, tp=None) -> torch.Tensor:
     """Final norm and logits: [B, S, vocab], or [B, S, n_cb, vocab] for an
     untied codebook head."""
     x = _norm(cfg, params["final_norm"], x)
@@ -506,10 +575,10 @@ def _head(params: Params, x: torch.Tensor, cfg: ModelConfig,
         table = params["embed"]["table"]
         return layers.logits_head(
             None, {"table": table[0] if cfg.n_codebooks else table}, x,
-            vocab=cfg.vocab, backend=backend)
+            vocab=cfg.vocab, backend=backend, tp=tp)
     logits = layers.logits_head(params["lm_head"], None, x,
                                 vocab=cfg.vocab * max(cfg.n_codebooks, 1),
-                                backend=backend)
+                                backend=backend, tp=tp)
     if cfg.n_codebooks:
         logits = logits.reshape(*logits.shape[:-1], cfg.n_codebooks,
                                 cfg.vocab)
@@ -534,7 +603,7 @@ def _dots_context():
 
 
 def forward_train(params: Params, inputs: Dict[str, torch.Tensor],
-                  cfg: ModelConfig, *, backend: str = "auto"
+                  cfg: ModelConfig, *, backend: str = "auto", mesh=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The train mode of the reference's ``forward``: the full sequence
     with no cache, compute in ``cfg.dtype`` from the params as given (f32
@@ -542,10 +611,12 @@ def forward_train(params: Params, inputs: Dict[str, torch.Tensor],
     gives them and the sum of the blocks' aux losses (f32, 0 without
     MoE). ``cfg.remat`` recomputes each block in the backward pass:
     ``"full"`` keeps only its input, ``"dots"`` also its matmul outputs
-    (the reference's ``jax.checkpoint`` policies)."""
+    (the reference's ``jax.checkpoint`` policies). ``mesh`` as in
+    :func:`forward`: a rank's shard, tensor-parallel over ``model``."""
     _check_family(cfg)
+    cfg, tp = rank_config(cfg, mesh)
     compute_dtype = getattr(torch, cfg.dtype)
-    x = _embed_tokens(params, inputs, cfg, compute_dtype)
+    x = _embed_tokens(params, inputs, cfg, compute_dtype, tp)
     B, S = x.shape[0], x.shape[1]
     positions = inputs.get("positions")
     if positions is None:
@@ -558,7 +629,7 @@ def forward_train(params: Params, inputs: Dict[str, torch.Tensor],
             x, _, aux = _block(p, x, cfg, mode="train", kind=kind,
                                positions=positions, cache=None, pos=None,
                                block_tables=None, ring_len=None,
-                               backend=backend)
+                               backend=backend, tp=tp)
             return x, aux
         if cfg.remat == "none":
             x, aux = block(x)
@@ -568,4 +639,4 @@ def forward_train(params: Params, inputs: Dict[str, torch.Tensor],
             x, aux = torch_checkpoint.checkpoint(block, x,
                                                  use_reentrant=False, **extra)
         aux_total = aux_total + aux
-    return _head(params, x, cfg, backend), aux_total
+    return _head(params, x, cfg, backend, tp), aux_total

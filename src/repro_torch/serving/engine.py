@@ -37,21 +37,24 @@ from repro_torch.models.config import ModelConfig
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int, *,
             embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
-            backend: str = "auto") -> Tuple[torch.Tensor, Any]:
+            backend: str = "auto", mesh=None) -> Tuple[torch.Tensor, Any]:
     """Process the prompt; returns (last-token logits, filled cache).
     ``embeds [B, S, d]`` stand in for the tokens' embeddings (a stubbed
     modality frontend's output); ``positions`` are explicit prefill
     positions ([3, B, S] t/h/w ids for M-RoPE). ``tokens`` still sets
-    the batch and the device."""
+    the batch and the device. With ``mesh`` (``launch.mesh``), ``params``
+    are this rank's shard, the cache holds its KV heads, and every rank
+    returns the whole logits."""
     cache = transformer.init_cache(cfg, tokens.shape[0], max_len,
-                                   device=tokens.device)
+                                   device=tokens.device, mesh=mesh)
     inputs: Dict[str, Any] = {"tokens": tokens}
     if embeds is not None:
         inputs["embeds"] = embeds
     if positions is not None:
         inputs["positions"] = positions
     logits, cache = transformer.forward(params, inputs, cfg, mode="prefill",
-                                        cache=cache, backend=backend)
+                                        cache=cache, backend=backend,
+                                        mesh=mesh)
     return logits[:, -1], cache
 
 
@@ -129,15 +132,15 @@ def prefill_into_pages(params, cache, tokens: torch.Tensor,
 
 
 def serve_step(params, cache, token: torch.Tensor, pos,
-               cfg: ModelConfig, *, backend: str = "auto"
+               cfg: ModelConfig, *, backend: str = "auto", mesh=None
                ) -> Tuple[torch.Tensor, Any]:
     """One decode step: token [B, 1] (or [B, n_cb, 1]) at absolute
     position ``pos`` (an int, or a [B] tensor of per-row positions).
     Every weight product has N = B, the skinny regime the paper
-    targets."""
+    targets. ``mesh`` as in :func:`prefill`."""
     logits, cache = transformer.forward(params, {"tokens": token}, cfg,
                                         mode="decode", cache=cache, pos=pos,
-                                        backend=backend)
+                                        backend=backend, mesh=mesh)
     return (logits[:, 0] if cfg.n_codebooks else logits[:, -1]), cache
 
 
@@ -294,9 +297,10 @@ def generate(params, prompt: torch.Tensor, cfg: ModelConfig, *,
              max_new_tokens: int, max_len: Optional[int] = None,
              temperature: float = 0.0, seed: int = 0,
              backend: str = "auto",
-             timings: Optional[dict] = None) -> torch.Tensor:
+             timings: Optional[dict] = None, mesh=None) -> torch.Tensor:
     """Autoregressive generation: prompt [B, S] -> [B, S + new] (a
-    codebook model: [B, n_cb, S] -> [B, n_cb, S + new]).
+    codebook model: [B, n_cb, S] -> [B, n_cb, S + new]). With ``mesh``
+    (``params`` this rank's shard) every rank returns the same tokens.
 
     ``timings``, when given, receives ``prefill_s`` (prompt through the
     first token) and ``decode_s`` (the remaining steps), host clock around
@@ -318,7 +322,7 @@ def generate(params, prompt: torch.Tensor, cfg: ModelConfig, *,
         sync()
         t0 = time.perf_counter()
         last_logits, cache = prefill(params, prompt, cfg, max_len,
-                                     backend=backend)
+                                     backend=backend, mesh=mesh)
         out = [prompt]
         tok = sample(last_logits, S)
         sync()
@@ -329,7 +333,7 @@ def generate(params, prompt: torch.Tensor, cfg: ModelConfig, *,
             if i == max_new_tokens - 1:
                 break
             logits, cache = serve_step(params, cache, nxt, S + i, cfg,
-                                       backend=backend)
+                                       backend=backend, mesh=mesh)
             tok = sample(logits, S + i + 1)
         sync()
         if timings is not None:

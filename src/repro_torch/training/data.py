@@ -85,6 +85,21 @@ class SyntheticLM:
         self.state = DataState.from_dict(d)
 
 
+def batch_slice(batch: Dict[str, np.ndarray], index: int,
+                count: int) -> Dict[str, np.ndarray]:
+    """Rows ``[index * B / count, (index + 1) * B / count)`` of every
+    array of a global batch: a data rank's share, as the reference's
+    ``batch_sharding`` lays the batch over the data axis."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % count:
+            raise ValueError(f"batch {v.shape[0]} does not split over "
+                             f"{count} data ranks")
+        n = v.shape[0] // count
+        out[k] = v[index * n:(index + 1) * n]
+    return out
+
+
 class ByteTokenizer:
     """Trivial byte-level tokenizer for the text examples (vocab 256+2)."""
 

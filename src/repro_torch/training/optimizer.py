@@ -64,12 +64,28 @@ def apply_masks(params: Any, masks: Any) -> Any:
                     masks, params)
 
 
-def _clip(grads: Any, clip_norm: Optional[float]) -> Any:
+def _clip_scale(grads: Any, clip_norm: Optional[float],
+                gnorm: Optional[torch.Tensor] = None
+                ) -> Optional[torch.Tensor]:
+    """The factor that clips ``grads`` to ``clip_norm`` (None: no clip)."""
     if clip_norm is None:
-        return grads
-    gnorm = global_norm(grads)
-    scale = torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads)
+        return None
+    if gnorm is None:
+        gnorm = global_norm(grads)
+    return torch.clamp(clip_norm / (gnorm + 1e-9), max=1.0)
+
+
+def _clip(grads: Any, clip_norm: Optional[float],
+          gnorm: Optional[torch.Tensor] = None) -> Any:
+    scale = _clip_scale(grads, clip_norm, gnorm)
+    return grads if scale is None else tree_map(lambda g: g * scale, grads)
+
+
+class _Moved(NamedTuple):
+    """One leaf's new first and second moments and param."""
+    m: torch.Tensor
+    v: torch.Tensor
+    p: torch.Tensor
 
 
 def _step_tensor(params: Any) -> torch.Tensor:
@@ -108,16 +124,18 @@ class AdamW:
         return torch.tensor(self.lr, dtype=torch.float32, device=step.device)
 
     def update(self, grads: Any, state: AdamWState, params: Any, *,
-               masks: Any = None):
+               masks: Any = None, gnorm: Optional[torch.Tensor] = None):
         """One step; returns (new params, new state). ``masks`` (a tree of
         0/1 tensors, ``None`` where unmasked) pins pruned weights at zero:
-        the retraining-based pruning loop."""
-        grads = _clip(grads, self.clip_norm)
+        the retraining-based pruning loop. ``gnorm`` is the gradients'
+        global norm where the caller knows it better than the tree it
+        holds (the leaves of a rank's shard). The update runs leaf by leaf
+        (the clip, both moments, the param and its mask, in the
+        reference's arithmetic), so no whole tree of intermediates is
+        held: a step holds the old and the new state and the gradients."""
+        scale = _clip_scale(grads, self.clip_norm, gnorm)
         step = state.step + 1
         b1, b2 = self.b1, self.b2
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g),
-                      state.nu, grads)
         stepf = step.to(torch.float32)
         mu_hat_c = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
                                                 device=step.device), stepf)
@@ -125,15 +143,22 @@ class AdamW:
                                                 device=step.device), stepf)
         lr = self._lr(step)
 
-        def upd(p, m, v):
+        def leaf(g, m, v, p, mask):
+            if scale is not None:
+                g = g * scale
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * torch.square(g)
             u = (m / mu_hat_c) / (torch.sqrt(v / nu_hat_c) + self.eps)
             u = u + self.weight_decay * p
-            return (p - lr * u).to(p.dtype)
+            p = (p - lr * u).to(p.dtype)
+            return _Moved(m, v, p if mask is None else p * mask.to(p.dtype))
 
-        new_params = tree_map(upd, params, mu, nu)
-        if masks is not None:
-            new_params = apply_masks(new_params, masks)
-        return new_params, AdamWState(step=step, mu=mu, nu=nu)
+        if masks is None:
+            masks = tree_map(lambda _: None, params)
+        moved = tree_map(leaf, grads, state.mu, state.nu, params, masks)
+        return (tree_map(lambda o: o.p, moved),
+                AdamWState(step=step, mu=tree_map(lambda o: o.m, moved),
+                           nu=tree_map(lambda o: o.v, moved)))
 
 
 class SGDMState(NamedTuple):
@@ -152,8 +177,8 @@ class SGDM:
                          mom=tree_map(torch.zeros_like, params))
 
     def update(self, grads: Any, state: SGDMState, params: Any, *,
-               masks: Any = None):
-        grads = _clip(grads, self.clip_norm)
+               masks: Any = None, gnorm: Optional[torch.Tensor] = None):
+        grads = _clip(grads, self.clip_norm, gnorm)
         step = state.step + 1
         mom = tree_map(lambda m, g: self.momentum * m + g, state.mom, grads)
         lr = self.lr(step) if callable(self.lr) else self.lr

@@ -1128,3 +1128,30 @@ def test_trained_checkpoint_served_on_card_keeps_its_masks(cuda, tmp_path):
     assert int(wo.nnz.sum()) == counts["['layers'][0]['attn']['wo']['w']"]
     rows = rep["drift"]["rows"]
     assert rows and all(r["timing"] == "cuda_events" for r in rows)
+
+
+def test_mesh_1x2_decode_step_matches_unsharded_at_full_width(cuda):
+    """Two ranks sharing the card over gloo (``launch.mesh.run_world``)
+    serve a 2-layer OPT-30B at full width, tensor-parallel over a 1x2
+    mesh at sparsity 0.8 (every projection's LSCD launch on its shard):
+    the first decode step's logits match the unsharded model's within
+    the bf16 model-logits tolerance (3e-2, ``chip_smoke.LOGITS_TOL``)."""
+    import torch_mesh_worlds
+    from repro_torch.launch import mesh as mesh_mod
+    cfg = dataclasses.replace(configs.get("opt_30b"), n_layers=2)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (4, 16))
+    params, _ = serve.build(cfg, sparsity=0.8, device=cuda)
+    p = torch.from_numpy(prompt).long().to(cuda)
+    with torch.inference_mode():
+        last, cache = engine.prefill(params, p, cfg, 17)
+        tok = torch.argmax(last, -1)[:, None]
+        want, _ = engine.serve_step(params, cache, tok, 16, cfg)
+    want = want.float().cpu().numpy()
+    del params, cache
+    torch.cuda.empty_cache()
+    got = mesh_mod.run_world(torch_mesh_worlds.decode_step_logits, (1, 2),
+                             device="cuda",
+                             args=("opt_30b", 2, 0.8, prompt))
+    for g in got:
+        np.testing.assert_array_equal(g, got[0])
+    np.testing.assert_allclose(got[0], want, rtol=3e-2, atol=3e-2)
