@@ -218,12 +218,13 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    (a) OPT-30B at full width, sparsity 0.8, tensor-parallel over a 1x4
    mesh: first the unsharded model in this process (first decode step
    and ``engine.generate``'s greedy streams of 8 prompts of 128 tokens,
-   32 new, at 4 and 48 layers, each step's top-2 margins recorded), then
-   four ranks, each building its shard layer by layer
+   32 new, at 4 of the 48 layers built, each step's top-2 margins
+   recorded; max_len 160 in every run, so the K/V lies sequence over
+   ``model``), then four ranks, each building its shard layer by layer
    (``serve.build(mesh=)``): the ranks' encoded non-zeros summing to the
    unsharded build's, first-step logits (teacher-forced with the
-   unsharded first tokens) within ``LOGITS_TOL`` at 4 layers and
-   ``depth_logits_tol(48)`` at 48, every rank's streams equal and equal
+   unsharded first tokens) within ``LOGITS_TOL``, every rank's streams
+   equal and equal
    to the unsharded ones or parted at a near tie (``NEAR_TIE``), all four
    LSCD kernels launched on every rank, each rank's launch
    configurations held against the plain versions, per-rank bytes,
@@ -238,11 +239,28 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    its restores onto 1x4 (a mesh over the same ranks) and onto one rank
    with every leaf's position-weighted checksums equal to the saved
    state's, and step 6 on the 1x4 restore within 5e-3 of step 6 on 2x2;
-16. prints the kernels' JSON line (launches of the slice, the serving
+16. cells phase: the dry run (``launch.dryrun``) of every arch x cell
+   on the 16x16 and 2x16x16 meshes in both weight modes, in worker
+   processes that see no card, run beside the kernels' build and ended
+   before the first timed phase: every dense-family
+   cell ok, every train x sparse_xla cell an error naming ROADMAP.md
+   queue 3 item 13, every other family's an error naming queue 1 item
+   14; the dry run of this phase's cells leaves the card's allocated
+   memory as it was. Then tinyllama-1.1b at 0.8 on 2x2, four ranks
+   sharing the card over gloo: decode with the sequence over ``model``
+   (8 prompts of 1000-3000 tokens, max_len 4096, 32 greedy steps) and at
+   batch 1 with the sequence over ``data`` (3000 tokens), each against
+   the unsharded model (first-step logits within
+   ``depth_logits_tol(22)``, streams by the near-tie rule, every launch
+   configuration against its plain version), one ZeRO-3 step against
+   the mesh phase's unsharded step 1 (loss, grad norm and params within
+   5e-3, masks held), and the dry run of the three cells against what
+   ran (every leaf's elements, each rank's decode-step LSCD launches);
+17. prints the kernels' JSON line (launches of the slice, the serving
    runs, the window runs, the full-depth run, the tinyllama run, the
    MLA runs, the MoE runs, the hybrid runs, the ring runs and the ssm,
-   vlm, audio, train and mesh runs (the mesh's summed over its ranks,
-   and one rank's), the serving ones also by prefill and
+   vlm, audio, train, mesh and cells runs (the mesh's summed over its
+   ranks, and one rank's), the serving ones also by prefill and
    decode, the window ones also by verify and mixed), the card line, and
    last
    ``{"ok": true, "device": {...}}``; the
@@ -4780,12 +4798,18 @@ def profile_steps(torch, engine, params, cfg, prompts, steps: int = 4):
 
 MESH_DEVICE = "cuda"
 MESH_SERVE_ARCH, MESH_SERVE_SHAPE = "opt_30b", (1, 4)
-# The serving comparison runs at 4 and 24 layers of the 48 built: a
-# sharded 48-layer generate alone took 40 s (gloo between four processes
-# that share the card), and the phase ran 303-319 s at (4, 48) against
-# the 150 s it was given (NVIDIA H100 80GB HBM3, 700 W).
-MESH_DEPTHS = (4, 24)
+# The serving comparison runs at 4 layers of the 48 built: at 24 layers
+# with the K/V sequence over model a sharded decode step took 1.5 s a
+# rank (gloo between four processes that share the card), and the whole
+# script ran 1313 s against its 1200 s limit (NVIDIA H100 80GB HBM3,
+# 700 W).
+MESH_DEPTHS = (4,)
 MESH_REQUESTS, MESH_PROMPT, MESH_NEW = 8, 128, 32
+# Every serving run of the phase (the first step, generate, the profiled
+# steps) takes this cache length: it divides the model axis, so the K/V
+# lies by the reference's decode layout at batch 8, the sequence over
+# model (``sharding.cache_shardings``), in all three.
+MESH_MAX_LEN = MESH_PROMPT + MESH_NEW
 MESH_TRAIN_ARCH, MESH_TRAIN_SHAPE = "tinyllama_1_1b", (2, 2)
 # 4 x 512 for both sides: at 8 x 512 the unsharded step alone peaked at
 # 54.43e9 B (NVIDIA H100 80GB HBM3, 700 W), and four ranks' shares of it
@@ -4843,12 +4867,24 @@ def _in_turn(torch, fn):
     return out
 
 
+def _check_mesh_layout(cache, mesh) -> None:
+    """Under ``mesh`` the serving comparison's cache is the sequence over
+    model, the layout ``MESH_MAX_LEN`` chooses."""
+    if mesh is not None:
+        check(getattr(cache, "seq", None) == "model", f"mesh: the cache "
+              f"lies by {getattr(cache, 'seq', None)!r}, not the sequence "
+              f"over model")
+
+
 def _first_step(torch, engine, params, cfg, prompts, tok=None, mesh=None):
     """(first tokens, the first decode step's f32 logits on the host, the
-    prefill's top-2 margins): ``tok`` teacher-forces the first tokens."""
+    prefill's top-2 margins) at ``MESH_MAX_LEN``: ``tok`` teacher-forces
+    the first tokens."""
     S = prompts.shape[1]
     with torch.inference_mode():
-        last, cache = engine.prefill(params, prompts, cfg, S + 1, mesh=mesh)
+        last, cache = engine.prefill(params, prompts, cfg, MESH_MAX_LEN,
+                                     mesh=mesh)
+        _check_mesh_layout(cache, mesh)
         top = last.float().topk(2, dim=-1).values
         own = torch.argmax(last, dim=-1)
         tok = own if tok is None else tok.to(own.device)
@@ -4877,7 +4913,7 @@ def _mesh_serve_reference(torch, mods) -> dict:
         times = {}
         with _MarginTap(engine) as tap:
             streams = engine.generate(p, prompts, c, max_new_tokens=MESH_NEW,
-                                      timings=times)
+                                      max_len=MESH_MAX_LEN, timings=times)
         out["depths"][depth] = dict(
             tok=tok.numpy(), step=step.numpy(),
             streams=streams[:, MESH_PROMPT:].cpu().numpy(),
@@ -4897,8 +4933,9 @@ def _profile_mesh_decode(torch, engine, params, cfg, prompts, mesh,
     from torch.profiler import ProfilerActivity, profile
     S = prompts.shape[1]
     with torch.inference_mode():
-        last, cache = engine.prefill(params, prompts, cfg, S + steps + 1,
+        last, cache = engine.prefill(params, prompts, cfg, MESH_MAX_LEN,
                                      mesh=mesh)
+        _check_mesh_layout(cache, mesh)
         tok = torch.argmax(last, dim=-1)[:, None]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -4948,7 +4985,8 @@ def mesh_serve_rank(mesh, ref_tok: dict, prompts_np) -> dict:
             probe.phase = f"generate@{depth}"
             spmm.reset_launch_counts()
             streams = engine.generate(p, prompts, c, max_new_tokens=MESH_NEW,
-                                      timings=times, mesh=mesh)
+                                      max_len=MESH_MAX_LEN, timings=times,
+                                      mesh=mesh)
             counts = spmm.launch_counts()
         out["depths"][depth] = dict(
             tok=tok.numpy(), step=step.numpy(),
@@ -5027,7 +5065,8 @@ def _mesh_serving(torch, mods, card: str) -> dict:
             unsharded_decode_ms_per_step=w["decode_ms_per_step"],
             launches=[g["launches"] for g in got])
         print(f"mesh: {depth} layers on {MESH_SERVE_SHAPE[0]}x"
-              f"{MESH_SERVE_SHAPE[1]}: first decode-step logits vs unsharded "
+              f"{MESH_SERVE_SHAPE[1]}, K/V sequence over model (max_len "
+              f"{MESH_MAX_LEN}): first decode-step logits vs unsharded "
               f"max abs err {err:.3e} (tolerance {tol:.4f} + {tol:.4f} "
               f"relative); {MESH_REQUESTS - len(cut)} of {MESH_REQUESTS} "
               f"streams of {MESH_NEW} equal, {len(cut)} parted at a near tie "
@@ -5383,6 +5422,7 @@ def _mesh_training(torch, mods, card: str) -> dict:
     work = os.path.join(str(mods["build"].build_dir()), "mesh_phase")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    done = False
     try:
         ref = _mesh_train_reference(torch, mods, os.path.join(
             work, "step1_params.pt"))
@@ -5396,8 +5436,20 @@ def _mesh_training(torch, mods, card: str) -> dict:
                                    device=MESH_DEVICE,
                                    args=(ref, work))
         world_s = time.perf_counter() - t0
+        done = True
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        if done:        # the unsharded step 1 stays for the cells phase
+            for name in os.listdir(work):
+                path = os.path.join(work, name)
+                if name == "step1_params.pt":
+                    continue
+                if os.path.isdir(path):
+                    shutil.rmtree(path, ignore_errors=True)
+                else:
+                    os.remove(path)
+            mods["mesh_train_work"], mods["mesh_train_ref"] = work, ref
+        else:
+            shutil.rmtree(work, ignore_errors=True)
     r0 = ranks[0]
     s1 = r0["steps"][0]
     rel = lambda a, b: abs(a - b) / abs(b)
@@ -5497,6 +5549,629 @@ def mesh_phase(torch, mods) -> dict:
                 launches=serving["launches"])
 
 
+# ---------------------------------------------------------------------------
+# cells phase: the dry run of every production cell on meta tensors, and
+# tinyllama-1.1b on 2x2 (four ranks sharing the card): decode with the
+# sequence over model, decode at batch 1 with the sequence over data, and
+# one ZeRO-3 (FSDP) train step; the dry run of those cells against what ran
+# ---------------------------------------------------------------------------
+
+CELLS_ARCH, CELLS_SHAPE = "tinyllama_1_1b", (2, 2)
+CELLS_MAX_LEN, CELLS_NEW = 4096, 32
+# Six prompts cross the model ranks' block boundary at 2048; two end
+# before it, so model rank 1's block holds none of their positions in any
+# of the 32 steps. Right-padded to the longest, each row from its own end.
+CELLS_LENGTHS = (2200, 2350, 2500, 2650, 2800, 3000, 1000, 1900)
+CELLS_ONE = 3000                        # the batch-1 prompt (seq_shard)
+CELLS_TOL = depth_logits_tol(22)
+SWEEP_MODES = ("dense", "sparse_xla")
+SWEEP_TIMEOUT_S = 900          # the build and the whole sweep
+SPARSE_TRAIN_ITEM = "ROADMAP.md queue 3 item 13"
+MESH_ITEM = "ROADMAP.md queue 1 item 14"
+# PR 23's 2x2 tensor-parallel-only train step peaked at this much a rank
+# (PERF.md, NVIDIA H100 80GB HBM3, 700 W): the FSDP step's beside it.
+TP_ONLY_PEAK = 16_477_831_168
+
+
+def _sweep_init(src: str) -> None:
+    """A sweep worker sees no card, runs one thread and yields the CPU
+    to the build (nice 19)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.nice(19)
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(1)
+
+
+def _sweep_cell(job) -> dict:
+    """One cell of the sweep, in a worker: ``dryrun.run_cell``'s record
+    (also written to ``results/dryrun_torch/``)."""
+    from repro_torch.launch import dryrun
+    arch, shape, multi_pod, mode = job
+    return dryrun.run_cell(arch, shape, multi_pod=multi_pod,
+                           weight_mode=mode, force=True)
+
+
+def start_sweep(mods) -> dict:
+    """Start the dry run of every (arch x cell) on 16x16 and 2x16x16 in
+    both weight modes: worker processes (one fewer than the cores) that
+    see no card, started with the kernels' build, which they yield the
+    CPU to; ``finish_sweep`` waits for them before the first timed
+    phase. The records are written anew: ``results/dryrun_torch/`` is
+    emptied first."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    dryrun = mods["dryrun"]
+    shutil.rmtree(os.path.abspath(dryrun.RESULTS_DIR), ignore_errors=True)
+    jobs = [job for mode in SWEEP_MODES for multi_pod in (False, True)
+            for job in dryrun.iter_cells(multi_pod, mode)]
+    workers = max(1, len(os.sched_getaffinity(0)) - 1)
+    pool = ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_sweep_init, initargs=(os.path.join(ROOT, "src"),))
+    return dict(pool=pool, jobs=jobs, workers=workers, start=time.time(),
+                recs=pool.map(_sweep_cell, jobs, timeout=SWEEP_TIMEOUT_S))
+
+
+def finish_sweep(mods, sweep) -> dict:
+    """Wait for the sweep; each record must be fresh (its file newer than
+    the sweep's start); print each cell's line and hold the gates: every
+    dense-family cell ok, every train x sparse_xla cell (of any family)
+    an error naming queue 3 item 13, every other family's other cells
+    errors naming queue 1 item 14."""
+    dryrun, configs, transformer = (mods["dryrun"], mods["configs"],
+                                    mods["transformer"])
+    jobs, start = sweep["jobs"], sweep["start"]
+    try:
+        recs = list(sweep["recs"])
+    finally:
+        sweep["pool"].shutdown(cancel_futures=True)
+    wall_s = time.time() - start
+    counts = dict(ok=0, error=0)
+    cell_s = {mode: 0.0 for mode in SWEEP_MODES}
+    table = []
+    for (arch, shape, multi_pod, mode), rec in zip(jobs, recs):
+        path = dryrun.cell_path(arch, shape, multi_pod, mode)
+        check(os.path.exists(path) and os.path.getmtime(path) >= start,
+              f"cells: the sweep wrote no fresh record for "
+              f"{arch}/{shape}/{dryrun.mesh_name(multi_pod)}/{mode}")
+        with open(path) as f:
+            check(json.load(f)["status"] == rec["status"], f"cells: the "
+                  f"record of {arch}/{shape}/{mode} on disk is not the "
+                  f"cell's")
+        print(f"cells: {dryrun.summary_line(rec)}", flush=True)
+        counts[rec["status"]] = counts.get(rec["status"], 0) + 1
+        cell_s[mode] += rec["total_s"]
+        dense = transformer.dense_gqa(configs.get(arch))
+        sparse_train = shape.startswith("train") and mode == "sparse_xla"
+        label = f"cells: dry run {arch}/{shape}/{rec['mesh']}/{mode}"
+        if dense and not sparse_train:
+            check(rec["status"] == "ok", f"{label}: {rec.get('error')}")
+            b = rec["memory"]["argument_bytes"]
+            table.append(dict(
+                arch=arch, shape=shape, mesh=rec["mesh"], mode=mode, bytes=b,
+                flops=rec["cost"]["flops"],
+                collective=rec["collective_bytes"],
+                lscd_launches=sum(r["count"] for r in rec["lscd"]),
+                lscd_predicted_ms=rec["cost"]["lscd_predicted_s"] * 1e3))
+        else:
+            item = SPARSE_TRAIN_ITEM if sparse_train else MESH_ITEM
+            check(rec["status"] == "error" and item in rec.get("error", ""),
+                  f"{label}: {rec['status']} {rec.get('error', '')!r}, not "
+                  f"{item}")
+    return dict(counts=counts, table=table, cell_seconds=cell_s,
+                wall_s=wall_s, workers=sweep["workers"])
+
+
+def _dry_cells(torch, mods, rank: int = 0) -> dict:
+    """``build_cell`` on meta for the executed cells on a dry 2x2 mesh,
+    as rank ``rank``: each leaf's per-rank bytes and the LSCD launch list
+    a decode step would make."""
+    from repro_torch.models.config import ShapeConfig
+    specs, dryrun, sharding = mods["specs"], mods["dryrun"], mods["sharding"]
+    cfg = mods["configs"].get(CELLS_ARCH)
+    out = {}
+    for name, shape, mode in (
+            ("decode", ShapeConfig("cells_decode", "decode", CELLS_MAX_LEN,
+                                   len(CELLS_LENGTHS)), "sparse_xla"),
+            ("one", ShapeConfig("cells_one", "decode", CELLS_MAX_LEN, 1),
+             "sparse_xla"),
+            ("train", ShapeConfig("cells_train", "train", MESH_TRAIN_SEQ,
+                                  MESH_TRAIN_BATCH), "dense")):
+        mesh = mods["mesh"].DryMesh(CELLS_SHAPE, ("data", "model"),
+                                    rank=rank)
+        cell = specs.build_cell(cfg, shape, mesh, weight_mode=mode)
+        ran = dryrun.execute(cell, mesh, train=shape.kind == "train")
+        trees = dict(params=cell.args[0].params if name == "train"
+                     else cell.args[0])
+        if name == "train":
+            trees.update(mu=cell.args[0].opt_state.mu,
+                         nu=cell.args[0].opt_state.nu)
+        else:
+            trees["cache"] = list(cell.args[1])
+        out[name] = dict(
+            bytes={g: _leaf_bytes(sharding, tree)
+                   for g, tree in trees.items()},
+            arg_bytes=cell.arg_bytes(), lscd=ran["lscd"],
+            collective=ran["collective_bytes_by_axis"])
+    return out
+
+
+def _leaf_bytes(sharding, tree) -> dict:
+    """{path: (elements, bytes an element)} of every leaf."""
+    return {p: (t.numel(), t.element_size())
+            for p, t in sharding.leaves_with_paths(tree)}
+
+
+def _launch_rows(dryrun, prof) -> list:
+    """(kernel, M, K, N, S, count) of each launch a profiler noted."""
+    return sorted((r["kernel"], r["m"], r["k"], r["n"], r["s"], r["count"])
+                  for r in dryrun.launch_list(prof))
+
+
+def _cells_decode(torch, mods, params, cfg, prompts, lengths, tok, mesh,
+                  seq_shard: bool) -> dict:
+    """Prefill the right-padded ``prompts`` at ``CELLS_MAX_LEN``, then one
+    decode step teacher-forced with ``tok`` under the kernel profiler:
+    (this rank's first tokens, the step's f32 logits, the prefill's top-2
+    margins, the step's LSCD launch list, the cache's per-leaf bytes)."""
+    engine, dryrun = mods["engine"], mods["dryrun"]
+    prof = mods["obs_profile"].KernelProfiler()
+    with torch.inference_mode():
+        last, cache = engine.prefill(params, prompts, cfg, CELLS_MAX_LEN,
+                                     mesh=mesh, seq_shard=seq_shard,
+                                     lengths=lengths)
+        top = last.float().topk(2, dim=-1).values
+        own = torch.argmax(last, dim=-1)
+        tok = own if tok is None else tok.to(own.device)
+        with mods["obs_profile"].profiled(prof):
+            step, _ = engine.serve_step(params, cache, tok[:, None], lengths,
+                                        cfg, mesh=mesh)
+    out = dict(tok=own.cpu(), step=step.float().cpu(),
+               margins=(top[:, 0] - top[:, 1]).cpu(),
+               launches=_launch_rows(dryrun, prof),
+               seq=getattr(cache, "seq", None))
+    if mesh is not None:
+        out["cache_bytes"] = _leaf_bytes(mods["sharding"], list(cache))
+    del cache
+    return out
+
+
+def _cells_generate(torch, mods, params, cfg, prompts, lengths, mesh,
+                    seq_shard: bool) -> dict:
+    """``engine.generate``'s greedy streams (CELLS_NEW tokens), each
+    step's top-2 margins, and the LSCD launches, counted from 0."""
+    engine, spmm = mods["engine"], mods["spmm"]
+    times = {}
+    spmm.reset_launch_counts()
+    with _MarginTap(engine) as tap:
+        toks = engine.generate(params, prompts, cfg,
+                               max_new_tokens=CELLS_NEW,
+                               max_len=CELLS_MAX_LEN, mesh=mesh,
+                               seq_shard=seq_shard, lengths=lengths,
+                               timings=times)
+    return dict(streams=toks[:, prompts.shape[1]:].cpu().numpy(),
+                margins=[m.numpy() for m in tap.margins],
+                launches=spmm.launch_counts(),
+                prefill_ms=times["prefill_s"] * 1e3,
+                decode_ms_per_step=times["decode_s"] / (CELLS_NEW - 1) * 1e3)
+
+
+def _cells_prompts(torch, mods, cfg, dev):
+    """The decode cells' prompts: [8, 3000] right-padded with their
+    lengths, and the [1, 3000] batch-1 prompt."""
+    serve = mods["serve"]
+    longest = max(CELLS_LENGTHS)
+    prompts = serve.make_prompts(cfg, len(CELLS_LENGTHS), longest,
+                                 SEED + 11, dev)
+    lengths = torch.tensor(CELLS_LENGTHS, dtype=torch.int64, device=dev)
+    col = torch.arange(longest, device=dev)[None, :]
+    prompts = torch.where(col < lengths[:, None], prompts, 0)
+    one = serve.make_prompts(cfg, 1, CELLS_ONE, SEED + 12, dev)
+    return prompts, lengths, one
+
+
+def _cells_reference(torch, mods) -> dict:
+    """The unsharded side, in this process: tinyllama-1.1b at 0.8 built
+    whole, the first decode step and the greedy streams of both decode
+    cells."""
+    serve = mods["serve"]
+    cfg = mods["configs"].get(CELLS_ARCH)
+    release(torch)
+    params, _ = serve.build(cfg, seed=SEED, sparsity=SPARSITY,
+                            device=MESH_DEVICE)
+    prompts, lengths, one = _cells_prompts(torch, mods, cfg, MESH_DEVICE)
+    out = {}
+    for name, p, n in (("decode", prompts, lengths),
+                       ("one", one, torch.full((1,), CELLS_ONE,
+                                               device=MESH_DEVICE))):
+        first = _cells_decode(torch, mods, params, cfg, p, n, None, None,
+                              False)
+        gen = _cells_generate(torch, mods, params, cfg, p, n, None, False)
+        out[name] = dict(tok=first["tok"].numpy(), step=first["step"],
+                         first_margins=first["margins"].numpy(),
+                         launches_unsharded=first["launches"], **gen)
+    del params
+    release(torch)
+    return out
+
+
+def _fsdp_run(torch, mods, dev, mesh) -> dict:
+    """The mesh phase's training run sharded for ZeRO-3: the lines of
+    ``launch.train.setup`` (the whole draw from the seed, the launcher's
+    masks on the whole leaves, then this rank's shard) with the specs of
+    ``params_shardings(..., fsdp=True)``, as ``specs.build_cell``'s train
+    cells take them."""
+    train, sharding, opt_mod = mods["train"], mods["sharding"], mods[
+        "optimizer"]
+    args = _mesh_train_args(mods)
+    cfg = mods["configs"].get(args.arch)
+    opt = opt_mod.AdamW(lr=opt_mod.cosine_schedule(args.lr, args.warmup,
+                                                   args.steps))
+    params = mods["transformer"].init_model(cfg, seed=args.seed, device=dev)
+    masks = train.reference_masks(params, cfg, args.sparsity)
+    params = opt_mod.apply_masks(params, masks)
+    shardings = sharding.params_shardings(params, mesh, fsdp=True)
+    params = sharding.shard_params(params, mesh, fsdp=True)
+    masks = sharding.shard_params(masks, mesh, fsdp=True)
+    state = mods["train_loop"].TrainState(
+        params, opt.init(params), torch.zeros((), dtype=torch.int32,
+                                              device=dev))
+    stream = mods["data"].SyntheticLM(cfg.vocab, args.seq, args.batch,
+                                      seed=args.seed,
+                                      n_codebooks=cfg.n_codebooks)
+    return dict(cfg=cfg, opt=opt, state=state, masks=masks,
+                shardings=shardings, stream=stream)
+
+
+def cells_rank(mesh, ref_tok: dict, work: str) -> dict:
+    """One rank of the cells world (2x2): tinyllama-1.1b at 0.8 built
+    with this rank's shard; the decode cell with the sequence over model
+    and the batch over data, and the batch-1 cell with the sequence over
+    data (first step teacher-forced with the unsharded first tokens, the
+    step's LSCD launch list, ``engine.generate``'s streams, every launch
+    configuration held against its plain version); then one FSDP train
+    step from the mesh phase's masked state sharded for ZeRO-3
+    (``_fsdp_run``) against its unsharded step 1; and the dry run of the
+    three cells as this rank."""
+    import torch
+    import torch.distributed as dist
+    mods = load_mods()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    serve, spmm, ft = mods["serve"], mods["spmm"], mods["ft"]
+    train_loop, data, sharding = (mods["train_loop"], mods["data"],
+                                  mods["sharding"])
+    rank = dist.get_rank()
+    dev = mods["mesh"].rank_device(mesh)
+    cfg = mods["configs"].get(CELLS_ARCH)
+    out = dict(rank=rank, coords=sharding.coordinates(mesh),
+               dry=_dry_cells(torch, mods, rank))
+    params, built = _in_turn(torch, lambda: serve.build(
+        cfg, seed=SEED, sparsity=SPARSITY, device=dev, mesh=mesh))
+    out["param_bytes"] = _leaf_bytes(sharding, params)
+    out["max_nnz"] = [t.max_nnz for t in serve.tiled_csl_leaves(params)]
+    prompts, lengths, one = _cells_prompts(torch, mods, cfg, dev)
+    probe = LaunchProbe(spmm)
+    with probe:
+        for name, p, n, ss in (("decode", prompts, lengths, False),
+                               ("one", one, torch.full((1,), CELLS_ONE,
+                                                       device=dev), True)):
+            probe.phase = name
+            first = _cells_decode(torch, mods, params, cfg, p, n,
+                                  torch.from_numpy(ref_tok[name]), mesh, ss)
+            out[name] = dict(step=first["step"].numpy(),
+                             tok=first["tok"].numpy(),
+                             launches_step=first["launches"],
+                             cache_bytes=first["cache_bytes"],
+                             seq=first["seq"],
+                             **_cells_generate(torch, mods, params, cfg, p,
+                                               n, mesh, ss))
+    out["checked"] = len(_check_served_launches(
+        torch, mods, probe.seen, cfg, label=f"cells: rank {rank}"))
+    del params, probe, built
+    release(torch)
+    # the ZeRO-3 step: the launcher's masked state, sharded for FSDP
+    torch.cuda.reset_peak_memory_stats()
+    run = _in_turn(torch, lambda: _fsdp_run(torch, mods, dev, mesh))
+    state, masks, shardings = run["state"], run["masks"], run["shardings"]
+    out["state_bytes"] = dict(
+        params=_leaf_bytes(sharding, state.params),
+        mu=_leaf_bytes(sharding, state.opt_state.mu),
+        nu=_leaf_bytes(sharding, state.opt_state.nu))
+    step_fn = train_loop.make_train_step(run["cfg"], run["opt"], masks=masks,
+                                         mesh=mesh, shardings=shardings,
+                                         fsdp=True)
+    at = (mesh.get_local_rank("data"), mesh.size(0))
+    batch = train_loop.batch_to(
+        data.batch_slice(run["stream"].next_batch(), *at), dev)
+    before = _host_params(ft, state.params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batch)
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    step_s = time.perf_counter() - t0
+    want = torch.load(os.path.join(work, "step1_params.pt"), mmap=True)
+    out["train"] = dict(
+        loss=loss, grad_norm=gnorm, step_s=step_s,
+        peak_allocated=torch.cuda.max_memory_allocated(),
+        masked_nonzero=_masked_nonzeros(torch, ft, state.params, masks),
+        **_update_gap(torch, ft, state.params,
+                      lambda path: sharding.shard_leaf(
+                          want[path], shardings[path], mesh),
+                      before, float(run["opt"].lr(1))))
+    del want, before, state, masks, step_fn, run, batch, metrics
+    release(torch)
+    dist.barrier()
+    return out
+
+
+def _cells_streams(check_label, got, want, margins_of) -> list:
+    """Rows whose stream parts from the unsharded one, each at a near tie
+    of the unsharded run (else a failure): [(row, token, margin)]."""
+    import numpy as np
+    cut = []
+    for row in range(want.shape[0]):
+        diff = np.nonzero(got[row] != want[row])[0]
+        if not len(diff):
+            continue
+        i = int(diff[0])
+        margin = float(margins_of(i)[row])
+        check(margin < NEAR_TIE, f"{check_label}: request {row} parts from "
+              f"the unsharded stream at token {i}, where its top-2 margin "
+              f"is {margin:.3e} (a near tie is below {NEAR_TIE:.1e})")
+        cut.append((row, i, margin))
+    return cut
+
+
+def _compare_bytes(label, got: dict, want: dict) -> int:
+    """Every leaf's per-rank elements and bytes an element, the executed
+    against the dry run's; returns how many leaves were held."""
+    for path, (elems, width) in want.items():
+        check(got.get(path) == (elems, width), f"{label}: {path} holds "
+              f"{got.get(path)} (elements, bytes an element) on the rank, "
+              f"the dry run predicts {(elems, width)}")
+    return len(want)
+
+
+# Where the reference's dry-run struct (``launch.specs``) and its serving
+# build (``launch.serve``) differ, the port copies both: the struct
+# encodes lm_head as Tiled-CSL and holds every leaf in the step's dtype;
+# the build keeps lm_head dense and the norm scales f32, as drawn.
+HEAD = "['lm_head']['w']"
+NORM_SCALE = re.compile(r"norm'\]\['scale'\]$")
+
+
+def _compare_params(label, got: dict, want: dict, head_elems: int,
+                    known: set) -> int:
+    """A decode cell's params, the built rank's against the dry run's:
+    every dense leaf's elements and bytes equal, but for the two known
+    differences of struct and build, each held to be exactly that: a
+    norm scale (its elements equal, 2 B an element in the struct, 4 B
+    built) and lm_head (Tiled-CSL in the struct, a dense bf16 shard of
+    ``head_elems`` built). Tiled-CSL words and counters are the build's
+    own grouping and ``max_nnz`` (their ratio is printed), not held.
+    Adds the known differences met to ``known``; returns the leaves
+    held."""
+    csl = (".words", ".nnz")
+    n = 0
+    for path, (elems, width) in want.items():
+        if path.endswith(csl):
+            continue
+        if NORM_SCALE.search(path):
+            check(width == 2 and got.get(path) == (elems, 4), f"{label}: "
+                  f"{path} holds {got.get(path)} on the rank, the dry run "
+                  f"{(elems, width)}: not the known f32-against-bf16 norm "
+                  f"scale")
+            known.add(("norm scale", re.sub(r"\['layers'\]\[\d+\]",
+                                            "['layers'][*]", path)))
+            continue
+        n += _compare_bytes(label, got, {path: (elems, width)})
+    check(HEAD + ".words" in want and got.get(HEAD) == (head_elems, 2),
+          f"{label}: lm_head is {got.get(HEAD)} on the rank and "
+          f"{'Tiled-CSL' if HEAD + '.words' in want else 'dense'} in the "
+          f"dry run: not the known dense-against-Tiled-CSL head")
+    known.add(("lm_head", HEAD))
+    extra = sorted(p for p in got if not p.endswith(csl) and p not in want
+                   and p != HEAD)
+    check(not extra, f"{label}: the rank holds {extra}, which the dry run "
+          f"does not")
+    return n
+
+
+def _split_head(rows: list, head_mk: tuple) -> tuple:
+    """The dry run's launch rows of a decode step as (the rows the
+    serving build runs, the lm_head's one launch, which it does not)."""
+    head = [r for r in rows if "grouped" not in r["kernel"]
+            and (r["m"], r["k"]) == head_mk]
+    check(len(head) == 1 and head[0]["count"] == 1, f"cells: the dry run "
+          f"predicts {head} for lm_head, not one launch")
+    rest = sorted((r["kernel"], r["m"], r["k"], r["n"], r["s"], r["count"])
+                  for r in rows if r is not head[0])
+    return rest, head[0]
+
+
+def cells_phase(torch, mods) -> dict:
+    """The dry-run sweep's counts (``finish_sweep`` held its gates); the
+    dry run of the executed cells with no card memory allocated; then
+    the cells world."""
+    import numpy as np
+    card = card_line()
+    print(f"cells: {card}", flush=True)
+    spmm, sharding, budget = mods["spmm"], mods["sharding"], mods["budget"]
+    sweep = mods.pop("sweep")
+    print(f"cells: the sweep's {sum(sweep['counts'].values())} cells (run "
+          f"with the build): {json.dumps(sweep['counts'])} (the dense "
+          f"family's ok, train x sparse_xla {SPARSE_TRAIN_ITEM}, the other "
+          f"families {MESH_ITEM})", flush=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    dry = _dry_cells(torch, mods)
+    after = torch.cuda.memory_allocated()
+    check(after == before, f"cells: the dry run of the executed cells "
+          f"allocated {after - before} B on the card")
+    print(f"cells: dry run of the executed cells on a dry 2x2 mesh: "
+          f"per-rank bytes {json.dumps({k: v['arg_bytes'] for k, v in dry.items()})}"
+          f"; card memory allocated {before} B before and {after} B after",
+          flush=True)
+    ref = _cells_reference(torch, mods)
+    for name in ("decode", "one"):
+        r = ref[name]
+        print(f"cells: unsharded {CELLS_ARCH} {name}: prefill "
+              f"{r['prefill_ms']:.1f} ms, decode {r['decode_ms_per_step']:.3f}"
+              f" ms/step; {card}", flush=True)
+    work = mods.pop("mesh_train_work")
+    try:
+        t0 = time.perf_counter()
+        ranks = mods["mesh"].run_world(
+            cells_rank, CELLS_SHAPE, device=MESH_DEVICE,
+            args=({k: v["tok"] for k, v in ref.items()}, work))
+        world_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = dict(card=card, sweep=sweep, world_s=world_s, dry=dry, cells={})
+    for name in ("decode", "one"):
+        w = ref[name]
+        got = [r[name] for r in ranks]
+        for g in got[1:]:
+            check(np.array_equal(g["streams"], got[0]["streams"]),
+                  f"cells: {name}: the ranks' streams differ")
+        err = close(torch, torch.from_numpy(got[0]["step"]), w["step"],
+                    dict(rtol=CELLS_TOL, atol=CELLS_TOL),
+                    f"cells: {name}: first decode-step logits on 2x2 vs "
+                    f"unsharded")
+        ties = [(int(i), float(w["first_margins"][i]))
+                for i in np.nonzero(got[0]["tok"] != w["tok"])[0]]
+        check(all(m < NEAR_TIE for _, m in ties), f"cells: {name}: first "
+              f"tokens differ from unsharded at {ties}")
+        cut = _cells_streams(f"cells: {name}", got[0]["streams"],
+                             w["streams"], lambda i: w["margins"][i])
+        want_seq = "model" if name == "decode" else "data"
+        check(all(g["seq"] == want_seq for g in got),
+              f"cells: {name}: cache layout {got[0]['seq']}, not the "
+              f"sequence over {want_seq}")
+        # the dry run against what ran: per-leaf bytes, launch list
+        ccfg = mods["configs"].get(CELLS_ARCH)
+        head_mk = (ccfg.vocab // CELLS_SHAPE[1], ccfg.d_model)
+        held, known = 0, set()
+        for r in ranks:
+            d = r["dry"][name]["bytes"]
+            held += _compare_bytes(f"cells: {name}: rank {r['rank']} cache",
+                                   r[name]["cache_bytes"], d["cache"])
+            held += _compare_params(
+                f"cells: {name}: rank {r['rank']} params", r["param_bytes"],
+                d["params"], head_mk[0] * head_mk[1], known)
+        dry_launch, head = _split_head(ranks[0]["dry"][name]["lscd"],
+                                       head_mk)
+        for r in ranks:
+            ran = [tuple(x) for x in r[name]["launches_step"]]
+            check(ran == dry_launch, f"cells: {name}: rank {r['rank']}'s "
+                  f"decode step launched {ran}, the dry run predicts "
+                  f"{dry_launch} beside lm_head's")
+        predicted_ms = sum(x["predicted_s"] * x["count"]
+                           for x in ranks[0]["dry"][name]["lscd"]) * 1e3
+        out["cells"][name] = dict(
+            max_abs_err=err, tol=CELLS_TOL, first_token_ties=ties, cut=cut,
+            prefill_ms=[g["prefill_ms"] for g in got],
+            decode_ms_per_step=[g["decode_ms_per_step"] for g in got],
+            unsharded_prefill_ms=w["prefill_ms"],
+            unsharded_decode_ms_per_step=w["decode_ms_per_step"],
+            launches=[g["launches"] for g in got], leaves_held=held,
+            known_differences=sorted(known), launch_list=dry_launch,
+            head_launch=head, predicted_ms=predicted_ms)
+        print(f"cells: {name} ({'sequence over model, batch over data' if name == 'decode' else 'batch 1, sequence over data, KV heads over model'}"
+              f"): first decode-step logits vs unsharded max abs err "
+              f"{err:.3e} (tolerance {CELLS_TOL:.4f}); "
+              f"{len(w['streams']) - len(cut)} of {len(w['streams'])} "
+              f"streams of {CELLS_NEW} equal, {len(cut)} parted at a near "
+              f"tie {json.dumps([[r, i, round(m, 5)] for r, i, m in cut])};"
+              f" rank 0 prefill {got[0]['prefill_ms']:.1f} ms, decode "
+              f"{got[0]['decode_ms_per_step']:.3f} ms/step (unsharded "
+              f"{w['prefill_ms']:.1f} ms, {w['decode_ms_per_step']:.3f} "
+              f"ms/step); {card}", flush=True)
+        print(f"cells: {name}: the dry run (the reference's dry-run "
+              f"program) against what ran: {held} leaves' per-rank "
+              f"elements and bytes equal; its LSCD launch list equal to each "
+              f"rank's decode step ({sum(x[-1] for x in dry_launch)} "
+              f"launches) but for lm_head's {head['kernel']} "
+              f"{head['m']}x{head['k']} N={head['n']} S={head['s']}; known "
+              f"differences of the dry-run struct and the serving build, "
+              f"not held: {json.dumps(sorted(known))} (lm_head Tiled-CSL in "
+              f"the struct, dense as built; norm scales bf16 in the struct, "
+              f"f32 as built); predicted LSCD time (schedule.predicted, "
+              f"H100 roofline) {predicted_ms:.3f} ms a step, "
+              f"{head['predicted_s'] * 1e3:.3f} ms of it lm_head's",
+              flush=True)
+    # the ZeRO-3 step
+    train_ref = mods.pop("mesh_train_ref")
+    rel = lambda a, b: abs(a - b) / abs(b)
+    for r in ranks:
+        t = r["train"]
+        for what, a, b in (("loss", t["loss"], train_ref["loss"]),
+                           ("grad norm", t["grad_norm"],
+                            train_ref["grad_norm"])):
+            check(rel(a, b) <= MESH_TRAIN_TOL, f"cells: FSDP step {what} "
+                  f"{a} on rank {r['rank']} vs {b} unsharded: "
+                  f"{rel(a, b):.3e} relative")
+        check(t["param_err"] <= MESH_TRAIN_TOL, f"cells: FSDP step: rank "
+              f"{r['rank']}'s {t['param_err_leaf']} off the unsharded step "
+              f"by {t['param_err']:.3e}")
+        check(t["update_miss"] <= UPDATE_MISS_TOL, f"cells: FSDP step: rank "
+              f"{r['rank']}'s update of {t['update_miss_leaf']} misses on "
+              f"{t['update_miss']:.3e} of the moved elements")
+        check(t["masked_nonzero"] == 0, f"cells: FSDP step: rank "
+              f"{r['rank']} has {t['masked_nonzero']} masked weights "
+              f"nonzero")
+        d = r["dry"]["train"]["bytes"]
+        for g in ("params", "mu", "nu"):
+            _compare_bytes(f"cells: train: rank {r['rank']} {g}",
+                           r["state_bytes"][g], d[g])
+    analytic = budget.analytic_max_nnz(SPARSITY)
+    nnz = np.array([x for r in ranks for x in r["max_nnz"]], dtype=float)
+    t0 = ranks[0]["train"]
+    total = lambda leaves: sum(n * w for n, w in leaves.values())
+    per_rank = [dict(rank=r["rank"],
+                     params=total(r["state_bytes"]["params"]),
+                     optimizer=total(r["state_bytes"]["mu"])
+                     + total(r["state_bytes"]["nu"]),
+                     peak=r["train"]["peak_allocated"]) for r in ranks]
+    out["train"] = dict(loss=t0["loss"], grad_norm=t0["grad_norm"],
+                        loss_rel=rel(t0["loss"], train_ref["loss"]),
+                        grad_norm_rel=rel(t0["grad_norm"],
+                                          train_ref["grad_norm"]),
+                        param_err=max(r["train"]["param_err"] for r in ranks),
+                        step_s=[r["train"]["step_s"] for r in ranks],
+                        per_rank=per_rank, tp_only_peak=TP_ONLY_PEAK)
+    out["max_nnz"] = dict(analytic=analytic,
+                          ratio_mean=float(nnz.mean() / analytic),
+                          ratio_min=float(nnz.min() / analytic),
+                          ratio_max=float(nnz.max() / analytic),
+                          leaves=int(nnz.size))
+    print(f"cells: FSDP (ZeRO-3) step of {CELLS_ARCH} on 2x2 (batch "
+          f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}, f32, 0.8 masks): loss "
+          f"{t0['loss']:.6f} ({out['train']['loss_rel']:.2e} relative to the "
+          f"mesh phase's unsharded step 1), grad norm "
+          f"({out['train']['grad_norm_rel']:.2e}), params within "
+          f"{out['train']['param_err']:.2e} (tolerance {MESH_TRAIN_TOL}), "
+          f"masks held, ms/step "
+          f"{json.dumps([round(s * 1e3, 1) for s in out['train']['step_s']])}"
+          f"; per rank {json.dumps(per_rank)} B (params, AdamW moments, "
+          f"peak allocated) beside the tensor-parallel-only step's "
+          f"{TP_ONLY_PEAK} B peak (PR 23); the dry run's per-leaf bytes "
+          f"equal on every rank; {card}", flush=True)
+    print(f"cells: built max_nnz / analytic ({analytic}): mean "
+          f"{out['max_nnz']['ratio_mean']:.4f}, min "
+          f"{out['max_nnz']['ratio_min']:.4f}, max "
+          f"{out['max_nnz']['ratio_max']:.4f} over "
+          f"{out['max_nnz']['leaves']} Tiled-CSL leaves (the measured "
+          f"IMBALANCE against 1.15)", flush=True)
+    out["launches"] = {k: sum(r[n]["launches"][k] for r in ranks
+                              for n in ("decode", "one"))
+                       for k in spmm.KERNELS}
+    out["checked"] = [r["checked"] for r in ranks]
+    return out
+
+
 # The full-depth phase holds 76.1e9 B of weights and pool and needs up
 # to 1.9e9 B more for a decode step's attention on a card of 85.0e9 B.
 # The caching allocator's default fixed segments left 5.3 GiB reserved but
@@ -5509,7 +6184,8 @@ ALLOC_CONF = "expandable_segments:True"
 PHASES = {"full": "full_depth_phase", "tiny": "tinyllama_phase",
           "mla": "mla_phase", "moe": "moe_phase", "hybrid": "hybrid_phase",
           "ssm": "ssm_phase", "vlm": "vlm_phase", "audio": "audio_phase",
-          "train": "train_phase", "mesh": "mesh_phase"}
+          "train": "train_phase", "mesh": "mesh_phase",
+          "cells": "cells_phase"}
 
 # The train phase's resume check runs under deterministic algorithms,
 # which need cuBLAS's workspace fixed before its first handle is made.
@@ -5531,8 +6207,9 @@ def load_mods() -> dict:
     from repro_torch.distributed import compression, sharding
     from repro_torch.distributed import fault_tolerance
     from repro_torch.distributed import tensor_parallel
+    from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, specs
     from repro_torch.launch import train as train_launch
     from repro_torch.models import (attention, layers, moe, ssm,
                                     transformer)
@@ -5552,7 +6229,8 @@ def load_mods() -> dict:
                 convert=convert, ft=fault_tolerance, train=train_launch,
                 obs_profile=obs_profile, data=data, optimizer=optimizer,
                 train_loop=train_loop, mesh=mesh_mod, sharding=sharding,
-                compression=compression, tensor_parallel=tensor_parallel)
+                compression=compression, tensor_parallel=tensor_parallel,
+                dryrun=dryrun, specs=specs)
 
 
 def _timed_phase(torch, mods, name: str) -> dict:
@@ -5583,18 +6261,41 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 2
-    build, spmm = mods["build"], mods["spmm"]
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    # The dry run of every production cell (cells_phase's sweep) runs on
+    # the CPU beside the build, and ends before the first timed phase.
+    allocated = torch.cuda.memory_allocated()
+    sweep = start_sweep(mods)
+    try:
+        return _run(torch, mods, card, sweep, allocated)
+    finally:
+        sweep["pool"].shutdown(cancel_futures=True)
+
+
+def _run(torch, mods, card: str, sweep: dict, allocated: int) -> int:
+    """The build beside the sweep, then every phase, in order; the
+    summary lines."""
+    build, spmm = mods["build"], mods["spmm"]
     t0 = time.perf_counter()
     build.build_all()
     print(f"build: {len(build.SOURCES)} kernel sources in "
           f"{time.perf_counter() - t0:.2f} s "
-          f"(nvcc, sm_90a)", flush=True)
+          f"(nvcc, sm_90a; the dry-run sweep's {sweep['workers']} workers "
+          f"beside it at nice 19)", flush=True)
+    dry_sweep = mods["sweep"] = finish_sweep(mods, sweep)
+    check(torch.cuda.memory_allocated() == allocated, "cells: card memory "
+          "was allocated during the dry-run sweep")
+    print(f"cells: the sweep ended {dry_sweep['wall_s']:.1f} s after it "
+          f"began with the build, in {dry_sweep['workers']} worker processes"
+          f" that saw no card; its cells took "
+          f"{json.dumps({k: round(v, 1) for k, v in dry_sweep['cell_seconds'].items()})}"
+          f" s a weight mode; card memory allocated {allocated} B before and "
+          f"after", flush=True)
     ptxas = {}
     for name in build.SOURCES:
         log = build.build_dir() / f"{name}.log"
@@ -5628,8 +6329,8 @@ def main() -> int:
     rep.pop("params")
     del params
     release(torch)
-    full, tiny, mla, moe_out, hybrid, ssm_out, vlm, audio, train, mesh = (
-        _timed_phase(torch, mods, name) for name in PHASES)
+    (full, tiny, mla, moe_out, hybrid, ssm_out, vlm, audio, train, mesh,
+     cells) = (_timed_phase(torch, mods, name) for name in PHASES)
 
     kernels = []
     serve_counts = {k: serve_phases["prefill"][k] + serve_phases["decode"][k]
@@ -5640,15 +6341,17 @@ def main() -> int:
     moe_counts = moe_out["launches"]
     hybrid_counts = hybrid["launches"]
     ring_counts = hybrid["ring"]["launches"]
-    ssm_counts, vlm_counts, audio_counts, train_counts, mesh_counts = (
-        r["launches"] for r in (ssm_out, vlm, audio, train, mesh))
+    (ssm_counts, vlm_counts, audio_counts, train_counts, mesh_counts,
+     cells_counts) = (r["launches"]
+                      for r in (ssm_out, vlm, audio, train, mesh, cells))
     window_counts = {k: sum(window_phases[op][k] for op in STEP_OPS)
                      for k in spmm.KERNELS}
     launches = {k: counts[k] + serve_counts[k] + window_counts[k]
                 + full_counts[k] + tiny_counts[k] + mla_counts[k]
                 + moe_counts[k] + hybrid_counts[k] + ring_counts[k]
                 + ssm_counts[k] + vlm_counts[k] + audio_counts[k]
-                + train_counts[k] + mesh_counts[k] for k in spmm.KERNELS}
+                + train_counts[k] + mesh_counts[k] + cells_counts[k]
+                for k in spmm.KERNELS}
     launches["dense_gemm"] = gemm_launches
     best.update(moe_out["kernel_rows"])
     for name in spmm.KERNELS + ("dense_gemm",):
@@ -5683,6 +6386,7 @@ def main() -> int:
             launches_mesh=mesh_counts.get(name, 0),
             launches_mesh_per_rank=mesh["serving"][
                 "launches_per_rank"].get(name, 0),
+            launches_cells=cells_counts.get(name, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"]))
@@ -5697,7 +6401,7 @@ def main() -> int:
                    slice=slice_summary, profile=prof, serving=serving,
                    window=window, full_depth=full, tinyllama=tiny, mla=mla,
                    moe=moe_out, hybrid=hybrid, ssm=ssm_out, vlm=vlm,
-                   audio=audio, train=train, mesh=mesh)
+                   audio=audio, train=train, mesh=mesh, cells=cells)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -25,15 +25,25 @@ package's config.
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, ShapeConfig
 
 ARCH_IDS: List[str] = ["opt_30b", "opt_66b", "opt_175b", "tinyllama_1_1b",
                        "minicpm3_4b", "deepseek_coder_33b", "qwen2_1_5b",
                        "qwen2_moe_a2_7b", "qwen3_moe_30b_a3b",
                        "recurrentgemma_9b", "mamba2_130m", "qwen2_vl_2b",
                        "musicgen_large"]
+
+# The four assigned LM shapes (the reference's). decode_* / long_* run
+# one decode step against a K/V cache of seq_len; train_4k a train step;
+# prefill_32k a prefill.
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
 
 # Archs whose stacks handle very long contexts sub-quadratically (the
 # reference's long_500k rule: the SSM and the hybrid).
@@ -55,3 +65,11 @@ def get(arch: str) -> ModelConfig:
 
 def smoke(arch: str) -> ModelConfig:
     return _module(arch).SMOKE
+
+
+def cells(arch: str) -> List[ShapeConfig]:
+    """The shape cells of ``arch``: every shape, long_500k only for the
+    long-context archs."""
+    arch = _ALIAS.get(arch, arch)
+    return [shape for name, shape in SHAPES.items()
+            if name != "long_500k" or arch in LONG_CTX_ARCHS]

@@ -3,12 +3,16 @@
 The port keeps only the cost terms ``kernels/schedule.select`` needs, the
 counterpart of ``repro.core.roofline.lscd_splitk_terms``, with the H100's
 published peaks (NVIDIA data sheet, SXM part, dense rates) in place of
-the TPU's.
+the TPU's; and the dry run's cost and collective tallies
+(:func:`cost_dict`, :func:`collective_bytes`), the counterparts of
+``cost_analysis_dict`` and ``parse_collective_bytes``, read from what a
+dry run records instead of from compiled HLO.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Iterable, Mapping, Tuple
 
 # ---- H100 SXM constants -----------------------------------------------------
 PEAK_FLOPS_BF16 = 989e12      # tensor cores, dense
@@ -79,3 +83,35 @@ def lscd_bound_s(words_bytes: float, nnz_bytes: float, b_bytes: float,
     t_mem = (words_bytes + nnz_bytes + b_bytes + c_bytes) / HBM_BW
     t_ops = flops / PEAK_FLOPS_BF16
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def cost_dict(launches: Iterable[Mapping], *, aten_flops: float = 0.0,
+              aten_bytes: float = 0.0) -> Dict[str, float]:
+    """A dry run's per-rank costs: the aten ops' FLOPs and bytes (inputs
+    read and outputs written, views free) plus each LSCD launch record's
+    (``flops``, ``hbm_bytes``, ``predicted_s`` and ``count``: the
+    schedule's roofline terms, times the launches)."""
+    launches = list(launches)
+    lscd_flops = sum(r["flops"] * r["count"] for r in launches)
+    lscd_bytes = sum(r["hbm_bytes"] * r["count"] for r in launches)
+    return {"flops": float(aten_flops + lscd_flops),
+            "bytes accessed": float(aten_bytes + lscd_bytes),
+            "aten_flops": float(aten_flops),
+            "aten_bytes": float(aten_bytes),
+            "lscd_flops": float(lscd_flops),
+            "lscd_bytes": float(lscd_bytes),
+            "lscd_predicted_s": float(sum(r["predicted_s"] * r["count"]
+                                          for r in launches))}
+
+
+def collective_bytes(records: Iterable[Tuple[str, str, int]], *,
+                     by_axis: bool = False) -> Dict[str, float]:
+    """Bytes a rank moves per collective kind (``"kind@axis"`` keys with
+    ``by_axis``), from a dry mesh's ``(kind, axis, bytes)`` records: an
+    all-reduce's operand, a gather's whole result, as the reference
+    counts an HLO collective's result bytes."""
+    out: Dict[str, float] = {}
+    for kind, axis, nbytes in records:
+        key = f"{kind}@{axis}" if by_axis else kind
+        out[key] = out.get(key, 0.0) + float(nbytes)
+    return out

@@ -24,10 +24,12 @@ the manifest's ``dtypes`` names it, so it restores bit for bit.
 Elastic restore: a checkpoint holds whole arrays, as the reference stores
 them, whatever mesh saved it. ``save(..., mesh=, shardings=)`` gathers a
 rank's shards to model rank 0 of data row 0 over a gloo group, on host
-tensors, and global rank 0 writes; ``restore(template, mesh=)`` gives
-each rank its shard of every leaf by the sharding rules
+tensors, and global rank 0 writes; an FSDP state (``shardings`` with
+``data`` splits) is gathered from every rank of the world to global rank
+0, again on host tensors over gloo. ``restore(template, mesh=, fsdp=)``
+gives each rank its shard of every leaf by the sharding rules
 (``distributed.sharding``), so a checkpoint saved on one mesh restores
-on another, or on one process.
+on another, with or without FSDP, or on one process.
 """
 
 from __future__ import annotations
@@ -275,13 +277,13 @@ def params_path(path: str) -> Optional[str]:
     return m.group(1) if m else None
 
 
-def leaf_spec(path: str, shape, mesh) -> tuple:
+def leaf_spec(path: str, shape, mesh, *, fsdp: bool = False) -> tuple:
     """A state leaf's spec on ``mesh`` from its whole ``shape``: its
-    params leaf's, or replicated."""
+    params leaf's (``fsdp``: with the data splits), or replicated."""
     ppath = params_path(path)
     if ppath is None:
         return sharding.replicated(len(shape))
-    return sharding.spec_for(ppath, tuple(shape), mesh)
+    return sharding.spec_for(ppath, tuple(shape), mesh, fsdp=fsdp)
 
 
 _HOST_GROUPS: Dict[int, Any] = {}
@@ -303,6 +305,49 @@ def host_model_group(mesh):
                 mine = g
         _HOST_GROUPS[id(mesh)] = mine
     return _HOST_GROUPS[id(mesh)]
+
+
+def host_world_group():
+    """A gloo group over the whole world (the default one where it is
+    gloo already)."""
+    if dist.get_backend() == "gloo":
+        return dist.group.WORLD
+    if "world" not in _HOST_GROUPS:
+        _HOST_GROUPS["world"] = dist.new_group(
+            list(range(dist.get_world_size())), backend="gloo")
+    return _HOST_GROUPS["world"]
+
+
+def _coords_of(mesh, rank: int) -> Dict[str, int]:
+    """Global rank ``rank``'s index on every axis of ``mesh``."""
+    where = (mesh.mesh == rank).nonzero()[0].tolist()
+    return dict(zip(mesh.mesh_dim_names, where))
+
+
+def _gather_world(leaf: torch.Tensor, spec, mesh, group) -> torch.Tensor:
+    """The whole leaf on global rank 0 (``None`` elsewhere) from every
+    rank's block, on the host: each block put at its rank's place by
+    ``spec``, whatever axes it splits."""
+    local = leaf.detach().to("cpu").contiguous()
+    if not any(e is not None for e in spec):
+        return local
+    first = dist.get_rank() == 0
+    parts = ([torch.empty_like(local) for _ in range(dist.get_world_size())]
+             if first else None)
+    dist.gather(local, parts, dst=0, group=group)
+    if not first:
+        return None
+    sizes = sharding.axis_sizes(mesh)
+    shape = list(local.shape)
+    for dim, entry in enumerate(spec):
+        for n in (() if entry is None else
+                  entry if isinstance(entry, tuple) else (entry,)):
+            shape[dim] *= sizes[n]
+    whole = torch.empty(shape, dtype=local.dtype)
+    for rank, part in enumerate(parts):
+        sharding.shard_leaf(whole, spec, mesh,
+                            coords=_coords_of(mesh, rank)).copy_(part)
+    return whole
 
 
 def _gather_whole(leaf: torch.Tensor, spec, mesh, group) -> torch.Tensor:
@@ -363,6 +408,10 @@ class CheckpointManager:
         self._publish(step, arrays, dtypes, extra, block)
 
     def _save_sharded(self, step, state, extra, block, mesh, shardings):
+        if any("data" in sharding.split_axes(spec)
+               for spec in shardings.values()):
+            self._save_fsdp(step, state, extra, block, mesh, shardings)
+            return
         group = host_model_group(mesh)
         row0 = mesh.get_local_rank("data") == 0 \
             if "data" in mesh.mesh_dim_names else True
@@ -379,6 +428,26 @@ class CheckpointManager:
                     arrays[path], name = _to_numpy(leaf)
                     if name is not None:
                         dtypes[path] = name
+        if writer:
+            self._publish(step, arrays, dtypes, extra, block)
+        if block:
+            dist.barrier()
+
+    def _save_fsdp(self, step, state, extra, block, mesh, shardings):
+        """Every rank sends its blocks; global rank 0 writes."""
+        group = host_world_group()
+        writer = dist.get_rank() == 0
+        arrays, dtypes = {}, {}
+        for path, leaf in flatten_with_paths(state):
+            if isinstance(leaf, torch.Tensor):
+                ppath = params_path(path)
+                spec = (shardings[ppath] if ppath is not None
+                        else sharding.replicated(leaf.dim()))
+                leaf = _gather_world(leaf, spec, mesh, group)
+            if writer:
+                arrays[path], name = _to_numpy(leaf)
+                if name is not None:
+                    dtypes[path] = name
         if writer:
             self._publish(step, arrays, dtypes, extra, block)
         if block:
@@ -483,16 +552,18 @@ class CheckpointManager:
         return arrays, meta
 
     def restore(self, template: Any, *, step: Optional[int] = None,
-                device: DeviceLike = None, mesh=None) -> Tuple[Any, dict]:
+                device: DeviceLike = None, mesh=None,
+                fsdp: bool = False) -> Tuple[Any, dict]:
         """Restore onto ``template``'s structure and dtypes, on ``device``
         (default: each template leaf's own). Returns (state, manifest).
-        Under ``mesh`` ``template`` is a rank's shard, and each leaf is
-        cut to this rank's block by the sharding rules on its whole
-        shape (the checkpoint may come from any mesh, or none)."""
+        Under ``mesh`` ``template`` is a rank's shard (``fsdp``: of the
+        FSDP specs), and each leaf is cut to this rank's block by the
+        sharding rules on its whole shape (the checkpoint may come from
+        any mesh, or none)."""
         transform = None
         if mesh is not None:
             def transform(path, arr):
-                spec = leaf_spec(path, arr.shape, mesh)
+                spec = leaf_spec(path, arr.shape, mesh, fsdp=fsdp)
                 if not any(e is not None for e in spec):
                     return arr
                 block = sharding.shard_leaf(torch.from_numpy(arr), spec,

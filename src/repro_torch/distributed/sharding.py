@@ -24,8 +24,15 @@ takes the reference's spec with that entry dropped
 (:func:`reference_path` spells a port path the reference's way).
 
 A mesh is anything that names its axes and their sizes: a
-``DeviceMesh`` (``launch.mesh``), a mapping ``{axis: size}``, or an
-object whose ``shape`` is such a mapping.
+``DeviceMesh`` (``launch.mesh``), a dry mesh (``launch.mesh.DryMesh``),
+a mapping ``{axis: size}``, or an object whose ``shape`` is such a
+mapping.
+
+:func:`cache_shardings` is the reference's K/V and state cache layout
+over the port's per-layer cache list: the batch over ``(pod, data)``,
+the K/V sequence over ``model`` (flash-decode style), with the KV heads
+and then the head dim as fallbacks, and with ``seq_shard`` (batch 1) the
+sequence over ``data``.
 """
 
 from __future__ import annotations
@@ -200,6 +207,69 @@ def spec_for(path: str, shape: Sequence[int], mesh, *,
                              model_size=model_size), shape, mesh)
 
 
+def cache_shardings(cache: Any, mesh, *, seq_shard: bool = False
+                    ) -> Dict[str, Spec]:
+    """``{path: spec}`` of every leaf of a per-layer cache list (whole
+    shapes: tensors or anything with a ``shape``), the reference's
+    ``cache_shardings`` leaf by leaf with the ``[L]`` entry of its
+    stacked caches dropped. Leaves: K/V ``[B, S, kv, hd]``, MLA latents
+    ``ckv [B, S, r]`` / ``krope [B, S, dr]``, SSM ``state [B, h, p, n]``
+    / ``conv [B, cv-1, ch]``, RG-LRU ``h [B, r]`` / ``conv``.
+
+    Every choice is guarded by divisibility: the batch over ``(pod,
+    data)``, else over ``data``; the K/V sequence over ``model``, else
+    its KV heads, else its head dim; with ``seq_shard`` the K/V and
+    latent sequence over ``data`` (the batch left whole), the K/V heads
+    then over ``model``. MLA latents stay whole over ``model``."""
+    sizes = axis_sizes(mesh)
+    dax = batch_axes(mesh)
+    d_size = 1
+    for a in dax:
+        d_size *= sizes[a]
+    m_size = sizes.get("model", 1)
+    out = {}
+    for path, leaf in leaves_with_paths(cache):
+        shape = tuple(leaf.shape)
+        axes: list = [None] * len(shape)
+        is_kv = "'k'" in path or "'v'" in path
+        positional = is_kv or "'ckv'" in path or "'krope'" in path
+        if seq_shard and positional:
+            if shape[1] % sizes["data"] == 0:
+                axes[1] = "data"
+        elif shape[0] % d_size == 0:
+            axes[0] = _canon(dax)
+        elif shape[0] % sizes["data"] == 0:
+            axes[0] = "data"
+        if is_kv and len(shape) == 4:
+            if axes[1] is None and shape[1] % m_size == 0:
+                axes[1] = "model"                   # the sequence
+            elif shape[2] % m_size == 0:
+                axes[2] = "model"                   # the KV heads
+            elif shape[3] % m_size == 0:
+                axes[3] = "model"                   # the head dim
+        out[path] = tuple(axes)
+    return out
+
+
+def local_shape(shape: Sequence[int], spec: Sequence[Entry], mesh
+                ) -> Tuple[int, ...]:
+    """The shape of one rank's block of a leaf of ``shape`` split by
+    ``spec``."""
+    sizes = axis_sizes(mesh)
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        parts = 1
+        for n in (entry if isinstance(entry, tuple) else (entry,)):
+            parts *= sizes[n]
+        if out[dim] % parts:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"into {parts}")
+        out[dim] //= parts
+    return tuple(out)
+
+
 def replicated(ndim: int = 0) -> Spec:
     return (None,) * ndim
 
@@ -249,10 +319,17 @@ def params_shardings(params: Any, mesh, *, fsdp: bool = False
             for path, leaf in leaves_with_paths(params)}
 
 
+def split_axes(spec: Spec) -> Tuple[str, ...]:
+    """The axes ``spec`` splits its leaf over, in the order ``pod``,
+    ``data``, ``model``."""
+    names = {n for e in spec if e is not None
+             for n in (e if isinstance(e, tuple) else (e,))}
+    return tuple(a for a in ("pod", "data", "model") if a in names)
+
+
 def model_sharded(spec: Spec) -> bool:
     """True iff some dim of ``spec`` is split over ``model``."""
-    return any(e == "model" or (isinstance(e, tuple) and "model" in e)
-               for e in spec)
+    return "model" in split_axes(spec)
 
 
 # ---------------------------------------------------------------------------
@@ -320,26 +397,43 @@ def _own(block: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
 
 def shard_params(params: Any, mesh, *,
                  coords: Optional[Dict[str, int]] = None,
-                 prefix: str = "") -> Any:
+                 prefix: str = "", fsdp: bool = False) -> Any:
     """This rank's shard of every leaf of a full-size params tree (a new
     tree; a split leaf's shard is a copy, so the whole leaf can be freed;
     a leaf that nothing splits is shared). ``prefix`` is the subtree's
-    path in the whole tree."""
+    path in the whole tree; ``fsdp`` also splits the matrices' free dim
+    over ``data`` (ZeRO-3)."""
     if isinstance(params, dict):
         return {k: shard_params(v, mesh, coords=coords,
-                                prefix=f"{prefix}['{k}']")
+                                prefix=f"{prefix}['{k}']", fsdp=fsdp)
                 for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return type(params)(
             shard_params(v, mesh, coords=coords,
-                         prefix=f"{prefix}[{i}]")
+                         prefix=f"{prefix}[{i}]", fsdp=fsdp)
             for i, v in enumerate(params))
     if isinstance(params, tiled_csl.TiledCSL):
         return shard_tiled_csl(
             params, spec_for(f"{prefix}.words", tuple(params.words.shape),
-                             mesh), mesh, coords=coords,
-            nnz_spec=spec_for(f"{prefix}.nnz", tuple(params.nnz.shape), mesh))
+                             mesh, fsdp=fsdp), mesh, coords=coords,
+            nnz_spec=spec_for(f"{prefix}.nnz", tuple(params.nnz.shape), mesh,
+                              fsdp=fsdp))
     if params is None:
         return None
-    spec = spec_for(prefix, tuple(params.shape), mesh)
+    spec = spec_for(prefix, tuple(params.shape), mesh, fsdp=fsdp)
     return _own(shard_leaf(params, spec, mesh, coords=coords), params)
+
+
+def shard_cache(cache: Any, specs: Dict[str, Spec], mesh, *,
+                coords: Optional[Dict[str, int]] = None) -> Any:
+    """This rank's block of every leaf of a whole per-layer cache list,
+    by ``specs`` (:func:`cache_shardings`)."""
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}['{k}']") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, f"{prefix}[{i}]")
+                              for i, v in enumerate(tree))
+        return _own(shard_leaf(tree, specs[prefix], mesh, coords=coords),
+                    tree)
+    return walk(cache, "")

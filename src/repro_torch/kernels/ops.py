@@ -8,6 +8,13 @@ The counterpart of ``repro.kernels.ops``. ``backend``:
 * ``"torch"`` — the plain version (tests and ``chip_smoke.py``'s
   comparisons).
 
+On meta tensors (the dry run, ``launch.dryrun``) nothing launches:
+each op returns its output's shape on meta and notes the launch it
+would make (``schedule.select``'s pick, ``schedule.predicted``'s terms)
+to the active profiler, whatever ``backend`` says. A call that mixes
+meta and other tensors raises; the plain versions never see meta, as
+they read ``nnz``.
+
 A CUDA tensor never reaches the plain version under ``"auto"``, and no
 failed build or launch falls back to it. On the kernel path
 ``schedule.select`` picks the N tile and split-K factor per call;
@@ -46,9 +53,15 @@ BACKENDS = ("auto", "cuda", "torch")
 SCHEDULES: Dict[Tuple[str, int, int, int, int], schedule_mod.Schedule] = {}
 
 
-def resolve_backend(backend: str, b: torch.Tensor) -> str:
+def resolve_backend(backend: str, b: torch.Tensor,
+                    t: Optional[tiled_csl.TiledCSL] = None) -> str:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
+    if t is not None and t.words.is_meta != b.is_meta:
+        raise ValueError(f"Tiled-CSL words on {t.words.device} and B on "
+                         f"{b.device}: meta does not mix with data")
+    if b.is_meta:
+        return "meta"
     if backend == "auto":
         return "cuda" if b.is_cuda else "torch"
     if backend == "cuda" and not b.is_cuda:
@@ -107,6 +120,16 @@ def _note_launch(kind: str, t: tiled_csl.TiledCSL, b: torch.Tensor,
                  predicted_us=terms.effective_s * 1e6)
 
 
+def _meta_launch(kind: str, t: tiled_csl.TiledCSL, b: torch.Tensor,
+                 shape, out_dtype, n_tb, split_k, *, binary: bool = False,
+                 epilogue: str = "none") -> torch.Tensor:
+    """A launch on meta tensors: noted (the schedule it would run), and
+    its output's ``shape`` on meta."""
+    _pick(kind, t, b, n_tb, split_k, binary=binary, epilogue=epilogue,
+          backend="meta")
+    return torch.empty(shape, dtype=out_dtype, device="meta")
+
+
 def _pad_n(b: torch.Tensor, n_tb: int) -> torch.Tensor:
     """B (``[K, N]``, or ``[E, K, N]``) with N padded to the N tile."""
     n = b.shape[-1]
@@ -131,7 +154,11 @@ def spmm(t: tiled_csl.TiledCSL, b: torch.Tensor, *, out_dtype=None,
         raise ValueError("grouped TiledCSL: use spmm_grouped")
     spmm_mod.epilogue_kind(epilogue)
     out_dtype = out_dtype or b.dtype
-    if resolve_backend(backend, b) == "torch":
+    route = resolve_backend(backend, b, t)
+    if route == "meta":
+        return _meta_launch("spmm", t, b, (t.shape[0], b.shape[1]),
+                            out_dtype, n_tb, split_k, epilogue=epilogue)
+    if route == "torch":
         if _observed():
             _pick("spmm", t, b, n_tb, split_k, epilogue=epilogue,
                   backend="torch")
@@ -163,7 +190,13 @@ def spmm_grouped(t: tiled_csl.TiledCSL, b: torch.Tensor, *, out_dtype=None,
     kind = spmm_mod.epilogue_kind(epilogue, groups=groups)
     out_dtype = out_dtype or b.dtype
     binary = kind == "binary"
-    if resolve_backend(backend, b) == "torch":
+    route = resolve_backend(backend, b, t)
+    if route == "meta":
+        shape = ((t.shape[0], b.shape[1]) if binary
+                 else (groups, t.shape[0], b.shape[1]))
+        return _meta_launch("spmm_grouped", t, b, shape, out_dtype, n_tb,
+                            split_k, binary=binary, epilogue=epilogue)
+    if route == "torch":
         if _observed():
             _pick("spmm_grouped", t, b, n_tb, split_k, binary=binary,
                   epilogue=epilogue, backend="torch")
@@ -197,7 +230,12 @@ def spmm_batched(t: tiled_csl.TiledCSL, b: torch.Tensor, *, out_dtype=None,
     if not t.stack:
         raise ValueError("spmm_batched needs an expert stack")
     out_dtype = out_dtype or b.dtype
-    if resolve_backend(backend, b) == "torch":
+    route = resolve_backend(backend, b, t)
+    if route == "meta":
+        return _meta_launch("spmm_batched", t, b,
+                            (t.experts, t.shape[0], b.shape[2]), out_dtype,
+                            n_tb, split_k)
+    if route == "torch":
         if _observed():
             _pick("spmm_batched", t, b, n_tb, split_k, backend="torch")
         return ref_mod.spmm_batched_ref(t, b, out_dtype=out_dtype)

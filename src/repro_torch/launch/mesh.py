@@ -16,6 +16,13 @@ two only); the checkpoint gather runs over a gloo group on host tensors.
 A rank that fails ends the world: the others are terminated, and the
 caller gets the failing rank's traceback. ``init_process_group`` is
 given a timeout, so a rank blocked on a dead peer gives up too.
+
+:func:`make_production_mesh` is the counterpart of the reference's: the
+16x16 (or 2x16x16, with ``pod``) mesh, here a *dry* one
+(:class:`DryMesh`) that holds no process group and touches no device.
+It answers what the model code asks of a ``DeviceMesh`` for one rank,
+and its groups record the collectives the rank would run (the dry run,
+``launch.dryrun``, on meta tensors).
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.distributed import tensor_parallel
 
 AXES = ("data", "model")
 # How long a collective waits for a peer before the rank gives up.
@@ -56,6 +65,60 @@ def make_host_mesh(n_devices: Optional[int] = None, model: int = 2, *,
                          f"{model}")
     return init_device_mesh(device_type, (n // model, model),
                             mesh_dim_names=AXES)
+
+
+class DryMesh:
+    """One rank's view of a mesh of ``shape`` named ``names``, with no
+    process behind it: ``mesh_dim_names``, ``size``, ``get_local_rank``
+    and ``get_group`` as a ``DeviceMesh`` answers them, ``device_type``
+    ``"meta"``. Its groups are :class:`~repro_torch.distributed.
+    tensor_parallel.DryGroup` recorders, all writing ``records``. Rank
+    ``rank`` (row-major) stands for every rank: the layouts shard
+    evenly, so every rank holds and moves the same bytes."""
+
+    device_type = "meta"
+
+    def __init__(self, shape: Sequence[int], names: Sequence[str], *,
+                 rank: int = 0):
+        if len(shape) != len(names):
+            raise ValueError(f"mesh shape {shape} does not name {names}")
+        self.mesh_dim_names = tuple(names)
+        self.shape_ = tuple(int(s) for s in shape)
+        self.records: List[Tuple[str, str, int]] = []
+        self._groups = {n: tensor_parallel.DryGroup(n, s, self.records)
+                        for n, s in zip(names, self.shape_)}
+        self._coords, r = {}, rank
+        for n, s in reversed(tuple(zip(names, self.shape_))):
+            self._coords[n] = r % s
+            r //= s
+
+    def size(self, dim: Optional[int] = None) -> int:
+        if dim is None:
+            n = 1
+            for s in self.shape_:
+                n *= s
+            return n
+        return self.shape_[dim]
+
+    def get_local_rank(self, name: str) -> int:
+        return self._coords[name]
+
+    def get_group(self, name: str):
+        return self._groups[name]
+
+    def __repr__(self) -> str:
+        return f"DryMesh({self.shape_}, {self.mesh_dim_names})"
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         rank: int = 0) -> DryMesh:
+    """16x16 single-pod (256 chips) or 2x16x16 multi-pod (512 chips), dry.
+
+    Axes: ("data", "model") single-pod; ("pod", "data", "model")
+    multi-pod. The pod axis composes with data for the batch."""
+    if multi_pod:
+        return DryMesh((2, 16, 16), ("pod", "data", "model"), rank=rank)
+    return DryMesh((16, 16), AXES, rank=rank)
 
 
 def parse_mesh(spec: str) -> Tuple[int, int]:

@@ -16,7 +16,9 @@ sparsity, so ``launch.serve --ckpt`` encodes the trained weights with
 exactly their masks.
 
 ``--mesh DxM`` trains data-parallel over D and tensor-parallel over M
-ranks (``launch.mesh``, ``fsdp`` off as in the reference): every rank
+ranks (``launch.mesh``, ``fsdp`` off as in the reference's ``train.py``;
+ZeRO-3 runs through ``launch.specs.build_cell``'s train cells, as in the
+reference): every rank
 draws the whole model from the seed, computes the masks on the whole
 leaves by the launcher's rule, keeps its shard
 (``distributed.sharding``) and takes its slice of each global batch.

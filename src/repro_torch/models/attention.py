@@ -20,11 +20,26 @@ given in place (``index_put_``) and returns it: the serving stepper
 allocates its cache once and a captured CUDA graph holds those tensors'
 addresses. Nothing on the decode path reads a device value on the host,
 so the step can be captured.
+
+Under a mesh (``tp``, the ``model`` axis) the projections are split as
+``transformer.rank_config`` says: by query head, or, where the heads do
+not split, by element and gathered whole, every rank then attending
+over all heads. A dense cache may hold a block of the positions
+(``seq``, a :class:`SeqShard`; ``distributed.sharding.cache_shardings``
+lays it out): over ``model`` every rank holds its block of every KV
+head, and decode gathers the fresh token's whole q, k and v; over
+``data`` (batch 1) the KV heads stay split over ``model``. Decode
+writes the fresh K/V on the rank whose block holds ``pos`` (an owner
+mask on the device, so no host read), each rank attends over its block,
+and the partial softmaxes combine over the axis
+(``tensor_parallel.attend_combine``). Prefill attends as without a
+sequence split and each rank writes its block of the prompt's K/V.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,6 +49,28 @@ from repro_torch.models import nn, rope
 from repro_torch.models.config import ModelConfig
 
 NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
+
+
+class SeqShard(NamedTuple):
+    """The axis a dense cache's positions split over, and whether it is
+    ``model`` (every KV head in a rank's block) or ``data``."""
+    axis: tensor_parallel.Axis
+    over_model: bool
+
+
+def _all_heads(tp, seq: Optional[SeqShard], decode: bool) -> bool:
+    """True iff the ranks compute every head (q, k, v gathered whole):
+    heads that do not split, or a decode step over a cache whose
+    positions split over ``model``."""
+    return tp is not None and (not tp.split_heads or (
+        decode and seq is not None and seq.over_model))
+
+
+def whole_heads(cfg: ModelConfig, tp) -> ModelConfig:
+    """``cfg`` with the whole model's heads (a rank's config has its
+    share)."""
+    return dataclasses.replace(cfg, n_heads=tp.heads, n_kv=tp.kv_heads,
+                               d_head=cfg.head_dim)
 
 
 def init_attention(gen, cfg: ModelConfig, device, dtype=torch.float32) -> dict:
@@ -76,11 +113,18 @@ def init_paged_cache(cfg: ModelConfig, n_physical: int, block: int, device,
                              device=device)}
 
 
-def _project_qkv(params, x, cfg: ModelConfig, backend: str, tp=None):
+def _project_qkv(params, x, cfg: ModelConfig, backend: str, tp=None,
+                 whole: bool = False):
+    """q, k, v ``[B, S, heads, hd]``: ``cfg``'s heads; with ``tp`` and
+    ``whole`` (``cfg`` then :func:`whole_heads`'s) every rank's column
+    shares gathered into the whole projections."""
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     bs = tuple(params.get(n, {}).get("b") for n in ("wq", "wk", "wv"))
     outs = (h * hd, kv * hd, kv * hd)
-    if tp is not None:
+    if tp is not None and whole:
+        q, k, v = (_whole_kv(t, tp) for t in
+                   _qkv_shares(params, x, bs, outs, backend, tp))
+    elif tp is not None:
         q, k, v = _project_qkv_tp(params, x, bs, outs, hd, backend, tp)
     elif "wqkv" in params:
         q, k, v = sparse_linear.linear_grouped(
@@ -138,8 +182,31 @@ def _project_qkv_tp(params, x, bs, outs, hd: int, backend: str, tp):
     return q, k, v
 
 
+def _qkv_shares(params, x, bs, full, backend: str, tp):
+    """This rank's column shares of q, k, v, whose whole out dims are
+    ``full``."""
+    x = tensor_parallel.copy_to(x, tp)
+    if "wqkv" in params:
+        return sparse_linear.column_parallel_grouped(
+            params["wqkv"]["w"], x, bs, outs=full, tp=tp, backend=backend)
+    ws = tuple(params[n]["w"] for n in ("wq", "wk", "wv"))
+    if full[0] == full[1] and sparse_linear.groupable(ws):
+        return sparse_linear.column_parallel_grouped(
+            ws, x, bs, outs=full, tp=tp, backend=backend)
+    q = sparse_linear.column_parallel(ws[0], x, bs[0], out=full[0], tp=tp,
+                                      backend=backend)
+    if sparse_linear.groupable(ws[1:]):
+        k, v = sparse_linear.column_parallel_grouped(
+            ws[1:], x, bs[1:], outs=full[1:], tp=tp, backend=backend)
+    else:
+        k, v = (sparse_linear.column_parallel(w, x, b, out=o, tp=tp,
+                                              backend=backend)
+                for w, b, o in zip(ws[1:], bs[1:], full[1:]))
+    return q, k, v
+
+
 def _whole_kv(share: torch.Tensor, tp) -> torch.Tensor:
-    """The whole k or v from every rank's column share."""
+    """The whole k or v (or q) from every rank's column share."""
     n = share.shape[-1]
     lo = tp.rank * n
     full = torch.nn.functional.pad(share.to(torch.float32),
@@ -147,8 +214,30 @@ def _whole_kv(share: torch.Tensor, tp) -> torch.Tensor:
     return tensor_parallel.gather_from(full, tp).to(share.dtype)
 
 
-def _out_proj(params, o, cfg: ModelConfig, backend: str, tp=None):
-    """wo: row-parallel over the rank's heads with ``tp``."""
+def _kv_heads_whole(t: torch.Tensor, tp) -> torch.Tensor:
+    """Every KV head ``[B, S, n_kv, hd]`` from each rank's own
+    (``[B, S, n_kv / m, hd]``, or the one head a rank shares with others
+    where there are fewer KV heads than ranks: the first rank of each
+    sharing group sends it)."""
+    if tp.kv_heads >= tp.size:
+        return tensor_parallel.gather_dim(t, 2, tp)
+    share = tp.size // tp.kv_heads
+    full = t.new_zeros(t.shape[:2] + (tp.kv_heads, t.shape[3]),
+                       dtype=torch.float32)
+    if tp.rank % share == 0:
+        full[:, :, tp.rank // share] = t[:, :, 0].to(torch.float32)
+    return tensor_parallel.all_reduce(full, tp.group,
+                                      kind="all-gather").to(t.dtype)
+
+
+def _out_proj(params, o, cfg: ModelConfig, backend: str, tp=None,
+              whole: bool = False):
+    """wo: row-parallel over the rank's heads with ``tp``; with
+    ``whole`` (``o`` every head's) over this rank's column share of
+    ``o``."""
+    if tp is not None and whole:
+        n = o.shape[-1] // tp.size
+        o = o[..., tp.rank * n:(tp.rank + 1) * n]
     if tp is not None:
         return sparse_linear.row_parallel(params["wo"]["w"], o,
                                           params["wo"].get("b"),
@@ -193,16 +282,22 @@ def _rope_q_k(q, k, positions, cfg: ModelConfig):
 
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
               cfg: ModelConfig, *, cache: Optional[dict] = None,
-              backend: str = "auto", tp=None
+              backend: str = "auto", tp=None,
+              seq: Optional[SeqShard] = None
               ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Full-sequence (prefill) causal attention, within the last
     ``local_window`` positions where the config has one. ``positions``
     is [B, S], or [3, B, S] with M-RoPE, whose temporal row orders the
     causal mask. With ``cache``, the new K/V are written at positions
     [0, S) of it; a ring shorter than S takes the trailing window,
-    position p at slot ``p % W``."""
+    position p at slot ``p % W``. With ``seq`` the cache holds this
+    rank's block of the positions, and the rank writes that block of
+    the prompt's K/V."""
     S = x.shape[1]
-    q, k, v = _project_qkv(params, x, cfg, backend, tp)
+    whole = _all_heads(tp, seq, decode=False)
+    if whole:
+        cfg = whole_heads(cfg, tp)
+    q, k, v = _project_qkv(params, x, cfg, backend, tp, whole)
     q, k = _rope_q_k(q, k, positions, cfg)
     k = k.to(torch.bfloat16)
     v = v.to(torch.bfloat16)
@@ -223,8 +318,16 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 < cfg.local_window
         outs.append(_attend(q[:, lo:lo + chunk], k, v, valid))
     o = torch.cat(outs, dim=1).to(x.dtype)
-    y = _out_proj(params, o, cfg, backend, tp)
-    if cache is not None:
+    y = _out_proj(params, o, cfg, backend, tp, whole)
+    if cache is not None and seq is not None:
+        if seq.over_model and not whole:
+            k, v = _kv_heads_whole(k, tp), _kv_heads_whole(v, tp)
+        blk = cache["k"].shape[1]
+        lo = seq.axis.rank * blk
+        n = max(0, min(blk, S - lo))
+        cache["k"][:, :n] = k[:, lo:lo + n].to(cache["k"].dtype)
+        cache["v"][:, :n] = v[:, lo:lo + n].to(cache["v"].dtype)
+    elif cache is not None:
         W = cache["k"].shape[1]
         if cfg.local_window is not None and S > W:
             # The trailing W positions cover every residue once: a roll.
@@ -285,27 +388,68 @@ def _masked_decode_attend(q, ck, cv, pos_vec, slot,
 
 
 def _decode_qkv(params, x, positions, cfg: ModelConfig, backend: str,
-                tp=None):
+                tp=None, whole: bool = False):
     """Projections with RoPE at ``positions [B, S]``; with M-RoPE every
     axis takes the same position, as the reference's decode does."""
-    q, k, v = _project_qkv(params, x, cfg, backend, tp)
+    q, k, v = _project_qkv(params, x, cfg, backend, tp, whole)
     if cfg.mrope_sections is not None:
         positions = positions[None].expand(3, -1, -1)
     q, k = _rope_q_k(q, k, positions, cfg)
     return q, k, v
 
 
+def _write_owned(buf: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
+                 own: torch.Tensor) -> None:
+    """``buf[b, slot[b]] = new[b, 0]`` in place where ``own[b]``; other
+    rows keep what they had (a device-side owner mask)."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    keep = buf[rows, slot]
+    mask = own.reshape((-1,) + (1,) * (keep.dim() - 1))
+    buf.index_put_((rows, slot),
+                   torch.where(mask, new[:, 0].to(buf.dtype), keep))
+
+
+def _seq_decode_attend(q, k, v, cache: dict, pos_vec: torch.Tensor,
+                       seq: SeqShard) -> torch.Tensor:
+    """Decode over a cache that holds this rank's block of the positions:
+    the owner of each row's ``pos`` writes the fresh K/V, every rank
+    scores its block, and the partial softmaxes combine over the axis."""
+    blk = cache["k"].shape[1]
+    lo = seq.axis.rank * blk
+    local = pos_vec - lo
+    own = (local >= 0) & (local < blk)
+    slot = local.clamp(0, blk - 1)
+    _write_owned(cache["k"], k, slot, own)
+    _write_owned(cache["v"], v, slot, own)
+    idx = lo + torch.arange(blk, device=q.device)
+    valid = idx[None, :] <= pos_vec[:, None]                      # [B, blk]
+    scores = _gqa_scores(q, cache["k"]).masked_fill(
+        ~valid[:, None, None, None, :], NEG_INF)
+    return tensor_parallel.attend_combine(scores, cache["v"], seq.axis,
+                                          _gqa_out)
+
+
 def attention_decode(params: dict, x: torch.Tensor, cache: dict, pos,
-                     cfg: ModelConfig, *, backend: str = "auto", tp=None
+                     cfg: ModelConfig, *, backend: str = "auto", tp=None,
+                     seq: Optional[SeqShard] = None
                      ) -> Tuple[torch.Tensor, dict]:
     """Single-token decode against the dense cache. ``pos`` is the
     absolute position of every row (an int) or of each row (a [B]
     tensor: continuous batching decodes every slot at its own position).
     Writes K/V at ``pos`` and attends over positions [0, pos]; with a
     sliding window, writes at ``pos % W`` of the ring (W its length) and
-    attends over the positions the ring still holds."""
+    attends over the positions the ring still holds. With ``seq`` the
+    cache holds this rank's block of the positions (no ring)."""
     pos_vec = _pos_vector(pos, x.shape[0], x.device)
-    q, k, v = _decode_qkv(params, x, pos_vec[:, None], cfg, backend, tp)
+    whole = _all_heads(tp, seq, decode=True)
+    if whole:
+        cfg = whole_heads(cfg, tp)
+    q, k, v = _decode_qkv(params, x, pos_vec[:, None], cfg, backend, tp,
+                          whole)
+    if seq is not None:
+        o = _seq_decode_attend(q, k, v, cache, pos_vec, seq)
+        return _out_proj(params, o.to(x.dtype), cfg, backend, tp,
+                         whole), cache
     ring_len = cache["k"].shape[1] if cfg.local_window is not None else None
     slot = pos_vec % ring_len if ring_len is not None else pos_vec
     write_decode_token(cache["k"], k, slot)

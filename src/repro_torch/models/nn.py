@@ -16,7 +16,10 @@ import torch
 
 def dense_init(gen: torch.Generator, out_dim: int, in_dim: int,
                device, dtype=torch.float32) -> torch.Tensor:
-    """[out, in] weight, truncated normal in [-2, 2], 1/sqrt(fan_in) scale."""
+    """[out, in] weight, truncated normal in [-2, 2], 1/sqrt(fan_in) scale
+    (on meta, its shape and dtype only)."""
+    if torch.device(device).type == "meta":
+        return torch.empty((out_dim, in_dim), dtype=dtype, device=device)
     w = torch.empty((out_dim, in_dim), dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, std=1.0, a=-2.0, b=2.0, generator=gen)
     return (w * in_dim ** -0.5).to(dtype)
@@ -24,6 +27,8 @@ def dense_init(gen: torch.Generator, out_dim: int, in_dim: int,
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, device,
                dtype=torch.float32) -> torch.Tensor:
+    if torch.device(device).type == "meta":
+        return torch.empty((vocab, dim), dtype=dtype, device=device)
     w = torch.randn((vocab, dim), generator=gen, dtype=torch.float32,
                     device=device)
     return (w * 0.02).to(dtype)

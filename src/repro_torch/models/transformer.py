@@ -36,6 +36,13 @@ audio family (musicgen) reads ``n_codebooks`` parallel token streams
             prefill-chunk/decode step); returns each layer's fresh K/V
             (or latents)
 
+Under a mesh (``launch.mesh``) the dense GQA family runs
+tensor-parallel over ``model`` (:func:`rank_config`), the cache is laid
+out by ``distributed.sharding.cache_shardings`` (:func:`init_cache`:
+the batch over the data axes, the K/V sequence over ``model``, or with
+``seq_shard`` over ``data``) and the train mode gathers each FSDP-split
+part just before it runs (:func:`forward_train`'s ``fsdp``).
+
 The serving cache helpers (``scatter_cache_slots``,
 ``scatter_cache_pages``, ``copy_cache_block``, ``commit_verify_window``)
 write the cache they are given in place, where the reference returns a
@@ -52,7 +59,7 @@ import torch
 import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed import tensor_parallel
+from repro_torch.distributed import sharding, tensor_parallel
 from repro_torch.models import attention, layers, mla, moe, nn, rglru, ssm
 from repro_torch.models.config import ModelConfig
 
@@ -90,29 +97,49 @@ def _check_family(cfg: ModelConfig) -> None:
 MESH_ITEM = "ROADMAP.md queue 1 item 14"
 
 
+def dense_gqa(cfg: ModelConfig) -> bool:
+    """The dense family with GQA attention and no sliding window, M-RoPE
+    or codebooks: the one family that runs under a mesh."""
+    return (cfg.family == "dense" and cfg.attn_kind == "gqa"
+            and not cfg.n_routed_experts and cfg.layer_pattern is None
+            and cfg.local_window is None and not cfg.n_codebooks
+            and cfg.mrope_sections is None)
+
+
+def check_mesh_family(cfg: ModelConfig, what: str = "a mesh") -> None:
+    """Raise unless :func:`dense_gqa`, naming queue 1 item 14."""
+    if not dense_gqa(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the mesh covers the dense family with GQA "
+            f"attention only; the {cfg.family} family ({cfg.attn_kind} "
+            f"attention) under {what} is {MESH_ITEM}")
+
+
+def split_heads(cfg: ModelConfig, model: int) -> bool:
+    """True iff each of ``model`` ranks computes its own query heads:
+    they split ``model`` ways and the KV heads split too, or are fewer
+    and divide it (each shared by ``model / n_kv`` ranks). Otherwise
+    every rank computes every head."""
+    return cfg.n_heads % model == 0 and (
+        cfg.n_kv % model == 0 or model % cfg.n_kv == 0)
+
+
 def check_tensor_parallel(cfg: ModelConfig, model: int) -> None:
     """Raise unless tensor parallelism over ``model`` ranks covers
     ``cfg``: the dense family with GQA attention (no sliding window),
-    whose query heads and ``d_ff`` split ``model`` ways, and whose KV
-    heads split ``model`` ways or are fewer and divide it (each shared
-    by ``model / n_kv`` ranks)."""
+    whose ``d_ff`` splits ``model`` ways; where the heads do not split
+    (:func:`split_heads`), the q, k and v widths must, since their
+    products split by element."""
     if model == 1:
         return
-    dense = (cfg.family == "dense" and cfg.attn_kind == "gqa"
-             and not cfg.n_routed_experts and cfg.layer_pattern is None
-             and cfg.local_window is None and not cfg.n_codebooks
-             and cfg.mrope_sections is None)
-    if not dense:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism covers the dense family with "
-            f"GQA attention only; the {cfg.family} family "
-            f"({cfg.attn_kind} attention) under a model axis of {model} "
-            f"is {MESH_ITEM}")
-    kv_ok = cfg.n_kv % model == 0 or model % cfg.n_kv == 0
-    for what, n, ok in (("n_heads", cfg.n_heads, cfg.n_heads % model == 0),
-                        ("n_kv", cfg.n_kv, kv_ok),
-                        ("d_ff", cfg.d_ff, cfg.d_ff % model == 0)):
-        if not ok:
+    check_mesh_family(cfg, f"a model axis of {model}")
+    hd = cfg.head_dim
+    need = [("d_ff", cfg.d_ff)]
+    if not split_heads(cfg, model):
+        need += [("n_heads * head_dim", cfg.n_heads * hd),
+                 ("n_kv * head_dim", cfg.n_kv * hd)]
+    for what, n in need:
+        if n % model:
             raise ValueError(
                 f"{cfg.name}: {what} {n} does not split over a model axis "
                 f"of {model} ({MESH_ITEM})")
@@ -120,9 +147,10 @@ def check_tensor_parallel(cfg: ModelConfig, model: int) -> None:
 
 def rank_config(cfg: ModelConfig, mesh) -> Tuple[ModelConfig, Any]:
     """(the config as one model rank sees it, its ``tensor_parallel.Axis``)
-    under ``mesh``: the rank's query and KV heads (``n_heads / m``, and
-    ``n_kv / m`` or the one KV head it shares where ``n_kv < m``; the
-    head dim kept); ``d_ff`` stays whole (the MLPs take their shares
+    under ``mesh``: where the heads split (:func:`split_heads`), the
+    rank's query and KV heads (``n_heads / m``, and ``n_kv / m`` or the
+    one KV head it shares where ``n_kv < m``; the head dim kept), else
+    every head; ``d_ff`` stays whole (the MLPs take their shares
     themselves). Without a mesh, or with a ``model`` axis of 1, the
     config as it is and None. Raises where :func:`check_tensor_parallel`
     does."""
@@ -130,7 +158,11 @@ def rank_config(cfg: ModelConfig, mesh) -> Tuple[ModelConfig, Any]:
     if tp is None:
         return cfg, None
     check_tensor_parallel(cfg, tp.size)
-    tp = dataclasses.replace(tp, kv_heads=cfg.n_kv)
+    split = split_heads(cfg, tp.size)
+    tp = dataclasses.replace(tp, kv_heads=cfg.n_kv, heads=cfg.n_heads,
+                             split_heads=split)
+    if not split:
+        return dataclasses.replace(cfg, d_head=cfg.head_dim), tp
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp.size,
                                n_kv=max(cfg.n_kv // tp.size, 1),
                                d_head=cfg.head_dim), tp
@@ -191,8 +223,10 @@ def init_model_parts(cfg: ModelConfig, *, seed: int = 0,
     full precision at a time."""
     _check_family(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None                      # meta (a dry run's shapes) draws nothing
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     if cfg.n_codebooks:                 # one table a codebook, [n_cb, V, d]
         yield "embed", {"table": torch.stack([
             nn.embed_init(gen, cfg.vocab, cfg.d_model, dev, dtype)
@@ -233,18 +267,38 @@ def uses_scan(cfg: ModelConfig) -> bool:
     return cfg.scan_layers and cfg.uniform_layers
 
 
+class MeshCache(list):
+    """A rank's per-layer caches under a mesh, with their layout: ``seq``
+    the axis the K/V positions split over (``"model"``, ``"data"`` or
+    None) and ``batch`` the axis entry the rows split over (None: every
+    rank holds every row)."""
+
+    def __init__(self, layers, *, seq: Optional[str] = None,
+                 batch: Any = None):
+        super().__init__(layers)
+        self.seq, self.batch = seq, batch
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: DeviceLike = None,
-               dtype=torch.bfloat16, mesh=None) -> List[dict]:
+               dtype=torch.bfloat16, mesh=None,
+               seq_shard: bool = False) -> List[dict]:
     """Per-layer caches: K/V ``[batch, max_len, n_kv, head_dim]`` (a
     sliding window caps the length at the window), MLA latents
     ``[batch, max_len, kv_lora_rank / qk_rope_dim]`` (both in ``dtype``),
     an RG-LRU layer's f32 state ``h [batch, rnn]`` and ``conv [batch,
     conv - 1, rnn]``, or an SSM layer's f32 ``state [batch, heads,
-    head_dim, n]`` and ``conv [batch, conv - 1, d_inner + 2 n]``. Under
-    ``mesh`` a rank's K/V hold its KV heads."""
+    head_dim, n]`` and ``conv [batch, conv - 1, d_inner + 2 n]``.
+
+    Under ``mesh`` (``batch`` and ``max_len`` whole) a :class:`MeshCache`
+    of this rank's blocks, laid out by ``sharding.cache_shardings``
+    (``seq_shard``: the sequence over ``data``, for batch 1); raises
+    for a layout that splits the head dim, and for every family but the
+    dense GQA one, naming ROADMAP.md queue 1 item 14."""
     _check_family(cfg)
-    cfg, _ = rank_config(cfg, mesh)
+    if mesh is not None:
+        return _init_mesh_cache(cfg, batch, max_len, device, dtype, mesh,
+                                seq_shard)
     dev = resolve_device(device)
     attn = (mla.init_mla_cache if cfg.attn_kind == "mla"
             else attention.init_cache)
@@ -256,6 +310,56 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             return ssm.init_ssm_cache(cfg, batch, dev)
         return attn(cfg, batch, max_len, dev, dtype)
     return [layer(cfg.layer_kind(i)) for i in range(cfg.n_layers)]
+
+
+def _init_mesh_cache(cfg, batch, max_len, device, dtype, mesh, seq_shard):
+    check_mesh_family(cfg)
+    rank_config(cfg, mesh)                    # refuses what TP cannot split
+    whole = init_cache(cfg, batch, max_len, device="meta", dtype=dtype)
+    specs = sharding.cache_shardings(whole, mesh, seq_shard=seq_shard)
+    dev = resolve_device(device)
+    local = []
+    for i, layer in enumerate(whole):
+        spec = specs[f"[{i}]['k']"]
+        if spec[3] is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: a K/V cache [{batch}, {max_len}, {cfg.n_kv}, "
+                f"{cfg.head_dim}] whose length and KV heads do not split "
+                f"over the mesh {sharding.axis_sizes(mesh)} falls back to "
+                f"the head dim, which is {MESH_ITEM}")
+        local.append({name: torch.zeros(
+            sharding.local_shape(t.shape, specs[f"[{i}]['{name}']"], mesh),
+            dtype=t.dtype, device=dev) for name, t in layer.items()})
+    spec = specs["[0]['k']"]
+    return MeshCache(local, seq=spec[1], batch=spec[0])
+
+
+def cache_rows(cache, mesh, batch: int) -> slice:
+    """The rows of a ``batch``-row batch that this rank's cache holds."""
+    entry = getattr(cache, "batch", None)
+    if entry is None:
+        return slice(0, batch)
+    parts, index = sharding._shard_index(entry, sharding.axis_sizes(mesh),
+                                         sharding.coordinates(mesh))
+    n = batch // parts
+    return slice(index * n, (index + 1) * n)
+
+
+def gather_rows(x: torch.Tensor, cache, mesh, batch: int) -> torch.Tensor:
+    """The whole ``batch`` rows of ``x`` (this rank's rows, as
+    :func:`cache_rows` gives them) on every rank: a zero-filled
+    all-reduce over the axes the rows split over, in f32."""
+    entry = getattr(cache, "batch", None)
+    if entry is None:
+        return x
+    full = x.new_zeros((batch,) + tuple(x.shape[1:]), dtype=torch.float32)
+    full[cache_rows(cache, mesh, batch)] = x.to(torch.float32)
+    for name in (entry if isinstance(entry, tuple) else (entry,)):
+        ax = tensor_parallel.axis(mesh, name)
+        if ax is not None:
+            full = tensor_parallel.all_reduce(full, ax.group,
+                                              kind="all-gather")
+    return full.to(x.dtype)
 
 
 def init_paged_cache(cfg: ModelConfig, n_physical: int, block: int, *,
@@ -404,7 +508,7 @@ def _mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, backend: str,
 def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 kind: str = "attn", positions=None, cache=None, pos=None,
                 block_tables=None, ring_len: Optional[int] = None,
-                backend: str = "auto", tp=None
+                backend: str = "auto", tp=None, seq=None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Residual block of ``kind``: attention + MLP (or routed experts),
     RG-LRU + MLP, or SSD (+ MLP where ``d_ff`` is set). Returns (x,
@@ -412,17 +516,19 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     {"ckv", "krope"}). ``ring_len`` is a sliding-window config's ring on
     the paged cache. With ``tp`` (``cfg`` the rank's, from
     :func:`rank_config`) the attention and the MLP are split over the
-    model ranks (prefill, dense decode and train)."""
+    model ranks (prefill, dense decode and train); ``seq``
+    (``attention.SeqShard``) is a dense cache whose positions split over
+    an axis."""
     x, cache, _ = _block(p, x, cfg, mode=mode, kind=kind,
                          positions=positions, cache=cache, pos=pos,
                          block_tables=block_tables, ring_len=ring_len,
-                         backend=backend, tp=tp)
+                         backend=backend, tp=tp, seq=seq)
     return x, cache
 
 
 def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
            kind: str, positions, cache, pos, block_tables,
-           ring_len: Optional[int], backend: str, tp=None):
+           ring_len: Optional[int], backend: str, tp=None, seq=None):
     """:func:`block_apply`, also returning the block's aux loss (the MoE
     load-balancing term; 0 for every other block)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -472,10 +578,12 @@ def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
             backend=backend)
     elif mode == "decode":
         a, cache = attention.attention_decode(p["attn"], h, cache, pos, cfg,
-                                              backend=backend, tp=tp)
+                                              backend=backend, tp=tp,
+                                              seq=seq)
     else:
         a, cache = attention.attention(p["attn"], h, positions, cfg,
-                                       cache=cache, backend=backend, tp=tp)
+                                       cache=cache, backend=backend, tp=tp,
+                                       seq=seq)
     x = x + a
     h = _norm(cfg, p["mlp_norm"], x)
     if cfg.n_routed_experts:
@@ -508,7 +616,9 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
             pos: Union[int, torch.Tensor, None] = None,
             block_tables: Optional[torch.Tensor] = None,
             ring_len: Optional[int] = None,
-            backend: str = "auto", mesh=None) -> Tuple[torch.Tensor, Any]:
+            backend: str = "auto", mesh=None,
+            logits_at: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Any]:
     """Run the stack. Returns (logits [B, S, vocab], or [B, S, n_cb,
     vocab] for an untied codebook head, and the cache).
 
@@ -529,10 +639,12 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
     the ring's length, min(max_len, window); the dense ring reads it off
     the cache.
     ``mesh`` (``launch.mesh``): ``params`` are this rank's shard
-    (``distributed.sharding.shard_params``) and the cache its KV heads
-    (``init_cache(..., mesh=mesh)``); the stack runs tensor-parallel
-    over the ``model`` axis (prefill and dense decode) and every rank
-    returns the whole logits.
+    (``distributed.sharding.shard_params``), the inputs its rows and the
+    cache its blocks (``init_cache(..., mesh=mesh)``, whose layout it
+    carries); the stack runs tensor-parallel over the ``model`` axis
+    (prefill and dense decode), and every model rank returns the whole
+    logits of its rows. ``logits_at [B]`` (a prefill's) computes the
+    logits at one position a row only, ``[B, 1, vocab]``.
     """
     _check_family(cfg)
     if mode not in ("prefill", "decode", "verify"):
@@ -546,6 +658,7 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
         raise NotImplementedError(
             f"the paged cache and the verify window under a mesh are "
             f"{MESH_ITEM}")
+    seq = _seq_shard(cache, mesh)
     compute_dtype = getattr(torch, cfg.dtype)
     x = _embed_tokens(params, inputs, cfg, compute_dtype, tp)
     B, S = x.shape[0], x.shape[1]
@@ -560,10 +673,19 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
         x, out_l = block_apply(p, x, cfg, mode=mode, kind=cfg.layer_kind(i),
                                positions=positions, cache=cache_l, pos=pos,
                                block_tables=block_tables, ring_len=ring_len,
-                               backend=backend, tp=tp)
+                               backend=backend, tp=tp, seq=seq)
         fresh.append(out_l)
+    if logits_at is not None:
+        x = x[torch.arange(B, device=x.device), logits_at][:, None]
     logits = _head(params, x, cfg, backend, tp)
     return logits, (fresh if mode == "verify" else cache)
+
+
+def _seq_shard(cache, mesh) -> Optional[attention.SeqShard]:
+    """The axis a :class:`MeshCache`'s positions split over, or None."""
+    name = getattr(cache, "seq", None)
+    ax = tensor_parallel.axis(mesh, name) if name is not None else None
+    return None if ax is None else attention.SeqShard(ax, name == "model")
 
 
 def _head(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -602,8 +724,33 @@ def _dots_context():
         _dots_policy)
 
 
+def fsdp_gathered(tree: Any, prefix: str, fsdp: Optional[Dict[str, Any]],
+                  dp) -> Any:
+    """``tree`` (the subtree at ``prefix`` of a rank's FSDP shard) with
+    every leaf that ``fsdp`` (the whole params' specs) splits over
+    ``data`` gathered whole over it (``tensor_parallel.fsdp_gather``);
+    model splits stay. The tree itself where there is nothing to gather."""
+    if fsdp is None or dp is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: fsdp_gathered(v, f"{prefix}['{k}']", fsdp, dp)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(fsdp_gathered(v, f"{prefix}[{i}]", fsdp, dp)
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    for dim, entry in enumerate(fsdp[prefix]):
+        if entry == "data":
+            tree = tensor_parallel.fsdp_gather(tree, dim, dp)
+        elif isinstance(entry, tuple) and "data" in entry:
+            raise NotImplementedError(f"{prefix}: FSDP over {entry}")
+    return tree
+
+
 def forward_train(params: Params, inputs: Dict[str, torch.Tensor],
-                  cfg: ModelConfig, *, backend: str = "auto", mesh=None
+                  cfg: ModelConfig, *, backend: str = "auto", mesh=None,
+                  fsdp: Optional[Dict[str, Any]] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The train mode of the reference's ``forward``: the full sequence
     with no cache, compute in ``cfg.dtype`` from the params as given (f32
@@ -612,11 +759,20 @@ def forward_train(params: Params, inputs: Dict[str, torch.Tensor],
     MoE). ``cfg.remat`` recomputes each block in the backward pass:
     ``"full"`` keeps only its input, ``"dots"`` also its matmul outputs
     (the reference's ``jax.checkpoint`` policies). ``mesh`` as in
-    :func:`forward`: a rank's shard, tensor-parallel over ``model``."""
+    :func:`forward`: a rank's shard, tensor-parallel over ``model``.
+    ``fsdp`` (``sharding.params_shardings(..., fsdp=True)`` of the whole
+    params) runs ZeRO-3: ``params`` are shards of those specs, and each
+    part (the embedding, each layer, the head) is gathered over
+    ``data`` just before it runs and dropped after it; under remat the
+    backward gathers a layer again."""
     _check_family(cfg)
     cfg, tp = rank_config(cfg, mesh)
+    dp = tensor_parallel.axis(mesh, "data") if fsdp is not None else None
+    gather = lambda name: fsdp_gathered(params.get(name), f"['{name}']",
+                                        fsdp, dp)
     compute_dtype = getattr(torch, cfg.dtype)
-    x = _embed_tokens(params, inputs, cfg, compute_dtype, tp)
+    x = _embed_tokens({"embed": gather("embed")}, inputs, cfg,
+                      compute_dtype, tp)
     B, S = x.shape[0], x.shape[1]
     positions = inputs.get("positions")
     if positions is None:
@@ -625,7 +781,8 @@ def forward_train(params: Params, inputs: Dict[str, torch.Tensor],
             positions = positions[None].expand(3, B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["layers"]):
-        def block(x, p=p, kind=cfg.layer_kind(i)):
+        def block(x, i=i, p=p, kind=cfg.layer_kind(i)):
+            p = fsdp_gathered(p, f"['layers'][{i}]", fsdp, dp)
             x, _, aux = _block(p, x, cfg, mode="train", kind=kind,
                                positions=positions, cache=None, pos=None,
                                block_tables=None, ring_len=None,
@@ -639,4 +796,7 @@ def forward_train(params: Params, inputs: Dict[str, torch.Tensor],
             x, aux = torch_checkpoint.checkpoint(block, x,
                                                  use_reentrant=False, **extra)
         aux_total = aux_total + aux
-    return _head(params, x, cfg, backend, tp), aux_total
+    head = {"final_norm": gather("final_norm")}
+    head["embed" if cfg.tie_embeddings else "lm_head"] = gather(
+        "embed" if cfg.tie_embeddings else "lm_head")
+    return _head(head, x, cfg, backend, tp), aux_total

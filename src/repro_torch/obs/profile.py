@@ -3,8 +3,9 @@
 The port's counterpart of ``repro.obs.profile``, in the same two halves:
 
 1. **Collection** (cheap): while a profiler is active, ``kernels/ops.py``
-   calls :meth:`KernelProfiler.note_dispatch` at each dispatch with the
-   launch's static facts (shape, sparsity, backend, the
+   calls :meth:`KernelProfiler.note_dispatch` at each dispatch (and at
+   each launch a dry run on meta tensors would make, backend
+   ``"meta"``) with the launch's static facts (shape, sparsity, backend, the
    :class:`~repro_torch.kernels.schedule.Schedule` picked, and the H100
    roofline's predicted time, ``schedule.predicted``). One record per
    unique launch, with its dispatch count. The port dispatches on every
@@ -120,6 +121,8 @@ class KernelProfiler:
             weights: Dict[tuple, Any] = {}    # one per shape, all its N
             for key in sorted(self.launches):
                 rec = self.launches[key]
+                if rec.backend == "meta":      # a dry run's: nothing ran
+                    continue
                 on_card = rec.backend == "cuda"
                 dev = torch.device("cuda" if on_card else "cpu")
                 if on_card and flush is None:

@@ -37,25 +37,41 @@ from repro_torch.models.config import ModelConfig
 def prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int, *,
             embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
-            backend: str = "auto", mesh=None) -> Tuple[torch.Tensor, Any]:
+            backend: str = "auto", mesh=None, seq_shard: bool = False,
+            lengths: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Any]:
     """Process the prompt; returns (last-token logits, filled cache).
     ``embeds [B, S, d]`` stand in for the tokens' embeddings (a stubbed
     modality frontend's output); ``positions`` are explicit prefill
     positions ([3, B, S] t/h/w ids for M-RoPE). ``tokens`` still sets
-    the batch and the device. With ``mesh`` (``launch.mesh``), ``params``
-    are this rank's shard, the cache holds its KV heads, and every rank
-    returns the whole logits."""
-    cache = transformer.init_cache(cfg, tokens.shape[0], max_len,
-                                   device=tokens.device, mesh=mesh)
-    inputs: Dict[str, Any] = {"tokens": tokens}
+    the batch and the device. ``lengths [B]``: the prompts are
+    right-padded to S, row b's logits are at its ``lengths[b] - 1`` (the
+    padding's K/V is written past each prompt, where decode overwrites
+    it before any row reads it).
+
+    With ``mesh`` (``launch.mesh``), ``params`` are this rank's shard,
+    ``tokens`` the whole batch; the cache is the rank's
+    (``transformer.init_cache``'s layout, ``seq_shard`` putting the
+    sequence over ``data``), the rank runs the rows it holds, and every
+    rank returns the whole batch's logits."""
+    B = tokens.shape[0]
+    cache = transformer.init_cache(cfg, B, max_len, device=tokens.device,
+                                   mesh=mesh, seq_shard=seq_shard)
+    rows = transformer.cache_rows(cache, mesh, B)
+    inputs: Dict[str, Any] = {"tokens": tokens[rows]}
     if embeds is not None:
-        inputs["embeds"] = embeds
+        inputs["embeds"] = embeds[rows]
     if positions is not None:
-        inputs["positions"] = positions
-    logits, cache = transformer.forward(params, inputs, cfg, mode="prefill",
-                                        cache=cache, backend=backend,
-                                        mesh=mesh)
-    return logits[:, -1], cache
+        inputs["positions"] = positions[..., rows, :]
+    n = inputs["tokens"].shape[0]
+    idx = (torch.full((n,), tokens.shape[-1] - 1, dtype=torch.int64,
+                      device=tokens.device) if lengths is None else
+           lengths[rows].to(device=tokens.device, dtype=torch.int64) - 1)
+    # The head runs at each row's last position only.
+    logits, cache = transformer.forward(
+        params, inputs, cfg, mode="prefill", cache=cache, backend=backend,
+        mesh=mesh, logits_at=idx)
+    return transformer.gather_rows(logits[:, 0], cache, mesh, B), cache
 
 
 def length_buckets(max_len: int, min_bucket: int = 8) -> Tuple[int, ...]:
@@ -137,11 +153,18 @@ def serve_step(params, cache, token: torch.Tensor, pos,
     """One decode step: token [B, 1] (or [B, n_cb, 1]) at absolute
     position ``pos`` (an int, or a [B] tensor of per-row positions).
     Every weight product has N = B, the skinny regime the paper
-    targets. ``mesh`` as in :func:`prefill`."""
-    logits, cache = transformer.forward(params, {"tokens": token}, cfg,
+    targets. ``mesh`` as in :func:`prefill`: ``token`` and ``pos`` are
+    the whole batch's, the rank steps its rows, and every rank returns
+    the whole batch's logits."""
+    B = token.shape[0]
+    rows = transformer.cache_rows(cache, mesh, B)
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        pos = pos[rows]
+    logits, cache = transformer.forward(params, {"tokens": token[rows]}, cfg,
                                         mode="decode", cache=cache, pos=pos,
                                         backend=backend, mesh=mesh)
-    return (logits[:, 0] if cfg.n_codebooks else logits[:, -1]), cache
+    last = logits[:, 0] if cfg.n_codebooks else logits[:, -1]
+    return transformer.gather_rows(last, cache, mesh, B), cache
 
 
 def accept_drafts(logits: torch.Tensor, tokens: torch.Tensor,
@@ -297,10 +320,15 @@ def generate(params, prompt: torch.Tensor, cfg: ModelConfig, *,
              max_new_tokens: int, max_len: Optional[int] = None,
              temperature: float = 0.0, seed: int = 0,
              backend: str = "auto",
-             timings: Optional[dict] = None, mesh=None) -> torch.Tensor:
+             timings: Optional[dict] = None, mesh=None,
+             seq_shard: bool = False,
+             lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Autoregressive generation: prompt [B, S] -> [B, S + new] (a
     codebook model: [B, n_cb, S] -> [B, n_cb, S + new]). With ``mesh``
-    (``params`` this rank's shard) every rank returns the same tokens.
+    (``params`` this rank's shard; ``seq_shard`` as in :func:`prefill`)
+    every rank returns the same tokens. ``lengths [B]``: the prompts are
+    right-padded to S and row b continues from its own ``lengths[b]``;
+    its new tokens are still columns S on of the result.
 
     ``timings``, when given, receives ``prefill_s`` (prompt through the
     first token) and ``decode_s`` (the remaining steps), host clock around
@@ -313,8 +341,10 @@ def generate(params, prompt: torch.Tensor, cfg: ModelConfig, *,
     uids = torch.arange(prompt.shape[0], dtype=torch.int64,
                         device=prompt.device)
 
-    def sample(logits: torch.Tensor, index: int) -> torch.Tensor:
-        return sample_per_slot(logits, uids, torch.full_like(uids, index),
+    def sample(logits: torch.Tensor, index) -> torch.Tensor:
+        counts = (index if isinstance(index, torch.Tensor)
+                  else torch.full_like(uids, index))
+        return sample_per_slot(logits, uids, counts,
                                temperature=temperature, seed=seed)
     sync = (lambda: torch.cuda.synchronize(prompt.device)) \
         if prompt.is_cuda else (lambda: None)
@@ -322,9 +352,12 @@ def generate(params, prompt: torch.Tensor, cfg: ModelConfig, *,
         sync()
         t0 = time.perf_counter()
         last_logits, cache = prefill(params, prompt, cfg, max_len,
-                                     backend=backend, mesh=mesh)
+                                     backend=backend, mesh=mesh,
+                                     seq_shard=seq_shard, lengths=lengths)
         out = [prompt]
-        tok = sample(last_logits, S)
+        start = S if lengths is None else lengths.to(
+            device=prompt.device, dtype=torch.int64)
+        tok = sample(last_logits, start)
         sync()
         t1 = time.perf_counter()
         for i in range(max_new_tokens):
@@ -332,9 +365,9 @@ def generate(params, prompt: torch.Tensor, cfg: ModelConfig, *,
             out.append(nxt)
             if i == max_new_tokens - 1:
                 break
-            logits, cache = serve_step(params, cache, nxt, S + i, cfg,
+            logits, cache = serve_step(params, cache, nxt, start + i, cfg,
                                        backend=backend, mesh=mesh)
-            tok = sample(logits, S + i + 1)
+            tok = sample(logits, start + i + 1)
         sync()
         if timings is not None:
             timings.update(prefill_s=t1 - t0,

@@ -11,10 +11,15 @@ and changes nothing it is given: it returns a new :class:`TrainState`.
 Under a mesh (``launch.mesh``) the state is a rank's shard
 (``distributed.sharding.shard_params``; the AdamW moments are sharded
 like their params), the batch its data slice, and the step runs
-tensor-parallel over ``model`` and data-parallel over ``data``: the
-gradients and the metrics are mean-reduced over ``data`` in f32, and the
-global gradient norm sums each model-split leaf's squares over ``model``
-and counts each replicated leaf once.
+tensor-parallel over ``model`` and data-parallel over the batch axes
+(``pod`` and ``data``): the gradients and the metrics are mean-reduced
+over them in f32, and the global gradient norm sums each leaf's squares
+over the axes that split it and counts a replicated leaf once. With
+``fsdp`` (ZeRO-3) the params, the AdamW moments and the masks are
+shards of ``params_shardings(..., fsdp=True)``: the forward gathers each
+layer over ``data`` just before it runs (``transformer.forward_train``),
+the gather's backward leaves each rank its shard of the gradient's mean
+over ``data``, and the update runs on the shard.
 """
 
 from __future__ import annotations
@@ -53,11 +58,12 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def loss_fn(params: Any, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-            *, backend: str = "auto", mesh=None):
+            *, backend: str = "auto", mesh=None, fsdp=None):
     """(loss, {"ce", "aux"}) of one batch: tokens ``[B, S]`` (``[B, n_cb,
     S]`` for codebooks) and targets of the same shape."""
     logits, aux = transformer.forward_train(
-        params, {"tokens": batch["tokens"]}, cfg, backend=backend, mesh=mesh)
+        params, {"tokens": batch["tokens"]}, cfg, backend=backend, mesh=mesh,
+        fsdp=fsdp)
     targets = batch["targets"]
     if cfg.n_codebooks:                          # [B, n_cb, S] -> [B, S, n_cb]
         targets = torch.movedim(targets, 1, -1)
@@ -73,12 +79,13 @@ def batch_to(batch: Dict[str, Any], device: DeviceLike = None
 
 
 def value_and_grad(params: Any, batch, cfg: ModelConfig, *,
-                   backend: str = "auto", mesh=None):
+                   backend: str = "auto", mesh=None, fsdp=None):
     """(loss, {"ce", "aux"}, grads) of one batch; the grads have the
     params' structure (zeros where a leaf does not reach the loss)."""
     leaves = opt_mod.tree_map(lambda p: p.detach().requires_grad_(True),
                               params)
-    loss, parts = loss_fn(leaves, batch, cfg, backend=backend, mesh=mesh)
+    loss, parts = loss_fn(leaves, batch, cfg, backend=backend, mesh=mesh,
+                          fsdp=fsdp)
     flat = opt_mod.tree_leaves(leaves)
     grads = torch.autograd.grad(loss, flat, allow_unused=True)
     by_id = {id(p): g for p, g in zip(flat, grads)}
@@ -92,34 +99,42 @@ def value_and_grad(params: Any, batch, cfg: ModelConfig, *,
 
 def mesh_global_norm(grads: Any, shardings: Dict[str, Any],
                      mesh) -> torch.Tensor:
-    """The global norm of a rank's gradient shards: each leaf that
-    ``shardings`` (``sharding.params_shardings`` of the whole params)
-    splits over ``model`` has its squares summed over the model ranks, a
-    replicated leaf counts once."""
-    tp = tensor_parallel.of(mesh)
-    split, whole = [], []
+    """The global norm of a rank's gradient shards: each leaf's squares
+    summed over the axes that ``shardings`` (``sharding.params_shardings``
+    of the whole params) splits it over, so a replicated leaf counts
+    once."""
+    by_axes: Dict[Tuple[str, ...], list] = {}
     for path, g in sharding.leaves_with_paths(grads):
-        sq = torch.sum(torch.square(g.to(torch.float32)))
-        (split if tp is not None and sharding.model_sharded(shardings[path])
-         else whole).append(sq)
+        axes = tuple(a for a in sharding.split_axes(shardings[path])
+                     if tensor_parallel.axis(mesh, a) is not None)
+        by_axes.setdefault(axes, []).append(
+            torch.sum(torch.square(g.to(torch.float32))))
     zero = torch.zeros((), dtype=torch.float32,
                        device=opt_mod.tree_leaves(grads)[0].device)
-    total = sum(whole, zero)
-    if split:
-        total = total + tensor_parallel.all_reduce(sum(split, zero),
-                                                   tp.group)
+    total = zero
+    for axes in sorted(by_axes):
+        part = sum(by_axes[axes], zero)
+        for a in axes:
+            part = tensor_parallel.all_reduce(
+                part, tensor_parallel.axis(mesh, a).group)
+        total = total + part
     return torch.sqrt(total)
 
 
-def _data_mean(x: torch.Tensor, dp) -> torch.Tensor:
-    """``x`` averaged over the data ranks in f32, in its own dtype."""
-    return (tensor_parallel.all_reduce(x.to(torch.float32), dp.group)
-            / dp.size).to(x.dtype)
+def _mean_over(x: torch.Tensor, axes) -> torch.Tensor:
+    """``x`` averaged over each of ``axes`` in f32, in its own dtype."""
+    if not axes:
+        return x
+    y = x.to(torch.float32)
+    for ax in axes:
+        y = tensor_parallel.all_reduce(y, ax.group) / ax.size
+    return y.to(x.dtype)
 
 
 def make_train_step(cfg: ModelConfig, optimizer, *, masks: Any = None,
                     microbatches: int = 1, backend: str = "auto",
-                    mesh=None, shardings: Optional[Dict[str, Any]] = None
+                    mesh=None, shardings: Optional[Dict[str, Any]] = None,
+                    fsdp: bool = False
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``train_step(state, batch) -> (state, metrics)``; metrics are 0-d
@@ -127,17 +142,32 @@ def make_train_step(cfg: ModelConfig, optimizer, *, masks: Any = None,
     gradients). ``microbatches > 1`` splits the batch on axis 0 and
     averages loss, parts and gradients over the slices, as the
     reference's scan does. Under ``mesh`` the state and ``masks`` are a
-    rank's shards, the batch its data slice, and ``shardings`` the
-    params' specs (``sharding.params_shardings`` of the whole params)."""
-    tp, dp = tensor_parallel.of(mesh), tensor_parallel.axis(mesh, "data")
-    if tp is not None and shardings is None:
-        raise ValueError("a model axis needs the params' shardings")
+    rank's shards, the batch its slice over the batch axes, and
+    ``shardings`` the params' specs (``sharding.params_shardings`` of
+    the whole params, with ``fsdp`` as given here). ``fsdp`` runs
+    ZeRO-3 (the state is a shard of the ``fsdp=True`` specs)."""
+    tp = tensor_parallel.of(mesh)
+    batch_axes = [ax for ax in (tensor_parallel.axis(mesh, a)
+                                for a in ("pod", "data")) if ax is not None]
+    names = [a for a in ("pod", "data")
+             if tensor_parallel.axis(mesh, a) is not None]
+    if (tp is not None or fsdp) and shardings is None:
+        raise ValueError("a model axis or FSDP needs the params' shardings")
+    fsdp_specs = shardings if fsdp else None
+
+    def grad_mean(path: str, g: torch.Tensor) -> torch.Tensor:
+        """The mean over the batch axes that do not split the leaf (the
+        FSDP gather's backward has taken the mean over ``data``)."""
+        split = sharding.split_axes(shardings[path]) if fsdp else ()
+        return _mean_over(g, [ax for ax, n in zip(batch_axes, names)
+                              if n not in split])
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         params = state.params
         if microbatches == 1:
             loss, parts, grads = value_and_grad(params, batch, cfg,
-                                                 backend=backend, mesh=mesh)
+                                                 backend=backend, mesh=mesh,
+                                                 fsdp=fsdp_specs)
         else:
             n = next(iter(batch.values())).shape[0]
             if n % microbatches:
@@ -151,7 +181,7 @@ def make_train_step(cfg: ModelConfig, optimizer, *, masks: Any = None,
             for i in range(microbatches):
                 part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                 l, p, g = value_and_grad(params, part, cfg, backend=backend,
-                                         mesh=mesh)
+                                         mesh=mesh, fsdp=fsdp_specs)
                 loss = loss + l
                 parts = {k: parts[k] + p[k] for k in parts}
                 grads = opt_mod.tree_map(torch.add, grads, g)
@@ -159,11 +189,11 @@ def make_train_step(cfg: ModelConfig, optimizer, *, masks: Any = None,
             loss = loss * inv
             parts = {k: v * inv for k, v in parts.items()}
             grads = opt_mod.tree_map(lambda g: g * inv, grads)
-        if dp is not None:
-            grads = opt_mod.tree_map(lambda g: _data_mean(g, dp), grads)
-            loss = _data_mean(loss, dp)
-            parts = {k: _data_mean(v, dp) for k, v in parts.items()}
-        gnorm = (opt_mod.global_norm(grads) if tp is None
+        if batch_axes:
+            grads = _map_paths(grad_mean, grads)
+            loss = _mean_over(loss, batch_axes)
+            parts = {k: _mean_over(v, batch_axes) for k, v in parts.items()}
+        gnorm = (opt_mod.global_norm(grads) if tp is None and not fsdp
                  else mesh_global_norm(grads, shardings, mesh))
         new_params, new_opt = optimizer.update(grads, state.opt_state,
                                                params, masks=masks,
@@ -172,6 +202,18 @@ def make_train_step(cfg: ModelConfig, optimizer, *, masks: Any = None,
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return train_step
+
+
+def _map_paths(fn, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over a tree's tensor leaves, by
+    ``sharding.leaves_with_paths``' paths."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, f"{prefix}['{k}']")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_paths(fn, v, f"{prefix}[{i}]")
+                          for i, v in enumerate(tree))
+    return None if tree is None else fn(prefix, tree)
 
 
 def init_train_state(cfg: ModelConfig, optimizer, *, seed: int = 0,

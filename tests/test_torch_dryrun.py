@@ -1,0 +1,145 @@
+"""The port's dry run (``launch.dryrun``) on dry meshes, on the CPU: no
+process group, no device, meta tensors only.
+
+* The reference's two small-mesh cases (``tests/test_distributed.py``'s
+  dry-run machinery tests, qwen2-moe swapped for tinyllama since MoE
+  under a mesh is refused), on a dry 2x2 mesh: FLOPs above 0, and
+  collective bytes above 0 for the sharded cells (the reference's own
+  criterion there); the sparse decode cell notes its LSCD launches with
+  the schedule they would run.
+* ``main`` on one production cell writes its record under a temporary
+  ``results`` path; its per-rank bytes are the reference's.
+* Refusals: each family outside the dense GQA one, under a mesh, names
+  ROADMAP.md queue 1 item 14 (as a dry-run record too); so does the head
+  dim fallback of the K/V layout; a train cell in ``sparse_xla`` mode
+  names queue 3 item 13.
+"""
+
+import dataclasses
+import json
+
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.distributed import sharding
+from repro_torch.launch import dryrun
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch import specs
+from repro_torch.models import transformer
+from repro_torch.models.config import ShapeConfig
+
+ITEM14 = "ROADMAP.md queue 1 item 14"
+ITEM13 = "ROADMAP.md queue 3 item 13"
+
+
+def _run(cfg, shape, mesh_shape=(2, 2), weight_mode="dense"):
+    mesh = mesh_mod.DryMesh(mesh_shape, ("data", "model"))
+    cell = specs.build_cell(cfg, shape, mesh, weight_mode=weight_mode)
+    return cell, dryrun.execute(cell, mesh, train=shape.kind == "train")
+
+
+def test_train_cell_small_mesh():
+    cfg = configs.smoke("tinyllama_1_1b")
+    cell, ran = _run(cfg, ShapeConfig("train_tiny", "train", 32, 8))
+    assert ran["cost"]["flops"] > 0
+    assert sum(ran["collective_bytes"].values()) > 0
+    # ZeRO-3: the gathers over data and the gradients' reduce-scatter
+    assert ran["collective_bytes_by_axis"]["all-gather@data"] > 0
+    assert ran["collective_bytes_by_axis"]["reduce-scatter@data"] > 0
+    assert set(cell.arg_bytes()) == {"params", "optimizer", "inputs",
+                                     "total"}
+
+
+def test_decode_cell_small_mesh():
+    cfg = configs.smoke("tinyllama_1_1b")
+    shape = ShapeConfig("decode_tiny", "decode", 64, 8)
+    _, ran = _run(cfg, shape)
+    assert ran["cost"]["flops"] > 0
+    assert ran["collective_bytes"]["all-reduce"] > 0
+    assert not ran["lscd"]
+    # sparse: the LSCD launches, one row each, with their schedules
+    _, ran = _run(cfg, shape, weight_mode="sparse_xla")
+    assert ran["lscd"]
+    for row in ran["lscd"]:
+        assert row["n"] == 4 and row["count"] >= 1           # 8 rows / 2
+        assert row["kernel"] in ("lscd_spmm", "lscd_spmm_grouped",
+                                 "lscd_spmm_splitk",
+                                 "lscd_spmm_splitk_grouped")
+        assert row["predicted_s"] > 0
+    assert ran["cost"]["lscd_flops"] > 0
+
+
+def test_seq_shard_decode_cell_small_mesh():
+    cfg = dataclasses.replace(configs.smoke("tinyllama_1_1b"), n_kv=2)
+    cell, ran = _run(cfg, ShapeConfig("decode_one", "decode", 64, 1))
+    k = cell.args[1][0]["k"]
+    assert cell.args[1].seq == "data" and tuple(k.shape[:2]) == (1, 32)
+    assert ran["collective_bytes_by_axis"]["all-reduce@data"] > 0
+
+
+def test_main_writes_the_cell(tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path / "results"))
+    out = dryrun.main(["--arch", "tinyllama_1_1b", "--shape", "decode_32k"])
+    assert out == {"ok": 1, "failed": 0}
+    path = tmp_path / "results" / \
+        "tinyllama_1_1b.decode_32k.16x16.dense.json"
+    rec = json.loads(path.read_text())
+    assert rec["status"] == "ok"
+    assert rec["memory"]["argument_bytes"]["total"] == 506_777_636
+    assert rec["memory"]["temp_bytes"] is None
+    assert rec["model_flops"] > 0 and rec["cost"]["flops"] > 0
+    assert "[ok   ] tinyllama_1_1b" in capsys.readouterr().out
+    # a second call reads the record back
+    assert dryrun.run_cell("tinyllama_1_1b", "decode_32k",
+                           multi_pod=False) == rec
+
+
+def test_sparse_train_cell_names_item_13():
+    rec = dryrun.run_cell("tinyllama_1_1b", "train_4k", multi_pod=False,
+                          weight_mode="sparse_xla",
+                          mesh=mesh_mod.make_production_mesh())
+    assert rec["status"] == "error" and ITEM13 in rec["error"]
+
+
+def _outside(arch) -> bool:
+    return not transformer.dense_gqa(configs.get(arch))
+
+
+@pytest.mark.parametrize("arch", [a for a in configs.ARCH_IDS
+                                  if _outside(a)])
+def test_other_families_name_item_14(arch):
+    shape = configs.cells(arch)[0]
+    rec = dryrun.run_cell(arch, shape.name, multi_pod=False,
+                          mesh=mesh_mod.make_production_mesh())
+    assert rec["status"] == "error" and ITEM14 in rec["error"], rec
+    mesh = mesh_mod.DryMesh((2, 2), ("data", "model"))
+    with pytest.raises(NotImplementedError, match=ITEM14):
+        transformer.init_cache(configs.smoke(arch), 2, 8, device="meta",
+                               mesh=mesh)
+
+
+def test_head_dim_fallback_names_item_14():
+    # 3 KV heads and 9 positions split neither over model 2: the layout
+    # falls back to the head dim.
+    cfg = dataclasses.replace(configs.smoke("tinyllama_1_1b"), n_heads=6,
+                              n_kv=3, d_head=32)
+    mesh = mesh_mod.DryMesh((2, 2), ("data", "model"))
+    with pytest.raises(NotImplementedError, match="head dim"):
+        transformer.init_cache(cfg, 2, 9, device="meta", mesh=mesh)
+    cache = transformer.init_cache(cfg, 2, 8, device="meta", mesh=mesh)
+    assert cache.seq == "model" and tuple(cache[0]["k"].shape) == \
+        (1, 4, 3, 32)
+
+
+def test_dry_mesh_allocates_nothing():
+    mesh = mesh_mod.make_production_mesh(multi_pod=True)
+    assert mesh.size() == 512 and mesh.mesh_dim_names == ("pod", "data",
+                                                          "model")
+    cell = specs.build_cell(configs.get("tinyllama_1_1b"),
+                            configs.SHAPES["decode_32k"], mesh)
+    for _, t in sharding.leaves_with_paths(cell.args):
+        assert t.is_meta
+    with torch.no_grad():
+        logits, _ = cell.fn(*cell.args)
+    assert logits.is_meta and logits.shape == (4, 1, 32000)

@@ -1155,3 +1155,58 @@ def test_mesh_1x2_decode_step_matches_unsharded_at_full_width(cuda):
     for g in got:
         np.testing.assert_array_equal(g, got[0])
     np.testing.assert_allclose(got[0], want, rtol=3e-2, atol=3e-2)
+
+
+def test_mesh_1x2_sequence_sharded_decode_at_full_width(cuda):
+    """Two ranks sharing the card over gloo serve a 2-layer tinyllama at
+    full width and sparsity 0.8 on a 1x2 mesh with a cache of 64
+    positions, laid out by ``cache_shardings`` with the sequence over
+    ``model`` (two blocks of 32; the 40-token prompt crosses into the
+    second): the first decode step, whose partial softmaxes combine over
+    the ranks, matches the unsharded model's logits within the bf16
+    model-logits tolerance (3e-2)."""
+    import torch_mesh_worlds
+    from repro_torch.launch import mesh as mesh_mod
+    cfg = dataclasses.replace(configs.get("tinyllama_1_1b"), n_layers=2)
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, (4, 40))
+    params, _ = serve.build(cfg, sparsity=0.8, device=cuda)
+    p = torch.from_numpy(prompt).long().to(cuda)
+    with torch.inference_mode():
+        last, cache = engine.prefill(params, p, cfg, 64)
+        tok = torch.argmax(last, -1)[:, None]
+        want, _ = engine.serve_step(params, cache, tok, 40, cfg)
+    want = want.float().cpu().numpy()
+    del params, cache
+    torch.cuda.empty_cache()
+    got = mesh_mod.run_world(torch_mesh_worlds.decode_step_logits, (1, 2),
+                             device="cuda",
+                             args=("tinyllama_1_1b", 2, 0.8, prompt, 64,
+                                   True))
+    for logits, seq in got:
+        assert seq == "model"
+        np.testing.assert_array_equal(logits, got[0][0])
+    np.testing.assert_allclose(got[0][0], want, rtol=3e-2, atol=3e-2)
+
+
+def test_dry_run_allocates_nothing_on_the_card(cuda):
+    """The dry run of that cell (1x2, 64 positions, four rows) and of
+    tinyllama's decode_32k on the 16x16 production mesh runs on meta
+    tensors: the card's allocated memory is the same before and after,
+    and the cell's per-rank cache bytes are the layout's."""
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.config import ShapeConfig
+    cfg = dataclasses.replace(configs.get("tinyllama_1_1b"), n_layers=2)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    mesh = mesh_mod.DryMesh((1, 2), ("data", "model"))
+    cell = specs.build_cell(cfg, ShapeConfig("d", "decode", 64, 4), mesh,
+                            weight_mode="sparse_xla")
+    ran = dryrun.execute(cell, mesh, train=False)
+    rec = dryrun.run_cell("tinyllama_1_1b", "decode_32k", multi_pod=False,
+                          mesh=mesh_mod.make_production_mesh())
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    assert ran["lscd"] and rec["status"] == "ok"
+    # 2 layers x K and V x [4 rows, 32 positions, 4 KV heads, 64] bf16
+    assert cell.arg_bytes()["cache"] == 2 * 2 * 4 * 32 * 4 * 64 * 2

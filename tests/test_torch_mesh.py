@@ -18,9 +18,11 @@ encoded whole by ``convert.rank_params_from_numpy``, then sharded):
 * ``serve.build(..., mesh=)`` equal, leaf for leaf and bit for bit, to
   the shard of the unsharded build, and the ranks' encoded non-zeros
   summing to the whole model's;
-* refusals: every family outside the dense GQA family, a model axis that
-  does not split the heads, and the paged cache under a mesh raise,
-  naming ROADMAP.md queue 1 item 14.
+* refusals: every family outside the dense GQA family, a config whose
+  projections do not split over the model axis, and the paged cache
+  under a mesh raise, naming ROADMAP.md queue 1 item 14 (query heads
+  that do not split run since the sequence-sharded cache:
+  ``tests/test_torch_seqshard.py``).
 """
 
 import functools
@@ -154,9 +156,16 @@ def test_build_under_a_mesh_is_the_shard_of_the_build(world, arch,
 
 
 def _splits_four_ways(cfg) -> bool:
+    """The dense GQA family with ``d_ff`` split four ways, and its heads
+    (each rank its own) or else its q and k/v widths (every rank all
+    heads, the projections split by element)."""
+    hd = cfg.head_dim
+    heads = cfg.n_heads % 4 == 0 and (cfg.n_kv % 4 == 0
+                                      or 4 % cfg.n_kv == 0)
+    widths = (cfg.n_heads * hd) % 4 == 0 and (cfg.n_kv * hd) % 4 == 0
     return (cfg.family == "dense" and cfg.attn_kind == "gqa"
-            and cfg.n_heads % 4 == 0 and cfg.d_ff % 4 == 0
-            and (cfg.n_kv % 4 == 0 or 4 % cfg.n_kv == 0))
+            and cfg.local_window is None and cfg.d_ff % 4 == 0
+            and (heads or widths))
 
 
 def test_refusals_name_the_queue_item(world_1x4):

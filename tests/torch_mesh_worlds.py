@@ -14,7 +14,8 @@ import torch
 from repro_torch import configs, convert
 from repro_torch.distributed import compression, sharding
 from repro_torch.distributed import fault_tolerance as ft
-from repro_torch.launch import serve
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch import serve, specs
 from repro_torch.launch import train as train_launch
 from repro_torch.models import transformer
 from repro_torch.serving import engine
@@ -25,12 +26,17 @@ from repro_torch.training import data, optimizer, train_loop
 # and tinyllama's wk/wv (4 KV heads of 64: two tiles) stays whole at 4.
 WIDE = dict(d_model=512, d_ff=1024, n_heads=8, n_layers=2, vocab=256)
 WIDE_KV = {"opt_30b": 8, "tinyllama_1_1b": 4}
+# qwen2 widened with heads that split neither two nor four ways by head
+# (3 KV heads under 12 query heads), whose widths do: every rank
+# computes every head. Its 3-tile wk/wv stay whole at model 2 and 4.
+WIDE_HEADS = {"qwen2_1_5b": dict(n_heads=12, n_kv=3, d_head=128)}
 SPARSE = ("'wq'", "'wk'", "'wv'", "'wo'", "'gate'", "'up'", "'down'")
 
 
 def wide(cfg, arch: str, dtype: str):
     """``cfg`` (either package's smoke config) at the widened sizes."""
-    return dataclasses.replace(cfg, n_kv=WIDE_KV[arch], dtype=dtype, **WIDE)
+    heads = WIDE_HEADS.get(arch, {"n_kv": WIDE_KV.get(arch)})
+    return dataclasses.replace(cfg, dtype=dtype, **{**WIDE, **heads})
 
 
 def should_sparsify(name: str) -> bool:
@@ -165,26 +171,26 @@ def _opt():
 
 
 def train_step(mesh, arch: str, np_params, batch, sparsity,
-               ckpt_dir=None) -> dict:
+               ckpt_dir=None, fsdp: bool = False) -> dict:
     """One sharded f32 train step from the reference's params (masked by
     the launcher's rule on the whole leaves): the metrics, this rank's
     new params, its coordinates; with ``ckpt_dir`` the state is saved
-    there (whole arrays) from this mesh."""
+    there (whole arrays) from this mesh. ``fsdp``: ZeRO-3 shards."""
     cfg = wide(configs.smoke(arch), arch, "float32")
     whole = convert.params_from_numpy(np_params, device="cpu")
     masks = None
     if sparsity:
         masks = train_launch.reference_masks(whole, cfg, sparsity)
         whole = optimizer.apply_masks(whole, masks)
-    shardings = sharding.params_shardings(whole, mesh)
-    params = sharding.shard_params(whole, mesh)
+    shardings = sharding.params_shardings(whole, mesh, fsdp=fsdp)
+    params = sharding.shard_params(whole, mesh, fsdp=fsdp)
     if masks is not None:
-        masks = sharding.shard_params(masks, mesh)
+        masks = sharding.shard_params(masks, mesh, fsdp=fsdp)
     opt = _opt()
     state = train_loop.TrainState(params, opt.init(params),
                                   torch.zeros((), dtype=torch.int32))
     step = train_loop.make_train_step(cfg, opt, masks=masks, mesh=mesh,
-                                      shardings=shardings)
+                                      shardings=shardings, fsdp=fsdp)
     local = data.batch_slice(batch, mesh.get_local_rank("data"),
                              mesh.size(0))
     state, metrics = step(state, train_loop.batch_to(local, "cpu"))
@@ -199,18 +205,19 @@ def train_step(mesh, arch: str, np_params, batch, sparsity,
                 state=_state(state), coords=sharding.coordinates(mesh))
 
 
-def restore_shards(mesh, arch: str, ckpt_dir: str) -> dict:
+def restore_shards(mesh, arch: str, ckpt_dir: str,
+                   fsdp: bool = False) -> dict:
     """This rank's shard of the checkpoint in ``ckpt_dir``, restored onto
-    a template of its own shapes."""
+    a template of its own shapes (``fsdp``: ZeRO-3 shards)."""
     cfg = wide(configs.smoke(arch), arch, "float32")
     whole = transformer.init_model(cfg, device="cpu")
-    params = sharding.shard_params(whole, mesh)
+    params = sharding.shard_params(whole, mesh, fsdp=fsdp)
     opt = _opt()
     template = (train_loop.TrainState(params, opt.init(params),
                                       torch.zeros((), dtype=torch.int32)),
                 {"seed": 0, "step": 0})
-    (state, _), meta = ft.CheckpointManager(ckpt_dir).restore(template,
-                                                              mesh=mesh)
+    (state, _), meta = ft.CheckpointManager(ckpt_dir).restore(
+        template, mesh=mesh, fsdp=fsdp)
     return dict(state=_state(state), coords=sharding.coordinates(mesh),
                 step=meta["step"])
 
@@ -257,10 +264,12 @@ def train_world(mesh, cases, ckpt_root=None, compress=None,
 
 
 def decode_step_logits(mesh, arch: str, n_layers: int, sparsity: float,
-                       prompt: np.ndarray) -> np.ndarray:
+                       prompt: np.ndarray, max_len=None, layout=False):
     """The first decode step's logits of ``arch`` at full width cut to
     ``n_layers``, built by ``serve.build`` under the mesh on this rank's
-    device (the card in the GPU tests)."""
+    device (the card in the GPU tests), the cache ``max_len`` long
+    (default: the prompt and one step); with ``layout`` also the axis
+    the cache's positions split over."""
     cfg = dataclasses.replace(configs.get(arch), n_layers=n_layers)
     dev = torch.device("cuda", torch.cuda.current_device()) \
         if mesh.device_type == "cuda" else torch.device("cpu")
@@ -268,7 +277,143 @@ def decode_step_logits(mesh, arch: str, n_layers: int, sparsity: float,
     p = torch.from_numpy(prompt).long().to(dev)
     S = p.shape[1]
     with torch.inference_mode():
-        last, cache = engine.prefill(params, p, cfg, S + 1, mesh=mesh)
+        last, cache = engine.prefill(params, p, cfg, max_len or S + 1,
+                                     mesh=mesh)
         tok = torch.argmax(last, -1)[:, None]
         step, _ = engine.serve_step(params, cache, tok, S, cfg, mesh=mesh)
-    return step.float().cpu().numpy()
+    logits = step.float().cpu().numpy()
+    return (logits, cache.seq) if layout else logits
+
+
+# ---------------------------------------------------------------------------
+# the sequence-sharded K/V cache and FSDP (tests/test_torch_seqshard.py)
+# ---------------------------------------------------------------------------
+
+def _kv_blocks(cache, mesh, batch: int) -> dict:
+    """This rank's K/V blocks (f32 numpy, per layer) and where they sit
+    in the whole ``[batch, max_len, n_kv, hd]`` leaves: (row, position,
+    head) offsets."""
+    rows = transformer.cache_rows(cache, mesh, batch)
+    k = cache[0]["k"]
+    at = [rows.start, 0, 0]
+    if cache.seq is not None:
+        at[1] = mesh.get_local_rank(cache.seq) * k.shape[1]
+    if cache.seq != "model" and "model" in mesh.mesh_dim_names:
+        at[2] = mesh.get_local_rank("model") * k.shape[2]
+    return dict(at=tuple(at), kv=[(_np(c["k"]), _np(c["v"]))
+                                  for c in cache])
+
+
+class _Tap:
+    """While entered, keeps each logits tensor ``engine.generate``
+    samples from (f32 numpy, one a step)."""
+
+    def __init__(self, engine_mod):
+        self.engine, self.logits = engine_mod, []
+
+    def __enter__(self):
+        self.orig = self.engine.sample_per_slot
+
+        def tapped(logits, *args, **kw):
+            self.logits.append(_np(logits))
+            return self.orig(logits, *args, **kw)
+        self.engine.sample_per_slot = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.sample_per_slot = self.orig
+
+
+def seq_serve_cases(mesh, cases, prompts, max_len: int, max_new: int,
+                    first_tokens: dict) -> dict:
+    """Per case ``(key, arch, dtype, sparsity, numpy params, seq_shard)``
+    and per prompt set: this rank's prefill logits, its first step's
+    (teacher-forced with ``first_tokens[key, name]``, the reference's)
+    and its K/V blocks after each, ``engine.generate``'s greedy stream
+    and the logits it sampled each token from, at ``max_len``, and the
+    cache's layout; or the refusal's message."""
+    out = {}
+    for key, arch, dtype, sparsity, np_params, seq_shard in cases:
+        cfg = wide(configs.smoke(arch), arch, dtype)
+        local = convert.rank_params_from_numpy(
+            np_params, mesh, device="cpu", sparsity=sparsity,
+            should_sparsify=should_sparsify)
+        for name, prompt in prompts.items():
+            if (key, name) not in first_tokens:     # not this case's
+                continue
+            p = torch.from_numpy(prompt).long()
+            S = p.shape[1]
+            kw = dict(mesh=mesh, seq_shard=seq_shard)
+            try:
+                with torch.inference_mode():
+                    first, cache = engine.prefill(local, p, cfg, max_len,
+                                                  **kw)
+                    kv_pre = _kv_blocks(cache, mesh, p.shape[0])
+                    tok = torch.from_numpy(
+                        first_tokens[key, name]).long()[:, None]
+                    step, _ = engine.serve_step(local, cache, tok, S, cfg,
+                                                mesh=mesh)
+                    kv_step = _kv_blocks(cache, mesh, p.shape[0])
+                    with _Tap(engine) as tap:
+                        toks = engine.generate(local, p, cfg,
+                                               max_new_tokens=max_new,
+                                               max_len=max_len, **kw)
+                    steps = tap.logits
+            except (NotImplementedError, ValueError) as e:
+                out[key, name] = dict(error=f"{type(e).__name__}: {e}")
+                continue
+            out[key, name] = dict(
+                prefill=_np(first), step=_np(step), tokens=toks.numpy(),
+                steps=steps, seq=cache.seq, batch=cache.batch,
+                local=tuple(cache[0]["k"].shape), kv_pre=kv_pre,
+                kv_step=kv_step)
+    return out
+
+
+def device_cells(mesh, shapes) -> dict:
+    """``specs.build_cell`` on the CPU inside the world for each
+    ``(name, kind, seq_len, batch)`` of widened smoke tinyllama (dense),
+    run once: its per-rank argument bytes beside those of the same cell
+    on meta on a dry mesh of this rank's coordinates, and what it gave."""
+    from repro_torch.models.config import ShapeConfig
+    cfg = wide(configs.smoke("tinyllama_1_1b"), "tinyllama_1_1b", "float32")
+    names = mesh.mesh_dim_names
+    shape = tuple(mesh.size(i) for i in range(len(names)))
+    rank = 0
+    for n, size in zip(names, shape):
+        rank = rank * size + mesh.get_local_rank(n)
+    out = {}
+    for name, kind, seq, batch in shapes:
+        sc = ShapeConfig(name, kind, seq, batch)
+        cell = specs.build_cell(cfg, sc, mesh, device="cpu")
+        dry = specs.build_cell(cfg, sc, mesh_mod.DryMesh(shape, names,
+                                                         rank=rank))
+        with torch.set_grad_enabled(kind == "train"):
+            got = cell.fn(*cell.args)
+        first = got[1]["loss"] if kind == "train" else got[0]
+        out[name] = dict(bytes=cell.arg_bytes(), dry=dry.arg_bytes(),
+                         finite=bool(torch.isfinite(first).all()),
+                         shape=tuple(first.shape))
+    return out
+
+
+def seq_world(mesh, serve, train, ckpt_root=None, restore_root=None,
+              cells=()) -> dict:
+    """A world of the sequence-sharding tests: ``seq_serve_cases(*serve)``
+    where given; one FSDP ``train_step`` per ``(arch, numpy params,
+    batch)`` of ``train`` (saved under ``ckpt_root/<arch>``);
+    ``restore_root/<arch>`` restored without FSDP; ``device_cells`` of
+    ``cells``."""
+    out = {"coords": sharding.coordinates(mesh),
+           "cells": device_cells(mesh, cells)}
+    if serve is not None:
+        out["serve"] = seq_serve_cases(mesh, *serve)
+    for arch, np_params, batch in train:
+        out[arch] = train_step(
+            mesh, arch, np_params, batch, 0.8, fsdp=True,
+            ckpt_dir=None if ckpt_root is None else f"{ckpt_root}/{arch}")
+    if restore_root is not None:
+        out["restored"] = {arch: restore_shards(mesh, arch,
+                                                f"{restore_root}/{arch}")
+                           for arch in ("opt_30b", "tinyllama_1_1b")}
+    return out
