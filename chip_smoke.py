@@ -218,7 +218,7 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    (a) OPT-30B at full width, sparsity 0.8, tensor-parallel over a 1x4
    mesh: first the unsharded model in this process (first decode step
    and ``engine.generate``'s greedy streams of 8 prompts of 128 tokens,
-   32 new, at 4 of the 48 layers built, each step's top-2 margins
+   32 new, at 4 of the 24 layers built, each step's top-2 margins
    recorded; max_len 160 in every run, so the K/V lies sequence over
    ``model``), then four ranks, each building its shard layer by layer
    (``serve.build(mesh=)``): the ranks' encoded non-zeros summing to the
@@ -229,6 +229,24 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    LSCD kernels launched on every rank, each rank's launch
    configurations held against the plain versions, per-rank bytes,
    peaks, prefill and decode times and a profiled sharded decode step.
+   The same four ranks then serve the families: qwen3-moe-30b-a3b (48
+   layers, expert parallelism, 32 experts a rank) and minicpm3_4b (62
+   layers, MLA, 10 heads a rank, the latents whole), each built at full
+   depth with the ranks in turn and their first 4 layers served the
+   same way against the unsharded models (run in this process before
+   the world: built whole, non-zeros, first step, streams, each MoE
+   call's routes): the ranks' non-zeros, each leaf the rules leave whole
+   counted once, the whole build's; first-step logits within
+   ``LOGITS_TOL`` with qwen3-moe's routes pinned to the unsharded run's
+   (``RouteTrace``), its first flip before the pin at a router near tie;
+   streams equal or parted at a near tie of the logits or after a route
+   flip at a router near tie; the decode pair (and, for MoE, a batched
+   kernel) launched on every rank; every launch configuration against
+   its plain version; and the dry run of each rank's decode cell
+   against what ran: every leaf's per-rank elements and the LSCD launch
+   list, but for the struct's known differences from the build
+   (lm_head, the norm scales, MoE's routed stacks, MLA's latent
+   factors), each held to be exactly that.
    (b) tinyllama-1.1b at its published widths and depth on a 2x2 mesh,
    0.8 masks, global batch 4 x 512: the unsharded step 1 in this process,
    then four ranks (the launcher's ``setup`` under the mesh): the
@@ -242,10 +260,10 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
 16. cells phase: the dry run (``launch.dryrun``) of every arch x cell
    on the 16x16 and 2x16x16 meshes in both weight modes, in worker
    processes that see no card, run beside the kernels' build and ended
-   before the first timed phase: every dense-family
-   cell ok, every train x sparse_xla cell an error naming ROADMAP.md
-   queue 3 item 13, every other family's an error naming queue 1 item
-   14; the dry run of this phase's cells leaves the card's allocated
+   before the first timed phase: every dense GQA cell and every MoE
+   and MLA prefill and decode cell ok, every train x sparse_xla cell an
+   error naming ROADMAP.md queue 3 item 13, every other cell an error
+   naming queue 1 item 14; the dry run of this phase's cells leaves the card's allocated
    memory as it was. Then tinyllama-1.1b at 0.8 on 2x2, four ranks
    sharing the card over gloo: decode with the sequence over ``model``
    (8 prompts of 1000-3000 tokens, max_len 4096, 32 greedy steps) and at
@@ -260,7 +278,8 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    runs, the window runs, the full-depth run, the tinyllama run, the
    MLA runs, the MoE runs, the hybrid runs, the ring runs and the ssm,
    vlm, audio, train, mesh and cells runs (the mesh's summed over its
-   ranks, and one rank's), the serving ones also by prefill and
+   ranks, the families' included, beside the families' alone and one
+   rank's OPT-30B launches), the serving ones also by prefill and
    decode, the window ones also by verify and mixed), the card line, and
    last
    ``{"ok": true, "device": {...}}``; the
@@ -2453,62 +2472,57 @@ MOE_STACKS = ("gate", "up", "down")
 
 
 class RouteTrace:
-    """While entered, wraps the router product inside each
-    ``moe.moe_block`` call and records per call the router's output and,
-    per token, its routes as the block takes them (the top-k of the f32
+    """While entered, wraps ``moe._router_logits`` (each MoE block's
+    whole router logits; on a mesh rank the gathered ones) and records
+    per call, as host arrays (so a trace can go to another process), the
+    logits (``keep``), and per token its routes (the top-k of the f32
     softmax, sorted) and its top-k margin: the k-th largest router logit
     less the (k+1)-th (softmax keeps the order, so that is the margin a
-    route flip must cross). Given ``pin``, an earlier trace's calls, a
-    token whose routes differ from that trace's takes that trace's router
-    output row, so every token routes as in the earlier run; ``calls``
-    keeps the routes from before the pin and ``pinned`` counts the
-    tokens pinned."""
+    route flip must cross). Given ``pin``, an earlier trace's calls (its
+    logits kept), a token whose routes differ from that trace's takes
+    that trace's logits row, so every token routes as in the earlier run;
+    ``calls`` keeps the routes from before the pin and ``pinned`` counts
+    the tokens pinned."""
 
-    def __init__(self, torch, moe, sparse_linear, pin=None):
-        self.torch, self.moe, self.sl, self.pin = torch, moe, sparse_linear, pin
-        self.calls, self.pinned = [], 0
+    def __init__(self, torch, moe, k: int, pin=None, keep: bool = True):
+        self.torch, self.moe, self.k, self.pin = torch, moe, k, pin
+        self.keep, self.calls, self.pinned = keep, [], 0
 
     def __enter__(self):
-        self._orig = self.moe.moe_block
-        self.moe.moe_block = self._traced
+        self._orig = self.moe._router_logits
+        self.moe._router_logits = self._traced
         return self
 
     def __exit__(self, *exc):
-        self.moe.moe_block = self._orig
+        self.moe._router_logits = self._orig
 
-    def _routes(self, logits, k):
+    def _routes(self, logits):
         torch = self.torch
-        probs = torch.softmax(logits.to(torch.float32), dim=-1)
-        return torch.topk(probs, k, dim=-1).indices.sort(dim=-1).values
+        return torch.topk(torch.softmax(logits, dim=-1), self.k,
+                          dim=-1).indices.sort(dim=-1).values
 
-    def _traced(self, params, x, cfg, *, backend="auto"):
-        torch, k = self.torch, cfg.top_k
-        router, linear = params["router"]["w"], self.sl.linear
-
-        def routed(w, *args, **kw):
-            out = linear(w, *args, **kw)
-            if w is not router:
-                return out
-            idx = self._routes(out, k)
-            top = torch.topk(out.to(torch.float32), k + 1, dim=-1).values
-            self.calls.append((out.clone(), idx.reshape(-1, k),
-                               (top[..., k - 1] - top[..., k]).reshape(-1)))
-            if self.pin is None:
-                return out
-            want_out, want_idx, _ = self.pin[len(self.calls) - 1]
-            flip = (idx != want_idx.reshape(idx.shape)).any(dim=-1)
-            self.pinned += int(flip.sum())
-            out = torch.where(flip[..., None], want_out, out)
-            check(torch.equal(self._routes(out, k).reshape(-1, k), want_idx),
-                  f"moe: MoE call {len(self.calls) - 1}: the pinned routes "
-                  "differ from the plain run's")
+    def _traced(self, w, xt, E, tp, backend):
+        torch, k = self.torch, self.k
+        out = self._orig(w, xt, E, tp, backend)
+        idx = self._routes(out)
+        top = torch.topk(out, k + 1, dim=-1).values
+        self.calls.append(dict(
+            logits=out.cpu().numpy() if self.keep else None,
+            idx=idx.reshape(-1, k).cpu().numpy(),
+            margin=(top[..., k - 1] - top[..., k]).reshape(-1).cpu().numpy()))
+        if self.pin is None:
             return out
-
-        self.sl.linear = routed
-        try:
-            return self._orig(params, x, cfg, backend=backend)
-        finally:
-            self.sl.linear = linear
+        want = self.pin[len(self.calls) - 1]
+        want_idx = torch.from_numpy(want["idx"]).to(out.device)
+        flip = (idx.reshape(-1, k) != want_idx).any(dim=-1)
+        self.pinned += int(flip.sum())
+        out = torch.where(flip.reshape(out.shape[:-1])[..., None],
+                          torch.from_numpy(want["logits"]).to(out.device),
+                          out)
+        check(torch.equal(self._routes(out).reshape(-1, k), want_idx),
+              f"moe: MoE call {len(self.calls) - 1}: the pinned routes "
+              "differ from the earlier run's")
+        return out
 
 
 def _moe_logits_vs_plain(torch, mods, params, cfg, prompts):
@@ -2518,12 +2532,12 @@ def _moe_logits_vs_plain(torch, mods, params, cfg, prompts):
     tokens, logits, the first route that differed before the pin as
     (call, token, plain margin, kernels' margin) or None, the tokens
     pinned); calls run prefill's layers, then decode's."""
-    engine, moe, sl = mods["engine"], mods["moe"], mods["sparse_linear"]
+    engine, moe = mods["engine"], mods["moe"]
     S = prompts.shape[1]
     res, pin = {}, None
     with torch.inference_mode():
         for backend in ("torch", "cuda"):
-            with RouteTrace(torch, moe, sl, pin=pin) as rt:
+            with RouteTrace(torch, moe, cfg.top_k, pin=pin) as rt:
                 last, cache = engine.prefill(params, prompts, cfg, S + 1,
                                              backend=backend)
                 tok = torch.argmax(last, dim=-1)[:, None]
@@ -2535,14 +2549,7 @@ def _moe_logits_vs_plain(torch, mods, params, cfg, prompts):
     plain, kern = res["torch"][2], res["cuda"][2]
     check(len(plain.calls) == len(kern.calls), "moe: the kernels' pass made "
           f"{len(kern.calls)} MoE calls, the plain pass {len(plain.calls)}")
-    first = None
-    for i, ((_, ri, rm), (_, pi, pm)) in enumerate(zip(kern.calls,
-                                                       plain.calls)):
-        diff = (ri != pi).any(dim=-1)
-        if bool(diff.any()):
-            t = int(diff.nonzero()[0, 0])
-            first = (i, t, float(pm[t]), float(rm[t]))
-            break
+    first = _first_route_flip(kern.calls, plain.calls)
     return res["cuda"][0], res["cuda"][1], res["torch"][0], res["torch"][1], \
         first, kern.pinned
 
@@ -4798,6 +4805,10 @@ def profile_steps(torch, engine, params, cfg, prompts, steps: int = 4):
 
 MESH_DEVICE = "cuda"
 MESH_SERVE_ARCH, MESH_SERVE_SHAPE = "opt_30b", (1, 4)
+# OPT-30B is built at 24 of its 48 layers: at 48, with the families
+# part beside it, the whole script ran 1195 s of its 1200 s limit on the
+# card (NVIDIA H100 80GB HBM3, 700 W); the serving comparison is at 4.
+MESH_BUILD_LAYERS = 24
 # The serving comparison runs at 4 layers of the 48 built: at 24 layers
 # with the K/V sequence over model a sharded decode step took 1.5 s a
 # rank (gloo between four processes that share the card), and the whole
@@ -4893,11 +4904,18 @@ def _first_step(torch, engine, params, cfg, prompts, tok=None, mesh=None):
     return own.cpu(), step.float().cpu(), (top[:, 0] - top[:, 1]).cpu()
 
 
+def _mesh_serve_config(mods):
+    """OPT-30B cut to ``MESH_BUILD_LAYERS``."""
+    return dataclasses.replace(mods["configs"].get(MESH_SERVE_ARCH),
+                               n_layers=MESH_BUILD_LAYERS)
+
+
 def _mesh_serve_reference(torch, mods) -> dict:
-    """The unsharded side, in this process: OPT-30B at 48 layers built
-    whole, the first step and the greedy streams at ``MESH_DEPTHS``."""
+    """The unsharded side, in this process: OPT-30B at
+    ``MESH_BUILD_LAYERS`` built whole, the first step and the greedy
+    streams at ``MESH_DEPTHS``."""
     serve, engine = mods["serve"], mods["engine"]
-    cfg = mods["configs"].get(MESH_SERVE_ARCH)
+    cfg = _mesh_serve_config(mods)
     release(torch)
     params, built = serve.build(cfg, seed=SEED, sparsity=SPARSITY,
                                 device=MESH_DEVICE)
@@ -4949,14 +4967,15 @@ def _profile_mesh_decode(torch, engine, params, cfg, prompts, mesh,
     return _device_summary(torch, prof, wall_s, steps)
 
 
-def mesh_serve_rank(mesh, ref_tok: dict, prompts_np) -> dict:
+def mesh_serve_rank(mesh, ref_tok: dict, prompts_np, family_refs) -> dict:
     """One rank of the serving mesh: OPT-30B built layer by layer with
     this rank's shard (``serve.build(mesh=)``), the first decode step
     teacher-forced with the unsharded run's first tokens, and
     ``engine.generate``'s greedy streams at ``MESH_DEPTHS``; its LSCD
     launches (counted from 0 over each generate), a profiled sharded
     decode step, and every launch configuration it made held against
-    the plain version on the card."""
+    the plain version on the card; then, in the same world, the
+    families (``mesh_family_rank``)."""
     import torch
     import torch.distributed as dist
     mods = load_mods()
@@ -4964,7 +4983,7 @@ def mesh_serve_rank(mesh, ref_tok: dict, prompts_np) -> dict:
     serve, engine, spmm = mods["serve"], mods["engine"], mods["spmm"]
     rank = dist.get_rank()
     dev = mods["mesh"].rank_device(mesh)
-    cfg = mods["configs"].get(MESH_SERVE_ARCH)
+    cfg = _mesh_serve_config(mods)
     torch.cuda.reset_peak_memory_stats()
     params, built = _in_turn(torch, lambda: serve.build(
         cfg, seed=SEED, sparsity=SPARSITY, device=dev, mesh=mesh))
@@ -5000,14 +5019,16 @@ def mesh_serve_rank(mesh, ref_tok: dict, prompts_np) -> dict:
                                             label=f"mesh: rank {rank}")
     del params, probe
     release(torch)
+    out["families"] = mesh_family_rank(mesh, family_refs, mods)
     return out
 
 
-def _mesh_serving(torch, mods, card: str) -> dict:
+def _mesh_serving(torch, mods, card: str, family_refs) -> tuple:
     """OPT-30B on ``MESH_SERVE_SHAPE``: the unsharded run, then four
-    ranks, and the gates."""
-    configs, mesh_mod = mods["configs"], mods["mesh"]
-    cfg = configs.get(MESH_SERVE_ARCH)
+    ranks (which go on to the families), and the gates; returns (the
+    summary, each rank's families results)."""
+    mesh_mod = mods["mesh"]
+    cfg = _mesh_serve_config(mods)
     want = _mesh_serve_reference(torch, mods)
     print(f"mesh: unsharded {cfg.name} at {cfg.n_layers} layers built in "
           f"{want['build_s']:.1f} s, {want['weight_bytes']} B, "
@@ -5019,7 +5040,7 @@ def _mesh_serving(torch, mods, card: str) -> dict:
     ranks = mesh_mod.run_world(
         mesh_serve_rank, MESH_SERVE_SHAPE, device=MESH_DEVICE,
         args=({d: r["tok"] for d, r in want["depths"].items()},
-              want["prompts"]))
+              want["prompts"], family_refs))
     world_s = time.perf_counter() - t0
     out = dict(card=card, world_s=world_s, shape=list(MESH_SERVE_SHAPE),
                unsharded=dict(nnz=want["nnz"],
@@ -5109,7 +5130,7 @@ def _mesh_serving(torch, mods, card: str) -> dict:
     out["launches_per_rank"] = {k: sum(ranks[0]["depths"][d]["launches"][k]
                                        for d in MESH_DEPTHS)
                                 for k in mods["spmm"].KERNELS}
-    return out
+    return out, [r["families"] for r in ranks]
 
 
 def _mesh_train_args(mods):
@@ -5537,16 +5558,446 @@ def _mesh_training(torch, mods, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase's families: qwen3-moe-30b-a3b with expert parallelism and
+# minicpm3_4b with MLA over four ranks that share the card
+# ---------------------------------------------------------------------------
+
+MESH_FAMILIES = ("qwen3_moe_30b_a3b", "minicpm3_4b")
+MESH_FAMILY_DEPTH = 4
+# what ``specs``' struct and ``serve.build`` hold apart besides lm_head and
+# the norm scales, for these families (reference-side: ROADMAP.md queue 3
+# items 4 and 5): the struct keeps MoE's routed stacks dense and encodes
+# MLA's latent factors; the build encodes the stacks per expert and keeps
+# the factors dense (``w_ukv`` in f32)
+ROUTED = re.compile(r"\['moe'\]\['(gate|up|down)'\]$")
+FACTOR = re.compile(r"\['attn'\]\['(w_dq|w_uq|w_dkv|w_ukv)'\]\['w'\]$")
+
+
+def _route_trace(torch, mods, cfg, pin=None, keep=True):
+    """A :class:`RouteTrace` for an MoE config, else a null context."""
+    if not cfg.n_routed_experts:
+        import contextlib
+        return contextlib.nullcontext(None)
+    return RouteTrace(torch, mods["moe"], cfg.top_k, pin=pin, keep=keep)
+
+
+def _family_reference(torch, mods, arch: str) -> dict:
+    """The unsharded side of one family, in this process: the model built
+    whole at full depth (its non-zeros and bytes), then at
+    ``MESH_FAMILY_DEPTH`` layers the first decode step and ``generate``'s
+    greedy streams with each step's top-2 margins, and, for MoE, every
+    MoE call's routes and margins (the first step's with their logits,
+    the ranks' pin)."""
+    serve, engine = mods["serve"], mods["engine"]
+    cfg = mods["configs"].get(arch)
+    release(torch)
+    params, built = serve.build(cfg, seed=SEED, sparsity=SPARSITY,
+                                device=MESH_DEVICE)
+    prompts = serve.make_prompts(cfg, MESH_REQUESTS, MESH_PROMPT, SEED + 13,
+                                 MESH_DEVICE)
+    p = dict(params, layers=params["layers"][:MESH_FAMILY_DEPTH])
+    c = dataclasses.replace(cfg, n_layers=MESH_FAMILY_DEPTH)
+    with _route_trace(torch, mods, c) as tap:
+        tok, step, first_margins = _first_step(torch, engine, p, c, prompts)
+    pin = tap.calls if tap is not None else None
+    times = {}
+    with _MarginTap(engine) as mt, _route_trace(torch, mods, c,
+                                               keep=False) as gen_tap:
+        streams = engine.generate(p, prompts, c, max_new_tokens=MESH_NEW,
+                                  max_len=MESH_MAX_LEN, timings=times)
+    out = dict(nnz=built["nnz"], weight_bytes=built["weight_bytes"],
+               build_s=built["build_s"], prompts=prompts.cpu().numpy(),
+               tok=tok.numpy(), step=step.numpy(),
+               first_margins=first_margins.numpy(), pin=pin,
+               streams=streams[:, MESH_PROMPT:].cpu().numpy(),
+               margins=torch.stack(mt.margins).numpy(),
+               routes=gen_tap.calls if gen_tap is not None else None,
+               prefill_ms=times["prefill_s"] * 1e3,
+               decode_ms_per_step=times["decode_s"] / (MESH_NEW - 1) * 1e3)
+    del params, p, prompts
+    release(torch)
+    return out
+
+
+def _dry_family_cell(torch, mods, cfg, rank: int) -> dict:
+    """``build_cell`` on meta for what a family rank serves (decode, batch
+    ``MESH_REQUESTS``, ``MESH_MAX_LEN`` positions, ``sparse_xla``) on a
+    dry ``MESH_SERVE_SHAPE`` mesh as rank ``rank``: each leaf's per-rank
+    bytes and the LSCD launch list of a decode step."""
+    from repro_torch.models.config import ShapeConfig
+    specs, dryrun, sharding = mods["specs"], mods["dryrun"], mods["sharding"]
+    mesh = mods["mesh"].DryMesh(MESH_SERVE_SHAPE, ("data", "model"),
+                                rank=rank)
+    shape = ShapeConfig("mesh_decode", "decode", MESH_MAX_LEN, MESH_REQUESTS)
+    cell = specs.build_cell(cfg, shape, mesh, weight_mode="sparse_xla")
+    ran = dryrun.execute(cell, mesh, train=False)
+    return dict(params=_leaf_bytes(sharding, cell.args[0]),
+                cache=_leaf_bytes(sharding, list(cell.args[1])),
+                lscd=ran["lscd"], arg_bytes=cell.arg_bytes())
+
+
+def mesh_family_rank(mesh, refs: dict, mods) -> dict:
+    """One rank's families part, in the serving world (1x4): per family,
+    the model built
+    at full depth with this rank's shard (``serve.build(mesh=)``, layer
+    by layer, the ranks in turn), then at ``MESH_FAMILY_DEPTH`` layers
+    the first decode step teacher-forced with the unsharded first tokens
+    (MoE: routes pinned to the unsharded run's) under the kernel
+    profiler, ``engine.generate``'s greedy streams with its LSCD launches
+    counted from 0 (MoE: each call's routes), every launch configuration
+    held against its plain version, and the dry run of this rank's cell
+    with what ran beside it."""
+    import torch
+    import torch.distributed as dist
+    serve, engine, spmm = mods["serve"], mods["engine"], mods["spmm"]
+    sharding, dryrun = mods["sharding"], mods["dryrun"]
+    rank = dist.get_rank()
+    dev = mods["mesh"].rank_device(mesh)
+    t0 = time.perf_counter()
+    out = dict(rank=rank)
+    for arch in MESH_FAMILIES:
+        ref = refs[arch]
+        cfg = mods["configs"].get(arch)
+        c = dataclasses.replace(cfg, n_layers=MESH_FAMILY_DEPTH)
+        torch.cuda.reset_peak_memory_stats()
+        params, built = _in_turn(torch, lambda: serve.build(
+            cfg, seed=SEED, sparsity=SPARSITY, device=dev, mesh=mesh))
+        r = dict(nnz=built["nnz"], nnz_replicated=built["nnz_replicated"],
+                 build_s=built["build_s"],
+                 weight_bytes=built["weight_bytes"],
+                 sparse_bytes=built["sparse_bytes"],
+                 build_peak_allocated=built["max_memory_allocated"])
+        p = dict(params, layers=params["layers"][:MESH_FAMILY_DEPTH])
+        del params
+        prompts = torch.from_numpy(ref["prompts"]).to(dev)
+        probe = LaunchProbe(spmm)
+        prof = mods["obs_profile"].KernelProfiler()
+        with probe, torch.inference_mode():
+            probe.phase = "serve"           # the first step and generate
+            with _route_trace(torch, mods, c, pin=ref["pin"]) as tap:
+                last, cache = engine.prefill(p, prompts, c, MESH_MAX_LEN,
+                                             mesh=mesh)
+                _check_mesh_layout_of(cache, c)
+                r["cache_bytes"] = _leaf_bytes(sharding, list(cache))
+                tok = torch.from_numpy(ref["tok"]).to(dev)[:, None]
+                with mods["obs_profile"].profiled(prof):
+                    step, _ = engine.serve_step(p, cache, tok, MESH_PROMPT,
+                                                c, mesh=mesh)
+            del cache
+            r.update(tok=torch.argmax(last, dim=-1).cpu().numpy(),
+                     step=step.float().cpu().numpy(),
+                     pinned=tap.pinned if tap is not None else 0,
+                     first_routes=tap.calls if tap is not None else None,
+                     launches_step=_launch_rows(dryrun, prof))
+            for call in r["first_routes"] or ():
+                call["logits"] = None
+            times = {}
+            spmm.reset_launch_counts()
+            with _route_trace(torch, mods, c, keep=False) as gen_tap:
+                streams = engine.generate(p, prompts, c,
+                                          max_new_tokens=MESH_NEW,
+                                          max_len=MESH_MAX_LEN, mesh=mesh,
+                                          timings=times)
+            r.update(launches=spmm.launch_counts(),
+                     streams=streams[:, MESH_PROMPT:].cpu().numpy(),
+                     routes=gen_tap.calls if gen_tap is not None else None,
+                     prefill_ms=times["prefill_s"] * 1e3,
+                     decode_ms_per_step=times["decode_s"] / (MESH_NEW - 1)
+                     * 1e3)
+        r["peak_allocated"] = torch.cuda.max_memory_allocated()
+        r["param_bytes"] = _leaf_bytes(sharding, p)
+        r["checked"] = len(_check_served_launches(
+            torch, mods, probe.seen, c, label=f"mesh: {arch} rank {rank}"))
+        r["dry"] = _dry_family_cell(torch, mods, c, rank)
+        del p, probe, prompts, streams, last, step
+        release(torch)
+        out[arch] = r
+    dist.barrier()
+    out["families_s"] = time.perf_counter() - t0
+    return out
+
+
+def _check_mesh_layout_of(cache, cfg) -> None:
+    """The families' serving caches: MoE's K/V the sequence over model
+    (``MESH_MAX_LEN`` divides it), MLA's latents whole over model."""
+    want = None if cfg.attn_kind == "mla" else "model"
+    check(getattr(cache, "seq", None) == want, f"mesh: {cfg.name}'s cache "
+          f"lies by {getattr(cache, 'seq', None)!r}, not {want!r}")
+
+
+def _first_route_flip(got_calls, want_calls):
+    """The first MoE call and token whose routes differ between two runs,
+    as (call, token, the first run's margin, the second's), or None."""
+    import numpy as np
+    for i, (g, w) in enumerate(zip(got_calls, want_calls)):
+        diff = np.nonzero((g["idx"] != w["idx"]).any(axis=-1))[0]
+        if len(diff):
+            t = int(diff[0])
+            return (i, t, float(w["margin"][t]), float(g["margin"][t]))
+    return None
+
+
+def _family_streams(label, got, want, layers: int) -> dict:
+    """Each rank-0 stream against the unsharded one: a row that parts
+    must part at a near tie of the unsharded logits (top-2 margin below
+    ``NEAR_TIE``), or, for MoE, after a route flipped at a router near
+    tie (the first differing route at or before that step, both top-k
+    margins below ``NEAR_TIE``)."""
+    import numpy as np
+    flip = None
+    if want["routes"] is not None:
+        flip = _first_route_flip(got["routes"], want["routes"])
+    cut = []
+    for row in range(MESH_REQUESTS):
+        diff = np.nonzero(got["streams"][row] != want["streams"][row])[0]
+        if not len(diff):
+            continue
+        i = int(diff[0])
+        margin = float(want["margins"][i][row])
+        # MoE calls: prefill's ``layers``, then ``layers`` a decode step;
+        # token i of the stream is sampled after step i's calls
+        routed = flip is not None and flip[0] < layers * (i + 1) and \
+            max(flip[2], flip[3]) < NEAR_TIE
+        check(margin < NEAR_TIE or routed, f"{label}: request {row} parts "
+              f"from the unsharded stream at token {i}, where its top-2 "
+              f"margin is {margin:.3e} and the first route flip is {flip} "
+              f"(a near tie is below {NEAR_TIE:.1e})")
+        cut.append((row, i, margin))
+    return dict(cut=cut, first_route_flip=flip)
+
+
+def _family_known(label, r: dict, cfg) -> tuple:
+    """The rank's params (cut to the served depth) and cache against the
+    dry run of its cell, leaf by leaf, but for the struct's known
+    differences from the build (``_compare_params``: lm_head and the norm
+    scales; here also MoE's routed stacks, dense in the struct and
+    Tiled-CSL stacks of the rank's experts as built, and MLA's latent
+    factors, Tiled-CSL in the struct and dense as built, ``w_ukv`` in
+    f32), each held to be exactly that. Returns (leaves held, the known
+    differences met)."""
+    d = r["dry"]
+    got = dict(r["param_bytes"])
+    want = dict(d["params"])
+    known = set()
+    layer = lambda path: re.sub(r"\['layers'\]\[\d+\]", "['layers'][*]",
+                                path)
+    for path in [p for p in want if ROUTED.search(p)]:
+        elems, width = want.pop(path)
+        e, m = cfg.n_routed_experts // MESH_SERVE_SHAPE[1], got.get(
+            path + ".words")
+        check(width == 2 and m is not None and m[0] % e == 0
+              and path + ".nnz" in got, f"{label}: {path} is "
+              f"{got.get(path + '.words')} on the rank, dense bf16 "
+              f"{(elems, width)} in the dry run: not the known Tiled-CSL "
+              f"stack of {e} experts")
+        got.pop(path + ".words"), got.pop(path + ".nnz")
+        known.add(("routed stack", layer(path)))
+    for path in [p for p in got if FACTOR.search(p)]:
+        elems, width = got.pop(path)
+        check(path + ".words" in want and path + ".nnz" in want
+              and width in (2, 4), f"{label}: {path} is dense {(elems, width)}"
+              f" on the rank and {'Tiled-CSL' if path + '.words' in want else 'dense'}"
+              f" in the dry run: not the known latent factor")
+        want.pop(path + ".words"), want.pop(path + ".nnz")
+        known.add(("latent factor", layer(path)))
+    head_mk = (cfg.vocab // MESH_SERVE_SHAPE[1], cfg.d_model)
+    held = _compare_params(label, got, want, head_mk[0] * head_mk[1], known)
+    held += _compare_bytes(f"{label} cache", r["cache_bytes"], d["cache"])
+    return held, known
+
+
+def _dry_head_mk(cfg) -> tuple:
+    """(M, K) of the dry run's Tiled-CSL lm_head launch on a rank: its
+    tiles split over model where their count divides the axis, else the
+    whole padded head (``fit_spec`` leaves it whole)."""
+    m = MESH_SERVE_SHAPE[1]
+    tiles = -(-cfg.vocab // 128)
+    return (tiles * 128 // (m if tiles % m == 0 else 1),
+            -(-cfg.d_model // 128) * 128)
+
+
+def _family_launches(label, r: dict, cfg) -> dict:
+    """The rank's decode-step LSCD launch list against the dry run's: the
+    dry run's less lm_head's one launch and (MLA) the latent factors'
+    launches, which the build runs dense, equal to the rank's less (MoE)
+    its expert-batched launches, which the struct's dense stacks do not
+    make."""
+    mla = cfg.attn_kind == "mla"
+    h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    m = MESH_SERVE_SHAPE[1]
+    factors = set()
+    if mla:
+        pad = lambda x: -(-x // 128) * 128
+        factors = {(pad(cfg.q_lora_rank), cfg.d_model),
+                   (pad(cfg.kv_lora_rank + dr), cfg.d_model),
+                   (pad(h * (dn + dr)), pad(cfg.q_lora_rank)),
+                   (pad(h * (dn + dv)) // m, pad(cfg.kv_lora_rank)),
+                   (pad(h * (dn + dr)) // m, pad(cfg.q_lora_rank))}
+    from collections import Counter
+    dry, head = _split_head(r["dry"]["lscd"], _dry_head_mk(cfg))
+    ran = [tuple(x) for x in r["launches_step"]]
+    batched = [x for x in ran if x[0].endswith("batched")]
+    ran_rest = [x for x in ran if not x[0].endswith("batched")]
+    unran = sorted((Counter(dry) - Counter(ran_rest)).elements())
+    check(not Counter(ran_rest) - Counter(dry)
+          and all((x[1], x[2]) in factors for x in unran),
+          f"{label}: the decode step launched {ran_rest} beside its batched "
+          f"launches, the dry run predicts {dry} beside lm_head's: more "
+          f"than the latent factors' launches apart")
+    check(bool(batched) == bool(cfg.n_routed_experts), f"{label}: batched "
+          f"launches {batched}")
+    return dict(launch_list=sorted(ran_rest), head=head, batched=batched,
+                factors=unran)
+
+
+def _family_references(torch, mods, card: str) -> tuple:
+    """The families' unsharded runs, in this process, before the serving
+    world starts: (refs by arch, seconds)."""
+    t0 = time.perf_counter()
+    refs = {}
+    for arch in MESH_FAMILIES:
+        refs[arch] = w = _family_reference(torch, mods, arch)
+        print(f"mesh: unsharded {arch} built at full depth in "
+              f"{w['build_s']:.1f} s, {w['weight_bytes']} B, {w['nnz']} "
+              f"non-zeros; at {MESH_FAMILY_DEPTH} layers prefill "
+              f"{w['prefill_ms']:.1f} ms, decode "
+              f"{w['decode_ms_per_step']:.3f} ms/step; {card}", flush=True)
+    return refs, time.perf_counter() - t0
+
+
+def _mesh_families(torch, mods, card: str, refs: dict, refs_s: float,
+                   ranks: list) -> dict:
+    """The gates of qwen3-moe-30b-a3b (expert parallelism, 32 experts a
+    rank) and minicpm3_4b (MLA, 10 heads a rank) on
+    ``MESH_SERVE_SHAPE``: the ranks' families results against the
+    unsharded runs."""
+    import numpy as np
+    out = dict(card=card, world_s=ranks[0]["families_s"], families={})
+    launches = dict.fromkeys(mods["spmm"].KERNELS, 0)
+    for arch in MESH_FAMILIES:
+        cfg = mods["configs"].get(arch)
+        c = dataclasses.replace(cfg, n_layers=MESH_FAMILY_DEPTH)
+        w = refs[arch]
+        got = [r[arch] for r in ranks]
+        label = f"mesh: {arch}"
+        nnz = sum(g["nnz"] - g["nnz_replicated"] for g in got) + \
+            got[0]["nnz_replicated"]
+        check(nnz == w["nnz"], f"{label}: the ranks encode {nnz} non-zeros "
+              f"(each replicated leaf once), the unsharded build {w['nnz']}")
+        for g in got[1:]:
+            check(np.array_equal(g["streams"], got[0]["streams"]),
+                  f"{label}: the ranks' streams differ")
+            check(np.array_equal(g["step"], got[0]["step"]),
+                  f"{label}: the ranks' first-step logits differ")
+        err = close(torch, torch.from_numpy(got[0]["step"]),
+                    torch.from_numpy(w["step"]),
+                    dict(rtol=LOGITS_TOL, atol=LOGITS_TOL),
+                    f"{label}: first decode-step logits at "
+                    f"{MESH_FAMILY_DEPTH} layers vs unsharded"
+                    + (" (routes pinned)" if cfg.n_routed_experts else ""))
+        ties = [(int(i), float(w["first_margins"][i]))
+                for i in np.nonzero(got[0]["tok"] != w["tok"])[0]]
+        check(all(m < NEAR_TIE for _, m in ties), f"{label}: first tokens "
+              f"differ from unsharded at {ties}")
+        pre_flip = None
+        if cfg.n_routed_experts:
+            pre_flip = _first_route_flip(got[0]["first_routes"], w["pin"])
+            check(pre_flip is None or max(pre_flip[2:]) < NEAR_TIE,
+                  f"{label}: the first step's first route flip before the "
+                  f"pin, {pre_flip}, is not at a router near tie")
+        streams = _family_streams(label, got[0], w, MESH_FAMILY_DEPTH)
+        held, known = 0, set()
+        lists = []
+        for rank, g in enumerate(got):
+            # the decode pair serves every family's decode step (N = 8);
+            # which kernels a prefill takes is select's pick at its N
+            missing = [k for k in ("lscd_spmm_splitk",
+                                   "lscd_spmm_splitk_grouped")
+                       if not g["launches"][k]]
+            if cfg.n_routed_experts and not any(
+                    g["launches"][k] for k in mods["spmm"].BATCHED_KERNELS):
+                missing.append("an expert-batched kernel")
+            check(not missing, f"{label}: rank {rank} never launched "
+                  f"{missing}")
+            n, k = _family_known(f"{label} rank {rank}", g, c)
+            held += n
+            known |= k
+            lists.append(_family_launches(f"{label} rank {rank}", g, c))
+        for k in launches:
+            launches[k] += sum(g["launches"][k] for g in got)
+        out["families"][arch] = dict(
+            nnz=nnz, unsharded_nnz=w["nnz"],
+            weight_bytes=[g["weight_bytes"] for g in got],
+            unsharded_weight_bytes=w["weight_bytes"],
+            build_s=[g["build_s"] for g in got],
+            peak_allocated=[g["peak_allocated"] for g in got],
+            max_abs_err=err, tol=LOGITS_TOL, first_token_ties=ties,
+            pinned=got[0]["pinned"], pre_pin_flip=pre_flip, **streams,
+            prefill_ms=[g["prefill_ms"] for g in got],
+            decode_ms_per_step=[g["decode_ms_per_step"] for g in got],
+            unsharded_prefill_ms=w["prefill_ms"],
+            unsharded_decode_ms_per_step=w["decode_ms_per_step"],
+            launches=[g["launches"] for g in got],
+            checked=[g["checked"] for g in got], leaves_held=held,
+            known_differences=sorted(known), launch_list=lists[0],
+            dry_arg_bytes=got[0]["dry"]["arg_bytes"])
+        f = out["families"][arch]
+        print(f"mesh: {arch} on {MESH_SERVE_SHAPE[0]}x"
+              f"{MESH_SERVE_SHAPE[1]}: built at {cfg.n_layers} layers, "
+              f"per rank {json.dumps(f['weight_bytes'])} B (unsharded "
+              f"{w['weight_bytes']} B), build s "
+              f"{json.dumps([round(s, 1) for s in f['build_s']])}, "
+              f"non-zeros {nnz} = unsharded; at {MESH_FAMILY_DEPTH} layers "
+              f"first decode-step logits vs unsharded max abs err {err:.3e} "
+              f"(tolerance {LOGITS_TOL} + {LOGITS_TOL} relative"
+              + (f"; {f['pinned']} token routes pinned, first flip before "
+                 f"the pin {pre_flip}" if cfg.n_routed_experts else "")
+              + f"); {MESH_REQUESTS - len(f['cut'])} of {MESH_REQUESTS} "
+              f"streams of {MESH_NEW} equal, {len(f['cut'])} parted "
+              f"{json.dumps([[r, i, round(m, 5)] for r, i, m in f['cut']])}"
+              f" (first route flip {f['first_route_flip']}); rank 0 prefill "
+              f"{f['prefill_ms'][0]:.1f} ms, decode "
+              f"{f['decode_ms_per_step'][0]:.3f} ms/step (unsharded "
+              f"{w['prefill_ms']:.1f} ms, {w['decode_ms_per_step']:.3f} "
+              f"ms/step); LSCD launches by rank "
+              f"{json.dumps(f['launches'])}; {sum(f['checked'])} launch "
+              f"configurations held against their plain versions; {card}",
+              flush=True)
+        print(f"mesh: {arch}: the dry run of each rank's cell against what "
+              f"ran: {held} leaves' per-rank elements and bytes equal; the "
+              f"decode step's LSCD launch list equal "
+              f"({sum(x[-1] for x in lists[0]['launch_list'])} launches) "
+              f"beside lm_head's {lists[0]['head']['kernel']}, the latent "
+              f"factors' {lists[0]['factors']} and the batched "
+              f"{lists[0]['batched']}; known differences, each held: "
+              f"{json.dumps(sorted(known))}; dry-run per-rank bytes "
+              f"{json.dumps(f['dry_arg_bytes'])}", flush=True)
+    out["launches"] = launches
+    out["phase_s"] = refs_s + out["world_s"]
+    print(f"mesh: the families part took {out['phase_s']:.1f} s (the "
+          f"unsharded runs {refs_s:.1f} s, rank 0's part of the serving "
+          f"world {out['world_s']:.1f} s); {card}", flush=True)
+    return out
+
+
 def mesh_phase(torch, mods) -> dict:
     """The mesh phase: four ranks share the one card over gloo (NCCL
     refuses two ranks on a device); no speed is claimed, since they
     time-share it and gloo stages every collective through the host."""
     card = card_line()
     print(f"mesh: four ranks share the card over gloo; {card}", flush=True)
-    serving = _mesh_serving(torch, mods, card)
+    refs, refs_s = _family_references(torch, mods, card)
+    serving, family_ranks = _mesh_serving(torch, mods, card, refs)
+    families = _mesh_families(torch, mods, card, refs, refs_s, family_ranks)
+    del refs, family_ranks
     training = _mesh_training(torch, mods, card)
     return dict(card=card, serving=serving, training=training,
-                launches=serving["launches"])
+                families=families,
+                launches={k: serving["launches"][k]
+                          + families["launches"][k]
+                          for k in serving["launches"]})
 
 
 # ---------------------------------------------------------------------------
@@ -5617,9 +6068,9 @@ def start_sweep(mods) -> dict:
 def finish_sweep(mods, sweep) -> dict:
     """Wait for the sweep; each record must be fresh (its file newer than
     the sweep's start); print each cell's line and hold the gates: every
-    dense-family cell ok, every train x sparse_xla cell (of any family)
-    an error naming queue 3 item 13, every other family's other cells
-    errors naming queue 1 item 14."""
+    dense GQA cell and every MoE and MLA prefill and decode cell ok,
+    every train x sparse_xla cell (of any family) an error naming queue
+    3 item 13, every other cell an error naming queue 1 item 14."""
     dryrun, configs, transformer = (mods["dryrun"], mods["configs"],
                                     mods["transformer"])
     jobs, start = sweep["jobs"], sweep["start"]
@@ -5643,10 +6094,13 @@ def finish_sweep(mods, sweep) -> dict:
         print(f"cells: {dryrun.summary_line(rec)}", flush=True)
         counts[rec["status"]] = counts.get(rec["status"], 0) + 1
         cell_s[mode] += rec["total_s"]
-        dense = transformer.dense_gqa(configs.get(arch))
-        sparse_train = shape.startswith("train") and mode == "sparse_xla"
+        acfg = configs.get(arch)
+        train = shape.startswith("train")
+        sparse_train = train and mode == "sparse_xla"
+        runs = transformer.dense_gqa(acfg) if train else \
+            transformer.mesh_family(acfg)
         label = f"cells: dry run {arch}/{shape}/{rec['mesh']}/{mode}"
-        if dense and not sparse_train:
+        if runs and not sparse_train:
             check(rec["status"] == "ok", f"{label}: {rec.get('error')}")
             b = rec["memory"]["argument_bytes"]
             table.append(dict(
@@ -6001,9 +6455,10 @@ def cells_phase(torch, mods) -> dict:
     spmm, sharding, budget = mods["spmm"], mods["sharding"], mods["budget"]
     sweep = mods.pop("sweep")
     print(f"cells: the sweep's {sum(sweep['counts'].values())} cells (run "
-          f"with the build): {json.dumps(sweep['counts'])} (the dense "
-          f"family's ok, train x sparse_xla {SPARSE_TRAIN_ITEM}, the other "
-          f"families {MESH_ITEM})", flush=True)
+          f"with the build): {json.dumps(sweep['counts'])} (the dense GQA "
+          f"family's, and MoE's and MLA's prefill and decode, ok; train x "
+          f"sparse_xla {SPARSE_TRAIN_ITEM}, the rest {MESH_ITEM})",
+          flush=True)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     dry = _dry_cells(torch, mods)
@@ -6386,6 +6841,7 @@ def _run(torch, mods, card: str, sweep: dict, allocated: int) -> int:
             launches_mesh=mesh_counts.get(name, 0),
             launches_mesh_per_rank=mesh["serving"][
                 "launches_per_rank"].get(name, 0),
+            launches_mesh_families=mesh["families"]["launches"].get(name, 0),
             launches_cells=cells_counts.get(name, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],

@@ -210,8 +210,22 @@ def _held_whole(held: int, full: int, tp, what: str) -> bool:
     if held * tp.size == full:
         return False
     raise ValueError(f"{what} of {held} is neither the whole {full} nor a "
-                     f"1/{tp.size} share (a padded Tiled-CSL dim does not "
-                     "shard)")
+                     f"1/{tp.size} share")
+
+
+def _padded_block(held: int, full: int, tp) -> bool:
+    """True iff a Tiled-CSL dim of ``held`` is this rank's block of whole
+    tiles of ``full`` padded to the tile, which is not its share of
+    ``full`` (a 192-row leaf of two 128-row tiles over two ranks)."""
+    return held < full < held * tp.size
+
+
+def _blocks_whole(y: torch.Tensor, held: int, full: int, tp) -> torch.Tensor:
+    """The whole ``[..., full]`` from every rank's block ``y [..., held]``
+    of the padded dim: a zero-filled f32 all-reduce (exact)."""
+    lo = tp.rank * held
+    buf = F.pad(y.to(torch.float32), (lo, held * tp.size - lo - held))
+    return tensor_parallel.gather_from(buf, tp)[..., :full].to(y.dtype)
 
 
 def _bias_share(b: Optional[torch.Tensor], full: int, tp,
@@ -235,6 +249,11 @@ def column_parallel(w: Weight, x: torch.Tensor,
     ``epilogue(x @ W^T + b)``, ``x`` whole on every rank (the caller has
     passed it through ``tensor_parallel.copy_to``)."""
     lo, n = _share(out, tp)
+    if _padded_block(w.shape[0], out, tp):
+        y = _blocks_whole(linear(w, x, declared_out=w.shape[0],
+                                 backend=backend), w.shape[0], out, tp)
+        return _plain_epilogue(y[..., lo:lo + n], _bias_share(
+            b, out, tp, False), epilogue)
     whole = _held_whole(w.shape[0], out, tp, "out dim")
     b = _bias_share(b, out, tp, whole)
     if not whole:
@@ -252,10 +271,13 @@ def column_parallel_grouped(ws, x: torch.Tensor, bs=None, *,
     whole or shares alike."""
     held = ws.shape[0] if isinstance(ws, tiled_csl.TiledCSL) \
         else tuple(ws)[0].shape[0]
-    whole = _held_whole(held, max(outs), tp, "out dim")
     bs = tuple(bs) if bs is not None else (None,) * len(outs)
-    bs = tuple(_bias_share(b, o, tp, whole) for b, o in zip(bs, outs))
     shares = [_share(o, tp) for o in outs]
+    if _padded_block(held, max(outs), tp):
+        return _grouped_blocks(ws, x, bs, outs, shares, held, tp, epilogue,
+                               backend)
+    whole = _held_whole(held, max(outs), tp, "out dim")
+    bs = tuple(_bias_share(b, o, tp, whole) for b, o in zip(bs, outs))
     if not whole:
         return linear_grouped(ws, x, bs, declared_outs=[n for _, n in shares],
                               epilogue=epilogue, backend=backend)
@@ -267,26 +289,131 @@ def column_parallel_grouped(ws, x: torch.Tensor, bs=None, *,
     return tuple(yg[..., lo:lo + n] for yg, (lo, n) in zip(y, shares))
 
 
+def _plain_epilogue(y: torch.Tensor, b: Optional[torch.Tensor],
+                    epilogue: str) -> torch.Tensor:
+    """``epilogue(y + b)`` as plain ops in ``y``'s dtype."""
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return spmm_mod.apply_epilogue(epilogue, y)
+
+
+def _grouped_blocks(ws, x, bs, outs, shares, held: int, tp, epilogue: str,
+                    backend: str):
+    """:func:`column_parallel_grouped` where each member holds this
+    rank's block of its padded out dim: every member's whole product
+    from the ranks' blocks, then its share (a binary epilogue, zero on
+    the padding rows, runs fused before the gather)."""
+    n_w = len(outs)
+    binary = spmm_mod.epilogue_kind(epilogue, groups=n_w) == "binary"
+    if binary and any(b is not None for b in bs):
+        raise ValueError("a binary epilogue with a bias")
+    y = linear_grouped(ws, x, None, declared_outs=(held,) * n_w,
+                       epilogue=epilogue if binary else "none",
+                       backend=backend)
+    if binary:
+        lo, n = shares[0]
+        return _blocks_whole(y, held, outs[0], tp)[..., lo:lo + n]
+    return tuple(_plain_epilogue(
+        _blocks_whole(yg, held, o, tp)[..., lo:lo + n],
+        _bias_share(b, o, tp, False), epilogue)
+        for yg, b, o, (lo, n) in zip(y, bs, outs, shares))
+
+
 def row_parallel(w: Weight, x: torch.Tensor,
                  b: Optional[torch.Tensor] = None, *, out: int, tp,
                  backend: str = "auto") -> torch.Tensor:
     """``x_whole @ W^T + b`` from this rank's in columns ``x [..., K/m]``:
-    the rank's partial product, summed over the model ranks in f32, the
-    replicated bias added once after the sum, one cast to ``x``'s dtype.
-    No nonlinear epilogue runs before the sum. A Tiled-CSL product takes
-    ``x`` in f32 (its values exactly), since the kernel writes in its B's
-    dtype: the partial stays f32 and rounds once, after the sum. A dense
-    product runs in ``x``'s dtype, as the unsharded one does, and its
-    partial is summed in f32."""
-    dtype = x.dtype
-    k = x.shape[-1] * tp.size
-    if _held_whole(w.shape[1], k, tp, "in dim"):
-        lo, n = _share(k, tp)
-        x = F.pad(x, (lo, k - lo - n))
-    if isinstance(w, tiled_csl.TiledCSL):
-        x = x.to(torch.float32)
-    y = linear(w, x, declared_out=out, backend=backend).to(torch.float32)
-    y = tensor_parallel.reduce_from(y, tp)
+    the rank's partial product (:func:`row_partial`), summed over the
+    model ranks in f32, the replicated bias added once after the sum, one
+    cast to ``x``'s dtype. No nonlinear epilogue runs before the sum."""
+    y = tensor_parallel.reduce_from(
+        row_partial(w, x, out=out, tp=tp, backend=backend), tp)
     if b is not None:
         y = y + b.to(torch.float32)
-    return y.to(dtype)
+    return y.to(x.dtype)
+
+
+def _whole_in(w_in: int, x: torch.Tensor, tp) -> torch.Tensor:
+    """``x`` (this rank's in columns) zero-padded to the whole in dim
+    where the weight's in dim of ``w_in`` is the whole one; where it is
+    this rank's block of the in dim padded to whole tiles, the columns
+    of that block (``x`` gathered whole, exact)."""
+    k = x.shape[-1] * tp.size
+    if _padded_block(w_in, k, tp):
+        lo = tp.rank * w_in
+        xw = tensor_parallel.gather_dim(x.to(torch.float32), x.dim() - 1,
+                                        tp)
+        return F.pad(xw, (0, w_in * tp.size - k))[..., lo:lo + w_in].to(
+            x.dtype)
+    if _held_whole(w_in, k, tp, "in dim"):
+        lo, n = _share(k, tp)
+        x = F.pad(x, (lo, k - lo - n))
+    return x
+
+
+def row_partial(w: Weight, x: torch.Tensor, *, out: int, tp,
+                backend: str = "auto") -> torch.Tensor:
+    """This rank's f32 partial of a row-parallel product, not yet summed
+    over the model ranks (:func:`row_parallel` sums it; the MoE block
+    joins the shared expert's to the routed experts' sum). A Tiled-CSL
+    product takes ``x`` in f32 (its values exactly), since the kernel
+    writes in its B's dtype: the partial stays f32 and rounds once, after
+    the sum. A dense product runs in ``x``'s dtype, as the unsharded one
+    does."""
+    x = _whole_in(w.shape[1], x, tp)
+    if isinstance(w, tiled_csl.TiledCSL):
+        x = x.to(torch.float32)
+    return linear(w, x, declared_out=out, backend=backend).to(torch.float32)
+
+
+def column_gathered(w: Weight, x: torch.Tensor, *, out: int, tp,
+                    backend: str = "auto") -> torch.Tensor:
+    """The whole ``x @ W^T`` (``[..., out]``) on every rank, from a
+    column-parallel weight: a weight the rule left whole is multiplied
+    whole, with no collective; a share's product lands in its block of
+    a zero-filled f32 buffer that the ranks sum (exact)."""
+    if _padded_block(w.shape[0], out, tp):
+        return _blocks_whole(linear(w, x, declared_out=w.shape[0],
+                                    backend=backend), w.shape[0], out, tp)
+    if _held_whole(w.shape[0], out, tp, "out dim"):
+        return linear(w, x, declared_out=out, backend=backend)
+    y = column_parallel(w, x, out=out, tp=tp, backend=backend)
+    lo, n = _share(out, tp)
+    full = F.pad(y.to(torch.float32), (lo, out - lo - n))
+    return tensor_parallel.gather_from(full, tp).to(y.dtype)
+
+
+def _stack_rows(w: Weight) -> int:
+    """The out dim of one expert of a stack (Tiled-CSL: padded)."""
+    return w.shape[0] if isinstance(w, tiled_csl.TiledCSL) else w.shape[1]
+
+
+def _stack_cols(w: Weight) -> int:
+    """The in dim of one expert of a stack (Tiled-CSL: padded)."""
+    return w.shape[1] if isinstance(w, tiled_csl.TiledCSL) else w.shape[2]
+
+
+def column_parallel_batched(w: Weight, x: torch.Tensor, *, out: int, tp,
+                            backend: str = "auto") -> torch.Tensor:
+    """:func:`linear_batched` column-parallel inside each expert (MoE's
+    tensor parallelism where the experts do not split over the model
+    axis): this rank's share of every expert's out dim ``out``. A stack
+    the rule left whole is multiplied whole and cut to the share."""
+    lo, n = _share(out, tp)
+    if not _held_whole(_stack_rows(w), out, tp, "expert out dim"):
+        return linear_batched(w, x, declared_out=n, backend=backend)
+    return linear_batched(w, x, declared_out=out,
+                          backend=backend)[..., lo:lo + n]
+
+
+def row_partial_batched(w: Weight, x: torch.Tensor, *, out: int, tp,
+                        backend: str = "auto") -> torch.Tensor:
+    """:func:`linear_batched` row-parallel inside each expert, from this
+    rank's in columns of every expert's block: the rank's f32 partial,
+    not yet summed over the model ranks. A Tiled-CSL stack takes ``x``
+    in f32, as :func:`row_partial` does."""
+    x = _whole_in(_stack_cols(w), x, tp)
+    if isinstance(w, tiled_csl.TiledCSL):
+        x = x.to(torch.float32)
+    return linear_batched(w, x, declared_out=out,
+                          backend=backend).to(torch.float32)

@@ -67,13 +67,16 @@ class Axis:
     ``heads`` and ``kv_heads`` are the whole model's head counts and
     ``split_heads`` says whether each rank computes its own query heads
     (False: every rank computes all of them, their projections split by
-    element and gathered whole)."""
+    element and gathered whole); ``experts`` is the MoE experts this rank
+    holds (E / size under expert parallelism, all E where E does not
+    divide the axis and each expert is split instead; 0 without MoE)."""
     group: Any
     size: int
     rank: int
     kv_heads: int = 0
     heads: int = 0
     split_heads: bool = True
+    experts: int = 0
 
 
 def axis(mesh, name: str) -> Optional[Axis]:

@@ -197,7 +197,9 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
     The report holds ``encode_s`` (the prune, encode, re-pad and group
     time, device synchronised), ``build_s`` (all of it, init included), the
     Tiled-CSL count and bytes (``sparse_bytes``; ``dense_bytes`` is their
-    bf16 size), ``nnz`` (the non-zeros encoded), ``weight_bytes`` (every
+    bf16 size), ``nnz`` (the non-zeros encoded; under a mesh this rank's,
+    of which ``nnz_replicated`` lie in leaves the rules leave whole over
+    ``model``, which every model rank holds), ``weight_bytes`` (every
     leaf as built) and, on a card, ``max_memory_allocated`` at the end of
     the build.
     """
@@ -206,7 +208,7 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
         transformer.rank_config(cfg, mesh)      # refuses what TP cannot
     dt = getattr(torch, cfg.dtype)
     report = {"encode_s": 0.0, "sparse_bytes": 0, "dense_bytes": 0,
-              "n_tiled_csl": 0}
+              "n_tiled_csl": 0, "nnz_replicated": 0}
     _sync(dev)
     t_start = time.perf_counter()
     params = {}
@@ -233,6 +235,9 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
                 prefix=prefix)
             _sync(dev)
             report["encode_s"] += time.perf_counter() - t0
+        if mesh is not None:
+            report["nnz_replicated"] += _replicated_nnz(
+                part, mesh, f"['layers'][{len(stack)}]")
         part = _rank_part(part, mesh, f"['layers'][{len(stack)}]")
         stack.append(_cast_dense_matrices(part, dt))
     if sparsity:
@@ -260,6 +265,16 @@ def build(cfg, *, seed: int = 0, sparsity: Optional[float] = None,
     report["max_memory_allocated"] = (torch.cuda.max_memory_allocated(dev)
                                       if dev.type == "cuda" else None)
     return params, report
+
+
+def _replicated_nnz(part, mesh, prefix: str) -> int:
+    """Non-zeros of the Tiled-CSL leaves of ``part`` (a whole layer at
+    ``prefix``) that the rules leave whole over ``model``: every model
+    rank holds them."""
+    return sum(int(leaf.sum()) for path, leaf in
+               sharding.leaves_with_paths(part, prefix)
+               if path.endswith(".nnz") and not sharding.model_sharded(
+                   sharding.spec_for(path, tuple(leaf.shape), mesh)))
 
 
 def _rank_part(part, mesh, prefix: str):

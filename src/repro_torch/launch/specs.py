@@ -24,9 +24,13 @@ FSDP (``params_shardings(..., fsdp=True)``) and recompute each block
 (``remat="full"``); decode cells lay the cache out by
 ``cache_shardings`` with ``seq_shard`` at batch 1. A train cell in
 ``sparse_xla`` mode raises, as the reference's does (it differentiates
-the Tiled-CSL words): ROADMAP.md queue 3 item 13. Only the dense family
-with GQA attention runs under a mesh; every other family raises naming
-queue 1 item 14 (``transformer.check_mesh_family``).
+the Tiled-CSL words): ROADMAP.md queue 3 item 13. The dense family (GQA
+or MLA attention) and the MoE family run their prefill and decode cells
+under a mesh and the dense GQA family its train cells; every other cell
+raises naming queue 1 item 14 (``transformer.check_mesh_family``). In
+``sparse_xla`` mode the MoE routed stacks stay dense, as in the
+reference's struct (its ``sparse_params_struct`` encodes only leaves
+named ``['w']``).
 """
 
 from __future__ import annotations
@@ -203,7 +207,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         remat = "full"
     if remat is not None and remat != "keep":
         cfg = dataclasses.replace(cfg, remat=remat)
-    transformer.check_mesh_family(cfg)
+    transformer.check_mesh_family(cfg, train=train)
     transformer.rank_config(cfg, mesh)
     pdtype = torch.float32 if train else torch.bfloat16
     if weight_mode == "sparse_xla":

@@ -158,6 +158,7 @@ def setup(args: argparse.Namespace, device: DeviceLike = None,
                                             device=dev)
         params = state.params
     else:                   # the whole draw, then this rank's shard
+        transformer.check_mesh_family(cfg, "a mesh", train=True)
         params = transformer.init_model(cfg, seed=args.seed, device=dev)
     masks = None
     if args.sparsity:

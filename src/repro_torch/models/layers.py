@@ -57,12 +57,14 @@ def init_swiglu_mlp(gen, d_model: int, d_ff: int, device,
 
 
 def swiglu_mlp(params: dict, x: torch.Tensor, *, d_ff: int, d_model: int,
-               backend: str = "auto", tp=None) -> torch.Tensor:
+               backend: str = "auto", tp=None,
+               partial: bool = False) -> torch.Tensor:
     """``d_ff`` is the whole hidden width; with ``tp`` (tensor
-    parallelism) gate and up are column-parallel and down row-parallel."""
+    parallelism) gate and up are column-parallel and down row-parallel;
+    ``partial``: down's f32 partial, before the sum over the ranks."""
     if tp is not None:
         return _swiglu_tp(params, x, d_ff=d_ff, d_model=d_model,
-                          backend=backend, tp=tp)
+                          backend=backend, tp=tp, partial=partial)
     # Grouped fused path: gate+up in one launch, silu(g)*u at the flush.
     if "gate_up" in params:
         h = sparse_linear.linear_grouped(
@@ -82,7 +84,7 @@ def swiglu_mlp(params: dict, x: torch.Tensor, *, d_ff: int, d_model: int,
                                 backend=backend)
 
 
-def _swiglu_tp(params, x, *, d_ff, d_model, backend, tp):
+def _swiglu_tp(params, x, *, d_ff, d_model, backend, tp, partial=False):
     x = tensor_parallel.copy_to(x, tp)
     ws = params["gate_up"]["w"] if "gate_up" in params else \
         (params["gate"]["w"], params["up"]["w"])
@@ -94,8 +96,9 @@ def _swiglu_tp(params, x, *, d_ff, d_model, backend, tp):
         h = sparse_linear.column_parallel_grouped(
             ws, x, outs=(d_ff, d_ff), tp=tp, epilogue="silu_mul",
             backend=backend)
-    return sparse_linear.row_parallel(params["down"]["w"], h, out=d_model,
-                                      tp=tp, backend=backend)
+    down = sparse_linear.row_partial if partial else \
+        sparse_linear.row_parallel
+    return down(params["down"]["w"], h, out=d_model, tp=tp, backend=backend)
 
 
 def init_gelu_mlp(gen, d_model: int, d_ff: int, device, dtype=torch.float32,

@@ -23,6 +23,20 @@ and nothing on the decode or verify path reads a device value on the
 host, so the serving steps can be captured as CUDA graphs. A Tiled-CSL
 ``w_ukv`` is decoded inside every absorbed step, as the reference does
 (``tiled_csl.decode`` has no host read either).
+
+Under a mesh (``tp``, the ``model`` axis; ``cfg`` the rank's, from
+``transformer.rank_config``) the latents are whole on every model rank:
+``w_dkv`` and the latent cache are replicated, and ``w_dq``'s product is
+gathered whole where the rule split it (a leaf it left whole is
+multiplied whole). ``w_uq`` and ``w_ukv`` are column-parallel over the
+heads, so each rank attends with its own heads, and ``wo`` is
+row-parallel. Where the heads do not split, their products split by
+element and are gathered whole, every rank attends over every head, the
+absorbed step gathers ``w_ukv`` whole, and ``wo`` takes the rank's column
+share of the heads' output. A latent cache whose positions split over
+``data`` (``seq``, batch 1) is written by the rank whose block holds the
+position, and the partial softmaxes combine over ``data``
+(``tensor_parallel.attend_combine``).
 """
 
 from __future__ import annotations
@@ -32,9 +46,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import sparse_linear, tiled_csl
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models import nn, rope
-from repro_torch.models.attention import (NEG_INF, _pos_vector,
-                                          verify_window_mask,
+from repro_torch.models.attention import (NEG_INF, SeqShard, _pos_vector,
+                                          _write_owned, verify_window_mask,
                                           write_decode_token,
                                           write_decode_token_paged)
 from repro_torch.models.config import ModelConfig
@@ -73,15 +88,53 @@ def init_paged_mla_cache(cfg: ModelConfig, n_physical: int, block: int,
                                  dtype=dtype, device=device)}
 
 
-def _mla_qkv(params, x, positions, cfg: ModelConfig, backend: str):
-    """Returns q_nope, q_rope (roped), c_kv, k_rope (roped)."""
+def _head_product(w, x, per_head: int, cfg: ModelConfig, backend: str,
+                  tp=None):
+    """``x @ W^T`` for ``cfg``'s heads, ``per_head`` out rows a head: the
+    whole product; with ``tp`` and split heads the rank's heads' columns
+    (column-parallel), with heads that do not split every head's
+    (gathered whole)."""
+    if tp is None:
+        return sparse_linear.linear(w, x, declared_out=cfg.n_heads * per_head,
+                                    backend=backend)
+    out = tp.heads * per_head
+    if tp.split_heads:
+        return sparse_linear.column_parallel(w, x, out=out, tp=tp,
+                                             backend=backend)
+    return sparse_linear.column_gathered(w, x, out=out, tp=tp,
+                                         backend=backend)
+
+
+def _wo(params, o, cfg: ModelConfig, backend: str, tp=None):
+    """``wo`` on the heads' output ``o [B, S, heads * dv]``: row-parallel
+    over the rank's heads with ``tp``, over the rank's column share of
+    every head's output where the heads do not split."""
+    if tp is None:
+        return sparse_linear.linear(params["wo"]["w"], o,
+                                    declared_out=cfg.d_model, backend=backend)
+    if not tp.split_heads:
+        n = o.shape[-1] // tp.size
+        o = o[..., tp.rank * n:(tp.rank + 1) * n]
+    return sparse_linear.row_parallel(params["wo"]["w"], o, out=cfg.d_model,
+                                      tp=tp, backend=backend)
+
+
+def _mla_qkv(params, x, positions, cfg: ModelConfig, backend: str, tp=None):
+    """Returns q_nope, q_rope (roped) for ``cfg``'s heads, c_kv, k_rope
+    (roped)."""
     B, S = x.shape[0], x.shape[1]
     h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     kvr = cfg.kv_lora_rank
-    cq = sparse_linear.linear(params["w_dq"]["w"], x,
-                              declared_out=cfg.q_lora_rank, backend=backend)
-    q = sparse_linear.linear(params["w_uq"]["w"], cq,
-                             declared_out=h * (dn + dr), backend=backend)
+    if tp is None:
+        cq = sparse_linear.linear(params["w_dq"]["w"], x,
+                                  declared_out=cfg.q_lora_rank,
+                                  backend=backend)
+    else:
+        x = tensor_parallel.copy_to(x, tp)
+        cq = sparse_linear.column_gathered(params["w_dq"]["w"], x,
+                                           out=cfg.q_lora_rank, tp=tp,
+                                           backend=backend)
+    q = _head_product(params["w_uq"]["w"], cq, dn + dr, cfg, backend, tp)
     q = q.reshape(B, S, h, dn + dr)
     q_nope = q[..., :dn]
     q_rope = rope.apply_rope(q[..., dn:], positions, cfg.rope_theta)
@@ -94,7 +147,7 @@ def _mla_qkv(params, x, positions, cfg: ModelConfig, backend: str):
 
 
 def _mla_attend(params, q_nope, q_rope, c_kv, k_rope, mask,
-                cfg: ModelConfig, backend: str) -> torch.Tensor:
+                cfg: ModelConfig, backend: str, tp=None) -> torch.Tensor:
     """Attention over expanded latents, then ``wo``. q_nope [B,S,H,dn],
     q_rope [B,S,H,dr], c_kv [B,T,kvr], k_rope [B,T,dr]; ``mask``
     broadcasts against [B,H,S,T]. For S past ``attn_q_chunk`` (and a
@@ -103,9 +156,8 @@ def _mla_attend(params, q_nope, q_rope, c_kv, k_rope, mask,
     B, S, h, dn = q_nope.shape
     T = c_kv.shape[1]
     dv = cfg.v_head_dim
-    kv = sparse_linear.linear(params["w_ukv"]["w"], c_kv,
-                              declared_out=h * (dn + dv), backend=backend)
-    kv = kv.reshape(B, T, h, dn + dv)
+    kv = _head_product(params["w_ukv"]["w"], c_kv, dn + dv, cfg, backend,
+                       tp).reshape(B, T, h, dn + dv)
     k_nope = kv[..., :dn].to(torch.float32)
     v = kv[..., dn:].to(torch.float32)
     k_rope_f = k_rope.to(torch.float32)
@@ -127,32 +179,38 @@ def _mla_attend(params, q_nope, q_rope, c_kv, k_rope, mask,
     else:
         o = attend_block(q_nope, q_rope, mask)
     o = o.reshape(B, S, h * dv).to(q_nope.dtype)
-    return sparse_linear.linear(params["wo"]["w"], o,
-                                declared_out=cfg.d_model, backend=backend)
+    return _wo(params, o, cfg, backend, tp)
 
 
 def mla_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
                   cfg: ModelConfig, *, cache: Optional[dict] = None,
-                  backend: str = "auto") -> Tuple[torch.Tensor, Optional[dict]]:
+                  backend: str = "auto", tp=None,
+                  seq: Optional[SeqShard] = None
+                  ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Full-sequence (prefill) MLA. With ``cache``, the latents are
-    written at positions [0, S) of it."""
+    written at positions [0, S) of it; with ``seq`` the cache holds this
+    rank's block of the positions, and the rank writes that block."""
     S = x.shape[1]
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, positions, cfg,
-                                            backend)
+                                            backend, tp)
     mask = (positions[:, None, :] <= positions[:, :, None])[:, None]
-    y = _mla_attend(params, q_nope, q_rope, c_kv, k_rope, mask, cfg, backend)
+    y = _mla_attend(params, q_nope, q_rope, c_kv, k_rope, mask, cfg, backend,
+                    tp)
     if cache is not None:
-        cache["ckv"][:, :S] = c_kv.to(cache["ckv"].dtype)
-        cache["krope"][:, :S] = k_rope.to(cache["krope"].dtype)
+        lo = 0 if seq is None else seq.axis.rank * cache["ckv"].shape[1]
+        n = max(0, min(cache["ckv"].shape[1], S - lo))
+        cache["ckv"][:, :n] = c_kv[:, lo:lo + n].to(cache["ckv"].dtype)
+        cache["krope"][:, :n] = k_rope[:, lo:lo + n].to(cache["krope"].dtype)
     return y, cache
 
 
 def mla_decode(params: dict, x: torch.Tensor, cache: dict, pos,
-               cfg: ModelConfig, *, backend: str = "auto"
-               ) -> Tuple[torch.Tensor, dict]:
+               cfg: ModelConfig, *, backend: str = "auto", tp=None,
+               seq: Optional[SeqShard] = None) -> Tuple[torch.Tensor, dict]:
     """One-token MLA decode in the absorbed form against the dense latent
     cache. ``pos`` is every row's position (an int or a 0-d tensor) or
-    each row's (a [B] tensor); the latents are written there, in place.
+    each row's (a [B] tensor); the latents are written there, in place
+    (with ``seq``, by the rank whose block holds it).
 
     The naive form re-expands the whole latent cache through ``w_ukv``
     every step; the absorbed form folds ``w_uk`` into the query
@@ -160,11 +218,25 @@ def mla_decode(params: dict, x: torch.Tensor, cache: dict, pos,
     the scores and the weighted sum run over the kvr-wide latents."""
     pos_vec = _pos_vector(pos, x.shape[0], x.device)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, pos_vec[:, None], cfg,
-                                            backend)
+                                            backend, tp)
+    if seq is not None:
+        blk = cache["ckv"].shape[1]
+        lo = seq.axis.rank * blk
+        local = pos_vec - lo
+        own = (local >= 0) & (local < blk)
+        slot = local.clamp(0, blk - 1)
+        _write_owned(cache["ckv"], c_kv, slot, own)
+        _write_owned(cache["krope"], k_rope, slot, own)
+        idx = lo + torch.arange(blk, device=x.device)
+        mask = (idx[None, :] <= pos_vec[:, None])[:, None, None, :]
+        y = _absorbed_attend(params, x, q_nope, q_rope, cache["ckv"],
+                             cache["krope"], pos_vec, cfg, backend,
+                             mask=mask, tp=tp, seq=seq)
+        return y, cache
     write_decode_token(cache["ckv"], c_kv, pos_vec)
     write_decode_token(cache["krope"], k_rope, pos_vec)
     y = _absorbed_attend(params, x, q_nope, q_rope, cache["ckv"],
-                         cache["krope"], pos_vec, cfg, backend)
+                         cache["krope"], pos_vec, cfg, backend, tp=tp)
     return y, cache
 
 
@@ -229,21 +301,45 @@ def mla_verify_paged(params: dict, x: torch.Tensor, cache: dict,
     return y, {"ckv": c_kv, "krope": k_rope}
 
 
+def _ukv_heads(w, cfg: ModelConfig, tp=None) -> torch.Tensor:
+    """``w_ukv`` as ``[heads, dn + dv, kvr]`` for ``cfg``'s heads: the
+    rank's rows of a share (or of a leaf the rule left whole, or gathered
+    whole from the ranks' tiles of its padded rows) where the heads
+    split; every head's, the shares gathered whole, where they do
+    not."""
+    h, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    per, kvr = dn + dv, cfg.kv_lora_rank
+    if isinstance(w, tiled_csl.TiledCSL):
+        w = tiled_csl.decode(w)
+    w = w[:, :kvr]
+    if tp is not None:
+        whole = tp.heads * per
+        if whole > w.shape[0] and w.shape[0] * tp.size != whole:
+            # this rank's tiles of the padded rows: all of them, whole
+            w = tensor_parallel.gather_dim(w.to(torch.float32), 0, tp)
+        if w.shape[0] < whole:                            # the rank's share
+            if not tp.split_heads:
+                w = tensor_parallel.gather_dim(w.to(torch.float32), 0, tp)
+        elif tp.split_heads:                              # whole
+            w = w[tp.rank * h * per:(tp.rank + 1) * h * per]
+    return w[:h * per].reshape(h, per, kvr)
+
+
 def _absorbed_attend(params: dict, x: torch.Tensor, q_nope, q_rope, ckv,
                      ckrope, pos_vec, cfg: ModelConfig, backend: str, *,
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     mask: Optional[torch.Tensor] = None, tp=None,
+                     seq: Optional[SeqShard] = None) -> torch.Tensor:
     """Absorbed-form attention over a [B, T, *] latent sequence (the dense
     cache, or a block-table gather whose padding columns mask to exact
     softmax zeros), then the ``w_uv`` and ``wo`` output path. ``mask``
     (broadcastable against [B, h, S, T]) replaces the single-query causal
-    bound ``t <= pos``; the verify window passes its own."""
+    bound ``t <= pos``; the verify window passes its own. With ``seq``
+    the sequence is this rank's block of the positions and the partial
+    softmaxes combine over its axis."""
     B, T = x.shape[0], ckv.shape[1]
     h, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
-    w_ukv = params["w_ukv"]["w"]
-    if isinstance(w_ukv, tiled_csl.TiledCSL):
-        w_ukv = tiled_csl.decode(w_ukv)[:h * (dn + dv), :kvr]
-    w_ukv = w_ukv.reshape(h, dn + dv, kvr)
+    w_ukv = _ukv_heads(params["w_ukv"]["w"], cfg, tp)
     w_uk = w_ukv[:, :dn].to(torch.float32)                     # [h, dn, kvr]
     w_uv = w_ukv[:, dn:].to(torch.float32)                     # [h, dv, kvr]
 
@@ -267,9 +363,11 @@ def _absorbed_attend(params: dict, x: torch.Tensor, q_nope, q_rope, ckv,
         mask = (torch.arange(T, device=x.device)[None, :]
                 <= pos_vec[:, None])[:, None, None, :]
     scores = scores.masked_fill(~mask, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    o_lat = nn.einsum_f32acc("bhst,btr->bshr", w.to(cdt), ckv)   # [B,S,h,kvr]
+    weigh = lambda w, v: nn.einsum_f32acc("bhst,btr->bshr", w.to(cdt), v)
+    if seq is not None:
+        o_lat = tensor_parallel.attend_combine(scores, ckv, seq.axis, weigh)
+    else:
+        o_lat = weigh(torch.softmax(scores, dim=-1), ckv)       # [B,S,h,kvr]
     o = torch.einsum("bshr,hdr->bshd", o_lat, w_uv)              # [B,S,h,dv]
     o = o.reshape(B, S, h * dv).to(x.dtype)
-    return sparse_linear.linear(params["wo"]["w"], o,
-                                declared_out=cfg.d_model, backend=backend)
+    return _wo(params, o, cfg, backend, tp)

@@ -21,18 +21,45 @@ The expert weights are stacks ``gate``/``up`` ``[E, d_expert, d]`` and
 (``tiled_csl.encode_stack``), which run through one expert-batched LSCD
 launch a projection (``sparse_linear.linear_batched``), the counterpart
 of the reference's ``jax.vmap`` over the per-expert kernel.
+
+Under a mesh (``tp``, the ``model`` axis; ``rows``, how the batch rows
+split over the data axes) the routing is the unsharded one on every
+rank. The router is column-parallel over the experts and each rank's
+block of the logits is gathered whole (a zero-filled all-reduce), so
+softmax, top-k and the capacity positions run on one tensor, identical
+on every model rank. Where E divides the model axis (expert parallelism,
+EP) a rank dispatches to its own E/m experts, one batched launch a
+projection at E/m; else every rank holds every expert's column share of
+``gate``/``up`` and row share of ``down`` (tensor parallelism inside each
+expert). Either way the combine gives a partial y, which the shared
+expert's row-parallel partial joins; the ranks sum it in f32. Where a
+subgroup spans several data ranks' rows (a decode batch split finer than
+``moe_subgroup``), each rank's capacity positions start after the
+earlier ranks' counts (an exclusive scan over the data axes) and every
+expert's ``[C, d]`` block is summed over those ranks before its FFN, as
+the reference's contraction over a data-sharded token axis sums it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import sparse_linear, tiled_csl
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models import layers, nn
 from repro_torch.models.config import ModelConfig
+
+
+class RowSplit(NamedTuple):
+    """How a mesh splits the batch rows: over ``axes``
+    (``tensor_parallel.Axis``, in the layout's order) into ``parts``, this
+    rank's rows being part ``index`` (row-major over the axes)."""
+    axes: tuple
+    parts: int
+    index: int
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, device,
@@ -55,16 +82,25 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, device,
     return p
 
 
-def _expert_ffn(params: dict, xe: torch.Tensor, *,
-                backend: str = "auto") -> torch.Tensor:
+def _expert_ffn(params: dict, xe: torch.Tensor, *, backend: str = "auto",
+                tp=None, width: int = 0) -> torch.Tensor:
     """xe ``[E, C*, d]`` -> ``[E, C*, d]``: every expert's SwiGLU on its
     block, one batched product a projection. With Tiled-CSL stacks the
     hidden width is the padded out dim (``gate.shape[0]``), as in the
-    reference; the padded rows give silu(0) * 0."""
+    reference; the padded rows give silu(0) * 0. With ``tp`` (tensor
+    parallelism inside each expert, ``width`` the whole ``d_expert``)
+    ``gate``/``up`` are column shares and ``down`` a row share: this
+    rank's f32 partial."""
     gate = params["gate"]
+    d = xe.shape[-1]
+    if tp is not None:
+        g, u = (sparse_linear.column_parallel_batched(
+            params[n], xe, out=width, tp=tp, backend=backend)
+            for n in ("gate", "up"))
+        return sparse_linear.row_partial_batched(
+            params["down"], F.silu(g) * u, out=d, tp=tp, backend=backend)
     dff = (gate.shape[0] if isinstance(gate, tiled_csl.TiledCSL)
            else gate.shape[1])
-    d = xe.shape[-1]
     g = sparse_linear.linear_batched(gate, xe, declared_out=dff,
                                      backend=backend)
     u = sparse_linear.linear_batched(params["up"], xe, declared_out=dff,
@@ -73,22 +109,60 @@ def _expert_ffn(params: dict, xe: torch.Tensor, *,
                                         declared_out=d, backend=backend)
 
 
+def _batch_gather(x: torch.Tensor, rows: RowSplit) -> torch.Tensor:
+    """``[parts, *x.shape]`` with every data rank's ``x`` at its part: a
+    zero-filled all-reduce over each axis in turn, in f32 (exact)."""
+    full = x.new_zeros((rows.parts,) + tuple(x.shape), dtype=torch.float32)
+    full[rows.index] = x.to(torch.float32)
+    for ax in rows.axes:
+        full = tensor_parallel.all_reduce(full, ax.group, kind="all-gather")
+    return full
+
+
+def _router_logits(w, xt: torch.Tensor, E: int, tp, backend: str):
+    """The whole router logits ``[G, sg, E]`` (f32) on every rank."""
+    if tp is None:
+        y = sparse_linear.linear(w, xt, declared_out=E, backend=backend)
+    else:
+        y = sparse_linear.column_gathered(w, xt, out=E, tp=tp,
+                                          backend=backend)
+    return y.to(torch.float32)
+
+
 def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              backend: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+              backend: str = "auto", tp=None,
+              rows: Optional[RowSplit] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x ``[B, S, d]`` -> (y ``[B, S, d]``, the Switch aux loss): routed
     top-k with capacity dropping, then the shared expert. The B * S
-    tokens must split into whole subgroups (the reference asserts it)."""
+    tokens must split into whole subgroups (the reference asserts it).
+
+    ``tp`` (``transformer.rank_config``'s axis, ``tp.experts`` the
+    experts this rank holds) runs the block over the model ranks;
+    ``rows`` says how the batch rows split over the data axes (None: every
+    rank holds every row), so that the subgroups are the unsharded
+    batch's: a rank's rows hold whole subgroups, or a subgroup spans
+    ``sg / (B * S)`` consecutive data ranks. Under a mesh the aux loss is
+    that of this rank's rows."""
     bsz, s, d = x.shape
     E, k = cfg.n_routed_experts, cfg.top_k
     T = bsz * s
-    sg = min(cfg.moe_subgroup, T)
+    parts = rows.parts if rows is not None else 1
+    sg = min(cfg.moe_subgroup, T * parts)
+    if (T * parts) % sg:
+        raise ValueError(f"{T * parts} tokens do not split into subgroups "
+                         f"of {sg}")
+    span = 1                       # data ranks a subgroup spans
     if T % sg:
-        raise ValueError(f"{T} tokens do not split into subgroups of {sg}")
-    G = T // sg
-    xt = x.reshape(G, sg, d)
+        if sg % T:
+            raise ValueError(
+                f"a rank's {T} tokens neither hold whole subgroups of {sg} "
+                f"nor split one evenly")
+        span = sg // T
+    G = max(T // sg, 1)
+    xt = x.reshape(G, T // G, d)
 
-    logits = sparse_linear.linear(params["router"]["w"], xt, declared_out=E,
-                                  backend=backend).to(torch.float32)
+    logits = _router_logits(params["router"]["w"], xt, E, tp, backend)
     probs = torch.softmax(logits, dim=-1)                       # [G, sg, E]
     gate_vals, idx = torch.topk(probs, k, dim=-1)               # [G, sg, k]
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
@@ -102,20 +176,66 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     C = max(int(-(-sg * k // E) * cfg.capacity_factor), 1)
     gates_e = torch.einsum("gsk,gske->gse", gate_vals, onehot_k)
-    pos_e = (torch.cumsum(oh_e, dim=1) * oh_e - 1.0).to(torch.int32)
+    pos_e = _positions(oh_e, rows, span)
     # A compare, not F.one_hot: -1 (not chosen) and >= C (over capacity)
     # give all-zero rows, as jax.nn.one_hot does, and no host read.
     dispatch = (pos_e[..., None] == torch.arange(C, device=x.device)
                 ).to(torch.float32)                             # [G,sg,E,C]
     combine = dispatch * gates_e[..., None]
+    shared_ff = cfg.d_shared_expert * cfg.n_shared_experts
+    if tp is None and span == 1:
+        xe = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xt)
+        ye = _expert_ffn(params, xe.reshape(E, G * C, d), backend=backend)
+        y = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype),
+                         ye.reshape(E, G, C, d))
+        if cfg.n_shared_experts:
+            y = y + layers.swiglu_mlp(params["shared"], xt, d_ff=shared_ff,
+                                      d_model=d, backend=backend)
+        return y.reshape(bsz, s, d), aux
 
-    xe = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xt)
-    ye = _expert_ffn(params, xe.reshape(E, G * C, d), backend=backend)
-    y = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype),
-                     ye.reshape(E, G, C, d))
+    ep = tp is not None and tp.experts < E
+    lo, n = (tp.rank * tp.experts, tp.experts) if ep else (0, E)
+    xe = torch.einsum("gsec,gsd->egcd", dispatch[:, :, lo:lo + n].to(x.dtype),
+                      xt)
+    if span > 1:                  # each expert's block summed over the span
+        xe = _span_sum(xe, rows, span).to(x.dtype)
+    ye = _expert_ffn(params, xe.reshape(n, G * C, d), backend=backend,
+                     tp=None if ep else tp, width=cfg.d_expert)
+    y = torch.einsum("gsec,egcd->gsd", combine[:, :, lo:lo + n],
+                     ye.reshape(n, G, C, d).to(torch.float32))
     if cfg.n_shared_experts:
-        y = y + layers.swiglu_mlp(
-            params["shared"], xt,
-            d_ff=cfg.d_shared_expert * cfg.n_shared_experts, d_model=d,
-            backend=backend)
-    return y.reshape(bsz, s, d), aux
+        y = y + layers.swiglu_mlp(params["shared"], xt, d_ff=shared_ff,
+                                  d_model=d, backend=backend, tp=tp,
+                                  partial=True).to(torch.float32)
+    if tp is not None:
+        y = tensor_parallel.reduce_from(y, tp)
+    return y.to(x.dtype).reshape(bsz, s, d), aux
+
+
+def _positions(oh_e: torch.Tensor, rows: Optional[RowSplit],
+               span: int) -> torch.Tensor:
+    """Each token's position in the capacity of each expert it picked
+    (``oh_e [G, sg, E]`` 0/1), in token order within its subgroup; -1
+    where not picked. Where the subgroup spans ``span`` data ranks, the
+    positions start after the earlier ranks' counts (an exclusive scan
+    over the data axes)."""
+    taken = torch.cumsum(oh_e, dim=1)
+    if span > 1:
+        counts = _batch_gather(oh_e.sum(dim=(0, 1)), rows)     # [parts, E]
+        first = rows.index - rows.index % span
+        taken = taken + counts[first:rows.index].sum(dim=0)
+    return (taken * oh_e - 1.0).to(torch.int32)
+
+
+def _span_sum(x: torch.Tensor, rows: RowSplit, span: int) -> torch.Tensor:
+    """``x`` summed (in f32) over the ``span`` consecutive data ranks
+    whose rows share this rank's subgroup: one all-reduce where the span
+    is every data rank, else each rank's ``x`` gathered and the span's
+    summed."""
+    if span == rows.parts:
+        out = x.to(torch.float32)
+        for ax in rows.axes:
+            out = tensor_parallel.all_reduce(out, ax.group)
+        return out
+    first = rows.index - rows.index % span
+    return _batch_gather(x, rows)[first:first + span].sum(dim=0)

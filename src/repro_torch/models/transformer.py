@@ -36,12 +36,15 @@ audio family (musicgen) reads ``n_codebooks`` parallel token streams
             prefill-chunk/decode step); returns each layer's fresh K/V
             (or latents)
 
-Under a mesh (``launch.mesh``) the dense GQA family runs
-tensor-parallel over ``model`` (:func:`rank_config`), the cache is laid
-out by ``distributed.sharding.cache_shardings`` (:func:`init_cache`:
-the batch over the data axes, the K/V sequence over ``model``, or with
-``seq_shard`` over ``data``) and the train mode gathers each FSDP-split
-part just before it runs (:func:`forward_train`'s ``fsdp``).
+Under a mesh (``launch.mesh``) the dense family (GQA or MLA attention)
+and the MoE family run tensor-parallel over ``model``
+(:func:`rank_config`; MoE's experts split over it, or inside each expert
+where they do not divide it), the cache is laid out by
+``distributed.sharding.cache_shardings`` (:func:`init_cache`: the batch
+over the data axes, the K/V sequence over ``model``, MLA's latents whole
+over it, or with ``seq_shard`` the sequence over ``data``) and the
+dense GQA family's train mode gathers each FSDP-split part just before
+it runs (:func:`forward_train`'s ``fsdp``).
 
 The serving cache helpers (``scatter_cache_slots``,
 ``scatter_cache_pages``, ``copy_cache_block``, ``commit_verify_window``)
@@ -99,45 +102,87 @@ MESH_ITEM = "ROADMAP.md queue 1 item 14"
 
 def dense_gqa(cfg: ModelConfig) -> bool:
     """The dense family with GQA attention and no sliding window, M-RoPE
-    or codebooks: the one family that runs under a mesh."""
+    or codebooks."""
     return (cfg.family == "dense" and cfg.attn_kind == "gqa"
             and not cfg.n_routed_experts and cfg.layer_pattern is None
             and cfg.local_window is None and not cfg.n_codebooks
             and cfg.mrope_sections is None)
 
 
-def check_mesh_family(cfg: ModelConfig, what: str = "a mesh") -> None:
-    """Raise unless :func:`dense_gqa`, naming queue 1 item 14."""
-    if not dense_gqa(cfg):
+def mesh_family(cfg: ModelConfig) -> bool:
+    """The families that serve under a mesh: :func:`dense_gqa`, the dense
+    family with MLA attention, and the MoE family with GQA attention
+    (each with no sliding window, M-RoPE or codebooks)."""
+    plain = (cfg.layer_pattern is None and cfg.local_window is None
+             and not cfg.n_codebooks and cfg.mrope_sections is None)
+    mla_dense = (cfg.family == "dense" and cfg.attn_kind == "mla"
+                 and not cfg.n_routed_experts)
+    routed = (cfg.family == "moe" and cfg.attn_kind == "gqa"
+              and cfg.n_routed_experts > 0)
+    return dense_gqa(cfg) or (plain and (mla_dense or routed))
+
+
+def check_mesh_family(cfg: ModelConfig, what: str = "a mesh", *,
+                      train: bool = False) -> None:
+    """Raise unless :func:`mesh_family` (and, for ``train``, the dense
+    GQA family, the one that trains under a mesh), naming queue 1 item
+    14."""
+    if not mesh_family(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: the mesh covers the dense family with GQA "
-            f"attention only; the {cfg.family} family ({cfg.attn_kind} "
-            f"attention) under {what} is {MESH_ITEM}")
+            f"{cfg.name}: the mesh covers the dense family with GQA or MLA "
+            f"attention and the MoE family with GQA attention only; the "
+            f"{cfg.family} family ({cfg.attn_kind} attention) under {what} "
+            f"is {MESH_ITEM}")
+    if train and not dense_gqa(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: training under a mesh covers the dense family "
+            f"with GQA attention only; training the {cfg.family} family "
+            f"({cfg.attn_kind} attention) under {what} is {MESH_ITEM}")
 
 
 def split_heads(cfg: ModelConfig, model: int) -> bool:
     """True iff each of ``model`` ranks computes its own query heads:
     they split ``model`` ways and the KV heads split too, or are fewer
     and divide it (each shared by ``model / n_kv`` ranks). Otherwise
-    every rank computes every head."""
+    every rank computes every head. MLA has no KV heads: its heads
+    split or not."""
+    if cfg.attn_kind == "mla":
+        return cfg.n_heads % model == 0
     return cfg.n_heads % model == 0 and (
         cfg.n_kv % model == 0 or model % cfg.n_kv == 0)
 
 
 def check_tensor_parallel(cfg: ModelConfig, model: int) -> None:
     """Raise unless tensor parallelism over ``model`` ranks covers
-    ``cfg``: the dense family with GQA attention (no sliding window),
-    whose ``d_ff`` splits ``model`` ways; where the heads do not split
-    (:func:`split_heads`), the q, k and v widths must, since their
-    products split by element."""
+    ``cfg`` (:func:`check_mesh_family`), with every width it splits by
+    element splitting ``model`` ways: the dense MLP's ``d_ff``; MoE's
+    shared expert width, and ``d_expert`` where the experts do not
+    divide ``model`` (each expert is split instead); where the heads do
+    not split (:func:`split_heads`), the q, k and v widths (GQA) or
+    ``n_heads * (qk_nope + qk_rope)``, ``n_heads * (qk_nope + v_head)``
+    and ``n_heads * v_head`` (MLA), since their products split by
+    element."""
     if model == 1:
         return
     check_mesh_family(cfg, f"a model axis of {model}")
-    hd = cfg.head_dim
-    need = [("d_ff", cfg.d_ff)]
+    if cfg.n_routed_experts:
+        need = [("the shared expert width",
+                 cfg.d_shared_expert * cfg.n_shared_experts)]
+        if cfg.n_routed_experts % model:
+            need.append(("d_expert", cfg.d_expert))
+    else:
+        need = [("d_ff", cfg.d_ff)]
     if not split_heads(cfg, model):
-        need += [("n_heads * head_dim", cfg.n_heads * hd),
-                 ("n_kv * head_dim", cfg.n_kv * hd)]
+        h = cfg.n_heads
+        if cfg.attn_kind == "mla":
+            dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+            need += [("n_heads * (qk_nope + qk_rope)", h * (dn + dr)),
+                     ("n_heads * (qk_nope + v_head)", h * (dn + dv)),
+                     ("n_heads * v_head", h * dv)]
+        else:
+            hd = cfg.head_dim
+            need += [("n_heads * head_dim", h * hd),
+                     ("n_kv * head_dim", cfg.n_kv * hd)]
     for what, n in need:
         if n % model:
             raise ValueError(
@@ -149,18 +194,22 @@ def rank_config(cfg: ModelConfig, mesh) -> Tuple[ModelConfig, Any]:
     """(the config as one model rank sees it, its ``tensor_parallel.Axis``)
     under ``mesh``: where the heads split (:func:`split_heads`), the
     rank's query and KV heads (``n_heads / m``, and ``n_kv / m`` or the
-    one KV head it shares where ``n_kv < m``; the head dim kept), else
-    every head; ``d_ff`` stays whole (the MLPs take their shares
-    themselves). Without a mesh, or with a ``model`` axis of 1, the
-    config as it is and None. Raises where :func:`check_tensor_parallel`
-    does."""
+    one KV head it shares where ``n_kv < m``; MLA's ``n_heads / m``; the
+    head dim kept), else every head; ``d_ff`` stays whole (the MLPs take
+    their shares themselves). The axis carries the whole head counts and,
+    for MoE, ``experts``: the rank's E / m experts where E divides the
+    axis (expert parallelism), else all E (each split inside). Without a
+    mesh, or with a ``model`` axis of 1, the config as it is and None.
+    Raises where :func:`check_tensor_parallel` does."""
     tp = tensor_parallel.of(mesh)
     if tp is None:
         return cfg, None
     check_tensor_parallel(cfg, tp.size)
     split = split_heads(cfg, tp.size)
-    tp = dataclasses.replace(tp, kv_heads=cfg.n_kv, heads=cfg.n_heads,
-                             split_heads=split)
+    E = cfg.n_routed_experts
+    tp = dataclasses.replace(
+        tp, kv_heads=cfg.n_kv, heads=cfg.n_heads, split_heads=split,
+        experts=E // tp.size if E and E % tp.size == 0 else E)
     if not split:
         return dataclasses.replace(cfg, d_head=cfg.head_dim), tp
     return dataclasses.replace(cfg, n_heads=cfg.n_heads // tp.size,
@@ -292,9 +341,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
     Under ``mesh`` (``batch`` and ``max_len`` whole) a :class:`MeshCache`
     of this rank's blocks, laid out by ``sharding.cache_shardings``
-    (``seq_shard``: the sequence over ``data``, for batch 1); raises
-    for a layout that splits the head dim, and for every family but the
-    dense GQA one, naming ROADMAP.md queue 1 item 14."""
+    (``seq_shard``: the sequence over ``data``, for batch 1; MLA's
+    latents stay whole over ``model``); raises for a K/V layout that
+    splits the head dim, and for every family outside
+    :func:`mesh_family`, naming ROADMAP.md queue 1 item 14."""
     _check_family(cfg)
     if mesh is not None:
         return _init_mesh_cache(cfg, batch, max_len, device, dtype, mesh,
@@ -319,9 +369,10 @@ def _init_mesh_cache(cfg, batch, max_len, device, dtype, mesh, seq_shard):
     specs = sharding.cache_shardings(whole, mesh, seq_shard=seq_shard)
     dev = resolve_device(device)
     local = []
+    lead = "ckv" if cfg.attn_kind == "mla" else "k"
     for i, layer in enumerate(whole):
-        spec = specs[f"[{i}]['k']"]
-        if spec[3] is not None:
+        spec = specs[f"[{i}]['{lead}']"]
+        if lead == "k" and spec[3] is not None:
             raise NotImplementedError(
                 f"{cfg.name}: a K/V cache [{batch}, {max_len}, {cfg.n_kv}, "
                 f"{cfg.head_dim}] whose length and KV heads do not split "
@@ -330,7 +381,7 @@ def _init_mesh_cache(cfg, batch, max_len, device, dtype, mesh, seq_shard):
         local.append({name: torch.zeros(
             sharding.local_shape(t.shape, specs[f"[{i}]['{name}']"], mesh),
             dtype=t.dtype, device=dev) for name, t in layer.items()})
-    spec = specs["[0]['k']"]
+    spec = specs[f"[0]['{lead}']"]
     return MeshCache(local, seq=spec[1], batch=spec[0])
 
 
@@ -508,7 +559,7 @@ def _mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, backend: str,
 def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                 kind: str = "attn", positions=None, cache=None, pos=None,
                 block_tables=None, ring_len: Optional[int] = None,
-                backend: str = "auto", tp=None, seq=None
+                backend: str = "auto", tp=None, seq=None, rows=None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Residual block of ``kind``: attention + MLP (or routed experts),
     RG-LRU + MLP, or SSD (+ MLP where ``d_ff`` is set). Returns (x,
@@ -518,17 +569,19 @@ def block_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     :func:`rank_config`) the attention and the MLP are split over the
     model ranks (prefill, dense decode and train); ``seq``
     (``attention.SeqShard``) is a dense cache whose positions split over
-    an axis."""
+    an axis; ``rows`` (``moe.RowSplit``) how the batch rows split over the
+    data axes, which the MoE routing needs."""
     x, cache, _ = _block(p, x, cfg, mode=mode, kind=kind,
                          positions=positions, cache=cache, pos=pos,
                          block_tables=block_tables, ring_len=ring_len,
-                         backend=backend, tp=tp, seq=seq)
+                         backend=backend, tp=tp, seq=seq, rows=rows)
     return x, cache
 
 
 def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
            kind: str, positions, cache, pos, block_tables,
-           ring_len: Optional[int], backend: str, tp=None, seq=None):
+           ring_len: Optional[int], backend: str, tp=None, seq=None,
+           rows=None):
     """:func:`block_apply`, also returning the block's aux loss (the MoE
     load-balancing term; 0 for every other block)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -564,10 +617,11 @@ def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                                             pos, cfg, backend=backend)
         elif mode == "decode":
             a, cache = mla.mla_decode(p["attn"], h, cache, pos, cfg,
-                                      backend=backend)
+                                      backend=backend, tp=tp, seq=seq)
         else:
             a, cache = mla.mla_attention(p["attn"], h, positions, cfg,
-                                         cache=cache, backend=backend)
+                                         cache=cache, backend=backend, tp=tp,
+                                         seq=seq)
     elif mode == "verify":
         a, cache = attention.attention_verify_paged(
             p["attn"], h, cache, block_tables, pos, cfg, ring_len=ring_len,
@@ -587,7 +641,8 @@ def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     x = x + a
     h = _norm(cfg, p["mlp_norm"], x)
     if cfg.n_routed_experts:
-        m, aux = moe.moe_block(p["moe"], h, cfg, backend=backend)
+        m, aux = moe.moe_block(p["moe"], h, cfg, backend=backend, tp=tp,
+                               rows=rows)
     else:
         m = _mlp_apply(p["mlp"], h, cfg, backend, tp)
     return x + m, cache, aux
@@ -659,6 +714,7 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
             f"the paged cache and the verify window under a mesh are "
             f"{MESH_ITEM}")
     seq = _seq_shard(cache, mesh)
+    rows = _row_split(cache, mesh, cfg)
     compute_dtype = getattr(torch, cfg.dtype)
     x = _embed_tokens(params, inputs, cfg, compute_dtype, tp)
     B, S = x.shape[0], x.shape[1]
@@ -673,12 +729,37 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
         x, out_l = block_apply(p, x, cfg, mode=mode, kind=cfg.layer_kind(i),
                                positions=positions, cache=cache_l, pos=pos,
                                block_tables=block_tables, ring_len=ring_len,
-                               backend=backend, tp=tp, seq=seq)
+                               backend=backend, tp=tp, seq=seq, rows=rows)
         fresh.append(out_l)
     if logits_at is not None:
         x = x[torch.arange(B, device=x.device), logits_at][:, None]
     logits = _head(params, x, cfg, backend, tp)
     return logits, (fresh if mode == "verify" else cache)
+
+
+def _row_split(cache, mesh, cfg: ModelConfig) -> Optional[moe.RowSplit]:
+    """How a :class:`MeshCache`'s rows split over the data axes, for the
+    MoE routing (None: every rank holds every row, or no MoE). An MoE
+    model under a mesh whose data axes split the batch needs the cache
+    to say how."""
+    if mesh is None or not cfg.n_routed_experts:
+        return None
+    sizes = sharding.axis_sizes(mesh)
+    if cache is None or not hasattr(cache, "batch"):
+        if any(sizes.get(a, 1) > 1 for a in sharding.DATA_AXES):
+            raise ValueError(
+                f"{cfg.name}: routing under a mesh with data axes needs the "
+                f"rows' layout: pass a MeshCache (init_cache(..., mesh=))")
+        return None
+    entry = cache.batch
+    if entry is None:
+        return None
+    parts, index = sharding._shard_index(entry, sizes,
+                                         sharding.coordinates(mesh))
+    names = entry if isinstance(entry, tuple) else (entry,)
+    axes = tuple(ax for ax in (tensor_parallel.axis(mesh, n) for n in names)
+                 if ax is not None)
+    return moe.RowSplit(axes, parts, index)
 
 
 def _seq_shard(cache, mesh) -> Optional[attention.SeqShard]:
@@ -760,12 +841,16 @@ def forward_train(params: Params, inputs: Dict[str, torch.Tensor],
     ``"full"`` keeps only its input, ``"dots"`` also its matmul outputs
     (the reference's ``jax.checkpoint`` policies). ``mesh`` as in
     :func:`forward`: a rank's shard, tensor-parallel over ``model``.
+    Under a mesh the dense GQA family trains; every other family raises
+    naming ROADMAP.md queue 1 item 14.
     ``fsdp`` (``sharding.params_shardings(..., fsdp=True)`` of the whole
     params) runs ZeRO-3: ``params`` are shards of those specs, and each
     part (the embedding, each layer, the head) is gathered over
     ``data`` just before it runs and dropped after it; under remat the
     backward gathers a layer again."""
     _check_family(cfg)
+    if mesh is not None:
+        check_mesh_family(cfg, "a mesh", train=True)
     cfg, tp = rank_config(cfg, mesh)
     dp = tensor_parallel.axis(mesh, "data") if fsdp is not None else None
     gather = lambda name: fsdp_gathered(params.get(name), f"['{name}']",

@@ -3,16 +3,19 @@ process group, no device, meta tensors only.
 
 * The reference's two small-mesh cases (``tests/test_distributed.py``'s
   dry-run machinery tests, qwen2-moe swapped for tinyllama since MoE
-  under a mesh is refused), on a dry 2x2 mesh: FLOPs above 0, and
+  does not train under a mesh), on a dry 2x2 mesh: FLOPs above 0, and
   collective bytes above 0 for the sharded cells (the reference's own
   criterion there); the sparse decode cell notes its LSCD launches with
-  the schedule they would run.
+  the schedule they would run. MoE (expert parallelism, and tensor
+  parallelism inside each expert) and MLA (heads split and not) decode
+  cells on the same mesh.
 * ``main`` on one production cell writes its record under a temporary
   ``results`` path; its per-rank bytes are the reference's.
-* Refusals: each family outside the dense GQA one, under a mesh, names
-  ROADMAP.md queue 1 item 14 (as a dry-run record too); so does the head
-  dim fallback of the K/V layout; a train cell in ``sparse_xla`` mode
-  names queue 3 item 13.
+* Refusals: each family outside the dense (GQA or MLA) and MoE ones,
+  under a mesh, names ROADMAP.md queue 1 item 14 (as a dry-run record
+  too), and so does an MoE or MLA train cell; so does the head dim
+  fallback of the K/V layout; a train cell in ``sparse_xla`` mode names
+  queue 3 item 13.
 """
 
 import dataclasses
@@ -103,20 +106,76 @@ def test_sparse_train_cell_names_item_13():
 
 
 def _outside(arch) -> bool:
-    return not transformer.dense_gqa(configs.get(arch))
+    return not transformer.mesh_family(configs.get(arch))
 
 
-@pytest.mark.parametrize("arch", [a for a in configs.ARCH_IDS
-                                  if _outside(a)])
-def test_other_families_name_item_14(arch):
-    shape = configs.cells(arch)[0]
+def _trains_outside(arch) -> bool:
+    """A family that serves under a mesh but does not train under one."""
+    cfg = configs.get(arch)
+    return transformer.mesh_family(cfg) and not transformer.dense_gqa(cfg)
+
+
+# the families the mesh refuses, and the MoE and MLA train cells
+REFUSED = [(a, "any") for a in configs.ARCH_IDS if _outside(a)] + \
+    [(a, "train") for a in configs.ARCH_IDS if _trains_outside(a)]
+
+
+@pytest.mark.parametrize("arch,what", REFUSED, ids=[a for a, _ in REFUSED])
+def test_other_families_name_item_14(arch, what):
+    shape = [s for s in configs.cells(arch)
+             if what == "any" or s.kind == "train"][0]
     rec = dryrun.run_cell(arch, shape.name, multi_pod=False,
                           mesh=mesh_mod.make_production_mesh())
     assert rec["status"] == "error" and ITEM14 in rec["error"], rec
     mesh = mesh_mod.DryMesh((2, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match=ITEM14):
+    if what == "any":
+        with pytest.raises(NotImplementedError, match=ITEM14):
+            transformer.init_cache(configs.smoke(arch), 2, 8, device="meta",
+                                   mesh=mesh)
+    else:                       # serves under the mesh, does not train
         transformer.init_cache(configs.smoke(arch), 2, 8, device="meta",
                                mesh=mesh)
+        with pytest.raises(NotImplementedError, match=ITEM14):
+            specs.build_cell(configs.smoke(arch),
+                             ShapeConfig("t", "train", 32, 4), mesh)
+
+
+# MoE and MLA decode cells on a dry 2x2 mesh: (arch, overrides)
+FAMILY_CELLS = [("qwen3_moe_30b_a3b", {}), ("qwen2_moe_a2_7b",
+                                            {"d_shared_expert": 128}),
+                ("qwen2_moe_a2_7b", {"d_shared_expert": 128,
+                                     "n_routed_experts": 6}),
+                ("minicpm3_4b", {}), ("minicpm3_4b", {"n_heads": 6,
+                                                      "n_kv": 6})]
+
+
+@pytest.mark.parametrize("arch,over", FAMILY_CELLS,
+                         ids=["qwen3_moe", "qwen2_moe", "qwen2_moe_e6",
+                              "minicpm3", "minicpm3_six_heads"])
+def test_family_decode_cell_small_mesh(arch, over):
+    """The decode cell of an MoE or MLA smoke config on a dry 2x2 mesh:
+    FLOPs and all-reduces above 0, the batch over ``data``; MoE's 8 rows
+    a step split 4 a rank under a subgroup of 8, so the routing gathers
+    the other data rank's counts and sums each expert's block over
+    ``data``; in ``sparse_xla`` mode the LSCD launches at the rank's
+    shapes (the routed stacks stay dense, as in the reference's
+    struct)."""
+    cfg = dataclasses.replace(configs.smoke(arch), **over)
+    shape = ShapeConfig("decode_tiny", "decode", 64, 8)
+    cell, ran = _run(cfg, shape)
+    assert ran["cost"]["flops"] > 0
+    assert ran["collective_bytes_by_axis"]["all-reduce@model"] > 0
+    assert cell.args[1].batch == "data"
+    if cfg.n_routed_experts:
+        assert ran["collective_bytes_by_axis"]["all-gather@data"] > 0
+        assert ran["collective_bytes_by_axis"]["all-reduce@data"] > 0
+    else:                      # latents whole over model, batch over data
+        assert cell.args[1].seq is None
+        assert tuple(cell.args[1][0]["ckv"].shape) == (4, 64,
+                                                       cfg.kv_lora_rank)
+    _, ran = _run(cfg, shape, weight_mode="sparse_xla")
+    assert ran["lscd"] and all(r["n"] == 4 for r in ran["lscd"])
+    assert not any("batched" in r["kernel"] for r in ran["lscd"])
 
 
 def test_head_dim_fallback_names_item_14():
@@ -143,3 +202,31 @@ def test_dry_mesh_allocates_nothing():
     with torch.no_grad():
         logits, _ = cell.fn(*cell.args)
     assert logits.is_meta and logits.shape == (4, 1, 32000)
+
+
+def test_meta_batched_launch_at_a_ranks_expert_count():
+    """The meta branch of ``ops.spmm_batched`` notes an expert stack's
+    launch at the experts a rank holds: a stack of 8 cut over a model
+    axis of 4 (expert parallelism) is noted at 2, with the schedule's
+    predicted H100 time over those 2."""
+    from repro_torch.core import tiled_csl
+    from repro_torch.kernels import ops
+    from repro_torch.obs import profile as obs_profile
+    words = torch.empty((8, 6, 16, 256), dtype=torch.int32, device="meta")
+    nnz = torch.empty((8, 6, 16), dtype=torch.int32, device="meta")
+    stack = tiled_csl.TiledCSL(words=words, nnz=nnz, shape=(768, 2048),
+                               m_tb=128, k_tb=128, dtype=torch.bfloat16,
+                               stack=True)
+    mine = sharding.shard_tiled_csl(stack, ("model", None, None, None),
+                                    {"model": 4}, coords={"model": 1})
+    assert mine.experts == 2 and mine.max_nnz == 256
+    b = torch.empty((2, 2048, 8), dtype=torch.bfloat16, device="meta")
+    prof = obs_profile.KernelProfiler()
+    with obs_profile.profiled(prof):
+        out = ops.spmm_batched(mine, b)
+    assert out.is_meta and tuple(out.shape) == (2, 768, 8)
+    [row] = dryrun.launch_list(prof)
+    assert row["kernel"].endswith("batched") and row["count"] == 1
+    assert (row["m"], row["k"], row["n"]) == (768, 2048, 8)
+    assert row["predicted_s"] > 0
+    assert [r.experts for r in prof.launches.values()] == [2]

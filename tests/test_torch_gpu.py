@@ -490,6 +490,35 @@ def test_batched_equals_per_expert_kernel(cuda, n_tb):
             assert torch.equal(got[e], one), (e, split_k)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_batched_kernels_at_a_ranks_expert_count(cuda, dtype):
+    """A stack of 8 experts cut over a model axis of 4 (expert
+    parallelism: ``sharding.shard_tiled_csl``, E/4 = 2 experts a rank,
+    each keeping the stack's ``max_nnz``): each rank's batched launch at
+    decode N = 2, single pass and split-K, equals the plain version on
+    its shard and, bit for bit, the whole stack's launch on those
+    experts; f32 B (the row-parallel partial's operand under tensor
+    parallelism inside each expert) runs the first body."""
+    from repro_torch.distributed import sharding
+    t, gen = _expert_stack(cuda, 8)
+    b = (0.1 * torch.randn((8, 384, 2), generator=gen,
+                           device=cuda)).to(dtype)
+    spec = ("model", None, None, None)
+    for split_k in (1, 2):
+        whole = ops.spmm_batched(t, b, backend="cuda", n_tb=8,
+                                 split_k=split_k)
+        for r in range(4):
+            mine = sharding.shard_tiled_csl(t, spec, {"model": 4},
+                                            coords={"model": r})
+            assert mine.experts == 2 and mine.max_nnz == t.max_nnz
+            bs = b[2 * r:2 * r + 2].contiguous()
+            got = ops.spmm_batched(mine, bs, backend="cuda", n_tb=8,
+                                   split_k=split_k)
+            _assert_close(got, ref.spmm_splitk_batched_ref(
+                mine, bs, split_k, out_dtype=dtype))
+            assert torch.equal(got, whole[2 * r:2 * r + 2])
+
+
 def test_batched_refusals(cuda):
     """The grouped and single-weight entries refuse an expert stack; the
     batched ones refuse a plain weight and a B of the wrong expert
@@ -1186,6 +1215,35 @@ def test_mesh_1x2_sequence_sharded_decode_at_full_width(cuda):
         assert seq == "model"
         np.testing.assert_array_equal(logits, got[0][0])
     np.testing.assert_allclose(got[0][0], want, rtol=3e-2, atol=3e-2)
+
+
+def test_mesh_1x2_mla_decode_step_matches_unsharded_at_full_width(cuda):
+    """Two ranks sharing the card over gloo serve a 2-layer minicpm3 at
+    full width and sparsity 0.8 on a 1x2 mesh: its 40 heads split over
+    ``model``, the latents whole on each rank, ``wo`` and the MLP in
+    Tiled-CSL launched on each rank's shard (the MLP's 50-tile leaves
+    whole, as the rule leaves them): the first decode step matches the
+    unsharded model's logits within the bf16 model-logits tolerance
+    (3e-2)."""
+    import torch_mesh_worlds
+    from repro_torch.launch import mesh as mesh_mod
+    cfg = dataclasses.replace(configs.get("minicpm3_4b"), n_layers=2)
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab, (4, 16))
+    params, _ = serve.build(cfg, sparsity=0.8, device=cuda)
+    p = torch.from_numpy(prompt).long().to(cuda)
+    with torch.inference_mode():
+        last, cache = engine.prefill(params, p, cfg, 18)
+        tok = torch.argmax(last, -1)[:, None]
+        want, _ = engine.serve_step(params, cache, tok, 16, cfg)
+    want = want.float().cpu().numpy()
+    del params, cache
+    torch.cuda.empty_cache()
+    got = mesh_mod.run_world(torch_mesh_worlds.decode_step_logits, (1, 2),
+                             device="cuda",
+                             args=("minicpm3_4b", 2, 0.8, prompt, 18))
+    for g in got:
+        np.testing.assert_array_equal(g, got[0])
+    np.testing.assert_allclose(got[0], want, rtol=3e-2, atol=3e-2)
 
 
 def test_dry_run_allocates_nothing_on_the_card(cuda):

@@ -18,10 +18,11 @@ encoded whole by ``convert.rank_params_from_numpy``, then sharded):
 * ``serve.build(..., mesh=)`` equal, leaf for leaf and bit for bit, to
   the shard of the unsharded build, and the ranks' encoded non-zeros
   summing to the whole model's;
-* refusals: every family outside the dense GQA family, a config whose
-  projections do not split over the model axis, and the paged cache
-  under a mesh raise, naming ROADMAP.md queue 1 item 14 (query heads
-  that do not split run since the sequence-sharded cache:
+* refusals: every family outside the dense family (GQA or MLA) and the
+  MoE family (``tests/test_torch_mesh_moe.py``, ``_mla.py``), a config
+  whose projections do not split over the model axis, and the paged
+  cache under a mesh raise, naming ROADMAP.md queue 1 item 14 (query
+  heads that do not split run since the sequence-sharded cache:
   ``tests/test_torch_seqshard.py``).
 """
 
@@ -156,16 +157,36 @@ def test_build_under_a_mesh_is_the_shard_of_the_build(world, arch,
 
 
 def _splits_four_ways(cfg) -> bool:
-    """The dense GQA family with ``d_ff`` split four ways, and its heads
-    (each rank its own) or else its q and k/v widths (every rank all
-    heads, the projections split by element)."""
-    hd = cfg.head_dim
-    heads = cfg.n_heads % 4 == 0 and (cfg.n_kv % 4 == 0
-                                      or 4 % cfg.n_kv == 0)
-    widths = (cfg.n_heads * hd) % 4 == 0 and (cfg.n_kv * hd) % 4 == 0
-    return (cfg.family == "dense" and cfg.attn_kind == "gqa"
-            and cfg.local_window is None and cfg.d_ff % 4 == 0
-            and (heads or widths))
+    """The dense family with GQA or MLA attention, or the MoE family with
+    GQA attention (no window, M-RoPE or codebooks), whose element-split
+    widths split four ways: the dense MLP's ``d_ff``; MoE's shared
+    expert width, and ``d_expert`` where the experts do not divide 4;
+    and where the heads do not split (each rank its own), the q and k/v
+    widths (MLA: its three head widths)."""
+    plain = (cfg.local_window is None and cfg.layer_pattern is None
+             and not cfg.n_codebooks and cfg.mrope_sections is None)
+    dense = cfg.family == "dense" and not cfg.n_routed_experts
+    routed = cfg.family == "moe" and cfg.attn_kind == "gqa"
+    if not (plain and (dense or routed)):
+        return False
+    if routed:
+        widths = [cfg.d_shared_expert * cfg.n_shared_experts]
+        if cfg.n_routed_experts % 4:
+            widths.append(cfg.d_expert)
+    else:
+        widths = [cfg.d_ff]
+    h = cfg.n_heads
+    if cfg.attn_kind == "mla":
+        heads = h % 4 == 0
+        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        head_widths = [h * (dn + dr), h * (dn + dv), h * dv]
+    else:
+        hd = cfg.head_dim
+        heads = h % 4 == 0 and (cfg.n_kv % 4 == 0 or 4 % cfg.n_kv == 0)
+        head_widths = [h * hd, cfg.n_kv * hd]
+    if not heads:
+        widths += head_widths
+    return all(w % 4 == 0 for w in widths)
 
 
 def test_refusals_name_the_queue_item(world_1x4):

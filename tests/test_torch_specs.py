@@ -12,12 +12,15 @@ dry meshes, with no device.
 * ``cache_shardings`` equals the reference's spec per leaf for every
   config, smoke and full, on meshes (2, 2), (1, 4), (4, 2), (16, 16) and
   (2, 16, 16), ``seq_shard`` on and off.
-* Per-rank argument bytes of every dense-family cell (``build_cell`` on a
-  dry mesh) equal the reference's by-hand count (``shard_shape`` bytes
-  over ``cell.args``) by group and in total, on 16x16 and 2x16x16, both
-  weight modes; and, on a 2x2 mesh of four forced host devices made with
-  Auto axes, the compiled reference's ``argument_size_in_bytes`` for smoke
-  tinyllama's dense cells (the by-hand count for the sparse ones).
+* Per-rank argument bytes of every cell that runs under a mesh
+  (``build_cell`` on a dry mesh: every dense GQA cell, the MoE and MLA
+  prefill and decode cells) equal the reference's by-hand count
+  (``shard_shape`` bytes over ``cell.args``) by group and in total, on
+  16x16 and 2x16x16, both weight modes; and, on a 2x2 mesh of four
+  forced host devices made with Auto axes, the compiled reference's
+  ``argument_size_in_bytes`` for smoke tinyllama's dense cells and a
+  smoke qwen3-moe and minicpm3 decode cell (the by-hand count for the
+  sparse ones).
 """
 
 import ast
@@ -56,6 +59,10 @@ MESHES = {"2x2": ((2, 2), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 DENSE_ARCHS = [a for a in configs.ARCH_IDS
                if transformer.dense_gqa(configs.get(a))]
+# the families whose prefill and decode cells run under a mesh (MoE and
+# MLA besides the dense GQA family, whose train cells run too)
+MESH_ARCHS = [a for a in configs.ARCH_IDS
+              if transformer.mesh_family(configs.get(a))]
 # The reference's per-rank argument bytes of its 16x16 cells (by hand,
 # ``NamedSharding.shard_shape``), which the port's dry run must give.
 TABLE_16x16 = {
@@ -74,6 +81,18 @@ TABLE_16x16 = {
     ("deepseek_coder_33b", "prefill_32k", "sparse_xla"): 31_080_493_312,
     ("deepseek_coder_33b", "decode_32k", "dense"): 8_330_303_524,
     ("deepseek_coder_33b", "decode_32k", "sparse_xla"): 35_240_980_772,
+    ("qwen2_moe_a2_7b", "prefill_32k", "dense"): 1_795_446_784,
+    ("qwen2_moe_a2_7b", "prefill_32k", "sparse_xla"): 2_696_573_120,
+    ("qwen2_moe_a2_7b", "decode_32k", "dense"): 5_016_410_148,
+    ("qwen2_moe_a2_7b", "decode_32k", "sparse_xla"): 5_917_536_484,
+    ("qwen3_moe_30b_a3b", "prefill_32k", "dense"): 3_817_148_416,
+    ("qwen3_moe_30b_a3b", "prefill_32k", "sparse_xla"): 4_098_394_304,
+    ("qwen3_moe_30b_a3b", "decode_32k", "dense"): 5_427_499_044,
+    ("qwen3_moe_30b_a3b", "decode_32k", "sparse_xla"): 5_708_744_932,
+    ("minicpm3_4b", "prefill_32k", "dense"): 1_324_401_664,
+    ("minicpm3_4b", "prefill_32k", "sparse_xla"): 4_211_195_744,
+    ("minicpm3_4b", "decode_32k", "dense"): 10_685_826_084,
+    ("minicpm3_4b", "decode_32k", "sparse_xla"): 13_572_620_164,
 }
 
 
@@ -250,11 +269,13 @@ def _ref_arg_bytes(arch, shape, mesh, weight_mode):
 
 
 @pytest.mark.parametrize("mesh_name", ("16x16", "2x16x16"))
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", MESH_ARCHS)
 def test_per_rank_argument_bytes_match_reference(arch, mesh_name):
+    trains = arch in DENSE_ARCHS
     for shape in configs.cells(arch):
         for mode in specs.WEIGHT_MODES:
-            if shape.kind == "train" and mode == "sparse_xla":
+            if shape.kind == "train" and (mode == "sparse_xla"
+                                          or not trains):
                 continue
             cell = specs.build_cell(configs.get(arch), shape,
                                     _dry(mesh_name), weight_mode=mode)
@@ -267,7 +288,7 @@ def test_per_rank_argument_bytes_match_reference(arch, mesh_name):
 
 
 def test_the_16x16_table_is_covered():
-    assert {a for a, _, _ in TABLE_16x16} <= set(DENSE_ARCHS)
+    assert {a for a, _, _ in TABLE_16x16} <= set(MESH_ARCHS)
 
 
 _COMPILED = textwrap.dedent("""
@@ -282,8 +303,8 @@ _COMPILED = textwrap.dedent("""
                          axis_types=(AxisType.Auto,) * 2)
     import dataclasses
     out = {}
-    for name, kind, seq, batch, n_kv in json.loads(sys.argv[1]):
-        cfg = dataclasses.replace(configs.smoke("tinyllama_1_1b"), n_kv=n_kv)
+    for name, kind, seq, batch, arch, over in json.loads(sys.argv[1]):
+        cfg = dataclasses.replace(configs.smoke(arch), **over)
         shape = ShapeConfig(name, kind, seq, batch)
         for mode in ("dense", "sparse_xla"):
             if kind == "train" and mode == "sparse_xla":
@@ -308,9 +329,16 @@ _COMPILED = textwrap.dedent("""
 
 # smoke tinyllama, its one KV head made two for the batch-1 decode: one
 # KV head over model 2 with the sequence over data splits the head dim,
-# which the port refuses (queue 1 item 14).
-SMALL = [("train", "train", 32, 4, 1), ("prefill", "prefill", 32, 4, 1),
-         ("decode", "decode", 64, 4, 1), ("decode1", "decode", 64, 1, 2)]
+# which the port refuses (queue 1 item 14); an MoE and an MLA decode
+# cell (smoke qwen3-moe, whose 8 experts split over model; smoke
+# minicpm3, its latents whole over model).
+TINY = "tinyllama_1_1b"
+SMALL = [("train", "train", 32, 4, TINY, {"n_kv": 1}),
+         ("prefill", "prefill", 32, 4, TINY, {"n_kv": 1}),
+         ("decode", "decode", 64, 4, TINY, {"n_kv": 1}),
+         ("decode1", "decode", 64, 1, TINY, {"n_kv": 2}),
+         ("moe_decode", "decode", 64, 4, "qwen3_moe_30b_a3b", {}),
+         ("mla_decode", "decode", 64, 4, "minicpm3_4b", {})]
 
 
 def test_argument_bytes_match_the_compiled_reference():
@@ -321,8 +349,8 @@ def test_argument_bytes_match_the_compiled_reference():
                          text=True, env=env, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     want = json.loads(res.stdout.strip().splitlines()[-1])
-    for name, kind, seq, batch, n_kv in SMALL:
-        cfg = dataclasses.replace(configs.smoke("tinyllama_1_1b"), n_kv=n_kv)
+    for name, kind, seq, batch, arch, over in SMALL:
+        cfg = dataclasses.replace(configs.smoke(arch), **over)
         shape = ShapeConfig(name, kind, seq, batch)
         for mode in specs.WEIGHT_MODES:
             if kind == "train" and mode == "sparse_xla":

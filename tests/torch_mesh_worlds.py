@@ -97,11 +97,15 @@ def serve_cases(mesh, cases, prompt: np.ndarray, max_new: int) -> dict:
     return out
 
 
-def build_shards(mesh, arch: str) -> dict:
+def build_shards(mesh, arch: str, over=None) -> dict:
     """``serve.build`` under the mesh against the shard of the unsharded
     build, leaf by leaf; the non-zeros of this rank's model-split
-    Tiled-CSL leaves, of those it holds whole, and of the whole build."""
-    cfg = wide(configs.smoke(arch), arch, "bfloat16")
+    Tiled-CSL leaves, of those it holds whole, and of the whole build.
+    The widened smoke config of ``arch``, or with ``over`` the smoke
+    config with those overrides."""
+    cfg = (wide(configs.smoke(arch), arch, "bfloat16") if over is None
+           else dataclasses.replace(configs.smoke(arch), dtype="bfloat16",
+                                    **dict(over)))
     mine, _ = serve.build(cfg, sparsity=0.8, device="cpu", mesh=mesh)
     whole, report = serve.build(cfg, sparsity=0.8, device="cpu")
     want = sharding.shard_params(whole, mesh)
@@ -417,3 +421,135 @@ def seq_world(mesh, serve, train, ckpt_root=None, restore_root=None,
                                                 f"{restore_root}/{arch}")
                            for arch in ("opt_30b", "tinyllama_1_1b")}
     return out
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA under a mesh (tests/test_torch_mesh_moe.py, _mla.py)
+# ---------------------------------------------------------------------------
+
+STACKS = ("['gate']", "['up']", "['down']")
+
+
+def family_sparsify(name: str) -> bool:
+    """The serving build's weights (``SPARSE``' names ending in ``['w']``)
+    and MoE's routed stacks (bare ``moe['gate']``, ``['up']``,
+    ``['down']`` leaves)."""
+    return should_sparsify(name) or (
+        "['moe']" in name and name.endswith(STACKS))
+
+
+# every MLA factor as well (the reference's default_should_sparsify)
+FACTORS = ("'w_dq'", "'w_uq'", "'w_dkv'", "'w_ukv'")
+
+
+def family_sparsify_all(name: str) -> bool:
+    """:func:`family_sparsify` and MLA's latent factors."""
+    return family_sparsify(name) or (name.endswith("['w']") and any(
+        k in name for k in FACTORS))
+
+
+# overrides that are not config fields: ``one`` serves the first prompt
+# alone with the sequence over ``data`` (``seq_shard``), ``factors``
+# encodes MLA's latent factors too
+CASE_FLAGS = ("one", "factors")
+
+
+def family_config(case):
+    """The port config of a family case ``(key, arch, dtype, sparsity,
+    overrides, ...)``."""
+    _, arch, dtype, _, over = case[:5]
+    over = {k: v for k, v in over if k not in CASE_FLAGS}
+    return dataclasses.replace(configs.smoke(arch), dtype=dtype, **over)
+
+
+class _RouteTap:
+    """While entered, records each MoE block's routing on this rank:
+    (the experts each token picked, ``[G, sg, E]`` 0/1, and their
+    capacity positions, -1 where not picked)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.orig = self.moe._positions
+
+        def tapped(oh_e, *args):
+            pos = self.orig(oh_e, *args)
+            self.calls.append((oh_e.numpy().astype(np.int8), pos.numpy()))
+            return pos
+        self.moe._positions = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._positions = self.orig
+
+
+def cache_blocks(cache, mesh, batch: int) -> dict:
+    """This rank's cache blocks (f32 numpy, per layer, each layer's
+    leaves in name order: K/V, or MLA's ``ckv``/``krope``) and where they
+    sit in the whole leaves: (row, position, head) offsets (the head
+    offset 0 for latents, whole over ``model``)."""
+    rows = transformer.cache_rows(cache, mesh, batch)
+    first = cache[0][sorted(cache[0])[0]]
+    at = [rows.start, 0, 0]
+    if cache.seq is not None:
+        at[1] = mesh.get_local_rank(cache.seq) * first.shape[1]
+    if first.dim() == 4 and cache.seq != "model" and \
+            "model" in mesh.mesh_dim_names:
+        at[2] = mesh.get_local_rank("model") * first.shape[2]
+    return dict(at=tuple(at), kv=[tuple(_np(c[n]) for n in sorted(c))
+                                  for c in cache])
+
+
+def family_cases(mesh, cases, prompt: np.ndarray, max_len: int,
+                 max_new: int, step_pos: np.ndarray) -> dict:
+    """Per case ``(key, arch, dtype, sparsity, overrides, numpy params,
+    first tokens)``: this rank's prefill logits and routes; one decode
+    step at per-slot positions ``step_pos`` teacher-forced with the
+    reference's first tokens, its logits and routes; the cache's blocks
+    after each (``cache_blocks``); ``engine.generate``'s greedy stream
+    and the logits of each step along it; the cache's layout."""
+    out = {}
+    for case in cases:
+        key, _, _, sparsity, over, np_params, first_tok = case
+        flags = {k: v for k, v in over if k in CASE_FLAGS}
+        cfg = family_config(case)
+        local = convert.rank_params_from_numpy(
+            np_params, mesh, device="cpu", sparsity=sparsity,
+            should_sparsify=family_sparsify_all if flags.get("factors")
+            else family_sparsify)
+        one = bool(flags.get("one"))
+        p = torch.from_numpy(prompt[:1] if one else prompt).long()
+        pos = torch.from_numpy(step_pos[:1] if one else step_pos)
+        kw = dict(mesh=mesh, seq_shard=one)
+        with torch.inference_mode(), _RouteTap() as tap:
+            first, cache = engine.prefill(local, p, cfg, max_len, **kw)
+            kv_pre = cache_blocks(cache, mesh, p.shape[0])
+            pre_routes = list(tap.calls)
+            tap.calls.clear()
+            tok = torch.from_numpy(first_tok).long()[:, None]
+            step, _ = engine.serve_step(local, cache, tok, pos, cfg,
+                                        mesh=mesh)
+            step_routes = list(tap.calls)
+            kv_step = cache_blocks(cache, mesh, p.shape[0])
+            with _Tap(engine) as logit_tap:
+                toks = engine.generate(local, p, cfg, max_new_tokens=max_new,
+                                       max_len=max_len, **kw)
+        out[key] = dict(prefill=_np(first), step=_np(step),
+                        tokens=toks.numpy(), steps=logit_tap.logits,
+                        seq=cache.seq, batch=cache.batch, kv_pre=kv_pre,
+                        kv_step=kv_step,
+                        rows=(lambda r: (r.start, r.stop))(
+                            transformer.cache_rows(cache, mesh, p.shape[0])),
+                        routes=dict(prefill=pre_routes, step=step_routes))
+    return out
+
+
+def family_world(mesh, serve_args, builds=()) -> dict:
+    """A world of the MoE/MLA mesh tests: ``family_cases(*serve_args)``
+    and ``build_shards`` of each ``(arch, overrides)`` in ``builds``."""
+    return dict(coords=sharding.coordinates(mesh),
+                serve=family_cases(mesh, *serve_args),
+                build={f"{a}-{dict(o)}": build_shards(mesh, a, o)
+                       for a, o in builds})
