@@ -229,25 +229,35 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    LSCD kernels launched on every rank, each rank's launch
    configurations held against the plain versions, per-rank bytes,
    peaks, prefill and decode times and a profiled sharded decode step.
-   The same four ranks then serve the families: qwen3-moe-30b-a3b (48
-   layers, expert parallelism, 32 experts a rank) and minicpm3_4b (62
-   layers, MLA, 10 heads a rank, the latents whole), each built at full
-   depth with the ranks in turn and their first 4 layers served the
-   same way against the unsharded models (run in this process before
-   the world: built whole, non-zeros, first step, streams, each MoE
-   call's routes): the ranks' non-zeros, each leaf the rules leave whole
-   counted once, the whole build's; first-step logits within
-   ``LOGITS_TOL`` with qwen3-moe's routes pinned to the unsharded run's
-   (``RouteTrace``), its first flip before the pin at a router near tie;
-   streams equal or parted at a near tie of the logits or after a route
-   flip at a router near tie; the decode pair (and, for MoE, a batched
-   kernel) launched on every rank; every launch configuration against
-   its plain version; and the dry run of each rank's decode cell
-   against what ran: every leaf's per-rank elements and the LSCD launch
-   list, but for the struct's known differences from the build
-   (lm_head, the norm scales, MoE's routed stacks, MLA's latent
+   The same four ranks then serve the families: qwen3-moe-30b-a3b (16
+   of its 48 layers, expert parallelism, 32 experts a rank),
+   minicpm3_4b (62 layers, MLA, 10 heads a rank, the latents whole),
+   recurrentgemma-9b (38 layers, RG-LRU and MLP widths split, the window
+   ring's slots over model), mamba2-130m (24 layers, ``in_proj`` split
+   and gathered whole, the scan whole on every rank), qwen2-vl-2b (28
+   layers, M-RoPE with distinct t/h/w ids) and musicgen-large (48
+   layers, a codebook a rank of the head), each built with the ranks in
+   turn and their first 4 layers served the same way against the
+   unsharded models (run in this process before the world: built whole,
+   non-zeros, first step, streams, each MoE call's routes): the ranks'
+   non-zeros, each leaf the rules leave whole counted once, the whole
+   build's; each rank's every leaf the slice of the whole build (by
+   digest); first-step logits within ``LOGITS_TOL`` with qwen3-moe's
+   routes pinned to the unsharded run's (``RouteTrace``), its first
+   flip before the pin at a router near tie; recurrentgemma's and
+   mamba2's first step, and recurrentgemma's one 2100-token request
+   whose ring wraps, with f32 activations free-running through every
+   layer within ``MESH_F32_TOL`` (their bf16 figure printed); streams
+   equal or parted at a near tie of the logits or after a route flip at
+   a router near tie; the decode pair (and, for MoE, a batched kernel)
+   launched on every rank; every launch configuration against its plain
+   version; and, for qwen3-moe and minicpm3, the dry run of each rank's
+   decode cell against what ran: every leaf's per-rank elements and the
+   LSCD launch list, but for the struct's known differences from the
+   build (lm_head, the norm scales, MoE's routed stacks, MLA's latent
    factors), each held to be exactly that.
-   (b) tinyllama-1.1b at its published widths and depth on a 2x2 mesh,
+   (b) tinyllama-1.1b at its published widths, its first 4 layers
+   (``MESH_TRAIN_LAYERS``, ``launch.train --layers``), on a 2x2 mesh,
    0.8 masks, global batch 4 x 512: the unsharded step 1 in this process,
    then four ranks (the launcher's ``setup`` under the mesh): the
    compressed all-reduce of each step-1 gradient leaf over ``data``
@@ -260,10 +270,10 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
 16. cells phase: the dry run (``launch.dryrun``) of every arch x cell
    on the 16x16 and 2x16x16 meshes in both weight modes, in worker
    processes that see no card, run beside the kernels' build and ended
-   before the first timed phase: every dense GQA cell and every MoE
-   and MLA prefill and decode cell ok, every train x sparse_xla cell an
-   error naming ROADMAP.md queue 3 item 13, every other cell an error
-   naming queue 1 item 14; the dry run of this phase's cells leaves the card's allocated
+   before the first timed phase: every dense GQA cell and every
+   family's prefill, decode and long_500k cell ok, every train x
+   sparse_xla cell an error naming ROADMAP.md queue 3 item 13, every
+   other train cell an error naming queue 1 item 14; the dry run of this phase's cells leaves the card's allocated
    memory as it was. Then tinyllama-1.1b at 0.8 on 2x2, four ranks
    sharing the card over gloo: decode with the sequence over ``model``
    (8 prompts of 1000-3000 tokens, max_len 4096, 32 greedy steps) and at
@@ -4805,10 +4815,13 @@ def profile_steps(torch, engine, params, cfg, prompts, steps: int = 4):
 
 MESH_DEVICE = "cuda"
 MESH_SERVE_ARCH, MESH_SERVE_SHAPE = "opt_30b", (1, 4)
-# OPT-30B is built at 24 of its 48 layers: at 48, with the families
+# OPT-30B is built at 8 of its 48 layers: at 48, with the families
 # part beside it, the whole script ran 1195 s of its 1200 s limit on the
-# card (NVIDIA H100 80GB HBM3, 700 W); the serving comparison is at 4.
-MESH_BUILD_LAYERS = 24
+# card (NVIDIA H100 80GB HBM3, 700 W), and at 24, with the SSM, hybrid,
+# vlm and audio families added to that part, 1135 s against the 1100 s
+# it is held to (the 24-layer build and its unsharded twin took 19 s);
+# the serving comparison is at 4.
+MESH_BUILD_LAYERS = 8
 # The serving comparison runs at 4 layers of the 48 built: at 24 layers
 # with the K/V sequence over model a sharded decode step took 1.5 s a
 # rank (gloo between four processes that share the card), and the whole
@@ -4822,6 +4835,13 @@ MESH_REQUESTS, MESH_PROMPT, MESH_NEW = 8, 128, 32
 # model (``sharding.cache_shardings``), in all three.
 MESH_MAX_LEN = MESH_PROMPT + MESH_NEW
 MESH_TRAIN_ARCH, MESH_TRAIN_SHAPE = "tinyllama_1_1b", (2, 2)
+# The mesh phase's training (and the cells phase's ZeRO-3 step, held
+# against its step 1) takes tinyllama's first 4 layers at its published
+# widths (``launch.train --layers``): at all 22, the whole script ran
+# about 1212 s against its 1200 s limit on a slow host (NVIDIA H100 80GB
+# HBM3, 700 W), of which the 2x2 training world took 205.4 s, 110.3 s of
+# it saving the 13.2e9 B state and restoring it onto 1x4 and one rank.
+MESH_TRAIN_LAYERS = 4
 # 4 x 512 for both sides: at 8 x 512 the unsharded step alone peaked at
 # 54.43e9 B (NVIDIA H100 80GB HBM3, 700 W), and four ranks' shares of it
 # beside each other would not fit the card.
@@ -4842,9 +4862,18 @@ FP_PRIMES = (2 ** 31 - 1, 2 ** 31 - 19)
 FP_CHUNK = 1 << 26
 
 
+def _row_margins(logits):
+    """Each row's top-2 margin of ``[B, vocab]`` logits; of ``[B, n_cb,
+    vocab]`` (codebooks) the smallest of its codebooks'."""
+    top = logits.float().topk(2, dim=-1).values
+    m = top[..., 0] - top[..., 1]
+    return m.min(dim=-1).values if m.dim() > 1 else m
+
+
 class _MarginTap:
     """While entered, records the top-2 margin of every row of each
-    logits tensor ``engine.generate`` samples from (one a step)."""
+    logits tensor ``engine.generate`` samples from (one a step;
+    ``_row_margins``)."""
 
     def __init__(self, engine):
         self.engine, self.margins = engine, []
@@ -4853,8 +4882,7 @@ class _MarginTap:
         self.orig = self.engine.sample_per_slot
 
         def tapped(logits, *args, **kw):
-            top = logits.float().topk(2, dim=-1).values
-            self.margins.append((top[..., 0] - top[..., 1]).cpu())
+            self.margins.append(_row_margins(logits).cpu())
             return self.orig(logits, *args, **kw)
         self.engine.sample_per_slot = tapped
         return self
@@ -4887,21 +4915,25 @@ def _check_mesh_layout(cache, mesh) -> None:
               f"over model")
 
 
-def _first_step(torch, engine, params, cfg, prompts, tok=None, mesh=None):
+def _first_step(torch, engine, params, cfg, prompts, tok=None, mesh=None,
+                max_len=None, layout=True, **inputs):
     """(first tokens, the first decode step's f32 logits on the host, the
-    prefill's top-2 margins) at ``MESH_MAX_LEN``: ``tok`` teacher-forces
-    the first tokens."""
-    S = prompts.shape[1]
+    prefill's top-2 margins) at ``max_len`` (default ``MESH_MAX_LEN``):
+    ``tok`` teacher-forces the first tokens; ``inputs`` (M-RoPE
+    ``positions``) go to the prefill; ``layout`` checks the OPT-30B
+    serving layout."""
+    S = prompts.shape[-1]
     with torch.inference_mode():
-        last, cache = engine.prefill(params, prompts, cfg, MESH_MAX_LEN,
-                                     mesh=mesh)
-        _check_mesh_layout(cache, mesh)
-        top = last.float().topk(2, dim=-1).values
+        last, cache = engine.prefill(params, prompts, cfg,
+                                     max_len or MESH_MAX_LEN, mesh=mesh,
+                                     **inputs)
+        if layout:
+            _check_mesh_layout(cache, mesh)
         own = torch.argmax(last, dim=-1)
         tok = own if tok is None else tok.to(own.device)
-        step, _ = engine.serve_step(params, cache, tok[:, None], S, cfg,
+        step, _ = engine.serve_step(params, cache, tok[..., None], S, cfg,
                                     mesh=mesh)
-    return own.cpu(), step.float().cpu(), (top[:, 0] - top[:, 1]).cpu()
+    return own.cpu(), step.float().cpu(), _row_margins(last).cpu()
 
 
 def _mesh_serve_config(mods):
@@ -5135,7 +5167,8 @@ def _mesh_serving(torch, mods, card: str, family_refs) -> tuple:
 
 def _mesh_train_args(mods):
     return mods["train"].parse_args(
-        ["--arch", MESH_TRAIN_ARCH, "--steps", str(MESH_TRAIN_SAVE_AT + 1),
+        ["--arch", MESH_TRAIN_ARCH, "--layers", str(MESH_TRAIN_LAYERS),
+         "--steps", str(MESH_TRAIN_SAVE_AT + 1),
          "--batch", str(MESH_TRAIN_BATCH), "--seq", str(MESH_TRAIN_SEQ),
          "--sparsity", str(SPARSITY), "--seed", str(SEED)])
 
@@ -5447,8 +5480,9 @@ def _mesh_training(torch, mods, card: str) -> dict:
     try:
         ref = _mesh_train_reference(torch, mods, os.path.join(
             work, "step1_params.pt"))
-        print(f"mesh: unsharded {MESH_TRAIN_ARCH} step 1 (batch "
-              f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}, 0.8 masks): loss "
+        print(f"mesh: unsharded {MESH_TRAIN_ARCH} step 1 ("
+              f"{MESH_TRAIN_LAYERS} layers, batch {MESH_TRAIN_BATCH} x "
+              f"{MESH_TRAIN_SEQ}, 0.8 masks): loss "
               f"{ref['loss']:.6f}, grad norm {ref['grad_norm']:.6f}, "
               f"{ref['step_s'] * 1e3:.1f} ms, peak allocated "
               f"{ref['peak_allocated']} B; {card}", flush=True)
@@ -5533,8 +5567,9 @@ def _mesh_training(torch, mods, card: str) -> dict:
                leaves_checked=int(r0["live"].shape[0]),
                peak_allocated=[r["peak_allocated"] for r in ranks],
                setup_s=[r["setup_s"] for r in ranks])
-    print(f"mesh: {MESH_TRAIN_ARCH} on {MESH_TRAIN_SHAPE[0]}x"
-          f"{MESH_TRAIN_SHAPE[1]} (global batch {MESH_TRAIN_BATCH} x "
+    print(f"mesh: {MESH_TRAIN_ARCH} at {MESH_TRAIN_LAYERS} layers on "
+          f"{MESH_TRAIN_SHAPE[0]}x{MESH_TRAIN_SHAPE[1]} (global batch "
+          f"{MESH_TRAIN_BATCH} x "
           f"{MESH_TRAIN_SEQ}): step 1 loss {s1['loss']:.6f} "
           f"({out['step1_loss_rel']:.2e} relative to unsharded), grad norm "
           f"({out['step1_grad_norm_rel']:.2e}), params within "
@@ -5559,12 +5594,36 @@ def _mesh_training(torch, mods, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the mesh phase's families: qwen3-moe-30b-a3b with expert parallelism and
-# minicpm3_4b with MLA over four ranks that share the card
+# the mesh phase's families over four ranks that share the card:
+# qwen3-moe-30b-a3b with expert parallelism, minicpm3_4b with MLA,
+# recurrentgemma-9b (RG-LRU and the window ring over the ranks),
+# mamba2-130m (SSD), qwen2-vl-2b (M-RoPE) and musicgen-large (codebooks)
 # ---------------------------------------------------------------------------
 
-MESH_FAMILIES = ("qwen3_moe_30b_a3b", "minicpm3_4b")
+MESH_FAMILIES = ("qwen3_moe_30b_a3b", "minicpm3_4b", "recurrentgemma_9b",
+                 "mamba2_130m", "qwen2_vl_2b", "musicgen_large")
+# Every family's ranks are held against the unsharded build, leaf by leaf
+# (``_leaf_digests``: each rank's leaf is the slice of the whole build).
+# These families' ranks are also held against the dry run of their cell
+# (``_family_known``, ``_family_launches``): the per-rank bytes and the
+# decode step's launch list that ``specs.build_cell`` predicts, a check of
+# the dry run that the digests cannot make. The other families' dry-run
+# bytes are held against the reference's in tests/test_torch_specs.py.
+MESH_DRY_FAMILIES = ("qwen3_moe_30b_a3b", "minicpm3_4b")
 MESH_FAMILY_DEPTH = 4
+# Families built below full depth (the rest at full depth): qwen3-moe at
+# 16 of its 48 layers, since with the four families of the SSM, hybrid,
+# vlm and audio added the script ran 1135 s against the 1100 s it is held
+# to, and its 48-layer builds, four in turn and the unsharded one, took
+# 35.6 s of it (NVIDIA H100 80GB HBM3, 700 W); it serves 4 either way.
+MESH_FAMILY_BUILD_LAYERS = {"qwen3_moe_30b_a3b": 16}
+# qwen2-vl's prompt: an 8 x 8 patch grid at t = 0 with its rows and
+# columns as h and w ids, then text at 8 on (all three ids)
+MESH_VLM_GRID = 8
+# recurrentgemma's one request past its 2048-position window: the ring,
+# its slots over model, wraps at the prefill and goes on wrapping
+MESH_RING_PROMPT = 2100
+MESH_RING_MAX_LEN = MESH_RING_PROMPT + MESH_NEW
 # what ``specs``' struct and ``serve.build`` hold apart besides lm_head and
 # the norm scales, for these families (reference-side: ROADMAP.md queue 3
 # items 4 and 5): the struct keeps MoE's routed stacks dense and encodes
@@ -5572,6 +5631,7 @@ MESH_FAMILY_DEPTH = 4
 # the factors dense (``w_ukv`` in f32)
 ROUTED = re.compile(r"\['moe'\]\['(gate|up|down)'\]$")
 FACTOR = re.compile(r"\['attn'\]\['(w_dq|w_uq|w_dkv|w_ukv)'\]\['w'\]$")
+DIGEST_CHUNK = 1 << 26
 
 
 def _route_trace(torch, mods, cfg, pin=None, keep=True):
@@ -5582,25 +5642,128 @@ def _route_trace(torch, mods, cfg, pin=None, keep=True):
     return RouteTrace(torch, mods["moe"], cfg.top_k, pin=pin, keep=keep)
 
 
+def _family_config(mods, arch: str):
+    """The family's config as the part builds it
+    (``MESH_FAMILY_BUILD_LAYERS``)."""
+    cfg = mods["configs"].get(arch)
+    depth = MESH_FAMILY_BUILD_LAYERS.get(arch)
+    return cfg if depth is None else dataclasses.replace(cfg,
+                                                         n_layers=depth)
+
+
+def _family_inputs(torch, cfg, prompts) -> dict:
+    """The prefill's extra inputs of a family's prompts: for M-RoPE, [3,
+    B, S] positions (``MESH_VLM_GRID``'s patch grid, then text), else
+    none."""
+    if cfg.mrope_sections is None:
+        return {}
+    B, S = prompts.shape
+    G = MESH_VLM_GRID * MESH_VLM_GRID
+    dev = prompts.device
+    r = torch.arange(G, device=dev) // MESH_VLM_GRID
+    c = torch.arange(G, device=dev) % MESH_VLM_GRID
+    text = MESH_VLM_GRID + torch.arange(S - G, device=dev)
+    thw = torch.stack([torch.cat([torch.zeros_like(r), text]),
+                       torch.cat([r, text]), torch.cat([c, text])])
+    return {"positions": thw[:, None].expand(3, B, S).contiguous()}
+
+
+def _recurrent(cfg) -> bool:
+    """A stack with RG-LRU or SSM layers: its sharded first step is gated
+    in f32 activations (``MESH_F32_TOL``, ``_f32_step``), its bf16
+    figure printed."""
+    return any(cfg.layer_kind(i) in ("rglru", "ssm")
+               for i in range(cfg.n_layers))
+
+
+# The recurrent stacks' sharded first step, free-running through every
+# layer, is gated in f32 activations at the f32 tolerance of the CPU mesh
+# tests (tests/test_torch_mesh.py). In bf16 a recurrent layer carries
+# each rounding difference on through its state: at 4 layers
+# recurrentgemma's bf16 logits moved by 4.688e-02 between the sharded and
+# the unsharded run, where the unsharded bf16 run is itself 8.517e-02 off
+# the f32 one, and the f32 runs agreed to 4.431e-04 (NVIDIA H100 80GB
+# HBM3, 700 W). The bf16 figure is printed beside the gate.
+MESH_F32_TOL = 1e-3
+
+
+def _f32_step(torch, mods, params, cfg, prompts, max_len, tok=None,
+              mesh=None):
+    """The first decode step with f32 activations (the bf16 build's
+    weights; each kernel takes f32 B), free-running through every layer:
+    (the prefill's first tokens, the step's logits), numpy; ``tok``
+    (numpy) teacher-forces the first tokens."""
+    own, step, _ = _first_step(
+        torch, mods["engine"], params,
+        dataclasses.replace(cfg, dtype="float32"), prompts,
+        None if tok is None else torch.from_numpy(tok), mesh, max_len,
+        layout=False)
+    return own.numpy(), step.numpy()
+
+
+def _ring_prompt(mods, cfg, dev):
+    """The one ``MESH_RING_PROMPT``-token request past the window."""
+    return mods["serve"].make_prompts(cfg, 1, MESH_RING_PROMPT, SEED + 17,
+                                      dev)
+
+
+def _leaf_digests(torch, sharding, tree, mesh=None, coords=None) -> dict:
+    """{path: (shape, dtype, digest)} of every leaf (Tiled-CSL words and
+    counters too): the sum of its bits times a hash of their positions,
+    mod 2**64 (an integer sum, so in any order the same); with ``mesh``
+    (``{axis: size}``) and ``coords``, of the block of the leaf that the
+    sharding rules give that rank."""
+    out = {}
+    views = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    for path, t in sharding.leaves_with_paths(tree):
+        if mesh is not None:
+            t = sharding.shard_leaf(t, sharding.spec_for(
+                path, tuple(t.shape), mesh), mesh, coords=coords)
+        flat = t.detach().contiguous().reshape(-1)
+        if flat.dtype == torch.bool:
+            flat = flat.to(torch.uint8)
+        bits = flat.view(views[flat.element_size()])
+        acc = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for lo in range(0, flat.numel(), DIGEST_CHUNK):
+            i = torch.arange(lo, min(lo + DIGEST_CHUNK, flat.numel()),
+                             device=flat.device, dtype=torch.int64)
+            w = i * 0x5851F42D4C957F2D + 0x14057B7EF767814F
+            acc = acc + (bits[lo:lo + DIGEST_CHUNK].to(torch.int64)
+                         * w).sum()
+        out[path] = (tuple(t.shape), str(t.dtype), int(acc))
+    return out
+
+
 def _family_reference(torch, mods, arch: str) -> dict:
     """The unsharded side of one family, in this process: the model built
-    whole at full depth (its non-zeros and bytes), then at
-    ``MESH_FAMILY_DEPTH`` layers the first decode step and ``generate``'s
-    greedy streams with each step's top-2 margins, and, for MoE, every
-    MoE call's routes and margins (the first step's with their logits,
-    the ranks' pin)."""
+    whole (at full depth but for ``MESH_FAMILY_BUILD_LAYERS``; its
+    non-zeros and bytes; the digests of each model rank's block of every
+    leaf), then at ``MESH_FAMILY_DEPTH`` layers the first decode step
+    (a recurrent stack's also in f32, ``_f32_step``) and ``generate``'s
+    greedy streams with each step's top-2 margins, for MoE every MoE
+    call's routes and margins (the first step's with their logits, the
+    ranks' pin), and for the window ring the same of one
+    ``MESH_RING_PROMPT``-token request."""
     serve, engine = mods["serve"], mods["engine"]
-    cfg = mods["configs"].get(arch)
+    cfg = _family_config(mods, arch)
     release(torch)
     params, built = serve.build(cfg, seed=SEED, sparsity=SPARSITY,
                                 device=MESH_DEVICE)
+    m = MESH_SERVE_SHAPE
+    digests = [_leaf_digests(torch, mods["sharding"], params,
+                             {"data": m[0], "model": m[1]},
+                             {"data": 0, "model": r}) for r in range(m[1])]
     prompts = serve.make_prompts(cfg, MESH_REQUESTS, MESH_PROMPT, SEED + 13,
                                  MESH_DEVICE)
     p = dict(params, layers=params["layers"][:MESH_FAMILY_DEPTH])
     c = dataclasses.replace(cfg, n_layers=MESH_FAMILY_DEPTH)
+    inputs = _family_inputs(torch, cfg, prompts)
     with _route_trace(torch, mods, c) as tap:
-        tok, step, first_margins = _first_step(torch, engine, p, c, prompts)
+        tok, step, first_margins = _first_step(torch, engine, p, c, prompts,
+                                               **inputs)
     pin = tap.calls if tap is not None else None
+    f32 = (_f32_step(torch, mods, p, c, prompts, MESH_MAX_LEN)
+           if _recurrent(c) else None)
     times = {}
     with _MarginTap(engine) as mt, _route_trace(torch, mods, c,
                                                keep=False) as gen_tap:
@@ -5610,14 +5773,52 @@ def _family_reference(torch, mods, arch: str) -> dict:
                build_s=built["build_s"], prompts=prompts.cpu().numpy(),
                tok=tok.numpy(), step=step.numpy(),
                first_margins=first_margins.numpy(), pin=pin,
-               streams=streams[:, MESH_PROMPT:].cpu().numpy(),
+               streams=streams[..., MESH_PROMPT:].cpu().numpy(),
                margins=torch.stack(mt.margins).numpy(),
                routes=gen_tap.calls if gen_tap is not None else None,
                prefill_ms=times["prefill_s"] * 1e3,
-               decode_ms_per_step=times["decode_s"] / (MESH_NEW - 1) * 1e3)
+               decode_ms_per_step=times["decode_s"] / (MESH_NEW - 1) * 1e3,
+               digests=digests, ring=None, f32=f32)
+    if cfg.local_window is not None:
+        out["ring"] = _ring_request(torch, mods, p, c)
+        out["ring"]["f32"] = _f32_step(
+            torch, mods, p, c, _ring_prompt(mods, c, MESH_DEVICE),
+            MESH_RING_MAX_LEN)
     del params, p, prompts
     release(torch)
     return out
+
+
+def _ring_request(torch, mods, params, cfg, mesh=None, tok=None) -> dict:
+    """One ``MESH_RING_PROMPT``-token request past the window: its first
+    decode step (``tok`` teacher-forcing the first token) and its greedy
+    stream of ``MESH_NEW`` with each step's margins, at
+    ``MESH_RING_MAX_LEN``; under ``mesh`` the ring's slots lie over
+    model."""
+    engine = mods["engine"]
+    dev = mods["mesh"].rank_device(mesh) if mesh is not None else MESH_DEVICE
+    prompt = _ring_prompt(mods, cfg, dev)
+    with torch.inference_mode():
+        last, cache = engine.prefill(params, prompt, cfg, MESH_RING_MAX_LEN,
+                                     mesh=mesh)
+        ring = cache[2]["k"].shape[1]       # layer 2: the first attention
+        if mesh is not None:
+            check(cache.seq == "model" and ring * MESH_SERVE_SHAPE[1]
+                  == cfg.local_window, f"mesh: {cfg.name}'s ring lies by "
+                  f"{cache.seq!r}, {ring} slots a rank")
+        own = torch.argmax(last, dim=-1)
+        first = own if tok is None else torch.from_numpy(tok).to(dev)
+        step, _ = engine.serve_step(params, cache, first[:, None],
+                                    MESH_RING_PROMPT, cfg, mesh=mesh)
+        del cache
+        with _MarginTap(engine) as mt:
+            stream = engine.generate(params, prompt, cfg,
+                                     max_new_tokens=MESH_NEW,
+                                     max_len=MESH_RING_MAX_LEN, mesh=mesh)
+    return dict(tok=own.cpu().numpy(), step=step.float().cpu().numpy(),
+                first_margins=_row_margins(last).cpu().numpy(),
+                streams=stream[:, MESH_RING_PROMPT:].cpu().numpy(),
+                margins=torch.stack(mt.margins).numpy(), ring_slots=ring)
 
 
 def _dry_family_cell(torch, mods, cfg, rank: int) -> dict:
@@ -5639,15 +5840,18 @@ def _dry_family_cell(torch, mods, cfg, rank: int) -> dict:
 
 def mesh_family_rank(mesh, refs: dict, mods) -> dict:
     """One rank's families part, in the serving world (1x4): per family,
-    the model built
-    at full depth with this rank's shard (``serve.build(mesh=)``, layer
-    by layer, the ranks in turn), then at ``MESH_FAMILY_DEPTH`` layers
-    the first decode step teacher-forced with the unsharded first tokens
-    (MoE: routes pinned to the unsharded run's) under the kernel
-    profiler, ``engine.generate``'s greedy streams with its LSCD launches
-    counted from 0 (MoE: each call's routes), every launch configuration
-    held against its plain version, and the dry run of this rank's cell
-    with what ran beside it."""
+    the model built (``_family_config``) with this rank's shard
+    (``serve.build(mesh=)``, layer by layer, the ranks in turn) and the
+    digests of its leaves, then at ``MESH_FAMILY_DEPTH`` layers the
+    first decode step teacher-forced with the unsharded first tokens
+    (MoE: routes pinned to the unsharded run's; M-RoPE: the prompt's
+    t/h/w positions) under the kernel profiler, ``engine.generate``'s
+    greedy streams with its LSCD launches counted from 0 (MoE: each
+    call's routes), for the window ring the ``MESH_RING_PROMPT``-token
+    request, every launch configuration held against its plain version,
+    a recurrent stack's first step in f32 (``_f32_step``; its ring
+    request's too), and (``MESH_DRY_FAMILIES``) the dry run of this
+    rank's cell with what ran beside it."""
     import torch
     import torch.distributed as dist
     serve, engine, spmm = mods["serve"], mods["engine"], mods["spmm"]
@@ -5658,29 +5862,32 @@ def mesh_family_rank(mesh, refs: dict, mods) -> dict:
     out = dict(rank=rank)
     for arch in MESH_FAMILIES:
         ref = refs[arch]
-        cfg = mods["configs"].get(arch)
+        cfg = _family_config(mods, arch)
         c = dataclasses.replace(cfg, n_layers=MESH_FAMILY_DEPTH)
         torch.cuda.reset_peak_memory_stats()
+        t_arch = time.perf_counter()
         params, built = _in_turn(torch, lambda: serve.build(
             cfg, seed=SEED, sparsity=SPARSITY, device=dev, mesh=mesh))
         r = dict(nnz=built["nnz"], nnz_replicated=built["nnz_replicated"],
                  build_s=built["build_s"],
                  weight_bytes=built["weight_bytes"],
                  sparse_bytes=built["sparse_bytes"],
-                 build_peak_allocated=built["max_memory_allocated"])
+                 build_peak_allocated=built["max_memory_allocated"],
+                 digests=_leaf_digests(torch, sharding, params))
         p = dict(params, layers=params["layers"][:MESH_FAMILY_DEPTH])
         del params
         prompts = torch.from_numpy(ref["prompts"]).to(dev)
+        inputs = _family_inputs(torch, cfg, prompts)
         probe = LaunchProbe(spmm)
         prof = mods["obs_profile"].KernelProfiler()
         with probe, torch.inference_mode():
             probe.phase = "serve"           # the first step and generate
             with _route_trace(torch, mods, c, pin=ref["pin"]) as tap:
                 last, cache = engine.prefill(p, prompts, c, MESH_MAX_LEN,
-                                             mesh=mesh)
+                                             mesh=mesh, **inputs)
                 _check_mesh_layout_of(cache, c)
                 r["cache_bytes"] = _leaf_bytes(sharding, list(cache))
-                tok = torch.from_numpy(ref["tok"]).to(dev)[:, None]
+                tok = torch.from_numpy(ref["tok"]).to(dev)[..., None]
                 with mods["obs_profile"].profiled(prof):
                     step, _ = engine.serve_step(p, cache, tok, MESH_PROMPT,
                                                 c, mesh=mesh)
@@ -5700,18 +5907,32 @@ def mesh_family_rank(mesh, refs: dict, mods) -> dict:
                                           max_len=MESH_MAX_LEN, mesh=mesh,
                                           timings=times)
             r.update(launches=spmm.launch_counts(),
-                     streams=streams[:, MESH_PROMPT:].cpu().numpy(),
+                     streams=streams[..., MESH_PROMPT:].cpu().numpy(),
                      routes=gen_tap.calls if gen_tap is not None else None,
                      prefill_ms=times["prefill_s"] * 1e3,
                      decode_ms_per_step=times["decode_s"] / (MESH_NEW - 1)
                      * 1e3)
+            if ref["ring"] is not None:
+                probe.phase = "ring"
+                r["ring"] = _ring_request(torch, mods, p, c, mesh,
+                                          ref["ring"]["tok"])
+        # the f32 gate's runs, whose f32 launches serve nothing
+        if ref["f32"] is not None:
+            r["f32"] = _f32_step(torch, mods, p, c, prompts, MESH_MAX_LEN,
+                                 ref["f32"][0], mesh)
+        if ref["ring"] is not None:
+            r["ring"]["f32"] = _f32_step(
+                torch, mods, p, c, _ring_prompt(mods, c, dev),
+                MESH_RING_MAX_LEN, ref["ring"]["f32"][0], mesh)
         r["peak_allocated"] = torch.cuda.max_memory_allocated()
         r["param_bytes"] = _leaf_bytes(sharding, p)
         r["checked"] = len(_check_served_launches(
             torch, mods, probe.seen, c, label=f"mesh: {arch} rank {rank}"))
-        r["dry"] = _dry_family_cell(torch, mods, c, rank)
+        r["dry"] = (_dry_family_cell(torch, mods, c, rank)
+                    if arch in MESH_DRY_FAMILIES else None)
         del p, probe, prompts, streams, last, step
         release(torch)
+        r["arch_s"] = time.perf_counter() - t_arch
         out[arch] = r
     dist.barrier()
     out["families_s"] = time.perf_counter() - t0
@@ -5719,9 +5940,11 @@ def mesh_family_rank(mesh, refs: dict, mods) -> dict:
 
 
 def _check_mesh_layout_of(cache, cfg) -> None:
-    """The families' serving caches: MoE's K/V the sequence over model
-    (``MESH_MAX_LEN`` divides it), MLA's latents whole over model."""
-    want = None if cfg.attn_kind == "mla" else "model"
+    """The families' serving caches: the K/V sequence (a ring's slots)
+    over model (``MESH_MAX_LEN`` divides it), MLA's latents whole over
+    model, the SSM's states whole over model (no positions)."""
+    want = None if cfg.attn_kind == "mla" or cfg.family == "ssm" \
+        else "model"
     check(getattr(cache, "seq", None) == want, f"mesh: {cfg.name}'s cache "
           f"lies by {getattr(cache, 'seq', None)!r}, not {want!r}")
 
@@ -5741,16 +5964,17 @@ def _first_route_flip(got_calls, want_calls):
 def _family_streams(label, got, want, layers: int) -> dict:
     """Each rank-0 stream against the unsharded one: a row that parts
     must part at a near tie of the unsharded logits (top-2 margin below
-    ``NEAR_TIE``), or, for MoE, after a route flipped at a router near
-    tie (the first differing route at or before that step, both top-k
-    margins below ``NEAR_TIE``)."""
+    ``NEAR_TIE``; of codebooks, the smallest), or, for MoE, after a route
+    flipped at a router near tie (the first differing route at or before
+    that step, both top-k margins below ``NEAR_TIE``)."""
     import numpy as np
     flip = None
-    if want["routes"] is not None:
+    if want.get("routes") is not None:
         flip = _first_route_flip(got["routes"], want["routes"])
     cut = []
-    for row in range(MESH_REQUESTS):
-        diff = np.nonzero(got["streams"][row] != want["streams"][row])[0]
+    for row in range(len(want["streams"])):
+        a, b = got["streams"][row], want["streams"][row]
+        diff = np.nonzero((a != b).reshape(-1, a.shape[-1]).any(axis=0))[0]
         if not len(diff):
             continue
         i = int(diff[0])
@@ -5852,6 +6076,65 @@ def _family_launches(label, r: dict, cfg) -> dict:
                 factors=unran)
 
 
+def _f32_gate(torch, label: str, got: list, want: dict, what: str) -> dict:
+    """A recurrent stack's sharded first step against the unsharded one,
+    both with f32 activations and free-running: every rank's logits the
+    same, rank 0's within ``MESH_F32_TOL``; the bf16 step's difference
+    (``step``) beside it, printed."""
+    import numpy as np
+    for g in got[1:]:
+        check(np.array_equal(g["f32"][1], got[0]["f32"][1]),
+              f"{label}: the ranks' f32 first-step logits differ")
+    err = close(torch, torch.from_numpy(got[0]["f32"][1]),
+                torch.from_numpy(want["f32"][1]),
+                dict(rtol=MESH_F32_TOL, atol=MESH_F32_TOL),
+                f"{label}: first decode-step logits {what} vs unsharded, f32 "
+                f"activations, free-running through every layer")
+    return dict(max_abs_err=err, tol=MESH_F32_TOL,
+                bf16=_tol_share(got[0]["step"], want["step"], LOGITS_TOL))
+
+
+def _gate_text(gate: dict) -> str:
+    """How a first-step figure was gated, for the summary lines."""
+    if gate.get("bf16") is None:
+        return f"(tolerance {LOGITS_TOL} + {LOGITS_TOL} relative"
+    b = gate["bf16"]
+    return (f"with f32 activations, free-running through every layer "
+            f"(tolerance {MESH_F32_TOL} + {MESH_F32_TOL} relative; bf16 "
+            f"free-running {b['max_abs_err']:.3e}, {b['share']:.3f} of "
+            f"{LOGITS_TOL} + {LOGITS_TOL} relative, printed")
+
+
+def _ring_gates(torch, label, got: list, want: dict) -> dict:
+    """The ranks' ring request against the unsharded ring: every rank's
+    stream and first-step logits the same, those logits within
+    ``MESH_F32_TOL`` in f32 (``_f32_gate``), its first token and stream
+    equal but at a near tie."""
+    import numpy as np
+    for g in got[1:]:
+        check(np.array_equal(g["streams"], got[0]["streams"])
+              and np.array_equal(g["step"], got[0]["step"]),
+              f"{label} ring: the ranks differ")
+    gate = _f32_gate(torch, f"{label} ring", got, want, "past the window")
+    ties = [(int(i), float(want["first_margins"][i]))
+            for i in np.nonzero(got[0]["tok"] != want["tok"])[0]]
+    check(all(m < NEAR_TIE for _, m in ties), f"{label} ring: first token "
+          f"differs from the unsharded ring at {ties}")
+    streams = _family_streams(f"{label} ring", got[0], want,
+                              MESH_FAMILY_DEPTH)
+    return dict(gate, first_token_ties=ties, cut=streams["cut"],
+                ring_slots=got[0]["ring_slots"])
+
+
+def _tol_share(got, want, tol: float) -> dict:
+    """The max abs difference of two logits arrays and its largest share
+    of ``tol + tol * |want|``."""
+    import numpy as np
+    d = np.abs(got - want)
+    return dict(max_abs_err=float(d.max()),
+                share=float((d / (tol + tol * np.abs(want))).max()))
+
+
 def _family_references(torch, mods, card: str) -> tuple:
     """The families' unsharded runs, in this process, before the serving
     world starts: (refs by arch, seconds)."""
@@ -5859,7 +6142,8 @@ def _family_references(torch, mods, card: str) -> tuple:
     refs = {}
     for arch in MESH_FAMILIES:
         refs[arch] = w = _family_reference(torch, mods, arch)
-        print(f"mesh: unsharded {arch} built at full depth in "
+        print(f"mesh: unsharded {arch} built at "
+              f"{_family_config(mods, arch).n_layers} layers in "
               f"{w['build_s']:.1f} s, {w['weight_bytes']} B, {w['nnz']} "
               f"non-zeros; at {MESH_FAMILY_DEPTH} layers prefill "
               f"{w['prefill_ms']:.1f} ms, decode "
@@ -5870,14 +6154,17 @@ def _family_references(torch, mods, card: str) -> tuple:
 def _mesh_families(torch, mods, card: str, refs: dict, refs_s: float,
                    ranks: list) -> dict:
     """The gates of qwen3-moe-30b-a3b (expert parallelism, 32 experts a
-    rank) and minicpm3_4b (MLA, 10 heads a rank) on
-    ``MESH_SERVE_SHAPE``: the ranks' families results against the
-    unsharded runs."""
+    rank), minicpm3_4b (MLA, 10 heads a rank), recurrentgemma-9b (RG-LRU
+    widths and MLP over the ranks, its ring's slots over model),
+    mamba2-130m (SSD, ``in_proj`` 838 rows a rank), qwen2-vl-2b (3 query
+    heads a rank, M-RoPE) and musicgen-large (a codebook a rank of the
+    head) on ``MESH_SERVE_SHAPE``: the ranks' families results against
+    the unsharded runs."""
     import numpy as np
     out = dict(card=card, world_s=ranks[0]["families_s"], families={})
     launches = dict.fromkeys(mods["spmm"].KERNELS, 0)
     for arch in MESH_FAMILIES:
-        cfg = mods["configs"].get(arch)
+        cfg = _family_config(mods, arch)
         c = dataclasses.replace(cfg, n_layers=MESH_FAMILY_DEPTH)
         w = refs[arch]
         got = [r[arch] for r in ranks]
@@ -5891,12 +6178,18 @@ def _mesh_families(torch, mods, card: str, refs: dict, refs_s: float,
                   f"{label}: the ranks' streams differ")
             check(np.array_equal(g["step"], got[0]["step"]),
                   f"{label}: the ranks' first-step logits differ")
-        err = close(torch, torch.from_numpy(got[0]["step"]),
-                    torch.from_numpy(w["step"]),
-                    dict(rtol=LOGITS_TOL, atol=LOGITS_TOL),
-                    f"{label}: first decode-step logits at "
-                    f"{MESH_FAMILY_DEPTH} layers vs unsharded"
-                    + (" (routes pinned)" if cfg.n_routed_experts else ""))
+        if w["f32"] is not None:
+            gate = _f32_gate(torch, label, got, w,
+                             f"at {MESH_FAMILY_DEPTH} layers")
+        else:
+            gate = dict(tol=LOGITS_TOL, bf16=None, max_abs_err=close(
+                torch, torch.from_numpy(got[0]["step"]),
+                torch.from_numpy(w["step"]),
+                dict(rtol=LOGITS_TOL, atol=LOGITS_TOL),
+                f"{label}: first decode-step logits at {MESH_FAMILY_DEPTH} "
+                f"layers vs unsharded"
+                + (" (routes pinned)" if cfg.n_routed_experts else "")))
+        err = gate["max_abs_err"]
         ties = [(int(i), float(w["first_margins"][i]))
                 for i in np.nonzero(got[0]["tok"] != w["tok"])[0]]
         check(all(m < NEAR_TIE for _, m in ties), f"{label}: first tokens "
@@ -5908,23 +6201,36 @@ def _mesh_families(torch, mods, card: str, refs: dict, refs_s: float,
                   f"{label}: the first step's first route flip before the "
                   f"pin, {pre_flip}, is not at a router near tie")
         streams = _family_streams(label, got[0], w, MESH_FAMILY_DEPTH)
-        held, known = 0, set()
+        held, digested, known = 0, 0, set()
         lists = []
         for rank, g in enumerate(got):
-            # the decode pair serves every family's decode step (N = 8);
-            # which kernels a prefill takes is select's pick at its N
+            # the decode pair serves every family's decode step (N = 8)
+            # but the SSM's, which encodes no weight; which kernels a
+            # prefill takes is select's pick at its N
             missing = [k for k in ("lscd_spmm_splitk",
                                    "lscd_spmm_splitk_grouped")
-                       if not g["launches"][k]]
+                       if not g["launches"][k] and cfg.family != "ssm"]
             if cfg.n_routed_experts and not any(
                     g["launches"][k] for k in mods["spmm"].BATCHED_KERNELS):
                 missing.append("an expert-batched kernel")
             check(not missing, f"{label}: rank {rank} never launched "
                   f"{missing}")
+            mine, whole = g["digests"], w["digests"][rank]
+            bad = sorted(q for q in set(mine) | set(whole)
+                         if mine.get(q) != whole.get(q))
+            check(not bad, f"{label}: rank {rank}'s leaves are not the "
+                  f"slices of the unsharded build: {bad[:8]}")
+            digested += len(mine)
+            if arch not in MESH_DRY_FAMILIES:
+                continue
             n, k = _family_known(f"{label} rank {rank}", g, c)
             held += n
             known |= k
             lists.append(_family_launches(f"{label} rank {rank}", g, c))
+        ring = None
+        if w["ring"] is not None:
+            ring = _ring_gates(torch, label, [g["ring"] for g in got],
+                               w["ring"])
         for k in launches:
             launches[k] += sum(g["launches"][k] for g in got)
         out["families"][arch] = dict(
@@ -5933,7 +6239,8 @@ def _mesh_families(torch, mods, card: str, refs: dict, refs_s: float,
             unsharded_weight_bytes=w["weight_bytes"],
             build_s=[g["build_s"] for g in got],
             peak_allocated=[g["peak_allocated"] for g in got],
-            max_abs_err=err, tol=LOGITS_TOL, first_token_ties=ties,
+            max_abs_err=err, tol=gate["tol"], first_token_ties=ties,
+            bf16_free_running=gate["bf16"],
             pinned=got[0]["pinned"], pre_pin_flip=pre_flip, **streams,
             prefill_ms=[g["prefill_ms"] for g in got],
             decode_ms_per_step=[g["decode_ms_per_step"] for g in got],
@@ -5941,8 +6248,15 @@ def _mesh_families(torch, mods, card: str, refs: dict, refs_s: float,
             unsharded_decode_ms_per_step=w["decode_ms_per_step"],
             launches=[g["launches"] for g in got],
             checked=[g["checked"] for g in got], leaves_held=held,
-            known_differences=sorted(known), launch_list=lists[0],
-            dry_arg_bytes=got[0]["dry"]["arg_bytes"])
+            leaves_digested=digested,
+            known_differences=sorted(known),
+            launch_list=lists[0] if lists else None,
+            dry_arg_bytes=got[0]["dry"]["arg_bytes"] if got[0]["dry"]
+            else None, ring=ring, arch_s=[g["arch_s"] for g in got],
+            param_bytes=[sum(e * b for e, b in g["param_bytes"].values())
+                         for g in got],
+            cache_bytes=[sum(e * b for e, b in g["cache_bytes"].values())
+                         for g in got])
         f = out["families"][arch]
         print(f"mesh: {arch} on {MESH_SERVE_SHAPE[0]}x"
               f"{MESH_SERVE_SHAPE[1]}: built at {cfg.n_layers} layers, "
@@ -5951,7 +6265,7 @@ def _mesh_families(torch, mods, card: str, refs: dict, refs_s: float,
               f"{json.dumps([round(s, 1) for s in f['build_s']])}, "
               f"non-zeros {nnz} = unsharded; at {MESH_FAMILY_DEPTH} layers "
               f"first decode-step logits vs unsharded max abs err {err:.3e} "
-              f"(tolerance {LOGITS_TOL} + {LOGITS_TOL} relative"
+              + _gate_text(gate)
               + (f"; {f['pinned']} token routes pinned, first flip before "
                  f"the pin {pre_flip}" if cfg.n_routed_experts else "")
               + f"); {MESH_REQUESTS - len(f['cut'])} of {MESH_REQUESTS} "
@@ -5963,8 +6277,26 @@ def _mesh_families(torch, mods, card: str, refs: dict, refs_s: float,
               f"{w['prefill_ms']:.1f} ms, {w['decode_ms_per_step']:.3f} "
               f"ms/step); LSCD launches by rank "
               f"{json.dumps(f['launches'])}; {sum(f['checked'])} launch "
-              f"configurations held against their plain versions; {card}",
+              f"configurations held against their plain versions; peak "
+              f"allocated a rank {json.dumps(f['peak_allocated'])} B; the "
+              f"arch's part of the world {f['arch_s'][0]:.1f} s; {card}",
               flush=True)
+        if ring is not None:
+            print(f"mesh: {arch}: one {MESH_RING_PROMPT}-token request past "
+                  f"the {cfg.local_window}-position window, the ring's "
+                  f"{ring['ring_slots']} slots a rank over model: first "
+                  f"decode-step logits vs the unsharded ring max abs err "
+                  f"{ring['max_abs_err']:.3e} {_gate_text(ring)}); stream "
+                  f"of {MESH_NEW} "
+                  f"{'equal' if not ring['cut'] else 'parted at a near tie ' + json.dumps(ring['cut'])}"
+                  f"; {card}", flush=True)
+        print(f"mesh: {arch}: each rank's {digested // len(got)} leaves "
+              f"are the slices of the unsharded build, digest for digest; "
+              f"per-rank param bytes {json.dumps(f['param_bytes'])} at "
+              f"{MESH_FAMILY_DEPTH} layers, cache bytes "
+              f"{json.dumps(f['cache_bytes'])}", flush=True)
+        if arch not in MESH_DRY_FAMILIES:
+            continue
         print(f"mesh: {arch}: the dry run of each rank's cell against what "
               f"ran: {held} leaves' per-rank elements and bytes equal; the "
               f"decode step's LSCD launch list equal "
@@ -6097,8 +6429,7 @@ def finish_sweep(mods, sweep) -> dict:
         acfg = configs.get(arch)
         train = shape.startswith("train")
         sparse_train = train and mode == "sparse_xla"
-        runs = transformer.dense_gqa(acfg) if train else \
-            transformer.mesh_family(acfg)
+        runs = not train or transformer.dense_gqa(acfg)
         label = f"cells: dry run {arch}/{shape}/{rec['mesh']}/{mode}"
         if runs and not sparse_train:
             check(rec["status"] == "ok", f"{label}: {rec.get('error')}")
@@ -6114,6 +6445,7 @@ def finish_sweep(mods, sweep) -> dict:
             check(rec["status"] == "error" and item in rec.get("error", ""),
                   f"{label}: {rec['status']} {rec.get('error', '')!r}, not "
                   f"{item}")
+            counts[item] = counts.get(item, 0) + 1
     return dict(counts=counts, table=table, cell_seconds=cell_s,
                 wall_s=wall_s, workers=sweep["workers"])
 
@@ -6135,7 +6467,9 @@ def _dry_cells(torch, mods, rank: int = 0) -> dict:
                                   MESH_TRAIN_BATCH), "dense")):
         mesh = mods["mesh"].DryMesh(CELLS_SHAPE, ("data", "model"),
                                     rank=rank)
-        cell = specs.build_cell(cfg, shape, mesh, weight_mode=mode)
+        c = cfg if name != "train" else dataclasses.replace(
+            cfg, n_layers=MESH_TRAIN_LAYERS)
+        cell = specs.build_cell(c, shape, mesh, weight_mode=mode)
         ran = dryrun.execute(cell, mesh, train=shape.kind == "train")
         trees = dict(params=cell.args[0].params if name == "train"
                      else cell.args[0])
@@ -6260,7 +6594,7 @@ def _fsdp_run(torch, mods, dev, mesh) -> dict:
     train, sharding, opt_mod = mods["train"], mods["sharding"], mods[
         "optimizer"]
     args = _mesh_train_args(mods)
-    cfg = mods["configs"].get(args.arch)
+    cfg = train.run_config(args)
     opt = opt_mod.AdamW(lr=opt_mod.cosine_schedule(args.lr, args.warmup,
                                                    args.steps))
     params = mods["transformer"].init_model(cfg, seed=args.seed, device=dev)
@@ -6454,11 +6788,14 @@ def cells_phase(torch, mods) -> dict:
     print(f"cells: {card}", flush=True)
     spmm, sharding, budget = mods["spmm"], mods["sharding"], mods["budget"]
     sweep = mods.pop("sweep")
-    print(f"cells: the sweep's {sum(sweep['counts'].values())} cells (run "
-          f"with the build): {json.dumps(sweep['counts'])} (the dense GQA "
-          f"family's, and MoE's and MLA's prefill and decode, ok; train x "
-          f"sparse_xla {SPARSE_TRAIN_ITEM}, the rest {MESH_ITEM})",
-          flush=True)
+    n = sweep["counts"]
+    print(f"cells: the sweep's {n['ok'] + n['error']} cells (run with the "
+          f"build): {n['ok']} built and {n['error']} errors, "
+          f"{n.get(SPARSE_TRAIN_ITEM, 0)} naming {SPARSE_TRAIN_ITEM} (train "
+          f"x sparse_xla) and {n.get(MESH_ITEM, 0)} naming {MESH_ITEM} (the "
+          f"dense train cells of every family but dense GQA); every "
+          f"family's prefill, decode and long_500k cells and the dense GQA "
+          f"train cells ok", flush=True)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     dry = _dry_cells(torch, mods)
@@ -6602,8 +6939,9 @@ def cells_phase(torch, mods) -> dict:
                           ratio_min=float(nnz.min() / analytic),
                           ratio_max=float(nnz.max() / analytic),
                           leaves=int(nnz.size))
-    print(f"cells: FSDP (ZeRO-3) step of {CELLS_ARCH} on 2x2 (batch "
-          f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}, f32, 0.8 masks): loss "
+    print(f"cells: FSDP (ZeRO-3) step of {CELLS_ARCH} at "
+          f"{MESH_TRAIN_LAYERS} layers on 2x2 (batch {MESH_TRAIN_BATCH} x "
+          f"{MESH_TRAIN_SEQ}, f32, 0.8 masks): loss "
           f"{t0['loss']:.6f} ({out['train']['loss_rel']:.2e} relative to the "
           f"mesh phase's unsharded step 1), grad norm "
           f"({out['train']['grad_norm_rel']:.2e}), params within "
@@ -6612,7 +6950,8 @@ def cells_phase(torch, mods) -> dict:
           f"{json.dumps([round(s * 1e3, 1) for s in out['train']['step_s']])}"
           f"; per rank {json.dumps(per_rank)} B (params, AdamW moments, "
           f"peak allocated) beside the tensor-parallel-only step's "
-          f"{TP_ONLY_PEAK} B peak (PR 23); the dry run's per-leaf bytes "
+          f"{TP_ONLY_PEAK} B peak at 22 layers (PERF.md); the dry run's "
+          f"per-leaf bytes "
           f"equal on every rank; {card}", flush=True)
     print(f"cells: built max_nnz / analytic ({analytic}): mean "
           f"{out['max_nnz']['ratio_mean']:.4f}, min "

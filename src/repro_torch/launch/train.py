@@ -4,7 +4,9 @@
         --arch tinyllama_1_1b --smoke --steps 200 --batch 8 --seq 128 \\
         --ckpt-dir /tmp/ckpt --resume
 
-The flags are those of ``repro.launch.train``. Atomic asynchronous
+The flags are those of ``repro.launch.train``, with ``--layers N``
+besides: the arch's first N layers at its published widths, a run at cut
+depth. Atomic asynchronous
 checkpoints every ``--ckpt-every`` steps (``distributed.fault_tolerance``);
 SIGTERM writes a final checkpoint at the step reached and exits;
 ``--resume`` restores params, optimizer state, step and the data
@@ -34,6 +36,7 @@ another device; the tests call ``main([...], device="cpu")``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -73,7 +76,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help='"DxM": D data-parallel by M tensor-parallel ranks')
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train the arch's first N layers only")
     args = ap.parse_args(argv)
+    if args.layers is not None and args.layers < 1:
+        ap.error(f"--layers {args.layers}: at least one layer")
     if args.mesh:
         try:
             mesh_mod.parse_mesh(args.mesh)
@@ -143,6 +150,15 @@ def mask_counts(masks: Any) -> Dict[str, int]:
     return {path: int(m.sum()) for path, m in ft.flatten_with_paths(masks)}
 
 
+def run_config(args: argparse.Namespace):
+    """The arch's config (``--smoke``: the reduced one), cut to its first
+    ``--layers`` layers."""
+    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    if args.layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=args.layers)
+
+
 def setup(args: argparse.Namespace, device: DeviceLike = None,
           mesh=None) -> dict:
     """The run's objects: config, optimizer, state (masked), masks, data
@@ -150,7 +166,7 @@ def setup(args: argparse.Namespace, device: DeviceLike = None,
     ``--resume``). Under ``mesh`` the state and masks are this rank's
     shards, and ``shardings`` the whole params' specs."""
     dev = resolve_device(device)
-    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    cfg = run_config(args)
     opt = opt_mod.AdamW(lr=opt_mod.cosine_schedule(args.lr, args.warmup,
                                                    args.steps))
     if mesh is None:
@@ -158,7 +174,7 @@ def setup(args: argparse.Namespace, device: DeviceLike = None,
                                             device=dev)
         params = state.params
     else:                   # the whole draw, then this rank's shard
-        transformer.check_mesh_family(cfg, "a mesh", train=True)
+        transformer.check_mesh_train(cfg)
         params = transformer.init_model(cfg, seed=args.seed, device=dev)
     masks = None
     if args.sparsity:
@@ -211,8 +227,9 @@ def main(argv: Optional[Sequence[str]] = None, *,
         return train(args, device)
     d, m = mesh_mod.parse_mesh(args.mesh)
     dev = resolve_device(device)
-    transformer.check_tensor_parallel(
-        configs.smoke(args.arch) if args.smoke else configs.get(args.arch), m)
+    cfg = run_config(args)
+    transformer.check_mesh_train(cfg)
+    transformer.check_tensor_parallel(cfg, m)
     if dist.is_initialized():                   # a rank of a running world
         if dist.get_world_size() != d * m:
             raise ValueError(f"--mesh {args.mesh} in a world of "

@@ -28,12 +28,17 @@ over all heads. A dense cache may hold a block of the positions
 (``seq``, a :class:`SeqShard`; ``distributed.sharding.cache_shardings``
 lays it out): over ``model`` every rank holds its block of every KV
 head, and decode gathers the fresh token's whole q, k and v; over
-``data`` (batch 1) the KV heads stay split over ``model``. Decode
-writes the fresh K/V on the rank whose block holds ``pos`` (an owner
-mask on the device, so no host read), each rank attends over its block,
-and the partial softmaxes combine over the axis
-(``tensor_parallel.attend_combine``). Prefill attends as without a
-sequence split and each rank writes its block of the prompt's K/V.
+``data`` (batch 1) the KV heads stay split over ``model``, or, where
+they do not split, the head dim does (as it does where neither the
+positions nor the KV heads split). Decode writes the fresh K/V on the
+rank whose block holds ``pos`` (a ring: the slot ``pos % T``; an owner
+mask on the device, so no host read), each rank scores its block (a
+split head dim's partial q.k summed over ``model`` in f32 before the
+softmax), the partial softmaxes combine over the axis
+(``tensor_parallel.attend_combine``), and a split head dim's weighted
+sums are gathered whole before ``wo``. Prefill attends as without a
+sequence split and each rank writes its block of the prompt's K/V (a
+ring's trailing window, slot by slot).
 """
 
 from __future__ import annotations
@@ -52,18 +57,22 @@ NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
 
 
 class SeqShard(NamedTuple):
-    """The axis a dense cache's positions split over, and whether it is
-    ``model`` (every KV head in a rank's block) or ``data``."""
-    axis: tensor_parallel.Axis
+    """How a dense cache splits: the axis its positions split over (None:
+    whole), whether that is ``model`` (every KV head in a rank's block)
+    or ``data``, and the axis its head dim splits over (``model``, where
+    neither the positions nor the KV heads split it; None otherwise)."""
+    axis: Optional[tensor_parallel.Axis]
     over_model: bool
+    head_dim: Optional[tensor_parallel.Axis] = None
 
 
 def _all_heads(tp, seq: Optional[SeqShard], decode: bool) -> bool:
     """True iff the ranks compute every head (q, k, v gathered whole):
     heads that do not split, or a decode step over a cache whose
-    positions split over ``model``."""
+    positions or head dim split over ``model``."""
     return tp is not None and (not tp.split_heads or (
-        decode and seq is not None and seq.over_model))
+        decode and seq is not None and (
+            seq.over_model or seq.head_dim is not None)))
 
 
 def whole_heads(cfg: ModelConfig, tp) -> ModelConfig:
@@ -247,12 +256,17 @@ def _out_proj(params, o, cfg: ModelConfig, backend: str, tp=None,
                                 declared_out=cfg.d_model, backend=backend)
 
 
-def _gqa_scores(q, k):
-    """q: [B,S,H,D], k: [B,T,KV,D] -> f32 scores [B,KV,G,S,T]."""
+def _gqa_dots(q, k):
+    """q: [B,S,H,D], k: [B,T,KV,D] -> f32 q.k [B,KV,G,S,T], unscaled."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     q = q.reshape(B, S, KV, H // KV, D)
-    return nn.einsum_f32acc("bskgd,btkd->bkgst", q, k) * (D ** -0.5)
+    return nn.einsum_f32acc("bskgd,btkd->bkgst", q, k)
+
+
+def _gqa_scores(q, k):
+    """q: [B,S,H,D], k: [B,T,KV,D] -> f32 scores [B,KV,G,S,T]."""
+    return _gqa_dots(q, k) * (q.shape[-1] ** -0.5)
 
 
 def _gqa_out(weights, v):
@@ -320,13 +334,10 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     o = torch.cat(outs, dim=1).to(x.dtype)
     y = _out_proj(params, o, cfg, backend, tp, whole)
     if cache is not None and seq is not None:
-        if seq.over_model and not whole:
+        if (seq.over_model or seq.head_dim is not None) and not whole:
             k, v = _kv_heads_whole(k, tp), _kv_heads_whole(v, tp)
-        blk = cache["k"].shape[1]
-        lo = seq.axis.rank * blk
-        n = max(0, min(blk, S - lo))
-        cache["k"][:, :n] = k[:, lo:lo + n].to(cache["k"].dtype)
-        cache["v"][:, :n] = v[:, lo:lo + n].to(cache["v"].dtype)
+        k, v = _head_dim_share(k, seq), _head_dim_share(v, seq)
+        _write_prompt_block(cache, k, v, seq, cfg.local_window is not None)
     elif cache is not None:
         W = cache["k"].shape[1]
         if cfg.local_window is not None and S > W:
@@ -338,6 +349,46 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
     return y, cache
+
+
+def _head_dim_share(t: torch.Tensor, seq: SeqShard) -> torch.Tensor:
+    """This rank's share of the head dim of ``t [..., hd]`` where the
+    cache splits it (``seq.head_dim``), else ``t``."""
+    ax = seq.head_dim
+    if ax is None:
+        return t
+    n = t.shape[-1] // ax.size
+    return t[..., ax.rank * n:(ax.rank + 1) * n]
+
+
+def _block_lo(cache: dict, seq: SeqShard) -> Tuple[int, int, int]:
+    """(this rank's block length, its first position (ring slot) and the
+    whole length) of a cache whose positions may split over
+    ``seq.axis``."""
+    blk = cache["k"].shape[1]
+    if seq.axis is None:
+        return blk, 0, blk
+    return blk, seq.axis.rank * blk, blk * seq.axis.size
+
+
+def _write_prompt_block(cache: dict, k, v, seq: SeqShard,
+                        ring: bool) -> None:
+    """Write a prompt's K/V ``[B, S, ...]`` (every position, this rank's
+    heads and head-dim share) into this rank's block of the cache: slots
+    [lo, lo + blk) of the whole length T. A ring shorter than the prompt
+    takes its trailing T positions, position p at slot p % T, so slot t
+    holds the one p in [S - T, S) with p % T == t."""
+    S = k.shape[1]
+    blk, lo, T = _block_lo(cache, seq)
+    if ring and S > T:
+        t = lo + torch.arange(blk, device=k.device)
+        p = S - T + torch.remainder(t - (S - T), T)
+        cache["k"][:] = k[:, p].to(cache["k"].dtype)
+        cache["v"][:] = v[:, p].to(cache["v"].dtype)
+        return
+    n = max(0, min(blk, S - lo))
+    cache["k"][:, :n] = k[:, lo:lo + n].to(cache["k"].dtype)
+    cache["v"][:, :n] = v[:, lo:lo + n].to(cache["v"].dtype)
 
 
 def _pos_vector(pos, batch: int, device) -> torch.Tensor:
@@ -410,23 +461,48 @@ def _write_owned(buf: torch.Tensor, new: torch.Tensor, slot: torch.Tensor,
 
 
 def _seq_decode_attend(q, k, v, cache: dict, pos_vec: torch.Tensor,
-                       seq: SeqShard) -> torch.Tensor:
-    """Decode over a cache that holds this rank's block of the positions:
-    the owner of each row's ``pos`` writes the fresh K/V, every rank
-    scores its block, and the partial softmaxes combine over the axis."""
-    blk = cache["k"].shape[1]
-    lo = seq.axis.rank * blk
-    local = pos_vec - lo
+                       seq: SeqShard, ring: bool) -> torch.Tensor:
+    """Decode over a cache that holds this rank's block of the positions
+    (``seq.axis``) and/or its share of the head dim (``seq.head_dim``;
+    ``q``, ``k``, ``v`` are then every head's, whole): the owner of each
+    row's slot (``pos``, or ``pos % T`` in a ring of whole length T)
+    writes the fresh K/V (its head-dim share), every rank scores its
+    block (partial q.k over the head dim summed over ``model`` in f32
+    before the scale), validity by position, or in a ring by age from
+    the global slot, and the partial softmaxes combine over the position
+    axis; a split head dim's weighted sums are gathered whole."""
+    blk, lo, T = _block_lo(cache, seq)
+    slot = torch.remainder(pos_vec, T) if ring else pos_vec
+    kq = _head_dim_share(q, seq)
+    k, v = _head_dim_share(k, seq), _head_dim_share(v, seq)
+    local = slot - lo
     own = (local >= 0) & (local < blk)
-    slot = local.clamp(0, blk - 1)
-    _write_owned(cache["k"], k, slot, own)
-    _write_owned(cache["v"], v, slot, own)
+    local = local.clamp(0, blk - 1)
+    _write_owned(cache["k"], k, local, own)
+    _write_owned(cache["v"], v, local, own)
     idx = lo + torch.arange(blk, device=q.device)
-    valid = idx[None, :] <= pos_vec[:, None]                      # [B, blk]
-    scores = _gqa_scores(q, cache["k"]).masked_fill(
-        ~valid[:, None, None, None, :], NEG_INF)
-    return tensor_parallel.attend_combine(scores, cache["v"], seq.axis,
-                                          _gqa_out)
+    if ring:
+        age = torch.remainder(slot[:, None] - idx[None, :], T)
+        valid = pos_vec[:, None] - age >= 0                       # [B, blk]
+    else:
+        valid = idx[None, :] <= pos_vec[:, None]
+    if seq.head_dim is None:
+        scores = _gqa_scores(q, cache["k"])
+    else:
+        dots = tensor_parallel.all_reduce(_gqa_dots(kq, cache["k"]),
+                                          seq.head_dim.group)
+        scores = dots * (q.shape[-1] ** -0.5)
+    scores = scores.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    if seq.axis is None:
+        o = _gqa_out(torch.softmax(scores, dim=-1), cache["v"])
+    else:
+        o = tensor_parallel.attend_combine(scores, cache["v"], seq.axis,
+                                           _gqa_out)
+    if seq.head_dim is None:
+        return o
+    B, S, H = q.shape[0], q.shape[1], q.shape[2]
+    o = tensor_parallel.gather_dim(o.reshape(B, S, H, -1), 3, seq.head_dim)
+    return o.reshape(B, S, -1)
 
 
 def attention_decode(params: dict, x: torch.Tensor, cache: dict, pos,
@@ -439,18 +515,20 @@ def attention_decode(params: dict, x: torch.Tensor, cache: dict, pos,
     Writes K/V at ``pos`` and attends over positions [0, pos]; with a
     sliding window, writes at ``pos % W`` of the ring (W its length) and
     attends over the positions the ring still holds. With ``seq`` the
-    cache holds this rank's block of the positions (no ring)."""
+    cache holds this rank's block of the positions (of the ring's slots)
+    and/or its share of the head dim."""
     pos_vec = _pos_vector(pos, x.shape[0], x.device)
     whole = _all_heads(tp, seq, decode=True)
     if whole:
         cfg = whole_heads(cfg, tp)
     q, k, v = _decode_qkv(params, x, pos_vec[:, None], cfg, backend, tp,
                           whole)
+    ring = cfg.local_window is not None
     if seq is not None:
-        o = _seq_decode_attend(q, k, v, cache, pos_vec, seq)
+        o = _seq_decode_attend(q, k, v, cache, pos_vec, seq, ring)
         return _out_proj(params, o.to(x.dtype), cfg, backend, tp,
                          whole), cache
-    ring_len = cache["k"].shape[1] if cfg.local_window is not None else None
+    ring_len = cache["k"].shape[1] if ring else None
     slot = pos_vec % ring_len if ring_len is not None else pos_vec
     write_decode_token(cache["k"], k, slot)
     write_decode_token(cache["v"], v, slot)

@@ -129,6 +129,15 @@ def _router_logits(w, xt: torch.Tensor, E: int, tp, backend: str):
     return y.to(torch.float32)
 
 
+def top_k(probs: torch.Tensor, k: int):
+    """The ``k`` largest values on the last dim and their indices, the
+    lower index first among equal values, as ``jax.lax.top_k`` orders
+    them (``torch.topk`` breaks ties its own way): a descending stable
+    sort cut to ``k``, on the device with no host read."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               backend: str = "auto", tp=None,
               rows: Optional[RowSplit] = None
@@ -164,7 +173,7 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
     logits = _router_logits(params["router"]["w"], xt, E, tp, backend)
     probs = torch.softmax(logits, dim=-1)                       # [G, sg, E]
-    gate_vals, idx = torch.topk(probs, k, dim=-1)               # [G, sg, k]
+    gate_vals, idx = top_k(probs, k)                            # [G, sg, k]
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e

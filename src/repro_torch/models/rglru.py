@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import sparse_linear
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models import nn
 from repro_torch.models.config import ModelConfig
 
@@ -62,11 +63,15 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, device,
                                 dtype=dtype, device=device)}
 
 
-def _rglru_gates(params, xr: torch.Tensor):
-    """xr: [..., r] f32 -> (log_a, gated input), both [..., r] f32."""
+def _rglru_gates(params, xr: torch.Tensor, tp=None):
+    """xr: [..., r] f32 -> (log_a, gated input), both [..., r] f32. Under
+    ``tp`` ``wa`` is column-parallel: each rank's share of the f32
+    product from the whole ``xr``, gathered whole (exact)."""
     f32 = torch.float32
-    r_gate = torch.sigmoid(xr @ params["wa"]["w"].to(f32).T
-                           + params["ba"].to(f32))
+    wa = xr @ params["wa"]["w"].to(f32).T
+    if tp is not None and wa.shape[-1] < xr.shape[-1]:
+        wa = tensor_parallel.gather_dim(wa, wa.dim() - 1, tp)
+    r_gate = torch.sigmoid(wa + params["ba"].to(f32))
     i_gate = torch.sigmoid(xr * params["wi_diag"].to(f32)
                            + params["wi_b"].to(f32))
     a_base = torch.sigmoid(params["lam"].to(f32))
@@ -100,21 +105,57 @@ def _gelu_gate(y: torch.Tensor, gate: torch.Tensor, dtype) -> torch.Tensor:
                                 approximate="tanh").to(dtype)
 
 
+def _branches(params, x: torch.Tensor, cfg: ModelConfig, backend: str, tp):
+    """(the whole ``w_x`` branch, the ``w_gate`` branch: under ``tp`` this
+    rank's share of it, the part ``w_out``'s row-parallel product
+    reads). Under ``tp`` ``w_x`` is column-parallel and gathered whole:
+    the conv and ``wa`` read every channel."""
+    r = cfg.rnn_dim
+    if tp is None:
+        return (sparse_linear.linear(params["w_x"]["w"], x, declared_out=r,
+                                     backend=backend),
+                sparse_linear.linear(params["w_gate"]["w"], x,
+                                     declared_out=r, backend=backend))
+    x = tensor_parallel.copy_to(x, tp)
+    return (sparse_linear.column_gathered(params["w_x"]["w"], x, out=r,
+                                          tp=tp, backend=backend),
+            sparse_linear.column_parallel(params["w_gate"]["w"], x, out=r,
+                                          tp=tp, backend=backend))
+
+
+def _out(params, y: torch.Tensor, gate: torch.Tensor, dtype,
+         cfg: ModelConfig, backend: str, tp) -> torch.Tensor:
+    """``w_out`` of the GeLU-gated recurrence: under ``tp`` row-parallel
+    over this rank's share of the channels (``gate`` is that share)."""
+    if tp is None:
+        return sparse_linear.linear(params["w_out"]["w"],
+                                    _gelu_gate(y, gate, dtype),
+                                    declared_out=cfg.d_model,
+                                    backend=backend)
+    n = gate.shape[-1]
+    y = y[..., tp.rank * n:(tp.rank + 1) * n]
+    return sparse_linear.row_parallel(params["w_out"]["w"],
+                                      _gelu_gate(y, gate, dtype),
+                                      out=cfg.d_model, tp=tp,
+                                      backend=backend)
+
+
 def rglru_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                cache: Optional[dict] = None, backend: str = "auto"
+                cache: Optional[dict] = None, backend: str = "auto", tp=None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Prefill, x: [B, L, d]. The scan starts from ``cache["h"]`` when a
     cache is given (a fresh one holds zeros), else from zero; the conv
     always starts from zero inputs, as in the reference. With ``cache``,
     the final state and the last ``conv - 1`` pre-conv inputs are
-    written into it (in place) and it is returned."""
+    written into it (in place) and it is returned. With ``tp`` (tensor
+    parallelism over ``model``) ``w_x``, ``w_gate`` and ``wa`` are
+    column-parallel, ``w_x``'s and ``wa``'s products gathered whole, so
+    the conv, the gates and the scan run whole on every rank (the state
+    stays whole over ``model``), and ``w_out`` is row-parallel."""
     B, L, _ = x.shape
     r = cfg.rnn_dim
     f32 = torch.float32
-    xr = sparse_linear.linear(params["w_x"]["w"], x, declared_out=r,
-                              backend=backend)
-    gate = sparse_linear.linear(params["w_gate"]["w"], x, declared_out=r,
-                                backend=backend)
+    xr, gate = _branches(params, x, cfg, backend, tp)
     cv = params["conv_w"].shape[0]
     xr_pad = torch.cat([xr.new_zeros((B, cv - 1, r)), xr], dim=1)
     cw = params["conv_w"].to(f32)
@@ -122,13 +163,11 @@ def rglru_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     for i in range(1, cv):                   # causal depthwise conv
         conv = conv + xr_pad[:, i:i + L].to(f32) * cw[i]
     xc = conv + params["conv_b"].to(f32)
-    log_a, gx = _rglru_gates(params, xc)
+    log_a, gx = _rglru_gates(params, xc, tp)
     h0 = (torch.zeros((B, r), dtype=f32, device=x.device) if cache is None
           else cache["h"].to(f32))
     y, h_final = _linear_scan(log_a, gx, h0)
-    out = sparse_linear.linear(params["w_out"]["w"],
-                               _gelu_gate(y, gate, x.dtype),
-                               declared_out=cfg.d_model, backend=backend)
+    out = _out(params, y, gate, x.dtype, cfg, backend, tp)
     if cache is not None:
         cache["h"].copy_(h_final)
         cache["conv"].copy_(xr_pad[:, L:])
@@ -136,24 +175,20 @@ def rglru_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def rglru_decode(params: dict, x: torch.Tensor, cache: dict,
-                 cfg: ModelConfig, *, backend: str = "auto"
+                 cfg: ModelConfig, *, backend: str = "auto", tp=None
                  ) -> Tuple[torch.Tensor, dict]:
     """One token per row, x: [B, 1, d], from the state in ``cache``,
-    which is advanced in place and returned."""
-    r = cfg.rnn_dim
+    which is advanced in place and returned. ``tp`` as in
+    :func:`rglru_block`."""
     f32 = torch.float32
-    xr = sparse_linear.linear(params["w_x"]["w"], x, declared_out=r,
-                              backend=backend)[:, 0]
-    gate = sparse_linear.linear(params["w_gate"]["w"], x, declared_out=r,
-                                backend=backend)[:, 0]
+    xr, gate = _branches(params, x, cfg, backend, tp)
+    xr, gate = xr[:, 0], gate[:, 0]
     hist = torch.cat([cache["conv"].to(xr.dtype), xr[:, None]], dim=1)
     xc = torch.einsum("bcf,cf->bf", hist.to(f32), params["conv_w"].to(f32)) \
         + params["conv_b"].to(f32)
-    log_a, gx = _rglru_gates(params, xc)
+    log_a, gx = _rglru_gates(params, xc, tp)
     h = cache["h"].to(f32) * torch.exp(log_a) + gx
-    out = sparse_linear.linear(params["w_out"]["w"],
-                               _gelu_gate(h, gate, x.dtype)[:, None, :],
-                               declared_out=cfg.d_model, backend=backend)
+    out = _out(params, h[:, None], gate[:, None], x.dtype, cfg, backend, tp)
     cache["h"].copy_(h)
     cache["conv"].copy_(hist[:, 1:])
     return out, cache

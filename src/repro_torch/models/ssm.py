@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import sparse_linear
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models import layers, nn
 from repro_torch.models.config import ModelConfig
 
@@ -70,6 +71,22 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, device,
                                  dtype=dtype, device=device),
             "conv": torch.zeros((batch, cfg.ssm_conv - 1, din + 2 * n),
                                 dtype=dtype, device=device)}
+
+
+def _in_proj(params, x: torch.Tensor, cfg: ModelConfig, backend: str,
+             tp=None) -> torch.Tensor:
+    """The whole ``in_proj`` output ``[..., 2 d_inner + 2 n + heads]``:
+    under ``tp`` the column-parallel product gathered whole on every
+    rank (no rank holds whole z, xBC or dt otherwise), or the whole
+    product where the rules hold the leaf whole."""
+    din, heads, n = _dims(cfg)
+    out = 2 * din + 2 * n + heads
+    if tp is None:
+        return sparse_linear.linear(params["in_proj"]["w"], x,
+                                    declared_out=out, backend=backend)
+    return sparse_linear.column_gathered(
+        params["in_proj"]["w"], tensor_parallel.copy_to(x, tp), out=out,
+        tp=tp, backend=backend)
 
 
 def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
@@ -127,17 +144,26 @@ def _ssd_chunked(x, dt, a_log, B, C, d_skip, chunk: int, init_state=None):
     return y + d_skip.to(f32)[None, None, :, None] * x.to(f32), st
 
 
-def _gate_out(params, y, z, x_dtype, cfg: ModelConfig, backend: str):
+def _gate_out(params, y, z, x_dtype, cfg: ModelConfig, backend: str,
+              tp=None):
     """rmsnorm(y * silu(z)) through ``out_proj``: y cast to the activation
-    dtype first, the gate in f32 then cast, as the reference rounds."""
+    dtype first, the gate in f32 then cast, as the reference rounds.
+    Under ``tp`` the gated norm runs whole on every rank and ``out_proj``
+    is row-parallel over this rank's share of ``d_inner``."""
     y = y.to(x_dtype) * F.silu(z.to(torch.float32)).to(x_dtype)
-    return sparse_linear.linear(params["out_proj"]["w"],
-                                layers.rmsnorm(params["norm"], y),
-                                declared_out=cfg.d_model, backend=backend)
+    h = layers.rmsnorm(params["norm"], y)
+    if tp is None:
+        return sparse_linear.linear(params["out_proj"]["w"], h,
+                                    declared_out=cfg.d_model,
+                                    backend=backend)
+    n = h.shape[-1] // tp.size
+    return sparse_linear.row_parallel(
+        params["out_proj"]["w"], h[..., tp.rank * n:(tp.rank + 1) * n],
+        out=cfg.d_model, tp=tp, backend=backend)
 
 
 def ssm_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              cache: Optional[dict] = None, backend: str = "auto"
+              cache: Optional[dict] = None, backend: str = "auto", tp=None
               ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Prefill, x: [B, L, d], any L. The scan starts from zero state and
     the conv from zero inputs, as in the reference. L is padded up to a
@@ -145,15 +171,16 @@ def ssm_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     which passes the state through unchanged, so the final state is
     exact. With ``cache``, the final state and the last ``conv - 1``
     pre-activation inputs (zeros ahead of a prompt shorter than that)
-    are written into it, in place, and it is returned."""
+    are written into it, in place, and it is returned. With ``tp``
+    (tensor parallelism over ``model``) ``in_proj`` is column-parallel
+    and gathered whole, the conv, the scan and the gated norm run whole
+    on every rank (the state stays whole over ``model``), and
+    ``out_proj`` is row-parallel."""
     Bsz, L, _ = x.shape
     din, heads, n = _dims(cfg)
     hp = cfg.ssm_head_dim
     f32 = torch.float32
-    zxbcdt = sparse_linear.linear(params["in_proj"]["w"], x,
-                                  declared_out=2 * din + 2 * n + heads,
-                                  backend=backend)
-    z, xbc, dt = _split_proj(zxbcdt, cfg)
+    z, xbc, dt = _split_proj(_in_proj(params, x, cfg, backend, tp), cfg)
     cw = params["conv_w"].to(f32)                              # [cv, ch]
     cv = cw.shape[0]
     xbc_pad = torch.cat([xbc.new_zeros((Bsz, cv - 1, xbc.shape[-1])), xbc],
@@ -177,7 +204,7 @@ def ssm_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     y, final_state = _ssd_chunked(xs, dt, params["a_log"], Bmat, Cmat,
                                   params["d_skip"], chunk)
     out = _gate_out(params, y[:, :L].reshape(Bsz, L, din), z, x.dtype, cfg,
-                    backend)
+                    backend, tp)
     if cache is not None:
         cache["state"].copy_(final_state)
         cache["conv"].copy_(xbc_pad[:, L:L + cv - 1])
@@ -185,17 +212,16 @@ def ssm_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def ssm_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
-               *, backend: str = "auto") -> Tuple[torch.Tensor, dict]:
+               *, backend: str = "auto", tp=None
+               ) -> Tuple[torch.Tensor, dict]:
     """One token per row, x: [B, 1, d], from the state in ``cache``,
-    which is advanced in place and returned."""
+    which is advanced in place and returned. ``tp`` as in
+    :func:`ssm_block`."""
     Bsz = x.shape[0]
     din, heads, n = _dims(cfg)
     hp = cfg.ssm_head_dim
     f32 = torch.float32
-    zxbcdt = sparse_linear.linear(params["in_proj"]["w"], x,
-                                  declared_out=2 * din + 2 * n + heads,
-                                  backend=backend)
-    z, xbc_new, dt = _split_proj(zxbcdt, cfg)
+    z, xbc_new, dt = _split_proj(_in_proj(params, x, cfg, backend, tp), cfg)
     # the conv ring: cache["conv"] holds the previous conv - 1 raw inputs
     hist = torch.cat([cache["conv"].to(xbc_new.dtype), xbc_new], dim=1)
     conv = torch.einsum("bcf,cf->bf", hist.to(f32), params["conv_w"].to(f32))
@@ -208,7 +234,8 @@ def ssm_decode(params: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     st = cache["state"].to(f32) * dA[:, :, None, None] + upd   # [B,h,p,n]
     y = (st @ Cv[:, None, :, None])[..., 0]                    # [B,h,p]
     y = y + params["d_skip"].to(f32)[None, :, None] * xs
-    out = _gate_out(params, y.reshape(Bsz, 1, din), z, x.dtype, cfg, backend)
+    out = _gate_out(params, y.reshape(Bsz, 1, din), z, x.dtype, cfg, backend,
+                    tp)
     cache["state"].copy_(st)
     cache["conv"].copy_(hist[:, 1:])
     return out, cache

@@ -36,15 +36,18 @@ audio family (musicgen) reads ``n_codebooks`` parallel token streams
             prefill-chunk/decode step); returns each layer's fresh K/V
             (or latents)
 
-Under a mesh (``launch.mesh``) the dense family (GQA or MLA attention)
-and the MoE family run tensor-parallel over ``model``
-(:func:`rank_config`; MoE's experts split over it, or inside each expert
-where they do not divide it), the cache is laid out by
-``distributed.sharding.cache_shardings`` (:func:`init_cache`: the batch
-over the data axes, the K/V sequence over ``model``, MLA's latents whole
-over it, or with ``seq_shard`` the sequence over ``data``) and the
-dense GQA family's train mode gathers each FSDP-split part just before
-it runs (:func:`forward_train`'s ``fsdp``).
+Under a mesh (``launch.mesh``) every family serves tensor-parallel over
+``model`` (:func:`rank_config`; MoE's experts split over it, or inside
+each expert where they do not divide it; the RG-LRU and SSM blocks'
+products split, their recurrences run whole on every rank), the cache
+is laid out by ``distributed.sharding.cache_shardings``
+(:func:`init_cache`: the batch over the data axes, the K/V sequence (a
+window ring's slots) over ``model``, its head dim where neither the
+sequence nor the KV heads split, MLA's latents and the recurrent states
+whole over it, or with ``seq_shard`` the sequence over ``data``) and
+the dense GQA family's train mode gathers each FSDP-split part just
+before it runs (:func:`forward_train`'s ``fsdp``); training every other
+family under a mesh is ROADMAP.md queue 1 item 14.
 
 The serving cache helpers (``scatter_cache_slots``,
 ``scatter_cache_pages``, ``copy_cache_block``, ``commit_verify_window``)
@@ -109,35 +112,27 @@ def dense_gqa(cfg: ModelConfig) -> bool:
             and cfg.mrope_sections is None)
 
 
-def mesh_family(cfg: ModelConfig) -> bool:
-    """The families that serve under a mesh: :func:`dense_gqa`, the dense
-    family with MLA attention, and the MoE family with GQA attention
-    (each with no sliding window, M-RoPE or codebooks)."""
-    plain = (cfg.layer_pattern is None and cfg.local_window is None
-             and not cfg.n_codebooks and cfg.mrope_sections is None)
-    mla_dense = (cfg.family == "dense" and cfg.attn_kind == "mla"
-                 and not cfg.n_routed_experts)
-    routed = (cfg.family == "moe" and cfg.attn_kind == "gqa"
-              and cfg.n_routed_experts > 0)
-    return dense_gqa(cfg) or (plain and (mla_dense or routed))
-
-
-def check_mesh_family(cfg: ModelConfig, what: str = "a mesh", *,
-                      train: bool = False) -> None:
-    """Raise unless :func:`mesh_family` (and, for ``train``, the dense
-    GQA family, the one that trains under a mesh), naming queue 1 item
-    14."""
-    if not mesh_family(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the mesh covers the dense family with GQA or MLA "
-            f"attention and the MoE family with GQA attention only; the "
-            f"{cfg.family} family ({cfg.attn_kind} attention) under {what} "
-            f"is {MESH_ITEM}")
-    if train and not dense_gqa(cfg):
+def check_mesh_train(cfg: ModelConfig, what: str = "a mesh") -> None:
+    """Raise for training under a mesh of every family but the dense GQA
+    one, the one that trains under a mesh, naming queue 1 item 14 (every
+    family the port serves, ``_check_family``, serves under a mesh)."""
+    if not dense_gqa(cfg):
         raise NotImplementedError(
             f"{cfg.name}: training under a mesh covers the dense family "
-            f"with GQA attention only; training the {cfg.family} family "
-            f"({cfg.attn_kind} attention) under {what} is {MESH_ITEM}")
+            f"with GQA attention only; training the {_kind_name(cfg)} "
+            f"under {what} is {MESH_ITEM}")
+
+
+def _kind_name(cfg: ModelConfig) -> str:
+    """The family as an error names it, with its attention where it has
+    one."""
+    if "attn" not in _kinds(cfg):
+        return f"{cfg.family} family"
+    return f"{cfg.family} family ({cfg.attn_kind} attention)"
+
+
+def _kinds(cfg: ModelConfig) -> set:
+    return {cfg.layer_kind(i) for i in range(cfg.n_layers)}
 
 
 def split_heads(cfg: ModelConfig, model: int) -> bool:
@@ -154,17 +149,21 @@ def split_heads(cfg: ModelConfig, model: int) -> bool:
 
 def check_tensor_parallel(cfg: ModelConfig, model: int) -> None:
     """Raise unless tensor parallelism over ``model`` ranks covers
-    ``cfg`` (:func:`check_mesh_family`), with every width it splits by
+    ``cfg`` (``_check_family``), with every width it splits by
     element splitting ``model`` ways: the dense MLP's ``d_ff``; MoE's
     shared expert width, and ``d_expert`` where the experts do not
-    divide ``model`` (each expert is split instead); where the heads do
-    not split (:func:`split_heads`), the q, k and v widths (GQA) or
-    ``n_heads * (qk_nope + qk_rope)``, ``n_heads * (qk_nope + v_head)``
-    and ``n_heads * v_head`` (MLA), since their products split by
-    element."""
+    divide ``model`` (each expert is split instead); the RG-LRU width
+    (``w_x``, ``w_gate`` and ``wa`` column-parallel, ``w_out``
+    row-parallel); the SSM's ``d_inner`` (``out_proj``'s in dim: its
+    ``in_proj`` splits or is held whole, and is gathered whole either
+    way); where the heads do not split (:func:`split_heads`), the q, k
+    and v widths (GQA) or ``n_heads * (qk_nope + qk_rope)``,
+    ``n_heads * (qk_nope + v_head)`` and ``n_heads * v_head`` (MLA),
+    since their products split by element."""
     if model == 1:
         return
-    check_mesh_family(cfg, f"a model axis of {model}")
+    _check_family(cfg)
+    kinds = _kinds(cfg)
     if cfg.n_routed_experts:
         need = [("the shared expert width",
                  cfg.d_shared_expert * cfg.n_shared_experts)]
@@ -172,7 +171,11 @@ def check_tensor_parallel(cfg: ModelConfig, model: int) -> None:
             need.append(("d_expert", cfg.d_expert))
     else:
         need = [("d_ff", cfg.d_ff)]
-    if not split_heads(cfg, model):
+    if "rglru" in kinds:
+        need.append(("the RG-LRU width", cfg.rnn_dim))
+    if "ssm" in kinds:
+        need.append(("d_inner", cfg.ssm_inner))
+    if "attn" in kinds and not split_heads(cfg, model):
         h = cfg.n_heads
         if cfg.attn_kind == "mla":
             dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
@@ -195,8 +198,9 @@ def rank_config(cfg: ModelConfig, mesh) -> Tuple[ModelConfig, Any]:
     under ``mesh``: where the heads split (:func:`split_heads`), the
     rank's query and KV heads (``n_heads / m``, and ``n_kv / m`` or the
     one KV head it shares where ``n_kv < m``; MLA's ``n_heads / m``; the
-    head dim kept), else every head; ``d_ff`` stays whole (the MLPs take
-    their shares themselves). The axis carries the whole head counts and,
+    head dim kept), else every head; ``d_ff``, the RG-LRU width and the
+    SSM's widths stay whole (the blocks take their shares themselves).
+    The axis carries the whole head counts and,
     for MoE, ``experts``: the rank's E / m experts where E divides the
     axis (expert parallelism), else all E (each split inside). Without a
     mesh, or with a ``model`` axis of 1, the config as it is and None.
@@ -205,6 +209,8 @@ def rank_config(cfg: ModelConfig, mesh) -> Tuple[ModelConfig, Any]:
     if tp is None:
         return cfg, None
     check_tensor_parallel(cfg, tp.size)
+    if "attn" not in _kinds(cfg):              # the SSM: no heads
+        return cfg, tp
     split = split_heads(cfg, tp.size)
     E = cfg.n_routed_experts
     tp = dataclasses.replace(
@@ -318,14 +324,17 @@ def uses_scan(cfg: ModelConfig) -> bool:
 
 class MeshCache(list):
     """A rank's per-layer caches under a mesh, with their layout: ``seq``
-    the axis the K/V positions split over (``"model"``, ``"data"`` or
-    None) and ``batch`` the axis entry the rows split over (None: every
-    rank holds every row)."""
+    the axis the K/V (or latent) positions split over (``"model"``,
+    ``"data"`` or None), ``batch`` the axis entry the rows split over
+    (None: every rank holds every row) and ``head_dim`` the axis the K/V
+    head dim splits over (``"model"`` where neither the positions nor
+    the KV heads split it, else None). Recurrent-state leaves split by
+    rows only."""
 
     def __init__(self, layers, *, seq: Optional[str] = None,
-                 batch: Any = None):
+                 batch: Any = None, head_dim: Optional[str] = None):
         super().__init__(layers)
-        self.seq, self.batch = seq, batch
+        self.seq, self.batch, self.head_dim = seq, batch, head_dim
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -342,9 +351,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     Under ``mesh`` (``batch`` and ``max_len`` whole) a :class:`MeshCache`
     of this rank's blocks, laid out by ``sharding.cache_shardings``
     (``seq_shard``: the sequence over ``data``, for batch 1; MLA's
-    latents stay whole over ``model``); raises for a K/V layout that
-    splits the head dim, and for every family outside
-    :func:`mesh_family`, naming ROADMAP.md queue 1 item 14."""
+    latents and the recurrent states stay whole over ``model``; a K/V
+    whose length and KV heads do not split ``model`` splits its head
+    dim)."""
     _check_family(cfg)
     if mesh is not None:
         return _init_mesh_cache(cfg, batch, max_len, device, dtype, mesh,
@@ -363,26 +372,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _init_mesh_cache(cfg, batch, max_len, device, dtype, mesh, seq_shard):
-    check_mesh_family(cfg)
+    _check_family(cfg)
     rank_config(cfg, mesh)                    # refuses what TP cannot split
     whole = init_cache(cfg, batch, max_len, device="meta", dtype=dtype)
     specs = sharding.cache_shardings(whole, mesh, seq_shard=seq_shard)
     dev = resolve_device(device)
-    local = []
-    lead = "ckv" if cfg.attn_kind == "mla" else "k"
-    for i, layer in enumerate(whole):
-        spec = specs[f"[{i}]['{lead}']"]
-        if lead == "k" and spec[3] is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: a K/V cache [{batch}, {max_len}, {cfg.n_kv}, "
-                f"{cfg.head_dim}] whose length and KV heads do not split "
-                f"over the mesh {sharding.axis_sizes(mesh)} falls back to "
-                f"the head dim, which is {MESH_ITEM}")
-        local.append({name: torch.zeros(
-            sharding.local_shape(t.shape, specs[f"[{i}]['{name}']"], mesh),
-            dtype=t.dtype, device=dev) for name, t in layer.items()})
-    spec = specs[f"[0]['{lead}']"]
-    return MeshCache(local, seq=spec[1], batch=spec[0])
+    local = [{name: torch.zeros(
+        sharding.local_shape(t.shape, specs[f"[{i}]['{name}']"], mesh),
+        dtype=t.dtype, device=dev) for name, t in layer.items()}
+        for i, layer in enumerate(whole)]
+    rows = {spec[0] for spec in specs.values()}
+    if len(rows) != 1:
+        raise ValueError(
+            f"{cfg.name}: a cache whose leaves split their {batch} rows "
+            f"apart ({sorted(map(str, rows))}): seq_shard is for batch 1")
+    lead = [spec for path, spec in specs.items()
+            if path.endswith(("['k']", "['ckv']"))]
+    seq = lead[0][1] if lead else None
+    head_dim = lead[0][3] if lead and len(lead[0]) == 4 else None
+    return MeshCache(local, seq=seq, batch=rows.pop(), head_dim=head_dim)
 
 
 def cache_rows(cache, mesh, batch: int) -> slice:
@@ -589,25 +597,25 @@ def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     if kind == "ssm":                   # dense cache only: no verify mode
         if mode == "decode":
             s, cache = ssm.ssm_decode(p["ssm"], h, cache, cfg,
-                                      backend=backend)
+                                      backend=backend, tp=tp)
         else:
             s, cache = ssm.ssm_block(p["ssm"], h, cfg, cache=cache,
-                                     backend=backend)
+                                     backend=backend, tp=tp)
         x = x + s
         if cfg.d_ff:
             x = x + _mlp_apply(p["mlp"], _norm(cfg, p["mlp_norm"], x), cfg,
-                               backend)
+                               backend, tp)
         return x, cache, aux
     if kind == "rglru":                 # dense cache only: no verify mode
         if mode == "decode":
             r, cache = rglru.rglru_decode(p["rglru"], h, cache, cfg,
-                                          backend=backend)
+                                          backend=backend, tp=tp)
         else:
             r, cache = rglru.rglru_block(p["rglru"], h, cfg, cache=cache,
-                                         backend=backend)
+                                         backend=backend, tp=tp)
         x = x + r
         return x + _mlp_apply(p["mlp"], _norm(cfg, p["mlp_norm"], x), cfg,
-                              backend), cache, aux
+                              backend, tp), cache, aux
     if cfg.attn_kind == "mla":
         if mode == "verify":
             a, cache = mla.mla_verify_paged(p["attn"], h, cache, block_tables,
@@ -652,15 +660,31 @@ def _embed_tokens(params: Params, inputs: Dict[str, torch.Tensor],
                   cfg: ModelConfig, compute_dtype, tp=None) -> torch.Tensor:
     """``inputs["embeds"] [B, S, d]`` where given, else the tokens'
     embeddings; codebook tokens ``[B, n_cb, S]`` sum one lookup a
-    codebook, in codebook order."""
+    codebook, in codebook order. With ``tp`` and tables split by vocab
+    rows, each codebook's lookup is the vocab-parallel one (each rank
+    its rows' ids, zeros elsewhere, summed over the ranks in f32: exact,
+    one rank holds each id), all codebooks in one all-reduce, and the
+    whole lookups are summed in codebook order as without a mesh."""
     if inputs.get("embeds") is not None:
         return inputs["embeds"].to(compute_dtype)
     tokens = inputs["tokens"]
     if cfg.n_codebooks:
         tab = params["embed"]["table"].to(compute_dtype)       # [ncb, V, d]
-        x = tab[0][tokens[:, 0]]
+        if tp is not None and tab.shape[1] < cfg.vocab:
+            rows = tab.shape[1]
+            ids = tokens - tp.rank * rows
+            mine = (ids >= 0) & (ids < rows)
+            ids = ids.clamp(0, rows - 1)
+            parts = torch.stack([
+                tab[i][ids[:, i]] * mine[:, i, :, None].to(compute_dtype)
+                for i in range(cfg.n_codebooks)]).to(torch.float32)
+            parts = tensor_parallel.reduce_from(parts, tp).to(compute_dtype)
+            look = lambda i: parts[i]
+        else:
+            look = lambda i: tab[i][tokens[:, i]]
+        x = look(0)
         for i in range(1, cfg.n_codebooks):
-            x = x + tab[i][tokens[:, i]]
+            x = x + look(i)
         return x
     return layers.embed(params["embed"], tokens, compute_dtype, tp=tp,
                         vocab=cfg.vocab)
@@ -694,7 +718,8 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
     the ring's length, min(max_len, window); the dense ring reads it off
     the cache.
     ``mesh`` (``launch.mesh``): ``params`` are this rank's shard
-    (``distributed.sharding.shard_params``), the inputs its rows and the
+    (``distributed.sharding.shard_params``), the inputs its rows (M-RoPE
+    positions ``[3, B, S]`` by rows on dim 1) and the
     cache its blocks (``init_cache(..., mesh=mesh)``, whose layout it
     carries); the stack runs tensor-parallel over the ``model`` axis
     (prefill and dense decode), and every model rank returns the whole
@@ -711,8 +736,9 @@ def forward(params: Params, inputs: Dict[str, torch.Tensor],
     cfg, tp = rank_config(cfg, mesh)
     if tp is not None and block_tables is not None:
         raise NotImplementedError(
-            f"the paged cache and the verify window under a mesh are "
-            f"{MESH_ITEM}")
+            "the paged cache and the verify window under a mesh: the "
+            "reference serves no paged cache under a mesh (its serving "
+            "modules take none), so the port has none")
     seq = _seq_shard(cache, mesh)
     rows = _row_split(cache, mesh, cfg)
     compute_dtype = getattr(torch, cfg.dtype)
@@ -763,10 +789,16 @@ def _row_split(cache, mesh, cfg: ModelConfig) -> Optional[moe.RowSplit]:
 
 
 def _seq_shard(cache, mesh) -> Optional[attention.SeqShard]:
-    """The axis a :class:`MeshCache`'s positions split over, or None."""
+    """How a :class:`MeshCache`'s positions and head dim split: the axis
+    of each (the head dim's always ``model``), or None where neither
+    does."""
     name = getattr(cache, "seq", None)
     ax = tensor_parallel.axis(mesh, name) if name is not None else None
-    return None if ax is None else attention.SeqShard(ax, name == "model")
+    hd = getattr(cache, "head_dim", None)
+    hd_ax = tensor_parallel.axis(mesh, hd) if hd is not None else None
+    if ax is None and hd_ax is None:
+        return None
+    return attention.SeqShard(ax, name == "model", hd_ax)
 
 
 def _head(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -850,7 +882,7 @@ def forward_train(params: Params, inputs: Dict[str, torch.Tensor],
     backward gathers a layer again."""
     _check_family(cfg)
     if mesh is not None:
-        check_mesh_family(cfg, "a mesh", train=True)
+        check_mesh_train(cfg)
     cfg, tp = rank_config(cfg, mesh)
     dp = tensor_parallel.axis(mesh, "data") if fsdp is not None else None
     gather = lambda name: fsdp_gathered(params.get(name), f"['{name}']",

@@ -11,11 +11,10 @@ process group, no device, meta tensors only.
   cells on the same mesh.
 * ``main`` on one production cell writes its record under a temporary
   ``results`` path; its per-rank bytes are the reference's.
-* Refusals: each family outside the dense (GQA or MLA) and MoE ones,
-  under a mesh, names ROADMAP.md queue 1 item 14 (as a dry-run record
-  too), and so does an MoE or MLA train cell; so does the head dim
-  fallback of the K/V layout; a train cell in ``sparse_xla`` mode names
-  queue 3 item 13.
+* Refusals: a train cell of every family but the dense GQA one, under
+  a mesh, names ROADMAP.md queue 1 item 14 (as a dry-run record too);
+  a train cell in ``sparse_xla`` mode names queue 3 item 13. The K/V
+  layout's head dim fallback builds.
 """
 
 import dataclasses
@@ -105,39 +104,24 @@ def test_sparse_train_cell_names_item_13():
     assert rec["status"] == "error" and ITEM13 in rec["error"]
 
 
-def _outside(arch) -> bool:
-    return not transformer.mesh_family(configs.get(arch))
+# every family serves under a mesh; the train cells of every family but
+# the dense GQA one are refused
+REFUSED = [a for a in configs.ARCH_IDS
+           if not transformer.dense_gqa(configs.get(a))]
 
 
-def _trains_outside(arch) -> bool:
-    """A family that serves under a mesh but does not train under one."""
-    cfg = configs.get(arch)
-    return transformer.mesh_family(cfg) and not transformer.dense_gqa(cfg)
-
-
-# the families the mesh refuses, and the MoE and MLA train cells
-REFUSED = [(a, "any") for a in configs.ARCH_IDS if _outside(a)] + \
-    [(a, "train") for a in configs.ARCH_IDS if _trains_outside(a)]
-
-
-@pytest.mark.parametrize("arch,what", REFUSED, ids=[a for a, _ in REFUSED])
-def test_other_families_name_item_14(arch, what):
-    shape = [s for s in configs.cells(arch)
-             if what == "any" or s.kind == "train"][0]
+@pytest.mark.parametrize("arch", REFUSED)
+def test_other_families_name_item_14(arch):
+    shape = [s for s in configs.cells(arch) if s.kind == "train"][0]
     rec = dryrun.run_cell(arch, shape.name, multi_pod=False,
                           mesh=mesh_mod.make_production_mesh())
     assert rec["status"] == "error" and ITEM14 in rec["error"], rec
     mesh = mesh_mod.DryMesh((2, 2), ("data", "model"))
-    if what == "any":
-        with pytest.raises(NotImplementedError, match=ITEM14):
-            transformer.init_cache(configs.smoke(arch), 2, 8, device="meta",
-                                   mesh=mesh)
-    else:                       # serves under the mesh, does not train
-        transformer.init_cache(configs.smoke(arch), 2, 8, device="meta",
-                               mesh=mesh)
-        with pytest.raises(NotImplementedError, match=ITEM14):
-            specs.build_cell(configs.smoke(arch),
-                             ShapeConfig("t", "train", 32, 4), mesh)
+    transformer.init_cache(configs.smoke(arch), 2, 8, device="meta",
+                           mesh=mesh)
+    with pytest.raises(NotImplementedError, match=ITEM14):
+        specs.build_cell(configs.smoke(arch),
+                         ShapeConfig("t", "train", 32, 4), mesh)
 
 
 # MoE and MLA decode cells on a dry 2x2 mesh: (arch, overrides)
@@ -184,11 +168,12 @@ def test_head_dim_fallback_names_item_14():
     cfg = dataclasses.replace(configs.smoke("tinyllama_1_1b"), n_heads=6,
                               n_kv=3, d_head=32)
     mesh = mesh_mod.DryMesh((2, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="head dim"):
-        transformer.init_cache(cfg, 2, 9, device="meta", mesh=mesh)
+    cache = transformer.init_cache(cfg, 2, 9, device="meta", mesh=mesh)
+    assert cache.seq is None and cache.head_dim == "model"
+    assert tuple(cache[0]["k"].shape) == (1, 9, 3, 16)
     cache = transformer.init_cache(cfg, 2, 8, device="meta", mesh=mesh)
-    assert cache.seq == "model" and tuple(cache[0]["k"].shape) == \
-        (1, 4, 3, 32)
+    assert cache.seq == "model" and cache.head_dim is None
+    assert tuple(cache[0]["k"].shape) == (1, 4, 3, 32)
 
 
 def test_dry_mesh_allocates_nothing():

@@ -18,12 +18,13 @@ encoded whole by ``convert.rank_params_from_numpy``, then sharded):
 * ``serve.build(..., mesh=)`` equal, leaf for leaf and bit for bit, to
   the shard of the unsharded build, and the ranks' encoded non-zeros
   summing to the whole model's;
-* refusals: every family outside the dense family (GQA or MLA) and the
-  MoE family (``tests/test_torch_mesh_moe.py``, ``_mla.py``), a config
-  whose projections do not split over the model axis, and the paged
-  cache under a mesh raise, naming ROADMAP.md queue 1 item 14 (query
-  heads that do not split run since the sequence-sharded cache:
-  ``tests/test_torch_seqshard.py``).
+* refusals: a config whose projections do not split over the model
+  axis raises naming ROADMAP.md queue 1 item 14 (every family serves
+  under a mesh: ``tests/test_torch_mesh_moe.py``, ``_mla.py``,
+  ``_ssm.py``, ``_ring.py``, ``_media.py``; query heads that do not
+  split run since the sequence-sharded cache:
+  ``tests/test_torch_seqshard.py``), and the paged cache under a mesh
+  raises, since the reference serves none.
 """
 
 import functools
@@ -157,24 +158,25 @@ def test_build_under_a_mesh_is_the_shard_of_the_build(world, arch,
 
 
 def _splits_four_ways(cfg) -> bool:
-    """The dense family with GQA or MLA attention, or the MoE family with
-    GQA attention (no window, M-RoPE or codebooks), whose element-split
-    widths split four ways: the dense MLP's ``d_ff``; MoE's shared
-    expert width, and ``d_expert`` where the experts do not divide 4;
-    and where the heads do not split (each rank its own), the q and k/v
-    widths (MLA: its three head widths)."""
-    plain = (cfg.local_window is None and cfg.layer_pattern is None
-             and not cfg.n_codebooks and cfg.mrope_sections is None)
-    dense = cfg.family == "dense" and not cfg.n_routed_experts
+    """Every family the port serves, whose element-split widths split
+    four ways: the dense MLP's ``d_ff``; MoE's shared expert width, and
+    ``d_expert`` where the experts do not divide 4; the RG-LRU width; the
+    SSM's ``d_inner``; and where the heads do not split (each rank its
+    own), the q and k/v widths (MLA: its three head widths)."""
+    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
     routed = cfg.family == "moe" and cfg.attn_kind == "gqa"
-    if not (plain and (dense or routed)):
-        return False
     if routed:
         widths = [cfg.d_shared_expert * cfg.n_shared_experts]
         if cfg.n_routed_experts % 4:
             widths.append(cfg.d_expert)
     else:
         widths = [cfg.d_ff]
+    if "rglru" in kinds:
+        widths.append(cfg.rnn_dim)
+    if "ssm" in kinds:
+        widths.append(cfg.ssm_inner)
+    if "attn" not in kinds:
+        return all(w % 4 == 0 for w in widths)
     h = cfg.n_heads
     if cfg.attn_kind == "mla":
         heads = h % 4 == 0
@@ -197,4 +199,7 @@ def test_refusals_name_the_queue_item(world_1x4):
     want |= {"tinyllama_1_1b_kv3", "paged"}
     assert set(msgs) == want, sorted(msgs)
     for arch, msg in msgs.items():
-        assert "ROADMAP.md queue 1 item 14" in msg, (arch, msg)
+        if arch == "paged":         # the reference has no such path
+            assert "reference serves no paged cache under a mesh" in msg
+        else:
+            assert "ROADMAP.md queue 1 item 14" in msg, (arch, msg)

@@ -453,3 +453,67 @@ def test_idle_rows_decode_alike_dense_and_paged():
             pparams, {"tokens": tok}, pcfg, mode="decode", cache=paged,
             pos=pos, block_tables=torch.from_numpy(tables))
     np.testing.assert_array_equal(got_p.numpy(), got_d.numpy())
+
+
+# ---------------------------------------------------------------------------
+# ties in the router (ROADMAP.md queue 3 item 15)
+# ---------------------------------------------------------------------------
+
+TIED_ROWS = np.array([[0.75, 0.5, 0.5, 0.25, 0.25, 0.0, 0.0, 0.0],
+                      [0.25, 0.25, 0.25, 0.25, 0.0, 0.0, 0.0, 0.0],
+                      [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0],
+                      [0.125] * 8], np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_router_top_k_breaks_ties_as_reference(k, dtype):
+    """Tied probabilities pick the reference's experts in its order: the
+    lower expert index first among equal values (``jax.lax.top_k``). On
+    the first row with k = 2 that is experts 0 and 1."""
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    want_v, want_i = jax.lax.top_k(jnp.asarray(TIED_ROWS, jdt), k)
+    got_v, got_i = moe.top_k(torch.from_numpy(TIED_ROWS).to(
+        getattr(torch, dtype)), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(_f32(got_v), _f32(want_v))
+    if k == 2:
+        assert got_i[0].tolist() == [0, 1]
+
+
+def _tied_router(pp, jparams, E):
+    """Layer 0's MoE params of both packages with the router's rows tied
+    in threes (expert 3j + 1 and 3j + 2 take expert 3j's row): every
+    token's router logits tie exactly within each triple, so the top-k
+    cuts through a tie."""
+    src = np.arange(E) // 3 * 3
+    w = np.asarray(jparams["layers"]["moe"]["router"]["w"][0])[src]
+    rp = jax.tree.map(lambda a: a[0], jparams["layers"]["moe"])
+    rp = dict(rp, router=dict(rp["router"], w=jnp.asarray(w)))
+    pp = dict(pp, router=dict(pp["router"], w=torch.from_numpy(w)))
+    return rp, pp
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_block_on_tied_router_rows_matches_reference(arch, dtype):
+    """``moe_block`` with the router's rows tied in threes, on 4 x 16
+    tokens: the output and aux loss equal the reference's within the
+    block test's tolerance, as the routes must agree for that."""
+    rcfg, jparams, pcfg, pparams = _models(arch, False, dtype)
+    E, k = pcfg.n_routed_experts, pcfg.top_k
+    rp, pp = _tied_router(pparams["layers"][0]["moe"], jparams, E)
+    x = _x(pcfg, (4, 16))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(tdt)
+    probs = torch.softmax((xt.reshape(64, -1) @ pp["router"]["w"].to(tdt).T
+                           ).float(), dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True).values
+    assert bool((top[:, k - 1] == top[:, k]).any())     # a tie at the cut
+    want, waux = ref_moe.moe_block(rp, jnp.asarray(x, jdt), rcfg)
+    with torch.inference_mode():
+        got, gaux = moe.moe_block(pp, xt, pcfg)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+    np.testing.assert_allclose(float(gaux), float(waux), **tol)

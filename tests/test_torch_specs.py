@@ -13,8 +13,8 @@ dry meshes, with no device.
   config, smoke and full, on meshes (2, 2), (1, 4), (4, 2), (16, 16) and
   (2, 16, 16), ``seq_shard`` on and off.
 * Per-rank argument bytes of every cell that runs under a mesh
-  (``build_cell`` on a dry mesh: every dense GQA cell, the MoE and MLA
-  prefill and decode cells) equal the reference's by-hand count
+  (``build_cell`` on a dry mesh: every dense GQA cell, the prefill,
+  decode and long_500k cells of every other family) equal the reference's by-hand count
   (``shard_shape`` bytes over ``cell.args``) by group and in total, on
   16x16 and 2x16x16, both weight modes; and, on a 2x2 mesh of four
   forced host devices made with Auto axes, the compiled reference's
@@ -59,10 +59,9 @@ MESHES = {"2x2": ((2, 2), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 DENSE_ARCHS = [a for a in configs.ARCH_IDS
                if transformer.dense_gqa(configs.get(a))]
-# the families whose prefill and decode cells run under a mesh (MoE and
-# MLA besides the dense GQA family, whose train cells run too)
-MESH_ARCHS = [a for a in configs.ARCH_IDS
-              if transformer.mesh_family(configs.get(a))]
+# every family runs its prefill and decode cells under a mesh (the dense
+# GQA family its train cells too)
+MESH_ARCHS = configs.ARCH_IDS
 # The reference's per-rank argument bytes of its 16x16 cells (by hand,
 # ``NamedSharding.shard_shape``), which the port's dry run must give.
 TABLE_16x16 = {
@@ -93,6 +92,26 @@ TABLE_16x16 = {
     ("minicpm3_4b", "prefill_32k", "sparse_xla"): 4_211_195_744,
     ("minicpm3_4b", "decode_32k", "dense"): 10_685_826_084,
     ("minicpm3_4b", "decode_32k", "sparse_xla"): 13_572_620_164,
+    ("recurrentgemma_9b", "prefill_32k", "dense"): 1_253_761_024,
+    ("recurrentgemma_9b", "prefill_32k", "sparse_xla"): 710_046_336,
+    ("recurrentgemma_9b", "decode_32k", "dense"): 1_279_713_316,
+    ("recurrentgemma_9b", "decode_32k", "sparse_xla"): 735_998_628,
+    ("recurrentgemma_9b", "long_500k", "dense"): 1_255_301_128,
+    ("recurrentgemma_9b", "long_500k", "sparse_xla"): 711_586_440,
+    ("mamba2_130m", "prefill_32k", "dense"): 205_144_960,
+    ("mamba2_130m", "prefill_32k", "sparse_xla"): 164_322_112,
+    ("mamba2_130m", "decode_32k", "dense"): 360_006_564,
+    ("mamba2_130m", "decode_32k", "sparse_xla"): 319_183_716,
+    ("mamba2_130m", "long_500k", "dense"): 224_273_288,
+    ("mamba2_130m", "long_500k", "sparse_xla"): 183_450_440,
+    ("qwen2_vl_2b", "prefill_32k", "dense"): 194_177_024,
+    ("qwen2_vl_2b", "prefill_32k", "sparse_xla"): 1_259_030_912,
+    ("qwen2_vl_2b", "decode_32k", "dense"): 662_890_532,
+    ("qwen2_vl_2b", "decode_32k", "sparse_xla"): 1_727_744_420,
+    ("musicgen_large", "prefill_32k", "dense"): 308_273_152,
+    ("musicgen_large", "prefill_32k", "sparse_xla"): 146_764_032,
+    ("musicgen_large", "decode_32k", "dense"): 6_749_675_652,
+    ("musicgen_large", "decode_32k", "sparse_xla"): 6_588_166_532,
 }
 
 
@@ -327,9 +346,10 @@ _COMPILED = textwrap.dedent("""
     print(json.dumps(out))
 """)
 
-# smoke tinyllama, its one KV head made two for the batch-1 decode: one
-# KV head over model 2 with the sequence over data splits the head dim,
-# which the port refuses (queue 1 item 14); an MoE and an MLA decode
+# smoke tinyllama, its one KV head made two for the batch-1 decode (one
+# KV head over model 2 with the sequence over data would split the head
+# dim, the layout tests/test_torch_mesh_ring.py serves); an MoE and an
+# MLA decode
 # cell (smoke qwen3-moe, whose 8 experts split over model; smoke
 # minicpm3, its latents whole over model).
 TINY = "tinyllama_1_1b"

@@ -452,6 +452,27 @@ def test_cli_trains_and_logs(capsys):
     assert int(out["state"].step) == 4
 
 
+def test_cli_layers_trains_the_first_layers_at_full_width():
+    # --layers N: the arch's first N layers at its widths, drawn from
+    # the seed as the full-depth model is (its embedding the same).
+    argv = ["--arch", "tinyllama_1_1b", "--smoke", "--steps", "1",
+            "--batch", "2", "--seq", "16", "--sparsity", "0.8"]
+    cut = train_launch.setup(train_launch.parse_args(argv + ["--layers",
+                                                             "1"]), "cpu")
+    whole = train_launch.setup(train_launch.parse_args(argv), "cpu")
+    assert cut["cfg"] == dataclasses.replace(whole["cfg"], n_layers=1)
+    assert len(cut["state"].params["layers"]) == 1
+    for (pa, ta), (pb, tb) in zip(
+            ft.flatten_with_paths(cut["state"].params["embed"]),
+            ft.flatten_with_paths(whole["state"].params["embed"])):
+        assert pa == pb and torch.equal(ta, tb), pa
+    out = train_launch.main(argv + ["--layers", "1", "--log-every", "1"],
+                            device="cpu")
+    assert out["steps"] == 1 and np.isfinite(out["log"][-1]["loss"])
+    with pytest.raises(SystemExit):
+        train_launch.parse_args(argv + ["--layers", "0"])
+
+
 def test_cli_refuses_mesh_and_needs_a_card_by_default(monkeypatch):
     # --mesh is ported (tests/test_torch_sharding.py drives it); a mesh
     # that is not DxM is still refused, and no run starts without a card.

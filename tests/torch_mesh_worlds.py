@@ -296,13 +296,15 @@ def decode_step_logits(mesh, arch: str, n_layers: int, sparsity: float,
 def _kv_blocks(cache, mesh, batch: int) -> dict:
     """This rank's K/V blocks (f32 numpy, per layer) and where they sit
     in the whole ``[batch, max_len, n_kv, hd]`` leaves: (row, position,
-    head) offsets."""
+    head, head-dim) offsets."""
     rows = transformer.cache_rows(cache, mesh, batch)
     k = cache[0]["k"]
-    at = [rows.start, 0, 0]
+    at = [rows.start, 0, 0, 0]
     if cache.seq is not None:
         at[1] = mesh.get_local_rank(cache.seq) * k.shape[1]
-    if cache.seq != "model" and "model" in mesh.mesh_dim_names:
+    if cache.head_dim is not None:
+        at[3] = mesh.get_local_rank(cache.head_dim) * k.shape[3]
+    elif cache.seq != "model" and "model" in mesh.mesh_dim_names:
         at[2] = mesh.get_local_rank("model") * k.shape[2]
     return dict(at=tuple(at), kv=[(_np(c["k"]), _np(c["v"]))
                                   for c in cache])
@@ -551,5 +553,113 @@ def family_world(mesh, serve_args, builds=()) -> dict:
     and ``build_shards`` of each ``(arch, overrides)`` in ``builds``."""
     return dict(coords=sharding.coordinates(mesh),
                 serve=family_cases(mesh, *serve_args),
+                build={f"{a}-{dict(o)}": build_shards(mesh, a, o)
+                       for a, o in builds})
+
+
+# ---------------------------------------------------------------------------
+# the SSM, hybrid, vlm and audio families under a mesh
+# (tests/test_torch_mesh_ssm.py, _ring.py, _media.py)
+# ---------------------------------------------------------------------------
+
+def leaf_blocks(cache, cfg, mesh, batch: int, max_len: int,
+                seq_shard: bool) -> list:
+    """This rank's block of every cache leaf (f32 numpy, per layer, each
+    layer's leaves in name order) with its offset in the whole leaf, dim
+    by dim, from ``sharding.cache_shardings``' spec of that leaf: K/V
+    rows, positions (ring slots), heads and head dim; the recurrent
+    states' rows."""
+    whole = transformer.init_cache(cfg, batch, max_len, device="meta")
+    specs = sharding.cache_shardings(whole, mesh, seq_shard=seq_shard)
+    sizes, coords = sharding.axis_sizes(mesh), sharding.coordinates(mesh)
+    out = []
+    for i, layer in enumerate(cache):
+        leaves = []
+        for name in sorted(layer):
+            t = layer[name]
+            spec = specs[f"[{i}]['{name}']"]
+            at = tuple(0 if e is None else sharding._shard_index(
+                e, sizes, coords)[1] * t.shape[d] for d, e in enumerate(spec))
+            leaves.append((at, _np(t).copy()))     # decode writes t
+        out.append(leaves)
+    return out
+
+
+def _greedy(params, prompt, cfg, max_len: int, max_new: int, inputs: dict,
+            kw: dict) -> torch.Tensor:
+    """``engine.generate``'s greedy loop from a prefill with ``inputs``
+    (``embeds``, M-RoPE ``positions``), which ``generate`` does not
+    take: the decode steps go on at the cache's next index, as the
+    reference's ``serve_step`` does."""
+    S = prompt.shape[-1]
+    uids = torch.arange(prompt.shape[0])
+    sample = lambda logits, i: engine.sample_per_slot(
+        logits, uids, torch.full_like(uids, i), temperature=0.0)
+    last, cache = engine.prefill(params, prompt, cfg, max_len, **inputs,
+                                 **kw)
+    out, tok = [prompt], sample(last, S)
+    for i in range(max_new):
+        out.append(tok[:, None])
+        if i == max_new - 1:
+            break
+        logits, cache = engine.serve_step(params, cache, tok[:, None],
+                                          S + i, cfg, mesh=kw["mesh"])
+        tok = sample(logits, S + i + 1)
+    return torch.cat(out, dim=-1)
+
+
+def media_cases(mesh, cases, max_new: int) -> dict:
+    """Per case ``(key, arch, dtype, sparsity, overrides, numpy params,
+    prompt, max_len, one, extra, first tokens)``: this rank's prefill
+    logits (``extra``: numpy ``embeds``/``positions``, whole batch), its
+    cache blocks after the prefill and after one decode step at the
+    prompt's end teacher-forced with the reference's first tokens
+    (``leaf_blocks``), that step's logits, ``engine.generate``'s greedy
+    stream (with ``extra``, the same loop from the prefill with those
+    inputs, ``_greedy``) and the logits of each step along it, and the
+    cache's layout.
+    ``one`` serves with ``seq_shard``."""
+    out = {}
+    for case in cases:
+        (key, arch, dtype, sparsity, over, np_params, prompt, max_len, one,
+         extra, first_tok) = case
+        cfg = dataclasses.replace(configs.smoke(arch), dtype=dtype,
+                                  **dict(over))
+        local = convert.rank_params_from_numpy(
+            np_params, mesh, device="cpu", sparsity=sparsity,
+            should_sparsify=should_sparsify)
+        p = torch.from_numpy(prompt).long()
+        B, S = p.shape[0], p.shape[-1]
+        kw = dict(mesh=mesh, seq_shard=one)
+        inputs = {k: torch.from_numpy(v) for k, v in (extra or {}).items()}
+        if "positions" in inputs:
+            inputs["positions"] = inputs["positions"].long()
+        with torch.inference_mode():
+            first, cache = engine.prefill(local, p, cfg, max_len, **inputs,
+                                          **kw)
+            pre = leaf_blocks(cache, cfg, mesh, B, max_len, one)
+            tok = torch.from_numpy(first_tok).long()[..., None]
+            step, _ = engine.serve_step(local, cache, tok, S, cfg, mesh=mesh)
+            after = leaf_blocks(cache, cfg, mesh, B, max_len, one)
+            with _Tap(engine) as tap:
+                if inputs:
+                    toks = _greedy(local, p, cfg, max_len, max_new, inputs,
+                                   kw)
+                else:
+                    toks = engine.generate(local, p, cfg,
+                                           max_new_tokens=max_new,
+                                           max_len=max_len, **kw)
+        out[key] = dict(prefill=_np(first), step=_np(step),
+                        tokens=toks.numpy(), steps=tap.logits,
+                        seq=cache.seq, batch=cache.batch,
+                        head_dim=cache.head_dim, kv_pre=pre, kv_step=after)
+    return out
+
+
+def media_world(mesh, cases, max_new: int, builds=()) -> dict:
+    """A world of the SSM, ring and media mesh tests: ``media_cases`` and
+    ``build_shards`` of each ``(arch, overrides)`` in ``builds``."""
+    return dict(coords=sharding.coordinates(mesh),
+                serve=media_cases(mesh, cases, max_new),
                 build={f"{a}-{dict(o)}": build_shards(mesh, a, o)
                        for a, o in builds})
