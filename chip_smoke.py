@@ -76,7 +76,7 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    OPT-30B, OPT-66B and OPT-175B at 80 GB (``serving.budget``), builds
    OPT-30B at all 48 layers layer by layer (``serve.build``), prints its
    built against its planned weight bytes, holds the first decode step
-   against the plain path at 4, 12, 24 and 48 layers
+   against the plain path at 4 and 48 layers
    (``depth_logits_tol``), then serves 32 requests (128-768 prompt
    tokens, 64 greedy new tokens) through ``StreamingServer`` over 32
    slots at max_len 1024 from the pool ``budget.plan`` sizes (paged,
@@ -189,8 +189,8 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    refusal of a codebook config, and ``engine.generate`` on 8 prompts
    of [4, 256] for 64 greedy frames (all four LSCD kernels launched,
    every launch configuration against its plain version, frames/s);
-14. train phase: tinyllama_1_1b at full width and depth (22 layers)
-   trained through ``launch/train.py``'s functions: f32 params, AdamW at
+14. train phase: tinyllama_1_1b at full width, its first 8 of 22 layers
+   (``TRAIN_LAYERS``, ``launch.train --layers``), trained through ``launch/train.py``'s functions: f32 params, AdamW at
    the launcher's defaults, 0.8 masks by the reference launcher's rule,
    ``SyntheticLM`` batches of 8 x 512, 30 steps (every loss finite, the
    mean of the last 5 below step 1's, no masked weight nonzero after any
@@ -207,7 +207,7 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    16 slots (16 requests of 32-384 tokens, 32 new) graph on and off
    (identical streams) with the kernel profiler on, its drift table of
    CUDA-event times (beside the kernel table's time where a shape is
-   shared), first-step logits within ``depth_logits_tol(22)``, every
+   shared), first-step logits within ``depth_logits_tol(8)``, every
    launch configuration against its plain version, and a
    ``StreamingServer`` snapshot after step 8 restored into a new server:
    each (session, index) delivered once, every token streamed before the
@@ -218,7 +218,7 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    (a) OPT-30B at full width, sparsity 0.8, tensor-parallel over a 1x4
    mesh: first the unsharded model in this process (first decode step
    and ``engine.generate``'s greedy streams of 8 prompts of 128 tokens,
-   32 new, at 4 of the 24 layers built, each step's top-2 margins
+   32 new, at the 4 layers built, each step's top-2 margins
    recorded; max_len 160 in every run, so the K/V lies sequence over
    ``model``), then four ranks, each building its shard layer by layer
    (``serve.build(mesh=)``): the ranks' encoded non-zeros summing to the
@@ -229,14 +229,14 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    LSCD kernels launched on every rank, each rank's launch
    configurations held against the plain versions, per-rank bytes,
    peaks, prefill and decode times and a profiled sharded decode step.
-   The same four ranks then serve the families: qwen3-moe-30b-a3b (16
-   of its 48 layers, expert parallelism, 32 experts a rank),
-   minicpm3_4b (62 layers, MLA, 10 heads a rank, the latents whole),
-   recurrentgemma-9b (38 layers, RG-LRU and MLP widths split, the window
-   ring's slots over model), mamba2-130m (24 layers, ``in_proj`` split
-   and gathered whole, the scan whole on every rank), qwen2-vl-2b (28
-   layers, M-RoPE with distinct t/h/w ids) and musicgen-large (48
-   layers, a codebook a rank of the head), each built with the ranks in
+   The same four ranks then serve the families, each built at 4 layers
+   (``MESH_FAMILY_BUILD_LAYERS``): qwen3-moe-30b-a3b (expert
+   parallelism, 32 experts a rank), minicpm3_4b (MLA, 10 heads a rank,
+   the latents whole), recurrentgemma-9b (RG-LRU and MLP widths split,
+   the window ring's slots over model), mamba2-130m (``in_proj`` split
+   and gathered whole, the scan whole on every rank), qwen2-vl-2b
+   (M-RoPE with distinct t/h/w ids) and musicgen-large (a codebook a
+   rank of the head), each built with the ranks in
    turn and their first 4 layers served the same way against the
    unsharded models (run in this process before the world: built whole,
    non-zeros, first step, streams, each MoE call's routes): the ranks'
@@ -266,20 +266,32 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    masked weights at zero after every step, five steps, a save from 2x2,
    its restores onto 1x4 (a mesh over the same ranks) and onto one rank
    with every leaf's position-weighted checksums equal to the saved
-   state's, and step 6 on the 1x4 restore within 5e-3 of step 6 on 2x2;
+   state's, and step 6 on the 1x4 restore within 5e-3 of step 6 on 2x2.
+   The same world then trains each family one masked f32 step (f32
+   params and compute, donated) at its published widths, recurrentgemma
+   ZeRO-3, the depth cut to fit four ranks on the card
+   (``MESH_TRAIN_FAMILIES``: qwen3-moe-30b-a3b 1 layer of 128 experts,
+   minicpm3_4b 4, recurrentgemma-9b 3, mamba2-130m 24, qwen2-vl-2b 4 with
+   distinct t/h/w ids, musicgen-large 4), global batch 4 x 256, each
+   against its unsharded step run in this process before the world (its
+   new params on the host): loss and grad norm within 5e-3 relative,
+   every param within 5e-3, update misses within 0.25, masked weights
+   zero, no raw collective reached with gradients on; each rank's
+   ms/step and peak allocated bytes printed, each family freed before
+   the next;
 16. cells phase: the dry run (``launch.dryrun``) of every arch x cell
    on the 16x16 and 2x16x16 meshes in both weight modes, in worker
    processes that see no card, run beside the kernels' build and ended
-   before the first timed phase: every dense GQA cell and every
-   family's prefill, decode and long_500k cell ok, every train x
-   sparse_xla cell an error naming ROADMAP.md queue 3 item 13, every
-   other train cell an error naming queue 1 item 14; the dry run of this phase's cells leaves the card's allocated
-   memory as it was. Then tinyllama-1.1b at 0.8 on 2x2, four ranks
+   before the first timed phase: every cell of every family ok (138 of
+   164), the train x sparse_xla cells errors naming ROADMAP.md queue 3
+   item 13; the dry run of this phase's cells leaves the card's allocated
+   memory as it was. Then tinyllama-1.1b at 0.8, its first 8 of 22
+   layers (``CELLS_LAYERS``), on 2x2, four ranks
    sharing the card over gloo: decode with the sequence over ``model``
    (8 prompts of 1000-3000 tokens, max_len 4096, 32 greedy steps) and at
    batch 1 with the sequence over ``data`` (3000 tokens), each against
    the unsharded model (first-step logits within
-   ``depth_logits_tol(22)``, streams by the near-tie rule, every launch
+   ``depth_logits_tol(8)``, streams by the near-tie rule, every launch
    configuration against its plain version), one ZeRO-3 step against
    the mesh phase's unsharded step 1 (loss, grad norm and params within
    5e-3, masks held), and the dry run of the three cells against what
@@ -1913,8 +1925,10 @@ def _first_token_ties(torch, got_tok, want_tok, want_logits):
 # independent per-layer roundings grows as the square root of the depth,
 # so the tolerance is LOGITS_TOL at the slice's 4 layers, scaled by
 # sqrt(n_layers / 4) past them: 0.104 at 48 layers, 0.070 at
-# tinyllama's 22. The 4-layer checks keep LOGITS_TOL.
-DEPTH_SWEEP = (4, 12, 24, 48)
+# tinyllama's 22. The 4-layer checks keep LOGITS_TOL. The phase holds
+# 4 and 48 layers: the 12- and 24-layer checks went when the whole script
+# ran past its 1200 s limit on a slow host.
+DEPTH_SWEEP = (4, 48)
 
 
 def depth_logits_tol(n_layers: int) -> float:
@@ -4149,6 +4163,12 @@ def audio_phase(torch, mods) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_ARCH = "tinyllama_1_1b"
+# The train phase takes tinyllama's first 8 of its 22 layers at its
+# published widths (``launch.train --layers``): at 22 the phase took
+# 124.7 s, about half of it writing and reading the 13e9 B checkpoints,
+# and the whole script ran past its 1200 s limit on a slow host (NVIDIA
+# H100 80GB HBM3, 700 W).
+TRAIN_LAYERS = 8
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 512
 TRAIN_SAVE_AT, TRAIN_RESUME_TO = 15, 20
 TRAIN_TIMED_FROM = 6                     # steps 6-30 timed
@@ -4172,7 +4192,8 @@ TRAIN_SNAPSHOT_AT = 8                    # server steps before the snapshot
 
 def _train_args(mods, ckpt_dir, *extra):
     return mods["train"].parse_args(
-        ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+        ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_LAYERS),
+         "--steps", str(TRAIN_STEPS),
          "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
          "--sparsity", str(SPARSITY), "--seed", str(SEED),
          "--ckpt-dir", ckpt_dir, *extra])
@@ -4387,7 +4408,8 @@ def _resume_check(torch, mods, ck_train, straight, straight_losses):
 
 
 def _train_run(torch, mods, ck_train, ck_serve):
-    """(a)-(d): the f32-compute step beside the bf16 one at 22 layers, 30
+    """(a)-(d): the f32-compute step beside the bf16 one at
+    ``TRAIN_LAYERS`` layers, 30
     masked steps (gates: finite, falling loss, no masked weight nonzero
     after any step; step 5, untimed, under the profiler for where its
     time goes), the asynchronous save at step 15, the step-30
@@ -4573,7 +4595,8 @@ def _serve_trained(torch, mods, ck_serve, counts_by_path) -> dict:
         mods[x] for x in ("convert", "serve", "train", "spmm", "api",
                           "tiled_csl", "obs_profile", "ft"))
     import numpy as np
-    cfg = mods["configs"].get(TRAIN_ARCH)
+    cfg = dataclasses.replace(mods["configs"].get(TRAIN_ARCH),
+                              n_layers=TRAIN_LAYERS)
     mods["ops"].SCHEDULES.clear()
     t0 = time.perf_counter()
     src, meta = convert.params_from_checkpoint(ck_serve, device="cuda")
@@ -4708,9 +4731,10 @@ def _serve_trained(torch, mods, ck_serve, counts_by_path) -> dict:
 
 
 def train_phase(torch, mods) -> dict:
-    """tinyllama_1_1b at full width and depth trained with 0.8 masks by the
-    reference launcher's rule (``launch/train.py``'s functions: f32 params,
-    AdamW, ``SyntheticLM``, batch 8 x 512, 30 steps), checkpointed at step
+    """tinyllama_1_1b at full width, cut to ``TRAIN_LAYERS``, trained with
+    0.8 masks by the reference launcher's rule (``launch/train.py``'s
+    functions: f32 params, AdamW, ``SyntheticLM``, batch 8 x 512, 30
+    steps), checkpointed at step
     15 (asynchronously) and 30, resumed from 15 through 20 against the
     straight run, one 4-layer f32 step held against the CPU, then the
     step-30 checkpoint served through the LSCD kernels with the profiler
@@ -4815,13 +4839,14 @@ def profile_steps(torch, engine, params, cfg, prompts, steps: int = 4):
 
 MESH_DEVICE = "cuda"
 MESH_SERVE_ARCH, MESH_SERVE_SHAPE = "opt_30b", (1, 4)
-# OPT-30B is built at 8 of its 48 layers: at 48, with the families
+# OPT-30B is built at the 4 of its 48 layers it serves: at 48, with the families
 # part beside it, the whole script ran 1195 s of its 1200 s limit on the
 # card (NVIDIA H100 80GB HBM3, 700 W), and at 24, with the SSM, hybrid,
 # vlm and audio families added to that part, 1135 s against the 1100 s
 # it is held to (the 24-layer build and its unsharded twin took 19 s);
-# the serving comparison is at 4.
-MESH_BUILD_LAYERS = 8
+# at 8 the script ran past its 1200 s limit on a slow host once the
+# families' training came.
+MESH_BUILD_LAYERS = 4
 # The serving comparison runs at 4 layers of the 48 built: at 24 layers
 # with the K/V sequence over model a sharded decode step took 1.5 s a
 # rank (gloo between four processes that share the card), and the whole
@@ -5197,6 +5222,255 @@ def _mesh_train_reference(torch, mods, path: str) -> dict:
                 peak_allocated=peak)
 
 
+# The training world then takes one masked f32 step of each family at its
+# published widths, the depth cut so that the four ranks' shares of the
+# f32 params, gradients and AdamW moments (16 B a param unsharded, about
+# half of that a rank on 2x2) and their activations fit the card beside
+# each other: qwen3-moe's one layer holds its 128 experts (64 a model
+# rank), recurrentgemma's three one period of its (rglru, rglru, attn)
+# pattern, mamba2 all 24 of its layers. Every step is donated (AdamW
+# in place, ``make_train_step(donate=True)``): the undonated unsharded
+# recurrentgemma step, which holds the old and the new state and a
+# 4.2e9 B leaf's temporaries, ran the card out of memory at 74.9 GiB
+# (NVIDIA H100 80GB HBM3, 700 W). recurrentgemma also runs ZeRO-3
+# (``fsdp``): its 256 000 x 4096 tied embedding leaves a rank 0.85e9
+# params on 2x2 without it, and four ranks' states, gradients and
+# temporaries would fill the card.
+MESH_TRAIN_FAMILIES = (("qwen3_moe_30b_a3b", 1, False),
+                       ("minicpm3_4b", 4, False),
+                       ("recurrentgemma_9b", 3, True),
+                       ("mamba2_130m", 24, False),
+                       ("qwen2_vl_2b", 4, False),
+                       ("musicgen_large", 4, False))
+# 4 x 256 positions (SyntheticLM's seq_len counts the shifted target)
+MESH_FAMILY_BATCH, MESH_FAMILY_SEQ = 4, 257
+# A K bias's gradient is zero but for rounding (softmax ignores a shift
+# shared by every key), so the sign of its update is rounding's: its
+# update misses are not counted (its params are held like every leaf's).
+K_BIAS = lambda path: path.endswith("['wk']['b']")     # noqa: E731
+# qwen2-vl's distinct t/h/w ids: position i at time i, row i // 16 and
+# column i % 16 of a 16-wide grid
+MESH_TRAIN_GRID = 16
+
+
+def _family_train_args(mods, arch: str, layers: int):
+    return mods["train"].parse_args(
+        ["--arch", arch, "--layers", str(layers), "--steps", "1",
+         "--batch", str(MESH_FAMILY_BATCH), "--seq", str(MESH_FAMILY_SEQ),
+         "--sparsity", str(SPARSITY), "--seed", str(SEED)])
+
+
+def _family_setup(torch, mods, arch: str, layers: int, dev, mesh=None,
+                  fsdp: bool = False) -> dict:
+    """The launcher's ``setup`` of the family's run (``launch.train``:
+    the whole model drawn from the seed, masked by its rule, this rank's
+    shard under ``mesh``, ZeRO-3's with ``fsdp``), its config computing
+    in f32: the step of f32 params in f32, as the CPU tests hold the
+    families' sharded steps (the bf16 compute of the published config
+    moved 0.222 of mamba2's ``dt_bias`` update against the unsharded
+    step's, near ``UPDATE_MISS_TOL``)."""
+    train, sharding = mods["train"], mods["sharding"]
+    opt_mod, train_loop = mods["optimizer"], mods["train_loop"]
+    args = _family_train_args(mods, arch, layers)
+    cfg = dataclasses.replace(train.run_config(args), dtype="float32")
+    opt = opt_mod.AdamW(lr=opt_mod.cosine_schedule(args.lr, args.warmup,
+                                                   args.steps))
+    params = mods["transformer"].init_model(cfg, seed=args.seed, device=dev)
+    masks = train.reference_masks(params, cfg, args.sparsity)
+    params = opt_mod.apply_masks(params, masks)
+    shardings = None
+    if mesh is not None:
+        shardings = sharding.params_shardings(params, mesh, fsdp=fsdp)
+        params = sharding.shard_params(params, mesh, fsdp=fsdp)
+        masks = sharding.shard_params(masks, mesh, fsdp=fsdp)
+    state = train_loop.TrainState(params, opt.init(params),
+                                  torch.zeros((), dtype=torch.int32,
+                                              device=dev))
+    stream = mods["data"].SyntheticLM(cfg.vocab, args.seq, args.batch,
+                                      seed=args.seed,
+                                      n_codebooks=cfg.n_codebooks)
+    return dict(cfg=cfg, opt=opt, state=state, masks=masks, stream=stream,
+                shardings=shardings)
+
+
+def _family_train_batch(torch, mods, run, dev, at=None) -> dict:
+    """The run's first batch on ``dev`` (``at``: a data rank's (index,
+    count) slice), with qwen2-vl's M-RoPE ids."""
+    data, train_loop = mods["data"], mods["train_loop"]
+    batch = run["stream"].next_batch()
+    if at is not None:
+        batch = data.batch_slice(batch, *at)
+    batch = train_loop.batch_to(batch, dev)
+    if run["cfg"].mrope_sections is not None:
+        B, S = batch["tokens"].shape
+        i = torch.arange(S, device=dev)
+        batch["positions"] = torch.stack(
+            [i, i // MESH_TRAIN_GRID, i % MESH_TRAIN_GRID])[:, None].expand(
+                3, B, S).contiguous()
+    return batch
+
+
+def _param_count(ft, params) -> int:
+    return sum(t.numel() for _, t in ft.flatten_with_paths(params))
+
+
+def _family_train_references(torch, mods, work: str) -> dict:
+    """Each family's unsharded masked f32 step 1, in this process, one
+    family at a time: its metrics, time and peak on the host, its new
+    params to ``work`` (host tensors by path) for the ranks to read their
+    blocks of; every tensor freed before the next."""
+    train_loop, ft = mods["train_loop"], mods["ft"]
+    out = {}
+    for arch, layers, _ in MESH_TRAIN_FAMILIES:
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        run = _family_setup(torch, mods, arch, layers, MESH_DEVICE)
+        step_fn = train_loop.make_train_step(run["cfg"], run["opt"],
+                                             masks=run["masks"], donate=True)
+        batch = _family_train_batch(torch, mods, run, MESH_DEVICE)
+        n = _param_count(ft, run["state"].params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(run["state"], batch)
+        m = {k: float(v) for k, v in metrics.items()}
+        step_s = time.perf_counter() - t0
+        torch.save({p: t.cpu() for p, t in
+                    ft.flatten_with_paths(state.params)},
+                   os.path.join(work, f"family_{arch}.pt"))
+        out[arch] = dict(layers=layers, params=n, state_bytes=16 * n,
+                         step_s=step_s,
+                         peak_allocated=torch.cuda.max_memory_allocated(),
+                         **m)
+        del run, step_fn, state, metrics, batch
+        release(torch)
+    return out
+
+
+def _train_families_rank(torch, mods, mesh, work: str) -> dict:
+    """This rank of the 2x2 training world: each family's step 1
+    (``_family_setup`` under the mesh, the ranks drawing the whole model
+    in turn) against the unsharded step's blocks, one family at a time,
+    each freed before the next."""
+    import torch.distributed as dist
+    train_loop, ft = mods["train_loop"], mods["ft"]
+    sharding, mesh_mod = mods["sharding"], mods["mesh"]
+    tp = mods["tensor_parallel"]
+    dev = mesh_mod.rank_device(mesh)
+    at = (mesh.get_local_rank("data"), mesh.size(0))
+    out = {}
+    for arch, layers, fsdp in MESH_TRAIN_FAMILIES:
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        run = _in_turn(torch, lambda: _family_setup(
+            torch, mods, arch, layers, dev, mesh, fsdp))
+        cfg, masks, shardings = run["cfg"], run["masks"], run["shardings"]
+        state = run.pop("state")
+        step_fn = train_loop.make_train_step(cfg, run["opt"], masks=masks,
+                                             mesh=mesh, shardings=shardings,
+                                             fsdp=fsdp, donate=True)
+        batch = _family_train_batch(torch, mods, run, dev, at)
+        before = _host_params(ft, state.params)
+        n = _param_count(ft, state.params)
+        tp.raw_under_grad = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        m = {k: float(v) for k, v in metrics.items()}
+        step_s = time.perf_counter() - t0
+        raw = tp.raw_under_grad
+        want = torch.load(os.path.join(work, f"family_{arch}.pt"),
+                          mmap=True)
+        gap = _update_gap(torch, ft, state.params,
+                          lambda path: sharding.shard_leaf(
+                              want[path], shardings[path], mesh),
+                          before, float(run["opt"].lr(1)), noise=K_BIAS)
+        out[arch] = dict(params=n, state_bytes=16 * n, step_s=step_s,
+                         raw_under_grad=raw,
+                         peak_allocated=torch.cuda.max_memory_allocated(),
+                         masked_nonzero=(0 if masks is None else
+                                         _masked_nonzeros(torch, ft,
+                                                          state.params,
+                                                          masks)),
+                         masked=bool(masks is not None and
+                                     ft.flatten_with_paths(masks)),
+                         **m, **gap)
+        del run, state, metrics, batch, before, want, step_fn, masks
+        release(torch)
+        dist.barrier()
+    return out
+
+
+def _train_families_gates(out: dict, refs: dict, ranks: list,
+                          card: str) -> None:
+    """Each family's step on 2x2 against its unsharded step: loss and
+    grad norm within ``MESH_TRAIN_TOL`` relative, every param within it,
+    the update's misses within ``UPDATE_MISS_TOL``, masked weights zero,
+    every rank's metrics alike, no raw collective reached while
+    gradients were on; each rank's peak and ms/step printed."""
+    rel = lambda a, b: abs(a - b) / abs(b)
+    rows = {}
+    for arch, layers, fsdp in MESH_TRAIN_FAMILIES:
+        ref = refs[arch]
+        got = [r["families"][arch] for r in ranks]
+        g0 = got[0]
+        label = (f"mesh: train {arch} ({layers} layers"
+                 f"{', ZeRO-3' if fsdp else ''})")
+        for name in ("loss", "grad_norm"):
+            check(rel(g0[name], ref[name]) <= MESH_TRAIN_TOL,
+                  f"{label}: {name} {g0[name]} on 2x2 vs {ref[name]} "
+                  f"unsharded: {rel(g0[name], ref[name]):.3e} relative")
+        for r, g in zip(ranks, got):
+            check(g["loss"] == g0["loss"] and g["grad_norm"] == g0["grad_norm"],
+                  f"{label}: rank {r['rank']}'s metrics differ from rank 0's")
+            check(g["param_err"] <= MESH_TRAIN_TOL,
+                  f"{label}: rank {r['rank']}: param {g['param_err_leaf']} "
+                  f"off the unsharded step's by {g['param_err']:.3e}")
+            check(g["update_miss"] <= UPDATE_MISS_TOL,
+                  f"{label}: rank {r['rank']}: update of "
+                  f"{g['update_miss_leaf']} misses on {g['update_miss']:.3e}")
+            check(not g["masked_nonzero"],
+                  f"{label}: rank {r['rank']}: {g['masked_nonzero']} masked "
+                  f"weights nonzero")
+            check(g["raw_under_grad"] == 0,
+                  f"{label}: rank {r['rank']}: {g['raw_under_grad']} raw "
+                  f"collectives with gradients on")
+        rows[arch] = dict(
+            layers=layers, fsdp=fsdp, params=ref["params"],
+            state_bytes=ref["state_bytes"],
+            rank_params=[g["params"] for g in got],
+            rank_state_bytes=[g["state_bytes"] for g in got],
+            loss=g0["loss"], loss_rel=rel(g0["loss"], ref["loss"]),
+            ce=g0["ce"], aux=g0["aux"],
+            grad_norm_rel=rel(g0["grad_norm"], ref["grad_norm"]),
+            param_err=max(g["param_err"] for g in got),
+            update_miss=max(g["update_miss"] for g in got),
+            update_miss_leaf=max(got, key=lambda g: g["update_miss"])[
+                "update_miss_leaf"],
+            masked=g0["masked"],
+            step_ms=[g["step_s"] * 1e3 for g in got],
+            peak_allocated=[g["peak_allocated"] for g in got],
+            unsharded_step_ms=ref["step_s"] * 1e3,
+            unsharded_peak=ref["peak_allocated"])
+        row = rows[arch]
+        print(f"{label}, global batch "
+              f"{MESH_FAMILY_BATCH} x {MESH_FAMILY_SEQ - 1}, "
+              f"{'0.8 masks' if row['masked'] else 'no leaf masked'}, "
+              f"donated steps, on 2x2: {row['params']} params unsharded ({row['state_bytes']} "
+              f"B of f32 params, gradients and moments; "
+              f"{row['unsharded_step_ms']:.1f} ms, peak "
+              f"{row['unsharded_peak']} B), a rank "
+              f"{row['rank_params']} params ({row['rank_state_bytes']} B); "
+              f"loss {row['loss']:.6f} ({row['loss_rel']:.2e} relative), "
+              f"aux {row['aux']:.6f}, grad norm ({row['grad_norm_rel']:.2e}"
+              f"), params within {row['param_err']:.2e}, update misses "
+              f"{row['update_miss']:.3e} ({row['update_miss_leaf']}); "
+              f"ms/step a rank "
+              f"{json.dumps([round(x, 1) for x in row['step_ms']])}, peak "
+              f"allocated a rank {row['peak_allocated']} B; {card}",
+              flush=True)
+    out["families"] = rows
+
+
 def _fingerprints(torch, mods, tree, shardings, mesh) -> "torch.Tensor":
     """[leaves, 2] int64: each tensor leaf's checksums (``FP_PRIMES``) of
     its bits weighted by their positions in the whole leaf, summed over
@@ -5310,15 +5584,19 @@ def _mesh_compression(torch, mods, params, batch, cfg, mesh) -> dict:
 
 
 def _host_params(ft, params) -> dict:
-    return {path: t.detach().cpu()
+    """A host copy of every leaf (a donated step writes over the
+    params)."""
+    return {path: t.detach().to("cpu", copy=True)
             for path, t in ft.flatten_with_paths(params)}
 
 
-def _update_gap(torch, ft, params, want_of, before: dict, lr: float) -> dict:
+def _update_gap(torch, ft, params, want_of, before: dict, lr: float,
+                noise=lambda path: False) -> dict:
     """This rank's params after a step against ``want_of(path)``, the
     other run's block of the same leaf, both stepped from ``before``
     (host tensors): the largest difference, and the update's misses (see
-    ``UPDATE_MISS_TOL``) in the worst leaf."""
+    ``UPDATE_MISS_TOL``) in the worst leaf but those ``noise`` names,
+    whose gradient is rounding's."""
     gap = dict(lr=lr, param_err=0.0, param_err_leaf=None, update_miss=0.0,
                update_miss_leaf=None, moved=0)
     for path, t in ft.flatten_with_paths(params):
@@ -5327,7 +5605,8 @@ def _update_gap(torch, ft, params, want_of, before: dict, lr: float) -> dict:
         d = (t - w).abs()
         moved = int(((w - before[path].to(t.device, torch.float32)).abs()
                      > lr / 2).sum())
-        miss = int((d > lr / 2).sum()) / max(moved, 1)
+        miss = 0.0 if noise(path) else int((d > lr / 2).sum()) / max(moved,
+                                                                     1)
         gap["moved"] += moved
         err = float(d.max())
         if err > gap["param_err"]:
@@ -5466,6 +5745,9 @@ def mesh_train_rank(mesh, ref: dict, work: str) -> dict:
         del state1
         release(torch)
     dist.barrier()
+    t0 = time.perf_counter()
+    out["families"] = _train_families_rank(torch, mods, mesh, work)
+    out["families_s"] = time.perf_counter() - t0
     return out
 
 
@@ -5478,6 +5760,9 @@ def _mesh_training(torch, mods, card: str) -> dict:
     os.makedirs(work)
     done = False
     try:
+        t0 = time.perf_counter()
+        family_refs = _family_train_references(torch, mods, work)
+        family_refs_s = time.perf_counter() - t0
         ref = _mesh_train_reference(torch, mods, os.path.join(
             work, "step1_params.pt"))
         print(f"mesh: unsharded {MESH_TRAIN_ARCH} step 1 ("
@@ -5567,6 +5852,12 @@ def _mesh_training(torch, mods, card: str) -> dict:
                leaves_checked=int(r0["live"].shape[0]),
                peak_allocated=[r["peak_allocated"] for r in ranks],
                setup_s=[r["setup_s"] for r in ranks])
+    _train_families_gates(out, family_refs, ranks, card)
+    out["families_s"] = dict(unsharded=family_refs_s,
+                             world=r0["families_s"])
+    print(f"mesh: the families' training: unsharded steps "
+          f"{family_refs_s:.1f} s in this process, {r0['families_s']:.1f} s "
+          f"of the world's {world_s:.1f} s; {card}", flush=True)
     print(f"mesh: {MESH_TRAIN_ARCH} at {MESH_TRAIN_LAYERS} layers on "
           f"{MESH_TRAIN_SHAPE[0]}x{MESH_TRAIN_SHAPE[1]} (global batch "
           f"{MESH_TRAIN_BATCH} x "
@@ -5611,12 +5902,14 @@ MESH_FAMILIES = ("qwen3_moe_30b_a3b", "minicpm3_4b", "recurrentgemma_9b",
 # bytes are held against the reference's in tests/test_torch_specs.py.
 MESH_DRY_FAMILIES = ("qwen3_moe_30b_a3b", "minicpm3_4b")
 MESH_FAMILY_DEPTH = 4
-# Families built below full depth (the rest at full depth): qwen3-moe at
-# 16 of its 48 layers, since with the four families of the SSM, hybrid,
-# vlm and audio added the script ran 1135 s against the 1100 s it is held
-# to, and its 48-layer builds, four in turn and the unsharded one, took
-# 35.6 s of it (NVIDIA H100 80GB HBM3, 700 W); it serves 4 either way.
-MESH_FAMILY_BUILD_LAYERS = {"qwen3_moe_30b_a3b": 16}
+# The families are built at the 4 layers they serve: qwen3-moe
+# went to 16 of its 48 when the SSM, hybrid, vlm and audio families came
+# (the script ran 1135 s against the 1100 s it is held to, its 48-layer
+# builds 35.6 s of it), and every family to 8 when the training world
+# took one step of each (about 100 s more; the part took 162.6 s with
+# the full-depth builds, NVIDIA H100 80GB HBM3, 700 W), and every family
+# to 4 when the whole script ran past its 1200 s limit on a slow host.
+MESH_FAMILY_BUILD_LAYERS = {arch: 4 for arch in MESH_FAMILIES}
 # qwen2-vl's prompt: an 8 x 8 patch grid at t = 0 with its rows and
 # columns as h and w ids, then text at 8 on (all three ids)
 MESH_VLM_GRID = 8
@@ -5645,10 +5938,8 @@ def _route_trace(torch, mods, cfg, pin=None, keep=True):
 def _family_config(mods, arch: str):
     """The family's config as the part builds it
     (``MESH_FAMILY_BUILD_LAYERS``)."""
-    cfg = mods["configs"].get(arch)
-    depth = MESH_FAMILY_BUILD_LAYERS.get(arch)
-    return cfg if depth is None else dataclasses.replace(cfg,
-                                                         n_layers=depth)
+    return dataclasses.replace(mods["configs"].get(arch),
+                               n_layers=MESH_FAMILY_BUILD_LAYERS[arch])
 
 
 def _family_inputs(torch, cfg, prompts) -> dict:
@@ -5736,7 +6027,7 @@ def _leaf_digests(torch, sharding, tree, mesh=None, coords=None) -> dict:
 
 def _family_reference(torch, mods, arch: str) -> dict:
     """The unsharded side of one family, in this process: the model built
-    whole (at full depth but for ``MESH_FAMILY_BUILD_LAYERS``; its
+    whole (at ``MESH_FAMILY_BUILD_LAYERS``' depth; its
     non-zeros and bytes; the digests of each model rank's block of every
     leaf), then at ``MESH_FAMILY_DEPTH`` layers the first decode step
     (a recurrent stack's also in f32, ``_f32_step``) and ``generate``'s
@@ -6346,11 +6637,15 @@ CELLS_MAX_LEN, CELLS_NEW = 4096, 32
 # of the 32 steps. Right-padded to the longest, each row from its own end.
 CELLS_LENGTHS = (2200, 2350, 2500, 2650, 2800, 3000, 1000, 1900)
 CELLS_ONE = 3000                        # the batch-1 prompt (seq_shard)
-CELLS_TOL = depth_logits_tol(22)
+# The decode cells take tinyllama's first 8 of its 22 layers at its
+# published widths: at 22 the cells world took 84.3 s and the whole
+# script ran past its 1200 s limit on a slow host (NVIDIA H100 80GB HBM3,
+# 700 W). The dry run of the cells is built at the same depth.
+CELLS_LAYERS = 8
+CELLS_TOL = depth_logits_tol(CELLS_LAYERS)
 SWEEP_MODES = ("dense", "sparse_xla")
 SWEEP_TIMEOUT_S = 900          # the build and the whole sweep
 SPARSE_TRAIN_ITEM = "ROADMAP.md queue 3 item 13"
-MESH_ITEM = "ROADMAP.md queue 1 item 14"
 # PR 23's 2x2 tensor-parallel-only train step peaked at this much a rank
 # (PERF.md, NVIDIA H100 80GB HBM3, 700 W): the FSDP step's beside it.
 TP_ONLY_PEAK = 16_477_831_168
@@ -6400,11 +6695,9 @@ def start_sweep(mods) -> dict:
 def finish_sweep(mods, sweep) -> dict:
     """Wait for the sweep; each record must be fresh (its file newer than
     the sweep's start); print each cell's line and hold the gates: every
-    dense GQA cell and every MoE and MLA prefill and decode cell ok,
-    every train x sparse_xla cell (of any family) an error naming queue
-    3 item 13, every other cell an error naming queue 1 item 14."""
-    dryrun, configs, transformer = (mods["dryrun"], mods["configs"],
-                                    mods["transformer"])
+    cell of every family ok but the train x sparse_xla cells, each an
+    error naming queue 3 item 13."""
+    dryrun = mods["dryrun"]
     jobs, start = sweep["jobs"], sweep["start"]
     try:
         recs = list(sweep["recs"])
@@ -6426,12 +6719,9 @@ def finish_sweep(mods, sweep) -> dict:
         print(f"cells: {dryrun.summary_line(rec)}", flush=True)
         counts[rec["status"]] = counts.get(rec["status"], 0) + 1
         cell_s[mode] += rec["total_s"]
-        acfg = configs.get(arch)
-        train = shape.startswith("train")
-        sparse_train = train and mode == "sparse_xla"
-        runs = not train or transformer.dense_gqa(acfg)
+        sparse_train = shape.startswith("train") and mode == "sparse_xla"
         label = f"cells: dry run {arch}/{shape}/{rec['mesh']}/{mode}"
-        if runs and not sparse_train:
+        if not sparse_train:
             check(rec["status"] == "ok", f"{label}: {rec.get('error')}")
             b = rec["memory"]["argument_bytes"]
             table.append(dict(
@@ -6441,7 +6731,7 @@ def finish_sweep(mods, sweep) -> dict:
                 lscd_launches=sum(r["count"] for r in rec["lscd"]),
                 lscd_predicted_ms=rec["cost"]["lscd_predicted_s"] * 1e3))
         else:
-            item = SPARSE_TRAIN_ITEM if sparse_train else MESH_ITEM
+            item = SPARSE_TRAIN_ITEM
             check(rec["status"] == "error" and item in rec.get("error", ""),
                   f"{label}: {rec['status']} {rec.get('error', '')!r}, not "
                   f"{item}")
@@ -6456,7 +6746,7 @@ def _dry_cells(torch, mods, rank: int = 0) -> dict:
     a decode step would make."""
     from repro_torch.models.config import ShapeConfig
     specs, dryrun, sharding = mods["specs"], mods["dryrun"], mods["sharding"]
-    cfg = mods["configs"].get(CELLS_ARCH)
+    cfg = _cells_config(mods)
     out = {}
     for name, shape, mode in (
             ("decode", ShapeConfig("cells_decode", "decode", CELLS_MAX_LEN,
@@ -6546,6 +6836,12 @@ def _cells_generate(torch, mods, params, cfg, prompts, lengths, mesh,
                 decode_ms_per_step=times["decode_s"] / (CELLS_NEW - 1) * 1e3)
 
 
+def _cells_config(mods):
+    """tinyllama-1.1b cut to ``CELLS_LAYERS``."""
+    return dataclasses.replace(mods["configs"].get(CELLS_ARCH),
+                               n_layers=CELLS_LAYERS)
+
+
 def _cells_prompts(torch, mods, cfg, dev):
     """The decode cells' prompts: [8, 3000] right-padded with their
     lengths, and the [1, 3000] batch-1 prompt."""
@@ -6565,7 +6861,7 @@ def _cells_reference(torch, mods) -> dict:
     whole, the first decode step and the greedy streams of both decode
     cells."""
     serve = mods["serve"]
-    cfg = mods["configs"].get(CELLS_ARCH)
+    cfg = _cells_config(mods)
     release(torch)
     params, _ = serve.build(cfg, seed=SEED, sparsity=SPARSITY,
                             device=MESH_DEVICE)
@@ -6632,7 +6928,7 @@ def cells_rank(mesh, ref_tok: dict, work: str) -> dict:
                                   mods["sharding"])
     rank = dist.get_rank()
     dev = mods["mesh"].rank_device(mesh)
-    cfg = mods["configs"].get(CELLS_ARCH)
+    cfg = _cells_config(mods)
     out = dict(rank=rank, coords=sharding.coordinates(mesh),
                dry=_dry_cells(torch, mods, rank))
     params, built = _in_turn(torch, lambda: serve.build(
@@ -6792,10 +7088,8 @@ def cells_phase(torch, mods) -> dict:
     print(f"cells: the sweep's {n['ok'] + n['error']} cells (run with the "
           f"build): {n['ok']} built and {n['error']} errors, "
           f"{n.get(SPARSE_TRAIN_ITEM, 0)} naming {SPARSE_TRAIN_ITEM} (train "
-          f"x sparse_xla) and {n.get(MESH_ITEM, 0)} naming {MESH_ITEM} (the "
-          f"dense train cells of every family but dense GQA); every "
-          f"family's prefill, decode and long_500k cells and the dense GQA "
-          f"train cells ok", flush=True)
+          f"x sparse_xla); every family's prefill, decode, long_500k and "
+          f"dense train cells ok", flush=True)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     dry = _dry_cells(torch, mods)
@@ -6843,7 +7137,7 @@ def cells_phase(torch, mods) -> dict:
               f"cells: {name}: cache layout {got[0]['seq']}, not the "
               f"sequence over {want_seq}")
         # the dry run against what ran: per-leaf bytes, launch list
-        ccfg = mods["configs"].get(CELLS_ARCH)
+        ccfg = _cells_config(mods)
         head_mk = (ccfg.vocab // CELLS_SHAPE[1], ccfg.d_model)
         held, known = 0, set()
         for r in ranks:

@@ -190,7 +190,10 @@ def linear_grouped(ws: Union[tiled_csl.TiledCSL, Sequence[Weight]],
 # tensor_parallel``). A weight is this rank's shard of the whole leaf, or
 # the whole leaf where the sharding rule left it whole (``fit_spec``: its
 # split dim does not divide the model axis); the whole leaf's product is
-# cut to this rank's share after it.
+# cut to this rank's share after it. A whole leaf read for a share is a
+# replicated leaf inside the model-parallel region: its gradient on each
+# rank is that share's, so it passes through ``tensor_parallel.shared``
+# (its gradient summed over ``model`` in the backward).
 # ---------------------------------------------------------------------------
 
 def _share(full: int, tp) -> Tuple[int, int]:
@@ -236,6 +239,8 @@ def _bias_share(b: Optional[torch.Tensor], full: int, tp,
     if b is None:
         return None
     lo, n = _share(full, tp)
+    if b.shape[0] == full:
+        b = tensor_parallel.shared(b, tp)
     if whole:
         return b if b.shape[0] == full else F.pad(b, (lo, full - lo - n))
     return b[lo:lo + n] if b.shape[0] == full else b
@@ -259,8 +264,8 @@ def column_parallel(w: Weight, x: torch.Tensor,
     if not whole:
         return linear(w, x, b, declared_out=n, epilogue=epilogue,
                       backend=backend)
-    return linear(w, x, b, declared_out=out, epilogue=epilogue,
-                  backend=backend)[..., lo:lo + n]
+    return linear(tensor_parallel.shared(w, tp), x, b, declared_out=out,
+                  epilogue=epilogue, backend=backend)[..., lo:lo + n]
 
 
 def column_parallel_grouped(ws, x: torch.Tensor, bs=None, *,
@@ -281,6 +286,8 @@ def column_parallel_grouped(ws, x: torch.Tensor, bs=None, *,
     if not whole:
         return linear_grouped(ws, x, bs, declared_outs=[n for _, n in shares],
                               epilogue=epilogue, backend=backend)
+    if not isinstance(ws, tiled_csl.TiledCSL):
+        ws = tuple(tensor_parallel.shared(w, tp) for w in ws)
     y = linear_grouped(ws, x, bs, declared_outs=outs, epilogue=epilogue,
                        backend=backend)
     if isinstance(y, torch.Tensor):                  # a binary epilogue
@@ -360,10 +367,20 @@ def row_partial(w: Weight, x: torch.Tensor, *, out: int, tp,
     writes in its B's dtype: the partial stays f32 and rounds once, after
     the sum. A dense product runs in ``x``'s dtype, as the unsharded one
     does."""
+    w = _shared_if_whole(w, w.shape[1], x.shape[-1], tp)
     x = _whole_in(w.shape[1], x, tp)
     if isinstance(w, tiled_csl.TiledCSL):
         x = x.to(torch.float32)
     return linear(w, x, declared_out=out, backend=backend).to(torch.float32)
+
+
+def _shared_if_whole(w: Weight, w_in: int, share: int, tp) -> Weight:
+    """``w`` through ``tensor_parallel.shared`` where its in dim of
+    ``w_in`` is the whole one (``share`` this rank's columns of it)."""
+    k = share * tp.size
+    if not _padded_block(w_in, k, tp) and _held_whole(w_in, k, tp, "in dim"):
+        return tensor_parallel.shared(w, tp)
+    return w
 
 
 def column_gathered(w: Weight, x: torch.Tensor, *, out: int, tp,
@@ -376,7 +393,8 @@ def column_gathered(w: Weight, x: torch.Tensor, *, out: int, tp,
         return _blocks_whole(linear(w, x, declared_out=w.shape[0],
                                     backend=backend), w.shape[0], out, tp)
     if _held_whole(w.shape[0], out, tp, "out dim"):
-        return linear(w, x, declared_out=out, backend=backend)
+        return linear(tensor_parallel.shared(w, tp), x, declared_out=out,
+                      backend=backend)
     y = column_parallel(w, x, out=out, tp=tp, backend=backend)
     lo, n = _share(out, tp)
     full = F.pad(y.to(torch.float32), (lo, out - lo - n))
@@ -402,8 +420,8 @@ def column_parallel_batched(w: Weight, x: torch.Tensor, *, out: int, tp,
     lo, n = _share(out, tp)
     if not _held_whole(_stack_rows(w), out, tp, "expert out dim"):
         return linear_batched(w, x, declared_out=n, backend=backend)
-    return linear_batched(w, x, declared_out=out,
-                          backend=backend)[..., lo:lo + n]
+    return linear_batched(tensor_parallel.shared(w, tp), x,
+                          declared_out=out, backend=backend)[..., lo:lo + n]
 
 
 def row_partial_batched(w: Weight, x: torch.Tensor, *, out: int, tp,
@@ -412,6 +430,7 @@ def row_partial_batched(w: Weight, x: torch.Tensor, *, out: int, tp,
     rank's in columns of every expert's block: the rank's f32 partial,
     not yet summed over the model ranks. A Tiled-CSL stack takes ``x``
     in f32, as :func:`row_partial` does."""
+    w = _shared_if_whole(w, _stack_cols(w), x.shape[-1], tp)
     x = _whole_in(_stack_cols(w), x, tp)
     if isinstance(w, tiled_csl.TiledCSL):
         x = x.to(torch.float32)

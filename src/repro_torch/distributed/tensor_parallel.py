@@ -14,11 +14,28 @@ and gloo):
   takes the same loss of the whole logits);
 * :func:`gather_from` — all-reduce forward and backward: the ranks'
   zero-filled blocks of a tensor that each rank uses its own way (the
-  KV heads that ranks share where there are fewer than model ranks).
+  KV heads that ranks share where there are fewer than model ranks);
+  :func:`gather_dim` is the same from each rank's block of one dim.
 
-With them, the gradient of a replicated leaf (a norm scale, a
-row-parallel bias) is the same on every model rank. Sums are reduced in
-f32, so row-parallel partials round once, after the reduce.
+With them, the gradient of a replicated leaf that sits outside a
+model-parallel region (a norm scale before :func:`copy_to`, a
+row-parallel bias after the reduce) is the same whole gradient on every
+model rank. Inside a region (between :func:`copy_to` or a gather and the
+row-parallel reduce) each rank's gradient of a whole tensor is only its
+share, which the gather's or :func:`copy_to`'s backward sums. A
+replicated leaf read there (the RG-LRU and SSM gates, norms and convs,
+MLA's ``w_dkv``, a weight the rules hold whole) passes through
+:func:`shared`: its gradient is summed over ``model`` in the backward,
+so every rank holds the whole one. A whole value that every rank adds
+to the loss from inside a region (the MoE aux loss) passes through
+:func:`model_share`, which divides its gradient by the ranks that the
+region's gathers sum it over. Sums are reduced in f32, so row-parallel
+partials round once, after the reduce.
+
+Every collective of a train step carries its backward: an
+:func:`all_reduce` reached while gradients are on counts in
+``raw_under_grad`` (the tests hold it at 0 over a train step); the
+helpers above run it raw only where no gradient is wanted.
 
 Two more pieces serve the sequence-sharded K/V cache and FSDP:
 
@@ -47,6 +64,7 @@ from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 
 class DryGroup:
@@ -97,12 +115,22 @@ def of(mesh) -> Optional[Axis]:
     return axis(mesh, "model")
 
 
+# raw all-reduces reached while gradients were on (autograd sees them as
+# the identity): 0 over a train step
+raw_under_grad = 0
+
+
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM, *,
                kind: str = "all-reduce") -> torch.Tensor:
     """``x`` reduced over ``group`` (a new tensor; ``x`` is left as it
-    was). On a :class:`DryGroup` nothing moves: the result is ``x``'s
-    shape and the collective is recorded as ``kind``, the operation the
-    all-reduce stands for (``"all-gather"`` for a zero-filled gather)."""
+    was), with no backward: autograd sees the identity, so a caller that
+    differentiates uses :func:`sum_over` or the helpers below. On a
+    :class:`DryGroup` nothing moves: the result is ``x``'s shape and the
+    collective is recorded as ``kind``, the operation the all-reduce
+    stands for (``"all-gather"`` for a zero-filled gather)."""
+    global raw_under_grad
+    if torch.is_grad_enabled():
+        raw_under_grad += 1
     if isinstance(group, DryGroup):
         group.records.append((kind, group.axis,
                               x.numel() * x.element_size()))
@@ -112,17 +140,67 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM, *,
     return out
 
 
+def _raw(x: torch.Tensor, group, op=dist.ReduceOp.SUM, *,
+         kind: str = "all-reduce") -> torch.Tensor:
+    """:func:`all_reduce` where no gradient is wanted."""
+    with torch.no_grad():
+        return all_reduce(x, group, op, kind=kind)
+
+
+def _wants_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def sum_over(x: torch.Tensor, group, *,
+             kind: str = "all-reduce") -> torch.Tensor:
+    """``x`` summed over ``group``, its backward the same sum of the
+    gradient: the adjoint where each rank's loss is its own and the
+    objective their sum (the data axes: a whole-batch statistic, the
+    MoE experts' blocks summed over the data ranks a subgroup spans), or
+    where each rank uses the result its own way (:func:`gather_from`)."""
+    if not _wants_grad(x):
+        return _raw(x.contiguous(), group, kind=kind)
+    return _SumOver.apply(x, group, kind)
+
+
 def gather_dim(x: torch.Tensor, dim: int, ax: Axis, *,
                kind: str = "all-gather") -> torch.Tensor:
     """The whole tensor from every rank's equal block of dim ``dim`` of
     it (this rank's at ``ax.rank``): a zero-filled all-reduce, exact in
-    any dtype."""
+    any dtype. Its backward sums the gradient over the ranks and keeps
+    this rank's block (:func:`gather_from`)."""
     n = x.shape[dim]
     shape = list(x.shape)
     shape[dim] = n * ax.size
+    if _wants_grad(x):
+        pad = [0, 0] * (x.dim() - 1 - dim) + [ax.rank * n,
+                                               (ax.size - 1 - ax.rank) * n]
+        return _SumOver.apply(F.pad(x, pad), ax.group, kind)
     full = x.new_zeros(shape)
     full.narrow(dim, ax.rank * n, n).copy_(x)
-    return all_reduce(full, ax.group, kind=kind)
+    return _raw(full, ax.group, kind=kind)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return all_reduce(x.contiguous(), group, kind=kind)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous(), ctx.group), None, None
+
+
+class _ModelShare(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.size = size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.size, None
 
 
 class _CopyTo(torch.autograd.Function):
@@ -146,17 +224,6 @@ class _ReduceFrom(torch.autograd.Function):
         return grad, None
 
 
-class _GatherFrom(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return all_reduce(x.contiguous(), group, kind="all-gather")
-
-    @staticmethod
-    def backward(ctx, grad):
-        return all_reduce(grad.contiguous(), ctx.group), None
-
-
 class _FsdpGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, dp):
@@ -175,7 +242,7 @@ def fsdp_gather(x: torch.Tensor, dim: int, dp: Axis) -> torch.Tensor:
     """ZeRO-3's gather of a leaf split over ``data`` at ``dim``; its
     backward keeps this rank's shard of the gradient's mean over the data
     ranks."""
-    if not torch.is_grad_enabled() or not x.requires_grad:
+    if not _wants_grad(x):
         return gather_dim(x, dim, dp)
     return _FsdpGather.apply(x, dim, dp)
 
@@ -199,20 +266,42 @@ def attend_combine(scores: torch.Tensor, v: torch.Tensor, ax: Axis,
 
 def copy_to(x: torch.Tensor, tp: Axis) -> torch.Tensor:
     """Identity forward, all-reduce of the gradient backward."""
-    if not torch.is_grad_enabled() or not x.requires_grad:
+    if not _wants_grad(x):
         return x
     return _CopyTo.apply(x, tp.group)
 
 
+def shared(tree: Any, tp: Optional[Axis]) -> Any:
+    """A replicated leaf (or a dict of them) read inside a
+    model-parallel region, where each rank's gradient is its share:
+    :func:`copy_to` of each tensor, so that its gradient is summed over
+    ``model`` and every rank holds the whole one. The tree itself
+    without ``tp`` or where no gradient is wanted."""
+    if tp is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: shared(v, tp) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return copy_to(tree, tp)
+    return tree
+
+
+def model_share(x: torch.Tensor, tp: Optional[Axis]) -> torch.Tensor:
+    """A whole value that every model rank computes inside a region and
+    adds to its loss: identity forward, the gradient divided by the model
+    ranks, since the region's gathers sum it over them."""
+    if tp is None or not _wants_grad(x):
+        return x
+    return _ModelShare.apply(x, tp.size)
+
+
 def reduce_from(x: torch.Tensor, tp: Axis) -> torch.Tensor:
     """All-reduce (sum) forward, identity backward."""
-    if not torch.is_grad_enabled() or not x.requires_grad:
-        return all_reduce(x.contiguous(), tp.group)
+    if not _wants_grad(x):
+        return _raw(x.contiguous(), tp.group)
     return _ReduceFrom.apply(x, tp.group)
 
 
 def gather_from(x: torch.Tensor, tp: Axis) -> torch.Tensor:
     """All-reduce (sum) forward and backward."""
-    if not torch.is_grad_enabled() or not x.requires_grad:
-        return all_reduce(x.contiguous(), tp.group, kind="all-gather")
-    return _GatherFrom.apply(x, tp.group)
+    return sum_over(x, tp.group, kind="all-gather")

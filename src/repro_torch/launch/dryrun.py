@@ -25,8 +25,7 @@ records them where its backend has no ``memory_analysis``. The port's
 layers are a list, so the step at full depth on meta is exact; the
 reference's ``_probe_costs`` extrapolation exists only because XLA
 counts a ``lax.scan`` body once, and is not ported. A cell that fails
-(the train × ``sparse_xla`` cells, ROADMAP.md queue 3 item 13; every
-train cell but the dense GQA family's, queue 1 item 14) is
+(the train × ``sparse_xla`` cells, ROADMAP.md queue 3 item 13) is
 recorded as an error with its message, as the reference's ``run_cell``
 records a failure. The dry run runs on the CPU and never touches a card.
 

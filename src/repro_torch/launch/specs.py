@@ -25,9 +25,8 @@ FSDP (``params_shardings(..., fsdp=True)``) and recompute each block
 ``cache_shardings`` with ``seq_shard`` at batch 1. A train cell in
 ``sparse_xla`` mode raises, as the reference's does (it differentiates
 the Tiled-CSL words): ROADMAP.md queue 3 item 13. Every family runs
-its prefill, decode and long_500k cells under a mesh and the dense GQA
-family its train cells; every other train cell raises naming queue 1
-item 14 (``transformer.check_mesh_train``). In ``sparse_xla`` mode the
+every cell under a mesh (its train cells in ``dense`` mode). In
+``sparse_xla`` mode the
 MoE routed stacks stay dense, as in the reference's struct (its
 ``sparse_params_struct`` encodes only leaves named ``['w']``), and the
 RG-LRU and SSM projections are Tiled-CSL, as there (the serving build
@@ -208,8 +207,6 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         remat = "full"
     if remat is not None and remat != "keep":
         cfg = dataclasses.replace(cfg, remat=remat)
-    if train:
-        transformer.check_mesh_train(cfg)
     transformer.rank_config(cfg, mesh)
     pdtype = torch.float32 if train else torch.bfloat16
     if weight_mode == "sparse_xla":

@@ -174,7 +174,6 @@ def setup(args: argparse.Namespace, device: DeviceLike = None,
                                             device=dev)
         params = state.params
     else:                   # the whole draw, then this rank's shard
-        transformer.check_mesh_train(cfg)
         params = transformer.init_model(cfg, seed=args.seed, device=dev)
     masks = None
     if args.sparsity:
@@ -228,7 +227,6 @@ def main(argv: Optional[Sequence[str]] = None, *,
     d, m = mesh_mod.parse_mesh(args.mesh)
     dev = resolve_device(device)
     cfg = run_config(args)
-    transformer.check_mesh_train(cfg)
     transformer.check_tensor_parallel(cfg, m)
     if dist.is_initialized():                   # a rank of a running world
         if dist.get_world_size() != d * m:

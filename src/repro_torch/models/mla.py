@@ -138,7 +138,10 @@ def _mla_qkv(params, x, positions, cfg: ModelConfig, backend: str, tp=None):
     q = q.reshape(B, S, h, dn + dr)
     q_nope = q[..., :dn]
     q_rope = rope.apply_rope(q[..., dn:], positions, cfg.rope_theta)
-    dkv = sparse_linear.linear(params["w_dkv"]["w"], x,
+    # replicated, its latents read by every rank's heads: its gradient
+    # summed over model (tensor_parallel.shared)
+    dkv = sparse_linear.linear(tensor_parallel.shared(params["w_dkv"]["w"],
+                                                      tp), x,
                                declared_out=kvr + dr, backend=backend)
     c_kv = dkv[..., :kvr]
     k_rope = rope.apply_rope(dkv[..., kvr:][:, :, None, :], positions,

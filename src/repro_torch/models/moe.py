@@ -34,10 +34,22 @@ projection at E/m; else every rank holds every expert's column share of
 expert). Either way the combine gives a partial y, which the shared
 expert's row-parallel partial joins; the ranks sum it in f32. Where a
 subgroup spans several data ranks' rows (a decode batch split finer than
-``moe_subgroup``), each rank's capacity positions start after the
-earlier ranks' counts (an exclusive scan over the data axes) and every
-expert's ``[C, d]`` block is summed over those ranks before its FFN, as
-the reference's contraction over a data-sharded token axis sums it.
+``moe_subgroup``, or a train batch split over the data ranks), each
+rank's capacity positions start after the earlier ranks' counts (an
+exclusive scan over the data axes) and every expert's ``[C, d]`` block
+is summed over those ranks before its FFN, as the reference's
+contraction over a data-sharded token axis sums it.
+
+In training (``train``) the aux loss is the whole batch's, as the
+reference's is over every token: ``me`` and ``fe`` are summed over the
+data ranks (``me``'s sum carries its backward) before their product, so
+every data rank adds the same aux to its loss and the data mean of the
+gradients leaves its gradient whole. Every collective here carries its
+backward (``tensor_parallel.sum_over``): the span's sum and the gathers
+sum the gradient over the same ranks. Under ``tp`` the router's gathered
+logits and everything after them are a model-parallel region, whose
+gradients the gather sums: the block's input enters it through
+``copy_to`` and the aux loss through ``model_share``.
 """
 
 from __future__ import annotations
@@ -111,11 +123,12 @@ def _expert_ffn(params: dict, xe: torch.Tensor, *, backend: str = "auto",
 
 def _batch_gather(x: torch.Tensor, rows: RowSplit) -> torch.Tensor:
     """``[parts, *x.shape]`` with every data rank's ``x`` at its part: a
-    zero-filled all-reduce over each axis in turn, in f32 (exact)."""
-    full = x.new_zeros((rows.parts,) + tuple(x.shape), dtype=torch.float32)
-    full[rows.index] = x.to(torch.float32)
+    zero-filled all-reduce over each axis in turn, in f32 (exact); its
+    backward sums the gradient over the same ranks."""
+    pad = [0, 0] * x.dim() + [rows.index, rows.parts - 1 - rows.index]
+    full = torch.nn.functional.pad(x.to(torch.float32)[None], pad)
     for ax in rows.axes:
-        full = tensor_parallel.all_reduce(full, ax.group, kind="all-gather")
+        full = tensor_parallel.sum_over(full, ax.group, kind="all-gather")
     return full
 
 
@@ -140,7 +153,7 @@ def top_k(probs: torch.Tensor, k: int):
 
 def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
               backend: str = "auto", tp=None,
-              rows: Optional[RowSplit] = None
+              rows: Optional[RowSplit] = None, train: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x ``[B, S, d]`` -> (y ``[B, S, d]``, the Switch aux loss): routed
     top-k with capacity dropping, then the shared expert. The B * S
@@ -151,8 +164,9 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     ``rows`` says how the batch rows split over the data axes (None: every
     rank holds every row), so that the subgroups are the unsharded
     batch's: a rank's rows hold whole subgroups, or a subgroup spans
-    ``sg / (B * S)`` consecutive data ranks. Under a mesh the aux loss is
-    that of this rank's rows."""
+    ``sg / (B * S)`` consecutive data ranks. With ``train`` the aux loss
+    is the whole batch's; else (serving, which discards it) that of this
+    rank's rows."""
     bsz, s, d = x.shape
     E, k = cfg.n_routed_experts, cfg.top_k
     T = bsz * s
@@ -170,8 +184,11 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
         span = sg // T
     G = max(T // sg, 1)
     xt = x.reshape(G, T // G, d)
+    # the router's and the routed experts' input: its gradient is each
+    # rank's share (the shared expert's copies its own)
+    xin = xt if tp is None else tensor_parallel.copy_to(xt, tp)
 
-    logits = _router_logits(params["router"]["w"], xt, E, tp, backend)
+    logits = _router_logits(params["router"]["w"], xin, E, tp, backend)
     probs = torch.softmax(logits, dim=-1)                       # [G, sg, E]
     gate_vals, idx = top_k(probs, k)                            # [G, sg, k]
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
@@ -179,9 +196,8 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e
     experts = torch.arange(E, device=x.device)
     onehot_k = (idx[..., None] == experts).to(torch.float32)   # [G,sg,k,E]
-    me = probs.mean(dim=(0, 1))
     oh_e = onehot_k.sum(dim=2)                                  # [G, sg, E]
-    aux = E * torch.sum(me * oh_e.mean(dim=(0, 1)))
+    aux = _aux_loss(probs, oh_e, E, rows if train else None, tp)
 
     C = max(int(-(-sg * k // E) * cfg.capacity_factor), 1)
     gates_e = torch.einsum("gsk,gske->gse", gate_vals, onehot_k)
@@ -205,7 +221,7 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     ep = tp is not None and tp.experts < E
     lo, n = (tp.rank * tp.experts, tp.experts) if ep else (0, E)
     xe = torch.einsum("gsec,gsd->egcd", dispatch[:, :, lo:lo + n].to(x.dtype),
-                      xt)
+                      xin)
     if span > 1:                  # each expert's block summed over the span
         xe = _span_sum(xe, rows, span).to(x.dtype)
     ye = _expert_ffn(params, xe.reshape(n, G * C, d), backend=backend,
@@ -221,6 +237,25 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     return y.to(x.dtype).reshape(bsz, s, d), aux
 
 
+def _aux_loss(probs: torch.Tensor, oh_e: torch.Tensor, E: int,
+              rows: Optional[RowSplit], tp) -> torch.Tensor:
+    """The Switch aux loss ``E * sum_e me_e * fe_e`` of the routing
+    probabilities ``[G, sg, E]`` and the picks ``oh_e``: with ``rows``
+    over the whole batch (each rank's means summed over the data ranks,
+    ``me``'s with its backward; the ranks hold equal token counts), else
+    over these tokens. Under ``tp`` its gradient enters the router's
+    region through ``model_share``."""
+    me = probs.mean(dim=(0, 1))
+    fe = oh_e.mean(dim=(0, 1))
+    if rows is not None:
+        for ax in rows.axes:
+            me = tensor_parallel.sum_over(me, ax.group)
+            with torch.no_grad():
+                fe = tensor_parallel.all_reduce(fe, ax.group)
+        me, fe = me / rows.parts, fe / rows.parts
+    return tensor_parallel.model_share(E * torch.sum(me * fe), tp)
+
+
 def _positions(oh_e: torch.Tensor, rows: Optional[RowSplit],
                span: int) -> torch.Tensor:
     """Each token's position in the capacity of each expert it picked
@@ -230,7 +265,8 @@ def _positions(oh_e: torch.Tensor, rows: Optional[RowSplit],
     over the data axes)."""
     taken = torch.cumsum(oh_e, dim=1)
     if span > 1:
-        counts = _batch_gather(oh_e.sum(dim=(0, 1)), rows)     # [parts, E]
+        with torch.no_grad():
+            counts = _batch_gather(oh_e.sum(dim=(0, 1)), rows)  # [parts, E]
         first = rows.index - rows.index % span
         taken = taken + counts[first:rows.index].sum(dim=0)
     return (taken * oh_e - 1.0).to(torch.int32)
@@ -240,11 +276,11 @@ def _span_sum(x: torch.Tensor, rows: RowSplit, span: int) -> torch.Tensor:
     """``x`` summed (in f32) over the ``span`` consecutive data ranks
     whose rows share this rank's subgroup: one all-reduce where the span
     is every data rank, else each rank's ``x`` gathered and the span's
-    summed."""
+    summed. Its backward sums the gradient over the same ranks."""
     if span == rows.parts:
         out = x.to(torch.float32)
         for ax in rows.axes:
-            out = tensor_parallel.all_reduce(out, ax.group)
+            out = tensor_parallel.sum_over(out, ax.group)
         return out
     first = rows.index - rows.index % span
     return _batch_gather(x, rows)[first:first + span].sum(dim=0)

@@ -63,6 +63,23 @@ def init_rglru_cache(cfg: ModelConfig, batch: int, device,
                                 dtype=dtype, device=device)}
 
 
+REPLICATED = ("conv_w", "conv_b", "ba", "wi_b", "wi_diag", "lam")
+
+
+def _in_region(params, cfg: ModelConfig, tp) -> dict:
+    """``params`` with the leaves that the recurrence reads whole on
+    every model rank (the conv, the gates' vectors, ``wa`` where the
+    rules hold it whole) through ``tensor_parallel.shared``: each rank's
+    gradient of them is the share of its ``w_out`` channels, summed over
+    ``model`` in the backward."""
+    if tp is None:
+        return params
+    names = REPLICATED + (("wa",) if params["wa"]["w"].shape[0] ==
+                          cfg.rnn_dim else ())
+    return {**params, **{n: tensor_parallel.shared(params[n], tp)
+                         for n in names}}
+
+
 def _rglru_gates(params, xr: torch.Tensor, tp=None):
     """xr: [..., r] f32 -> (log_a, gated input), both [..., r] f32. Under
     ``tp`` ``wa`` is column-parallel: each rank's share of the f32
@@ -151,10 +168,14 @@ def rglru_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     parallelism over ``model``) ``w_x``, ``w_gate`` and ``wa`` are
     column-parallel, ``w_x``'s and ``wa``'s products gathered whole, so
     the conv, the gates and the scan run whole on every rank (the state
-    stays whole over ``model``), and ``w_out`` is row-parallel."""
+    stays whole over ``model``), and ``w_out`` is row-parallel; the
+    gathers carry their backward and the leaves the recurrence reads whole
+    sum their gradients over ``model`` (:func:`_in_region`), so the
+    block trains under a mesh."""
     B, L, _ = x.shape
     r = cfg.rnn_dim
     f32 = torch.float32
+    params = _in_region(params, cfg, tp)
     xr, gate = _branches(params, x, cfg, backend, tp)
     cv = params["conv_w"].shape[0]
     xr_pad = torch.cat([xr.new_zeros((B, cv - 1, r)), xr], dim=1)

@@ -73,6 +73,21 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, device,
                                 dtype=dtype, device=device)}
 
 
+REPLICATED = ("conv_w", "conv_b", "a_log", "d_skip", "dt_bias", "norm")
+
+
+def _in_region(params, tp) -> dict:
+    """``params`` with the leaves that run whole on every model rank
+    between ``in_proj``'s gather and ``out_proj``'s share (the conv, A,
+    D, dt's bias, the gated norm) through ``tensor_parallel.shared``:
+    each rank's gradient of them is the share of its ``out_proj``
+    channels, summed over ``model`` in the backward."""
+    if tp is None:
+        return params
+    return {**params, **{n: tensor_parallel.shared(params[n], tp)
+                         for n in REPLICATED}}
+
+
 def _in_proj(params, x: torch.Tensor, cfg: ModelConfig, backend: str,
              tp=None) -> torch.Tensor:
     """The whole ``in_proj`` output ``[..., 2 d_inner + 2 n + heads]``:
@@ -175,11 +190,14 @@ def ssm_block(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     (tensor parallelism over ``model``) ``in_proj`` is column-parallel
     and gathered whole, the conv, the scan and the gated norm run whole
     on every rank (the state stays whole over ``model``), and
-    ``out_proj`` is row-parallel."""
+    ``out_proj`` is row-parallel; the leaves that run whole sum their
+    gradients over ``model`` (:func:`_in_region`), so the block trains
+    under a mesh."""
     Bsz, L, _ = x.shape
     din, heads, n = _dims(cfg)
     hp = cfg.ssm_head_dim
     f32 = torch.float32
+    params = _in_region(params, tp)
     z, xbc, dt = _split_proj(_in_proj(params, x, cfg, backend, tp), cfg)
     cw = params["conv_w"].to(f32)                              # [cv, ch]
     cv = cw.shape[0]

@@ -44,10 +44,12 @@ is laid out by ``distributed.sharding.cache_shardings``
 (:func:`init_cache`: the batch over the data axes, the K/V sequence (a
 window ring's slots) over ``model``, its head dim where neither the
 sequence nor the KV heads split, MLA's latents and the recurrent states
-whole over it, or with ``seq_shard`` the sequence over ``data``) and
-the dense GQA family's train mode gathers each FSDP-split part just
-before it runs (:func:`forward_train`'s ``fsdp``); training every other
-family under a mesh is ROADMAP.md queue 1 item 14.
+whole over it, or with ``seq_shard`` the sequence over ``data``), and
+every family trains under a mesh (:func:`forward_train`: the same
+split, each collective with its backward, the leaves read whole inside
+a split block summing their gradients over ``model``, MoE's routing and
+aux loss over the whole batch; ``fsdp`` gathers each FSDP-split part
+just before it runs).
 
 The serving cache helpers (``scatter_cache_slots``,
 ``scatter_cache_pages``, ``copy_cache_block``, ``commit_verify_window``)
@@ -101,34 +103,6 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 MESH_ITEM = "ROADMAP.md queue 1 item 14"
-
-
-def dense_gqa(cfg: ModelConfig) -> bool:
-    """The dense family with GQA attention and no sliding window, M-RoPE
-    or codebooks."""
-    return (cfg.family == "dense" and cfg.attn_kind == "gqa"
-            and not cfg.n_routed_experts and cfg.layer_pattern is None
-            and cfg.local_window is None and not cfg.n_codebooks
-            and cfg.mrope_sections is None)
-
-
-def check_mesh_train(cfg: ModelConfig, what: str = "a mesh") -> None:
-    """Raise for training under a mesh of every family but the dense GQA
-    one, the one that trains under a mesh, naming queue 1 item 14 (every
-    family the port serves, ``_check_family``, serves under a mesh)."""
-    if not dense_gqa(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: training under a mesh covers the dense family "
-            f"with GQA attention only; training the {_kind_name(cfg)} "
-            f"under {what} is {MESH_ITEM}")
-
-
-def _kind_name(cfg: ModelConfig) -> str:
-    """The family as an error names it, with its attention where it has
-    one."""
-    if "attn" not in _kinds(cfg):
-        return f"{cfg.family} family"
-    return f"{cfg.family} family ({cfg.attn_kind} attention)"
 
 
 def _kinds(cfg: ModelConfig) -> set:
@@ -650,7 +624,7 @@ def _block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     h = _norm(cfg, p["mlp_norm"], x)
     if cfg.n_routed_experts:
         m, aux = moe.moe_block(p["moe"], h, cfg, backend=backend, tp=tp,
-                               rows=rows)
+                               rows=rows, train=mode == "train")
     else:
         m = _mlp_apply(p["mlp"], h, cfg, backend, tp)
     return x + m, cache, aux
@@ -788,6 +762,24 @@ def _row_split(cache, mesh, cfg: ModelConfig) -> Optional[moe.RowSplit]:
     return moe.RowSplit(axes, parts, index)
 
 
+def _train_rows(mesh, cfg: ModelConfig) -> Optional[moe.RowSplit]:
+    """How a train batch's rows split over the batch axes (``pod`` and
+    ``data``, row-major, as ``sharding.batch_sharding`` lays the batch
+    out and the launcher slices it), for the MoE routing: None without
+    MoE or where no batch axis splits."""
+    if mesh is None or not cfg.n_routed_experts:
+        return None
+    axes = [(n, tensor_parallel.axis(mesh, n))
+            for n in sharding.batch_axes(mesh)]
+    axes = [(n, ax) for n, ax in axes if ax is not None]
+    if not axes:
+        return None
+    parts, index = sharding._shard_index(
+        tuple(n for n, _ in axes), sharding.axis_sizes(mesh),
+        sharding.coordinates(mesh))
+    return moe.RowSplit(tuple(ax for _, ax in axes), parts, index)
+
+
 def _seq_shard(cache, mesh) -> Optional[attention.SeqShard]:
     """How a :class:`MeshCache`'s positions and head dim split: the axis
     of each (the head dim's always ``model``), or None where neither
@@ -872,17 +864,17 @@ def forward_train(params: Params, inputs: Dict[str, torch.Tensor],
     MoE). ``cfg.remat`` recomputes each block in the backward pass:
     ``"full"`` keeps only its input, ``"dots"`` also its matmul outputs
     (the reference's ``jax.checkpoint`` policies). ``mesh`` as in
-    :func:`forward`: a rank's shard, tensor-parallel over ``model``.
-    Under a mesh the dense GQA family trains; every other family raises
-    naming ROADMAP.md queue 1 item 14.
+    :func:`forward`: a rank's shard, tensor-parallel over ``model``,
+    the inputs this rank's rows of a batch split over the batch axes
+    (``pod`` and ``data``, row-major); the step is the unsharded one
+    (MoE routes the whole batch's subgroups and returns its aux loss).
     ``fsdp`` (``sharding.params_shardings(..., fsdp=True)`` of the whole
     params) runs ZeRO-3: ``params`` are shards of those specs, and each
     part (the embedding, each layer, the head) is gathered over
     ``data`` just before it runs and dropped after it; under remat the
     backward gathers a layer again."""
     _check_family(cfg)
-    if mesh is not None:
-        check_mesh_train(cfg)
+    rows = _train_rows(mesh, cfg)
     cfg, tp = rank_config(cfg, mesh)
     dp = tensor_parallel.axis(mesh, "data") if fsdp is not None else None
     gather = lambda name: fsdp_gathered(params.get(name), f"['{name}']",
@@ -903,7 +895,7 @@ def forward_train(params: Params, inputs: Dict[str, torch.Tensor],
             x, _, aux = _block(p, x, cfg, mode="train", kind=kind,
                                positions=positions, cache=None, pos=None,
                                block_tables=None, ring_len=None,
-                               backend=backend, tp=tp)
+                               backend=backend, tp=tp, rows=rows)
             return x, aux
         if cfg.remat == "none":
             x, aux = block(x)

@@ -124,7 +124,8 @@ class AdamW:
         return torch.tensor(self.lr, dtype=torch.float32, device=step.device)
 
     def update(self, grads: Any, state: AdamWState, params: Any, *,
-               masks: Any = None, gnorm: Optional[torch.Tensor] = None):
+               masks: Any = None, gnorm: Optional[torch.Tensor] = None,
+               inplace: bool = False):
         """One step; returns (new params, new state). ``masks`` (a tree of
         0/1 tensors, ``None`` where unmasked) pins pruned weights at zero:
         the retraining-based pruning loop. ``gnorm`` is the gradients'
@@ -132,7 +133,11 @@ class AdamW:
         holds (the leaves of a rank's shard). The update runs leaf by leaf
         (the clip, both moments, the param and its mask, in the
         reference's arithmetic), so no whole tree of intermediates is
-        held: a step holds the old and the new state and the gradients."""
+        held: a step holds the old and the new state and the gradients.
+        ``inplace`` writes the new moments and params into the old ones
+        (the reference's donated step): the same values bit for bit, a
+        step then holds one state, the gradients and a leaf's few
+        temporaries, and ``state`` and ``params`` are the new ones."""
         scale = _clip_scale(grads, self.clip_norm, gnorm)
         step = state.step + 1
         b1, b2 = self.b1, self.b2
@@ -153,6 +158,24 @@ class AdamW:
             p = (p - lr * u).to(p.dtype)
             return _Moved(m, v, p if mask is None else p * mask.to(p.dtype))
 
+        def leaf_inplace(g, m, v, p, mask):
+            # leaf's operations one by one, each result written over its
+            # operand's buffer
+            if scale is not None:
+                g = g * scale
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * torch.square(g))
+            del g
+            u = m / mu_hat_c
+            u.div_(torch.sqrt(v / nu_hat_c).add_(self.eps))
+            u.add_(self.weight_decay * p)
+            p.copy_(p - lr * u)
+            if mask is not None:
+                p.mul_(mask.to(p.dtype))
+            return _Moved(m, v, p)
+
+        if inplace:
+            leaf = leaf_inplace
         if masks is None:
             masks = tree_map(lambda _: None, params)
         moved = tree_map(leaf, grads, state.mu, state.nu, params, masks)

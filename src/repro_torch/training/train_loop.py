@@ -14,7 +14,13 @@ like their params), the batch its data slice, and the step runs
 tensor-parallel over ``model`` and data-parallel over the batch axes
 (``pod`` and ``data``): the gradients and the metrics are mean-reduced
 over them in f32, and the global gradient norm sums each leaf's squares
-over the axes that split it and counts a replicated leaf once. With
+over the axes that split it and counts a replicated leaf once. Every
+family trains so: the forward's collectives carry their backward, a
+leaf that a split block reads whole sums its gradient over ``model``
+in the backward (``tensor_parallel.shared``), so each rank's gradient
+is the whole gradient of its shard before the data mean, and MoE's aux
+loss is the whole batch's on every rank (its data mean is itself).
+The reductions after the backward run with gradients off. With
 ``fsdp`` (ZeRO-3) the params, the AdamW moments and the masks are
 shards of ``params_shardings(..., fsdp=True)``: the forward gathers each
 layer over ``data`` just before it runs (``transformer.forward_train``),
@@ -60,10 +66,12 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 def loss_fn(params: Any, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             *, backend: str = "auto", mesh=None, fsdp=None):
     """(loss, {"ce", "aux"}) of one batch: tokens ``[B, S]`` (``[B, n_cb,
-    S]`` for codebooks) and targets of the same shape."""
+    S]`` for codebooks) and targets of the same shape; M-RoPE
+    ``positions [3, B, S]`` where the batch has them (else arange on all
+    three axes)."""
+    inputs = {k: batch[k] for k in ("tokens", "positions") if k in batch}
     logits, aux = transformer.forward_train(
-        params, {"tokens": batch["tokens"]}, cfg, backend=backend, mesh=mesh,
-        fsdp=fsdp)
+        params, inputs, cfg, backend=backend, mesh=mesh, fsdp=fsdp)
     targets = batch["targets"]
     if cfg.n_codebooks:                          # [B, n_cb, S] -> [B, S, n_cb]
         targets = torch.movedim(targets, 1, -1)
@@ -134,7 +142,7 @@ def _mean_over(x: torch.Tensor, axes) -> torch.Tensor:
 def make_train_step(cfg: ModelConfig, optimizer, *, masks: Any = None,
                     microbatches: int = 1, backend: str = "auto",
                     mesh=None, shardings: Optional[Dict[str, Any]] = None,
-                    fsdp: bool = False
+                    fsdp: bool = False, donate: bool = False
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``train_step(state, batch) -> (state, metrics)``; metrics are 0-d
@@ -145,7 +153,10 @@ def make_train_step(cfg: ModelConfig, optimizer, *, masks: Any = None,
     rank's shards, the batch its slice over the batch axes, and
     ``shardings`` the params' specs (``sharding.params_shardings`` of
     the whole params, with ``fsdp`` as given here). ``fsdp`` runs
-    ZeRO-3 (the state is a shard of the ``fsdp=True`` specs)."""
+    ZeRO-3 (the state is a shard of the ``fsdp=True`` specs). ``donate``
+    (AdamW) writes the new state over the one it is given, as the
+    reference's jitted step donates its state: the same values, and a
+    step that holds one state instead of two."""
     tp = tensor_parallel.of(mesh)
     batch_axes = [ax for ax in (tensor_parallel.axis(mesh, a)
                                 for a in ("pod", "data")) if ax is not None]
@@ -162,14 +173,13 @@ def make_train_step(cfg: ModelConfig, optimizer, *, masks: Any = None,
         return _mean_over(g, [ax for ax, n in zip(batch_axes, names)
                               if n not in split])
 
-    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        params = state.params
+    def grads_of(params, batch) -> Tuple[Dict, Any]:
         if microbatches == 1:
             loss, parts, grads = value_and_grad(params, batch, cfg,
                                                  backend=backend, mesh=mesh,
                                                  fsdp=fsdp_specs)
         else:
-            n = next(iter(batch.values())).shape[0]
+            n = batch["tokens"].shape[0]
             if n % microbatches:
                 raise ValueError(f"batch {n} does not split into "
                                  f"{microbatches} microbatches")
@@ -179,7 +189,9 @@ def make_train_step(cfg: ModelConfig, optimizer, *, masks: Any = None,
             parts = {"ce": loss, "aux": loss}
             grads = opt_mod.tree_map(torch.zeros_like, params)
             for i in range(microbatches):
-                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                rows = slice(i * mb, (i + 1) * mb)
+                part = {k: v[:, rows] if k == "positions" else v[rows]
+                        for k, v in batch.items()}
                 l, p, g = value_and_grad(params, part, cfg, backend=backend,
                                          mesh=mesh, fsdp=fsdp_specs)
                 loss = loss + l
@@ -189,16 +201,23 @@ def make_train_step(cfg: ModelConfig, optimizer, *, masks: Any = None,
             loss = loss * inv
             parts = {k: v * inv for k, v in parts.items()}
             grads = opt_mod.tree_map(lambda g: g * inv, grads)
-        if batch_axes:
-            grads = _map_paths(grad_mean, grads)
-            loss = _mean_over(loss, batch_axes)
-            parts = {k: _mean_over(v, batch_axes) for k, v in parts.items()}
-        gnorm = (opt_mod.global_norm(grads) if tp is None and not fsdp
-                 else mesh_global_norm(grads, shardings, mesh))
-        new_params, new_opt = optimizer.update(grads, state.opt_state,
-                                               params, masks=masks,
-                                               gnorm=gnorm)
-        metrics = {"loss": loss, **parts, "grad_norm": gnorm}
+        with torch.no_grad():
+            if batch_axes:
+                grads = _map_paths(grad_mean, grads)
+                loss = _mean_over(loss, batch_axes)
+                parts = {k: _mean_over(v, batch_axes)
+                         for k, v in parts.items()}
+            gnorm = (opt_mod.global_norm(grads) if tp is None and not fsdp
+                     else mesh_global_norm(grads, shardings, mesh))
+        return {"loss": loss, **parts, "grad_norm": gnorm}, grads
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        metrics, grads = grads_of(state.params, batch)
+        with torch.no_grad():
+            new_params, new_opt = optimizer.update(
+                grads, state.opt_state, state.params, masks=masks,
+                gnorm=metrics["grad_norm"], **({"inplace": True} if donate
+                                               else {}))
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return train_step

@@ -11,10 +11,12 @@ process group, no device, meta tensors only.
   cells on the same mesh.
 * ``main`` on one production cell writes its record under a temporary
   ``results`` path; its per-rank bytes are the reference's.
-* Refusals: a train cell of every family but the dense GQA one, under
-  a mesh, names ROADMAP.md queue 1 item 14 (as a dry-run record too);
-  a train cell in ``sparse_xla`` mode names queue 3 item 13. The K/V
-  layout's head dim fallback builds.
+* The train cells of every family but the dense GQA one (the MoE, MLA,
+  SSM, hybrid, vlm and audio families, which ROADMAP.md queue 1 item 14
+  brought under a mesh) build and run on the production mesh (a ``ok``
+  record), and a smoke train cell of each on a dry 2x2 mesh; a train
+  cell in ``sparse_xla`` mode names queue 3 item 13. The K/V layout's
+  head dim fallback builds.
 """
 
 import dataclasses
@@ -31,7 +33,6 @@ from repro_torch.launch import specs
 from repro_torch.models import transformer
 from repro_torch.models.config import ShapeConfig
 
-ITEM14 = "ROADMAP.md queue 1 item 14"
 ITEM13 = "ROADMAP.md queue 3 item 13"
 
 
@@ -104,24 +105,27 @@ def test_sparse_train_cell_names_item_13():
     assert rec["status"] == "error" and ITEM13 in rec["error"]
 
 
-# every family serves under a mesh; the train cells of every family but
-# the dense GQA one are refused
+# every family runs every cell under a mesh: the train cells of the
+# families that queue 1 item 14 brought under one (the name is the
+# refusal test's that these cases replace)
 REFUSED = [a for a in configs.ARCH_IDS
-           if not transformer.dense_gqa(configs.get(a))]
+           if configs.get(a).family != "dense"
+           or configs.get(a).attn_kind == "mla"]
 
 
 @pytest.mark.parametrize("arch", REFUSED)
-def test_other_families_name_item_14(arch):
+def test_other_families_name_item_14(arch, tmp_path, monkeypatch):
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path / "results"))
     shape = [s for s in configs.cells(arch) if s.kind == "train"][0]
     rec = dryrun.run_cell(arch, shape.name, multi_pod=False,
                           mesh=mesh_mod.make_production_mesh())
-    assert rec["status"] == "error" and ITEM14 in rec["error"], rec
-    mesh = mesh_mod.DryMesh((2, 2), ("data", "model"))
-    transformer.init_cache(configs.smoke(arch), 2, 8, device="meta",
-                           mesh=mesh)
-    with pytest.raises(NotImplementedError, match=ITEM14):
-        specs.build_cell(configs.smoke(arch),
-                         ShapeConfig("t", "train", 32, 4), mesh)
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["cost"]["flops"] > 0
+    assert rec["memory"]["argument_bytes"]["optimizer"] > 0
+    _, ran = _run(configs.smoke(arch), ShapeConfig("t", "train", 32, 4))
+    assert ran["cost"]["flops"] > 0
+    # ZeRO-3: the gathers over data and the gradients' reduce-scatter
+    assert ran["collective_bytes_by_axis"]["reduce-scatter@data"] > 0
 
 
 # MoE and MLA decode cells on a dry 2x2 mesh: (arch, overrides)
@@ -215,3 +219,27 @@ def test_meta_batched_launch_at_a_ranks_expert_count():
     assert (row["m"], row["k"], row["n"]) == (768, 2048, 8)
     assert row["predicted_s"] > 0
     assert [r.experts for r in prof.launches.values()] == [2]
+
+
+@pytest.mark.parametrize("arch", REFUSED)
+def test_fsdp_splits_every_family_leaf_by_one_data_entry(arch):
+    """ZeRO-3's specs of every leaf of each family's full config, on a
+    2x2 and the 2x16x16 mesh: ``data`` only ever a whole entry of its
+    own (``transformer.fsdp_gathered`` gathers and reduce-scatters over
+    it and refuses an axis tuple holding it), and the routed expert
+    stacks over ``model`` and ``data`` at once where E divides."""
+    whole = specs.params_struct(configs.get(arch))
+    for shape, names in (((2, 2), ("data", "model")),
+                         ((2, 16, 16), ("pod", "data", "model"))):
+        got = sharding.params_shardings(whole, mesh_mod.DryMesh(shape, names),
+                                        fsdp=True)
+        for path, spec in got.items():
+            for e in spec:
+                assert not (isinstance(e, tuple) and "data" in e), (path, e)
+        split = [p for p, spec in got.items() if "data" in spec]
+        assert split, (arch, shape)
+        if configs.get(arch).n_routed_experts % shape[-1] == 0 and \
+                configs.get(arch).n_routed_experts:
+            stacks = [p for p in got if p.endswith("['moe']['gate']")]
+            assert stacks and all(got[p][:2] == ("model", "data")
+                                  for p in stacks), stacks

@@ -13,14 +13,14 @@ dry meshes, with no device.
   config, smoke and full, on meshes (2, 2), (1, 4), (4, 2), (16, 16) and
   (2, 16, 16), ``seq_shard`` on and off.
 * Per-rank argument bytes of every cell that runs under a mesh
-  (``build_cell`` on a dry mesh: every dense GQA cell, the prefill,
-  decode and long_500k cells of every other family) equal the reference's by-hand count
+  (``build_cell`` on a dry mesh: every cell of every family, the train
+  cells in dense mode) equal the reference's by-hand count
   (``shard_shape`` bytes over ``cell.args``) by group and in total, on
   16x16 and 2x16x16, both weight modes; and, on a 2x2 mesh of four
   forced host devices made with Auto axes, the compiled reference's
   ``argument_size_in_bytes`` for smoke tinyllama's dense cells and a
-  smoke qwen3-moe and minicpm3 decode cell (the by-hand count for the
-  sparse ones).
+  smoke qwen3-moe and minicpm3 decode and train cell (the by-hand count
+  for the sparse ones).
 """
 
 import ast
@@ -57,10 +57,7 @@ MESHES = {"2x2": ((2, 2), ("data", "model")),
           "4x2": ((4, 2), ("data", "model")),
           "16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
-DENSE_ARCHS = [a for a in configs.ARCH_IDS
-               if transformer.dense_gqa(configs.get(a))]
-# every family runs its prefill and decode cells under a mesh (the dense
-# GQA family its train cells too)
+# every family runs every cell under a mesh (train cells in dense mode)
 MESH_ARCHS = configs.ARCH_IDS
 # The reference's per-rank argument bytes of its 16x16 cells (by hand,
 # ``NamedSharding.shard_shape``), which the port's dry run must give.
@@ -80,34 +77,41 @@ TABLE_16x16 = {
     ("deepseek_coder_33b", "prefill_32k", "sparse_xla"): 31_080_493_312,
     ("deepseek_coder_33b", "decode_32k", "dense"): 8_330_303_524,
     ("deepseek_coder_33b", "decode_32k", "sparse_xla"): 35_240_980_772,
+    ("qwen2_moe_a2_7b", "train_4k", "dense"): 708_128_776,
     ("qwen2_moe_a2_7b", "prefill_32k", "dense"): 1_795_446_784,
     ("qwen2_moe_a2_7b", "prefill_32k", "sparse_xla"): 2_696_573_120,
     ("qwen2_moe_a2_7b", "decode_32k", "dense"): 5_016_410_148,
     ("qwen2_moe_a2_7b", "decode_32k", "sparse_xla"): 5_917_536_484,
+    ("qwen3_moe_30b_a3b", "train_4k", "dense"): 1_442_938_888,
     ("qwen3_moe_30b_a3b", "prefill_32k", "dense"): 3_817_148_416,
     ("qwen3_moe_30b_a3b", "prefill_32k", "sparse_xla"): 4_098_394_304,
     ("qwen3_moe_30b_a3b", "decode_32k", "dense"): 5_427_499_044,
     ("qwen3_moe_30b_a3b", "decode_32k", "sparse_xla"): 5_708_744_932,
+    ("minicpm3_4b", "train_4k", "dense"): 1_014_929_416,
     ("minicpm3_4b", "prefill_32k", "dense"): 1_324_401_664,
     ("minicpm3_4b", "prefill_32k", "sparse_xla"): 4_211_195_744,
     ("minicpm3_4b", "decode_32k", "dense"): 10_685_826_084,
     ("minicpm3_4b", "decode_32k", "sparse_xla"): 13_572_620_164,
+    ("recurrentgemma_9b", "train_4k", "dense"): 484_917_256,
     ("recurrentgemma_9b", "prefill_32k", "dense"): 1_253_761_024,
     ("recurrentgemma_9b", "prefill_32k", "sparse_xla"): 710_046_336,
     ("recurrentgemma_9b", "decode_32k", "dense"): 1_279_713_316,
     ("recurrentgemma_9b", "decode_32k", "sparse_xla"): 735_998_628,
     ("recurrentgemma_9b", "long_500k", "dense"): 1_255_301_128,
     ("recurrentgemma_9b", "long_500k", "sparse_xla"): 711_586_440,
+    ("mamba2_130m", "train_4k", "dense"): 80_424_712,
     ("mamba2_130m", "prefill_32k", "dense"): 205_144_960,
     ("mamba2_130m", "prefill_32k", "sparse_xla"): 164_322_112,
     ("mamba2_130m", "decode_32k", "dense"): 360_006_564,
     ("mamba2_130m", "decode_32k", "sparse_xla"): 319_183_716,
     ("mamba2_130m", "long_500k", "dense"): 224_273_288,
     ("mamba2_130m", "long_500k", "sparse_xla"): 183_450_440,
+    ("qwen2_vl_2b", "train_4k", "dense"): 74_759_176,
     ("qwen2_vl_2b", "prefill_32k", "dense"): 194_177_024,
     ("qwen2_vl_2b", "prefill_32k", "sparse_xla"): 1_259_030_912,
     ("qwen2_vl_2b", "decode_32k", "dense"): 662_890_532,
     ("qwen2_vl_2b", "decode_32k", "sparse_xla"): 1_727_744_420,
+    ("musicgen_large", "train_4k", "dense"): 123_158_536,
     ("musicgen_large", "prefill_32k", "dense"): 308_273_152,
     ("musicgen_large", "prefill_32k", "sparse_xla"): 146_764_032,
     ("musicgen_large", "decode_32k", "dense"): 6_749_675_652,
@@ -290,11 +294,9 @@ def _ref_arg_bytes(arch, shape, mesh, weight_mode):
 @pytest.mark.parametrize("mesh_name", ("16x16", "2x16x16"))
 @pytest.mark.parametrize("arch", MESH_ARCHS)
 def test_per_rank_argument_bytes_match_reference(arch, mesh_name):
-    trains = arch in DENSE_ARCHS
     for shape in configs.cells(arch):
         for mode in specs.WEIGHT_MODES:
-            if shape.kind == "train" and (mode == "sparse_xla"
-                                          or not trains):
+            if shape.kind == "train" and mode == "sparse_xla":
                 continue
             cell = specs.build_cell(configs.get(arch), shape,
                                     _dry(mesh_name), weight_mode=mode)
@@ -350,15 +352,17 @@ _COMPILED = textwrap.dedent("""
 # KV head over model 2 with the sequence over data would split the head
 # dim, the layout tests/test_torch_mesh_ring.py serves); an MoE and an
 # MLA decode
-# cell (smoke qwen3-moe, whose 8 experts split over model; smoke
-# minicpm3, its latents whole over model).
+# cell and train cell (smoke qwen3-moe, whose 8 experts split over
+# model; smoke minicpm3, its latents whole over model).
 TINY = "tinyllama_1_1b"
 SMALL = [("train", "train", 32, 4, TINY, {"n_kv": 1}),
          ("prefill", "prefill", 32, 4, TINY, {"n_kv": 1}),
          ("decode", "decode", 64, 4, TINY, {"n_kv": 1}),
          ("decode1", "decode", 64, 1, TINY, {"n_kv": 2}),
          ("moe_decode", "decode", 64, 4, "qwen3_moe_30b_a3b", {}),
-         ("mla_decode", "decode", 64, 4, "minicpm3_4b", {})]
+         ("mla_decode", "decode", 64, 4, "minicpm3_4b", {}),
+         ("moe_train", "train", 32, 4, "qwen3_moe_30b_a3b", {}),
+         ("mla_train", "train", 32, 4, "minicpm3_4b", {})]
 
 
 def test_argument_bytes_match_the_compiled_reference():

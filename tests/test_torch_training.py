@@ -318,6 +318,34 @@ def test_train_step_matches_reference(arch):
     _assert_params(new.params, _bridge(jnew), want_grads, tols)
 
 
+@pytest.mark.parametrize("arch", ("tinyllama_1_1b", "qwen2_moe_a2_7b"))
+def test_donated_step_equals_the_step(arch):
+    """``donate=True`` (AdamW in place, with the launcher's masks) gives
+    the step's params, moments and metrics bit for bit, over two steps."""
+    _, jparams, batch, *_ = _ref_step(arch)
+    cfg = _port_cfg(arch)
+    pbatch = train_loop.batch_to(batch, "cpu")
+    runs = []
+    for donate in (False, True):
+        params = _bridge(jparams)
+        masks = train_launch.reference_masks(params, cfg, 0.8)
+        params = optimizer.apply_masks(params, masks)
+        opt = _port_opt()
+        state = train_loop.TrainState(params, opt.init(params),
+                                      torch.zeros((), dtype=torch.int32))
+        step = train_loop.make_train_step(cfg, opt, masks=masks,
+                                          donate=donate)
+        for _ in range(2):
+            state, metrics = step(state, pbatch)
+        runs.append((state, metrics))
+    (a, ma), (b, mb) = runs
+    for k in ma:
+        assert torch.equal(ma[k], mb[k]), k
+    for (path, x), (_, y) in zip(ft.flatten_with_paths(a),
+                                 ft.flatten_with_paths(b)):
+        assert torch.equal(x, y), path
+
+
 def test_microbatches_average_like_one_batch():
     """Two microbatches against one, SGD-M (linear in the gradient, as the
     reference's own test uses), f32."""
@@ -487,8 +515,19 @@ def test_cli_refuses_mesh_and_needs_a_card_by_default(monkeypatch):
 
 
 def test_cli_mesh_message_names_the_queue_item():
-    # A family that tensor parallelism does not cover yet is refused
-    # before any rank starts, naming the queue item that ports it.
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        train_launch.main(["--arch", "mamba2_130m", "--smoke", "--mesh",
-                           "1x2"], device="cpu")
+    # The SSM trains under a mesh (ROADMAP.md queue 1 item 14, which
+    # this test's refusal named before): one step of smoke mamba2 on
+    # 1x2, d_inner over the two model ranks, against the same step on
+    # one process.
+    argv = ["--arch", "mamba2_130m", "--smoke", "--steps", "1", "--batch",
+            "2", "--seq", "17", "--sparsity", "0.8", "--log-every", "1"]
+    out = train_launch.main(argv + ["--mesh", "1x2"], device="cpu")
+    assert out["steps"] == 1 and [r["step"] for r in out["log"]] == [1]
+    one = train_launch.main(argv, device="cpu")
+    # bf16 compute (the smoke config's dtype): within the reference's own
+    # sharded-step tolerance (tests/test_torch_sharding.py's CLI test)
+    for a, b in zip(out["log"], one["log"]):
+        assert np.isfinite(a["loss"])
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=5e-3)
+        np.testing.assert_allclose(a["grad_norm"], b["grad_norm"],
+                                   rtol=5e-3)

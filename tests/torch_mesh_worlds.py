@@ -30,13 +30,22 @@ WIDE_KV = {"opt_30b": 8, "tinyllama_1_1b": 4}
 # (3 KV heads under 12 query heads), whose widths do: every rank
 # computes every head. Its 3-tile wk/wv stay whole at model 2 and 4.
 WIDE_HEADS = {"qwen2_1_5b": dict(n_heads=12, n_kv=3, d_head=128)}
+# The other families keep their smoke KV heads, and what the widening
+# would take from them: recurrentgemma its one period of (rglru, rglru,
+# attn), mamba2 its missing MLP, qwen2-vl M-RoPE sections that cover the
+# widened head (64 / 2 frequencies).
+WIDE_FAMILY = {"recurrentgemma_9b": dict(n_layers=3),
+               "mamba2_130m": dict(d_ff=0),
+               "qwen2_vl_2b": dict(mrope_sections=(8, 12, 12))}
 SPARSE = ("'wq'", "'wk'", "'wv'", "'wo'", "'gate'", "'up'", "'down'")
 
 
-def wide(cfg, arch: str, dtype: str):
-    """``cfg`` (either package's smoke config) at the widened sizes."""
-    heads = WIDE_HEADS.get(arch, {"n_kv": WIDE_KV.get(arch)})
-    return dataclasses.replace(cfg, dtype=dtype, **{**WIDE, **heads})
+def wide(cfg, arch: str, dtype: str, over=()):
+    """``cfg`` (either package's smoke config) at the widened sizes, with
+    ``over``'s ``(field, value)`` pairs on top."""
+    heads = WIDE_HEADS.get(arch, {"n_kv": WIDE_KV.get(arch, cfg.n_kv)})
+    return dataclasses.replace(cfg, dtype=dtype, **{
+        **WIDE, **heads, **WIDE_FAMILY.get(arch, {}), **dict(over)})
 
 
 def should_sparsify(name: str) -> bool:
@@ -663,3 +672,97 @@ def media_world(mesh, cases, max_new: int, builds=()) -> dict:
                 serve=media_cases(mesh, cases, max_new),
                 build={f"{a}-{dict(o)}": build_shards(mesh, a, o)
                        for a, o in builds})
+
+
+# ---------------------------------------------------------------------------
+# training every family under a mesh (tests/test_torch_mesh_train_*.py)
+# ---------------------------------------------------------------------------
+
+class _GradTap:
+    """An optimizer that keeps the gradients its last update took (a
+    rank's shards, reduced as the step reduces them) and otherwise is
+    ``opt``."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, *args, **kw):
+        self.grads = grads
+        return self.opt.update(grads, *args, **kw)
+
+
+def family_train_step(mesh, arch: str, over, np_params, batch,
+                      fsdp: bool = False, ckpt_dir=None) -> dict:
+    """One sharded masked f32 step of the widened smoke ``arch`` (with
+    ``over``) from the reference's params (masked by the launcher's rule
+    on the whole leaves): its metrics, this rank's gradient shards (the
+    ones the update took) and new params, its masks, the MoE blocks'
+    routing (each token's experts and capacity positions), the raw
+    collectives reached while gradients were on, and with ``ckpt_dir``
+    the state saved there from this mesh."""
+    from repro_torch.distributed import tensor_parallel
+    cfg = wide(configs.smoke(arch), arch, "float32", over)
+    whole = convert.params_from_numpy(np_params, device="cpu")
+    masks = train_launch.reference_masks(whole, cfg, 0.8)
+    whole = optimizer.apply_masks(whole, masks)
+    shardings = sharding.params_shardings(whole, mesh, fsdp=fsdp)
+    params = sharding.shard_params(whole, mesh, fsdp=fsdp)
+    masks = sharding.shard_params(masks, mesh, fsdp=fsdp)
+    opt = _GradTap(_opt())
+    state = train_loop.TrainState(params, opt.init(params),
+                                  torch.zeros((), dtype=torch.int32))
+    step = train_loop.make_train_step(cfg, opt, masks=masks, mesh=mesh,
+                                      shardings=shardings, fsdp=fsdp)
+    local = train_loop.batch_to(data.batch_slice(
+        batch, mesh.get_local_rank("data"), mesh.size(0)), "cpu")
+    tensor_parallel.raw_under_grad = 0
+    with _RouteTap() as tap:
+        state, metrics = step(state, local)
+    out = dict(coords=sharding.coordinates(mesh),
+               raw_under_grad=tensor_parallel.raw_under_grad,
+               metrics={k: float(v) for k, v in metrics.items()},
+               grads=_shards(opt.grads), params=_shards(state.params),
+               masks=_shards(masks), routes=tap.calls)
+    if ckpt_dir is not None:
+        ft.CheckpointManager(ckpt_dir).save(
+            1, (state, {"seed": 0, "step": 1}), mesh=mesh,
+            shardings=shardings, block=True)
+        out["state"] = _state(state)
+    return out
+
+
+def family_restore(mesh, arch: str, over, ckpt_dir: str) -> dict:
+    """This rank's shard of the widened smoke ``arch``'s checkpoint in
+    ``ckpt_dir``, restored onto a template of its own shapes."""
+    cfg = wide(configs.smoke(arch), arch, "float32", over)
+    params = sharding.shard_params(transformer.init_model(cfg, device="cpu"),
+                                   mesh)
+    opt = _opt()
+    template = (train_loop.TrainState(params, opt.init(params),
+                                      torch.zeros((), dtype=torch.int32)),
+                {"seed": 0, "step": 0})
+    (state, _), meta = ft.CheckpointManager(ckpt_dir).restore(template,
+                                                              mesh=mesh)
+    return dict(state=_state(state), coords=sharding.coordinates(mesh),
+                step=meta["step"])
+
+
+def family_train_world(mesh, plans) -> dict:
+    """A world of the family training tests: for each ``(name, (d, m),
+    cases, restore)`` of ``plans`` in turn, a ``d x m`` mesh over this
+    world's ranks, ``family_train_step`` of each ``(key, arch,
+    overrides, numpy params, batch, fsdp, ckpt_dir)`` case on it, then
+    ``family_restore`` of each ``(key, arch, overrides, ckpt_dir)`` of
+    ``restore``; by name."""
+    out = {}
+    for name, (d, m), cases, restore in plans:
+        sub = mesh_mod.make_host_mesh(d * m, m, device_type=mesh.device_type)
+        res = {key: family_train_step(sub, arch, over, p, batch, fsdp, ckpt)
+               for key, arch, over, p, batch, fsdp, ckpt in cases}
+        res["restored"] = {key: family_restore(sub, arch, over, ckpt)
+                           for key, arch, over, ckpt in restore}
+        out[name] = res
+    return out
