@@ -72,7 +72,24 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    graphed verify and mixed ms/step against graphed decode, the accept
    rates, tok/s and TTFT/TPOT against the plain run, and one profiled
    verify and mixed step by kernel;
-6. full-depth phase: prints the planner's sparse and dense plans for
+6. analysis phase: the port's static checkers
+   (``repro_torch.analysis``, ``tools/torch_check.py``) on the same
+   model, after the serving and window phases: the kernel pass (the
+   selector's six canonical cells, KC-ACC over the CUDA sources, KC-OUT
+   over the model files) and the live schedule cache held against the
+   launch contract at each weight's ``max_nnz``; the lint; the trace
+   audit on a paged stepper at the serving phase's 16 slots and max_len
+   512 with verify (spec_k 3) and mixed (chunk 16) enabled, sampled at
+   T = 0.7: a dispatch census of one eager step of each op (TA-UPCAST
+   copies and bytes, host syncs), every bucket twice against the capture
+   budgets, the eager bodies and graph replays under
+   ``set_sync_debug_mode("error")``, each replay's launches against the
+   layers' Tiled-CSL weights; and the observability replay at the smoke
+   config on the card. Any live finding or stale entry of
+   ``tools/torch_check_allowlist.json`` fails the run; it prints the
+   findings per pass, live and suppressed, and each figure beside the
+   card's name and power limit;
+7. full-depth phase: prints the planner's sparse and dense plans for
    OPT-30B, OPT-66B and OPT-175B at 80 GB (``serving.budget``), builds
    OPT-30B at all 48 layers layer by layer (``serve.build``), prints its
    built against its planned weight bytes, holds the first decode step
@@ -87,12 +104,12 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    ``schedule.autotune`` on the four projections at N = 16 and 32 into a
    cache file of its own beside ``select``'s analytic pick (serving never
    reads a cache);
-7. tinyllama phase: tinyllama_1_1b at full size served through the same
+8. tinyllama phase: tinyllama_1_1b at full size served through the same
    server (16 slots, max_len 512, 16 requests, 32 new tokens): GQA and
    the grouped ``gate_up`` ``silu_mul`` launch on a served path, every
    launch configuration against its plain version, and the first decode
    step against the plain path;
-8. MLA phase: minicpm3_4b (Multi-head Latent Attention). First one
+9. MLA phase: minicpm3_4b (Multi-head Latent Attention). First one
    layer at full width with every factor (w_dq 768x2560, w_uq 3840x768,
    w_dkv 288 rows padded to 384 x 2560, w_ukv 5120x256, wo and the MLP)
    in Tiled-CSL against the same layer on the plain versions: prefill
@@ -113,7 +130,7 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    configuration must pass its plain version; it prints decode and
    verify ms/step, tok/s, TTFT/TPOT p50/p99, peak allocated bytes, the
    accept rate and a profiled graphed decode and verify step by kernel;
-9. MoE phase: first one qwen2-moe-a2.7b layer at full width (60
+10. MoE phase: first one qwen2-moe-a2.7b layer at full width (60
    experts at d_expert 1408, the fused 5632-wide shared expert, wqkv with
    the q/k/v bias) with every weight but the router in Tiled-CSL: the
    attention and the MoE block (on the same normalised input, so both
@@ -133,7 +150,7 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    version, ``select``'s pick per expert shape, a profiled graphed
    decode step, and the two batched kernels at the decode cell timed
    beside their plain versions and ``torch.bmm``;
-10. hybrid phase: first one RG-LRU block and one local-attention block
+11. hybrid phase: first one RG-LRU block and one local-attention block
    of recurrentgemma-9b at full width (the MLP and the attention in
    Tiled-CSL, the RG-LRU projections dense) against their plain versions
    in prefill (2100 positions: past the 2048-position window, the roll
@@ -162,7 +179,7 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    wrap, the paged ring (block 16) graph on and off equal to the dense
    ring's streams, spec_k 3 graph on and off equal to each other and to
    the dense ring's by the near-tie rule, clean pools;
-11. SSM phase: one mamba2-130m SSD block at full width in f32, its
+12. SSM phase: one mamba2-130m SSD block at full width in f32, its
    chunked prefill's final state and conv cache against the same input
    fed token by token through ``ssm_decode`` at 1, 255, 256, 257 and
    2047 positions (within 1e-4 relative); mamba2-130m built at its 24
@@ -174,7 +191,7 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    tokens) over 32 slots at max_len 4096 on the dense cache with
    exact-length admission, graph on and off (identical streams, clean
    slots), and a profiled graphed decode step;
-12. vlm phase: qwen2-vl-2b at its 28 layers (M-RoPE, GQA with the q/k/v
+13. vlm phase: qwen2-vl-2b at its 28 layers (M-RoPE, GQA with the q/k/v
    bias, every projection Tiled-CSL), first-step logits against the
    plain path at 4 and 28 layers, an ``engine.prefill`` with an
    ``embeds`` prefix (a 16 x 16 patch grid at t = 0 with distinct h and
@@ -183,13 +200,13 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    graph on and paged graph off (identical streams, clean pools), all
    four LSCD kernels launched, every launch configuration against its
    plain version, ``select``'s picks and a profiled graphed step;
-13. audio phase: musicgen-large at its 48 layers (MHA, LayerNorm, GELU
+14. audio phase: musicgen-large at its 48 layers (MHA, LayerNorm, GELU
    with biases, 4 codebooks), first-step logits against the plain path
    at 4 and 48 layers (one row a request and codebook), the batcher's
    refusal of a codebook config, and ``engine.generate`` on 8 prompts
    of [4, 256] for 64 greedy frames (all four LSCD kernels launched,
    every launch configuration against its plain version, frames/s);
-14. train phase: tinyllama_1_1b at full width, its first 8 of 22 layers
+15. train phase: tinyllama_1_1b at full width, its first 8 of 22 layers
    (``TRAIN_LAYERS``, ``launch.train --layers``), trained through ``launch/train.py``'s functions: f32 params, AdamW at
    the launcher's defaults, 0.8 masks by the reference launcher's rule,
    ``SyntheticLM`` batches of 8 x 512, 30 steps (every loss finite, the
@@ -213,7 +230,7 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    each (session, index) delivered once, every token streamed before the
    snapshot the uninterrupted run's, and after it equal to it or parted
    at a near tie (the restored sessions re-prefill their tokens);
-15. mesh phase: four ranks share the card over gloo
+16. mesh phase: four ranks share the card over gloo
    (``launch.mesh.run_world``; NCCL refuses two ranks on one device).
    (a) OPT-30B at full width, sparsity 0.8, tensor-parallel over a 1x4
    mesh: first the unsharded model in this process (first decode step
@@ -279,7 +296,7 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    zero, no raw collective reached with gradients on; each rank's
    ms/step and peak allocated bytes printed, each family freed before
    the next;
-16. cells phase: the dry run (``launch.dryrun``) of every arch x cell
+17. cells phase: the dry run (``launch.dryrun``) of every arch x cell
    on the 16x16 and 2x16x16 meshes in both weight modes, in worker
    processes that see no card, run beside the kernels' build and ended
    before the first timed phase: every cell of every family ok (138 of
@@ -296,16 +313,15 @@ Needs one CUDA card (an H100 for the numbers it prints). In order it
    the mesh phase's unsharded step 1 (loss, grad norm and params within
    5e-3, masks held), and the dry run of the three cells against what
    ran (every leaf's elements, each rank's decode-step LSCD launches);
-17. prints the kernels' JSON line (launches of the slice, the serving
-   runs, the window runs, the full-depth run, the tinyllama run, the
-   MLA runs, the MoE runs, the hybrid runs, the ring runs and the ssm,
-   vlm, audio, train, mesh and cells runs (the mesh's summed over its
-   ranks, the families' included, beside the families' alone and one
-   rank's OPT-30B launches), the serving ones also by prefill and
-   decode, the window ones also by verify and mixed), the card line, and
-   last
-   ``{"ok": true, "device": {...}}``; the
-   full summary goes to ``chiprun_out/chip_smoke.json``.
+18. prints the kernels' JSON line (launches of the slice, the serving
+   runs, the window runs, the analysis phase's steps, the full-depth
+   run, the tinyllama run, the MLA runs, the MoE runs, the hybrid runs,
+   the ring runs and the ssm, vlm, audio, train, mesh and cells runs
+   (the mesh's summed over its ranks, the families' included, beside
+   the families' alone and one rank's OPT-30B launches), the serving
+   ones also by prefill and decode, the window ones also by verify and
+   mixed), the card line, and last ``{"ok": true, "device": {...}}``;
+   the full summary goes to ``chiprun_out/chip_smoke.json``.
 
 Any failure raises and exits non-zero. The plain versions run with
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (full f32 matmuls).
@@ -1828,6 +1844,133 @@ def window_phase(torch, mods, params, cfg, plain):
                    verify_over_decode=ratio,
                    launches_by_phase=launches, checked_launches=checked)
     return summary, launches
+
+
+# The analysis phase: the port's static checkers on the served OPT-30B.
+ANALYSIS_TEMPERATURE = 0.7              # the sampled path, as the reference
+ANALYSIS_ROWS = 4                       # admission rows (admit_k)
+ALLOWLIST = os.path.join("tools", "torch_check_allowlist.json")
+
+
+def analysis_phase(torch, mods) -> dict:
+    """The port's analysis passes (``repro_torch.analysis``) on the slice
+    phase's OPT-30B build (full width, 4 layers, 0.8), after the serving
+    and window phases: the kernel pass with the live schedule cache
+    (``ops.SCHEDULES``) at each weight's own ``max_nnz``; the lint; the
+    trace audit on a paged stepper at the serving phase's slots and
+    max_len with verify (spec_k 3) and mixed (chunk 16) enabled, sampled
+    at T = 0.7: a dispatch census of one eager step of each op, two passes
+    of every bucket against the capture budgets, the eager bodies and
+    graph replays under ``set_sync_debug_mode("error")`` and each replay's
+    launches against the layers'; and the observability replay at the
+    smoke config on the card. Fails on a live finding or a stale allowlist
+    entry."""
+    ka, li, ta, ob, fi = (mods[x] for x in (
+        "kernel_pass", "lint", "trace_audit", "obs_pass", "findings"))
+    params, cfg = mods.pop("slice_model")
+    spmm, ops = mods["spmm"], mods["ops"]
+    card = card_line()
+    found, audited, seconds = {}, [], {}
+
+    t0 = time.perf_counter()
+    kf, kstats = ka.run_kernel_pass(ROOT)
+    lf, lstats = ka.audit_schedules(dict(ops.SCHEDULES), params)
+    found["kernels"] = kf + lf
+    audited += kstats["targets"] + lstats["targets"]
+    seconds["kernels"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    files = li.tree_files(ROOT)
+    found["lint"] = li.lint_tree(ROOT)
+    audited += [os.path.relpath(p, ROOT) for p, _ in files]
+    seconds["lint"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    before = spmm.launch_counts()
+    mb = -(-SERVE_MAX_LEN // 16)
+    stepper = mods["step"].DeviceStepper(
+        params, cfg, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+        physical_blocks=SERVE_SLOTS * mb + 1, block_size=16,
+        spec_k=SPEC_K, chunk_size=CHUNK_SIZE,
+        temperature=ANALYSIS_TEMPERATURE)
+    up = params["layers"][0]["mlp"]["up"]["w"]
+    dev = up.words.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    b = (0.1 * torch.randn(up.shape[1], SERVE_SLOTS, generator=gen,
+                           device=dev)).to(torch.bfloat16)
+    prefix = f"{ta.prefix_of(dev)}:{cfg.name}"     # trace:cuda:opt-30b
+    entries = (ta.stepper_entries(stepper, prefix=prefix, rows=ANALYSIS_ROWS)
+               + [ta.spmm_entry(up, b, prefix=prefix)])
+    tf, tstats = ta.run_trace_audit(entries)
+    found["trace"] = tf
+    audited += tstats["targets"]
+    launches = {k: n - before[k] for k, n in spmm.launch_counts().items()}
+    seconds["trace"] = time.perf_counter() - t0
+    del entries, stepper, params, up, b
+    release(torch)
+
+    t0 = time.perf_counter()
+    of, ostats = ob.run_obs_pass(device=dev)
+    found["obs"] = of
+    audited += ostats["targets"]
+    seconds["obs"] = time.perf_counter() - t0
+    release(torch)
+
+    allow = fi.Allowlist.load(os.path.join(ROOT, ALLOWLIST))
+    for fs in found.values():
+        allow.suppress(fs)
+    problems = allow.problems(audited)
+    by_pass = {name: dict(live=sum(not f.suppressed for f in fs),
+                          suppressed=sum(f.suppressed for f in fs))
+               for name, fs in found.items()}
+    for name, fs in found.items():
+        print(f"analysis: [{name}] {by_pass[name]['live']} live, "
+              f"{by_pass[name]['suppressed']} suppressed finding(s) "
+              f"({seconds[name]:.2f} s); {card}", flush=True)
+        for f in fs:
+            print(f"analysis:   {'suppressed' if f.suppressed else 'LIVE'}: "
+                  f"{f.anchor()}: {f.rule}: {f.message}")
+    print(f"analysis: kernels: {kstats['cells']} selector cells, "
+          f"{kstats['filtered']}/{kstats['candidates']} ladder candidates "
+          f"filtered, largest pick {kstats['max_smem']} B of "
+          f"{kstats['smem_budget']} B shared memory; {lstats['schedules']} "
+          f"live schedules held at {lstats['weights_checked']} "
+          f"(schedule, max_nnz) pairs; KC-ACC over {kstats['ptx']} PTX "
+          f"strings, {kstats['asm']} asm statements, {kstats['acc']} "
+          f"accumulator declarations", flush=True)
+    for r in tstats["entries"]:
+        line = (f"analysis: {r['path']}: {r['ops']} aten ops in one eager "
+                f"call, TA-UPCAST {r['upcasts']} copies "
+                f"{r['upcast_bytes']} B of f32 written a call, "
+                f"{r['syncs']} host syncs; captures {r['captures']} of "
+                f"budget {r['budget']}")
+        if "launches_per_replay" in r:
+            line += (f"; a replay launches "
+                     f"{json.dumps(r['launches_per_replay'])} "
+                     f"({r['implied_launches']} implied by the layers)")
+        print(f"{line}; {card}", flush=True)
+        check(r["captures"] <= r["budget"], f"analysis: {r['path']} "
+              f"captured {r['captures']} over its budget {r['budget']}")
+    print(f"analysis: obs on {dev.type}: {ostats['records']} trace records, "
+          f"counters {json.dumps(ostats['counters'])}, {ostats['fired']} "
+          f"faults fired; {card}", flush=True)
+    for p in problems:
+        print(f"analysis: ALLOWLIST: {p}")
+    live = [f for fs in found.values() for f in fs if not f.suppressed]
+    check(not live and not problems, f"analysis: {len(live)} live "
+          f"finding(s), {len(problems)} allowlist problem(s)")
+    check(any(r.get("launches_per_replay") for r in tstats["entries"]),
+          "analysis: no graphed step launched an LSCD kernel")
+    return dict(card=card, by_pass=by_pass, seconds=seconds,
+                kernels={k: v for k, v in kstats.items() if k != "targets"},
+                schedules={k: v for k, v in lstats.items() if k != "targets"},
+                trace=tstats["entries"],
+                obs={k: v for k, v in ostats.items() if k != "targets"},
+                findings=[dict(rule=f.rule, anchor=f.anchor(),
+                               message=f.message, suppressed=f.suppressed)
+                          for fs in found.values() for f in fs],
+                launches=launches)
 
 
 # The full-depth phase: OPT-30B at all 48 layers from a pool the planner
@@ -7269,7 +7412,8 @@ ALLOC_CONF = "expandable_segments:True"
 
 
 # The phases after the window phase, in order, by their summary's name.
-PHASES = {"full": "full_depth_phase", "tiny": "tinyllama_phase",
+PHASES = {"analysis": "analysis_phase", "full": "full_depth_phase",
+          "tiny": "tinyllama_phase",
           "mla": "mla_phase", "moe": "moe_phase", "hybrid": "hybrid_phase",
           "ssm": "ssm_phase", "vlm": "vlm_phase", "audio": "audio_phase",
           "train": "train_phase", "mesh": "mesh_phase",
@@ -7288,7 +7432,8 @@ def load_mods() -> dict:
     if src not in sys.path:
         sys.path.insert(0, src)
     from repro_torch import configs, convert
-    from repro_torch.analysis import contracts
+    from repro_torch.analysis import (contracts, findings, kernel_pass, lint,
+                                      obs_pass, trace_audit)
     from repro_torch.core import (pruning, roofline, sparse_linear,
                                   tiled_csl)
     from repro_torch.kernels import build, gemm, ops, ref, schedule, spmm
@@ -7305,6 +7450,7 @@ def load_mods() -> dict:
     from repro_torch.serving import (api, batching, budget, engine,
                                      loadgen, scheduler, speculative)
     from repro_torch.serving import config as serve_config
+    from repro_torch.serving import step
     from repro_torch.training import data, optimizer, train_loop
     return dict(configs=configs, contracts=contracts, pruning=pruning,
                 roofline=roofline, tiled_csl=tiled_csl, build=build, ops=ops,
@@ -7318,7 +7464,9 @@ def load_mods() -> dict:
                 obs_profile=obs_profile, data=data, optimizer=optimizer,
                 train_loop=train_loop, mesh=mesh_mod, sharding=sharding,
                 compression=compression, tensor_parallel=tensor_parallel,
-                dryrun=dryrun, specs=specs)
+                dryrun=dryrun, specs=specs, findings=findings,
+                kernel_pass=kernel_pass, lint=lint, obs_pass=obs_pass,
+                trace_audit=trace_audit, step=step)
 
 
 def _timed_phase(torch, mods, name: str) -> dict:
@@ -7415,10 +7563,10 @@ def _run(torch, mods, card: str, sweep: dict, allocated: int) -> int:
     window["phase_s"] = time.perf_counter() - t0
     print(f"window: phase took {window['phase_s']:.1f} s", flush=True)
     rep.pop("params")
+    mods["slice_model"] = (params, cfg)     # the analysis phase's model
     del params
-    release(torch)
-    (full, tiny, mla, moe_out, hybrid, ssm_out, vlm, audio, train, mesh,
-     cells) = (_timed_phase(torch, mods, name) for name in PHASES)
+    (analysis, full, tiny, mla, moe_out, hybrid, ssm_out, vlm, audio, train,
+     mesh, cells) = (_timed_phase(torch, mods, name) for name in PHASES)
 
     kernels = []
     serve_counts = {k: serve_phases["prefill"][k] + serve_phases["decode"][k]
@@ -7429,13 +7577,14 @@ def _run(torch, mods, card: str, sweep: dict, allocated: int) -> int:
     moe_counts = moe_out["launches"]
     hybrid_counts = hybrid["launches"]
     ring_counts = hybrid["ring"]["launches"]
-    (ssm_counts, vlm_counts, audio_counts, train_counts, mesh_counts,
-     cells_counts) = (r["launches"]
-                      for r in (ssm_out, vlm, audio, train, mesh, cells))
+    (analysis_counts, ssm_counts, vlm_counts, audio_counts, train_counts,
+     mesh_counts, cells_counts) = (r["launches"] for r in (
+         analysis, ssm_out, vlm, audio, train, mesh, cells))
     window_counts = {k: sum(window_phases[op][k] for op in STEP_OPS)
                      for k in spmm.KERNELS}
     launches = {k: counts[k] + serve_counts[k] + window_counts[k]
-                + full_counts[k] + tiny_counts[k] + mla_counts[k]
+                + analysis_counts[k] + full_counts[k] + tiny_counts[k]
+                + mla_counts[k]
                 + moe_counts[k] + hybrid_counts[k] + ring_counts[k]
                 + ssm_counts[k] + vlm_counts[k] + audio_counts[k]
                 + train_counts[k] + mesh_counts[k] + cells_counts[k]
@@ -7455,6 +7604,7 @@ def _run(torch, mods, card: str, sweep: dict, allocated: int) -> int:
             launches_window=window_counts.get(name, 0),
             launches_window_verify=window_phases["verify"].get(name, 0),
             launches_window_mixed=window_phases["mixed"].get(name, 0),
+            launches_analysis=analysis_counts.get(name, 0),
             launches_full_depth=full_counts.get(name, 0),
             launches_tinyllama=tiny_counts.get(name, 0),
             launches_mla=mla_counts.get(name, 0),
@@ -7488,7 +7638,8 @@ def _run(torch, mods, card: str, sweep: dict, allocated: int) -> int:
     summary = dict(card=card, ptxas=ptxas, rows=rows, compare=compare,
                    sweep=sweep, rings=rings, kernels=kernels,
                    slice=slice_summary, profile=prof, serving=serving,
-                   window=window, full_depth=full, tinyllama=tiny, mla=mla,
+                   window=window, analysis=analysis, full_depth=full,
+                   tinyllama=tiny, mla=mla,
                    moe=moe_out, hybrid=hybrid, ssm=ssm_out, vlm=vlm,
                    audio=audio, train=train, mesh=mesh, cells=cells)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -107,6 +107,8 @@ class DeviceStepper:
         self.seed = int(seed)
         self.faults = faults                    # serving.faults.FaultInjector
         self.n_slots = n_slots
+        self.max_len = max_len
+        self.block_size = block_size
         self.paged = physical_blocks is not None
         self.ring_len = ring_len
         if (spec_k or chunk_size) and not self.paged:
@@ -219,7 +221,9 @@ class DeviceStepper:
         torch.cuda.current_stream(self.device).wait_stream(side)
         for t, s in zip(state, saved):
             t.copy_(s)
-        torch.cuda.synchronize(self.device)
+        # Once a capture, never a step: the warm-up's work and the state
+        # restore finish before the capture begins.
+        torch.cuda.synchronize(self.device)  # repro: ignore[OB-SYNC]
         graph = torch.cuda.CUDAGraph()
         before = spmm.launch_counts()
         try:

@@ -1,7 +1,8 @@
 """Port hygiene: import boundaries, device discipline, no silent fallback.
 
-* No file under ``src/repro_torch/``, no ``chip_smoke.py`` and no
-  ``tools/torch_gemm_sweep.py`` imports jax or the reference package
+* No file under ``src/repro_torch/``, no ``chip_smoke.py`` and neither
+  ``tools/torch_gemm_sweep.py`` nor ``tools/torch_check.py`` imports jax
+  or the reference package
   (checked on the AST, not by text search).
 * Entry points called with no ``device`` on a box without CUDA raise
   instead of running on the CPU.
@@ -28,7 +29,8 @@ from repro_torch.models import transformer
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_gemm_sweep.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_gemm_sweep.py",
+    ROOT / "tools" / "torch_check.py"]
 
 
 def _banned(mod: str) -> bool:
