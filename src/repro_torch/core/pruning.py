@@ -1,23 +1,44 @@
 """Weight pruning and the dense -> Tiled-CSL reformatting tool (paper §5).
 
 The counterpart of ``repro.core.pruning``, on torch tensors so that it
-runs on the card. Params trees are nested dicts with per-layer lists
-(``params["layers"][i]``) where the JAX package has scan-stacked
-``[L, ...]`` leaves; leaves at the same place in every element of a list
-share one ``max_nnz``, as the reference's stacked leaves do, so the
-encodings compare byte for byte.
+runs on the card: the importance scores the paper prunes by (magnitude,
+and the first-order Taylor score of §6.3.1), global and tile-balanced
+masks, the paper's OPT layer plan (:func:`opt_style_plan`), and the
+reformatting of params trees to Tiled-CSL. Params trees are nested
+dicts with per-layer lists (``params["layers"][i]``) where the JAX
+package has scan-stacked ``[L, ...]`` leaves; leaves at the same place
+in every element of a list share one ``max_nnz``, as the reference's
+stacked leaves do, so the encodings compare byte for byte.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import sparse_linear, tiled_csl
+
+METHODS = ("magnitude", "taylor")
+
+# ---------------------------------------------------------------------------
+# importance scores
+# ---------------------------------------------------------------------------
+
+
+def magnitude_scores(w: torch.Tensor) -> torch.Tensor:
+    """Magnitude pruning (paper §3.1): |w|."""
+    return w.abs()
+
+
+def taylor_scores(w: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """First-order Taylor importance (paper §6.3.1): |w * dL/dw|, the loss
+    change of zeroing the weight, to first order."""
+    return (w * grad).abs()
+
 
 # ---------------------------------------------------------------------------
 # masks
@@ -56,18 +77,43 @@ def tile_balanced_mask(scores: torch.Tensor, sparsity: float,
         0, 2, 1, 3).reshape(m, k)
 
 
-def prune(w: torch.Tensor, sparsity: float, *,
+def prune(w: torch.Tensor, sparsity: float, *, method: str = "magnitude",
+          grad: Optional[torch.Tensor] = None,
           balanced: bool = False) -> torch.Tensor:
-    """Magnitude pruning: the masked dense weight; each matrix of a stack
-    ``[E, M, K]`` on its own."""
+    """The masked dense weight, scored by ``method`` (``"magnitude"``, or
+    ``"taylor"`` with the loss gradient ``grad``); each matrix of a stack
+    ``[E, M, K]`` on its own. An unknown method, or ``"taylor"`` without
+    a gradient, raises ``ValueError``."""
+    if method not in METHODS:
+        raise ValueError(f"unknown pruning method {method!r}; expected one "
+                         f"of {METHODS}")
+    if method == "taylor" and grad is None:
+        raise ValueError("taylor pruning needs the loss gradient (grad=)")
     if balanced and w.dim() == 3:
-        return torch.stack([prune(x, sparsity, balanced=True) for x in w])
-    scores = w.abs()
+        return torch.stack([
+            prune(x, sparsity, method=method, balanced=True,
+                  grad=None if grad is None else grad[i])
+            for i, x in enumerate(w)])
+    scores = (magnitude_scores(w) if method == "magnitude"
+              else taylor_scores(w, grad))
     mask = (tile_balanced_mask(scores, sparsity) if balanced
             else unstructured_mask(scores, sparsity))
     del scores
     return torch.where(mask, w, torch.zeros((), dtype=w.dtype,
                                             device=w.device))
+
+
+# ---------------------------------------------------------------------------
+# layerwise sparsity plans (paper §6.3.1: first/last quarter MLP kept dense)
+# ---------------------------------------------------------------------------
+
+def opt_style_plan(n_layers: int, sparsity: float) -> Dict[int, float]:
+    """The paper's OPT-30B recipe: the feed-forward layers of the first
+    and last quarter stay dense (0.0), the rest are pruned at
+    ``sparsity``."""
+    q = n_layers // 4
+    return {layer: 0.0 if (layer < q or layer >= n_layers - q) else sparsity
+            for layer in range(n_layers)}
 
 
 # ---------------------------------------------------------------------------
@@ -85,11 +131,16 @@ def sparsify_matrix(w: torch.Tensor, sparsity: float, *,
                     m_tb: int = tiled_csl.DEFAULT_M_TB,
                     k_tb: int = tiled_csl.DEFAULT_K_TB,
                     max_nnz: int | None = None) -> tiled_csl.TiledCSL:
-    """Prune a dense [M, K] weight (in f32) and encode it as Tiled-CSL;
-    ``max_nnz`` re-pads the word streams to a shared target. An expert
-    stack ``[E, M, K]`` is pruned and encoded per expert, padded to the
-    stack's largest ``max_nnz`` (the reference's ``ndim == 3`` branch of
-    ``sparsify_params``), into one stack (``tiled_csl.encode_stack``)."""
+    """Prune a dense [M, K] weight (in f32) by magnitude and encode it as
+    Tiled-CSL; ``max_nnz`` re-pads the word streams to a shared target.
+    An expert stack ``[E, M, K]`` is pruned and encoded per expert,
+    padded to the stack's largest ``max_nnz`` (the reference's
+    ``ndim == 3`` branch of ``sparsify_params``), into one stack
+    (``tiled_csl.encode_stack``). Taylor pruning needs the loss gradient,
+    which a reformatting call does not have: it is
+    ``prune(w, s, method="taylor", grad=g)`` followed by
+    ``tiled_csl.encode`` (the reference's ``method="taylor"`` here passes
+    no gradient and fails: ROADMAP.md queue 3 item 17)."""
     wp = _pad_to_tiles(prune(w.to(torch.float32), sparsity,
                              balanced=balanced), m_tb, k_tb)
     encode = tiled_csl.encode_stack if wp.dim() == 3 else tiled_csl.encode

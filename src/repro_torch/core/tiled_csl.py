@@ -11,7 +11,9 @@ count; a kernel reads only the first ``nnz`` words of a tile.
 uint32 array (torch has no arithmetic uint32). Encoding is written on
 tensors with stable sorts so it runs on the card: full-width OPT-30B
 matrices have 205M and 411M elements. Its output is byte-equal to the
-reference's default ``interleave`` reorder.
+reference's for each of its ahead-of-time reorders (paper Alg. 3):
+``interleave`` (the default), ``greedy`` (the paper's max-bucket drain,
+a host-side loop for tests) and ``none`` (row-major within the tile).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -29,6 +32,7 @@ DEFAULT_K_TB = 128
 PAD_QUANTUM = 128
 # Reorder buckets: consecutive words cycle through distinct row residues.
 N_SUBLANES = 8
+REORDERS = ("interleave", "greedy", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +84,11 @@ class TiledCSL:
         return (self.shape[0] // self.m_tb, self.shape[1] // self.k_tb)
 
     @property
+    def n_nonzero(self) -> int:
+        """True non-zeros over every matrix held."""
+        return int(self.nnz.sum().item())
+
+    @property
     def nbytes_sparse(self) -> int:
         """Bytes the LSCD kernel streams for A (words incl. padding + nnz)."""
         return self.words.numel() * 4 + self.nnz.numel() * 4
@@ -91,6 +100,11 @@ class TiledCSL:
         for d in self.words.shape[:-3]:
             n_mats *= int(d)
         return self.shape[0] * self.shape[1] * 2 * n_mats
+
+    @property
+    def pad_overhead(self) -> float:
+        """Fraction of the streamed words that are padding."""
+        return 1.0 - self.n_nonzero / max(self.words.numel(), 1)
 
 
 # ---------------------------------------------------------------------------
@@ -138,17 +152,28 @@ ENCODE_CHUNK_ELEMS = 1 << 24
 
 
 def encode(dense: torch.Tensor, m_tb: int = DEFAULT_M_TB,
-           k_tb: int = DEFAULT_K_TB,
+           k_tb: int = DEFAULT_K_TB, reorder: str = "interleave",
            pad_quantum: int = PAD_QUANTUM) -> TiledCSL:
     """Encode a dense (m, k) matrix as padded Tiled-CSL, on its device.
 
     Zero elements are dropped; the rest keep bf16-rounded values, ordered
-    within each tile by the reference's ``interleave`` reorder: rank
-    within (tile, row % 8) bucket, then (tile, rank, bucket). A tile's
-    words depend on that tile alone, so the matrix is encoded in runs of
-    whole tile rows (``ENCODE_CHUNK_ELEMS``) into one padded array whose
-    ``max_nnz`` is known up front from the per-tile counts.
+    within each tile by ``reorder``:
+
+    * ``"interleave"``: rank within (tile, row % 8) bucket, then (tile,
+      rank, bucket), so 8 consecutive words take distinct row residues
+      while the buckets last;
+    * ``"greedy"``: the paper's Alg. 3, repeatedly the next word of the
+      fullest bucket (:func:`_greedy_reorder_tile`, a host-side loop over
+      tiles and words: for tests);
+    * ``"none"``: row-major within the tile.
+
+    A tile's words depend on that tile alone, so the matrix is encoded in
+    runs of whole tile rows (``ENCODE_CHUNK_ELEMS``) into one padded array
+    whose ``max_nnz`` is known up front from the per-tile counts.
     """
+    if reorder not in REORDERS:
+        raise ValueError(f"unknown reorder {reorder!r}; expected one of "
+                         f"{REORDERS}")
     orig_dtype = _dtype_of(dense)
     a = torch.as_tensor(dense).to(torch.float32)
     m, k = a.shape
@@ -166,13 +191,13 @@ def encode(dense: torch.Tensor, m_tb: int = DEFAULT_M_TB,
     for r0 in range(0, mt, rows):
         r1 = min(mt, r0 + rows)
         _encode_rows(a[r0 * m_tb:r1 * m_tb], counts[r0:r1],
-                     words[r0:r1], m_tb, k_tb)
+                     words[r0:r1], m_tb, k_tb, reorder)
     return TiledCSL(words=words, nnz=counts.to(torch.int32), shape=(m, k),
                     m_tb=m_tb, k_tb=k_tb, dtype=orig_dtype)
 
 
 def _encode_rows(a: torch.Tensor, counts: torch.Tensor, out: torch.Tensor,
-                 m_tb: int, k_tb: int) -> None:
+                 m_tb: int, k_tb: int, reorder: str = "interleave") -> None:
     """Write the words of the tile rows ``a`` ([rows·m_tb, k]) into ``out``
     ([rows, kt, max_nnz]); ``counts`` [rows, kt] are their tiles' nnz."""
     kt = a.shape[1] // k_tb
@@ -186,6 +211,27 @@ def _encode_rows(a: torch.Tensor, counts: torch.Tensor, out: torch.Tensor,
     tile_id = (rr // m_tb) * kt + (cc // k_tb)
     in_r, in_c = rr % m_tb, cc % k_tb
     del rr, cc
+    if reorder == "interleave":
+        perm = _interleave_perm(tile_id, in_r, m_tb, k_tb, n_tiles)
+    elif reorder == "greedy":
+        perm = _greedy_perm(tile_id, in_r, n_tiles)
+    else:       # (tile, row, col) is unique per non-zero: one sort
+        perm = torch.sort(tile_id * (m_tb * k_tb) + in_r * k_tb + in_c,
+                          stable=True).indices
+    tgt_tile = tile_id[perm]
+    del tile_id
+    flat = counts.reshape(-1)
+    starts = torch.cumsum(flat, 0) - flat
+    rank = torch.arange(n, device=dev) - starts[tgt_tile]
+    locs = in_r[perm] * k_tb + in_c[perm]
+    del in_r, in_c
+    out.view(n_tiles, -1)[tgt_tile, rank] = pack_words(vv[perm], locs)
+
+
+def _interleave_perm(tile_id: torch.Tensor, in_r: torch.Tensor, m_tb: int,
+                     k_tb: int, n_tiles: int) -> torch.Tensor:
+    """The ``interleave`` order of the non-zeros (given row-major)."""
+    n, dev = tile_id.numel(), tile_id.device
     bucket = in_r % N_SUBLANES
     grp = tile_id * N_SUBLANES + bucket
     order0 = torch.sort(grp, stable=True).indices
@@ -200,16 +246,62 @@ def _encode_rows(a: torch.Tensor, counts: torch.Tensor, out: torch.Tensor,
     # combined key equals the reference's three-key lexsort.
     key = (tile_id * (m_tb * k_tb) + rank_key) * N_SUBLANES + bucket
     del rank_key, bucket
-    perm = torch.sort(key, stable=True).indices
-    del key
-    tgt_tile = tile_id[perm]
-    del tile_id
-    flat = counts.reshape(-1)
-    starts = torch.cumsum(flat, 0) - flat
-    rank = torch.arange(n, device=dev) - starts[tgt_tile]
-    locs = in_r[perm] * k_tb + in_c[perm]
-    del in_r, in_c
-    out.view(n_tiles, -1)[tgt_tile, rank] = pack_words(vv[perm], locs)
+    return torch.sort(key, stable=True).indices
+
+
+def _greedy_perm(tile_id: torch.Tensor, in_r: torch.Tensor,
+                 n_tiles: int) -> torch.Tensor:
+    """The ``greedy`` order of the non-zeros (given row-major): each
+    tile's in row-major order, drained by :func:`_greedy_reorder_tile` on
+    the host."""
+    tid = tile_id.cpu().numpy()
+    rows = in_r.cpu().numpy()
+    order = np.argsort(tid, kind="stable")
+    starts = np.concatenate(
+        [[0], np.cumsum(np.bincount(tid, minlength=n_tiles))])
+    perm = np.empty(tid.size, np.int64)
+    for t in range(n_tiles):
+        s, e = starts[t], starts[t + 1]
+        if e > s:
+            sl = order[s:e]
+            perm[s:e] = sl[_greedy_reorder_tile(rows[sl])]
+    return torch.from_numpy(perm).to(tile_id.device)
+
+
+def _greedy_reorder_tile(rows: np.ndarray) -> np.ndarray:
+    """The paper's Alg. 3 on one tile: repeatedly take the next word of
+    the fullest ``row % 8`` bucket (the lowest bucket among equals).
+    Returns the permutation of the tile's non-zeros."""
+    n = rows.shape[0]
+    sub = rows % N_SUBLANES
+    buckets = [np.nonzero(sub == b)[0] for b in range(N_SUBLANES)]
+    counts = np.array([len(b) for b in buckets])
+    heads = np.zeros(N_SUBLANES, np.int64)
+    order = np.empty(n, np.int64)
+    for i in range(n):
+        b = int(np.argmax(counts))
+        order[i] = buckets[b][heads[b]]
+        heads[b] += 1
+        counts[b] -= 1
+    return order
+
+
+def sublane_conflict_score(words: torch.Tensor, nnz: int, k_tb: int) -> float:
+    """Mean number of distinct ``row % 8`` residues per group of 8
+    consecutive words among a tile's first ``nnz`` (8.0: all distinct).
+
+    It scores the order the words keep for the reference's TPU layout of
+    8 VPU sublanes, which is what the reorders are built for; it does not
+    measure Hopper shared-memory bank conflicts (32 banks of 4 bytes),
+    which the LSCD kernels' extraction does not follow."""
+    if nnz == 0:
+        return float(N_SUBLANES)
+    _, locs = unpack_words(torch.as_tensor(words)[:nnz])
+    sub = ((locs // k_tb) % N_SUBLANES).cpu().numpy()
+    scores = [len(np.unique(sub[g:g + N_SUBLANES]))
+              / len(sub[g:g + N_SUBLANES]) * N_SUBLANES
+              for g in range(0, nnz, N_SUBLANES)]
+    return float(np.mean(scores))
 
 
 def pad_max_nnz(t: TiledCSL, max_nnz: int) -> TiledCSL:

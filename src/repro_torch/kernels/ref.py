@@ -19,6 +19,14 @@ from repro_torch.core import tiled_csl
 from repro_torch.kernels import spmm as spmm_mod
 
 
+def spmm_dense_oracle(a_dense: torch.Tensor, b: torch.Tensor,
+                      out_dtype=torch.float32) -> torch.Tensor:
+    """C = A @ B with the dense A from before encoding, in f32: the
+    ground truth, which differs from the kernels' only by the bf16
+    rounding of A's values."""
+    return (a_dense.to(torch.float32) @ b.to(torch.float32)).to(out_dtype)
+
+
 def _biased(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     if bias is None:
         return y

@@ -42,6 +42,21 @@ def ones_init(shape: Sequence[int], device, dtype=torch.float32):
     return torch.ones(tuple(shape), dtype=dtype, device=device)
 
 
+def count_params(params) -> int:
+    """Elements of every tensor of a params tree (nested dicts, lists and
+    tuples); a Tiled-CSL leaf counts its ``words`` and ``nnz``, as the
+    reference counts a pytree's array leaves."""
+    if isinstance(params, torch.Tensor):
+        return params.numel()
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    if hasattr(params, "words") and hasattr(params, "nnz"):
+        return params.words.numel() + params.nnz.numel()
+    return 0
+
+
 def einsum_f32acc(subscripts: str, *operands: torch.Tensor) -> torch.Tensor:
     """Einsum with f32 accumulation and an f32 result over (possibly bf16)
     operands, as the reference computes it on the CPU: operands are

@@ -103,3 +103,90 @@ def test_encode_in_tile_row_runs_byte_equal(monkeypatch, geom, chunk):
     a[m_tb:2 * m_tb] = 0.0                    # a whole empty tile row
     _same(ref_csl.encode(a, m_tb=m_tb, k_tb=k_tb),
           tiled_csl.encode(torch.from_numpy(a), m_tb=m_tb, k_tb=k_tb))
+
+
+# --- the reorder modes (paper Alg. 3) -----------------------------------
+
+REORDERS = ("interleave", "greedy", "none")
+# Square default tiles, and a ragged tile geometry (64 x 32 tiles of a
+# 192 x 96 matrix, neither side a power of the other).
+REORDER_CASES = [((128, 128), (128, 128)), ((192, 96), (64, 32))]
+
+
+def _same_stats(ref, port):
+    """``n_nonzero``, ``pad_overhead`` and every tile's sublane score
+    exactly equal; no nonzero word past any tile's ``nnz``."""
+    assert port.n_nonzero == ref.n_nonzero
+    assert port.pad_overhead == ref.pad_overhead
+    words = np.asarray(ref.words)
+    nnz = np.asarray(ref.nnz)
+    for idx in np.ndindex(*nnz.shape):
+        n = int(nnz[idx])
+        assert tiled_csl.sublane_conflict_score(
+            port.words[idx], n, port.k_tb) == ref_csl.sublane_conflict_score(
+            words[idx], n, ref.k_tb), idx
+    slot = torch.arange(port.max_nnz)
+    past = slot >= port.nnz[..., None].to(torch.int64)
+    assert int(port.words[past].abs().sum()) == 0    # (+0.0 | loc 0)
+
+
+@pytest.mark.parametrize("sparsity", [0.5, 0.8, 0.95])
+@pytest.mark.parametrize("case", REORDER_CASES, ids=["128x128", "ragged"])
+@pytest.mark.parametrize("reorder", REORDERS)
+def test_encode_reorder_byte_equal(reorder, case, sparsity):
+    shape, (m_tb, k_tb) = case
+    rng = np.random.default_rng(hash((reorder, shape, sparsity)) % 2 ** 31)
+    a = _matrix(rng, shape, sparsity, empty_tiles=True, m_tb=m_tb, k_tb=k_tb)
+    ref = ref_csl.encode(a, m_tb=m_tb, k_tb=k_tb, reorder=reorder)
+    port = tiled_csl.encode(torch.from_numpy(a), m_tb=m_tb, k_tb=k_tb,
+                            reorder=reorder)
+    _same(ref, port)
+    _same_stats(ref, port)
+    np.testing.assert_array_equal(tiled_csl.decode(port).numpy(),
+                                  ref_csl.decode(ref))
+
+
+def test_reorder_scores_at_128x128():
+    """One 128 x 128 matrix pruned by magnitude at 0.8 (seed 0): the
+    reorders' sublane scores, the reference's figures."""
+    rng = np.random.default_rng(0)
+    w = rng.standard_normal((128, 128)).astype(np.float32)
+    a = np.where(np.abs(w) >= np.sort(np.abs(w).ravel())[-3277], w, 0.0)
+    n = int(np.count_nonzero(a))
+    got = {r: tiled_csl.sublane_conflict_score(
+        tiled_csl.encode(torch.from_numpy(a), reorder=r).words[0, 0], n, 128)
+        for r in REORDERS}
+    assert round(got["interleave"], 2) == 7.75
+    assert round(got["greedy"], 2) == 7.76
+    assert round(got["none"], 2) == 1.24
+
+
+@pytest.mark.parametrize("sparsities", [(0.5, 0.8, 0.95), (0.95, 0.0, 0.8),
+                                        (0.8, 0.8, 0.8)])
+def test_encode_group_and_stack_byte_equal(sparsities):
+    """The grouped and stacked encoders, which take the default
+    ``interleave`` reorder, with ``n_nonzero``, ``pad_overhead`` and the
+    sublane scores of each member, against the reference's."""
+    rng = np.random.default_rng(7)
+    mats = [_matrix(rng, (128, 256), s) for s in sparsities]
+    ref = ref_csl.encode_group(mats)
+    port = tiled_csl.encode_group([torch.from_numpy(m) for m in mats])
+    _same(ref, port)
+    _same_stats(ref, port)
+    # An expert stack: the reference's per-expert encodings padded to the
+    # stack's largest max_nnz, as its sparsify_params stacks them.
+    stack = tiled_csl.encode_stack(torch.from_numpy(np.stack(mats)))
+    per = [ref_csl.encode(m) for m in mats]
+    mx = max(t.max_nnz for t in per)
+    words = np.stack([np.pad(np.asarray(t.words),
+                             ((0, 0), (0, 0), (0, mx - t.max_nnz)))
+                      for t in per])
+    np.testing.assert_array_equal(stack.words.numpy(), words.view(np.int32))
+    np.testing.assert_array_equal(stack.nnz.numpy(),
+                                  np.stack([np.asarray(t.nnz) for t in per]))
+    assert stack.n_nonzero == sum(t.n_nonzero for t in per)
+
+
+def test_unknown_reorder_raises():
+    with pytest.raises(ValueError, match="unknown reorder"):
+        tiled_csl.encode(torch.ones(128, 128), reorder="bogus")
